@@ -1,0 +1,119 @@
+"""Typed runtime configuration (the dmlc::GetEnv analogue).
+
+The PyTorch twin of ``mxnet_tpu/config.py``: the same resolution rules
+(override > environment > default) and the same knob names, declared
+here for the knobs the port reads. Later slices declare theirs as they
+port the code that reads them.
+"""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+__all__ = ["define", "get", "set_override", "clear_override", "describe"]
+
+_BOOLY = {"1": True, "true": True, "yes": True, "on": True,
+          "0": False, "false": False, "no": False, "off": False}
+
+
+@dataclass
+class _Knob:
+    name: str
+    typ: type
+    default: object
+    doc: str
+
+
+_REGISTRY: dict[str, _Knob] = {}
+_OVERRIDES: dict[str, object] = {}
+
+
+def define(name, typ, default, doc):
+    """Declare a config knob (idempotent for identical declarations)."""
+    prev = _REGISTRY.get(name)
+    if prev is not None and (prev.typ, prev.default) != (typ, default):
+        raise ValueError("conflicting re-declaration of %s" % name)
+    _REGISTRY[name] = _Knob(name, typ, default, doc)
+    return name
+
+
+def _coerce(knob, raw):
+    if knob.typ is bool:
+        try:
+            return _BOOLY[str(raw).strip().lower()]
+        except KeyError:
+            raise ValueError("%s expects a boolean, got %r"
+                             % (knob.name, raw))
+    return knob.typ(raw)
+
+
+def get(name):
+    """Current value: programmatic override > environment > default."""
+    knob = _REGISTRY[name]
+    if name in _OVERRIDES:
+        return _OVERRIDES[name]
+    raw = os.environ.get(name)
+    return knob.default if raw is None else _coerce(knob, raw)
+
+
+def set_override(name, value):
+    """Set a process-local value that beats the environment (tests,
+    notebooks). ``None`` resets to environment/default resolution."""
+    knob = _REGISTRY[name]
+    if value is None:
+        clear_override(name)
+    else:
+        _OVERRIDES[name] = _coerce(knob, value)
+
+
+def clear_override(name=None):
+    if name is None:
+        _OVERRIDES.clear()
+    else:
+        _OVERRIDES.pop(name, None)
+
+
+def describe():
+    """All declared knobs as (name, type, default, doc) rows, sorted."""
+    return [(k.name, k.typ.__name__, k.default, k.doc)
+            for k in sorted(_REGISTRY.values(), key=lambda k: k.name)]
+
+
+# ---------------------------------------------------------------------------
+# declarations
+# ---------------------------------------------------------------------------
+define("MXNET_MATMUL_PRECISION", str, "highest",
+       "float32 matmul precision on the card: highest (full f32: TF32 "
+       "off for cuBLAS and cuDNN) | high (TF32 allowed) | default "
+       "(PyTorch's own defaults left untouched)")
+define("MXNET_TELEMETRY", str, "",
+       "directory (or explicit *.jsonl path) for the telemetry run "
+       "journal: one schema-versioned JSONL record per step and per "
+       "notable event. Empty = no journal; the metrics registry still "
+       "counts either way")
+define("MXNET_TELEMETRY_PROM", str, "",
+       "path for the Prometheus textfile export of the telemetry "
+       "registry, atomically republished every MXNET_TELEMETRY_PERIOD "
+       "seconds while a journal is active; empty = disabled")
+define("MXNET_TELEMETRY_PERIOD", float, 10.0,
+       "seconds between periodic Prometheus textfile exports "
+       "(piggybacked on journal step writes)")
+define("MXNET_TRACE", str, "",
+       "directory (or explicit *.jsonl path) for the distributed-trace "
+       "span spill file. Empty = tracing off (no-op fast path)")
+define("MXNET_SERVE_BUCKETS", str, "1,2,4,8",
+       "serving batch buckets (comma-separated, ascending): the "
+       "ServeEngine batcher pads each coalesced request group to the "
+       "smallest bucket that fits")
+define("MXNET_SERVE_MAX_WAIT_MS", float, 5.0,
+       "serving coalesce window: how long the batcher holds the "
+       "oldest queued request waiting for more to arrive before it "
+       "dispatches a partially-filled bucket (0 = dispatch "
+       "immediately)")
+define("MXNET_SERVE_QUEUE_CAP", int, 128,
+       "serving admission bound: requests queued beyond this are shed "
+       "with the typed Overloaded error")
+define("MXNET_SERVE_DEADLINE_MS", float, 0.0,
+       "default per-request serving deadline: a request still queued "
+       "past it fails with the typed RequestTimeout (0 = no deadline; "
+       "submit(deadline_ms=) overrides per request)")

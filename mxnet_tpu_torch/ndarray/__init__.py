@@ -1,0 +1,4 @@
+"""NDArray namespace (``mx.nd``): the array type, creation and save/load.
+The generated operator namespace comes with the eager path (ROADMAP
+Queue A item 1)."""
+from .ndarray import NDArray, array, load, save, _wrap  # noqa: F401

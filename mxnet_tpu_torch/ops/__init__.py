@@ -1,0 +1,15 @@
+"""Operator catalog of the port (the serving slice's ops so far).
+
+Every module registers torch ops into the shared registry; importing
+this package populates it, and ``mx.sym.*`` is generated from it.
+"""
+from . import registry
+from .registry import get_op, list_ops, register
+
+from . import elemwise      # noqa: F401
+from . import matrix        # noqa: F401
+from . import indexing      # noqa: F401
+from . import nn            # noqa: F401
+from . import loss          # noqa: F401
+from . import attention     # noqa: F401
+from . import shape_hooks   # noqa: F401  (must come after all registrations)

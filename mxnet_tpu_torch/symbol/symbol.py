@@ -1,0 +1,388 @@
+"""Symbol — the deferred computation graph; the PyTorch twin of
+``mxnet_tpu/symbol/symbol.py``.
+
+A Symbol is a lightweight DAG of registry ops. Graph building,
+``list_arguments`` / ``list_outputs`` / ``list_auxiliary_states``, shape
+inference and the JSON format are those of the JAX package, so a graph
+saved by either package loads in the other. Shape inference runs each
+node on ``meta`` tensors (shapes without storage) after the per-op
+backward hooks fill parameter shapes — the role ``jax.eval_shape`` plays
+there. The graph runs through ``executor._graph_eval_fn``. Composition
+(``sym(...)``), internals, ``infer_type`` and the Executor (``bind``)
+come with ROADMAP Queue A item 3; pre-0.9 reference JSON upgrades with
+it too.
+"""
+from __future__ import annotations
+
+import ast
+import json
+
+import torch
+
+from .. import attribute, name as _name_mod
+from ..base import MXNetError, numeric_types, torch_dtype
+from ..ops import registry as _reg
+
+__all__ = ["Symbol", "Variable", "var", "load", "load_json"]
+
+
+class _Node:
+    """One graph node: an op application or a variable (op is None)."""
+
+    __slots__ = ("op", "name", "attrs", "inputs", "is_aux", "misc_attrs",
+                 "__weakref__")
+
+    def __init__(self, op, name, attrs=None, inputs=(), is_aux=False,
+                 misc_attrs=None):
+        self.op = op                # OpDef | None (variable)
+        self.name = name
+        self.attrs = dict(attrs or {})        # canonical op attrs
+        self.inputs = list(inputs)            # list[(node, out_idx)]
+        self.is_aux = is_aux                  # variable feeding a state slot
+        self.misc_attrs = dict(misc_attrs or {})  # user attrs (__ctx_group__…)
+
+    def num_outputs(self):
+        if self.op is None:
+            return 1
+        return _num_outputs(self.op, self.attrs)
+
+
+def _num_outputs(opdef, attrs):
+    """Visible output count for an op under given attrs (reference:
+    nnvm num_outputs/num_visible_outputs registration)."""
+    if opdef.name == "LayerNorm":
+        return 3 if attrs.get("output_mean_var") else 1
+    if opdef.num_visible is not None:
+        return opdef.num_visible
+    return 1
+
+
+def _topo_order(entries):
+    """Post-order DFS over the graph feeding `entries` (deterministic)."""
+    order, seen = [], set()
+    stack = [(e[0], False) for e in reversed(entries)]
+    while stack:
+        node, done = stack.pop()
+        if done:
+            order.append(node)
+            continue
+        if id(node) in seen:
+            continue
+        seen.add(id(node))
+        stack.append((node, True))
+        for (n, _i) in reversed(node.inputs):
+            if id(n) not in seen:
+                stack.append((n, False))
+    return order
+
+
+class Symbol:
+    """Symbol is the basic building block of the deferred graph."""
+
+    __slots__ = ("_entries", "__weakref__")
+
+    def __init__(self, entries):
+        self._entries = list(entries)
+
+    @property
+    def name(self):
+        if len(self._entries) == 1:
+            return self._entries[0][0].name
+        return None
+
+    def __repr__(self):
+        if len(self._entries) == 1:
+            return "<Symbol %s>" % self._entries[0][0].name
+        return "<Symbol group [%s]>" % ", ".join(
+            e[0].name for e in self._entries)
+
+    # -- introspection -------------------------------------------------------
+    def list_arguments(self):
+        return [n.name for n in _topo_order(self._entries)
+                if n.op is None and not n.is_aux]
+
+    def list_auxiliary_states(self):
+        return [n.name for n in _topo_order(self._entries)
+                if n.op is None and n.is_aux]
+
+    def list_outputs(self):
+        outs = []
+        for (node, idx) in self._entries:
+            n_out = node.num_outputs()
+            if node.op is None:
+                outs.append(node.name)
+            elif n_out == 1:
+                outs.append(node.name + "_output")
+            else:
+                outs.append("%s_output%d" % (node.name, idx))
+        return outs
+
+    # -- shape inference -----------------------------------------------------
+    def infer_shape(self, *args, **kwargs):
+        res = self._infer_shape_impl(False, *args, **kwargs)
+        if res[0] is not None and any(
+                s is None for s in res[0]):
+            unknown = [n for n, s in zip(self.list_arguments(), res[0])
+                       if s is None]
+            raise MXNetError("cannot infer shapes for arguments %r — provide "
+                             "their shapes" % (unknown,))
+        return res
+
+    def infer_shape_partial(self, *args, **kwargs):
+        return self._infer_shape_impl(True, *args, **kwargs)
+
+    def _infer_shape_impl(self, partial, *args, **kwargs):
+        if args:
+            arg_names = self.list_arguments()
+            kwargs = dict(kwargs)
+            for n, s in zip(arg_names, args):
+                if s is not None:
+                    kwargs[n] = s
+        known = {k: tuple(int(d) for d in v) for k, v in kwargs.items()
+                 if v is not None}
+        shapes = _infer_graph(self._entries, known, partial=partial)
+        arg_shapes = [shapes["var", n] for n in self.list_arguments()]
+        aux_shapes = [shapes["var", n] for n in self.list_auxiliary_states()]
+        out_shapes = [shapes["out", id(nd), i] for (nd, i) in self._entries]
+        return arg_shapes, out_shapes, aux_shapes
+
+    # -- serialization -------------------------------------------------------
+    def tojson(self):
+        nodes = _topo_order(self._entries)
+        nid = {id(n): i for i, n in enumerate(nodes)}
+        jnodes = []
+        arg_nodes = []
+        for i, n in enumerate(nodes):
+            if n.op is None:
+                arg_nodes.append(i)
+                entry = {"op": "null", "name": n.name, "inputs": []}
+                if n.is_aux:
+                    entry.setdefault("attrs", {})["__is_aux__"] = "True"
+            else:
+                entry = {"op": n.op.name, "name": n.name,
+                         "inputs": [[nid[id(m)], oi, 0]
+                                    for (m, oi) in n.inputs]}
+                if n.attrs:
+                    entry["attrs"] = {k: json.dumps(v) if not
+                                      isinstance(v, str) else v
+                                      for k, v in n.attrs.items()}
+            if n.misc_attrs:
+                entry.setdefault("attrs", {}).update(
+                    {k: str(v) for k, v in n.misc_attrs.items()})
+            jnodes.append(entry)
+        heads = [[nid[id(nd)], i, 0] for (nd, i) in self._entries]
+        return json.dumps({"nodes": jnodes, "arg_nodes": arg_nodes,
+                           "heads": heads,
+                           "attrs": {"mxnet_version": ["int", 1100]}},
+                          indent=2)
+
+    def save(self, fname):
+        with open(fname, "w") as f:
+            f.write(self.tojson())
+
+    # -- arithmetic (the ops ported so far) ----------------------------------
+    def __add__(self, other):
+        return _sym_binary("broadcast_add", "_plus_scalar", self, other)
+
+    def __radd__(self, other):
+        return self.__add__(other)
+
+
+# ---------------------------------------------------------------------------
+# composition internals
+# ---------------------------------------------------------------------------
+
+def _sym_binary(tensor_op, scalar_op, lhs, rhs):
+    if isinstance(rhs, Symbol):
+        return _sym_invoke(_reg.get_op(tensor_op), [lhs, rhs], {}, None)
+    if isinstance(rhs, numeric_types):
+        return _sym_invoke(_reg.get_op(scalar_op), [lhs],
+                           {"scalar": float(rhs)}, None)
+    raise TypeError("unsupported operand type %s" % type(rhs))
+
+
+def _sym_invoke(opdef, inputs, attrs, name, kw_inputs=None):
+    """Create a graph node applying `opdef`, auto-creating variables for
+    missing parameter inputs (reference: compose with auto var creation)."""
+    attrs = _reg.canon_attrs(opdef, attrs)
+    hint = opdef.name.lower().lstrip("_")
+    name = _name_mod.current().get(name, hint)
+    misc = attribute.current().get(None)
+
+    entries = []
+    if opdef.arg_names is None:
+        for s in inputs:
+            if len(s._entries) != 1:
+                entries.extend(s._entries)
+            else:
+                entries.append(s._entries[0])
+    else:
+        active = list(opdef.active_args(attrs))
+        kw_inputs = kw_inputs or {}
+        for k in kw_inputs:
+            if k not in active:
+                raise TypeError(
+                    "%s: input %r is not active under attrs %r (active "
+                    "args: %r)" % (opdef.name, k, attrs, active))
+        provided = list(inputs)
+        full_names = list(opdef.arg_names)
+        aux_idx = set(opdef.state_inputs)
+        slot_syms = {}
+        pos = 0
+        for an in active:
+            if an in kw_inputs:
+                slot_syms[an] = kw_inputs[an]
+            elif pos < len(provided):
+                slot_syms[an] = provided[pos]
+                pos += 1
+            else:
+                slot_syms[an] = None
+        if pos < len(provided):
+            raise TypeError("%s: too many symbol inputs (%d given, active "
+                            "args %r)" % (opdef.name, len(provided), active))
+        for an in active:
+            s = slot_syms[an]
+            if s is None:
+                is_aux = full_names.index(an) in aux_idx
+                node = _Node(None, "%s_%s" % (name, an), is_aux=is_aux,
+                             misc_attrs=misc)
+                entries.append((node, 0))
+            else:
+                if not isinstance(s, Symbol):
+                    raise TypeError("%s: input %r must be a Symbol, got %s"
+                                    % (opdef.name, an, type(s)))
+                if len(s._entries) != 1:
+                    raise TypeError("%s: input %r must be single-output"
+                                    % (opdef.name, an))
+                ent = s._entries[0]
+                if ent[0].op is None and full_names.index(an) in aux_idx:
+                    ent[0].is_aux = True
+                entries.append(ent)
+
+    node = _Node(opdef, name, attrs, entries, misc_attrs=misc)
+    n_out = node.num_outputs()
+    return Symbol([(node, i) for i in range(n_out)]) if n_out > 1 \
+        else Symbol([(node, 0)])
+
+
+def Variable(name, attr=None, shape=None):
+    """Create a symbolic variable (reference symbol.py `var`); ``shape``
+    rides the graph as the ``__shape__`` attribute shape inference reads."""
+    if not isinstance(name, str):
+        raise TypeError("Expect a string for variable name")
+    misc = attribute.current().get(attr or {})
+    if shape is not None:
+        misc["__shape__"] = str(tuple(shape))
+    return Symbol([(_Node(None, name, misc_attrs=misc), 0)])
+
+
+var = Variable
+
+
+def load_json(json_str):
+    """Parse a symbol JSON as ``tojson`` (of either package) writes it."""
+    data = json.loads(json_str)
+    nodes = []
+    for jn in data["nodes"]:
+        attrs = dict(jn.get("attrs") or {})
+        misc = {k: v for k, v in attrs.items()
+                if k.startswith("__") and k.endswith("__")}
+        op_attrs = {k: v for k, v in attrs.items() if k not in misc}
+        if jn["op"] == "null":
+            node = _Node(None, jn["name"],
+                         is_aux=misc.pop("__is_aux__", "False") == "True",
+                         misc_attrs=misc)
+        else:
+            opdef = _reg.get_op(jn["op"])
+            node = _Node(opdef, jn["name"], _reg.canon_attrs(opdef, op_attrs),
+                         [(nodes[i], oi) for (i, oi, *_v) in jn["inputs"]],
+                         misc_attrs=misc)
+        nodes.append(node)
+    heads = data.get("heads") or [[len(nodes) - 1, 0, 0]]
+    return Symbol([(nodes[i], oi) for (i, oi, *_v) in heads])
+
+
+def load(fname):
+    with open(fname) as f:
+        return load_json(f.read())
+
+
+# ---------------------------------------------------------------------------
+# shape inference over the graph
+# ---------------------------------------------------------------------------
+
+def _var_dtype(node):
+    dt = node.misc_attrs.get("__dtype__")
+    return torch_dtype(dt) if dt else None
+
+
+def _infer_graph(entries, known_shapes, partial=False):
+    """Propagate shapes through the graph. Returns a dict mapping
+    ("var", name) and ("out", id(node), i) to tuples (None if unknown)."""
+    shapes = {}
+    dtypes = {}
+    for node in _topo_order(entries):
+        if node.op is None:
+            shp = known_shapes.get(node.name)
+            if shp is None and "__shape__" in node.misc_attrs:
+                shp = tuple(ast.literal_eval(node.misc_attrs["__shape__"]))
+            if shp is not None and any(int(d) == 0 for d in shp):
+                # reference convention: 0 dims mean unknown (gluon
+                # deferred init) — let the param_shapes hooks fill them
+                shp = None
+            shapes["var", node.name] = shp
+            shapes["out", id(node), 0] = shp
+            dtypes["out", id(node), 0] = _var_dtype(node)
+            continue
+
+        in_shapes = [shapes.get(("out", id(m), i)) for (m, i) in node.inputs]
+        if node.op.param_shapes is not None and any(
+                s is None for s in in_shapes):
+            try:
+                filled = node.op.param_shapes(list(in_shapes), node.attrs)
+            except Exception:
+                filled = in_shapes
+            for (m, i), s_old, s_new in zip(node.inputs, in_shapes, filled):
+                if s_old is None and s_new is not None:
+                    s_new = tuple(int(d) for d in s_new)
+                    shapes["out", id(m), i] = s_new
+                    if m.op is None:
+                        shapes["var", m.name] = s_new
+            in_shapes = [shapes.get(("out", id(m), i))
+                         for (m, i) in node.inputs]
+
+        if any(s is None for s in in_shapes):
+            if not partial:
+                missing = [m.name for (m, _i), s in
+                           zip(node.inputs, in_shapes) if s is None]
+                raise MXNetError(
+                    "infer_shape: inputs %r of op %s(%s) have unknown "
+                    "shapes" % (missing, node.op.name, node.name))
+            for i in range(node.num_outputs()):
+                shapes["out", id(node), i] = None
+            continue
+
+        # abstract evaluation of this single node on meta tensors
+        in_dtypes = [dtypes.get(("out", id(m), i)) for (m, i) in node.inputs]
+        base_dt = next((d for d in in_dtypes if d is not None),
+                       torch.float32)
+        metas = [torch.empty(s, dtype=d or base_dt, device="meta")
+                 for s, d in zip(in_shapes, in_dtypes)]
+        attrs = dict(node.attrs)
+        if node.op.takes_is_train:
+            attrs["is_train"] = True
+        if node.op.needs_rng:
+            attrs["rng"] = None       # meta tensors draw no random bits
+        try:
+            out = node.op.fn(*metas, **attrs)
+        except Exception as e:
+            raise MXNetError(
+                "infer_shape failed at op %s(%s) with input shapes %r: %s"
+                % (node.op.name, node.name, in_shapes, e)) from None
+        outs = list(out) if isinstance(out, (tuple, list)) else [out]
+        if node.op.num_state:
+            outs = outs[:-node.op.num_state]
+        for i, o in enumerate(outs):
+            shapes["out", id(node), i] = tuple(o.shape)
+            dtypes["out", id(node), i] = o.dtype
+    return shapes

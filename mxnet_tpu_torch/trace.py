@@ -1,0 +1,496 @@
+"""Distributed tracing — causal spans across the fit loop, the PS wire
+and the serve path (docs/observability.md §"Distributed tracing").
+
+A near-copy of ``mxnet_tpu/trace.py`` (which imports no jax): same span
+vocabulary and spill format, so ``tools/trace_report.py`` reads both.
+
+The telemetry registry answers "how is the run doing" in aggregate
+(histograms, journal, Prometheus); this module answers "where did THIS
+step / push / request spend its time" across threads and processes.
+The reference framework's profiler gave every op a place on one
+host/device timeline viewable in chrome://tracing (profiler.h:122-127);
+this is the distributed extension of that idea: Dapper-style
+trace-context propagation over the existing length-prefixed framing, so
+a client-side op span and the server-side handler span it caused share
+one ``trace_id`` and ``tools/trace_report.py`` can draw the flow arrow
+between them in Perfetto.
+
+Design constraints (all asserted in ``tests/test_trace.py``):
+
+* **Always compiled in, off by default.** ``MXNET_TRACE=<dir>`` (or an
+  explicit ``*.jsonl`` path) turns it on; disabled, every entry point
+  is a no-op fast path (one config lookup at worst — the hot loops
+  hoist even that by taking the :func:`tracer` handle once per fit).
+* **Zero added host syncs.** Everything here is host wall clock plus
+  file appends — tracing on vs off leaves ``profiler.host_sync_count``
+  identical.
+* **Deterministic ids.** Span/trace ids come from a seeded per-process
+  counter (``pid.N``) — no ``uuid``, no ``random`` (the
+  ``tools/obs_smoke.sh`` lint enforces it), so a fault-injection test
+  replays the identical trace structure.
+* **No background threads.** Spans buffer per thread and flush
+  synchronously — when a top-level span closes (one write per
+  request/step), when the buffer hits ``_FLUSH_EVERY``, or when an
+  emitter of retroactive spans calls :func:`flush` at its own group
+  boundary (the serve batcher, once per batch).
+* **Torn-line tolerance.** The spill file is schema-versioned JSONL
+  written exactly like the telemetry journal: one flushed line per
+  batch, so a crash tears at most the final line and the reader
+  (``tools/trace_report.py``) tolerates exactly that.
+
+Span vocabulary and the wire-header format are documented in
+docs/observability.md; ``tools/trace_report.py`` merges one or more
+spill files into Chrome trace-event / Perfetto JSON (process/thread
+lanes, flow arrows across the wire) plus a text critical-path summary.
+"""
+from __future__ import annotations
+
+import json
+import logging
+import os
+import threading
+import time
+
+from . import config as _config
+
+__all__ = ["TRACE_SCHEMA_VERSION", "TraceContext", "Span", "span",
+           "start_span", "end_span", "instant", "add_span",
+           "current_context", "wire_context", "tracer", "enabled",
+           "start_tracing", "stop_tracing", "flush", "unwind",
+           "span_shape"]
+
+# bump when a spill record's required keys change; the reader
+# (tools/trace_report.py) refuses schemas it doesn't know
+TRACE_SCHEMA_VERSION = 1
+
+# per-thread buffered records before a forced flush (a flush also
+# happens whenever the thread's span stack empties)
+_FLUSH_EVERY = 64
+
+# one clock for the whole module: perf_counter milliseconds (the
+# telemetry.now_ms scale, so callers can hand their already-taken
+# timestamps to add_span), converted to wall-clock microseconds at
+# emission with a fixed per-process offset — cross-process merges line
+# up to wall-clock accuracy, which is what Perfetto lanes need.
+_EPOCH_OFFSET_US = time.time() * 1e6 - time.perf_counter() * 1e6
+
+
+def _now_ms():
+    return time.perf_counter() * 1000.0
+
+
+def _to_us(t_ms):
+    return t_ms * 1000.0 + _EPOCH_OFFSET_US
+
+
+class TraceContext:
+    """What crosses a wire or thread boundary: (trace_id, parent
+    span_id). Serialized as a plain 2-tuple in frame headers/payloads —
+    old peers ignore the extra key, so the wire format stays backward
+    compatible."""
+
+    __slots__ = ("trace_id", "span_id")
+
+    def __init__(self, trace_id, span_id):
+        self.trace_id = trace_id
+        self.span_id = span_id
+
+    def to_wire(self):
+        return (self.trace_id, self.span_id)
+
+    @staticmethod
+    def from_wire(tc):
+        """TraceContext from a wire tuple; None for anything malformed
+        (a peer speaking a future header dialect must degrade to an
+        unjoined trace, never an error)."""
+        if not tc:
+            return None
+        try:
+            trace_id, span_id = tc
+        except (TypeError, ValueError):
+            return None
+        return TraceContext(str(trace_id), str(span_id))
+
+    def __repr__(self):
+        return "TraceContext(%r, %r)" % (self.trace_id, self.span_id)
+
+
+class Span:
+    """One open span. Carries the same (trace_id, span_id) surface as
+    :class:`TraceContext`, so a Span is directly usable as a parent."""
+
+    __slots__ = ("name", "trace_id", "span_id", "parent_id", "attrs",
+                 "_t0")
+
+    def __init__(self, name, trace_id, span_id, parent_id, attrs, t0):
+        self.name = name
+        self.trace_id = trace_id
+        self.span_id = span_id
+        self.parent_id = parent_id
+        self.attrs = attrs
+        self._t0 = t0
+
+    def context(self):
+        return TraceContext(self.trace_id, self.span_id)
+
+
+# ---------------------------------------------------------------------------
+# process state
+# ---------------------------------------------------------------------------
+
+class _Spill:
+    """The shared spill file: line-appended under a lock with the same
+    write-and-flush discipline (and torn-line tolerance contract) as
+    the telemetry journal. An unwritable file (ENOSPC, yanked dir)
+    disables the spill with one warning instead of poisoning the
+    traced hot path."""
+
+    def __init__(self, path, run=None):
+        self.path = path
+        self._lock = threading.Lock()
+        self._f = open(path, "a")
+        self._broken = False
+        self.write([{"kind": "trace_start", "pid": os.getpid(),
+                     "run": run, "schema": TRACE_SCHEMA_VERSION}])
+
+    def write(self, records):
+        if self._broken:
+            return
+        text = "".join(
+            json.dumps({"v": TRACE_SCHEMA_VERSION, **r}) + "\n"
+            for r in records)
+        with self._lock:
+            if self._broken:
+                return
+            try:
+                self._f.write(text)
+                self._f.flush()
+            except ValueError:      # closed underneath us at teardown
+                pass
+            except OSError as e:
+                self._broken = True
+                logging.getLogger(__name__).warning(
+                    "trace spill %s unwritable (%s); tracing output "
+                    "disabled for the rest of this run", self.path, e)
+
+    def close(self):
+        with self._lock:
+            try:
+                self._f.flush()
+                self._f.close()
+            except (OSError, ValueError):
+                pass
+
+
+_STATE_LOCK = threading.Lock()
+_SPILL = None
+_ENABLED = False            # module-level fast-path flag
+# latched when the lazy MXNET_TRACE auto-start fails (unwritable
+# destination at startup): tracing disables itself with ONE warning
+# instead of re-raising into every traced hot-path call. An explicit
+# start_tracing() call still raises — the caller asked.
+_START_FAILED = False
+_TLS = threading.local()
+
+_ID_LOCK = threading.Lock()
+_ID_COUNTER = [0]
+
+
+def _next_id():
+    """Deterministic process-unique id: a seeded per-process counter
+    prefixed with the pid (two processes can never collide; two runs of
+    the same job produce the same sequence). No uuid, no random."""
+    with _ID_LOCK:
+        _ID_COUNTER[0] += 1
+        return "%d.%d" % (os.getpid(), _ID_COUNTER[0])
+
+
+def _tls():
+    t = _TLS
+    if not hasattr(t, "stack"):
+        t.stack = []            # open spans, innermost last
+        t.buf = []              # finished records awaiting flush
+    return t
+
+
+def enabled():
+    """Fast tracing check. When not yet started, one config lookup
+    (mirroring ``telemetry.journal()``); hot loops hoist the
+    :func:`tracer` handle so even that disappears from the loop. A
+    destination unwritable at startup disables tracing with one
+    warning — observability never poisons the training step."""
+    global _START_FAILED
+    if _ENABLED:
+        return True
+    if _START_FAILED:
+        return False
+    where = _config.get("MXNET_TRACE")
+    if not where:
+        return False
+    try:
+        start_tracing(where)
+    except OSError as e:
+        _START_FAILED = True
+        logging.getLogger(__name__).warning(
+            "MXNET_TRACE destination %s unusable (%s); tracing "
+            "disabled for this run", where, e)
+    return _ENABLED
+
+
+def tracer():
+    """The active spill handle, lazily opened from ``MXNET_TRACE``;
+    None when tracing is disabled — the hoistable handle for hot
+    loops (``tr = trace.tracer()`` once per fit)."""
+    return _SPILL if enabled() else None
+
+
+def start_tracing(path=None, run=None):
+    """Open the process spill file (idempotent — an already-open spill
+    wins). ``path``: a directory (one ``trace-<pid>.jsonl`` file is
+    created in it) or an explicit ``*.jsonl`` path; defaults to
+    ``MXNET_TRACE``."""
+    global _SPILL, _ENABLED
+    with _STATE_LOCK:
+        if _SPILL is not None:
+            return _SPILL
+        path = path or _config.get("MXNET_TRACE")
+        if not path:
+            raise ValueError("no trace destination: pass a path or set "
+                             "MXNET_TRACE")
+        if path.endswith(".jsonl"):
+            parent = os.path.dirname(os.path.abspath(path))
+            os.makedirs(parent, exist_ok=True)
+            file_path = path
+        else:
+            os.makedirs(path, exist_ok=True)
+            file_path = os.path.join(path, "trace-%d.jsonl" % os.getpid())
+        _SPILL = _Spill(file_path, run=run)
+        _ENABLED = True
+        return _SPILL
+
+
+def stop_tracing():
+    """Flush the calling thread's buffer, close the spill file, and
+    disable tracing. Returns the spill path (None when tracing was
+    off). Spans still buffered on OTHER threads are dropped — stop
+    tracing after worker threads drain, not under them."""
+    global _SPILL, _ENABLED, _START_FAILED
+    with _STATE_LOCK:
+        sp = _SPILL
+        _SPILL = None
+        _ENABLED = False
+        _START_FAILED = False    # a new destination gets a fresh try
+    t = _tls()
+    if sp is not None and t.buf:
+        sp.write(t.buf)
+    t.buf = []
+    t.stack = []
+    if sp is None:
+        return None
+    sp.close()
+    return sp.path
+
+
+def flush():
+    """Write the calling thread's buffered records to the spill file."""
+    t = _tls()
+    sp = _SPILL
+    if sp is not None and t.buf:
+        sp.write(t.buf)
+        t.buf = []
+
+
+def unwind():
+    """Drop every open span on the calling thread WITHOUT emitting —
+    the escape hatch for control-flow exceptions that jump out of an
+    instrumented loop (guardrail rollback), so abandoned spans can't
+    mis-parent whatever the thread records next."""
+    t = _tls()
+    t.stack = []
+    flush()
+
+
+def _emit(rec, t, force=False):
+    """Buffer one record; write through when forced (a top-level span
+    just closed — the natural request/step boundary) or the buffer is
+    full. Retroactive/instant emits from stackless threads (the serve
+    batcher) only buffer, so a batch's worth of lifecycle spans costs
+    one write — their emitters call :func:`flush` at the group
+    boundary."""
+    t.buf.append(rec)
+    if force or len(t.buf) >= _FLUSH_EVERY:
+        flush()
+
+
+def _base_record(kind, name, trace_id, parent_id, ts_ms):
+    return {"kind": kind, "name": name, "trace": trace_id,
+            "parent": parent_id, "pid": os.getpid(),
+            "tid": threading.get_ident(),
+            "tname": threading.current_thread().name,
+            "ts_us": round(_to_us(ts_ms), 1)}
+
+
+# ---------------------------------------------------------------------------
+# the span surface
+# ---------------------------------------------------------------------------
+
+def start_span(name, parent=None, **attrs):
+    """Open a span on this thread's stack and return it (None when
+    tracing is disabled — :func:`end_span` tolerates that, so call
+    sites need no guard).
+
+    ``parent``: an explicit :class:`TraceContext`/:class:`Span` — the
+    remote caller's wire context on a server handler, or a
+    cross-thread requester in the serve engine. Default: the thread's
+    current innermost span; with neither, the span roots a NEW trace
+    (fresh trace_id)."""
+    if not enabled():
+        return None
+    t = _tls()
+    if parent is None and t.stack:
+        parent = t.stack[-1]
+    if parent is not None:
+        trace_id, parent_id = parent.trace_id, parent.span_id
+    else:
+        trace_id, parent_id = _next_id(), None
+    sp = Span(name, trace_id, _next_id(), parent_id,
+              dict(attrs) if attrs else None, _now_ms())
+    t.stack.append(sp)
+    return sp
+
+
+def end_span(sp, **attrs):
+    """Close a span from :func:`start_span` (no-op for None) and buffer
+    its record; extra ``attrs`` merge into the span's."""
+    if sp is None:
+        return
+    t1 = _now_ms()
+    t = _tls()
+    try:
+        t.stack.remove(sp)      # normally the top; tolerate mis-nesting
+    except ValueError:
+        pass
+    if attrs:
+        sp.attrs = {**(sp.attrs or {}), **attrs}
+    rec = _base_record("span", sp.name, sp.trace_id, sp.parent_id,
+                       sp._t0)
+    rec["span"] = sp.span_id
+    rec["dur_us"] = round(max((t1 - sp._t0) * 1000.0, 1.0), 1)
+    if sp.attrs:
+        rec["attrs"] = sp.attrs
+    _emit(rec, t, force=not t.stack)
+
+
+class span:
+    """``with trace.span("name", k=v):`` — the context-manager form.
+    Near-free when disabled (one enabled() check, no record)."""
+
+    __slots__ = ("_name", "_attrs", "_sp")
+
+    def __init__(self, name, **attrs):
+        self._name = name
+        self._attrs = attrs
+
+    def __enter__(self):
+        self._sp = start_span(self._name, **self._attrs)
+        return self._sp
+
+    def __exit__(self, *exc):
+        end_span(self._sp)
+        return False
+
+
+def instant(name, parent=None, **attrs):
+    """Zero-duration annotation on the current trace (guardrail
+    masked-step/rollback marks, retry marks). No-op when disabled."""
+    if not enabled():
+        return
+    t = _tls()
+    if parent is None and t.stack:
+        parent = t.stack[-1]
+    rec = _base_record("instant", name,
+                       parent.trace_id if parent is not None else None,
+                       parent.span_id if parent is not None else None,
+                       _now_ms())
+    if attrs:
+        rec["attrs"] = attrs
+    _emit(rec, t)
+
+
+def add_span(name, t0_ms, t1_ms, parent=None, **attrs):
+    """Emit an already-measured span retroactively (timestamps on the
+    ``telemetry.now_ms()`` scale the instrumented loops already take —
+    the serve batcher reconstructs queue/pad/forward phases this way
+    without re-reading the clock). Returns the emitted span's
+    :class:`TraceContext` for chaining children, or None when
+    disabled."""
+    if not enabled():
+        return None
+    t = _tls()
+    if parent is None and t.stack:
+        parent = t.stack[-1]
+    if parent is not None:
+        trace_id, parent_id = parent.trace_id, parent.span_id
+    else:
+        trace_id, parent_id = _next_id(), None
+    span_id = _next_id()
+    rec = _base_record("span", name, trace_id, parent_id, t0_ms)
+    rec["span"] = span_id
+    rec["dur_us"] = round(max((t1_ms - t0_ms) * 1000.0, 1.0), 1)
+    if attrs:
+        rec["attrs"] = attrs
+    _emit(rec, t)
+    return TraceContext(trace_id, span_id)
+
+
+def span_shape(records):
+    """Deterministic structural summary of parsed spill records (the
+    same dicts ``tools/trace_report.py`` reads): the span and instant
+    name vocabularies, the ``parent>child`` nesting edges resolved to
+    NAMES, and the root-span names. Ids, timestamps, pids and counts
+    are all dropped, so two runs of the same deterministic workload
+    produce the IDENTICAL shape — this is the trace half of a
+    ``tools/perf_gate.py`` gate fingerprint: a span that stops being
+    emitted (or re-parents) changes the shape and fails the gate.
+
+    Returns ``{"spans": [...], "instants": [...], "roots": [...],
+    "edges": ["parent>child", ...]}`` with every list sorted. An edge
+    whose parent id was never emitted (a torn spill tail, a peer in
+    another file) resolves to ``"?"`` rather than erroring."""
+    names = {}
+    for r in records:
+        if r.get("kind") == "span" and r.get("span") is not None:
+            names[r["span"]] = r.get("name", "?")
+    shape = {"spans": set(), "instants": set(), "roots": set(),
+             "edges": set()}
+    for r in records:
+        kind = r.get("kind")
+        if kind not in ("span", "instant"):
+            continue
+        name = r.get("name", "?")
+        shape["spans" if kind == "span" else "instants"].add(name)
+        parent = r.get("parent")
+        if parent is None:
+            if kind == "span":
+                shape["roots"].add(name)
+        else:
+            shape["edges"].add("%s>%s" % (names.get(parent, "?"), name))
+    return {k: sorted(v) for k, v in sorted(shape.items())}
+
+
+def current_context():
+    """The innermost open span's context on this thread, or None."""
+    if not _ENABLED:
+        return None
+    t = _tls()
+    if not t.stack:
+        return None
+    return t.stack[-1].context()
+
+
+def wire_context():
+    """The current context as the compact wire tuple for frame
+    headers/payloads (None when tracing is off or no span is open —
+    callers simply omit the header then)."""
+    ctx = current_context()
+    return ctx.to_wire() if ctx is not None else None

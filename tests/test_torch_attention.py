@@ -1,0 +1,149 @@
+"""The PyTorch port's flash attention against the JAX package's.
+
+On the CPU the JAX flash kernel runs in Pallas interpret mode (small
+blocks, so every case spans several q and k blocks) and the port runs
+the kernel's plain version, ``_flash_fwd_reference``. float32 inputs
+agree within rtol 2e-5 / atol 2e-6 (the tolerance of the JAX package's
+own kernel-vs-reference tests: only summation order differs); bf16
+inputs within 2e-2, compared in float32 (p is rounded to bf16 at
+different points of the two online/dense softmaxes). lse within 1e-5.
+
+The CUDA kernel itself is held against the plain version in
+``tests/test_torch_kernels.py``.
+"""
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from mxnet_tpu.ops import attention as jatt
+from mxnet_tpu.ops import registry as jreg
+import mxnet_tpu_torch  # noqa: F401
+from mxnet_tpu_torch.ops import attention as tatt
+from mxnet_tpu_torch.ops import registry as treg
+
+F32 = dict(rtol=2e-5, atol=2e-6)
+BF16 = dict(rtol=2e-2, atol=2e-2)
+
+
+def _arrays(*shapes, seed=0):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(*s).astype(np.float32) for s in shapes]
+
+
+def _jax(x, dtype):
+    return jnp.asarray(x, dtype=jnp.bfloat16 if dtype == "bf16"
+                       else jnp.float32)
+
+
+def _torch(x, dtype):
+    t = torch.from_numpy(x.copy())
+    return t.to(torch.bfloat16) if dtype == "bf16" else t
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor)
+                      else jnp.asarray(x, jnp.float32))
+
+
+# (id, BH, T, Tk, D, causal, window, dtype)
+FLASH_CASES = [
+    ("full", 2, 40, 40, 16, False, 0, "f32"),
+    ("causal", 2, 40, 40, 16, True, 0, "f32"),
+    ("ragged_causal", 3, 37, 37, 8, True, 0, "f32"),
+    ("t_lt_tk_causal", 2, 24, 40, 16, True, 0, "f32"),
+    ("t_gt_tk_causal", 2, 40, 24, 16, True, 0, "f32"),
+    ("t_ne_tk_full", 2, 24, 41, 16, False, 0, "f32"),
+    ("window", 2, 48, 48, 16, True, 8, "f32"),
+    ("window_ragged", 1, 45, 45, 8, True, 13, "f32"),
+    ("bf16_causal", 2, 40, 40, 16, True, 0, "bf16"),
+    ("bf16_full_ragged", 2, 33, 47, 16, False, 0, "bf16"),
+]
+
+
+@pytest.mark.parametrize("BH,T,Tk,D,causal,window,dtype",
+                         [c[1:] for c in FLASH_CASES],
+                         ids=[c[0] for c in FLASH_CASES])
+def test_flash_attention_3d_matches_jax(BH, T, Tk, D, causal, window,
+                                        dtype):
+    q, k, v = _arrays((BH, T, D), (BH, Tk, D), (BH, Tk, D))
+    ref = jatt.flash_attention(_jax(q, dtype), _jax(k, dtype),
+                               _jax(v, dtype), causal=causal, block_q=16,
+                               block_k=16, window=window or None)
+    out = tatt.flash_attention(_torch(q, dtype), _torch(k, dtype),
+                               _torch(v, dtype), causal=causal,
+                               block_q=16, block_k=16,
+                               window=window or None)
+    assert out.dtype == (torch.bfloat16 if dtype == "bf16"
+                         else torch.float32)
+    np.testing.assert_allclose(_np(out), _np(ref),
+                               **(BF16 if dtype == "bf16" else F32))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_4d_matches_jax(causal):
+    q, k, v = _arrays((2, 3, 20, 8), (2, 3, 28, 8), (2, 3, 28, 8), seed=1)
+    ref = jatt.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=causal, block_q=8,
+                               block_k=8)
+    out = tatt.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), causal=causal)
+    assert tuple(out.shape) == (2, 3, 20, 8)
+    np.testing.assert_allclose(_np(out), _np(ref), **F32)
+
+
+# (id, T, Tk, causal, window, band_offset, scale)
+LSE_CASES = [
+    ("full", 24, 32, False, 0, 0, None),
+    ("causal", 32, 32, True, 0, 0, None),
+    ("band_offset", 24, 40, True, 0, 16, None),
+    ("window_band_offset", 32, 48, True, 12, 20, None),
+    ("explicit_scale", 17, 29, True, 0, 3, 0.3),
+]
+
+
+@pytest.mark.parametrize("T,Tk,causal,window,band_offset,scale",
+                         [c[1:] for c in LSE_CASES],
+                         ids=[c[0] for c in LSE_CASES])
+def test_flash_attention_with_lse_matches_jax(T, Tk, causal, window,
+                                              band_offset, scale):
+    q, k, v = _arrays((2, T, 16), (2, Tk, 16), (2, Tk, 16), seed=2)
+    jo, jl = jatt.flash_attention_with_lse(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale=scale,
+        causal=causal, block_q=8, block_k=8, window=window,
+        band_offset=band_offset)
+    to, tl = tatt.flash_attention_with_lse(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        scale=scale, causal=causal, block_q=8, block_k=8, window=window,
+        band_offset=band_offset)
+    assert tuple(tl.shape) == (2, T) and tl.dtype == torch.float32
+    np.testing.assert_allclose(_np(to), _np(jo), **F32)
+    np.testing.assert_allclose(_np(tl), np.asarray(jl), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("Hkv", [1, 2, 4])
+def test_flash_op_gqa_matches_jax(Hkv):
+    """_contrib_FlashAttention repeats k/v heads up to the q heads."""
+    q, k, v = _arrays((2, 4, 24, 8), (2, Hkv, 24, 8), (2, Hkv, 24, 8),
+                      seed=3)
+    attrs = {"causal": True, "block_q": 8, "block_k": 8}
+    jop = jreg.get_op("_contrib_FlashAttention")
+    top = treg.get_op("_contrib_FlashAttention")
+    ref = jop.fn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                 **jreg.canon_attrs(jop, attrs))
+    out = top.fn(torch.from_numpy(q), torch.from_numpy(k),
+                 torch.from_numpy(v), **treg.canon_attrs(top, attrs))
+    np.testing.assert_allclose(_np(out), _np(ref), **F32)
+
+
+def test_flash_op_rejects_bad_gqa_and_window_without_causal():
+    q, k, v = _arrays((1, 4, 8, 8), (1, 3, 8, 8), (1, 3, 8, 8))
+    top = treg.get_op("_contrib_FlashAttention")
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        top.fn(torch.from_numpy(q), torch.from_numpy(k),
+               torch.from_numpy(v), causal=True)
+    q, k, v = (torch.from_numpy(x) for x in _arrays(*[(2, 8, 8)] * 3))
+    with pytest.raises(ValueError, match="requires causal"):
+        tatt.flash_attention(q, k, v, causal=False, window=4)

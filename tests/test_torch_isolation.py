@@ -1,0 +1,107 @@
+"""The PyTorch port stands alone: it imports no jax and nothing of the JAX
+package, its entry points refuse to fall back to the CPU silently, and
+it pins float32 matmul precision as the JAX package does."""
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import mxnet_tpu_torch as tmx
+from mxnet_tpu_torch.models import transformer
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run(code):
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    """With jax made unimportable, every module of the port (and the
+    chip smoke script) imports, and no jax or mxnet_tpu module loads."""
+    code = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any `import jax` now fails
+import mxnet_tpu_torch
+for m in pkgutil.walk_packages(mxnet_tpu_torch.__path__, "mxnet_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+bad = sorted(n for n, m in sys.modules.items() if m is not None and (
+    n == "jax" or n.startswith("jax.") or n.startswith("jaxlib")
+    or n == "mxnet_tpu" or n.startswith("mxnet_tpu.")))
+print("BAD", bad)
+print("N", len([n for n in sys.modules if n.startswith("mxnet_tpu_torch")]))
+"""
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert "BAD []" in r.stdout, r.stdout
+    n = int(r.stdout.split("N ")[1].split()[0])
+    assert n >= 25, r.stdout
+
+
+def test_predictor_without_cuda_and_without_cpu_ctx_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default context is usable")
+    sym = transformer.get_symbol(10, 4, num_layers=1, num_heads=2, dim=8)
+    with pytest.raises(tmx.MXNetError, match="ctx=mx.cpu"):
+        tmx.Predictor(sym, {}, data_names=("data", "softmax_label"))
+    with pytest.raises(tmx.MXNetError, match="CUDA"):
+        tmx.nd.array([1.0, 2.0])
+
+
+def test_default_context_is_gpu0_and_cpu_scope_overrides():
+    assert tmx.current_context() == tmx.gpu(0)
+    assert tmx.tpu(1) == tmx.gpu(1)
+    with tmx.cpu():
+        assert tmx.current_context() == tmx.cpu()
+        a = tmx.nd.array([1.0, 2.0])
+        assert a.context == tmx.cpu() and a.handle.device.type == "cpu"
+    assert tmx.current_context() == tmx.gpu(0)
+    assert tmx.cpu().torch_device() == torch.device("cpu")
+
+
+def test_matmul_precision_defaults_to_full_f32():
+    """Importing the port turns TF32 off for cuBLAS AND cuDNN (PyTorch
+    leaves cuDNN's on), as MXNET_MATMUL_PRECISION=highest asks."""
+    env = dict(os.environ)
+    env.pop("MXNET_MATMUL_PRECISION", None)
+    r = subprocess.run(
+        [sys.executable, "-c", "import torch, mxnet_tpu_torch; print("
+         "torch.backends.cuda.matmul.allow_tf32, "
+         "torch.backends.cudnn.allow_tf32, "
+         "torch.get_float32_matmul_precision())"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["False", "False", "highest"]
+
+
+@pytest.mark.parametrize("prec,tf32", [("highest", False), ("high", True)])
+def test_matmul_precision_knob(prec, tf32):
+    saved = (torch.get_float32_matmul_precision(),
+             torch.backends.cudnn.allow_tf32)
+    try:
+        tmx._set_matmul_precision(prec)
+        assert torch.backends.cuda.matmul.allow_tf32 is tf32
+        assert torch.backends.cudnn.allow_tf32 is tf32
+        assert torch.get_float32_matmul_precision() == prec
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
+    with pytest.raises(ValueError, match="MXNET_MATMUL_PRECISION"):
+        tmx._set_matmul_precision("tf32")
+
+
+def test_chip_smoke_alone_fails_without_printing_a_result(tmp_path):
+    """In a directory holding chip_smoke.py and nothing else of the repo
+    (or on a machine without CUDA) the script exits non-zero before any
+    result line."""
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout and '"kernels"' not in r.stdout
+    assert "FAIL" in r.stderr

@@ -1,0 +1,117 @@
+"""The port's flash forward kernel and its wrapper, without the JAX
+package: importable where only PyTorch is installed, as on the card's
+machine, where
+
+    python -m pytest --noconftest tests/test_torch_kernels.py
+
+runs every case, the CUDA ones included. Tests marked ``cuda`` hold the
+kernel against its plain version, ``_flash_fwd_reference`` (bf16 within
+2e-2, compared in f32; f32 within rtol 1e-4 / atol 1e-5; lse within
+1e-4), and skip on machines without a card; the rest pin the wrapper's
+contract and the plain version's own rules.
+"""
+import numpy as np
+import pytest
+import torch
+
+import mxnet_tpu_torch  # noqa: F401
+from mxnet_tpu_torch.ops import attention as tatt
+
+
+def _arrays(*shapes, seed=0):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(*s).astype(np.float32) for s in shapes]
+
+
+def test_result_does_not_depend_on_block_attrs():
+    q, k, v = (torch.from_numpy(x) for x in _arrays(*[(2, 33, 8)] * 3))
+    a = tatt.flash_attention(q, k, v, causal=True, block_q=8, block_k=16)
+    b = tatt.flash_attention(q, k, v, causal=True, block_q=512,
+                             block_k=512)
+    assert torch.equal(a, b)
+
+
+def test_fully_masked_rows_give_zero_and_finite_lse():
+    """A row with no valid column (band_offset < 0 puts the first rows
+    before every key) gives o = 0 through max(l, 1e-30), and a finite
+    lse — the port's rule for rows the TPU kernel leaves undefined."""
+    q, k, v = (torch.from_numpy(x) for x in _arrays(*[(1, 12, 8)] * 3))
+    o, lse = tatt.flash_attention_with_lse(q, k, v, causal=True,
+                                           band_offset=-5)
+    assert torch.equal(o[0, :5], torch.zeros(5, 8))
+    assert torch.isfinite(lse).all() and (lse[0, :5] < -1e29).all()
+    assert (o[0, 5:].abs().sum(-1) > 0).all()
+
+
+def test_meta_tensors_give_shapes():
+    """Shape inference runs the plain version on meta tensors."""
+    q = torch.empty((3, 10, 16), device="meta")
+    k = torch.empty((3, 14, 16), device="meta")
+    o, lse = tatt.flash_fwd(q, k, k, 0.25, True, want_lse=True)
+    assert o.shape == (3, 10, 16) and lse.shape == (3, 10)
+    assert o.device.type == "meta"
+
+
+@pytest.mark.parametrize("shape_q,shape_k,dtype,match", [
+    ((2, 8, 12), (2, 8, 12), torch.float32, "head dim 12"),
+    ((2, 8, 136), (2, 8, 136), torch.float32, "head dim 136"),
+    ((2, 8, 16), (2, 8, 16), torch.float16, "float32 or bfloat16"),
+    ((2, 8, 16), (3, 8, 16), torch.float32, "do not agree"),
+    ((1, 2, 8, 16), (1, 2, 8, 16), torch.float32, r"\(BH, T, D\)"),
+    ((2, 8, 16), (2, 8, 16), torch.float32, "CUDA device"),
+])
+def test_kernel_wrapper_validates_inputs(shape_q, shape_k, dtype, match):
+    """The CUDA wrapper raises on what the kernel does not take — before
+    any build or launch, so this runs on machines without a card."""
+    q = torch.zeros(shape_q, dtype=dtype)
+    k = torch.zeros(shape_k, dtype=dtype)
+    with pytest.raises((ValueError, TypeError), match=match):
+        tatt.flash_fwd_cuda(q, k, k, 0.25, True)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel against its plain version (on the card only)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the flash kernel is CUDA-only "
+                    "(its plain version is tested above)")
+    return torch.device("cuda", 0)
+
+
+# (id, BH, T, Tk, D, dtype, causal, window, band_offset)
+KERNEL_CASES = [
+    ("bf16_causal", 4, 256, 256, 128, torch.bfloat16, True, 0, 0),
+    ("bf16_ragged", 3, 200, 333, 64, torch.bfloat16, True, 0, 0),
+    ("bf16_full_d16", 2, 100, 130, 16, torch.bfloat16, False, 0, 0),
+    ("bf16_window_offset", 2, 256, 320, 64, torch.bfloat16, True, 64, 32),
+    ("bf16_negative_offset", 2, 128, 128, 32, torch.bfloat16, True, 0,
+     -20),
+    ("f32_causal", 2, 130, 130, 64, torch.float32, True, 0, 0),
+    ("f32_full_d128", 2, 70, 90, 128, torch.float32, False, 0, 0),
+    ("f32_window", 2, 256, 256, 8, torch.float32, True, 40, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,T,Tk,D,dtype,causal,window,band_offset",
+                         [c[1:] for c in KERNEL_CASES],
+                         ids=[c[0] for c in KERNEL_CASES])
+def test_cuda_kernel_matches_plain_version(cuda_device, BH, T, Tk, D, dtype,
+                                           causal, window, band_offset):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn((BH, n, D), generator=gen, device=cuda_device)
+               .to(dtype) for n in (T, Tk, Tk))
+    before = tatt.flash_fwd_cuda.launches
+    o, lse = tatt.flash_fwd(q, k, v, D ** -0.5, causal, window,
+                            band_offset, want_lse=True)
+    torch.cuda.synchronize()
+    assert tatt.flash_fwd_cuda.launches == before + 1
+    ro, rlse = tatt._flash_fwd_reference(q, k, v, D ** -0.5, causal,
+                                         window, band_offset)
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(o.float(), ro.float(), **tol)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-4)
