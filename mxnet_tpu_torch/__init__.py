@@ -60,9 +60,14 @@ from . import symbol  # noqa: E402
 from . import symbol as sym  # noqa: E402
 from .symbol import Symbol  # noqa: E402
 
+from . import random  # noqa: E402
+from . import registry  # noqa: E402
+from . import initializer  # noqa: E402
+from . import initializer as init  # noqa: E402
 from . import executor  # noqa: E402
 from . import predictor  # noqa: E402
 from .predictor import Predictor  # noqa: E402
 from . import serve  # noqa: E402
 from . import models  # noqa: E402
 from . import convert  # noqa: E402
+from . import parallel  # noqa: E402

@@ -28,7 +28,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 # kernel library name -> its source under csrc/
-SOURCES = {"flash_fwd": "flash_fwd.cu"}
+SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -100,6 +100,21 @@ def _declare(name, lib):
                                                              # window offset
                                   c_i, c_p]                  # dtype stream
         lib.flash_fwd.restype = c_i
+    elif name == "flash_bwd":
+        lib.flash_dq.argtypes = [c_p, c_p, c_p, c_p,         # q k v do
+                                 c_p, c_p, c_p,              # lse delta dq
+                                 c_i, c_i, c_i, c_i,         # bh t tk d
+                                 c_f, c_i, c_i, c_i,         # scale causal
+                                                             # window offset
+                                 c_i, c_p]                   # dtype stream
+        lib.flash_dq.restype = c_i
+        lib.flash_dkv.argtypes = [c_p, c_p, c_p, c_p,        # q k v do
+                                  c_p, c_p, c_p, c_p,        # lse delta dk dv
+                                  c_i, c_i, c_i, c_i,        # bh t tk d
+                                  c_f, c_i, c_i, c_i,        # scale causal
+                                                             # window offset
+                                  c_i, c_p]                  # dtype stream
+        lib.flash_dkv.restype = c_i
     lib.kernel_error_string.argtypes = [c_i]
     lib.kernel_error_string.restype = ctypes.c_char_p
 

@@ -8,13 +8,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "numeric_types", "torch_dtype", "np_dtype"]
+__all__ = ["MXNetError", "string_types", "numeric_types", "torch_dtype",
+           "np_dtype"]
 
 
 class MXNetError(RuntimeError):
     """Error raised by the framework (reference: base.py MXNetError)."""
 
 
+string_types = (str,)
 numeric_types = (float, int, np.generic)
 
 _NP_TO_TORCH = {

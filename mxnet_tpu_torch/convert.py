@@ -5,7 +5,9 @@ packages compute the same thing from the same weights.
 ``Predictor`` / ``TrainStep`` use (numpy arrays, or anything
 ``np.asarray`` reads, bf16 included); ``load_params`` reads a ``.params``
 file that ``mxnet_tpu.model.save_checkpoint`` (or ``nd.save``) wrote,
-through the port's ``nd.load``.
+through the port's ``nd.load``. ``state_from_jax`` carries a whole
+training state — parameters, optimizer state and aux — so both
+packages' ``TrainStep`` can start from one state.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from .context import context_of
 from .ndarray import load as _nd_load
 from .ndarray.ndarray import _from_numpy
 
-__all__ = ["params_from_jax", "load_params"]
+__all__ = ["params_from_jax", "load_params", "state_from_jax"]
 
 
 def _cast(t, device, dtype):
@@ -55,3 +57,17 @@ def load_params(fname, device, dtype=None):
         else:
             args[key] = _cast(arr.handle, device, dtype)
     return args, auxs
+
+
+def state_from_jax(state, device):
+    """A JAX ``TrainStep`` state ``(params, opt_state, aux)`` — dicts of
+    arrays, ``opt_state``'s values tuples of arrays, read as numpy — as
+    the port's ``TrainStep`` state: the same structure of fresh tensors
+    on ``device``, in their own dtypes."""
+    params, opt_state, aux = state
+    device = torch.device(device)
+    return (params_from_jax(params, device),
+            {name: tuple(_from_numpy(np.asarray(s)).to(device)
+                         for s in slots)
+             for name, slots in opt_state.items()},
+            params_from_jax(aux, device))

@@ -1,4 +1,5 @@
-"""NDArray namespace (``mx.nd``): the array type, creation and save/load.
+"""NDArray namespace (``mx.nd``): the array type, creation (``array``,
+``zeros``) and save/load.
 The generated operator namespace comes with the eager path (ROADMAP
 Queue A item 1)."""
-from .ndarray import NDArray, array, load, save, _wrap  # noqa: F401
+from .ndarray import NDArray, array, zeros, load, save, _wrap  # noqa: F401

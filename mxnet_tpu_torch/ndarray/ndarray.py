@@ -2,10 +2,12 @@
 
 An ``NDArray`` wraps one ``torch.Tensor`` (``.handle``) and reports its
 shape, dtype and context; ``asnumpy`` copies to the host, turning bf16
-into float32 there because numpy has no bf16. ``save`` / ``load`` read
-and write the JAX package's ``.npz`` format both ways. Operator methods,
-the eager ``mx.nd.*`` namespace and autograd come with ROADMAP Queue A
-item 1.
+into float32 there because numpy has no bf16. ``arr[key] = value``
+writes into the backing tensor in place (the JAX package swaps in a new
+immutable array; the effect on the NDArray is the same), which is how
+initializers fill ``zeros`` arrays. ``save`` / ``load`` read and write
+the JAX package's ``.npz`` format both ways. Operator methods, the eager
+``mx.nd.*`` namespace and autograd come with ROADMAP Queue A item 1.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 from ..base import np_dtype, torch_dtype
 from ..context import context_of, current_context
 
-__all__ = ["NDArray", "array", "load", "save"]
+__all__ = ["NDArray", "array", "zeros", "load", "save"]
 
 
 class NDArray:
@@ -59,6 +61,21 @@ class NDArray:
             t = t.float()
         return t.cpu().numpy().copy()
 
+    def __setitem__(self, key, value):
+        """Write ``value`` (a scalar, numpy array, NDArray or tensor,
+        broadcast to the indexed shape and cast to this array's dtype)
+        into the array in place."""
+        if isinstance(key, NDArray):
+            key = key._data
+        if isinstance(value, NDArray):
+            value = value._data
+        if not isinstance(value, (torch.Tensor, float, int, bool)):
+            value = _from_numpy(np.asarray(value))
+        if isinstance(value, torch.Tensor):
+            value = value.to(device=self._data.device,
+                             dtype=self._data.dtype)
+        self._data[key] = value
+
     def __repr__(self):
         return "<NDArray %s @%s>" % ("x".join(str(d) for d in self.shape),
                                      self.context)
@@ -89,6 +106,13 @@ def array(source_array, ctx=None, dtype=None):
     if dtype is not None:
         data = data.to(torch_dtype(dtype))
     return NDArray(data, ctx=ctx)
+
+
+def zeros(shape, ctx=None, dtype=None, **kwargs):
+    """A zero-filled NDArray on ``ctx`` (default: the current context)."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    return NDArray(torch.zeros(shape, dtype=torch_dtype(dtype)),
+                   ctx=ctx or current_context())
 
 
 def _from_numpy(arr):

@@ -1,4 +1,5 @@
-"""Operator catalog of the port (the serving slice's ops so far).
+"""Operator catalog of the port (the serving and training slices' ops so
+far).
 
 Every module registers torch ops into the shared registry; importing
 this package populates it, and ``mx.sym.*`` is generated from it.
@@ -12,4 +13,5 @@ from . import indexing      # noqa: F401
 from . import nn            # noqa: F401
 from . import loss          # noqa: F401
 from . import attention     # noqa: F401
+from . import optimizer_ops  # noqa: F401
 from . import shape_hooks   # noqa: F401  (must come after all registrations)

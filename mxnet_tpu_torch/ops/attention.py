@@ -1,20 +1,27 @@
 """Fused scaled-dot-product attention over the hand-written Hopper flash
-kernel — the PyTorch twin of ``mxnet_tpu/ops/attention.py``'s forward.
+kernels — the PyTorch twin of ``mxnet_tpu/ops/attention.py``'s flash
+path, forward and backward.
 
-``flash_fwd`` is the one entry to the kernel (``csrc/flash_fwd.cu``, the
-port of the TPU's ``_flash_fwd_kernel``). On a CUDA tensor it launches
-the kernel or raises; on a CPU (or meta) tensor it runs the kernel's
-plain version, ``_flash_fwd_reference``, a dense masked softmax in f32
-with the same masking, p-rounding and lse rules. Nothing falls back from
-one to the other.
+``flash_fwd``, ``flash_dq`` and ``flash_dkv`` are the entries to the
+kernels (``csrc/flash_fwd.cu``, the port of the TPU's
+``_flash_fwd_kernel``; ``csrc/flash_bwd.cu``, the ports of
+``_flash_dq_kernel`` and ``_flash_dkv_kernel``). On a CUDA tensor each
+launches its kernel or raises; on a CPU (or meta) tensor it runs the
+kernel's plain version (``_flash_fwd_reference``,
+``_flash_dq_reference``, ``_flash_dkv_reference``): dense f32 math with
+the same masking, rounding and lse rules. Nothing falls back from one to
+the other.
 
 ``flash_attention`` / ``flash_attention_with_lse`` and the
-``_contrib_FlashAttention`` op keep the JAX package's signatures. The
-``block_q`` / ``block_k`` attrs are accepted for graph and JSON parity;
-the kernel picks its own tiling, and results do not depend on them
-beyond rounding. The backward (the FA-2 dq and dk/dv kernels) and the
-decode-cache ops come in later slices (ROADMAP Queue B item 2, Queue A
-item 7).
+``_contrib_FlashAttention`` op keep the JAX package's signatures. Their
+gradients are the autograd Functions ``_Flash`` and ``_FlashLse``, the
+twins of the custom VJPs ``_flash`` and ``_flash_lse``: the forward
+emits the lse only when a gradient is needed, and the backward computes
+delta = rowsum(do * o) - dlse in plain torch, then launches the dq and
+dk/dv kernels. The ``block_q`` / ``block_k`` attrs are accepted for
+graph and JSON parity; the kernels pick their own tiling, and results do
+not depend on them beyond rounding. The decode-cache ops come with
+generation (ROADMAP Queue A item 7).
 """
 from __future__ import annotations
 
@@ -57,29 +64,80 @@ def _flash_fwd_reference(q, k, v, scale, causal, window=0, band_offset=0):
     return o.to(q.dtype), (m + torch.log(denom)).squeeze(-1)
 
 
-def _check_kernel_inputs(q, k, v):
+def _flash_bwd_terms(q, k, v, do, lse, delta, scale, causal, window=0,
+                     band_offset=0):
+    """(p, ds) of the flash backward over (BH, T, Tk), in f32: p =
+    exp(scale q.k - lse) and ds = p (do.v - delta) scale on the valid
+    pairs, 0 elsewhere — selected, never multiplied, since a row with no
+    valid column carries lse ~ -1e30."""
+    T, Tk = q.shape[1], k.shape[1]
+    valid = _band_mask(T, Tk, causal, window, band_offset, q.device)
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    p = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.matmul(do.float(), v.float().transpose(1, 2))
+    ds = torch.where(valid, p * (dp - delta[..., None]) * scale, 0.0)
+    return p, ds
+
+
+def _flash_dq_reference(q, k, v, do, lse, delta, scale, causal, window=0,
+                        band_offset=0):
+    """Plain PyTorch version of the flash dq kernel: dq = ds k, with ds
+    rounded to k's dtype before the product and dq cast to q's dtype."""
+    _, ds = _flash_bwd_terms(q, k, v, do, lse, delta, scale, causal,
+                             window, band_offset)
+    return torch.matmul(ds.to(k.dtype).float(), k.float()).to(q.dtype)
+
+
+def _flash_dkv_reference(q, k, v, do, lse, delta, scale, causal, window=0,
+                         band_offset=0):
+    """Plain PyTorch version of the flash dk/dv kernel: (dk, dv) =
+    (ds^T q, p^T do), with p rounded to do's dtype and ds to q's before
+    the products, and the results cast to k's and v's dtypes."""
+    p, ds = _flash_bwd_terms(q, k, v, do, lse, delta, scale, causal,
+                             window, band_offset)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(1, 2), do.float())
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(1, 2), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_kernel_inputs(q, k, v, what="flash_fwd_cuda"):
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dim() != 3:
-            raise ValueError("flash_fwd_cuda: %s must be (BH, T, D), got "
-                             "shape %r" % (name, tuple(x.shape)))
+            raise ValueError("%s: %s must be (BH, T, D), got shape %r"
+                             % (what, name, tuple(x.shape)))
     if q.dtype not in _DTYPE_CODE or not (q.dtype == k.dtype == v.dtype):
-        raise TypeError("flash_fwd_cuda: q, k, v must share one dtype of "
-                        "float32 or bfloat16, got %s/%s/%s"
-                        % (q.dtype, k.dtype, v.dtype))
+        raise TypeError("%s: q, k, v must share one dtype of float32 or "
+                        "bfloat16, got %s/%s/%s"
+                        % (what, q.dtype, k.dtype, v.dtype))
     BH, T, D = q.shape
     if k.shape != v.shape or k.shape[0] != BH or k.shape[2] != D:
-        raise ValueError("flash_fwd_cuda: shapes q %r, k %r, v %r do not "
-                         "agree" % (tuple(q.shape), tuple(k.shape),
-                                    tuple(v.shape)))
+        raise ValueError("%s: shapes q %r, k %r, v %r do not agree"
+                         % (what, tuple(q.shape), tuple(k.shape),
+                            tuple(v.shape)))
     if D > 128 or D % 8:
-        raise ValueError("flash_fwd_cuda: head dim %d unsupported (the "
-                         "kernel takes multiples of 8 up to 128)" % D)
+        raise ValueError("%s: head dim %d unsupported (the kernel takes "
+                         "multiples of 8 up to 128)" % (what, D))
     if T < 1 or k.shape[1] < 1:
-        raise ValueError("flash_fwd_cuda: empty sequence")
+        raise ValueError("%s: empty sequence" % what)
     if q.device.type != "cuda" or not (q.device == k.device == v.device):
-        raise ValueError("flash_fwd_cuda: q, k, v must be on one CUDA "
-                         "device, got %s/%s/%s"
-                         % (q.device, k.device, v.device))
+        raise ValueError("%s: q, k, v must be on one CUDA device, got "
+                         "%s/%s/%s" % (what, q.device, k.device, v.device))
+
+
+def _check_bwd_inputs(q, k, v, do, lse, delta, what):
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError("%s: do must match q (shape %r, %s, %s), got "
+                         "%r, %s, %s" % (what, tuple(q.shape), q.dtype,
+                                         q.device, tuple(do.shape),
+                                         do.dtype, do.device))
+    for name, x in (("lse", lse), ("delta", delta)):
+        if (tuple(x.shape) != tuple(q.shape[:2])
+                or x.dtype != torch.float32 or x.device != q.device):
+            raise ValueError("%s: %s must be float32 of shape %r on %s, "
+                             "got %r, %s, %s" % (
+                                 what, name, tuple(q.shape[:2]), q.device,
+                                 tuple(x.shape), x.dtype, x.device))
+    _check_kernel_inputs(q, k, v, what)
 
 
 def _kernel_operand(x):
@@ -131,18 +189,156 @@ def flash_fwd(q, k, v, scale, causal, window=0, band_offset=0,
                      "%s" % (q.device,))
 
 
+def _bwd_launch(entry, q, k, v, do, lse, delta, outs, scale, causal,
+                window, band_offset):
+    """Launch one entry of the flash backward library on CUDA tensors,
+    writing into ``outs``."""
+    lib = _kernels.load("flash_bwd")
+    BH, T, D = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *[o.data_ptr() for o in outs],
+            BH, T, k.shape[1], D, float(scale), int(bool(causal)),
+            int(window or 0), int(band_offset or 0), _DTYPE_CODE[q.dtype],
+            stream)
+    _kernels.check(lib, rc, entry)
+
+
+def flash_dq_cuda(q, k, v, do, lse, delta, scale, causal, window=0,
+                  band_offset=0):
+    """Launch the Hopper flash dq kernel on CUDA tensors. Returns dq.
+    ``flash_dq_cuda.launches`` counts the launches."""
+    _check_bwd_inputs(q, k, v, do, lse, delta, "flash_dq_cuda")
+    q, k, v, do, lse, delta = (_kernel_operand(x)
+                               for x in (q, k, v, do, lse, delta))
+    dq = torch.empty_like(q)
+    _bwd_launch("flash_dq", q, k, v, do, lse, delta, (dq,), scale, causal,
+                window, band_offset)
+    flash_dq_cuda.launches += 1
+    return dq
+
+
+flash_dq_cuda.launches = 0
+
+
+def flash_dkv_cuda(q, k, v, do, lse, delta, scale, causal, window=0,
+                   band_offset=0):
+    """Launch the Hopper flash dk/dv kernel on CUDA tensors. Returns
+    (dk, dv). ``flash_dkv_cuda.launches`` counts the launches."""
+    _check_bwd_inputs(q, k, v, do, lse, delta, "flash_dkv_cuda")
+    q, k, v, do, lse, delta = (_kernel_operand(x)
+                               for x in (q, k, v, do, lse, delta))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_launch("flash_dkv", q, k, v, do, lse, delta, (dk, dv), scale,
+                causal, window, band_offset)
+    flash_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_dkv_cuda.launches = 0
+
+
+def _dispatch(kernel, reference, q, *args):
+    if q.device.type == "cuda":
+        return kernel(q, *args)
+    if q.device.type in ("cpu", "meta"):
+        return reference(q, *args)
+    raise ValueError("flash attention has no implementation for device "
+                     "%s" % (q.device,))
+
+
+def flash_dq(q, k, v, do, lse, delta, scale, causal, window=0,
+             band_offset=0):
+    """dq over (BH, T, D) tensors: the kernel on CUDA tensors, its plain
+    version on CPU (and meta) tensors."""
+    return _dispatch(flash_dq_cuda, _flash_dq_reference, q, k, v, do, lse,
+                     delta, scale, causal, window, band_offset)
+
+
+def flash_dkv(q, k, v, do, lse, delta, scale, causal, window=0,
+              band_offset=0):
+    """(dk, dv) over (BH, T, D) tensors: the kernel on CUDA tensors, its
+    plain version on CPU (and meta) tensors."""
+    return _dispatch(flash_dkv_cuda, _flash_dkv_reference, q, k, v, do,
+                     lse, delta, scale, causal, window, band_offset)
+
+
+def _flash_backward(q, k, v, o, lse, do, scale, causal, window,
+                    band_offset, dlse=None):
+    """(dq, dk, dv). delta = rowsum(do * o) in f32, a cheap elementwise
+    pass outside the kernels as in the JAX package; an lse cotangent
+    folds into it (ds = p (dp - delta + dlse), since d lse / d s = p), so
+    the kernels take one delta and never see dlse."""
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    dq = flash_dq(q, k, v, do, lse, delta, scale, causal, window,
+                  band_offset)
+    dk, dv = flash_dkv(q, k, v, do, lse, delta, scale, causal, window,
+                       band_offset)
+    return dq, dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention over (BH, T, D) tensors with the FA-2 backward:
+    the twin of the JAX package's custom VJP ``_flash``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window):
+        o, lse = flash_fwd(q, k, v, scale, causal, window, 0,
+                           want_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.attrs = (scale, causal, window, 0)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_backward(q, k, v, o, lse, do, *ctx.attrs)
+        return dq, dk, dv, None, None, None
+
+
+class _FlashLse(torch.autograd.Function):
+    """(o, lse) with gradients through both outputs: the twin of the JAX
+    package's custom VJP ``_flash_lse``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, band_offset):
+        o, lse = flash_fwd(q, k, v, scale, causal, window, band_offset,
+                           want_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.attrs = (scale, causal, window, band_offset)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_backward(q, k, v, o, lse, do, *ctx.attrs,
+                                     dlse=dlse)
+        return dq, dk, dv, None, None, None, None
+
+
+def _needs_grad(*xs):
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
 def flash_attention_with_lse(query, key, value, scale=None,
                              causal=False, block_q=512, block_k=512,
                              window=0, band_offset=0):
-    """(o, lse) over (BH, T, D) inputs; lse is (BH, T) float32.
-    window/band_offset select a banded mask over global positions (q row
-    r sits at r + band_offset); both apply under causal only."""
-    del block_q, block_k              # the kernel picks its own tiling
+    """(o, lse) over (BH, T, D) inputs, both differentiable; lse is
+    (BH, T) float32. window/band_offset select a banded mask over global
+    positions (q row r sits at r + band_offset); both apply under causal
+    only."""
+    del block_q, block_k              # the kernels pick their own tiling
     if scale is None:
         scale = query.shape[-1] ** -0.5
-    return flash_fwd(query, key, value, float(scale), bool(causal),
-                     int(window or 0), int(band_offset or 0),
-                     want_lse=True)
+    args = (float(scale), bool(causal), int(window or 0),
+            int(band_offset or 0))
+    if _needs_grad(query, key, value):
+        return _FlashLse.apply(query, key, value, *args)
+    return flash_fwd(query, key, value, *args, want_lse=True)
 
 
 def flash_attention(query, key, value, scale=None, causal=False,
@@ -151,7 +347,7 @@ def flash_attention(query, key, value, scale=None, causal=False,
 
     window: sliding-window width W (causal only): row t attends
     [t-W+1, t]."""
-    del block_q, block_k              # the kernel picks its own tiling
+    del block_q, block_k              # the kernels pick their own tiling
     if window and not causal:
         raise ValueError("window attention requires causal=True")
     q4 = query.dim() == 4
@@ -162,8 +358,11 @@ def flash_attention(query, key, value, scale=None, causal=False,
         value = value.reshape(B * H, value.shape[2], D)
     if scale is None:
         scale = query.shape[-1] ** -0.5
-    out, _ = flash_fwd(query, key, value, float(scale), bool(causal),
-                       int(window or 0))
+    args = (float(scale), bool(causal), int(window or 0))
+    if _needs_grad(query, key, value):
+        out = _Flash.apply(query, key, value, *args)
+    else:                             # forward only: no lse output
+        out, _ = flash_fwd(query, key, value, *args)
     if q4:
         out = out.reshape(B, H, T, D)
     return out

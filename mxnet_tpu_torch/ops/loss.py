@@ -1,8 +1,18 @@
-"""``SoftmaxOutput``, forward only, with the semantics of
-``mxnet_tpu/ops/loss.py``: the softmax is taken in float32 and cast back
-to the input dtype. Its cross-entropy backward (and the head-grad
-scaling contract) comes with training (ROADMAP Queue A item 4); the
-other loss heads with the op-catalog slice.
+"""Output/loss heads with custom backward semantics, as in
+``mxnet_tpu/ops/loss.py``: ``SoftmaxOutput``, ``MakeLoss`` and the three
+regression heads.
+
+These ops' backward passes are NOT the vjp of their forward
+(SoftmaxOutput forwards softmax but backprops the cross-entropy
+gradient), so each is a ``torch.autograd.Function``. Every head
+multiplies its emitted gradient by the incoming cotangent (the head-grad
+scale contract): the training step passes ones, and a scaled cotangent
+(dynamic loss scaling) scales the whole backprop chain. Labels get no
+gradient. The backward computes in the output's dtype throughout, as the
+JAX package does — under bf16 that includes the ``valid`` count, which
+is a bf16 sum (16376 valid tokens count as 16384). ``SVMOutput`` and
+``_contrib_ChunkedSoftmaxCE`` wait for the op-catalog and ``loss_chunk``
+slices (ROADMAP Queue A items 2 and 6).
 """
 from __future__ import annotations
 
@@ -11,15 +21,139 @@ import torch
 from .registry import register
 
 
+def _norm_factor(normalization, label, valid_mask=None):
+    if normalization == "batch":
+        return float(label.shape[0]) if label.dim() else 1.0
+    if normalization == "valid" and valid_mask is not None:
+        return torch.clamp_min(torch.sum(valid_mask), 1.0)
+    if normalization == "valid":
+        return float(label.numel())
+    return 1.0
+
+
+def _one_hot(idx, nclass, dtype):
+    """``jax.nn.one_hot``: an index outside [0, nclass) (the ignore
+    label -1 among them) gives an all-zero row."""
+    return (idx.unsqueeze(-1) == torch.arange(nclass, device=idx.device)
+            ).to(dtype)
+
+
+class _SoftmaxOutputFn(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, data, label, attrs):
+        axis = 1 if attrs["multi_output"] else -1
+        # softmax statistics always in f32 (bf16 inputs would lose
+        # probability mass); output back in the input dtype
+        p = torch.softmax(data.float(), dim=axis).to(data.dtype)
+        ctx.save_for_backward(p, label)
+        ctx.attrs = attrs
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        p, l = ctx.saved_tensors
+        a = ctx.attrs
+        multi = a["multi_output"]
+        nclass = p.shape[1 if multi else -1]
+        onehot = _one_hot(l.to(torch.int32).long(), nclass, p.dtype)
+        if multi:
+            onehot = torch.movedim(onehot, -1, 1)
+        elif onehot.shape != p.shape:
+            onehot = onehot.reshape(p.shape)
+        if a["smooth_alpha"]:
+            onehot = onehot * (1 - a["smooth_alpha"]) + \
+                a["smooth_alpha"] / nclass
+        grad = p - onehot
+        valid = None
+        if a["use_ignore"]:
+            keep = (l != a["ignore_label"]).to(p.dtype)
+            valid = keep
+            if multi:
+                keep_b = keep.unsqueeze(1)
+            else:
+                keep_b = keep.reshape(tuple(l.shape)
+                                      + (1,) * (p.dim() - l.dim()))
+            grad = grad * keep_b
+        grad = grad * (a["grad_scale"]
+                       / _norm_factor(a["normalization"], l, valid))
+        grad = grad * g.to(grad.dtype)
+        return grad.to(p.dtype), None, None
+
+
 @register("SoftmaxOutput", arg_names=("data", "label"), nondiff_inputs=(1,),
           aliases=("Softmax",),
           defaults={"grad_scale": 1.0, "ignore_label": -1.0,
                     "multi_output": False, "use_ignore": False,
                     "preserve_shape": False, "normalization": "null",
                     "out_grad": False, "smooth_alpha": 0.0})
-def _softmax_output(data, label, multi_output=False, **_):
-    # softmax statistics always in f32 (bf16 inputs would lose
-    # probability mass); output back in the input dtype. The label only
-    # shapes the backward.
-    axis = 1 if multi_output else -1
-    return torch.softmax(data.float(), dim=axis).to(data.dtype)
+def _softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
+                    multi_output=False, use_ignore=False,
+                    preserve_shape=False, normalization="null",
+                    out_grad=False, smooth_alpha=0.0, **_):
+    return _SoftmaxOutputFn.apply(data, label, {
+        "grad_scale": grad_scale, "ignore_label": ignore_label,
+        "multi_output": multi_output, "use_ignore": use_ignore,
+        "normalization": normalization, "smooth_alpha": smooth_alpha})
+
+
+class _RegressionFn(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, data, label, fwd_fn, grad_fn, grad_scale):
+        out = fwd_fn(data)
+        ctx.save_for_backward(out, label)
+        ctx.grad_fn, ctx.grad_scale = grad_fn, grad_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, l = ctx.saved_tensors
+        grad = ctx.grad_fn(out, l.reshape(out.shape)) * ctx.grad_scale
+        grad = grad * g.to(grad.dtype)
+        return grad.to(out.dtype), None, None, None, None
+
+
+def _regression(name, fwd_fn, grad_fn):
+    @register(name, arg_names=("data", "label"), nondiff_inputs=(1,),
+              defaults={"grad_scale": 1.0})
+    def _f(data, label, grad_scale=1.0, **_):
+        return _RegressionFn.apply(data, label, fwd_fn, grad_fn,
+                                   grad_scale)
+    return _f
+
+
+_regression("LinearRegressionOutput", torch.clone, lambda o, l: o - l)
+_regression("MAERegressionOutput", torch.clone,
+            lambda o, l: torch.sign(o - l))
+_regression("LogisticRegressionOutput", torch.sigmoid, lambda o, l: o - l)
+
+
+class _MakeLossFn(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, data, grad_scale, valid_thresh, normalization):
+        ctx.save_for_backward(data)
+        ctx.attrs = (grad_scale, valid_thresh, normalization)
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        (d,) = ctx.saved_tensors
+        grad_scale, valid_thresh, normalization = ctx.attrs
+        if normalization == "batch":
+            scale = grad_scale / d.shape[0]
+        elif normalization == "valid":
+            scale = grad_scale / torch.clamp_min(
+                torch.sum((d > valid_thresh).to(d.dtype)), 1.0)
+        else:
+            scale = grad_scale
+        return g.to(d.dtype) * scale, None, None, None
+
+
+@register("MakeLoss", arg_names=("data",),
+          defaults={"grad_scale": 1.0, "valid_thresh": 0.0,
+                    "normalization": "null"})
+def _make_loss(data, grad_scale=1.0, valid_thresh=0.0,
+               normalization="null", **_):
+    return _MakeLossFn.apply(data, grad_scale, valid_thresh, normalization)

@@ -83,3 +83,18 @@ def _softmax_label_shapes(shapes, attrs):
 
 
 set_param_shapes("SoftmaxOutput", _softmax_label_shapes)
+
+
+# -- regression heads: label shape = data shape -----------------------------
+
+def _regression_label_shapes(shapes, attrs):
+    data = shapes[0]
+    out = list(shapes)
+    if data is not None and len(out) > 1 and out[1] is None:
+        out[1] = tuple(data)
+    return out
+
+
+for _name in ("LinearRegressionOutput", "MAERegressionOutput",
+              "LogisticRegressionOutput"):
+    set_param_shapes(_name, _regression_label_shapes)

@@ -1,19 +1,23 @@
-"""The PyTorch port's flash attention against the JAX package's.
+"""The PyTorch port's flash attention against the JAX package's, forward
+and backward.
 
-On the CPU the JAX flash kernel runs in Pallas interpret mode (small
-blocks, so every case spans several q and k blocks) and the port runs
-the kernel's plain version, ``_flash_fwd_reference``. float32 inputs
-agree within rtol 2e-5 / atol 2e-6 (the tolerance of the JAX package's
-own kernel-vs-reference tests: only summation order differs); bf16
-inputs within 2e-2, compared in float32 (p is rounded to bf16 at
-different points of the two online/dense softmaxes). lse within 1e-5.
+On the CPU the JAX flash kernels (forward, dq, dk/dv) run in Pallas
+interpret mode (small blocks, so every case spans several q and k
+blocks) and the port runs the kernels' plain versions through the same
+autograd Functions (``_Flash``, ``_FlashLse``) the card uses. float32
+inputs agree within rtol 2e-5 / atol 2e-6 (the tolerance of the JAX
+package's own kernel-vs-reference tests: only summation order differs),
+outputs and gradients alike; bf16 inputs within 2e-2, compared in
+float32 (p is rounded to bf16 at different points of the two
+online/dense softmaxes). lse within 1e-5.
 
-The CUDA kernel itself is held against the plain version in
+The CUDA kernels themselves are held against the plain versions in
 ``tests/test_torch_kernels.py``.
 """
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -147,3 +151,101 @@ def test_flash_op_rejects_bad_gqa_and_window_without_causal():
     q, k, v = (torch.from_numpy(x) for x in _arrays(*[(2, 8, 8)] * 3))
     with pytest.raises(ValueError, match="requires causal"):
         tatt.flash_attention(q, k, v, causal=False, window=4)
+
+
+# ---------------------------------------------------------------------------
+# gradients: torch.autograd.grad through the port against jax.grad
+# ---------------------------------------------------------------------------
+
+def _grads_match(jfn, tfn, inputs, dtype, cot_shapes, seed=5):
+    """Gradients of sum(out_i * cot_i) w.r.t. the inputs, the cotangents
+    drawn from numpy: jax.grad of the JAX function against
+    torch.autograd.grad of the port's."""
+    rng = np.random.RandomState(seed)
+    cots = [rng.randn(*sh).astype(np.float32) for sh in cot_shapes]
+
+    def jloss(*xs):
+        outs = jfn(*xs)
+        return sum(jnp.sum(o.astype(jnp.float32) * c)
+                   for o, c in zip(outs, cots))
+
+    jg = jax.grad(jloss, argnums=tuple(range(len(inputs))))(
+        *[_jax(x, dtype) for x in inputs])
+    ts = [_torch(x, dtype).requires_grad_() for x in inputs]
+    tl = sum(torch.sum(o.float() * torch.from_numpy(c))
+             for o, c in zip(tfn(*ts), cots))
+    tg = torch.autograd.grad(tl, ts)
+    for name, a, b in zip("qkv", jg, tg):
+        assert b.dtype == ts[0].dtype
+        np.testing.assert_allclose(_np(b), _np(a), err_msg="d" + name,
+                                   **(BF16 if dtype == "bf16" else F32))
+
+
+@pytest.mark.parametrize("BH,T,Tk,D,causal,window,dtype",
+                         [c[1:] for c in FLASH_CASES],
+                         ids=[c[0] for c in FLASH_CASES])
+def test_flash_attention_gradients_match_jax(BH, T, Tk, D, causal, window,
+                                             dtype):
+    q, k, v = _arrays((BH, T, D), (BH, Tk, D), (BH, Tk, D), seed=4)
+    kw = dict(causal=causal, block_q=16, block_k=16, window=window or None)
+    _grads_match(lambda *x: [jatt.flash_attention(*x, **kw)],
+                 lambda *x: [tatt.flash_attention(*x, **kw)],
+                 (q, k, v), dtype, [(BH, T, D)])
+
+
+@pytest.mark.parametrize("T,Tk,causal,window,band_offset,scale",
+                         [c[1:] for c in LSE_CASES],
+                         ids=[c[0] for c in LSE_CASES])
+def test_flash_attention_with_lse_gradients_match_jax(T, Tk, causal, window,
+                                                      band_offset, scale):
+    """Gradients through both outputs: a random cotangent on o and on
+    the lse (which folds into delta as delta - dlse)."""
+    q, k, v = _arrays((2, T, 16), (2, Tk, 16), (2, Tk, 16), seed=6)
+    kw = dict(scale=scale, causal=causal, block_q=8, block_k=8,
+              window=window, band_offset=band_offset)
+    _grads_match(lambda *x: jatt.flash_attention_with_lse(*x, **kw),
+                 lambda *x: tatt.flash_attention_with_lse(*x, **kw),
+                 (q, k, v), "f32", [(2, T, 16), (2, T)])
+
+
+def test_flash_attention_with_lse_bf16_gradients_match_jax():
+    q, k, v = _arrays((2, 40, 16), (2, 40, 16), (2, 40, 16), seed=7)
+    kw = dict(causal=True, block_q=16, block_k=16)
+    _grads_match(lambda *x: jatt.flash_attention_with_lse(*x, **kw),
+                 lambda *x: tatt.flash_attention_with_lse(*x, **kw),
+                 (q, k, v), "bf16", [(2, 40, 16), (2, 40)])
+
+
+@pytest.mark.parametrize("Hkv", [1, 2, 4])
+def test_flash_op_gqa_gradients_match_jax(Hkv):
+    """k/v repeated to the q heads before the kernel: the repeat's
+    gradient sums the repeated heads, as jnp.repeat's VJP does."""
+    q, k, v = _arrays((2, 4, 24, 8), (2, Hkv, 24, 8), (2, Hkv, 24, 8),
+                      seed=8)
+    attrs = {"causal": True, "block_q": 8, "block_k": 8}
+    jop = jreg.get_op("_contrib_FlashAttention")
+    top = treg.get_op("_contrib_FlashAttention")
+    ja, ta = jreg.canon_attrs(jop, attrs), treg.canon_attrs(top, attrs)
+    _grads_match(lambda *x: [jop.fn(*x, **ja)],
+                 lambda *x: [top.fn(*x, **ta)],
+                 (q, k, v), "f32", [(2, 4, 24, 8)])
+
+
+def test_forward_only_calls_skip_the_lse_and_the_graph(monkeypatch):
+    """Without a gradient the forward asks the kernel for no lse (as
+    the JAX package's forward-only calls do); with one it asks for the
+    lse and records the autograd Function."""
+    seen = []
+    real = tatt.flash_fwd
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs.get("want_lse", False))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tatt, "flash_fwd", spy)
+    q, k, v = (torch.from_numpy(x) for x in _arrays(*[(2, 16, 8)] * 3))
+    out = tatt.flash_attention(q, k, v, causal=True)
+    assert seen == [False] and out.grad_fn is None
+    out = tatt.flash_attention(q.requires_grad_(), k, v, causal=True)
+    assert seen == [False, True]
+    assert type(out.grad_fn).__name__ == "_FlashBackward"

@@ -22,7 +22,9 @@ def _run(code):
 
 def test_port_and_chip_smoke_import_without_jax():
     """With jax made unimportable, every module of the port (and the
-    chip smoke script) imports, and no jax or mxnet_tpu module loads."""
+    chip smoke script) imports, the training slice's modules (parallel,
+    initializer, random, registry) run one step, and no jax or
+    mxnet_tpu module loads."""
     code = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now fails
@@ -30,6 +32,21 @@ import mxnet_tpu_torch
 for m in pkgutil.walk_packages(mxnet_tpu_torch.__path__, "mxnet_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+# the training slice's modules, used: one step of a tiny LM on the CPU
+import numpy as np
+from mxnet_tpu_torch import initializer, random, registry
+from mxnet_tpu_torch.models import transformer
+from mxnet_tpu_torch.parallel import make_train_step
+assert registry.get_registry(initializer.Initializer)["xavier"]
+random.seed(0)
+step = make_train_step(transformer.get_symbol(10, 4, num_layers=1,
+                       num_heads=2, dim=8), optimizer="adam",
+                       ctx=mxnet_tpu_torch.cpu())
+state = step.init_state(initializer.Xavier(), {"data": (2, 4),
+                        "softmax_label": (2, 4)})
+toks = np.arange(8, dtype=np.float32).reshape(2, 4)
+state, outs = step(state, {"data": toks, "softmax_label": toks}, 0.01, 0)
+assert outs[0].shape == (8, 10)
 bad = sorted(n for n, m in sys.modules.items() if m is not None and (
     n == "jax" or n.startswith("jax.") or n.startswith("jaxlib")
     or n == "mxnet_tpu" or n.startswith("mxnet_tpu.")))
@@ -40,7 +57,7 @@ print("N", len([n for n in sys.modules if n.startswith("mxnet_tpu_torch")]))
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
     n = int(r.stdout.split("N ")[1].split()[0])
-    assert n >= 25, r.stdout
+    assert n >= 30, r.stdout
 
 
 def test_predictor_without_cuda_and_without_cpu_ctx_raises():

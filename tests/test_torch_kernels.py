@@ -1,14 +1,15 @@
-"""The port's flash forward kernel and its wrapper, without the JAX
-package: importable where only PyTorch is installed, as on the card's
-machine, where
+"""The port's flash kernels (forward, dq, dk/dv) and their wrappers,
+without the JAX package: importable where only PyTorch is installed, as
+on the card's machine, where
 
     python -m pytest --noconftest tests/test_torch_kernels.py
 
-runs every case, the CUDA ones included. Tests marked ``cuda`` hold the
-kernel against its plain version, ``_flash_fwd_reference`` (bf16 within
-2e-2, compared in f32; f32 within rtol 1e-4 / atol 1e-5; lse within
-1e-4), and skip on machines without a card; the rest pin the wrapper's
-contract and the plain version's own rules.
+runs every case, the CUDA ones included. Tests marked ``cuda`` hold each
+kernel against its plain version (``_flash_fwd_reference``,
+``_flash_dq_reference``, ``_flash_dkv_reference``; bf16 within 2e-2,
+compared in f32; f32 within rtol 1e-4 / atol 1e-5; lse within 1e-4) and
+skip on machines without a card; the rest pin the wrappers' contract and
+the plain versions' own rules.
 """
 import numpy as np
 import pytest
@@ -115,3 +116,89 @@ def test_cuda_kernel_matches_plain_version(cuda_device, BH, T, Tk, D, dtype,
         else dict(rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(o.float(), ro.float(), **tol)
     torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-4)
+
+
+def _bwd_inputs(BH, T, Tk, D, dtype, causal, window, band_offset, device,
+                dlse=False):
+    """q, k, v, do and the forward's lse and delta (through the plain
+    forward), from one seeded generator."""
+    gen = torch.Generator(device=device).manual_seed(1)
+    q, k, v = (torch.randn((BH, n, D), generator=gen, device=device)
+               .to(dtype) for n in (T, Tk, Tk))
+    do = torch.randn((BH, T, D), generator=gen, device=device).to(dtype)
+    o, lse = tatt._flash_fwd_reference(q, k, v, D ** -0.5, causal, window,
+                                       band_offset)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    if dlse:
+        delta = delta - torch.randn((BH, T), generator=gen, device=device)
+    return q, k, v, do, lse, delta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,T,Tk,D,dtype,causal,window,band_offset",
+                         [c[1:] for c in KERNEL_CASES],
+                         ids=[c[0] for c in KERNEL_CASES])
+@pytest.mark.parametrize("dlse", [False, True], ids=["delta", "dlse"])
+def test_cuda_bwd_kernels_match_plain_versions(cuda_device, BH, T, Tk, D,
+                                                dtype, causal, window,
+                                                band_offset, dlse):
+    args = _bwd_inputs(BH, T, Tk, D, dtype, causal, window, band_offset,
+                       cuda_device, dlse)
+    attrs = (D ** -0.5, causal, window, band_offset)
+    n_dq, n_dkv = tatt.flash_dq_cuda.launches, tatt.flash_dkv_cuda.launches
+    dq = tatt.flash_dq(*args, *attrs)
+    dk, dv = tatt.flash_dkv(*args, *attrs)
+    torch.cuda.synchronize()
+    assert tatt.flash_dq_cuda.launches == n_dq + 1
+    assert tatt.flash_dkv_cuda.launches == n_dkv + 1
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(dq.float(), tatt._flash_dq_reference(
+        *args, *attrs).float(), **tol)
+    rdk, rdv = tatt._flash_dkv_reference(*args, *attrs)
+    torch.testing.assert_close(dk.float(), rdk.float(), **tol)
+    torch.testing.assert_close(dv.float(), rdv.float(), **tol)
+
+
+@pytest.mark.parametrize("name", ["flash_dq_cuda", "flash_dkv_cuda"])
+@pytest.mark.parametrize("bad,match", [
+    ("do_shape", "do must match q"),
+    ("lse_dtype", "lse must be float32"),
+    ("delta_shape", "delta must be float32"),
+    ("cpu", "CUDA device"),
+])
+def test_bwd_kernel_wrappers_validate_inputs(name, bad, match):
+    """The backward wrappers raise on what the kernels do not take —
+    before any build or launch, so this runs without a card."""
+    q = k = v = do = torch.zeros((2, 8, 16))
+    lse = delta = torch.zeros((2, 8))
+    if bad == "do_shape":
+        do = torch.zeros((2, 9, 16))
+    elif bad == "lse_dtype":
+        lse = torch.zeros((2, 8), dtype=torch.float64)
+    elif bad == "delta_shape":
+        delta = torch.zeros((2, 9))
+    with pytest.raises(ValueError, match=match):
+        getattr(tatt, name)(q, k, v, do, lse, delta, 0.25, True)
+
+
+def test_backward_plain_versions_on_meta_give_shapes():
+    q = torch.empty((3, 10, 16), device="meta")
+    k = torch.empty((3, 14, 16), device="meta")
+    lse = torch.empty((3, 10), device="meta")
+    dq = tatt.flash_dq(q, k, k, q, lse, lse, 0.25, True)
+    dk, dv = tatt.flash_dkv(q, k, k, q, lse, lse, 0.25, True)
+    assert dq.shape == (3, 10, 16) and dk.shape == dv.shape == (3, 14, 16)
+
+
+def test_fully_masked_rows_get_zero_gradient():
+    """Rows with no valid column (lse ~ -1e30) contribute nothing to any
+    gradient: the select comes before exp(s - lse) could overflow."""
+    q, k, v = (torch.from_numpy(x).requires_grad_()
+               for x in _arrays(*[(1, 12, 8)] * 3))
+    o, lse = tatt.flash_attention_with_lse(q, k, v, causal=True,
+                                           band_offset=-5)
+    dq, dk, dv = torch.autograd.grad((o.sum(), lse[0, 5:].sum()),
+                                     (q, k, v))
+    assert torch.equal(dq[0, :5], torch.zeros(5, 8))
+    assert all(torch.isfinite(g).all() for g in (dq, dk, dv))

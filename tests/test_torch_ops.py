@@ -4,16 +4,25 @@ One parametrised forward sweep: the same numpy-seeded inputs go through
 ``mxnet_tpu``'s op and ``mxnet_tpu_torch``'s op of the same name, with
 attrs canonicalized by each package's registry; float32 outputs must
 agree within rtol 1e-5 / atol 1e-6 (different summation orders on the
-CPU), integer outputs exactly.
+CPU), integer outputs exactly. The loss heads' custom backward passes
+are held against ``jax.vjp`` of the JAX ops with the same cotangent
+(float32 within the same tolerance; bf16 within rtol 1e-2 / atol 1e-6
+relative to the gradient, one bf16 rounding step), and the initializers
+after one ``mx.random.seed`` must fill bit-identical values.
 """
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
+import mxnet_tpu as jmx
+from mxnet_tpu import initializer as jinit
 from mxnet_tpu.ops import registry as jreg
-import mxnet_tpu_torch  # noqa: F401  (populates the port's registry)
+import mxnet_tpu_torch as tmx  # (populates the port's registry)
+from mxnet_tpu_torch import initializer as tinit
+from mxnet_tpu_torch.ops import loss as tloss
 from mxnet_tpu_torch.ops import registry as treg
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -117,6 +126,51 @@ CASES = [
      [_f32(1, 2, 24, 8), _f32(1, 2, 24, 8, seed=1),
       _f32(1, 2, 24, 8, seed=2)],
      {"causal": True, "block_q": 8, "block_k": 8}),
+    ("make_loss", "MakeLoss", [_f32(3, 4)], {"grad_scale": 2.0}),
+    ("linear_regression", "LinearRegressionOutput",
+     [_f32(4, 3), _f32(4, 3, seed=1)], {}),
+    ("mae_regression", "MAERegressionOutput",
+     [_f32(4, 3), _f32(4, 3, seed=1)], {"grad_scale": 0.5}),
+    ("logistic_regression", "LogisticRegressionOutput",
+     [_f32(4, 3), _f32(4, 3, seed=1)], {}),
+    # fused optimizer updates: weight, grad, state slots
+    ("sgd_update", "sgd_update", [_f32(5, 4), _f32(5, 4, seed=1)],
+     {"lr": 0.1, "wd": 0.01, "rescale_grad": 0.5}),
+    ("sgd_update_clip", "sgd_update", [_f32(5, 4), _f32(5, 4, seed=1) * 4],
+     {"lr": 0.1, "clip_gradient": 1.0}),
+    ("sgd_mom_update", "sgd_mom_update",
+     [_f32(5, 4), _f32(5, 4, seed=1), _f32(5, 4, seed=2)],
+     {"lr": 0.1, "momentum": 0.9, "wd": 1e-3, "rescale_grad": 0.25,
+      "clip_gradient": 0.3}),
+    ("mp_sgd_update", "mp_sgd_update",
+     [_f32(5, 4), _f32(5, 4, seed=1), _f32(5, 4, seed=2)],
+     {"lr": 0.2, "wd": 1e-2}),
+    ("mp_sgd_mom_update", "mp_sgd_mom_update",
+     [_f32(5, 4), _f32(5, 4, seed=1), _f32(5, 4, seed=2),
+      _f32(5, 4, seed=3)],
+     {"lr": 0.2, "momentum": 0.8, "clip_gradient": 0.5}),
+    ("adam_update", "adam_update",
+     [_f32(5, 4), _f32(5, 4, seed=1), _f32(5, 4, seed=2) * 0.1,
+      np.abs(_f32(5, 4, seed=3)) * 0.01],
+     {"lr": 1e-3, "wd": 1e-2, "rescale_grad": 0.125}),
+    ("adam_update_clip", "adam_update",
+     [_f32(5, 4), _f32(5, 4, seed=1) * 3, np.zeros((5, 4), np.float32),
+      np.zeros((5, 4), np.float32)],
+     {"lr": 1e-2, "beta1": 0.8, "beta2": 0.99, "epsilon": 1e-6,
+      "clip_gradient": 1.0}),
+    ("rmsprop_update", "rmsprop_update",
+     [_f32(5, 4), _f32(5, 4, seed=1), np.abs(_f32(5, 4, seed=2))],
+     {"lr": 1e-2, "gamma1": 0.9, "clip_weights": 0.5}),
+    ("rmspropalex_update", "rmspropalex_update",
+     [_f32(5, 4), _f32(5, 4, seed=1), np.abs(_f32(5, 4, seed=2)) + 1,
+      _f32(5, 4, seed=3) * 0.1, _f32(5, 4, seed=4) * 0.01],
+     {"lr": 1e-2, "gamma1": 0.9, "gamma2": 0.8, "wd": 1e-3}),
+    ("ftrl_update", "ftrl_update",
+     [_f32(5, 4), _f32(5, 4, seed=1), _f32(5, 4, seed=2),
+      np.abs(_f32(5, 4, seed=3))],
+     {"lr": 0.1, "lamda1": 0.5, "beta": 1.5, "wd": 1e-2}),
+    ("signsgd_update", "signsgd_update", [_f32(5, 4), _f32(5, 4, seed=1)],
+     {"lr": 0.05, "wd": 0.1}),
 ]
 
 
@@ -161,3 +215,163 @@ def test_sweep_covers_every_ported_op():
         assert list(top.defaults.items()) == list(jop.defaults.items())
         assert (top.arg_select is None) == (jop.arg_select is None)
         assert (top.param_shapes is None) == (jop.param_shapes is None)
+
+
+# ---------------------------------------------------------------------------
+# loss heads: the custom backward against jax.vjp of the JAX op
+# ---------------------------------------------------------------------------
+
+def _labels_with_ignored(shape, nclass, n_ignored, seed=0):
+    lab = _ids(shape, nclass, seed=seed).reshape(-1)
+    lab[:n_ignored] = -1
+    return lab.reshape(shape)
+
+
+# (case id, op name, data, label or None, attrs, cotangent, dtype)
+BACKWARD_CASES = [
+    ("softmax_null", "SoftmaxOutput", _f32(6, 10) * 3, _ids((6,), 10), {},
+     1.0, "f32"),
+    ("softmax_ignore_valid", "SoftmaxOutput", _f32(8, 7) * 2,
+     _labels_with_ignored((8,), 7, 3),
+     {"use_ignore": True, "normalization": "valid"}, 1.0, "f32"),
+    ("softmax_batch_grad_scale", "SoftmaxOutput", _f32(5, 6),
+     _ids((5,), 6), {"normalization": "batch", "grad_scale": 0.5}, 1.0,
+     "f32"),
+    ("softmax_valid_no_ignore", "SoftmaxOutput", _f32(5, 6), _ids((5,), 6),
+     {"normalization": "valid"}, 1.0, "f32"),
+    ("softmax_smooth_alpha", "SoftmaxOutput", _f32(6, 5), _ids((6,), 5),
+     {"smooth_alpha": 0.1}, 1.0, "f32"),
+    ("softmax_multi_output", "SoftmaxOutput", _f32(2, 5, 3),
+     _labels_with_ignored((2, 3), 5, 1),
+     {"multi_output": True, "use_ignore": True, "normalization": "valid"},
+     1.0, "f32"),
+    ("softmax_cotangent_4", "SoftmaxOutput", _f32(6, 10), _ids((6,), 10),
+     {"use_ignore": True, "normalization": "valid"}, 4.0, "f32"),
+    ("softmax_3d_label", "SoftmaxOutput", _f32(2, 3, 4),
+     _ids((2, 3), 4), {"use_ignore": True, "normalization": "valid"},
+     1.0, "f32"),
+    # bf16: the valid count is a bf16 sum (297 valid rows count as 296)
+    ("softmax_bf16_valid", "SoftmaxOutput", _f32(300, 8),
+     _labels_with_ignored((300,), 8, 3),
+     {"use_ignore": True, "normalization": "valid"}, 1.0, "bf16"),
+    ("make_loss_null", "MakeLoss", _f32(3, 4), None, {"grad_scale": 2.0},
+     4.0, "f32"),
+    ("make_loss_batch", "MakeLoss", _f32(3, 4), None,
+     {"normalization": "batch"}, 1.0, "f32"),
+    ("make_loss_valid", "MakeLoss", _f32(3, 4), None,
+     {"normalization": "valid", "valid_thresh": 0.1}, 1.0, "f32"),
+    ("linear_regression", "LinearRegressionOutput", _f32(4, 3),
+     _f32(4, 3, seed=1), {"grad_scale": 2.0}, 4.0, "f32"),
+    ("linear_regression_flat_label", "LinearRegressionOutput", _f32(4, 1),
+     _f32(4, seed=1), {}, 1.0, "f32"),
+    ("mae_regression", "MAERegressionOutput", _f32(4, 3),
+     _f32(4, 3, seed=1), {"grad_scale": 0.5}, 4.0, "f32"),
+    ("logistic_regression", "LogisticRegressionOutput", _f32(4, 3),
+     (_f32(4, 3, seed=1) > 0).astype(np.float32), {}, 4.0, "f32"),
+]
+
+
+@pytest.mark.parametrize("name,data,label,attrs,cot,dtype",
+                         [c[1:] for c in BACKWARD_CASES],
+                         ids=[c[0] for c in BACKWARD_CASES])
+def test_loss_head_backward_matches_jax(name, data, label, attrs, cot,
+                                        dtype):
+    """The head's emitted gradient, scaled by the incoming cotangent,
+    matches the JAX op's custom VJP; the label gets no gradient."""
+    jop, top = jreg.get_op(name), treg.get_op(name)
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    jattrs, tattrs = jreg.canon_attrs(jop, attrs), treg.canon_attrs(top,
+                                                                    attrs)
+    jd = jnp.asarray(data, jdt)
+    td = torch.from_numpy(data.copy()).to(tdt).requires_grad_()
+    if label is None:
+        out, vjp = jax.vjp(lambda d: jop.fn(d, **jattrs), jd)
+        tout = top.fn(td, **tattrs)
+    else:
+        tl = torch.from_numpy(label.copy())
+        out, vjp = jax.vjp(lambda d: jop.fn(d, jnp.asarray(label),
+                                            **jattrs), jd)
+        tout = top.fn(td, tl, **tattrs)
+        assert not tl.requires_grad
+    (jg,) = vjp(jnp.full(out.shape, cot, out.dtype))
+    (tg,) = torch.autograd.grad(tout, td, torch.full(tout.shape, cot,
+                                                     dtype=tout.dtype))
+    assert tg.dtype == tdt
+    jg = np.asarray(jnp.asarray(jg, jnp.float32))
+    tg = tg.float().numpy()
+    if dtype == "bf16":
+        np.testing.assert_allclose(tg, jg, rtol=1e-2,
+                                   atol=1e-6 * np.abs(jg).max())
+    else:
+        np.testing.assert_allclose(tg, jg, rtol=RTOL, atol=ATOL)
+
+
+def test_valid_count_is_a_bf16_sum_as_in_jax():
+    """Under bf16 the valid count is the mask's bf16 sum: 16376 valid
+    tokens (the flagship batch's 16384 minus one ignored label per row)
+    count as 16384, in both packages."""
+    from mxnet_tpu.ops import loss as jloss
+    lab = np.zeros(16384, np.float32)
+    keep = np.ones(16376, np.float32)
+    j = jloss._norm_factor("valid", jnp.asarray(lab),
+                           jnp.asarray(keep, jnp.bfloat16))
+    t = tloss._norm_factor("valid", torch.from_numpy(lab),
+                           torch.from_numpy(keep).to(torch.bfloat16))
+    assert t.dtype == torch.bfloat16 and float(t) == 16384.0
+    assert float(j) == float(t)
+
+
+# ---------------------------------------------------------------------------
+# initializers: one seed, the same bits in both packages
+# ---------------------------------------------------------------------------
+
+# (case id, initializer class name, kwargs, parameter name, shape)
+INIT_CASES = [
+    ("xavier_uniform_avg", "Xavier", {}, "fc_weight", (16, 24)),
+    ("xavier_gaussian_in", "Xavier",
+     {"rnd_type": "gaussian", "factor_type": "in", "magnitude": 2},
+     "conv_weight", (8, 3, 3, 3)),
+    ("xavier_out", "Xavier", {"factor_type": "out"}, "w_weight", (5, 7)),
+    ("msra_prelu", "MSRAPrelu", {"slope": 0.1}, "c_weight", (6, 4, 2, 2)),
+    ("uniform", "Uniform", {"scale": 0.3}, "fc_weight", (9, 5)),
+    ("normal", "Normal", {"sigma": 0.5}, "emb_weight", (11, 4)),
+    ("constant", "Constant", {"value": 0.7}, "x_weight", (3, 3)),
+    ("one", "One", {}, "x_weight", (2, 5)),
+    ("zero", "Zero", {}, "x_weight", (2, 5)),
+    ("orthogonal", "Orthogonal", {}, "rnn_weight", (6, 10)),
+    ("orthogonal_normal", "Orthogonal", {"rand_type": "normal"},
+     "rnn_weight", (10, 6)),
+    ("bilinear", "Bilinear", {}, "up_weight", (2, 1, 4, 4)),
+    ("lstm_bias", "LSTMBias", {"forget_bias": 2.0}, "lstm_weight", (16,)),
+    ("bias_suffix", "Xavier", {}, "fc_bias", (7,)),
+    ("gamma_suffix", "Xavier", {}, "ln_gamma", (7,)),
+    ("beta_suffix", "Xavier", {}, "ln_beta", (7,)),
+]
+
+
+@pytest.mark.parametrize("cls,kwargs,pname,shape",
+                         [c[1:] for c in INIT_CASES],
+                         ids=[c[0] for c in INIT_CASES])
+def test_initializer_matches_jax_bit_for_bit(cls, kwargs, pname, shape):
+    out = []
+    for mx, init in ((jmx, jinit), (tmx, tinit)):
+        mx.random.seed(42)
+        kw = {"ctx": tmx.cpu()} if mx is tmx else {}
+        arr = mx.nd.zeros(shape, **kw)
+        getattr(init, cls)(**kwargs)(init.InitDesc(pname), arr)
+        out.append(arr.asnumpy())
+    assert out[0].dtype == out[1].dtype == np.float32
+    np.testing.assert_array_equal(out[1], out[0])
+
+
+def test_initializer_registry_and_dumps_match_jax():
+    for spec in ("xavier", "zeros", '["normal", {"sigma": 0.2}]',
+                 {"initializer": "uniform", "scale": 0.5}):
+        j, t = jinit.create(spec), tinit.create(spec)
+        assert type(t).__name__ == type(j).__name__
+        assert t.dumps() == j.dumps()
+    assert tinit.create("xavier", magnitude=2).magnitude == 2.0
+    with pytest.raises(ValueError, match="Unknown initialization"):
+        tinit.Xavier()(tinit.InitDesc("mystery"), tmx.nd.zeros(
+            (2, 2), ctx=tmx.cpu()))
