@@ -27,7 +27,18 @@ Phases (any failure exits non-zero; no phase is caught):
    and 10 timed ones, a finite and falling loss, and 4 launches of each
    flash kernel per step; plus a small f32 LM whose one-step parameters
    on the card must match the same step on the CPU;
-6. one JSON line of every ported kernel, then the result line.
+6. BatchNorm kernels: each of the four (stats, apply, backward reduce,
+   dx) against its plain version on the card at the 12 BatchNorm shapes
+   of a ResNet-50 step at batch 128 and at edge shapes, timed at
+   ResNet-50's stage-2 shape beside its bound and F.batch_norm's
+   forward and backward as the pair yardsticks;
+7. ResNet path: the ``entry()`` twin (ResNet-50 inference, card against
+   CPU), a small f32 ResNet's SGD step on the BatchNorm kernels (card
+   against CPU, parameters and moving stats), then bench.py's ResNet-50
+   step (batch 128 x 3x224x224, bf16 compute, SGD momentum with wd)
+   through make_train_step with ``MXNET_BN_PALLAS=1`` (50 launches of
+   each BatchNorm kernel per step) and with it off (none);
+8. one JSON line of every ported kernel, then the result line.
 
 It imports nothing of JAX or of ``mxnet_tpu``. Without CUDA, or run
 outside the repository, it fails before printing any result.
@@ -86,7 +97,8 @@ def ptxas_summary(log):
     out, fn, spill = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?(flash_(?:fwd|dq|dkv)_"
-                      r"(?:bf16|f32))(?:ILi(\d+)E)?", line)
+                      r"(?:bf16|f32)|bn_(?:stats|apply|bwd_reduce|bwd_dx)_"
+                      r"(?:bf16|f32)|bn_finalize)(?:ILi(\d+)E)?", line)
         if m:   # the mangled name: ...<name>[ILi<DP>E]...
             fn = m.group(1) + ("<%s>" % m.group(2) if m.group(2) else "")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -404,8 +416,16 @@ def reference_check():
 
 
 # kernel-name substrings -> the kind of work, for the profile summary
+# (first match wins)
 PROFILE_GROUPS = (
     ("flash kernels (this port)", ("flash_fwd", "flash_dq", "flash_dkv")),
+    ("BatchNorm kernels (this port)", ("bn_stats", "bn_apply",
+                                       "bn_bwd_reduce", "bn_bwd_dx",
+                                       "bn_finalize")),
+    ("convolution (cuDNN)", ("fprop", "dgrad", "wgrad", "cudnn",
+                             "implicit_gemm", "nchwToNhwc", "nhwcToNchw",
+                             "conv2d", "Conv")),
+    ("pooling", ("pool", "Pool")),
     ("cuBLAS GEMM", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("softmax", ("SoftMax", "softmax")),
     ("reductions", ("reduce_kernel",)),
@@ -568,8 +588,6 @@ def path_phase(counters):
 # bounds of the TPU kernels not ported yet (PERF.md's kernel table)
 # ---------------------------------------------------------------------------
 
-# ResNet-50's stage-2 BatchNorm input, bf16 (benchmark/bench_bn.py SHAPES)
-BN_SHAPE = (128, 256, 56, 56)
 # SSD's anchors per image (mxnet_tpu/ops/nms_pallas.py), f32 corner boxes
 NMS_ANCHORS = 8732
 NMS_OPS_PER_PAIR = 15   # IoU (8 min/max/sub, mul, 2 add/sub, div), >=,
@@ -577,21 +595,10 @@ NMS_OPS_PER_PAIR = 15   # IoU (8 min/max/sub, mul, 2 add/sub, div), >=,
 
 
 def pending_bounds():
-    """The least time on this card of each TPU kernel still to port, at
-    the shape its caller gives it: the BatchNorm kernels move x (and dy,
-    dx) once each in bf16, so they are bound by bytes; greedy NMS over A
-    boxes reads 4 f32 coordinates, a class and a keep flag per box and
-    evaluates at least A(A-1)/2 IoU tests on the f32 CUDA cores."""
-    x_bytes = 2 * int(np.prod(BN_SHAPE))
-    for name, line, tensors in (("_stats_kernel", 50, 1),
-                                ("_apply_kernel", 66, 2),
-                                ("_bwd_reduce_kernel", 72, 2),
-                                ("_bwd_dx_kernel", 88, 3)):
-        say("bound (not ported): mxnet_tpu/ops/bn_pallas.py:%d %s at %s "
-            "bf16: %.4f ms (bytes: %d tensors of %.1f MB)" % (
-                line, name, "x".join(map(str, BN_SHAPE)),
-                tensors * x_bytes / PEAK_BYTES_PER_S * 1e3, tensors,
-                x_bytes / 1e6))
+    """The least time on this card of the TPU kernel still to port, at
+    the shape its caller gives it: greedy NMS over A boxes reads 4 f32
+    coordinates, a class and a keep flag per box and evaluates at least
+    A(A-1)/2 IoU tests on the f32 CUDA cores."""
     A = NMS_ANCHORS
     t_ops = NMS_OPS_PER_PAIR * A * (A - 1) / 2 / PEAK_F32_FLOPS * 1e3
     t_bytes = 4 * A * (4 + 1 + 1 + 1) / PEAK_BYTES_PER_S * 1e3
@@ -605,9 +612,9 @@ def pending_bounds():
 # train path
 # ---------------------------------------------------------------------------
 
-def lm_nll(probs, labels):
-    """Mean next-token NLL of (B*T, V) probabilities on the card, over
-    the labels that are not -1."""
+def mean_nll(probs, labels):
+    """Mean NLL of (rows, classes) probabilities on the card at the
+    labels that are not -1 (the LM's (B*T, V) rows, ResNet's (B, 1000))."""
     import torch
     lab = labels.reshape(-1).long()
     valid = lab >= 0
@@ -699,7 +706,7 @@ def train_phase(counters):
             state, outs = step(state, batch, TRAIN_LR, i)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
-        nlls.append(lm_nll(outs[0], batch["softmax_label"]))
+        nlls.append(mean_nll(outs[0], batch["softmax_label"]))
         del outs
     launches = {c.__name__: c.launches for c in counters}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -727,6 +734,412 @@ def train_phase(counters):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# BatchNorm kernel phase
+# ---------------------------------------------------------------------------
+
+# ResNet-50's stage-2 BatchNorm input, bf16 (benchmark/bench_bn.py SHAPES):
+# the shape the BatchNorm kernels are timed at
+BN_SHAPE = (128, 256, 56, 56)
+# (C, H*W) of the BatchNorms of a ResNet-50 v2 step at 3x224x224
+RESNET50_BN_SHAPES = ((64, 112 * 112), (64, 56 * 56), (256, 56 * 56),
+                      (128, 56 * 56), (128, 28 * 28), (512, 28 * 28),
+                      (256, 28 * 28), (256, 14 * 14), (1024, 14 * 14),
+                      (512, 14 * 14), (512, 7 * 7), (2048, 7 * 7))
+# (label, N, C, HW, dtype, shift): those shapes at batch 128 in bf16, two
+# of them in f32, and edge shapes: N = 1; HW = 1; HW = 49 with C = 3;
+# |mean| / std = 1e3 (unit-variance data about `shift`)
+BN_CASES = ([("r50_c%d_hw%d" % (c, hw), 128, c, hw, "bfloat16", 0.0)
+             for c, hw in RESNET50_BN_SHAPES]
+            + [("f32_c256_hw3136", 128, 256, 3136, "float32", 0.0),
+               ("f32_c2048_hw49", 128, 2048, 49, "float32", 0.0),
+               ("n1", 1, 256, 3136, "bfloat16", 0.0),
+               ("hw1", 128, 2048, 1, "bfloat16", 0.0),
+               ("hw49_c3", 16, 3, 49, "bfloat16", 0.0),
+               ("large_mean_f32", 32, 64, 196, "float32", 1e3),
+               ("large_mean_bf16", 32, 64, 196, "bfloat16", 1e3)])
+# per-channel sums (stats, backward reduce) against the plain version's:
+# within this share of the sum of the terms' magnitudes (f32 sums taken
+# in another order). The elementwise passes (apply, dx) round the same
+# f32 arithmetic once: within BN_ELT_TOL (bf16: about two steps of its
+# 8-bit significand). The large-mean cases' variance, from the kernel's
+# shifted sums, within BN_VAR_RTOL of the float64 variance of the data.
+BN_SUM_RTOL = 1e-4
+BN_ELT_TOL = {"bfloat16": dict(atol=1e-2, rtol=1e-2),
+              "float32": dict(atol=1e-6, rtol=1e-6)}
+BN_VAR_RTOL = 1e-3
+# kernel -> (TPU kernel's line in bn_pallas.py, elements read or written
+# per element of x, (C,) f32 vectors read or written, f32 ops per element)
+BN_KERNELS = {"bn_stats": (50, 1, 3, 4),        # x; c, s1, s2; sub add mul add
+              "bn_apply": (66, 2, 2, 2),        # x, y; a, b; mul add
+              "bn_bwd_reduce": (72, 2, 3, 4),   # dy, x; mean, db, dxc
+              "bn_bwd_dx": (88, 3, 4, 5)}       # dy, x, dx; a, c2, b, mean
+
+
+def bn_bound(kernel, N, C, HW, dtype):
+    """(bound_ms, bound_by) of one BatchNorm kernel call: each input read
+    once and each output written once, against its f32 arithmetic on the
+    CUDA cores."""
+    _, tensors, chans, ops = BN_KERNELS[kernel]
+    elt = 2 if dtype == "bfloat16" else 4
+    n = N * C * HW
+    t_bytes = (tensors * elt * n + 4 * C * chans) / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops * n / PEAK_F32_FLOPS * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_sums(what, got, want, magnitude):
+    """Fail unless every per-channel sum in ``got`` is finite and within
+    BN_SUM_RTOL of its terms' magnitude of ``want``; returns the max abs
+    error."""
+    import torch
+    worst = 0.0
+    for g, w, m in zip(got, want, magnitude):
+        if not torch.isfinite(g).all():
+            fail("%s: non-finite sum" % what)
+        err = (g - w).abs()
+        worst = max(worst, float(err.max().item()))
+        if (err > BN_SUM_RTOL * m + 1e-6).any():
+            fail("%s: a per-channel sum beyond %g of its terms' magnitude "
+                 "(max abs err %g)" % (what, BN_SUM_RTOL, worst))
+    return worst
+
+
+def bn_kernel_phase():
+    """The four BatchNorm kernels against their plain versions on the
+    same card inputs (x, dy and the per-channel coefficients random; the
+    shift c the first sample's channel mean and `mean` the batch's, as
+    bn_train_kernels gives them), then timed at BN_SHAPE."""
+    import torch
+    from mxnet_tpu_torch.ops import bn_kernels as bnk
+
+    gen = torch.Generator(device="cuda").manual_seed(20261018)
+    records = []
+    for label, N, C, HW, dt, shift in BN_CASES:
+        dtype = getattr(torch, dt)
+        x = (torch.randn((N, C, HW), generator=gen, device="cuda")
+             + shift).to(dtype)
+        dy = torch.randn((N, C, HW), generator=gen, device="cuda").to(dtype)
+        a, b, c2 = (torch.randn(C, generator=gen, device="cuda")
+                    for _ in range(3))
+        c = x[0].float().mean(dim=1)
+        mean = x.float().mean(dim=(0, 2))
+        s = bnk.bn_stats_cuda(x, c)
+        y = bnk.bn_apply_cuda(x, a, b)
+        r = bnk.bn_bwd_reduce_cuda(dy, x, mean)
+        dx = bnk.bn_bwd_dx_cuda(dy, x, a, c2, b, mean)
+        torch.cuda.synchronize()
+        err = {}
+        xc = x.float() - c[None, :, None]
+        err["bn_stats"] = check_sums(
+            "bn_stats %s" % label, s, bnk._stats_reference(x, c),
+            (xc.abs().sum(dim=(0, 2)), (xc * xc).sum(dim=(0, 2))))
+        del xc
+        dyf, xm = dy.float(), x.float() - mean[None, :, None]
+        err["bn_bwd_reduce"] = check_sums(
+            "bn_bwd_reduce %s" % label, r,
+            bnk._bwd_reduce_reference(dy, x, mean),
+            (dyf.abs().sum(dim=(0, 2)), (dyf * xm).abs().sum(dim=(0, 2))))
+        del dyf, xm
+        err["bn_apply"] = check_close("bn_apply %s" % label, y,
+                                      bnk._apply_reference(x, a, b),
+                                      BN_ELT_TOL[dt])
+        err["bn_bwd_dx"] = check_close(
+            "bn_bwd_dx %s" % label, dx,
+            bnk._bwd_dx_reference(dy, x, a, c2, b, mean), BN_ELT_TOL[dt])
+        if dx.dtype != dtype or y.dtype != dtype:
+            fail("bn %s: y %s and dx %s, not %s" % (label, y.dtype,
+                                                    dx.dtype, dtype))
+        var_note = ""
+        if shift:
+            m = N * HW
+            mean_s = s[0] / m
+            var = (s[1] / m - mean_s * mean_s).double()
+            var64 = x.double().var(dim=(0, 2), unbiased=False)
+            rel = float(((var - var64).abs() / var64).max().item())
+            if rel > BN_VAR_RTOL:
+                fail("bn_stats %s: variance from the shifted sums %g off "
+                     "the float64 variance (relative)" % (label, rel))
+            var_note = ", variance vs float64 %.3g (relative)" % rel
+        say("kernel bn %-17s N=%d C=%d HW=%d %s: max_abs_err stats %.3g "
+            "apply %.3g bwd_reduce %.3g bwd_dx %.3g%s" % (
+                label, N, C, HW, dt, err["bn_stats"], err["bn_apply"],
+                err["bn_bwd_reduce"], err["bn_bwd_dx"], var_note))
+        if (N, C, HW, dt) == (BN_SHAPE[0], BN_SHAPE[1],
+                              BN_SHAPE[2] * BN_SHAPE[3], "bfloat16"):
+            records = bn_timing(x, dy, a, b, c2, c, mean, err)
+        del x, dy, y, dx, s, r
+    torch.cuda.empty_cache()
+    return records
+
+
+def bn_timing(x, dy, a, b, c2, c, mean, err):
+    """Each BatchNorm kernel's time at BN_SHAPE beside its plain
+    version's and its bound; F.batch_norm(training=True)'s forward is
+    the library yardstick of the stats + apply pair, its backward (dx,
+    dgamma, dbeta) that of the bwd_reduce + bwd_dx pair."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import bn_kernels as bnk
+
+    N, C, HW = x.shape
+    calls = {
+        "bn_stats": (lambda: bnk.bn_stats_cuda(x, c),
+                     lambda: bnk._stats_reference(x, c)),
+        "bn_apply": (lambda: bnk.bn_apply_cuda(x, a, b),
+                     lambda: bnk._apply_reference(x, a, b)),
+        "bn_bwd_reduce": (lambda: bnk.bn_bwd_reduce_cuda(dy, x, mean),
+                          lambda: bnk._bwd_reduce_reference(dy, x, mean)),
+        "bn_bwd_dx": (lambda: bnk.bn_bwd_dx_cuda(dy, x, a, c2, b, mean),
+                      lambda: bnk._bwd_dx_reference(dy, x, a, c2, b,
+                                                    mean)),
+    }
+    x4 = x.view(BN_SHAPE).detach().requires_grad_()
+    g4 = torch.ones(C, device="cuda", requires_grad=True)
+    b4 = torch.zeros(C, device="cuda", requires_grad=True)
+    lib_fwd = time_ms(lambda: F.batch_norm(x4, None, None, g4, b4,
+                                           training=True, eps=2e-5))
+    out = F.batch_norm(x4, None, None, g4, b4, training=True, eps=2e-5)
+    dy4 = dy.view(BN_SHAPE)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(out, (x4, g4, b4), dy4,
+                                                  retain_graph=True))
+    del out, x4
+    records = []
+    for name, (kernel, plain) in calls.items():
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain)
+        bound, by = bn_bound(name, N, C, HW, "bfloat16")
+        pair_lib = lib_fwd if name in ("bn_stats", "bn_apply") else lib_bwd
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/bn_train.cu",
+            "replaces": "mxnet_tpu/ops/bn_pallas.py:%d" % BN_KERNELS[name][0],
+            "launches": None, "max_abs_err": err[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "pair_library_ms": pair_lib})
+        say("kernel %s %s timing: kernel %.4f ms, plain %.4f ms, bound "
+            "%.4f ms (%s)" % (name, "x".join(map(str, BN_SHAPE)), ms,
+                              plain_ms, bound, by))
+    t = {r["name"]: r["ms"] for r in records}
+    say("kernel bn pairs at %s bf16: stats + apply %.4f ms (library "
+        "F.batch_norm forward %.4f ms); bwd_reduce + bwd_dx %.4f ms "
+        "(library F.batch_norm backward %.4f ms)" % (
+            "x".join(map(str, BN_SHAPE)), t["bn_stats"] + t["bn_apply"],
+            lib_fwd, t["bn_bwd_reduce"] + t["bn_bwd_dx"], lib_bwd))
+    return records
+
+
+# ---------------------------------------------------------------------------
+# ResNet path
+# ---------------------------------------------------------------------------
+
+# bench.py's ResNet-50 step (bench_image, --network resnet-50, bf16)
+RESNET_LAYERS, RESNET_IMAGE, RESNET_BATCH, RESNET_LR = 50, 224, 128, 0.1
+RESNET_CLASSES = 1000
+# the entry() twin (__graft_entry__.entry: ResNet-50, 3x96x96, batch 8)
+ENTRY_LAYERS, ENTRY_IMAGE, ENTRY_BATCH = 50, 96, 8
+ENTRY_TOL = dict(rtol=1e-4, atol=1e-6)
+# the small f32 ResNet whose one step on the card is held to the CPU's
+SMALL_LAYERS, SMALL_IMAGE, SMALL_BATCH = 18, 64, 4
+SMALL_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def resnet_entry_twin():
+    """__graft_entry__.entry()'s forward in the port: ResNet-50 (1000
+    classes, 3x96x96, batch 8, f32, Xavier() from mx.random.seed(0)),
+    inference through _graph_eval_fn(is_train=False) on the card and on
+    the CPU from the same state. entry() feeds zeros; seeded normals
+    here make the comparison see the data."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.executor import _graph_eval_fn
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.parallel import make_train_step
+
+    B, S = ENTRY_BATCH, ENTRY_IMAGE
+    sym = resnet.get_symbol(num_classes=1000, num_layers=ENTRY_LAYERS,
+                            image_shape=(3, S, S))
+    eval_fn = _graph_eval_fn(sym)
+    feed = {"data": np.random.RandomState(10).standard_normal(
+        (B, 3, S, S)).astype(np.float32),
+        "softmax_label": np.zeros((B,), np.float32)}
+    outs = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        step = make_train_step(sym, ctx=ctx)
+        mx.random.seed(0)
+        params, _, aux = step.init_state(Xavier(), {
+            "data": (B, 3, S, S), "softmax_label": (B,)})
+        with torch.no_grad():
+            probs = eval_fn({**params, **step.place_batch(feed)}, aux, 0,
+                            False)[0][0]
+        outs.append(probs.float().cpu().numpy())
+    card, host = outs
+    if card.shape != (B, 1000) or not np.isfinite(card).all():
+        fail("entry() twin: card probabilities of shape %r, finite %s"
+             % (card.shape, np.isfinite(card).all()))
+    sums = card.sum(axis=1, dtype=np.float64)
+    err = float(np.abs(card - host).max())
+    if np.abs(sums - 1).max() > 1e-4 or not np.allclose(card, host,
+                                                        **ENTRY_TOL):
+        fail("entry() twin: card vs CPU max abs err %g (rows sum to "
+             "%g..%g)" % (err, sums.min(), sums.max()))
+    say("resnet reference: entry() twin (ResNet-%d, %dx3x%dx%d, f32) card "
+        "vs CPU probabilities max abs err %.3g (rtol %g, atol %g); top "
+        "probability %.3g" % (ENTRY_LAYERS, B, S, S, err, ENTRY_TOL["rtol"],
+                              ENTRY_TOL["atol"], float(card.max())))
+
+
+def resnet_train_reference_check():
+    """A small f32 ResNet (v2, SMALL_LAYERS deep) on the BatchNorm
+    kernels: one SGD-momentum step with wd on the card must give the
+    parameters and moving stats the same step gives on the CPU (the
+    kernels' plain versions), from one seeded init."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.parallel import make_train_step
+
+    B, S = SMALL_BATCH, SMALL_IMAGE
+    sym = resnet.get_symbol(num_classes=10, num_layers=SMALL_LAYERS,
+                            image_shape=(3, S, S))
+    rng = np.random.RandomState(11)
+    batch = {"data": rng.standard_normal((B, 3, S, S)).astype(np.float32),
+             "softmax_label": rng.randint(0, 10, (B,)).astype(np.float32)}
+    # the BatchNorm op reads the knob at each call
+    config.set_override("MXNET_BN_PALLAS", True)
+    after = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        step = make_train_step(sym, optimizer="sgd", ctx=ctx,
+                               optimizer_params={"momentum": 0.9,
+                                                 "wd": 1e-4})
+        mx.random.seed(7)
+        state = step.init_state(Xavier(factor_type="in", magnitude=2.0),
+                                {"data": (B, 3, S, S),
+                                 "softmax_label": (B,)})
+        (params, _, aux), _ = step(state, batch, 0.1, 0)
+        after.append({**{n: v.cpu().numpy() for n, v in params.items()},
+                      **{"aux " + n: v.cpu().numpy()
+                         for n, v in aux.items()}})
+    config.set_override("MXNET_BN_PALLAS", None)
+    worst = 0.0
+    for n, w in after[0].items():
+        worst = max(worst, float(np.abs(w - after[1][n]).max()))
+        if not np.isfinite(w).all() or not np.allclose(w, after[1][n],
+                                                       **SMALL_TOL):
+            fail("small f32 ResNet step: %s on the card differs from the "
+                 "CPU by %g" % (n, np.abs(w - after[1][n]).max()))
+    say("resnet reference: small f32 ResNet-%d (%dx3x%dx%d) one SGD step on "
+        "the BatchNorm kernels, card vs CPU, %d parameters and moving "
+        "stats: max abs err %.3g (rtol %g, atol %g)" % (
+            SMALL_LAYERS, B, S, S, len(after[0]), worst, SMALL_TOL["rtol"],
+            SMALL_TOL["atol"]))
+
+
+def resnet_train_run(kernels, counters):
+    """bench.py's ResNet-50 step through make_train_step -> init_state ->
+    step, with MXNET_BN_PALLAS on (``kernels``) or off: 2 warm steps (the
+    second profiled) and 10 timed ones on the same batch. Fails unless
+    the NLL at the labels is finite and falls, the moving stats stay
+    finite, and each BatchNorm kernel ran once per BatchNorm per step
+    (kernel route) or never (default route). Returns the launch counts."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.parallel import make_train_step
+
+    route = "kernel route" if kernels else "default route"
+    B, S = RESNET_BATCH, RESNET_IMAGE
+    t0 = time.perf_counter()
+    sym = resnet.get_symbol(num_classes=RESNET_CLASSES,
+                            num_layers=RESNET_LAYERS, image_shape=(3, S, S))
+    n_bn = sum(n["op"] == "BatchNorm"
+               for n in json.loads(sym.tojson())["nodes"])
+    step = make_train_step(sym, optimizer="sgd",
+                           optimizer_params={"momentum": 0.9, "wd": 1e-4,
+                                             "rescale_grad": 1.0 / B},
+                           compute_dtype="bfloat16")
+    x = np.random.RandomState(0).standard_normal((B, 3, S, S)).astype(
+        np.float32)
+    y = np.random.RandomState(1).randint(0, RESNET_CLASSES, (B,)).astype(
+        np.float32)
+    mx.random.seed(0)
+    state = step.init_state(Xavier(factor_type="in", magnitude=2.0),
+                            {"data": (B, 3, S, S), "softmax_label": (B,)})
+    batch = step.place_batch({"data": x, "softmax_label": y})
+    nparam = sum(v.numel() for v in state[0].values())
+    say("resnet %s: ResNet-%d v2 %d params (%.1f M), %d BatchNorms, batch "
+        "%d x 3x%dx%d, SGD momentum 0.9 wd 1e-4 lr %g, bf16 compute, "
+        "MXNET_BN_PALLAS=%d, on %s, set up in %.1f s" % (
+            route, RESNET_LAYERS, nparam, nparam / 1e6, n_bn, B, S, S,
+            RESNET_LR, int(kernels), step.device, time.perf_counter() - t0))
+
+    config.set_override("MXNET_BN_PALLAS", kernels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    nlls, times = [], []
+    for i in range(WARM_STEPS + TIMED_STEPS):
+        t = time.perf_counter()
+        if i == 1:   # the second warm step, under the profiler
+            state, outs = profile("resnet step, %s (warm)" % route,
+                                  lambda: step(state, batch, RESNET_LR, i),
+                                  top=14)
+        else:
+            state, outs = step(state, batch, RESNET_LR, i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        nlls.append(mean_nll(outs[0], batch["softmax_label"]))
+        del outs
+    launches = {c.__name__: c.launches for c in counters}
+    config.set_override("MXNET_BN_PALLAS", None)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = WARM_STEPS + TIMED_STEPS
+    step_ms = statistics.median(times[WARM_STEPS:])
+    say("resnet %s: NLL per step %s" % (route, " ".join("%.4f" % v
+                                                        for v in nlls)))
+    say("resnet %s: step %.2f ms (median of %d timed steps; all: %s), %.1f "
+        "img/s, peak device memory %.2f GB" % (
+            route, step_ms, TIMED_STEPS, " ".join("%.1f" % v for v in times),
+            B / step_ms * 1e3, peak_gb))
+    if not all(np.isfinite(nlls)):
+        fail("resnet %s: non-finite NLL %r" % (route, nlls))
+    if not nlls[-1] < nlls[0]:
+        fail("resnet %s: NLL did not fall: first %g, last %g"
+             % (route, nlls[0], nlls[-1]))
+    bad = [n for n, v in state[2].items() if not torch.isfinite(v).all()]
+    if bad:
+        fail("resnet %s: non-finite moving stats %s" % (route, bad[:4]))
+    want = n_bn * steps if kernels else 0
+    for name, n in launches.items():
+        if n != want:
+            fail("resnet %s: %s launched %d times, not %d" % (
+                route, name, n, want))
+    say("resnet %s: launches %s (%d BatchNorms x %d steps each on the "
+        "kernel route, none on the default route); %d moving stats "
+        "finite" % (route, ", ".join("%s %d" % kv for kv in
+                                     sorted(launches.items())),
+                    n_bn, steps, len(state[2])))
+    del state, batch, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def resnet_phase(counters):
+    """The ResNet path: the entry() twin and the small step's card-vs-CPU
+    check, then bench.py's ResNet-50 step on the BatchNorm kernels and
+    on the default two-pass BatchNorm. Returns each run's launch counts
+    by path."""
+    resnet_entry_twin()
+    resnet_train_reference_check()
+    return {"resnet": resnet_train_run(True, counters),
+            "resnet_default": resnet_train_run(False, counters)}
+
+
 def main():
     try:
         import torch
@@ -741,6 +1154,7 @@ def main():
     import mxnet_tpu_torch  # noqa: F401
     from mxnet_tpu_torch import _kernels
     from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.ops import bn_kernels as bnk
 
     t_start = time.perf_counter()
     smi = smi_line()
@@ -757,11 +1171,13 @@ def main():
         for line in ptxas_summary(info["log"]):
             say("build: %s: %s" % (name, line))
 
-    records = kernel_phase() + bwd_kernel_phase()
+    records = kernel_phase() + bwd_kernel_phase() + bn_kernel_phase()
     pending_bounds()
     by_path = {"serve": path_phase([att.flash_fwd_cuda]),
                "train": train_phase([att.flash_fwd_cuda, att.flash_dq_cuda,
-                                     att.flash_dkv_cuda])}
+                                     att.flash_dkv_cuda]),
+               **resnet_phase([bnk.bn_stats_cuda, bnk.bn_apply_cuda,
+                               bnk.bn_bwd_reduce_cuda, bnk.bn_bwd_dx_cuda])}
     for rec in records:
         counts = {path: launches[rec["name"] + "_cuda"]
                   for path, launches in by_path.items()

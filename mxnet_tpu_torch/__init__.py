@@ -70,4 +70,5 @@ from .predictor import Predictor  # noqa: E402
 from . import serve  # noqa: E402
 from . import models  # noqa: E402
 from . import convert  # noqa: E402
+from . import model  # noqa: E402
 from . import parallel  # noqa: E402

@@ -28,7 +28,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 # kernel library name -> its source under csrc/
-SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu"}
+SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
+           "bn_train": "bn_train.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -115,6 +116,28 @@ def _declare(name, lib):
                                                              # window offset
                                   c_i, c_p]                  # dtype stream
         lib.flash_dkv.restype = c_i
+    elif name == "bn_train":
+        lib.bn_slabs.argtypes = [c_i, c_i, c_i]              # n c hw
+        lib.bn_slabs.restype = c_i
+        lib.bn_stats.argtypes = [c_p, c_p, c_p, c_p, c_p,    # x shift s1 s2
+                                                             # work
+                                 c_i, c_i, c_i, c_i, c_p]    # n c hw dtype
+                                                             # stream
+        lib.bn_stats.restype = c_i
+        lib.bn_apply.argtypes = [c_p, c_p, c_p, c_p,         # x a b y
+                                 c_i, c_i, c_i, c_i, c_p]    # n c hw dtype
+                                                             # stream
+        lib.bn_apply.restype = c_i
+        lib.bn_bwd_reduce.argtypes = [c_p, c_p, c_p,         # dy x mean
+                                      c_p, c_p, c_p,         # db dxc work
+                                      c_i, c_i, c_i, c_i,    # n c hw dtype
+                                      c_p]                   # stream
+        lib.bn_bwd_reduce.restype = c_i
+        lib.bn_bwd_dx.argtypes = [c_p, c_p, c_p, c_p, c_p,   # dy x a c2 b
+                                  c_p, c_p,                  # mean dx
+                                  c_i, c_i, c_i, c_i, c_p]   # n c hw dtype
+                                                             # stream
+        lib.bn_bwd_dx.restype = c_i
     lib.kernel_error_string.argtypes = [c_i]
     lib.kernel_error_string.restype = ctypes.c_char_p
 

@@ -3,7 +3,9 @@
 The PyTorch twin of ``mxnet_tpu/config.py``: the same resolution rules
 (override > environment > default) and the same knob names, declared
 here for the knobs the port reads. Later slices declare theirs as they
-port the code that reads them.
+port the code that reads them. Ops read their knobs through :func:`get`
+at call time, as the JAX ops read ``os.environ`` at call time, so one
+process can run an op under either value.
 """
 from __future__ import annotations
 
@@ -117,3 +119,19 @@ define("MXNET_SERVE_DEADLINE_MS", float, 0.0,
        "default per-request serving deadline: a request still queued "
        "past it fails with the typed RequestTimeout (0 = no deadline; "
        "submit(deadline_ms=) overrides per request)")
+define("MXNET_POOL_DENSE_BWD", bool, False,
+       "2-D max-pool backward as kh*kw dense passes that split the "
+       "gradient among tied maxima, instead of one winner per window "
+       "(experiment)")
+define("MXNET_BN_IMPL", str, "",
+       "training BatchNorm impl: empty = two-pass statistics with autograd "
+       "backward (default) | onepass = the shifted one-pass core with its "
+       "closed-form backward (experiment)")
+define("MXNET_BN_STATS", str, "",
+       "training BN statistics on the default route: empty = reductions "
+       "(default) | dot = sums as contractions | auto = contractions only "
+       "where C >= 2*H*W and H*W >= 128 (experiments)")
+define("MXNET_BN_PALLAS", bool, False,
+       "route 4-D NCHW training BatchNorm (axis 1) through the hand-written "
+       "CUDA kernels of csrc/bn_train.cu on the card (their plain PyTorch "
+       "versions on the CPU); the name is the JAX package's")

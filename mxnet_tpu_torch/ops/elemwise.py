@@ -1,5 +1,5 @@
-"""Elementwise ops of the serving slice: ``broadcast_add`` (and its
-aliases) and ``_plus_scalar``, with the semantics of
+"""Elementwise ops ported so far: ``broadcast_add`` (and its aliases),
+``_plus_scalar`` and ``_copy`` (``identity``), with the semantics of
 ``mxnet_tpu/ops/elemwise.py``. The rest of that file's ops wait for the
 op-catalog slice (ROADMAP Queue A item 2).
 """
@@ -24,3 +24,8 @@ def _plus_scalar(x, scalar=0.0, **_):
     # an int tensor stays int, and a bf16 tensor adds the bf16-rounded
     # scalar
     return x + torch.as_tensor(scalar, dtype=x.dtype, device=x.device)
+
+
+@register("_copy", arg_names=("data",), aliases=("identity",))
+def _copy(x, **_):
+    return x

@@ -1,5 +1,6 @@
-"""Shape ops of the serving slice — ``reshape`` (with the MXNet special
-codes and ``reverse``), ``transpose``, ``expand_dims``, ``slice_axis`` —
+"""Shape ops ported so far — ``reshape`` (with the MXNet special codes
+and ``reverse``), ``Flatten``, ``transpose``, ``expand_dims``,
+``slice_axis`` —
 with the semantics of ``mxnet_tpu/ops/matrix.py``. The rest of that
 file's ops wait for the op-catalog slice (ROADMAP Queue A item 2).
 """
@@ -53,6 +54,11 @@ def _reshape(x, shape=(), reverse=False, **_):
     if not shape:
         return x
     return x.reshape(_reshape_target(tuple(x.shape), shape, reverse))
+
+
+@register("Flatten", arg_names=("data",), aliases=("flatten",))
+def _flatten(x, **_):
+    return x.reshape(x.shape[0], -1)
 
 
 @register("transpose", arg_names=("data",), defaults={"axes": ()})

@@ -1,7 +1,8 @@
 """Symbolic-composition hooks for the ported ops: which tensor args an op
 exposes under given attrs, and backward shape inference for parameter
-variables. The rules are those of ``mxnet_tpu/ops/shape_hooks.py``; the
-hooks of ops not ported yet arrive with their ops.
+(and aux) variables. The rules are those of
+``mxnet_tpu/ops/shape_hooks.py``; the hooks of ops not ported yet
+(Deconvolution, InstanceNorm, ...) arrive with their ops.
 """
 from __future__ import annotations
 
@@ -36,6 +37,44 @@ def _fc_shapes(shapes, attrs):
 
 
 set_param_shapes("FullyConnected", _fc_shapes)
+
+
+# -- Convolution ------------------------------------------------------------
+
+set_arg_select("Convolution", lambda a: (
+    ("data", "weight") if a.get("no_bias") else ("data", "weight", "bias")))
+
+
+def _conv_shapes(shapes, attrs):
+    data = shapes[0]
+    if data is None:
+        return shapes
+    kernel = tuple(int(k) for k in attrs.get("kernel", ()))
+    nf = int(attrs.get("num_filter", 0))
+    ng = int(attrs.get("num_group", 1))
+    out = list(shapes)
+    if len(out) > 1 and out[1] is None:
+        out[1] = (nf, data[1] // ng) + kernel
+    if len(out) > 2 and out[2] is None:
+        out[2] = (nf,)
+    return out
+
+
+set_param_shapes("Convolution", _conv_shapes)
+
+
+# -- BatchNorm: gamma, beta and the aux moving stats are (C,) ---------------
+
+def _bn_shapes(shapes, attrs):
+    data = shapes[0]
+    if data is None:
+        return shapes
+    axis = int(attrs.get("axis", 1)) % len(data)
+    c = (data[axis],)
+    return [data] + [c if s is None else s for s in shapes[1:]]
+
+
+set_param_shapes("BatchNorm", _bn_shapes)
 
 
 # -- LayerNorm --------------------------------------------------------------

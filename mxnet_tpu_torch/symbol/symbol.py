@@ -50,7 +50,7 @@ class _Node:
 def _num_outputs(opdef, attrs):
     """Visible output count for an op under given attrs (reference:
     nnvm num_outputs/num_visible_outputs registration)."""
-    if opdef.name == "LayerNorm":
+    if opdef.name in ("BatchNorm", "LayerNorm"):
         return 3 if attrs.get("output_mean_var") else 1
     if opdef.num_visible is not None:
         return opdef.num_visible

@@ -1,6 +1,7 @@
-"""The port's flash kernels (forward, dq, dk/dv) and their wrappers,
-without the JAX package: importable where only PyTorch is installed, as
-on the card's machine, where
+"""The port's CUDA kernels (flash forward, dq, dk/dv; the four BatchNorm
+training kernels) and their wrappers, without the JAX package:
+importable where only PyTorch is installed, as on the card's machine,
+where
 
     python -m pytest --noconftest tests/test_torch_kernels.py
 
@@ -9,7 +10,10 @@ kernel against its plain version (``_flash_fwd_reference``,
 ``_flash_dq_reference``, ``_flash_dkv_reference``; bf16 within 2e-2,
 compared in f32; f32 within rtol 1e-4 / atol 1e-5; lse within 1e-4) and
 skip on machines without a card; the rest pin the wrappers' contract and
-the plain versions' own rules.
+the plain versions' own rules. The BatchNorm kernels are held to their
+plain versions (``_stats_reference`` ...): the elementwise ones within
+rtol/atol 1e-6 in f32 and one bf16 step (rtol 1e-2) in bf16, the f32
+sums within 1e-4 of the sum of the terms' magnitudes per channel.
 """
 import numpy as np
 import pytest
@@ -17,6 +21,7 @@ import torch
 
 import mxnet_tpu_torch  # noqa: F401
 from mxnet_tpu_torch.ops import attention as tatt
+from mxnet_tpu_torch.ops import bn_kernels as tbn
 
 
 def _arrays(*shapes, seed=0):
@@ -202,3 +207,95 @@ def test_fully_masked_rows_get_zero_gradient():
                                      (q, k, v))
     assert torch.equal(dq[0, :5], torch.zeros(5, 8))
     assert all(torch.isfinite(g).all() for g in (dq, dk, dv))
+
+
+# ---------------------------------------------------------------------------
+# the BatchNorm kernels against their plain versions (on the card only)
+# ---------------------------------------------------------------------------
+
+# (id, N, C, HW, dtype, scale, shift): 16-byte rows (HW % 8 == 0 in bf16,
+# % 4 in f32) and rows that are not (HW 49, 196 in bf16, 1), N = 1, odd C,
+# and |mean| / std = 1e3
+BN_CASES = [
+    ("bf16_56x56", 8, 64, 3136, torch.bfloat16, 1.0, 0.0),
+    ("bf16_14x14", 16, 96, 196, torch.bfloat16, 1.0, 0.5),
+    ("bf16_7x7", 8, 160, 49, torch.bfloat16, 2.0, 0.0),
+    ("bf16_n1_c3_hw49", 1, 3, 49, torch.bfloat16, 1.0, 0.0),
+    ("bf16_hw1", 64, 5, 1, torch.bfloat16, 1.0, 1.0),
+    ("f32_14x14", 4, 33, 196, torch.float32, 1.0, 0.0),
+    ("f32_7x7", 3, 7, 49, torch.float32, 1.0, 0.0),
+    ("f32_large_mean", 8, 4, 64, torch.float32, 1e-2, 10.0),
+    ("bf16_large_mean", 8, 4, 64, torch.bfloat16, 1.0, 1e3),
+]
+
+
+def _bn_inputs(N, C, HW, dtype, scale, shift, device):
+    gen = torch.Generator(device=device).manual_seed(2)
+    x = (torch.randn((N, C, HW), generator=gen, device=device) * scale
+         + shift).to(dtype)
+    dy = torch.randn((N, C, HW), generator=gen, device=device).to(dtype)
+    chans = [torch.randn(C, generator=gen, device=device) for _ in range(3)]
+    return x, dy, chans
+
+
+def _assert_sums_close(got, want, magnitude):
+    """Per channel, |got - want| within 1e-4 of the sum of the terms'
+    magnitudes (f32 sums in another order)."""
+    for g, w, m in zip(got, want, magnitude):
+        assert torch.all((g - w).abs() <= 1e-4 * m + 1e-6), \
+            ((g - w).abs().max().item(), m.max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,C,HW,dtype,scale,shift",
+                         [c[1:] for c in BN_CASES],
+                         ids=[c[0] for c in BN_CASES])
+def test_cuda_bn_kernels_match_plain_versions(cuda_device, N, C, HW, dtype,
+                                              scale, shift):
+    x, dy, (a, c2, b) = _bn_inputs(N, C, HW, dtype, scale, shift,
+                                   cuda_device)
+    c = x[0].float().mean(dim=1)             # the shift, as the op takes it
+    mean = x.float().mean(dim=(0, 2))
+    counts = {f: f.launches for f in (tbn.bn_stats_cuda, tbn.bn_apply_cuda,
+                                      tbn.bn_bwd_reduce_cuda,
+                                      tbn.bn_bwd_dx_cuda)}
+    s = tbn.bn_stats(x, c)
+    y = tbn.bn_apply(x, a, b)
+    r = tbn.bn_bwd_reduce(dy, x, mean)
+    dx = tbn.bn_bwd_dx(dy, x, a, c2, b, mean)
+    torch.cuda.synchronize()
+    assert all(f.launches == n + 1 for f, n in counts.items())
+    xc = x.float() - c[:, None]
+    _assert_sums_close(s, tbn._stats_reference(x, c),
+                       (xc.abs().sum(dim=(0, 2)),
+                        (xc * xc).sum(dim=(0, 2))))
+    dyf, xm = dy.float(), x.float() - mean[:, None]
+    _assert_sums_close(r, tbn._bwd_reduce_reference(dy, x, mean),
+                       (dyf.abs().sum(dim=(0, 2)),
+                        (dyf * xm).abs().sum(dim=(0, 2))))
+    tol = dict(rtol=1e-2, atol=1e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=1e-6, atol=1e-6)
+    assert y.dtype == dx.dtype == dtype
+    torch.testing.assert_close(y.float(), tbn._apply_reference(
+        x, a, b).float(), **tol)
+    torch.testing.assert_close(dx.float(), tbn._bwd_dx_reference(
+        dy, x, a, c2, b, mean).float(), **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_bn_train_kernels_match_plain_route(cuda_device):
+    """bn_train_kernels on the card against the same Function on the
+    CPU (the plain versions): outputs and gradients, f32."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((4, 6, 7, 7), generator=gen) * 2 + 1
+    g, b = torch.rand(6, generator=gen) + 0.5, torch.randn(6, generator=gen)
+    dy = torch.randn((4, 6, 7, 7), generator=gen)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        xs = [t.to(dev).requires_grad_() for t in (x, g, b)]
+        y, mean, var = tbn.bn_train_kernels(*xs, 1e-3)
+        grads = torch.autograd.grad((y * dy.to(dev)).sum() + mean.sum()
+                                    + var.sum(), xs)
+        outs.append([t.detach().cpu() for t in (y, mean, var, *grads)])
+    for got, want in zip(outs[1], outs[0]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)

@@ -116,6 +116,61 @@ CASES = [
     ("act_softrelu", "Activation", [_f32(3, 5) * 10],
      {"act_type": "softrelu"}),
     ("act_softsign", "Activation", [_f32(3, 5)], {"act_type": "softsign"}),
+    ("identity", "identity", [_f32(3, 4)], {}),
+    ("copy", "_copy", [_f32(2, 3, 2)], {}),
+    ("flatten", "Flatten", [_f32(2, 3, 4, 5)], {}),
+    ("flatten_alias", "flatten", [_f32(3, 7)], {}),
+    ("conv2d", "Convolution", [_f32(2, 3, 9, 8), _f32(4, 3, 3, 3, seed=1),
+                               _f32(4, seed=2)],
+     {"kernel": (3, 3), "num_filter": 4}),
+    ("conv2d_stride_pad_no_bias", "Convolution",
+     [_f32(2, 3, 11, 10), _f32(5, 3, 3, 3, seed=1)],
+     {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1), "num_filter": 5,
+      "no_bias": True}),
+    ("conv2d_stem", "Convolution", [_f32(1, 3, 20, 20),
+                                    _f32(4, 3, 7, 7, seed=1)],
+     {"kernel": (7, 7), "stride": (2, 2), "pad": (3, 3), "num_filter": 4,
+      "no_bias": True}),
+    ("conv2d_dilate_group", "Convolution",
+     [_f32(2, 4, 10, 9), _f32(6, 2, 3, 3, seed=1), _f32(6, seed=2)],
+     {"kernel": (3, 3), "dilate": (2, 1), "num_group": 2, "num_filter": 6}),
+    ("conv1d", "Convolution", [_f32(2, 3, 12), _f32(4, 3, 3, seed=1),
+                               _f32(4, seed=2)],
+     {"kernel": (3,), "stride": (2,), "pad": (1,), "num_filter": 4}),
+    ("conv3d", "Convolution", [_f32(1, 2, 5, 6, 5),
+                               _f32(3, 2, 2, 3, 2, seed=1), _f32(3, seed=2)],
+     {"kernel": (2, 3, 2), "stride": (1, 2, 1), "num_filter": 3}),
+    ("conv_v1_string_attrs", "Convolution_v1",
+     [_f32(1, 2, 6, 6), _f32(3, 2, 1, 1, seed=1)],
+     {"kernel": "(1, 1)", "num_filter": "3", "no_bias": "True"}),
+    ("pool_max", "Pooling", [_f32(2, 3, 9, 8)],
+     {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1)}),
+    ("pool_max_full", "Pooling", [_f32(2, 3, 10, 9)],
+     {"kernel": (3, 3), "stride": (2, 2), "pooling_convention": "full"}),
+    ("pool_max_big_pad", "Pooling", [_f32(1, 2, 7, 7)],
+     {"kernel": (2, 2), "stride": (1, 1), "pad": (2, 1)}),
+    ("pool_avg_pad", "Pooling", [_f32(2, 3, 7, 6)],
+     {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1),
+      "pool_type": "avg"}),
+    ("pool_avg_full", "Pooling", [_f32(1, 2, 8, 7)],
+     {"kernel": (3, 2), "stride": (2, 2), "pool_type": "avg",
+      "pooling_convention": "full"}),
+    ("pool_sum", "Pooling", [_f32(2, 3, 6, 6)],
+     {"kernel": (2, 2), "stride": (2, 1), "pool_type": "sum"}),
+    ("pool_global_avg", "Pooling", [_f32(2, 5, 7, 7)],
+     {"global_pool": True, "kernel": (7, 7), "pool_type": "avg"}),
+    ("pool_global_max", "Pooling_v1", [_f32(2, 5, 4, 3)],
+     {"global_pool": True, "pool_type": "max"}),
+    ("pool_1d", "Pooling", [_f32(2, 3, 11)],
+     {"kernel": (3,), "stride": (2,), "pad": (1,), "pool_type": "avg"}),
+    ("pool_3d", "Pooling", [_f32(1, 2, 5, 6, 5)],
+     {"kernel": (2, 2, 2), "stride": (2, 2, 2), "pool_type": "max"}),
+    ("batchnorm_inference", "BatchNorm",
+     [_f32(2, 3, 4, 5), _f32(3, seed=1), _f32(3, seed=2), _f32(3, seed=3),
+      np.abs(_f32(3, seed=4)) + 0.5], {"fix_gamma": False}),
+    ("batchnorm_v1_mean_var", "BatchNorm_v1",
+     [_f32(2, 3, 4), _f32(3, seed=1), _f32(3, seed=2), _f32(3, seed=3),
+      np.abs(_f32(3, seed=4)) + 0.5], {"output_mean_var": True}),
     ("softmax_output", "SoftmaxOutput", [_f32(6, 10) * 3, _ids((6,), 10)],
      {}),
     ("softmax_output_multi", "SoftmaxOutput",
@@ -197,6 +252,104 @@ def test_op_forward_matches_jax(name, inputs, attrs):
             np.testing.assert_allclose(t, j, rtol=RTOL, atol=ATOL)
         else:
             np.testing.assert_array_equal(t, j)
+
+
+def _relu_grid(shape, seed=0):
+    """Rounded relu outputs: many exact zeros and tied maxima."""
+    return np.maximum(np.round(_f32(*shape, seed=seed) * 2), 0)
+
+
+# (case id, op name, inputs, attrs, env) — forward AND gradient of every
+# float input against jax.vjp with one random cotangent
+GRAD_CASES = [
+    ("conv2d", "Convolution", [_f32(2, 3, 9, 8), _f32(4, 3, 3, 3, seed=1),
+                               _f32(4, seed=2)],
+     {"kernel": (3, 3), "stride": (2, 1), "pad": (1, 0), "num_filter": 4},
+     {}),
+    ("conv2d_group_dilate", "Convolution",
+     [_f32(2, 4, 8, 8), _f32(4, 2, 3, 3, seed=1)],
+     {"kernel": (3, 3), "dilate": (2, 2), "num_group": 2, "num_filter": 4,
+      "no_bias": True}, {}),
+    ("conv1d", "Convolution", [_f32(2, 3, 12), _f32(4, 3, 3, seed=1),
+                               _f32(4, seed=2)],
+     {"kernel": (3,), "pad": (1,), "num_filter": 4}, {}),
+    ("pool_max_stem", "Pooling", [_f32(2, 3, 9, 9)],
+     {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1)}, {}),
+    # ties: the default backward gives each window's FIRST maximum the
+    # whole gradient, in both packages
+    ("pool_max_ties", "Pooling", [_relu_grid((2, 3, 9, 9))],
+     {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1)}, {}),
+    ("pool_max_all_zero", "Pooling", [np.zeros((1, 2, 5, 5), np.float32)],
+     {"kernel": (3, 3), "stride": (2, 2)}, {}),
+    ("pool_max_full", "Pooling", [_relu_grid((2, 2, 10, 9), seed=3)],
+     {"kernel": (3, 3), "stride": (2, 2), "pooling_convention": "full"},
+     {}),
+    ("pool_max_big_pad", "Pooling", [_f32(1, 2, 7, 7)],
+     {"kernel": (2, 2), "stride": (1, 1), "pad": (2, 1)}, {}),
+    # MXNET_POOL_DENSE_BWD=1: ties split the gradient (dy / count each)
+    ("pool_max_dense_bwd_ties", "Pooling", [_relu_grid((2, 3, 9, 9))],
+     {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1)},
+     {"MXNET_POOL_DENSE_BWD": "1"}),
+    ("pool_max_dense_bwd_full", "Pooling", [_relu_grid((1, 2, 8, 7), 4)],
+     {"kernel": (2, 3), "stride": (2, 2), "pooling_convention": "full"},
+     {"MXNET_POOL_DENSE_BWD": "1"}),
+    ("pool_avg_pad", "Pooling", [_f32(2, 3, 7, 6)],
+     {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1),
+      "pool_type": "avg"}, {}),
+    ("pool_sum_full", "Pooling", [_f32(1, 2, 8, 7)],
+     {"kernel": (3, 3), "stride": (2, 2), "pool_type": "sum",
+      "pooling_convention": "full"}, {}),
+    ("pool_global_avg", "Pooling", [_f32(2, 5, 7, 7)],
+     {"global_pool": True, "kernel": (7, 7), "pool_type": "avg"}, {}),
+    ("flatten", "Flatten", [_f32(2, 3, 4, 5)], {}, {}),
+    ("identity", "identity", [_f32(3, 4)], {}, {}),
+    ("relu_ties", "Activation", [_relu_grid((4, 6)) - 1.0],
+     {"act_type": "relu"}, {}),
+]
+
+
+@pytest.mark.parametrize("name,inputs,attrs,env",
+                         [c[1:] for c in GRAD_CASES],
+                         ids=[c[0] for c in GRAD_CASES])
+def test_op_gradient_matches_jax(name, inputs, attrs, env, monkeypatch):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    jop, top = jreg.get_op(name), treg.get_op(name)
+    jattrs, tattrs = jreg.canon_attrs(jop, attrs), treg.canon_attrs(top,
+                                                                    attrs)
+    jout, vjp = jax.vjp(lambda *xs: jop.fn(*xs, **jattrs),
+                        *[jnp.asarray(x) for x in inputs])
+    txs = [torch.from_numpy(x.copy()).requires_grad_() for x in inputs]
+    tout = top.fn(*txs, **tattrs)
+    np.testing.assert_allclose(tout.detach().numpy(), np.asarray(jout),
+                               rtol=RTOL, atol=ATOL)
+    cot = _f32(*jout.shape, seed=9)
+    jgrads = vjp(jnp.asarray(cot))
+    tgrads = torch.autograd.grad(tout, txs, torch.from_numpy(cot))
+    for i, (t, j) in enumerate(zip(tgrads, jgrads)):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-5,
+                                   atol=1e-5, err_msg="input %d" % i)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_relu_gradient_at_exact_zero_matches_jax(dtype):
+    """jnp.maximum(x, 0) passes half the gradient to each side of a tie:
+    0.5 at an exact 0, in f32 and bf16 (torch.clamp_min would pass 1)."""
+    x = np.array([0.0, 1.0, -1.0, 0.0, -0.0, 2.5], np.float32)
+    cot = np.array([1.0, 2.0, 3.0, 4.0, 0.5, -1.0], np.float32)
+    jop, top = jreg.get_op("Activation"), treg.get_op("Activation")
+    jdt = jnp.dtype(dtype)
+    _, vjp = jax.vjp(lambda v: jop.fn(v, act_type="relu"),
+                     jnp.asarray(x, jdt))
+    (jg,) = vjp(jnp.asarray(cot, jdt))
+    tdt = getattr(torch, dtype)
+    tx = torch.from_numpy(x).to(tdt).requires_grad_()
+    (tg,) = torch.autograd.grad(top.fn(tx, act_type="relu"), tx,
+                                torch.from_numpy(cot).to(tdt))
+    assert tg.dtype == tdt
+    np.testing.assert_array_equal(tg.float().numpy(),
+                                  np.asarray(jg.astype(jnp.float32)))
+    assert tg[0].item() == 0.5 and tg[3].item() == 2.0
 
 
 def test_sweep_covers_every_ported_op():
