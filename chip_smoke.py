@@ -38,7 +38,18 @@ Phases (any failure exits non-zero; no phase is caught):
    step (batch 128 x 3x224x224, bf16 compute, SGD momentum with wd)
    through make_train_step with ``MXNET_BN_PALLAS=1`` (50 launches of
    each BatchNorm kernel per step) and with it off (none);
-8. one JSON line of every ported kernel, then the result line.
+8. NMS kernel: greedy NMS against its plain version on the card, keep
+   masks equal flag for flag, at SSD300's 8732 anchors (batch 8, every
+   row valid and the path's top 400) and at edge cases, timed beside its
+   bound at both shapes;
+9. SSD path: SSD300 (VGG16-reduced, 21 classes, f32, random Xavier
+   weights) served through ServeEngine -> Predictor -> Symbol graph ->
+   MultiBoxDetection on the NMS kernel, 8 concurrent requests; every
+   response checked against MultiBoxDetection's rules and the Predictor
+   alone, one batch's detections equal on the kernel and dense NMS
+   routes, one kernel launch per forward; plus a small f32 SSD300 whose
+   card heads and detections must agree with the CPU's;
+10. one JSON line of every ported kernel, then the result line.
 
 It imports nothing of JAX or of ``mxnet_tpu``. Without CUDA, or run
 outside the repository, it fails before printing any result.
@@ -98,7 +109,8 @@ def ptxas_summary(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?(flash_(?:fwd|dq|dkv)_"
                       r"(?:bf16|f32)|bn_(?:stats|apply|bwd_reduce|bwd_dx)_"
-                      r"(?:bf16|f32)|bn_finalize)(?:ILi(\d+)E)?", line)
+                      r"(?:bf16|f32)|bn_finalize|nms_kernel)(?:ILi(\d+)E)?",
+                      line)
         if m:   # the mangled name: ...<name>[ILi<DP>E]...
             fn = m.group(1) + ("<%s>" % m.group(2) if m.group(2) else "")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -127,6 +139,26 @@ def time_ms(fn, reps=20, warmup=3):
         pairs.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def device_ms(fn, kernel, reps=20):
+    """Device time of one call's kernels whose name holds ``kernel``: a
+    torch.profiler trace of ``reps`` warm calls, their kernel time summed
+    and divided by ``reps`` (without the host's time to enqueue a call,
+    which CUDA events around a short call include)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel in e.name)
+    return us / 1e3 / reps
 
 
 # ---------------------------------------------------------------------------
@@ -419,18 +451,20 @@ def reference_check():
 # (first match wins)
 PROFILE_GROUPS = (
     ("flash kernels (this port)", ("flash_fwd", "flash_dq", "flash_dkv")),
+    ("NMS kernel (this port)", ("nms_kernel",)),
     ("BatchNorm kernels (this port)", ("bn_stats", "bn_apply",
                                        "bn_bwd_reduce", "bn_bwd_dx",
                                        "bn_finalize")),
     ("convolution (cuDNN)", ("fprop", "dgrad", "wgrad", "cudnn",
                              "implicit_gemm", "nchwToNhwc", "nhwcToNchw",
-                             "conv2d", "Conv")),
+                             "conv2d", "Conv", "fft",
+                             "pointwise_mult_and_sum_complex")),
     ("pooling", ("pool", "Pool")),
     ("cuBLAS GEMM", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("softmax", ("SoftMax", "softmax")),
     ("reductions", ("reduce_kernel",)),
-    ("embedding scatter/gather", ("index", "scatter", "gather", "sort",
-                                  "Sort", "radix", "cub")),
+    ("sort", ("sort", "Sort", "radix")),
+    ("embedding scatter/gather", ("index", "scatter", "gather", "cub")),
     ("elementwise", ("elementwise", "Functor", "copy_kernel")),
 )
 
@@ -585,27 +619,114 @@ def path_phase(counters):
 
 
 # ---------------------------------------------------------------------------
-# bounds of the TPU kernels not ported yet (PERF.md's kernel table)
+# SSD300 (VGG16-reduced): the detection slice's model
 # ---------------------------------------------------------------------------
 
-# SSD's anchors per image (mxnet_tpu/ops/nms_pallas.py), f32 corner boxes
-NMS_ANCHORS = 8732
-NMS_OPS_PER_PAIR = 15   # IoU (8 min/max/sub, mul, 2 add/sub, div), >=,
-                        # the class test and its mask
+# upstream MXNet example/ssd: symbol_factory.get_config('vgg16_reduced',
+# 300) -> symbol_builder.get_symbol over vgg16_reduced.get_symbol and
+# common.multi_layer_feature / multibox_layer
+SSD_FROM_LAYERS = ("relu4_3", "relu7", "", "", "", "")
+SSD_NUM_FILTERS = (512, -1, 512, 256, 256, 256)
+SSD_STRIDES = (-1, -1, 2, 2, 1, 1)
+SSD_PADS = (-1, -1, 1, 1, 0, 0)
+SSD_SIZES = ((.1, .141), (.2, .272), (.37, .447), (.54, .619), (.71, .79),
+             (.88, .961))
+SSD_RATIOS = ((1, 2, .5), (1, 2, .5, 3, 1. / 3), (1, 2, .5, 3, 1. / 3),
+              (1, 2, .5, 3, 1. / 3), (1, 2, .5), (1, 2, .5))
+SSD_NORMALIZATIONS = (20, -1, -1, -1, -1, -1)
+SSD_STEPS = tuple(x / 300.0 for x in (8, 16, 32, 64, 100, 300))
+SSD_ANCHORS = 8732      # 38^2*4 + 19^2*6 + 10^2*6 + 5^2*6 + 3^2*4 + 1*4
+SSD_NMS = dict(nms_threshold=0.45, nms_topk=400, force_suppress=False,
+               variances=(0.1, 0.1, 0.2, 0.2))
 
 
-def pending_bounds():
-    """The least time on this card of the TPU kernel still to port, at
-    the shape its caller gives it: greedy NMS over A boxes reads 4 f32
-    coordinates, a class and a keep flag per box and evaluates at least
-    A(A-1)/2 IoU tests on the f32 CUDA cores."""
-    A = NMS_ANCHORS
-    t_ops = NMS_OPS_PER_PAIR * A * (A - 1) / 2 / PEAK_F32_FLOPS * 1e3
-    t_bytes = 4 * A * (4 + 1 + 1 + 1) / PEAK_BYTES_PER_S * 1e3
-    say("bound (not ported): mxnet_tpu/ops/nms_pallas.py:49 _nms_kernel at "
-        "%d boxes: %.4f ms (%s; bytes alone %.6f ms)" % (
-            A, max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", t_bytes))
+def ssd300_symbol(S, num_classes=20, width_div=1, impl="auto",
+                  heads=False):
+    """SSD300 inference over the VGG16-reduced body, written once against
+    the MXNet symbol API both packages share: ``S`` is ``mxnet_tpu.sym``
+    or ``mxnet_tpu_torch.sym``. Output (B, 8732, 6) detections [class,
+    score, x1, y1, x2, y2] from a (B, 3, 300, 300) ``data``; with
+    ``heads``, instead the detection op's three inputs (cls_prob
+    (B, C, 8732), loc_preds (B, 8732*4), anchors (1, 8732, 4)).
+    ``width_div`` divides every convolution's width (small models for
+    the CPU tests); ``impl`` is MultiBoxDetection's NMS route."""
+
+    def conv(x, name, nf, kernel=(3, 3), pad=(1, 1), stride=(1, 1),
+             dilate=(1, 1)):
+        return S.Convolution(x, kernel=kernel, pad=pad, stride=stride,
+                             dilate=dilate, num_filter=max(1, nf // width_div),
+                             name=name)
+
+    def relu(x, name):
+        return S.Activation(x, act_type="relu", name=name)
+
+    # vgg16_reduced.py, up to relu7
+    x = S.Variable("data")
+    layers = {}
+    for g, (n_conv, nf) in enumerate(((2, 64), (2, 128), (3, 256),
+                                      (3, 512), (3, 512)), 1):
+        for i in range(1, n_conv + 1):
+            x = relu(conv(x, "conv%d_%d" % (g, i), nf), "relu%d_%d" % (g, i))
+        layers["relu%d_%d" % (g, n_conv)] = x
+        if g == 5:
+            x = S.Pooling(x, pool_type="max", kernel=(3, 3), stride=(1, 1),
+                          pad=(1, 1), name="pool5")
+        else:
+            x = S.Pooling(x, pool_type="max", kernel=(2, 2), stride=(2, 2),
+                          pooling_convention="full" if g == 3 else "valid",
+                          name="pool%d" % g)
+    x = relu(conv(x, "fc6", 1024, pad=(6, 6), dilate=(6, 6)), "relu6")
+    layers["relu7"] = relu(conv(x, "fc7", 1024, kernel=(1, 1), pad=(0, 0)),
+                           "relu7")
+
+    # common.multi_layer_feature (min_filter 128)
+    feats = []
+    for k, (src, nf, s, p) in enumerate(zip(SSD_FROM_LAYERS, SSD_NUM_FILTERS,
+                                            SSD_STRIDES, SSD_PADS)):
+        if src:
+            feats.append((src, layers[src]))
+            continue
+        name = "multi_feat_%d_conv" % k
+        x = relu(conv(feats[-1][1], name + "_1x1_conv", max(128, nf // 2),
+                      kernel=(1, 1), pad=(0, 0)), name + "_1x1_relu")
+        x = relu(conv(x, name + "_3x3_conv", nf, pad=(p, p), stride=(s, s)),
+                 name + "_3x3_relu")
+        feats.append((name + "_3x3_relu", x))
+
+    # common.multibox_layer (clip=False, interm_layer=0)
+    C = num_classes + 1
+    locs, clss, anchors = [], [], []
+    for k, (name, x) in enumerate(feats):
+        if SSD_NORMALIZATIONS[k] > 0:
+            x = S.L2Normalization(x, mode="channel", name=name + "_norm")
+            scale = S.Variable(name + "_scale", shape=(
+                1, max(1, SSD_NUM_FILTERS[k] // width_div), 1, 1))
+            x = S.broadcast_mul(scale, x)
+        n_anchor = len(SSD_SIZES[k]) - 1 + len(SSD_RATIOS[k])
+        for out, width in ((locs, 4), (clss, C)):
+            head = S.Convolution(x, kernel=(3, 3), pad=(1, 1),
+                                 num_filter=n_anchor * width,
+                                 name="%s_%s_pred_conv" % (
+                                     name, "loc" if width == 4 else "cls"))
+            out.append(S.Flatten(S.transpose(head, axes=(0, 2, 3, 1))))
+        anchors.append(S.Flatten(S.contrib.MultiBoxPrior(
+            x, sizes=SSD_SIZES[k], ratios=SSD_RATIOS[k], clip=False,
+            steps=(SSD_STEPS[k], SSD_STEPS[k]), name=name + "_anchors")))
+    loc_preds = S.Concat(*locs, num_args=len(locs), dim=1,
+                         name="multibox_loc_pred")
+    cls_preds = S.transpose(S.reshape(S.Concat(*clss, num_args=len(clss),
+                                               dim=1), shape=(0, -1, C)),
+                            axes=(0, 2, 1), name="multibox_cls_pred")
+    anchor_boxes = S.reshape(S.Concat(*anchors, num_args=len(anchors),
+                                      dim=1), shape=(0, -1, 4),
+                             name="multibox_anchors")
+    cls_prob = S.SoftmaxActivation(cls_preds, mode="channel",
+                                   name="cls_prob")
+    if heads:
+        return S.Group([cls_prob, loc_preds, anchor_boxes])
+    return S.contrib.MultiBoxDetection(cls_prob, loc_preds, anchor_boxes,
+                                       name="detection", impl=impl,
+                                       **SSD_NMS)
 
 
 # ---------------------------------------------------------------------------
@@ -1140,6 +1261,439 @@ def resnet_phase(counters):
             "resnet_default": resnet_train_run(False, counters)}
 
 
+# ---------------------------------------------------------------------------
+# NMS kernel phase
+# ---------------------------------------------------------------------------
+
+NMS_IOU_OPS = 14        # IoU test: 8 min/max/sub, mul, add and sub, the
+                        # union guard, div, >= (areas are per row)
+NMS_CLASS_OPS = 1       # the class test that settles a pair of two classes
+NMS_BYTES_PER_ROW = 2   # valid 1 read, keep 1 written: every row
+NMS_BYTES_PER_VALID = 20  # boxes 16, class 4 read: valid rows only
+# (label, B, A, valid rows, force_suppress, kind): SSD300 at batch 8 with
+# every row valid and no top-k (the worst case) and with the path's top
+# 400; A not a multiple of 128, A < 128, no valid row, zero-area and
+# inverted boxes, identical boxes, an IoU exactly at the threshold
+NMS_CASES = [
+    ("ssd300_all", 8, SSD_ANCHORS, SSD_ANCHORS, False, "ssd"),
+    ("ssd300_all_force", 8, SSD_ANCHORS, SSD_ANCHORS, True, "ssd"),
+    ("ssd300_top400", 8, SSD_ANCHORS, 400, False, "ssd"),
+    ("ssd300_top400_force", 8, SSD_ANCHORS, 400, True, "ssd"),
+    ("a300", 3, 300, 300, False, "ssd"),
+    ("a300_force", 3, 300, 250, True, "ssd"),
+    ("a129", 2, 129, 129, False, "ssd"),
+    ("a7", 4, 7, 7, False, "ssd"),
+    ("a1", 2, 1, 1, False, "ssd"),
+    ("no_valid", 2, 300, 0, False, "ssd"),
+    ("degenerate", 2, 256, 256, False, "degenerate"),
+    ("degenerate_force", 2, 256, 256, True, "degenerate"),
+    ("identical", 2, 200, 200, False, "identical"),
+    ("identical_force", 2, 200, 200, True, "identical"),
+    ("at_threshold", 1, 2, 2, False, "at_threshold"),
+]
+
+
+def ssd_anchors():
+    """SSD300's (8732, 4) anchors, as the graph's MultiBoxPrior layers
+    build them (on the host)."""
+    import torch
+    from mxnet_tpu_torch.ops.detection_ops import _multibox_prior
+    return torch.cat([_multibox_prior(
+        torch.empty((1, 1, n, n), device="cpu"), sizes=SSD_SIZES[k],
+        ratios=SSD_RATIOS[k], steps=(SSD_STEPS[k], SSD_STEPS[k]))[0]
+        for k, n in enumerate((38, 19, 10, 5, 3, 1))])
+
+
+def nms_inputs(B, A, n_valid, kind, gen):
+    """Score-sorted corner boxes, class ids and valid flags on the card, as
+    MultiBoxDetection hands them to NMS: SSD300's anchors (cycled to A
+    rows) decoded from random offsets in a random score order per image,
+    20 random classes, the first ``n_valid`` rows valid; or the edge
+    cases' boxes."""
+    import torch
+    from mxnet_tpu_torch.ops.detection_ops import _decode_boxes
+    dev = "cuda"
+    anchors = ssd_anchors().to(dev)
+    anchors = anchors[torch.arange(A, device=dev) % anchors.shape[0]]
+    loc = torch.randn((B, A, 4), generator=gen, device=dev)
+    boxes = _decode_boxes(anchors, loc, SSD_NMS["variances"], True)
+    order = torch.argsort(torch.rand((B, A), generator=gen, device=dev),
+                          dim=1)
+    boxes = torch.gather(boxes, 1, order[..., None].expand(B, A, 4))
+    cls = torch.randint(0, 20, (B, A), generator=gen, device=dev).float()
+    if kind == "degenerate":
+        # zero width, zero height, inverted, and all-zero boxes among the
+        # real ones: union <= 0 for some pairs
+        boxes[:, 0::4, 2] = boxes[:, 0::4, 0]
+        boxes[:, 1::4, 3] = boxes[:, 1::4, 1]
+        boxes[:, 2::4, :2], boxes[:, 2::4, 2:] = (boxes[:, 2::4, 2:].clone(),
+                                                 boxes[:, 2::4, :2].clone())
+        boxes[:, 3::8] = 0.0
+    elif kind == "identical":
+        boxes[:] = torch.tensor([0.1, 0.2, 0.5, 0.6], device=dev)
+        cls = torch.randint(0, 3, (B, A), generator=gen, device=dev).float()
+    elif kind == "at_threshold":
+        # IoU([0,0,1,1], [0,0,1,0.5]) = 0.5 exactly, at threshold 0.5
+        boxes = torch.tensor([[[0.0, 0.0, 1.0, 1.0], [0.0, 0.0, 1.0, 0.5]]],
+                             device=dev)
+        cls = torch.zeros((1, 2), device=dev)
+    valid = (torch.arange(A, device=dev) < n_valid).expand(B, A)
+    return boxes.contiguous(), cls.contiguous(), valid.contiguous()
+
+
+def _pairs_after(rows, later):
+    """Per batch, the count of pairs (i, j), i < j, with rows[i] and
+    later[j] both true."""
+    import torch
+    later = later.to(torch.int64)
+    after = later.flip(1).cumsum(1).flip(1) - later
+    return int((after * rows).sum())
+
+
+def nms_bound(cls, valid, keep, force):
+    """(bound_ms, bound_by, counts) of one NMS call over a batch, from
+    this run's inputs and its keep mask. Bytes: 2 a row (valid read,
+    keep written), 20 more a valid row (box and class read). Operations:
+    greedy NMS tests a later valid row only against the rows kept before
+    it; such a pair costs an IoU test (14 f32 operations) under
+    force_suppress, else one class test, and the IoU test too where the
+    classes are equal."""
+    import torch
+    B, A = valid.shape
+    pairs = _pairs_after(keep, valid)
+    if force:
+        same = pairs
+    else:
+        same = sum(_pairs_after(keep & (cls == c), valid & (cls == c))
+                   for c in torch.unique(cls[valid]).tolist())
+    ops = NMS_IOU_OPS * same + (0 if force else NMS_CLASS_OPS * pairs)
+    nbytes = NMS_BYTES_PER_ROW * B * A + NMS_BYTES_PER_VALID * int(
+        valid.sum())
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    counts = {"kept_valid_pairs": pairs, "iou_tests": same,
+              "operations": ops, "bytes": nbytes}
+    if t_ops >= t_bytes:
+        return t_ops, "operations", counts
+    return t_bytes, "bytes", counts
+
+
+def nms_kernel_phase():
+    """nms_keep_cuda against its plain version (_nms_reference, on the
+    card) in every NMS_CASES case: the keep masks must be equal, flag for
+    flag. Timed at SSD300's worst case and at the path's shape."""
+    import torch
+    from mxnet_tpu_torch.ops import nms_kernels as nmsk
+
+    gen = torch.Generator(device="cuda").manual_seed(20261019)
+    timing = {}
+    thr = SSD_NMS["nms_threshold"]
+    max_diff = 0
+    for label, B, A, n_valid, force, kind in NMS_CASES:
+        boxes, cls, valid = nms_inputs(B, A, n_valid, kind, gen)
+        t = 0.5 if kind == "at_threshold" else thr
+        keep = nmsk.nms_keep_cuda(boxes, cls, valid, t, force)
+        torch.cuda.synchronize()
+        ref = nmsk._nms_reference(boxes, cls, valid, t, force)
+        if keep.shape != (B, A):
+            fail("nms_keep %s: keep shape %s, want %s" % (
+                label, tuple(keep.shape), (B, A)))
+        diff = int((keep != ref).sum())
+        max_diff = max(max_diff, diff)
+        if diff:
+            fail("nms_keep %s: %d of %d keep flags differ from the plain "
+                 "version" % (label, diff, B * A))
+        if kind == "at_threshold" and keep.tolist() != [[True, False]]:
+            fail("nms_keep at_threshold: IoU 0.5 at threshold 0.5 must "
+                 "suppress, got %r" % keep.tolist())
+        say("kernel nms_keep %-20s B=%d A=%d valid=%d force=%s: keep equal "
+            "to the plain version (%d kept of %d)" % (
+                label, B, A, n_valid, force, int(keep.sum()), B * A))
+        if label in ("ssd300_all", "ssd300_top400"):
+            args = (boxes, cls, valid, thr, force)
+            worst = label == "ssd300_all"
+            ms = device_ms(lambda: nmsk.nms_keep_cuda(*args), "nms_kernel")
+            call_ms = time_ms(lambda: nmsk.nms_keep_cuda(*args))
+            plain_ms = time_ms(lambda: nmsk._nms_reference(*args),
+                               reps=5 if worst else 20,
+                               warmup=1 if worst else 3)
+            bound, by, counts = nms_bound(cls, valid, ref, force)
+            timing[label] = (ms, call_ms, plain_ms, bound, by, counts)
+            say("kernel nms_keep %s timing: kernel %.4f ms on the device "
+                "(%.4f ms by events around the call, host enqueue "
+                "included), plain %.4f ms, bound %.6f ms (%s; %s); "
+                "library: none (no single PyTorch call computes greedy "
+                "NMS)" % (label, ms, call_ms, plain_ms, bound, by,
+                          json.dumps(counts)))
+        del boxes, cls, valid, keep, ref
+    ms, call_ms, plain_ms, bound, by, counts = timing["ssd300_top400"]
+    w_ms, w_call, w_plain, w_bound, w_by, w_counts = timing["ssd300_all"]
+    # max_abs_err: the most keep flags that differed from the plain
+    # version in one case
+    return [{"name": "nms_keep", "route": "cuda",
+             "source": "mxnet_tpu_torch/csrc/nms.cu",
+             "replaces": "mxnet_tpu/ops/nms_pallas.py:49",
+             "launches": None, "max_abs_err": max_diff, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+             "library_ms": None,
+             "library_note": "no single PyTorch call computes greedy NMS",
+             "shape": "B 8, A 8732, top 400 valid", "call_ms": call_ms,
+             "bound_counts": counts,
+             "worst_case": {"shape": "B 8, A 8732, all valid", "ms": w_ms,
+                            "call_ms": w_call, "plain_ms": w_plain,
+                            "bound_ms": w_bound, "bound_by": w_by,
+                            "bound_counts": w_counts}}]
+
+
+# ---------------------------------------------------------------------------
+# SSD path
+# ---------------------------------------------------------------------------
+
+SSD_IMAGE, SSD_CLASSES = 300, 20
+SSD_WIDTH_DIV = 1        # the served SSD300 at its published widths
+SSD_SMALL_DIV = 16       # the small SSD300 held card against CPU
+
+
+def ssd_params(sym, seed=0):
+    """SSD300's weights as numpy arrays: Xavier(factor_type="in",
+    magnitude=2.0) from mx.random.seed(seed), zero biases, and each
+    ``*_scale`` 20 (upstream's Constant(20))."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.initializer import InitDesc, Xavier
+
+    shapes, _, _ = sym.infer_shape(data=(1, 3, SSD_IMAGE, SSD_IMAGE))
+    init = Xavier(factor_type="in", magnitude=2.0)
+    mx.random.seed(seed)
+    params = {}
+    for name, shp in zip(sym.list_arguments(), shapes):
+        if name == "data":
+            continue
+        if name.endswith("_scale"):
+            params[name] = np.full(shp, 20.0, np.float32)
+            continue
+        arr = mx.nd.zeros(shp, ctx=mx.cpu())
+        init(InitDesc(name), arr)
+        params[name] = arr.asnumpy()
+    return params
+
+
+def detect(heads, impl="auto"):
+    """MultiBoxDetection with SSD300's attributes over (cls_prob,
+    loc_preds, anchors) tensors, on their device."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    op = get_op("_contrib_MultiBoxDetection")
+    return op.fn(*heads, **{**op.defaults, **SSD_NMS, "impl": impl})
+
+
+def ssd_reference_check():
+    """A small f32 SSD300 (every width / SSD_SMALL_DIV, 21 classes): its
+    heads on the card agree with the CPU's within TOL["float32"], and the
+    detection op on the card (the kernel route), fed the CPU's heads,
+    gives the CPU's detections (the dense route): class ids and kept rows
+    equal, values within 1e-6."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.convert import params_from_jax
+
+    sym = ssd300_symbol(mx.sym, SSD_CLASSES, SSD_SMALL_DIV, heads=True)
+    params = ssd_params(sym, seed=3)
+    x = np.random.RandomState(12).standard_normal(
+        (2, 3, SSD_IMAGE, SSD_IMAGE)).astype(np.float32)
+    outs = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        pred = mx.Predictor(sym, params_from_jax(params, ctx.torch_device()),
+                            data_names=("data",), ctx=ctx)
+        outs.append([h.handle for h in pred.forward(x)])
+    errs = [check_close("small SSD300 head %d card vs CPU" % i, c.cpu(),
+                        h, TOL["float32"])
+            for i, (c, h) in enumerate(zip(*outs))]
+    cpu_heads = outs[1]
+    on_cpu = detect(cpu_heads).numpy()
+    on_card = detect([h.cuda() for h in cpu_heads]).cpu().numpy()
+    if not (np.array_equal(on_cpu[..., 0], on_card[..., 0])
+            and np.allclose(on_card, on_cpu, rtol=0, atol=1e-6)):
+        fail("small SSD300: the card's detections from the CPU's heads "
+             "differ from the CPU's (max abs err %g)"
+             % np.abs(on_card - on_cpu).max())
+    say("ssd reference: small SSD300 (widths / %d, f32) heads card vs CPU "
+        "max abs err %s (rtol %g, atol %g); detections from the CPU's heads, "
+        "card (kernel route) vs CPU (dense route): max abs err %.3g, %d "
+        "rows kept" % (SSD_SMALL_DIV, " ".join("%.3g" % e for e in errs),
+                       TOL["float32"]["rtol"], TOL["float32"]["atol"],
+                       float(np.abs(on_card - on_cpu).max()),
+                       int((on_cpu[..., 0] >= 0).sum())))
+
+
+class Recording:
+    """The serving model: the Predictor, with every engine forward's
+    padded batch and output kept, so each response can be held to the
+    Predictor's own output for the batch it rode in."""
+
+    def __init__(self, pred):
+        self.pred, self.batches = pred, []
+
+    def forward(self, data):
+        outs = self.pred.forward(data)
+        self.batches.append((np.array(data), outs[0].asnumpy()))
+        return outs
+
+
+def check_detections(what, det):
+    """Fail unless (rows, A, 6) detections follow MultiBoxDetection's
+    rules for SSD300: kept rows first-come in descending score, classes
+    in [0, 20), scores >= 0.01, boxes in [0, 1], at most nms_topk kept an
+    image, every other row -1. Returns the kept count per image."""
+    kept = []
+    if det.shape[1:] != (SSD_ANCHORS, 6) or not np.isfinite(det).all():
+        fail("%s: detections of shape %r, finite %s" % (
+            what, det.shape, np.isfinite(det).all()))
+    for r, rows in enumerate(det):
+        live = rows[:, 0] >= 0
+        k = rows[live]
+        if not (rows[~live] == -1).all():
+            fail("%s image %d: a suppressed row is not all -1" % (what, r))
+        if len(k) > SSD_NMS["nms_topk"]:
+            fail("%s image %d: %d rows kept" % (what, r, len(k)))
+        if not ((k[:, 0] == np.round(k[:, 0])).all() and k[:, 0].max() < 20
+                and (k[:, 1] >= np.float32(0.01)).all()
+                and (np.diff(k[:, 1]) <= 0).all()
+                and (k[:, 2:] >= 0).all() and (k[:, 2:] <= 1).all()):
+            fail("%s image %d: kept rows break the class / score order / "
+                 "box rules" % (what, r))
+        kept.append(len(k))
+    return kept
+
+
+def ssd_phase(counters):
+    """SSD300 (VGG16-reduced, 21 classes, f32, random weights) served
+    through ServeEngine -> Predictor -> Symbol graph -> MultiBoxDetection
+    on the NMS kernel. Returns the kernel's launch counts over the served
+    run."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.convert import params_from_jax
+    from mxnet_tpu_torch.serve import ServeEngine
+
+    ssd_reference_check()
+
+    t0 = time.perf_counter()
+    sym = ssd300_symbol(mx.sym, SSD_CLASSES, SSD_WIDTH_DIV)
+    params = ssd_params(sym, seed=0)
+    nparam = sum(p.size for p in params.values())
+    weights = params_from_jax(params, mx.current_context().torch_device())
+    del params
+    pred = mx.Predictor(sym, weights, data_names=("data",))
+    heads = mx.Predictor(ssd300_symbol(mx.sym, SSD_CLASSES, SSD_WIDTH_DIV,
+                                       heads=True),
+                         weights, data_names=("data",))
+    say("ssd: SSD300 VGG16-reduced, %d classes + background, %d anchors, "
+        "%d params (%.1f M), f32, on %s, set up in %.1f s" % (
+            SSD_CLASSES, SSD_ANCHORS, nparam, nparam / 1e6, pred.device,
+            time.perf_counter() - t0))
+    rs = np.random.RandomState(0)
+    images = rs.standard_normal((max(BUCKETS), 3, SSD_IMAGE, SSD_IMAGE)
+                                ).astype(np.float32)
+
+    for b in BUCKETS:
+        x = images[:b]
+        pred.forward(x)
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(5):
+            t = time.perf_counter()
+            pred.forward(x)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        say("ssd: forward bucket %d: %.2f ms (median of 5; all: %s)" % (
+            b, statistics.median(ts), " ".join("%.2f" % v for v in ts)))
+    profile("ssd300 bucket %d forward" % len(x), lambda: pred.forward(x),
+            top=10)
+
+    # one bucket-8 batch: the same heads through both NMS routes
+    hs = [h.handle for h in heads.forward(x)]
+    full = pred.forward(x)[0].handle
+    by_kernel, by_dense = detect(hs, "pallas"), detect(hs, "xla")
+    if not (torch.equal(by_kernel, by_dense) and torch.equal(by_kernel,
+                                                             full)):
+        fail("ssd: bucket-8 detections, kernel route vs dense route vs the "
+             "graph: max abs err %g / %g" % (
+                 float((by_kernel - by_dense).abs().max()),
+                 float((by_kernel - full).abs().max())))
+    op_ms = time_ms(lambda: detect(hs, "pallas"))
+    dense_ms = time_ms(lambda: detect(hs, "xla"), reps=3, warmup=1)
+    say("ssd: bucket-8 detections equal bit for bit on the kernel route, "
+        "the dense route and the whole graph; MultiBoxDetection op %.4f ms "
+        "on the kernel route, %.2f ms on the dense route" % (op_ms,
+                                                             dense_ms))
+    del hs, full, by_kernel, by_dense
+
+    rec = Recording(pred)
+    engine = ServeEngine(rec, buckets=BUCKETS, max_wait_ms=200.0,
+                         feature_shapes=[(3, SSD_IMAGE, SSD_IMAGE)])
+    requests = [rs.standard_normal((r, 3, SSD_IMAGE, SSD_IMAGE)).astype(
+        np.float32) for r in REQUEST_ROWS]
+    results = [None] * len(requests)
+    barrier = threading.Barrier(len(requests))
+
+    def client(i):
+        barrier.wait()
+        results[i] = engine.infer(requests[i], timeout=600)
+
+    for c in counters:
+        c.launches = 0
+    fwd0 = engine.stats()["forwards"]
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(requests))]
+    t_serve = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(900)
+    serve_s = time.perf_counter() - t_serve
+    launches = {c.__name__: c.launches for c in counters}
+    stats = engine.stats()
+    engine.close()
+    forwards = stats["forwards"] - fwd0
+    if any(r is None for r in results) or any(th.is_alive()
+                                              for th in threads):
+        fail("ssd: not every request got a response")
+    say("ssd: %d requests (%d images) in %d engine forwards, %.3f s: %.2f "
+        "requests/s; mean fill %.2f" % (
+            len(requests), sum(REQUEST_ROWS), forwards, serve_s,
+            len(requests) / serve_s, stats["mean_fill"]))
+    if launches["nms_keep_cuda"] != forwards:
+        fail("ssd: nms_keep_cuda launched %d times, not once per each of "
+             "%d forwards" % (launches["nms_keep_cuda"], forwards))
+
+    kept = []
+    for i, (imgs, res) in enumerate(zip(requests, results)):
+        det = res[0]
+        if det.shape[0] != imgs.shape[0]:
+            fail("ssd: response %d has %d rows for %d images"
+                 % (i, det.shape[0], imgs.shape[0]))
+        kept += check_detections("ssd response %d" % i, det)
+        hit = [(feed, out, j) for feed, out in rec.batches
+               for j in range(len(feed) - len(imgs) + 1)
+               if np.array_equal(feed[j:j + len(imgs)], imgs)]
+        if len(hit) != 1 or not np.array_equal(
+                det, hit[0][1][hit[0][2]:hit[0][2] + len(imgs)]):
+            fail("ssd: response %d is not its rows of the batch it rode in"
+                 % i)
+    if sum(kept) == 0:
+        fail("ssd: no detection kept in any response")
+    for feed, out in rec.batches:
+        if not np.array_equal(pred.forward(feed)[0].asnumpy(), out):
+            fail("ssd: the Predictor alone gives another output for a "
+                 "served batch")
+    say("ssd: every response checked: (rows, %d, 6), kept rows in "
+        "descending score with classes in [0, 20) and scores >= 0.01, at "
+        "most %d an image (kept per image: %s), equal bit for bit to the "
+        "Predictor alone on the batch it rode in" % (
+            SSD_ANCHORS, SSD_NMS["nms_topk"], " ".join(map(str, kept))))
+    del pred, heads, weights, rec
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     try:
         import torch
@@ -1155,6 +1709,7 @@ def main():
     from mxnet_tpu_torch import _kernels
     from mxnet_tpu_torch.ops import attention as att
     from mxnet_tpu_torch.ops import bn_kernels as bnk
+    from mxnet_tpu_torch.ops import nms_kernels as nmsk
 
     t_start = time.perf_counter()
     smi = smi_line()
@@ -1171,13 +1726,14 @@ def main():
         for line in ptxas_summary(info["log"]):
             say("build: %s: %s" % (name, line))
 
-    records = kernel_phase() + bwd_kernel_phase() + bn_kernel_phase()
-    pending_bounds()
+    records = (kernel_phase() + bwd_kernel_phase() + bn_kernel_phase()
+               + nms_kernel_phase())
     by_path = {"serve": path_phase([att.flash_fwd_cuda]),
                "train": train_phase([att.flash_fwd_cuda, att.flash_dq_cuda,
                                      att.flash_dkv_cuda]),
                **resnet_phase([bnk.bn_stats_cuda, bnk.bn_apply_cuda,
-                               bnk.bn_bwd_reduce_cuda, bnk.bn_bwd_dx_cuda])}
+                               bnk.bn_bwd_reduce_cuda, bnk.bn_bwd_dx_cuda]),
+               "ssd": ssd_phase([nmsk.nms_keep_cuda])}
     for rec in records:
         counts = {path: launches[rec["name"] + "_cuda"]
                   for path, launches in by_path.items()

@@ -29,7 +29,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 # kernel library name -> its source under csrc/
 SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
-           "bn_train": "bn_train.cu"}
+           "bn_train": "bn_train.cu", "nms": "nms.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -138,6 +138,14 @@ def _declare(name, lib):
                                   c_i, c_i, c_i, c_i, c_p]   # n c hw dtype
                                                              # stream
         lib.bn_bwd_dx.restype = c_i
+    elif name == "nms":
+        # the threshold as c_float: rounded to f32 as jnp and torch round
+        # a Python float compared with f32 values
+        lib.nms_keep.argtypes = [c_p, c_p, c_p, c_p,          # boxes cls
+                                                             # valid keep
+                                 c_i, c_i, c_f, c_i, c_p]    # b a thr force
+                                                             # stream
+        lib.nms_keep.restype = c_i
     lib.kernel_error_string.argtypes = [c_i]
     lib.kernel_error_string.restype = ctypes.c_char_p
 

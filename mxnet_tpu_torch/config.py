@@ -135,3 +135,9 @@ define("MXNET_BN_PALLAS", bool, False,
        "route 4-D NCHW training BatchNorm (axis 1) through the hand-written "
        "CUDA kernels of csrc/bn_train.cu on the card (their plain PyTorch "
        "versions on the CPU); the name is the JAX package's")
+define("MXNET_NMS_IMPL", str, "",
+       "MultiBoxDetection NMS route when impl='auto': pallas = the "
+       "hand-written CUDA kernel of csrc/nms.cu (its plain PyTorch version "
+       "on the CPU) | xla = the dense (A, A) IoU path in plain PyTorch; "
+       "empty = the kernel on CUDA tensors, the dense path on the CPU. The "
+       "values are the JAX package's")

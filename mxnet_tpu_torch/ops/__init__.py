@@ -1,5 +1,4 @@
-"""Operator catalog of the port (the serving and training slices' ops so
-far).
+"""Operator catalog of the port (the ops of the slices ported so far).
 
 Every module registers torch ops into the shared registry; importing
 this package populates it, and ``mx.sym.*`` is generated from it.
@@ -14,4 +13,6 @@ from . import nn            # noqa: F401
 from . import loss          # noqa: F401
 from . import attention     # noqa: F401
 from . import optimizer_ops  # noqa: F401
+from . import reduce_ops    # noqa: F401
+from . import detection_ops  # noqa: F401
 from . import shape_hooks   # noqa: F401  (must come after all registrations)

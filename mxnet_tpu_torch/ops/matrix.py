@@ -1,6 +1,6 @@
 """Shape ops ported so far — ``reshape`` (with the MXNet special codes
 and ``reverse``), ``Flatten``, ``transpose``, ``expand_dims``,
-``slice_axis`` —
+``slice_axis``, ``Concat`` —
 with the semantics of ``mxnet_tpu/ops/matrix.py``. The rest of that
 file's ops wait for the op-catalog slice (ROADMAP Queue A item 2).
 """
@@ -78,3 +78,10 @@ def _slice_axis(x, axis=0, begin=0, end=None, **_):
     idx = [slice(None)] * x.dim()
     idx[axis] = slice(begin, end)
     return x[tuple(idx)]
+
+
+@register("Concat", arg_names=None, aliases=("concat",),
+          defaults={"dim": 1, "num_args": 0})
+def _concat(*args, dim=1, **_):
+    # jnp.concatenate promotes mixed dtypes; torch.cat does the same
+    return torch.cat(args, dim=dim)

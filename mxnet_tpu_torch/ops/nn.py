@@ -1,6 +1,7 @@
 """Neural-network layer ops ported so far — ``FullyConnected``,
 ``Convolution``, ``Pooling``, ``BatchNorm``, ``LayerNorm``,
-``Activation`` — with the semantics of ``mxnet_tpu/ops/nn.py``.
+``Activation``, ``SoftmaxActivation`` — with the semantics of
+``mxnet_tpu/ops/nn.py``.
 
 The matrix products go to ``torch.matmul`` and the convolutions to
 ``F.conv2d``/``conv3d`` (cuBLAS and cuDNN on the card), as the JAX
@@ -361,3 +362,12 @@ def _activation(data, act_type="relu", **_):
     if act_type == "softsign":
         return data / (1 + torch.abs(data))
     raise ValueError("unknown act_type %r" % act_type)
+
+
+@register("SoftmaxActivation", arg_names=("data",),
+          defaults={"mode": "instance"})
+def _softmax_activation(data, mode="instance", **_):
+    if mode == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1), dim=-1).reshape(
+        data.shape)

@@ -1,5 +1,5 @@
 """Symbol API (reference: python/mxnet/symbol/)."""
-from .symbol import Symbol, Variable, var, load, load_json
+from .symbol import Symbol, Variable, var, Group, load, load_json
 from .op import *          # noqa: F401,F403 — generated op namespace
 from . import op           # noqa: F401
 

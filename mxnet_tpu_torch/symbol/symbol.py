@@ -23,7 +23,7 @@ from .. import attribute, name as _name_mod
 from ..base import MXNetError, numeric_types, torch_dtype
 from ..ops import registry as _reg
 
-__all__ = ["Symbol", "Variable", "var", "load", "load_json"]
+__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json"]
 
 
 class _Node:
@@ -187,6 +187,12 @@ class Symbol:
     def __radd__(self, other):
         return self.__add__(other)
 
+    def __mul__(self, other):
+        return _sym_binary("broadcast_mul", "_mul_scalar", self, other)
+
+    def __rmul__(self, other):
+        return self.__mul__(other)
+
 
 # ---------------------------------------------------------------------------
 # composition internals
@@ -277,6 +283,14 @@ def Variable(name, attr=None, shape=None):
 
 
 var = Variable
+
+
+def Group(symbols):
+    """One symbol whose outputs are those of ``symbols``, in order."""
+    entries = []
+    for s in symbols:
+        entries.extend(s._entries)
+    return Symbol(entries)
 
 
 def load_json(json_str):

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (flash forward, dq, dk/dv; the four BatchNorm
-training kernels) and their wrappers, without the JAX package:
+training kernels; greedy NMS) and their wrappers, without the JAX
+package:
 importable where only PyTorch is installed, as on the card's machine,
 where
 
@@ -13,7 +14,9 @@ skip on machines without a card; the rest pin the wrappers' contract and
 the plain versions' own rules. The BatchNorm kernels are held to their
 plain versions (``_stats_reference`` ...): the elementwise ones within
 rtol/atol 1e-6 in f32 and one bf16 step (rtol 1e-2) in bf16, the f32
-sums within 1e-4 of the sum of the terms' magnitudes per channel.
+sums within 1e-4 of the sum of the terms' magnitudes per channel. The
+NMS kernel's keep masks equal its plain version's (``_nms_reference``)
+flag for flag, in ``chip_smoke.py``'s cases.
 """
 import numpy as np
 import pytest
@@ -22,6 +25,10 @@ import torch
 import mxnet_tpu_torch  # noqa: F401
 from mxnet_tpu_torch.ops import attention as tatt
 from mxnet_tpu_torch.ops import bn_kernels as tbn
+from mxnet_tpu_torch.ops import nms_kernels as tnms
+from mxnet_tpu_torch.ops.registry import get_op
+
+import chip_smoke
 
 
 def _arrays(*shapes, seed=0):
@@ -299,3 +306,125 @@ def test_cuda_bn_train_kernels_match_plain_route(cuda_device):
         outs.append([t.detach().cpu() for t in (y, mean, var, *grads)])
     for got, want in zip(outs[1], outs[0]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the NMS kernel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bad,match", [
+    ("rank", r"\(B, A, 4\)"),
+    ("dtype", "float32"),
+    ("cpu", "CUDA device"),
+    ("cls_shape", "cls_ids must be"),
+    ("valid_dtype", "valid must be"),
+])
+def test_nms_kernel_wrapper_validates_inputs(bad, match):
+    """The NMS wrapper raises on what the kernel does not take — before
+    any build or launch, so this runs without a card."""
+    boxes, cls = torch.zeros((2, 10, 4)), torch.zeros((2, 10))
+    valid = torch.ones((2, 10), dtype=torch.bool)
+    if bad == "rank":
+        boxes = boxes[0]
+    elif bad == "dtype":
+        boxes = boxes.double()
+    elif bad == "cls_shape":
+        cls = cls[:, :5]
+    elif bad == "valid_dtype":
+        valid = valid.float()
+    with pytest.raises((ValueError, TypeError), match=match):
+        tnms.nms_keep_cuda(boxes, cls, valid, 0.45)
+
+
+def test_nms_dispatch_runs_the_plain_version_on_cpu():
+    boxes = torch.tensor([[[0.0, 0.0, 1.0, 1.0], [0.0, 0.0, 1.0, 0.5],
+                           [2.0, 2.0, 3.0, 3.0]]])
+    before = tnms.nms_keep_cuda.launches
+    keep = tnms.nms_keep(boxes, torch.zeros((1, 3)),
+                         torch.ones((1, 3), dtype=torch.bool), 0.5)
+    assert keep.tolist() == [[True, False, True]]
+    assert tnms.nms_keep_cuda.launches == before
+
+
+def test_nms_bound_counts_the_pairs_greedy_nms_needs():
+    """chip_smoke.nms_bound on a hand case: rows 0-2 valid, 0 and 2 kept;
+    pairs (kept i, valid j > i) are (0, 1) and (0, 2), only (0, 1) of one
+    class; 2 bytes a row and 20 more a valid row."""
+    cls = torch.tensor([[0.0, 0.0, 1.0, 0.0]])
+    valid = torch.tensor([[True, True, True, False]])
+    keep = torch.tensor([[True, False, True, False]])
+    bound, by, counts = chip_smoke.nms_bound(cls, valid, keep, False)
+    assert counts == {"kept_valid_pairs": 2, "iou_tests": 1,
+                      "operations": 14 + 2, "bytes": 2 * 4 + 20 * 3}
+    assert by == "bytes"
+    assert bound == pytest.approx(68 / chip_smoke.PEAK_BYTES_PER_S * 1e3)
+    _, _, counts = chip_smoke.nms_bound(cls, valid, keep, True)
+    assert counts["iou_tests"] == 2 and counts["operations"] == 28
+
+
+@pytest.mark.parametrize("force", [False, True])
+def test_nms_bound_matches_a_pair_by_pair_count(force):
+    rng = np.random.RandomState(9)
+    B, A = 3, 50
+    cls = torch.from_numpy(rng.randint(0, 4, (B, A)).astype(np.float32))
+    valid = torch.from_numpy(rng.rand(B, A) < 0.7)
+    keep = valid & torch.from_numpy(rng.rand(B, A) < 0.5)
+    pairs = same = 0
+    for b in range(B):
+        for i in range(A):
+            for j in range(i + 1, A):
+                if keep[b, i] and valid[b, j]:
+                    pairs += 1
+                    same += bool(force or cls[b, i] == cls[b, j])
+    bound, by, counts = chip_smoke.nms_bound(cls, valid, keep, force)
+    assert counts["kept_valid_pairs"] == pairs
+    assert counts["iou_tests"] == same
+    assert counts["operations"] == 14 * same + (0 if force else pairs)
+    assert counts["bytes"] == 2 * B * A + 20 * int(valid.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,B,A,n_valid,force,kind",
+                         chip_smoke.NMS_CASES,
+                         ids=[c[0] for c in chip_smoke.NMS_CASES])
+def test_cuda_nms_kernel_matches_plain_version(cuda_device, label, B, A,
+                                               n_valid, force, kind):
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    boxes, cls, valid = chip_smoke.nms_inputs(B, A, n_valid, kind, gen)
+    thr = 0.5 if kind == "at_threshold" else 0.45
+    before = tnms.nms_keep_cuda.launches
+    keep = tnms.nms_keep(boxes, cls, valid, thr, force)
+    torch.cuda.synchronize()
+    assert tnms.nms_keep_cuda.launches == before + 1
+    assert torch.equal(keep, tnms._nms_reference(boxes, cls, valid, thr,
+                                                 force))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attrs", [
+    dict(nms_threshold=0.45, nms_topk=400),
+    dict(nms_threshold=0.45, force_suppress=True, threshold=0.05),
+    dict(nms_threshold=0.5, background_id=3, nms_topk=100),
+], ids=["topk", "force", "background_id"])
+def test_cuda_multibox_detection_routes_agree(cuda_device, attrs):
+    """MultiBoxDetection on the card: the kernel route equals the dense
+    route bit for bit, and the CPU's detections of the same heads."""
+    rng = np.random.RandomState(6)
+    B, C, A = 3, 6, 8732
+    cls_prob = rng.rand(B, C, A).astype(np.float32)
+    cls_prob /= cls_prob.sum(1, keepdims=True)
+    loc = (rng.randn(B, A * 4) * 0.5).astype(np.float32)
+    anchors = chip_smoke.ssd_anchors()[None].numpy()
+    op = get_op("_contrib_MultiBoxDetection")
+    heads = [torch.from_numpy(v) for v in (cls_prob, loc, anchors)]
+
+    def run(device, impl):
+        return op.fn(*[h.to(device) for h in heads],
+                     **{**op.defaults, **attrs, "impl": impl}).cpu()
+
+    kernel = run(cuda_device, "pallas")
+    assert torch.equal(kernel, run(cuda_device, "xla"))
+    assert torch.equal(kernel, run(cuda_device, "auto"))
+    cpu = run("cpu", "auto")
+    assert torch.equal(kernel[..., 0], cpu[..., 0])
+    torch.testing.assert_close(kernel, cpu, rtol=0, atol=1e-6)

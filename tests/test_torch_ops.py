@@ -52,6 +52,41 @@ CASES = [
      [np.arange(6, dtype=np.int32)], {"scalar": 2.7}),
     ("plus_scalar_string_attr", "_PlusScalar", [_f32(2, 2)],
      {"scalar": "-0.25"}),
+    ("broadcast_mul", "broadcast_mul",
+     [_f32(2, 3, 4), _f32(3, 1, seed=1)], {}),
+    ("broadcast_mul_channel_scale", "broadcast_mul",
+     [_f32(1, 4, 1, 1), _f32(2, 4, 3, 3, seed=1)], {}),
+    ("elemwise_mul", "elemwise_mul", [_f32(4, 3), _f32(4, 3, seed=1)], {}),
+    ("mul_alias", "_Mul", [_f32(5, 1), _f32(1, 6, seed=1)], {}),
+    ("mul_scalar", "_mul_scalar", [_f32(3, 4)], {"scalar": 20.0}),
+    ("mul_scalar_int", "_MulScalar", [np.arange(6, dtype=np.int32)],
+     {"scalar": 2.7}),
+    ("concat", "Concat",
+     [_f32(2, 3, 4), _f32(2, 5, 4, seed=1), _f32(2, 1, 4, seed=2)],
+     {"dim": 1, "num_args": 3}),
+    ("concat_dim0", "concat", [_f32(2, 3), _f32(4, 3, seed=1)],
+     {"dim": 0, "num_args": 2}),
+    ("l2norm_instance", "L2Normalization", [_f32(2, 3, 4, 5)], {}),
+    ("l2norm_channel", "L2Normalization", [_f32(2, 3, 4, 5)],
+     {"mode": "channel"}),
+    ("l2norm_spatial", "L2Normalization", [_f32(2, 3, 4, 5)],
+     {"mode": "spatial", "eps": 1e-6}),
+    ("softmax", "softmax", [_f32(3, 7) * 3], {}),
+    ("softmax_axis_temperature", "softmax", [_f32(2, 5, 4)],
+     {"axis": 1, "temperature": 2.0}),
+    ("softmax_activation", "SoftmaxActivation", [_f32(2, 3, 4)], {}),
+    ("softmax_activation_channel", "SoftmaxActivation", [_f32(2, 5, 3, 3)],
+     {"mode": "channel"}),
+    ("multibox_prior", "_contrib_MultiBoxPrior", [_f32(1, 2, 5, 6)],
+     {"sizes": (0.2, 0.4), "ratios": (1, 2, 0.5)}),
+    ("multibox_prior_steps_offsets_clip", "MultiBoxPrior", [_f32(2, 3, 4, 4)],
+     {"sizes": (0.5, 0.9), "ratios": (1, 3), "steps": (0.3, 0.25),
+      "offsets": (0.4, 0.6), "clip": True}),
+    ("multibox_detection", "_contrib_MultiBoxDetection",
+     [np.abs(_f32(2, 4, 40)) / 2, _f32(2, 160, seed=1) * 0.1,
+      np.sort(np.random.RandomState(2).rand(1, 40, 2, 2).astype(
+          np.float32), axis=2).transpose(0, 1, 3, 2).reshape(1, 40, 4)],
+     {"nms_threshold": 0.3, "threshold": 0.1, "impl": "xla"}),
     ("reshape_copy_infer", "reshape", [_f32(2, 3, 4)], {"shape": (0, -1)}),
     ("reshape_copy_rest", "reshape", [_f32(2, 3, 4)],
      {"shape": (-2,)}),
