@@ -9,12 +9,14 @@ Phases (any failure exits non-zero; no phase is caught):
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: every hand-written kernel, from the sources in this checkout,
    one nvcc per source started together;
-3. kernels: each kernel (flash forward, dq, dk/dv) against its plain
-   PyTorch version on the card, at the main paths' shape and at edge
-   shapes, with its time, its plain version's time, one PyTorch library
-   call's time as a yardstick (the forward; the dq + dk/dv pair through
-   the backward of scaled_dot_product_attention), and its bound (least
-   time for the same work on this card);
+3. kernels: the flash forward and the fused flash backward
+   (flash_bwd_cuda) against their plain PyTorch versions on the card, at
+   the main paths' shape and at edge shapes (the backward's two launches
+   bit-equal in five of them), with its time, its plain version's time,
+   one PyTorch library call's time as a yardstick (the forward; the
+   backward of scaled_dot_product_attention, also against the port's
+   whole backward: delta, scratch, kernel), and its bound (least time for
+   the same work on this card);
 4. serve path: the flagship transformer LM (vocab 32768, seq 2048, 4
    layers, 16 heads, dim 2048, bf16, random weights from a numpy seed)
    served through ServeEngine -> Predictor -> Symbol graph, 8 concurrent
@@ -24,8 +26,8 @@ Phases (any failure exits non-zero; no phase is caught):
 5. train path: the same LM trained as bench.py trains it (Adam, bf16
    compute, Xavier init, batch 8 of random tokens) through
    make_train_step -> init_state -> step: 2 warm steps (one profiled)
-   and 10 timed ones, a finite and falling loss, and 4 launches of each
-   flash kernel per step; plus a small f32 LM whose one-step parameters
+   and 10 timed ones, a finite and falling loss, and 4 launches of
+   flash_fwd_cuda and of flash_bwd_cuda per step; plus a small f32 LM whose one-step parameters
    on the card must match the same step on the CPU;
 6. BatchNorm kernels: each of the four (stats, apply, backward reduce,
    dx) against its plain version on the card at the 12 BatchNorm shapes
@@ -107,7 +109,7 @@ def ptxas_summary(log):
     import re
     out, fn, spill = [], None, ""
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?(flash_(?:fwd|dq|dkv)_"
+        m = re.search(r"Compiling entry function '\S*?(flash_(?:fwd|bwd|dq|dkv)_"
                       r"(?:bf16|f32)|bn_(?:stats|apply|bwd_reduce|bwd_dx)_"
                       r"(?:bf16|f32)|bn_finalize|nms_kernel)(?:ILi(\d+)E)?",
                       line)
@@ -299,13 +301,21 @@ BWD_CASES = [
 ]
 
 
+# the cases whose two launches must give the same bits
+DETERMINISM_CASES = ("flagship", "window", "band_offset_bf16",
+                     "band_offset_neg", "noncausal")
+
+
 def bwd_kernel_phase():
-    """flash_dq_cuda and flash_dkv_cuda against their plain versions on
-    the same inputs: q, k, v, do random; o and lse from the forward
-    kernel; delta = rowsum(do * o), minus a random lse cotangent where
-    the case says so."""
+    """flash_bwd_cuda against both plain versions (_flash_dq_reference,
+    _flash_dkv_reference) on the same inputs: q, k, v, do random; o and
+    lse from the forward kernel; delta = rowsum(do * o), minus a random
+    lse cotangent where the case says so. Two launches bit-equal in
+    DETERMINISM_CASES. At the flagship shape: the kernel's device time
+    beside the fused bound, the plain versions' time, the library's
+    backward, and the port's whole backward (delta, scratch, kernel)
+    against the library's by the same CUDA events."""
     import torch
-    import torch.nn.functional as F
     from mxnet_tpu_torch.ops import attention as att
 
     gen = torch.Generator(device="cuda").manual_seed(20261017)
@@ -326,65 +336,94 @@ def bwd_kernel_phase():
             delta = delta - torch.randn((BH, T), generator=gen,
                                         device="cuda")
         args = (q, k, v, do, lse, delta, scale, causal, window, off)
-        dq = att.flash_dq_cuda(*args)
-        dk, dv = att.flash_dkv_cuda(*args)
+        dq, dk, dv = att.flash_bwd_cuda(*args)
         torch.cuda.synchronize()
-        errs = {"dq": check_close("flash_dq %s" % label, dq,
+        errs = {"dq": check_close("flash_bwd %s dq" % label, dq,
                                   att._flash_dq_reference(*args), TOL[dt])}
         rdk, rdv = att._flash_dkv_reference(*args)
-        errs["dk"] = check_close("flash_dkv %s dk" % label, dk, rdk,
+        errs["dk"] = check_close("flash_bwd %s dk" % label, dk, rdk,
                                  TOL[dt])
-        errs["dv"] = check_close("flash_dkv %s dv" % label, dv, rdv,
+        errs["dv"] = check_close("flash_bwd %s dv" % label, dv, rdv,
                                  TOL[dt])
         del rdk, rdv
-        say("kernel flash_dq/dkv %-16s BH=%d T=%d Tk=%d D=%d %s causal=%s "
+        same = ""
+        if label in DETERMINISM_CASES:
+            again = att.flash_bwd_cuda(*args)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), again):
+                if not torch.equal(a, b):
+                    fail("flash_bwd %s: two launches differ in %s (%d "
+                         "elements)" % (label, name, int((a != b).sum())))
+            same = ", two launches bit-equal"
+            del again
+        say("kernel flash_bwd %-16s BH=%d T=%d Tk=%d D=%d %s causal=%s "
             "window=%d offset=%d dlse=%s: max_abs_err dq %.3g dk %.3g "
-            "dv %.3g" % (label, BH, T, Tk, D, dt, causal, window, off,
-                         dlse, errs["dq"], errs["dk"], errs["dv"]))
+            "dv %.3g%s" % (label, BH, T, Tk, D, dt, causal, window, off,
+                           dlse, errs["dq"], errs["dk"], errs["dv"], same))
         if label == "flagship":
-            q4, k4, v4 = (x.view(1, BH, -1, D).detach().requires_grad_()
-                          for x in (q, k, v))
-            out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
-                                                 scale=scale)
-            do4 = do.view(1, BH, T, D)
-            lib_ms = time_ms(lambda: torch.autograd.grad(
-                out, (q4, k4, v4), do4, retain_graph=True))
-            del out, q4, k4, v4
-            for name, kernel, plain, kind, err in (
-                    ("flash_dq", att.flash_dq_cuda, att._flash_dq_reference,
-                     "dq", errs["dq"]),
-                    ("flash_dkv", att.flash_dkv_cuda,
-                     att._flash_dkv_reference, "dkv",
-                     max(errs["dk"], errs["dv"]))):
-                ms = time_ms(lambda: kernel(*args))
-                plain_ms = time_ms(lambda: plain(*args))
-                bound, by = flash_bound(kind, T, Tk, D, BH, causal, window,
-                                        off, dt)
-                records.append({
-                    "name": name, "route": "cuda",
-                    "source": "mxnet_tpu_torch/csrc/flash_bwd.cu",
-                    "replaces": "mxnet_tpu/ops/attention.py:%d"
-                                % (279 if kind == "dq" else 331),
-                    "launches": None, "max_abs_err": err, "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": bound,
-                    "bound_by": by, "library_ms": None,
-                    "pair_library_ms": lib_ms})
-                say("kernel %s flagship timing: kernel %.4f ms, plain %.4f "
-                    "ms, bound %.4f ms (%s)" % (name, ms, plain_ms, bound,
-                                                by))
-            bound_of = {kind: flash_bound(kind, T, Tk, D, BH, causal,
-                                          window, off, dt)[0]
-                        for kind in ("dq", "dkv", "fused")}
-            say("kernel flash backward pair flagship: dq + dkv %.4f ms, "
-                "bound %.4f ms; library (scaled_dot_product_attention "
-                "backward, dq dk dv together) %.4f ms; a fused one-pass "
-                "design's bound %.4f ms" % (
-                    records[-2]["ms"] + records[-1]["ms"],
-                    bound_of["dq"] + bound_of["dkv"], lib_ms,
-                    bound_of["fused"]))
+            records.append(bwd_flagship_timing(args, o, max(errs.values())))
         del q, k, v, do, o, lse, delta, dq, dk, dv, args
     torch.cuda.empty_cache()
     return records
+
+
+def bwd_flagship_timing(args, o, max_err):
+    """The flash_bwd record at the flagship shape: the kernel's device
+    time (torch.profiler, by kernel name), its plain versions' time, the
+    library's backward (scaled_dot_product_attention's dq, dk, dv, by
+    CUDA events), the fused bound; and the port's whole backward
+    (_flash_backward: delta, scratch, kernel) beside the library's by
+    the same events."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import attention as att
+
+    q, k, v, do, lse, delta, scale, causal, window, off = args
+    BH, T, D = q.shape
+    Tk = k.shape[1]
+    dt = str(q.dtype).replace("torch.", "")
+    q4, k4, v4 = (x.view(1, BH, -1, D).detach().requires_grad_()
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                         scale=scale)
+    do4 = do.view(1, BH, T, D)
+
+    def library():
+        return torch.autograd.grad(out, (q4, k4, v4), do4,
+                                   retain_graph=True)
+
+    def whole():
+        return att._flash_backward(q, k, v, o, lse, do, scale, causal,
+                                   window, off)
+
+    ms = device_ms(lambda: att.flash_bwd_cuda(*args), "flash_bwd_bf16")
+    call_ms = time_ms(lambda: att.flash_bwd_cuda(*args))
+    # whole backward and library in turns: library, port, port, library
+    lib_a, whole_a = time_ms(library), time_ms(whole)
+    whole_b, lib_b = time_ms(whole), time_ms(library)
+    lib_ms = statistics.median([lib_a, lib_b])
+    whole_ms = statistics.median([whole_a, whole_b])
+    del out, q4, k4, v4
+    plain_ms = time_ms(lambda: (att._flash_dq_reference(*args),
+                                att._flash_dkv_reference(*args)), reps=5)
+    bound, by = flash_bound("fused", T, Tk, D, BH, causal, window, off, dt)
+    say("kernel flash_bwd flagship timing: kernel %.4f ms (device time; "
+        "%.4f ms by events around the call, zeroed dq and counters "
+        "included), plain %.4f ms, library (scaled_dot_product_attention "
+        "backward: dq, dk, dv) %.4f ms (%.4f, %.4f), fused bound %.4f ms "
+        "(%s); %.1f%% of the bf16 peak" % (
+            ms, call_ms, plain_ms, lib_ms, lib_a, lib_b, bound, by,
+            100 * bound / ms))
+    say("kernel flash_bwd whole backward (delta, scratch, kernel) %.4f ms "
+        "(%.4f, %.4f) against the library's %.4f ms: %.2fx" % (
+            whole_ms, whole_a, whole_b, lib_ms, whole_ms / lib_ms))
+    return {"name": "flash_bwd", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": "mxnet_tpu/ops/attention.py:279, :331",
+            "launches": None, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms, "call_ms": call_ms,
+            "whole_backward_ms": whole_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -450,7 +489,7 @@ def reference_check():
 # kernel-name substrings -> the kind of work, for the profile summary
 # (first match wins)
 PROFILE_GROUPS = (
-    ("flash kernels (this port)", ("flash_fwd", "flash_dq", "flash_dkv")),
+    ("flash kernels (this port)", ("flash_fwd", "flash_bwd")),
     ("NMS kernel (this port)", ("nms_kernel",)),
     ("BatchNorm kernels (this port)", ("bn_stats", "bn_apply",
                                        "bn_bwd_reduce", "bn_bwd_dx",
@@ -1729,8 +1768,8 @@ def main():
     records = (kernel_phase() + bwd_kernel_phase() + bn_kernel_phase()
                + nms_kernel_phase())
     by_path = {"serve": path_phase([att.flash_fwd_cuda]),
-               "train": train_phase([att.flash_fwd_cuda, att.flash_dq_cuda,
-                                     att.flash_dkv_cuda]),
+               "train": train_phase([att.flash_fwd_cuda,
+                                     att.flash_bwd_cuda]),
                **resnet_phase([bnk.bn_stats_cuda, bnk.bn_apply_cuda,
                                bnk.bn_bwd_reduce_cuda, bnk.bn_bwd_dx_cuda]),
                "ssd": ssd_phase([nmsk.nms_keep_cuda])}

@@ -102,20 +102,15 @@ def _declare(name, lib):
                                   c_i, c_p]                  # dtype stream
         lib.flash_fwd.restype = c_i
     elif name == "flash_bwd":
-        lib.flash_dq.argtypes = [c_p, c_p, c_p, c_p,         # q k v do
-                                 c_p, c_p, c_p,              # lse delta dq
-                                 c_i, c_i, c_i, c_i,         # bh t tk d
-                                 c_f, c_i, c_i, c_i,         # scale causal
-                                                             # window offset
-                                 c_i, c_p]                   # dtype stream
-        lib.flash_dq.restype = c_i
-        lib.flash_dkv.argtypes = [c_p, c_p, c_p, c_p,        # q k v do
-                                  c_p, c_p, c_p, c_p,        # lse delta dk dv
+        lib.flash_bwd.argtypes = [c_p, c_p, c_p, c_p,        # q k v do
+                                  c_p, c_p,                  # lse delta
+                                  c_p, c_p, c_p,             # dq dk dv
+                                  c_p, c_p,                  # dq_acc turns
                                   c_i, c_i, c_i, c_i,        # bh t tk d
                                   c_f, c_i, c_i, c_i,        # scale causal
                                                              # window offset
                                   c_i, c_p]                  # dtype stream
-        lib.flash_dkv.restype = c_i
+        lib.flash_bwd.restype = c_i
     elif name == "bn_train":
         lib.bn_slabs.argtypes = [c_i, c_i, c_i]              # n c hw
         lib.bn_slabs.restype = c_i

@@ -1,52 +1,81 @@
 // Flash-attention backward for Hopper (sm_90a), with a plain C interface:
-// the FlashAttention-2 dq pass and dk/dv pass.
+// one fused, deterministic pass for bf16; the FlashAttention-2 dq and
+// dk/dv passes in exact float32.
 //
 // Replaces mxnet_tpu/ops/attention.py:_flash_dq_kernel and
 // _flash_dkv_kernel (wrapper _flash_backward). Given the forward's q, k, v,
 // the output cotangent do, the forward's per-row lse and
 // delta = rowsum(do * o) (minus the lse cotangent, folded in by the caller),
-// they compute what those kernels compute, over the valid (row, col) pairs:
+// it computes what those kernels compute, over the valid (row, col) pairs:
 //   p  = exp(scale * q.k - lse)          (f32)
-//   ds = p * (do.v - delta) * scale      (f32, then rounded to q's dtype)
+//   ds = p * (do.v - delta) * scale      (f32, then rounded to bf16)
 //   dq = sum_col ds k,  dk = sum_row ds q,  dv = sum_row p do
-// with p rounded to do's dtype before the dv product; validity by
-// _band_valid (causal, sliding window, band_offset) and the ragged tails;
-// masked pairs give p = 0 and ds = 0 through a select that wraps the whole
-// product (never exp(s - lse) unmasked: a row with no valid column carries
-// lse ~ -1e30); padded rows of every operand zero-filled; tiles wholly
-// outside the band skipped as _band_run does; the outputs cast once at the
-// end. No atomics: each output element has one owner, so results are
-// deterministic.
-//
-// Design. The TPU's two-pass split stays: the dq kernel has one block per
-// (bh, 64-row q tile) and walks the k tiles of the band with dq in
-// registers; the dkv kernel has one block per (bh, 64-key k tile) and walks
-// the q tiles of the band (32 rows each) with dk and dv in registers. The
-// bf16 path runs every product on the tensor cores with mma.sync m16n8k16
-// (f32 accumulation), one warp per 16 rows of the block's own tile, in the
-// FlashAttention-2 register layout: the dkv kernel computes s^T = k q^T
-// directly, so p^T and ds^T land in registers as the A fragments of the
-// p^T do and ds^T q products, with lse and delta indexed by column. Tiles
-// that stream (k/v in dq, q/do/lse/delta in dkv) are double-buffered with
-// cp.async; B operands whose reduction runs over their rows (k in dq, q and
-// do in dkv) are read with ldmatrix.trans. Registers: dkv holds two 16 x D
-// f32 accumulators per warp (128 registers at D = 128), so its q tile is 32
-// rows (s^T and dp^T take 16 registers each) and the block runs 4 warps
-// under a 2-blocks-per-SM register cap (255). The f32 path is exact
-// float32 FMA on the CUDA cores (lanes over keys or rows for the scores,
-// over head dims for the products): tensor-core TF32 would change the
-// numbers.
+// with p rounded to bf16 before the dv product; validity by _band_valid
+// (causal, sliding window, band_offset) and the ragged tails; masked pairs
+// give p = 0 and ds = 0 through a select that wraps the whole product
+// (never exp(s - lse) unmasked: a row with no valid column carries
+// lse ~ -1e30); padded rows and head dims zero; tiles wholly outside the
+// band skipped as _band_run does; every output summed in f32 and cast once.
 //
 // Bound on the H100 at the flagship training shape (B*H = 128, T = Tk =
-// 2048, D = 128, bf16, causal): dq does 3 products of 2*D flops per valid
-// pair (q.k, do.v, ds.k), 6*D*BH*T*(T+1)/2 = 206 GFLOP, 0.209 ms at 989
-// TFLOP/s, against 0.27 GB of traffic, 0.08 ms at 3.35 TB/s; dkv does 4
-// (k.q, v.do, p.do, ds.q), 0.278 ms. Both are bound by operations, so the
-// design keeps the (T, T) scores out of device memory and skips the tiles
-// above the causal diagonal. The pair recomputes q.k and do.v once each;
-// a fused one-pass design (atomic dq) needs 10*D per pair, 0.348 ms. What
-// it does not do yet: wgmma, TMA, warp specialisation, the fused pass.
+// 2048, D = 128, bf16, causal): operations. The fused pass does five
+// products of 2*D flops per valid pair (k.q, v.do, p.do, ds.q, ds.k),
+// 10*D*BH*T*(T+1)/2 = 344 GFLOP, 0.348 ms at 989 TFLOP/s, against 0.27 GB
+// of traffic (0.08 ms at 3.35 TB/s). The TPU's two-pass split would do
+// 14*D a pair (q.k and do.v twice).
+//
+// Design of flash_bwd_bf16 (one CTA per (bh, 128-key tile), 384 threads):
+// - Grid. blockIdx = j * BH + bh, kv-tile-major: the longest causal CTAs
+//   (j = 0) start first, and every CTA that a later one waits on (below)
+//   was dispatched before it. The CTA walks the 64-row q tiles that meet
+//   its band, from the last one down, and keeps dK and dV for its keys in
+//   registers.
+// - Warp specialisation. Warpgroup 0 gives its registers away (setmaxnreg
+//   40; at 24 its code spilled): its warp 0 issues the TMA loads (K and V once; Q and dO per q
+//   tile into a 2-stage ring under full/empty mbarriers) and stages the
+//   tile's lse (in base 2) and delta; one thread of warp 1 writes dq (the
+//   last point). Warpgroups 1 and 2 are the consumers, 64 keys each, at
+//   232 registers (40 * 128 + 232 * 256 = the 168 * 384 of the launch). TMA maps are 3-D over (BH, T, D), so a ragged tail
+//   reads zeros and never the next head's rows; a box is one 128-byte
+//   swizzled panel (64 bf16 columns), so head dims past D read zeros too.
+//   DP (16, 32, 64, 128) sets the depth of the k.q and v.do products; the
+//   tiles are NP = max(DP, 64) columns wide, whole panels.
+// - Products, all wgmma with f32 accumulation, every operand in shared
+//   memory: S^T = K Q^T and dP^T = V dO^T; P^T and dS^T are formed in
+//   registers (lse and delta indexed by column, validity a bitmask made
+//   without branches, all set on tiles inside the band) and stored as bf16
+//   in the swizzled layout; then dV += P^T dO and dK += dS^T Q (B
+//   N-major), and dQ_partial = dS K over the CTA's 128 keys (both operands
+//   transposed), each consumer warpgroup taking one 64-column half of D
+//   (warpgroup 0's half only when NP = 64). A from registers would save
+//   shared-memory bandwidth, but dK, dV, S^T, dP^T and the fragments do
+//   not fit those registers at D = 128 (ptxas spilled and serialized).
+// - dq in a fixed order, without float atomics. dQ_partial of q tile i
+//   joins an f32 scratch dq_acc (BH, T, D) under a per-(bh, i) turn
+//   counter: kv tile j adds when the counter equals the number of band kv
+//   tiles before j (band_span), then increments it with a release. The
+//   consumers stage the partial in shared memory (32-column f32 panels,
+//   swizzled); the writer thread waits for the turn and puts it into
+//   dq_acc by TMA, a plain store for the first contributor and an f32
+//   add for the others, waits for completion, releases the turn and frees
+//   the stage. The last contributor skips the stage: its consumers wait
+//   for the turn and write the bf16 dq rows from registers (acc + own
+//   partial). q tiles no kv tile meets keep the wrapper's zeros. It cannot
+//   deadlock: a CTA waits only on CTAs of smaller j, which the kv-major
+//   launch order dispatched before it and which never wait on a larger j.
+// - Shared memory at D = 128: K, V 64 KB, the ring 64 KB, P^T and dS^T
+//   32 KB, the dq stage 32 KB: 194 KB, one CTA an SM.
+// What it leaves on the table: the two consumer warpgroups run in step
+// (two barriers a tile), so the tensor cores idle while both form P and
+// dS; S^T, dP^T and dQ are 64-wide products with both operands in shared
+// memory, which bounds them by shared-memory bandwidth; nothing overlaps
+// one tile's elementwise work with the next tile's products.
+//
+// The f32 path is exact float32 FMA on the CUDA cores (dq and dk/dv
+// kernels, lanes over keys or rows for the scores, over head dims for the
+// products): tensor-core TF32 would change the numbers.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,8 +83,7 @@
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kPad = 8;        // bf16 elements of row padding (bank spread)
+constexpr int kThreads = 128;  // 4 warps (the f32 kernels)
 
 typedef __nv_bfloat16 bf16;
 
@@ -95,51 +123,6 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte global->shared copy that bypasses registers; pred = false
-// writes zeros (the padded rows and head dims)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// four 8x8 b16 matrices from shared memory; lanes 8i..8i+7 address the
-// rows of matrix i. .trans hands each lane a column pair instead of a row
-// pair: row-major (k, n) data becomes B fragments with k on the rows.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // 2^x on the special-function unit (relative error ~2^-22, far below the
 // bf16 rounding that p and ds get next)
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -153,431 +136,657 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Stage rows [row0, row0 + ROWS) of a (limit, D) bf16 matrix into shared
-// memory with row stride DP + kPad, zero past `limit` and past D.
-template <int DP, int ROWS>
-__device__ __forceinline__ void stage_rows(bf16* s, const bf16* g, int row0,
-                                           int limit, int D, int tid) {
-  constexpr int CH = DP / 8;
-  for (int c = tid; c < ROWS * CH; c += kThreads) {
-    const int r = c / CH, d = (c % CH) * 8, row = row0 + r;
-    const bool ok = row < limit && d < D;
-    cp_async16(s + r * (DP + kPad) + d, ok ? g + (size_t)row * D + d : g,
-               ok);
+
+// ---------------------------------------------------------------------------
+// bf16: the fused pass (TMA, mbarriers, wgmma, warp specialisation)
+// ---------------------------------------------------------------------------
+
+constexpr int kBQ = 64;              // q rows per tile
+constexpr int kBK = 128;             // keys per CTA, 64 per consumer warpgroup
+constexpr int kStages = 2;           // depth of the Q/dO ring
+constexpr int kFusedThreads = 384;   // producer warpgroup + 2 consumers
+constexpr int kRow = 128;            // bytes of one swizzled panel row
+
+template <int DP>
+struct Fused {  // shared-memory plan; every tile starts on 1024 bytes
+  static constexpr int NP = DP < 64 ? 64 : DP;   // stored width (columns)
+  static constexpr int NPAN = NP / 64;           // 128-byte panels a row
+  static constexpr int KPANEL = kBK * kRow;      // one panel of K or V
+  static constexpr int QPANEL = kBQ * kRow;      // one panel of Q or dO
+  static constexpr int K_BYTES = NPAN * KPANEL;
+  static constexpr int Q_BYTES = NPAN * QPANEL;
+  static constexpr int OFF_K = 0;
+  static constexpr int OFF_V = K_BYTES;
+  static constexpr int OFF_Q = 2 * K_BYTES;                  // ring
+  static constexpr int OFF_O = OFF_Q + kStages * Q_BYTES;    // ring
+  static constexpr int OFF_S = OFF_O + kStages * Q_BYTES;    // dS^T bf16
+  static constexpr int OFF_P = OFF_S + kBK * kRow;           // P^T bf16
+  static constexpr int OFF_Z = OFF_P + kBK * kRow;           // dQ_partial f32
+  static constexpr int OFF_L = OFF_Z + kBQ * NP * 4;         // lse ring
+  static constexpr int OFF_D = OFF_L + kStages * kBQ * 4;    // delta ring
+  static constexpr int OFF_BAR = OFF_D + kStages * kBQ * 4;  // mbarriers
+  static constexpr size_t SMEM = OFF_BAR + (2 * kStages + 3) * 8 + 1024;
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// tell the barrier how many bytes TMA will bring (no arrival)
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// wait for the completion of the phase of the given parity
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred P1;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, P1;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
   }
 }
 
-// The 16 x 16 A fragment at (row r0, col c0) of a row-major bf16 tile with
-// row stride S, through one ldmatrix: matrix i covers rows r0 + (i & 1) * 8
-// and cols c0 + (i >> 1) * 8, giving a0..a3 in mma.sync's order.
-template <int S>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
-                                       int r0, int c0, int lane) {
-  const int mi = lane >> 3, mr = lane & 7;
-  ldsm_x4(a, tile + (r0 + (mi & 1) * 8 + mr) * S + c0 + (mi >> 1) * 8);
+// TMA: the (c0 = column, c1 = row, c2 = bh) box of a 3-D tensor map into
+// shared memory, completing on `bar`; out-of-bounds elements read zero
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
 }
 
-// B fragments of two n-tiles (rows n0..n0+15 of the tile are the n index,
-// cols c0..c0+15 the reduction): b[0], b[1] for n0..n0+7, b[2], b[3] for
-// n0+8..n0+15.
-template <int S>
-__device__ __forceinline__ void load_b_rows(uint32_t (&b)[4],
-                                            const bf16* tile, int n0, int c0,
-                                            int lane) {
-  const int mi = lane >> 3, mr = lane & 7;
-  ldsm_x4(b, tile + (n0 + (mi >> 1) * 8 + mr) * S + c0 + (mi & 1) * 8);
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// B fragments of two n-tiles where the tile's rows are the reduction
-// (rows r0..r0+15) and its cols the n index (cols n0..n0+15).
-template <int S>
-__device__ __forceinline__ void load_b_trans(uint32_t (&b)[4],
-                                             const bf16* tile, int r0,
-                                             int n0, int lane) {
-  const int mi = lane >> 3, mr = lane & 7;
-  ldsm_x4_trans(b, tile + (r0 + (mi & 1) * 8 + mr) * S + n0 + (mi >> 1) * 8);
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
 }
 
-// Accumulator n-tiles 2j, 2j+1 (16 columns) as the A fragment of k-step j,
-// each value rounded to bf16.
+__device__ __forceinline__ void red_release(int* p, int v) {
+  asm volatile(
+      "fence.acq_rel.gpu;\n"
+      "red.relaxed.gpu.global.add.s32 [%0], %1;\n" ::"l"(p),
+      "r"(v)
+      : "memory");
+}
+
+// TMA from shared memory into the (c0 = column, c1 = row, c2 = bh) box of a
+// 3-D f32 tensor map: a plain store, or an f32 add into what is there (done
+// in L2); rows and columns out of bounds are not written
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_add_3d(const CUtensorMap* map,
+                                           const void* src, int c0, int c1,
+                                           int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.tile.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wait until the bulk copies issued so far are complete, their writes
+// made before any later generic access (the turn counter's release)
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile(
+      "cp.async.bulk.commit_group;\n"
+      "cp.async.bulk.wait_group 0;\n"
+      "fence.proxy.async.global;\n" ::
+          : "memory");
+}
+
+__device__ __forceinline__ int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
+
+// The kv tiles [jf, jl] whose band meets q tile [q0, q0 + kBQ), for a q
+// tile that meets one: band_run solved for the kv tile index
+__device__ __forceinline__ void band_span(int q0, int nk, int causal,
+                                          int window, int off, int& jf,
+                                          int& jl) {
+  jf = 0;
+  jl = nk - 1;
+  if (!causal) return;
+  jl = min(jl, floor_div(q0 + kBQ - 1 + off, kBK));
+  if (window) jf = max(0, floor_div(q0 + off - window - (kBK - 1), kBK) + 1);
+}
+
+// band_valid without branches (every term evaluated), for the masks of a
+// tile that is not wholly inside the band
+__device__ __forceinline__ bool band_ok(int row, int col, int t, int tk,
+                                        int causal, int window, int off) {
+  const int r = row + off;
+  return (row < t) & (col < tk) &
+         ((causal == 0) | ((r >= col) & ((window == 0) | (r - col < window))));
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (see the products below)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// desc advanced by `bytes`, computed where it is used: the base passes
+// through an opaque move first, so the compiler cannot hoist every k-step's
+// descriptor out of the loop and hold them all in registers
+__device__ __forceinline__ uint64_t desc_at(uint64_t desc, uint32_t bytes) {
+  asm volatile("mov.b64 %0, %0;\n" : "+l"(desc));
+  return desc + (bytes >> 4);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
 template <int N>
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
-                                         const float (&c)[N][4], int j) {
-  a[0] = pack_bf16(c[2 * j][0], c[2 * j][1]);
-  a[1] = pack_bf16(c[2 * j][2], c[2 * j][3]);
-  a[2] = pack_bf16(c[2 * j + 1][0], c[2 * j + 1][1]);
-  a[3] = pack_bf16(c[2 * j + 1][2], c[2 * j + 1][3]);
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// Write a warp's 16 x DP f32 accumulator (rows row0 and row0 + 8 of this
-// thread) to a (limit, D) bf16 matrix.
+// keep the compiler from moving accesses of wgmma registers across waits
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define D8(i)                                                            \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define R32                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+  "%29, %30, %31}"
+#define R64                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+  "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, " \
+  "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, " \
+  "%57, %58, %59, %60, %61, %62, %63}"
+
+// d (64 x N f32) (+)= A B, both from shared memory, N = 64 or 128; TA / TB:
+// the operand is stored M- (N-) major instead of K-major
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " R32
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " R64
+      ", %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+#undef D8
+#undef R32
+#undef R64
+
+// The accumulator layout of a wgmma m64nN tile, per thread of the
+// warpgroup (warp wi, lane = 4 g + t4): element 4 n + e sits at row
+// 16 wi + g + 8 (e >= 2), column 8 n + 2 t4 + (e & 1).
+//
+// Shared-memory operands are rows of 128 bytes (64 bf16) in TMA's 128-byte
+// swizzle, 8-row atoms of 1024 bytes one after another; a wider matrix is
+// several such panels, PANEL bytes apart. K-major operands (the reduction
+// along the row): SBO = 1024, and k-step kk starts 32 * (kk % 4) bytes
+// into panel kk / 4. Operands stored along M or N (transposed): the
+// reduction runs down the rows, k-step kk starts 16 * kk rows (2048 bytes)
+// in, SBO = 1024 between 8-row groups and LBO = PANEL between panels.
 template <int DP>
-__device__ __forceinline__ void store_acc(bf16* out, const float (&c)[DP / 8][4],
-                                          int row0, int limit, int D,
-                                          int t4) {
-  const int row1 = row0 + 8;
-#pragma unroll
-  for (int nd = 0; nd < DP / 8; ++nd) {
-    const int col = nd * 8 + 2 * t4;
-    if (col >= D) continue;
-    if (row0 < limit)
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row0 * D + col) =
-          __floats2bfloat162_rn(c[nd][0], c[nd][1]);
-    if (row1 < limit)
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row1 * D + col) =
-          __floats2bfloat162_rn(c[nd][2], c[nd][3]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 dq: one block per (bh, 64-row q tile), k tiles of 64 keys
-// ---------------------------------------------------------------------------
-
-constexpr int kDqBQ = 64;
-constexpr int kDqBK = 64;
-
-template <int DP>
-constexpr size_t dq_smem_bytes() {  // Q, dO, two K and two V buffers
-  return sizeof(bf16) * 6 * (size_t)kDqBK * (DP + kPad);
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads, 2)
-    flash_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, bf16* __restrict__ dq,
-                  int T, int Tk, int D, int nq, float scale, int causal,
-                  int window, int off) {
-  constexpr int S = DP + kPad;
-  constexpr int TILE = kDqBK * S;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sO = sQ + TILE;
-  bf16* sK = sO + TILE;      // two buffers
-  bf16* sV = sK + 2 * TILE;  // two buffers
-
-  const int bh = blockIdx.x / nq;
-  const int q0 = (nq - 1 - blockIdx.x % nq) * kDqBQ;  // longest rows first
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const size_t qoff = (size_t)bh * T * D;
-  const bf16* kb = k + (size_t)bh * Tk * D;
-  const bf16* vb = v + (size_t)bh * Tk * D;
-
-  // the k tiles that meet the band: one contiguous run
-  const int nk = (Tk + kDqBK - 1) / kDqBK;
-  int kt0 = 0;
-  while (kt0 < nk &&
-         !band_run(q0, kDqBQ, kt0 * kDqBK, kDqBK, causal, window, off))
-    ++kt0;
-  int kt1 = kt0;
-  while (kt1 < nk &&
-         band_run(q0, kDqBQ, kt1 * kDqBK, kDqBK, causal, window, off))
-    ++kt1;
-
-  stage_rows<DP, kDqBQ>(sQ, q + qoff, q0, T, D, tid);
-  stage_rows<DP, kDqBQ>(sO, dout + qoff, q0, T, D, tid);
-  if (kt0 < kt1) {
-    stage_rows<DP, kDqBK>(sK, kb, kt0 * kDqBK, Tk, D, tid);
-    stage_rows<DP, kDqBK>(sV, vb, kt0 * kDqBK, Tk, D, tid);
-  }
-  cp_async_commit();
-
-  const int wr = warp * 16;  // this warp's rows within the tile
-  const int row0 = q0 + wr + g, row1 = row0 + 8;
-  // lse in base 2, so each p costs one FMA and one ex2
-  const float l0 = row0 < T ? lse[(size_t)bh * T + row0] * kLog2e : 0.f;
-  const float l1 = row1 < T ? lse[(size_t)bh * T + row1] * kLog2e : 0.f;
-  const float d0 = row0 < T ? delta[(size_t)bh * T + row0] : 0.f;
-  const float d1 = row1 < T ? delta[(size_t)bh * T + row1] : 0.f;
-  const float scale_log2 = scale * kLog2e;
-
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < DP / 8; ++nd)
-    acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int buf = (kt - kt0) & 1, k0 = kt * kDqBK;
-    if (kt + 1 < kt1) {  // prefetch the next tile while this one computes
-      stage_rows<DP, kDqBK>(sK + (buf ^ 1) * TILE, kb, k0 + kDqBK, Tk, D,
-                            tid);
-      stage_rows<DP, kDqBK>(sV + (buf ^ 1) * TILE, vb, k0 + kDqBK, Tk, D,
-                            tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // this tile (and Q, dO) has landed for every warp
-    const bf16* tK = sK + buf * TILE;
-    const bf16* tV = sV + buf * TILE;
-
-    // s = Q K^T and dp = dO V^T for 16 rows x 64 keys
-    float s[kDqBK / 8][4], dp[kDqBK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kDqBK / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      uint32_t qa[4], oa[4];
-      load_a<S>(qa, sQ, wr, kk * 16, lane);
-      load_a<S>(oa, sO, wr, kk * 16, lane);
-#pragma unroll
-      for (int np = 0; np < kDqBK / 16; ++np) {
-        uint32_t b[4];
-        load_b_rows<S>(b, tK, np * 16, kk * 16, lane);
-        mma_bf16(s[2 * np], qa, b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qa, b[2], b[3]);
-        load_b_rows<S>(b, tV, np * 16, kk * 16, lane);
-        mma_bf16(dp[2 * np], oa, b[0], b[1]);
-        mma_bf16(dp[2 * np + 1], oa, b[2], b[3]);
-      }
-    }
-
-    // ds = p (dp - delta) scale over the valid pairs, 0 elsewhere (in s)
-    const bool full =
-        tile_full(q0, kDqBQ, k0, kDqBK, T, Tk, causal, window, off);
-#pragma unroll
-    for (int nt = 0; nt < kDqBK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool hi = e >= 2;
-        const int col = k0 + nt * 8 + 2 * t4 + (e & 1);
-        const bool ok = full || band_valid(hi ? row1 : row0, col, T, Tk,
-                                           causal, window, off);
-        const float p =
-            ok ? fast_exp2(s[nt][e] * scale_log2 - (hi ? l1 : l0)) : 0.f;
-        s[nt][e] = ok ? p * (dp[nt][e] - (hi ? d1 : d0)) * scale : 0.f;
-      }
-    }
-
-    // dq += ds K (ds rounded to bf16 as the A fragment)
-#pragma unroll
-    for (int j = 0; j < kDqBK / 16; ++j) {
-      uint32_t a[4];
-      acc_to_a<kDqBK / 8>(a, s, j);
-#pragma unroll
-      for (int np = 0; np < DP / 16; ++np) {
-        uint32_t b[4];
-        load_b_trans<S>(b, tK, j * 16, np * 16, lane);
-        mma_bf16(acc[2 * np], a, b[0], b[1]);
-        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer
-  }
-  cp_async_wait<0>();  // a block whose run is empty still staged Q and dO
-
-  store_acc<DP>(dq + qoff, acc, row0, T, D, t4);
-}
-
-// ---------------------------------------------------------------------------
-// bf16 dk/dv: one block per (bh, 64-key k tile), q tiles of 32 rows
-// ---------------------------------------------------------------------------
-
-constexpr int kKvBK = 64;
-constexpr int kKvBQ = 32;
-
-template <int DP>
-constexpr size_t dkv_smem_bytes() {  // K, V, two Q and two dO buffers,
-                                     // two lse and two delta vectors
-  return sizeof(bf16) * (2 * (size_t)kKvBK + 4 * (size_t)kKvBQ) * (DP + kPad) +
-         sizeof(float) * 4 * kKvBQ;
-}
-
-// lse (in base 2) and delta of q rows [q0, q0 + kKvBQ), 0 past T
-__device__ __forceinline__ void stage_stats(float* sl, float* sd,
-                                            const float* lse,
-                                            const float* delta, int q0,
-                                            int T, int tid) {
-  if (tid < kKvBQ) {
-    const int row = q0 + tid;
-    sl[tid] = row < T ? lse[row] * kLog2e : 0.f;
-  } else if (tid < 2 * kKvBQ) {
-    const int row = q0 + tid - kKvBQ;
-    sd[tid - kKvBQ] = row < T ? delta[row] : 0.f;
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads, 2)
-    flash_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(kFusedThreads, 1)
+    flash_bwd_bf16(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_o,
+                   const __grid_constant__ CUtensorMap tm_acc,
                    const float* __restrict__ lse,
-                   const float* __restrict__ delta, bf16* __restrict__ dk,
-                   bf16* __restrict__ dv, int T, int Tk, int D, int nk,
-                   float scale, int causal, int window, int off) {
-  constexpr int S = DP + kPad;
-  constexpr int KT = kKvBK * S, QT = kKvBQ * S;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + KT;
-  bf16* sQ = sV + KT;       // two buffers
-  bf16* sO = sQ + 2 * QT;   // two buffers
-  float* sL = reinterpret_cast<float*>(sO + 2 * QT);  // two buffers
-  float* sD = sL + 2 * kKvBQ;                          // two buffers
+                   const float* __restrict__ delta, bf16* __restrict__ dq,
+                   bf16* __restrict__ dk, bf16* __restrict__ dv,
+                   float* __restrict__ dq_acc, int* __restrict__ turns,
+                   int BH, int T, int Tk, int D, float scale, int causal,
+                   int window, int off) {
+  using L = Fused<DP>;
+  constexpr int NP = L::NP;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::OFF_BAR);
+  uint64_t* empty = full + kStages;
+  uint64_t* kvbar = empty + kStages;
+  uint64_t* zfull = kvbar + 1;   // a dQ_partial is staged
+  uint64_t* zempty = zfull + 1;  // the staging buffer is free again
+  float* sZ = reinterpret_cast<float*>(sm + L::OFF_Z);
+  float* sL = reinterpret_cast<float*>(sm + L::OFF_L);
+  float* sD = reinterpret_cast<float*>(sm + L::OFF_D);
 
-  const int bh = blockIdx.x / nk;
-  const int k0 = (blockIdx.x % nk) * kKvBK;  // most q tiles first (causal)
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const size_t koff = (size_t)bh * Tk * D;
-  const bf16* qb = q + (size_t)bh * T * D;
-  const bf16* ob = dout + (size_t)bh * T * D;
-  const float* lb = lse + (size_t)bh * T;
-  const float* db = delta + (size_t)bh * T;
+  const int bh = blockIdx.x % BH;
+  const int j = blockIdx.x / BH;  // kv tile: kv-tile-major launch order
+  const int k0 = j * kBK;
+  const int nq = (T + kBQ - 1) / kBQ;
+  const int nk = (Tk + kBK - 1) / kBK;
+  // the q tiles that meet the band: one contiguous run [i0, i1)
+  int i0 = 0;
+  while (i0 < nq && !band_run(i0 * kBQ, kBQ, k0, kBK, causal, window, off))
+    ++i0;
+  int i1 = i0;
+  while (i1 < nq && band_run(i1 * kBQ, kBQ, k0, kBK, causal, window, off))
+    ++i1;
+  const int n_it = i1 - i0;
 
-  // the q tiles that meet the band: one contiguous run
-  const int nqt = (T + kKvBQ - 1) / kKvBQ;
-  int qt0 = 0;
-  while (qt0 < nqt &&
-         !band_run(qt0 * kKvBQ, kKvBQ, k0, kKvBK, causal, window, off))
-    ++qt0;
-  int qt1 = qt0;
-  while (qt1 < nqt &&
-         band_run(qt1 * kKvBQ, kKvBQ, k0, kKvBK, causal, window, off))
-    ++qt1;
-
-  stage_rows<DP, kKvBK>(sK, k + koff, k0, Tk, D, tid);
-  stage_rows<DP, kKvBK>(sV, v + koff, k0, Tk, D, tid);
-  if (qt0 < qt1) {
-    stage_rows<DP, kKvBQ>(sQ, qb, qt0 * kKvBQ, T, D, tid);
-    stage_rows<DP, kKvBQ>(sO, ob, qt0 * kKvBQ, T, D, tid);
-    stage_stats(sL, sD, lb, db, qt0 * kKvBQ, T, tid);
-  }
-  cp_async_commit();
-
-  const int wr = warp * 16;  // this warp's keys within the tile
-  const int key0 = k0 + wr + g, key1 = key0 + 8;
-  const float scale_log2 = scale * kLog2e;
-
-  float dka[DP / 8][4], dva[DP / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < DP / 8; ++nd) {
-    dka[nd][0] = dka[nd][1] = dka[nd][2] = dka[nd][3] = 0.f;
-    dva[nd][0] = dva[nd][1] = dva[nd][2] = dva[nd][3] = 0.f;
-  }
-
-  for (int qt = qt0; qt < qt1; ++qt) {
-    const int buf = (qt - qt0) & 1, q0 = qt * kKvBQ;
-    if (qt + 1 < qt1) {  // prefetch the next tile while this one computes
-      const int nb = buf ^ 1;
-      stage_rows<DP, kKvBQ>(sQ + nb * QT, qb, q0 + kKvBQ, T, D, tid);
-      stage_rows<DP, kKvBQ>(sO + nb * QT, ob, q0 + kKvBQ, T, D, tid);
-      stage_stats(sL + nb * kKvBQ, sD + nb * kKvBQ, lb, db, q0 + kKvBQ, T,
-                  tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);     // the producer warp's lanes
+      mbar_init(&empty[s], 256);   // every consumer thread
     }
-    __syncthreads();  // this tile (and K, V) has landed for every warp
-    const bf16* tQ = sQ + buf * QT;
-    const bf16* tO = sO + buf * QT;
-    const float* tL = sL + buf * kKvBQ;
-    const float* tD = sD + buf * kKvBQ;
+    mbar_init(kvbar, 1);
+    mbar_init(zfull, 256);
+    mbar_init(zempty, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // s^T = K Q^T and dp^T = V dO^T for 16 keys x 32 q rows
-    float st[kKvBQ / 8][4], dpt[kKvBQ / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kKvBQ / 8; ++nt) {
-      st[nt][0] = st[nt][1] = st[nt][2] = st[nt][3] = 0.f;
-      dpt[nt][0] = dpt[nt][1] = dpt[nt][2] = dpt[nt][3] = 0.f;
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one warp loads, three idle ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_expect_tx(kvbar, 2 * L::K_BYTES);
+        mbar_arrive(kvbar);
+        for (int p = 0; p < L::NPAN; ++p) {
+          tma_load_3d(sm + L::OFF_K + p * L::KPANEL, &tm_k, kvbar, 64 * p,
+                      k0, bh);
+          tma_load_3d(sm + L::OFF_V + p * L::KPANEL, &tm_v, kvbar, 64 * p,
+                      k0, bh);
+        }
+      }
+      const float* lb = lse + (size_t)bh * T;
+      const float* db = delta + (size_t)bh * T;
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kStages;
+        const int q0 = (i1 - 1 - it) * kBQ;  // the band, last tile first
+        mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(&full[s], 2 * L::Q_BYTES);
+          for (int p = 0; p < L::NPAN; ++p) {
+            tma_load_3d(sm + L::OFF_Q + s * L::Q_BYTES + p * L::QPANEL,
+                        &tm_q, &full[s], 64 * p, q0, bh);
+            tma_load_3d(sm + L::OFF_O + s * L::Q_BYTES + p * L::QPANEL,
+                        &tm_o, &full[s], 64 * p, q0, bh);
+          }
+        }
+        for (int r = lane; r < kBQ; r += 32) {
+          const int row = q0 + r;
+          sL[s * kBQ + r] = row < T ? lb[row] * kLog2e : 0.f;
+          sD[s * kBQ + r] = row < T ? db[row] : 0.f;
+        }
+        mbar_arrive(&full[s]);
+      }
+    } else if (threadIdx.x == 32) {
+      // dq writer: each staged dQ_partial (all but the last of its q tile)
+      // goes into dq_acc when its turn comes, by one bulk copy
+      int nz = 0;  // partials taken so far
+      for (int it = 0; it < n_it; ++it) {
+        const int i = i1 - 1 - it, q0 = i * kBQ;
+        int jf, jl;
+        band_span(q0, nk, causal, window, off, jf, jl);
+        if (j == jl) continue;  // the consumers write the last one
+        mbar_wait(zfull, nz & 1);
+        int* cnt = turns + (size_t)bh * nq + i;
+        while (ld_acquire(cnt) != j - jf) __nanosleep(64);
+        for (int p = 0; p < NP / 32; ++p) {  // 32-column panels
+          if (j == jf)
+            tma_store_3d(&tm_acc, sZ + p * kBQ * 32, 32 * p, q0, bh);
+          else
+            tma_add_3d(&tm_acc, sZ + p * kBQ * 32, 32 * p, q0, bh);
+        }
+        bulk_wait_all();
+        red_release(cnt, 1);
+        mbar_arrive(zempty);
+        ++nz;
+      }
     }
+  } else {
+    // ---- consumer warpgroups: keys [k0 + 64 w, k0 + 64 w + 64) ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int w = threadIdx.x / 128 - 1;
+    const int ct = threadIdx.x - 128;  // 0..255 over both consumers
+    const int tid = threadIdx.x % 128;
+    const int wi = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+    const int kw0 = k0 + 64 * w;
+    const int key0 = kw0 + 16 * wi + g, key1 = key0 + 8;
+    const float scale_log2 = scale * kLog2e;
+    const bool has_dq = w < L::NPAN;  // NP = 64: warpgroup 0 alone
+    // descriptors: K, V as A (K-major), K as B of dQ (N-major), dS^T as
+    // A of dQ (M-major)
+    const uint64_t dsc_k = gmma_desc(smem_addr(sm + L::OFF_K) + 64 * w * kRow, 16, 1024);
+    const uint64_t dsc_v = gmma_desc(smem_addr(sm + L::OFF_V) + 64 * w * kRow, 16, 1024);
+    const uint64_t dsc_kt = gmma_desc(smem_addr(sm + L::OFF_K) + w * L::KPANEL, L::KPANEL, 1024);
+    // P^T, dS^T as A of dV, dK (K-major: this warpgroup's 64 rows);
+    // dS^T as A of dQ (M-major, all 128 rows)
+    const uint64_t dsc_p = gmma_desc(smem_addr(sm + L::OFF_P) + 64 * w * kRow, 16, 1024);
+    const uint64_t dsc_sa = gmma_desc(smem_addr(sm + L::OFF_S) + 64 * w * kRow, 16, 1024);
+    const uint64_t dsc_s = gmma_desc(smem_addr(sm + L::OFF_S), kBK * kRow, 1024);
+    unsigned char* sSg = sm + L::OFF_S;
+    unsigned char* sPg = sm + L::OFF_P;
+
+    int nz = 0;  // partials staged so far
+    float dka[NP / 2], dva[NP / 2];
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a<S>(ka, sK, wr, kk * 16, lane);
-      load_a<S>(va, sV, wr, kk * 16, lane);
+    for (int i = 0; i < NP / 2; ++i) dka[i] = dva[i] = 0.f;
+
+    mbar_wait(kvbar, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % kStages;
+      const int i = i1 - 1 - it, q0 = i * kBQ;
+      const uint32_t tq = smem_addr(sm + L::OFF_Q + s * L::Q_BYTES);
+      const uint32_t to = smem_addr(sm + L::OFF_O + s * L::Q_BYTES);
+      // Q, dO as B of S^T, dP^T (K-major) and of dK, dV (N-major)
+      const uint64_t dsc_q = gmma_desc(tq, 16, 1024);
+      const uint64_t dsc_o = gmma_desc(to, 16, 1024);
+      const uint64_t dsc_qt = gmma_desc(tq, L::QPANEL, 1024);
+      const uint64_t dsc_ot = gmma_desc(to, L::QPANEL, 1024);
+      const float* tL = sL + s * kBQ;
+      const float* tD = sD + s * kBQ;
+      mbar_wait(&full[s], (it / kStages) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 q rows, depth DP
+      float st[32], dpt[32];
+      wg_fence();
 #pragma unroll
-      for (int np = 0; np < kKvBQ / 16; ++np) {
-        uint32_t b[4];
-        load_b_rows<S>(b, tQ, np * 16, kk * 16, lane);
-        mma_bf16(st[2 * np], ka, b[0], b[1]);
-        mma_bf16(st[2 * np + 1], ka, b[2], b[3]);
-        load_b_rows<S>(b, tO, np * 16, kk * 16, lane);
-        mma_bf16(dpt[2 * np], va, b[0], b[1]);
-        mma_bf16(dpt[2 * np + 1], va, b[2], b[3]);
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t ko = (kk / 4) * L::KPANEL + (kk % 4) * 32;
+        const uint32_t qo = (kk / 4) * L::QPANEL + (kk % 4) * 32;
+        wgmma_ss<0, 0>(st, desc_at(dsc_k, ko), desc_at(dsc_q, qo), kk > 0);
+      }
+      wg_commit();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t ko = (kk / 4) * L::KPANEL + (kk % 4) * 32;
+        const uint32_t qo = (kk / 4) * L::QPANEL + (kk % 4) * 32;
+        wgmma_ss<0, 0>(dpt, desc_at(dsc_v, ko), desc_at(dsc_o, qo), kk > 0);
+      }
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // P^T and dS^T = P^T (dP^T - delta) scale over the valid pairs, 0
+      // elsewhere (the q row is the column: lse and delta index by
+      // column), each rounded to bf16 into shared memory in the swizzled
+      // layout (row = key): the A operands of dV, dK and dQ
+      // validity: bit 4 n + e for element 4 n + e, all set on a tile
+      // wholly inside the band
+      uint32_t ok = 0xffffffffu;
+      if (!tile_full(q0, kBQ, kw0, 64, T, Tk, causal, window, off)) {
+        ok = 0;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            ok |= (uint32_t)band_ok(q0 + 8 * n + 2 * t4 + (e & 1),
+                                    e >= 2 ? key1 : key0, T, Tk, causal,
+                                    window, off)
+                  << (4 * n + e);
+      }
+      const int r0 = 64 * w + 16 * wi + g;  // r0 % 8 == (r0 + 8) % 8 == g
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        // lse and delta of this thread's two q columns 8 n + 2 t4 (+1)
+        const float2 l2 = *reinterpret_cast<const float2*>(tL + 8 * n + 2 * t4);
+        const float2 d2 = *reinterpret_cast<const float2*>(tD + 8 * n + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool v = (ok >> (4 * n + e)) & 1;
+          const float lq = (e & 1) ? l2.y : l2.x;
+          const float dl = (e & 1) ? d2.y : d2.x;
+          const float p = v ? fast_exp2(st[4 * n + e] * scale_log2 - lq) : 0.f;
+          st[4 * n + e] = p;
+          dpt[4 * n + e] = v ? p * (dpt[4 * n + e] - dl) * scale : 0.f;
+        }
+        const int c = ((n ^ g) << 4) + 4 * t4;
+        *reinterpret_cast<uint32_t*>(sPg + r0 * kRow + c) =
+            pack_bf16(st[4 * n], st[4 * n + 1]);
+        *reinterpret_cast<uint32_t*>(sPg + (r0 + 8) * kRow + c) =
+            pack_bf16(st[4 * n + 2], st[4 * n + 3]);
+        *reinterpret_cast<uint32_t*>(sSg + r0 * kRow + c) =
+            pack_bf16(dpt[4 * n], dpt[4 * n + 1]);
+        *reinterpret_cast<uint32_t*>(sSg + (r0 + 8) * kRow + c) =
+            pack_bf16(dpt[4 * n + 2], dpt[4 * n + 3]);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      bar_sync(1, 256);  // both warpgroups' P^T and dS^T rows are stored
+
+      // dV += P^T dO, dK += dS^T Q; dQ_partial = dS K over the CTA's 128
+      // keys, this warpgroup's half of the head dims (in st's registers)
+      float (&dqa)[32] = st;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<0, 1>(dva, desc_at(dsc_p, kk * 32),
+                       desc_at(dsc_ot, kk * 16 * kRow), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<0, 1>(dka, desc_at(dsc_sa, kk * 32),
+                       desc_at(dsc_qt, kk * 16 * kRow), 1);
+      // (with NP = 64 warpgroup 1 computes a product it never stores: the
+      // same instruction stream in both keeps the wgmma pipeline whole)
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_ss<1, 1>(dqa, desc_at(dsc_s, kk * 16 * kRow),
+                       desc_at(dsc_kt, kk * 16 * kRow), kk > 0);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
+      fence_regs(dqa);
+      mbar_arrive(&empty[s]);  // this stage's Q, dO, lse, delta are used
+
+      bar_sync(1, 256);  // both warpgroups are done reading dS^T
+
+      // dq of q tile i, added in kv-tile order under the tile's turn
+      // counter: staged for the dq writer, or by the last contributor
+      // itself straight into the bf16 dq
+      int jf, jl;
+      band_span(q0, nk, causal, window, off, jf, jl);
+      if (j != jl) {
+        mbar_wait(zempty, (nz & 1) ^ 1);
+        if (has_dq) {  // 32-column panels of 128-byte swizzled f32 rows
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = 16 * wi + g + 8 * h;  // r % 8 == g
+              const int col = 64 * w + 8 * n + 2 * t4;
+              const int chunk = ((col % 32) / 4) ^ g;
+              *reinterpret_cast<float2*>(sZ + (col / 32) * kBQ * 32 + r * 32 +
+                                         chunk * 4 + col % 4) =
+                  make_float2(dqa[4 * n + 2 * h], dqa[4 * n + 2 * h + 1]);
+            }
+          }
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(zfull);
+        ++nz;
+      } else {
+        const int* cnt = turns + (size_t)bh * nq + i;
+        if (ct == 0)
+          while (ld_acquire(cnt) != j - jf) __nanosleep(64);
+        bar_sync(1, 256);  // the earlier kv tiles' sum is in dq_acc
+        if (has_dq) {
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = q0 + 16 * wi + g + 8 * h;
+              const int col = 64 * w + 8 * n + 2 * t4;
+              if (row >= T || col >= D) continue;
+              const size_t at = ((size_t)bh * T + row) * D + col;
+              float2 sum =
+                  make_float2(dqa[4 * n + 2 * h], dqa[4 * n + 2 * h + 1]);
+              if (j > jf) {
+                const float2 old =
+                    __ldcg(reinterpret_cast<const float2*>(dq_acc + at));
+                sum = make_float2(old.x + sum.x, old.y + sum.y);
+              }
+              *reinterpret_cast<__nv_bfloat162*>(dq + at) =
+                  __floats2bfloat162_rn(sum.x, sum.y);
+            }
+          }
+        }
       }
     }
 
-    // p^T (in st) and ds^T (in dpt) over the valid pairs, 0 elsewhere;
-    // the q row is the column here, so lse and delta index by column
-    const bool full =
-        tile_full(q0, kKvBQ, k0, kKvBK, T, Tk, causal, window, off);
+    // dK, dV rows key0 / key1, columns 8 n + 2 t4
+    const size_t koff = (size_t)bh * Tk * D;
 #pragma unroll
-    for (int nt = 0; nt < kKvBQ / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = nt * 8 + 2 * t4 + (e & 1);
-        const bool ok = full || band_valid(q0 + qi, e >= 2 ? key1 : key0, T,
-                                           Tk, causal, window, off);
-        const float p = ok ? fast_exp2(st[nt][e] * scale_log2 - tL[qi]) : 0.f;
-        st[nt][e] = p;
-        dpt[nt][e] = ok ? p * (dpt[nt][e] - tD[qi]) * scale : 0.f;
+    for (int n = 0; n < NP / 8; ++n) {
+      const int col = 8 * n + 2 * t4;
+      if (col >= D) continue;
+      if (key0 < Tk) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + koff + (size_t)key0 * D + col) =
+            __floats2bfloat162_rn(dka[4 * n], dka[4 * n + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + koff + (size_t)key0 * D + col) =
+            __floats2bfloat162_rn(dva[4 * n], dva[4 * n + 1]);
+      }
+      if (key1 < Tk) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + koff + (size_t)key1 * D + col) =
+            __floats2bfloat162_rn(dka[4 * n + 2], dka[4 * n + 3]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + koff + (size_t)key1 * D + col) =
+            __floats2bfloat162_rn(dva[4 * n + 2], dva[4 * n + 3]);
       }
     }
-
-    // dv += p^T dO and dk += ds^T Q (p and ds rounded to bf16)
-#pragma unroll
-    for (int j = 0; j < kKvBQ / 16; ++j) {
-      uint32_t pa[4], sa[4];
-      acc_to_a<kKvBQ / 8>(pa, st, j);
-      acc_to_a<kKvBQ / 8>(sa, dpt, j);
-#pragma unroll
-      for (int np = 0; np < DP / 16; ++np) {
-        uint32_t b[4];
-        load_b_trans<S>(b, tO, j * 16, np * 16, lane);
-        mma_bf16(dva[2 * np], pa, b[0], b[1]);
-        mma_bf16(dva[2 * np + 1], pa, b[2], b[3]);
-        load_b_trans<S>(b, tQ, j * 16, np * 16, lane);
-        mma_bf16(dka[2 * np], sa, b[0], b[1]);
-        mma_bf16(dka[2 * np + 1], sa, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer
   }
-  cp_async_wait<0>();  // a block whose run is empty still staged K and V
+}
 
-  store_acc<DP>(dk + koff, dka, key0, Tk, D, t4);
-  store_acc<DP>(dv + koff, dva, key0, Tk, D, t4);
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 3-D map over a contiguous (bh, rows, d) tensor with 128-byte swizzled
+// boxes of one 128-byte panel (64 bf16 or 32 f32 columns) x box_rows rows
+// x 1 head
+bool make_map(CUtensorMap* m, const void* base, bool f32, int bh, int rows,
+              int d, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t elt = f32 ? 4 : 2;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
+                              (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * elt,
+                                 (cuuint64_t)rows * d * elt};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / elt), (cuuint32_t)box_rows,
+                             1};
+  const cuuint32_t estride[3] = {1, 1, 1};
+  return encode(m,
+                f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                3, const_cast<void*>(base), dims, strides, box, estride,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int DP>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         const void* dout, const float* lse,
                         const float* delta, void* dq, void* dk, void* dv,
-                        int bh, int t, int tk, int d, float scale,
-                        int causal, int window, int off, cudaStream_t st) {
-  if (dq != nullptr) {
-    const size_t smem = dq_smem_bytes<DP>();
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_dq_bf16<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-    const int nq = (t + kDqBQ - 1) / kDqBQ;
-    flash_dq_bf16<DP><<<bh * nq, kThreads, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-        delta, static_cast<bf16*>(dq), t, tk, d, nq, scale, causal, window,
-        off);
-    return cudaGetLastError();
-  }
-  const size_t smem = dkv_smem_bytes<DP>();
+                        float* dq_acc, int* turns, int bh, int t, int tk,
+                        int d, float scale, int causal, int window, int off,
+                        cudaStream_t st) {
+  CUtensorMap mq, mk, mv, mo, macc;
+  if (!make_map(&mq, q, false, bh, t, d, kBQ) ||
+      !make_map(&mk, k, false, bh, tk, d, kBK) ||
+      !make_map(&mv, v, false, bh, tk, d, kBK) ||
+      !make_map(&mo, dout, false, bh, t, d, kBQ) ||
+      !make_map(&macc, dq_acc, true, bh, t, d, kBQ))
+    return cudaErrorInvalidValue;
+  const size_t smem = Fused<DP>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_dkv_bf16<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_bf16<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  const int nk = (tk + kKvBK - 1) / kKvBK;
-  flash_dkv_bf16<DP><<<bh * nk, kThreads, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), t, tk, d, nk, scale,
-      causal, window, off);
+  const int nk = (tk + kBK - 1) / kBK;
+  flash_bwd_bf16<DP><<<nk * bh, kFusedThreads, smem, st>>>(
+      mq, mk, mv, mo, macc, lse, delta, static_cast<bf16*>(dq),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), dq_acc, turns, bh, t,
+      tk, d, scale, causal, window, off);
   return cudaGetLastError();
 }
 
@@ -785,83 +994,75 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* dout, const float* lse, const float* delta,
-                   void* dq, void* dk, void* dv, int bh, int t, int tk, int d,
-                   float scale, int causal, int window, int off, int dtype,
-                   cudaStream_t st) {
-  if (bh <= 0 || t <= 0 || tk <= 0 || d <= 0 || d > 128 || d % 8)
-    return cudaErrorInvalidValue;
-  if (dtype == 0) {
-    if (dq != nullptr) {
-      const size_t smem = dq_f32_smem(d);
-      cudaError_t e = cudaFuncSetAttribute(
-          flash_dq_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (e != cudaSuccess) return e;
-      const int nq = (t + kFRows - 1) / kFRows;
-      flash_dq_f32<<<bh * nq, kThreads, smem, st>>>(
-          static_cast<const float*>(q), static_cast<const float*>(k),
-          static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-          delta, static_cast<float*>(dq), t, tk, d, nq, scale, causal,
-          window, off);
-      return cudaGetLastError();
-    }
-    const size_t smem = dkv_f32_smem(d);
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_dkv_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-    const int nk = (tk + kFRows - 1) / kFRows;
-    flash_dkv_f32<<<bh * nk, kThreads, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dk), static_cast<float*>(dv), t, tk, d, nk,
-        scale, causal, window, off);
-    return cudaGetLastError();
-  }
-  if (dtype != 1) return cudaErrorInvalidValue;
-  if (d <= 16)
-    return launch_bf16<16>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t, tk,
-                           d, scale, causal, window, off, st);
-  if (d <= 32)
-    return launch_bf16<32>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t, tk,
-                           d, scale, causal, window, off, st);
-  if (d <= 64)
-    return launch_bf16<64>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t, tk,
-                           d, scale, causal, window, off, st);
-  return launch_bf16<128>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t, tk,
-                          d, scale, causal, window, off, st);
+cudaError_t launch_f32(const float* q, const float* k, const float* v,
+                       const float* dout, const float* lse,
+                       const float* delta, float* dq, float* dk, float* dv,
+                       int bh, int t, int tk, int d, float scale, int causal,
+                       int window, int off, cudaStream_t st) {
+  size_t smem = dq_f32_smem(d);
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_dq_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const int nq = (t + kFRows - 1) / kFRows;
+  flash_dq_f32<<<bh * nq, kThreads, smem, st>>>(q, k, v, dout, lse, delta,
+                                                dq, t, tk, d, nq, scale,
+                                                causal, window, off);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  smem = dkv_f32_smem(d);
+  e = cudaFuncSetAttribute(
+      flash_dkv_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const int nk = (tk + kFRows - 1) / kFRows;
+  flash_dkv_f32<<<bh * nk, kThreads, smem, st>>>(q, k, v, dout, lse, delta,
+                                                 dk, dv, t, tk, d, nk, scale,
+                                                 causal, window, off);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, dout: contiguous (bh, t, d); k, v: (bh, tk, d); lse, delta: (bh, t)
 // float32; all 16-byte aligned, q/k/v/dout of one dtype (0 = float32,
-// 1 = bfloat16); dq like q. d <= 128 and a multiple of 8. Launches on
-// `stream`, allocates nothing, and returns the launch's cudaError_t.
-extern "C" int flash_dq(const void* q, const void* k, const void* v,
-                        const void* dout, const float* lse,
-                        const float* delta, void* dq, int bh, int t, int tk,
-                        int d, float scale, int causal, int window,
-                        int band_offset, int dtype, void* stream) {
-  if (dq == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)launch(q, k, v, dout, lse, delta, dq, nullptr, nullptr, bh, t,
-                     tk, d, scale, causal, window, band_offset, dtype,
-                     static_cast<cudaStream_t>(stream));
-}
-
-// As flash_dq; dk and dv like k.
-extern "C" int flash_dkv(const void* q, const void* k, const void* v,
+// 1 = bfloat16); dq like q, dk and dv like k. d <= 128 and a multiple of 8.
+// bf16 also takes dq zero-filled, an f32 scratch dq_acc of (bh, t, d)
+// (uninitialised) and int32 turn counters of (bh, ceil(t / 64)), zeroed;
+// f32 ignores both. Launches on `stream` (one kernel for bf16, two for
+// float32), allocates nothing, and returns the launch's cudaError_t.
+extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          const void* dout, const float* lse,
-                         const float* delta, void* dk, void* dv, int bh,
-                         int t, int tk, int d, float scale, int causal,
-                         int window, int band_offset, int dtype,
-                         void* stream) {
-  if (dk == nullptr || dv == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)launch(q, k, v, dout, lse, delta, nullptr, dk, dv, bh, t, tk,
-                     d, scale, causal, window, band_offset, dtype,
-                     static_cast<cudaStream_t>(stream));
+                         const float* delta, void* dq, void* dk, void* dv,
+                         float* dq_acc, int* turns, int bh, int t, int tk,
+                         int d, float scale, int causal, int window,
+                         int band_offset, int dtype, void* stream) {
+  if (bh <= 0 || t <= 0 || tk <= 0 || d <= 0 || d > 128 || d % 8 ||
+      dq == nullptr || dk == nullptr || dv == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_f32(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+        delta, static_cast<float*>(dq), static_cast<float*>(dk),
+        static_cast<float*>(dv), bh, t, tk, d, scale, causal, window,
+        band_offset, st);
+  if (dtype != 1 || dq_acc == nullptr || turns == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (d <= 16)
+    return (int)launch_bf16<16>(q, k, v, dout, lse, delta, dq, dk, dv,
+                                dq_acc, turns, bh, t, tk, d, scale, causal,
+                                window, band_offset, st);
+  if (d <= 32)
+    return (int)launch_bf16<32>(q, k, v, dout, lse, delta, dq, dk, dv,
+                                dq_acc, turns, bh, t, tk, d, scale, causal,
+                                window, band_offset, st);
+  if (d <= 64)
+    return (int)launch_bf16<64>(q, k, v, dout, lse, delta, dq, dk, dv,
+                                dq_acc, turns, bh, t, tk, d, scale, causal,
+                                window, band_offset, st);
+  return (int)launch_bf16<128>(q, k, v, dout, lse, delta, dq, dk, dv, dq_acc,
+                               turns, bh, t, tk, d, scale, causal, window,
+                               band_offset, st);
 }
 
 extern "C" const char* kernel_error_string(int code) {

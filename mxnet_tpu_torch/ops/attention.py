@@ -2,23 +2,22 @@
 kernels — the PyTorch twin of ``mxnet_tpu/ops/attention.py``'s flash
 path, forward and backward.
 
-``flash_fwd``, ``flash_dq`` and ``flash_dkv`` are the entries to the
-kernels (``csrc/flash_fwd.cu``, the port of the TPU's
-``_flash_fwd_kernel``; ``csrc/flash_bwd.cu``, the ports of
+``flash_fwd`` and ``flash_bwd`` are the entries to the kernels
+(``csrc/flash_fwd.cu``, the port of the TPU's ``_flash_fwd_kernel``;
+``csrc/flash_bwd.cu``, one fused pass that replaces
 ``_flash_dq_kernel`` and ``_flash_dkv_kernel``). On a CUDA tensor each
 launches its kernel or raises; on a CPU (or meta) tensor it runs the
-kernel's plain version (``_flash_fwd_reference``,
-``_flash_dq_reference``, ``_flash_dkv_reference``): dense f32 math with
-the same masking, rounding and lse rules. Nothing falls back from one to
-the other.
+plain versions (``_flash_fwd_reference``; ``_flash_dq_reference`` and
+``_flash_dkv_reference``): dense f32 math with the same masking,
+rounding and lse rules. Nothing falls back from one to the other.
 
 ``flash_attention`` / ``flash_attention_with_lse`` and the
 ``_contrib_FlashAttention`` op keep the JAX package's signatures. Their
 gradients are the autograd Functions ``_Flash`` and ``_FlashLse``, the
 twins of the custom VJPs ``_flash`` and ``_flash_lse``: the forward
 emits the lse only when a gradient is needed, and the backward computes
-delta = rowsum(do * o) - dlse in plain torch, then launches the dq and
-dk/dv kernels. The ``block_q`` / ``block_k`` attrs are accepted for
+delta = rowsum(do * o) - dlse in plain torch, then launches the
+backward kernel once. The ``block_q`` / ``block_k`` attrs are accepted for
 graph and JSON parity; the kernels pick their own tiling, and results do
 not depend on them beyond rounding. The decode-cache ops come with
 generation (ROADMAP Queue A item 7).
@@ -189,96 +188,73 @@ def flash_fwd(q, k, v, scale, causal, window=0, band_offset=0,
                      "%s" % (q.device,))
 
 
-def _bwd_launch(entry, q, k, v, do, lse, delta, outs, scale, causal,
-                window, band_offset):
-    """Launch one entry of the flash backward library on CUDA tensors,
-    writing into ``outs``."""
-    lib = _kernels.load("flash_bwd")
+# q rows per tile of the fused bf16 backward kernel: one turn counter each
+_BWD_BLOCK_Q = 64
+
+
+def flash_bwd_cuda(q, k, v, do, lse, delta, scale, causal, window=0,
+                   band_offset=0):
+    """Launch the Hopper flash backward on CUDA tensors: one fused,
+    deterministic kernel for bf16 (dq summed in f32 scratch in a fixed
+    order), the exact-f32 dq and dk/dv kernels for float32. Returns
+    (dq, dk, dv). ``flash_bwd_cuda.launches`` counts the calls."""
+    _check_bwd_inputs(q, k, v, do, lse, delta, "flash_bwd_cuda")
+    q, k, v, do, lse, delta = (_kernel_operand(x)
+                               for x in (q, k, v, do, lse, delta))
     BH, T, D = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if q.dtype == torch.bfloat16:
+        # q tiles that no kv tile meets keep these zeros
+        dq = torch.zeros_like(q)
+        dq_acc = torch.empty((BH, T, D), dtype=torch.float32,
+                             device=q.device)
+        turns = torch.zeros((BH, -(-T // _BWD_BLOCK_Q)), dtype=torch.int32,
+                            device=q.device)
+        scratch = (dq_acc.data_ptr(), turns.data_ptr())
+    else:
+        dq = torch.empty_like(q)
+        scratch = (None, None)
+    lib = _kernels.load("flash_bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = getattr(lib, entry)(
+        rc = lib.flash_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), *[o.data_ptr() for o in outs],
-            BH, T, k.shape[1], D, float(scale), int(bool(causal)),
-            int(window or 0), int(band_offset or 0), _DTYPE_CODE[q.dtype],
-            stream)
-    _kernels.check(lib, rc, entry)
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), *scratch, BH, T, k.shape[1], D, float(scale),
+            int(bool(causal)), int(window or 0), int(band_offset or 0),
+            _DTYPE_CODE[q.dtype], stream)
+    _kernels.check(lib, rc, "flash_bwd")
+    flash_bwd_cuda.launches += 1
+    return dq, dk, dv
 
 
-def flash_dq_cuda(q, k, v, do, lse, delta, scale, causal, window=0,
-                  band_offset=0):
-    """Launch the Hopper flash dq kernel on CUDA tensors. Returns dq.
-    ``flash_dq_cuda.launches`` counts the launches."""
-    _check_bwd_inputs(q, k, v, do, lse, delta, "flash_dq_cuda")
-    q, k, v, do, lse, delta = (_kernel_operand(x)
-                               for x in (q, k, v, do, lse, delta))
-    dq = torch.empty_like(q)
-    _bwd_launch("flash_dq", q, k, v, do, lse, delta, (dq,), scale, causal,
-                window, band_offset)
-    flash_dq_cuda.launches += 1
-    return dq
+flash_bwd_cuda.launches = 0
 
 
-flash_dq_cuda.launches = 0
-
-
-def flash_dkv_cuda(q, k, v, do, lse, delta, scale, causal, window=0,
-                   band_offset=0):
-    """Launch the Hopper flash dk/dv kernel on CUDA tensors. Returns
-    (dk, dv). ``flash_dkv_cuda.launches`` counts the launches."""
-    _check_bwd_inputs(q, k, v, do, lse, delta, "flash_dkv_cuda")
-    q, k, v, do, lse, delta = (_kernel_operand(x)
-                               for x in (q, k, v, do, lse, delta))
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_launch("flash_dkv", q, k, v, do, lse, delta, (dk, dv), scale,
-                causal, window, band_offset)
-    flash_dkv_cuda.launches += 1
-    return dk, dv
-
-
-flash_dkv_cuda.launches = 0
-
-
-def _dispatch(kernel, reference, q, *args):
+def flash_bwd(q, k, v, do, lse, delta, scale, causal, window=0,
+              band_offset=0):
+    """(dq, dk, dv) over (BH, T, D) tensors: the kernel on CUDA tensors,
+    its plain versions on CPU (and meta) tensors."""
+    args = (q, k, v, do, lse, delta, scale, causal, window, band_offset)
     if q.device.type == "cuda":
-        return kernel(q, *args)
+        return flash_bwd_cuda(*args)
     if q.device.type in ("cpu", "meta"):
-        return reference(q, *args)
+        return (_flash_dq_reference(*args), *_flash_dkv_reference(*args))
     raise ValueError("flash attention has no implementation for device "
                      "%s" % (q.device,))
-
-
-def flash_dq(q, k, v, do, lse, delta, scale, causal, window=0,
-             band_offset=0):
-    """dq over (BH, T, D) tensors: the kernel on CUDA tensors, its plain
-    version on CPU (and meta) tensors."""
-    return _dispatch(flash_dq_cuda, _flash_dq_reference, q, k, v, do, lse,
-                     delta, scale, causal, window, band_offset)
-
-
-def flash_dkv(q, k, v, do, lse, delta, scale, causal, window=0,
-              band_offset=0):
-    """(dk, dv) over (BH, T, D) tensors: the kernel on CUDA tensors, its
-    plain version on CPU (and meta) tensors."""
-    return _dispatch(flash_dkv_cuda, _flash_dkv_reference, q, k, v, do,
-                     lse, delta, scale, causal, window, band_offset)
 
 
 def _flash_backward(q, k, v, o, lse, do, scale, causal, window,
                     band_offset, dlse=None):
     """(dq, dk, dv). delta = rowsum(do * o) in f32, a cheap elementwise
-    pass outside the kernels as in the JAX package; an lse cotangent
+    pass outside the kernel as in the JAX package; an lse cotangent
     folds into it (ds = p (dp - delta + dlse), since d lse / d s = p), so
-    the kernels take one delta and never see dlse."""
+    the kernel takes one delta and never sees dlse."""
     delta = torch.sum(do.float() * o.float(), dim=-1)
     if dlse is not None:
         delta = delta - dlse.float()
-    dq = flash_dq(q, k, v, do, lse, delta, scale, causal, window,
-                  band_offset)
-    dk, dv = flash_dkv(q, k, v, do, lse, delta, scale, causal, window,
-                       band_offset)
-    return dq, dk, dv
+    return flash_bwd(q, k, v, do, lse, delta, scale, causal, window,
+                     band_offset)
 
 
 class _Flash(torch.autograd.Function):

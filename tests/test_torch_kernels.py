@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (flash forward, dq, dk/dv; the four BatchNorm
-training kernels; greedy NMS) and their wrappers, without the JAX
-package:
+"""The port's CUDA kernels (flash forward; the fused flash backward,
+``flash_bwd_cuda``; the four BatchNorm training kernels; greedy NMS) and
+their wrappers, without the JAX package:
 importable where only PyTorch is installed, as on the card's machine,
 where
 
@@ -9,9 +9,10 @@ where
 runs every case, the CUDA ones included. Tests marked ``cuda`` hold each
 kernel against its plain version (``_flash_fwd_reference``,
 ``_flash_dq_reference``, ``_flash_dkv_reference``; bf16 within 2e-2,
-compared in f32; f32 within rtol 1e-4 / atol 1e-5; lse within 1e-4) and
-skip on machines without a card; the rest pin the wrappers' contract and
-the plain versions' own rules. The BatchNorm kernels are held to their
+compared in f32; f32 within rtol 1e-4 / atol 1e-5; lse within 1e-4;
+the bf16 backward also bit-equal across two launches) and skip on
+machines without a card; the rest pin the wrappers' contract and the
+plain versions' own rules. The BatchNorm kernels are held to their
 plain versions (``_stats_reference`` ...): the elementwise ones within
 rtol/atol 1e-6 in f32 and one bf16 step (rtol 1e-2) in bf16, the f32
 sums within 1e-4 of the sum of the terms' magnitudes per channel. The
@@ -151,18 +152,16 @@ def _bwd_inputs(BH, T, Tk, D, dtype, causal, window, band_offset, device,
                          [c[1:] for c in KERNEL_CASES],
                          ids=[c[0] for c in KERNEL_CASES])
 @pytest.mark.parametrize("dlse", [False, True], ids=["delta", "dlse"])
-def test_cuda_bwd_kernels_match_plain_versions(cuda_device, BH, T, Tk, D,
+def test_cuda_bwd_kernel_matches_plain_versions(cuda_device, BH, T, Tk, D,
                                                 dtype, causal, window,
                                                 band_offset, dlse):
     args = _bwd_inputs(BH, T, Tk, D, dtype, causal, window, band_offset,
                        cuda_device, dlse)
     attrs = (D ** -0.5, causal, window, band_offset)
-    n_dq, n_dkv = tatt.flash_dq_cuda.launches, tatt.flash_dkv_cuda.launches
-    dq = tatt.flash_dq(*args, *attrs)
-    dk, dv = tatt.flash_dkv(*args, *attrs)
+    before = tatt.flash_bwd_cuda.launches
+    dq, dk, dv = tatt.flash_bwd(*args, *attrs)
     torch.cuda.synchronize()
-    assert tatt.flash_dq_cuda.launches == n_dq + 1
-    assert tatt.flash_dkv_cuda.launches == n_dkv + 1
+    assert tatt.flash_bwd_cuda.launches == before + 1
     tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 \
         else dict(rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(dq.float(), tatt._flash_dq_reference(
@@ -172,34 +171,69 @@ def test_cuda_bwd_kernels_match_plain_versions(cuda_device, BH, T, Tk, D,
     torch.testing.assert_close(dv.float(), rdv.float(), **tol)
 
 
-@pytest.mark.parametrize("name", ["flash_dq_cuda", "flash_dkv_cuda"])
+@pytest.mark.cuda
+def test_cuda_bwd_kernel_is_deterministic(cuda_device):
+    """Two launches on the same inputs give the same bits: dq is summed
+    in a fixed order, without float atomics."""
+    args = _bwd_inputs(6, 640, 640, 128, torch.bfloat16, False, 0, 0,
+                       cuda_device, True)
+    first = tatt.flash_bwd_cuda(*args, 128 ** -0.5, False)
+    second = tatt.flash_bwd_cuda(*args, 128 ** -0.5, False)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 @pytest.mark.parametrize("bad,match", [
     ("do_shape", "do must match q"),
+    ("do_dtype", "do must match q"),
     ("lse_dtype", "lse must be float32"),
     ("delta_shape", "delta must be float32"),
+    ("kv_shape", "do not agree"),
+    ("head_dim_136", "head dim 136"),
+    ("rank4", r"\(BH, T, D\)"),
     ("cpu", "CUDA device"),
 ])
-def test_bwd_kernel_wrappers_validate_inputs(name, bad, match):
-    """The backward wrappers raise on what the kernels do not take —
+def test_bwd_kernel_wrapper_validates_inputs(bad, match):
+    """The backward wrapper raises on what the kernel does not take —
     before any build or launch, so this runs without a card."""
-    q = k = v = do = torch.zeros((2, 8, 16))
-    lse = delta = torch.zeros((2, 8))
+    shape = {"head_dim_136": (2, 8, 136), "rank4": (1, 2, 8, 16)}.get(
+        bad, (2, 8, 16))
+    q = k = v = do = torch.zeros(shape)
+    lse = delta = torch.zeros(shape[:2])
     if bad == "do_shape":
         do = torch.zeros((2, 9, 16))
+    elif bad == "do_dtype":
+        do = torch.zeros(shape, dtype=torch.bfloat16)
     elif bad == "lse_dtype":
         lse = torch.zeros((2, 8), dtype=torch.float64)
     elif bad == "delta_shape":
         delta = torch.zeros((2, 9))
-    with pytest.raises(ValueError, match=match):
-        getattr(tatt, name)(q, k, v, do, lse, delta, 0.25, True)
+    elif bad == "kv_shape":
+        v = torch.zeros((2, 9, 16))
+    with pytest.raises((ValueError, TypeError), match=match):
+        tatt.flash_bwd_cuda(q, k, v, do, lse, delta, 0.25, True)
+
+
+def test_bwd_dispatch_runs_the_plain_versions_on_cpu():
+    """flash_bwd on CPU tensors returns exactly the plain versions'
+    tensors, and launches nothing."""
+    q, k, v, do = (torch.from_numpy(x) for x in _arrays(
+        (2, 20, 16), (2, 24, 16), (2, 24, 16), (2, 20, 16), seed=5))
+    lse, delta = (torch.from_numpy(x) for x in _arrays((2, 20), (2, 20),
+                                                       seed=6))
+    args = (q, k, v, do, lse, delta, 0.25, True, 8, 3)
+    before = tatt.flash_bwd_cuda.launches
+    dq, dk, dv = tatt.flash_bwd(*args)
+    assert tatt.flash_bwd_cuda.launches == before
+    rdk, rdv = tatt._flash_dkv_reference(*args)
+    assert torch.equal(dq, tatt._flash_dq_reference(*args))
+    assert torch.equal(dk, rdk) and torch.equal(dv, rdv)
 
 
 def test_backward_plain_versions_on_meta_give_shapes():
     q = torch.empty((3, 10, 16), device="meta")
     k = torch.empty((3, 14, 16), device="meta")
     lse = torch.empty((3, 10), device="meta")
-    dq = tatt.flash_dq(q, k, k, q, lse, lse, 0.25, True)
-    dk, dv = tatt.flash_dkv(q, k, k, q, lse, lse, 0.25, True)
+    dq, dk, dv = tatt.flash_bwd(q, k, k, q, lse, lse, 0.25, True)
     assert dq.shape == (3, 10, 16) and dk.shape == dv.shape == (3, 14, 16)
 
 
