@@ -11,12 +11,15 @@ Phases (any failure exits non-zero; no phase is caught):
    one nvcc per source started together;
 3. kernels: the flash forward and the fused flash backward
    (flash_bwd_cuda) against their plain PyTorch versions on the card, at
-   the main paths' shape and at edge shapes (the backward's two launches
-   bit-equal in five of them), with its time, its plain version's time,
-   one PyTorch library call's time as a yardstick (the forward; the
-   backward of scaled_dot_product_attention, also against the port's
-   whole backward: delta, scratch, kernel), and its bound (least time for
-   the same work on this card);
+   the main paths' shape and at edge shapes (head dims 4 and 12 through
+   the padded route; two launches bit-equal in three forward and five
+   backward cases), with the kernel's device time (the forward without
+   and with the lse), its plain version's time, one PyTorch library
+   call's time as a yardstick (scaled_dot_product_attention; its
+   backward, also against the port's whole backward: delta, scratch,
+   kernel), and its bound (least time for the same work on this card);
+   then _contrib_FlashAttention at __graft_entry__'s GQA shape (head dim
+   4) forward and backward, card against CPU, f32 and bf16;
 4. serve path: the flagship transformer LM (vocab 32768, seq 2048, 4
    layers, 16 heads, dim 2048, bf16, random weights from a numpy seed)
    served through ServeEngine -> Predictor -> Symbol graph, 8 concurrent
@@ -125,6 +128,13 @@ def ptxas_summary(log):
     return out
 
 
+def ptxas_warnings(log):
+    """ptxas's wgmma serialization warnings (C75xx) in nvcc's output."""
+    import re
+    return sorted(set(m.strip() for m in re.findall(r"\(C75\d\d\)[^'\n]*",
+                                                    log)))
+
+
 def time_ms(fn, reps=20, warmup=3):
     """Median device time of one call, by CUDA events around each call."""
     import torch
@@ -144,10 +154,11 @@ def time_ms(fn, reps=20, warmup=3):
 
 
 def device_ms(fn, kernel, reps=20):
-    """Device time of one call's kernels whose name holds ``kernel``: a
-    torch.profiler trace of ``reps`` warm calls, their kernel time summed
-    and divided by ``reps`` (without the host's time to enqueue a call,
-    which CUDA events around a short call include)."""
+    """Device time of one call's kernels whose name holds ``kernel`` (all
+    of the call's kernels when ``kernel`` is empty): a torch.profiler
+    trace of ``reps`` warm calls, their kernel time summed and divided by
+    ``reps`` (without the host's time to enqueue a call, which CUDA
+    events around a short call include)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -182,7 +193,16 @@ FLASH_CASES = [
     ("d64", 8, 512, 512, 64, "bfloat16", True, 0, 0, False),
     ("d16_f32", 4, 130, 97, 16, "float32", False, 0, 0, True),
     ("d128_f32", 4, 128, 128, 128, "float32", True, 0, 0, False),
+    ("d32", 8, 300, 300, 32, "bfloat16", True, 0, 0, True),
+    ("d4", 8, 256, 256, 4, "bfloat16", True, 0, 0, True),
+    ("d12", 8, 300, 333, 12, "bfloat16", True, 0, 0, False),
+    ("d12_f32", 4, 130, 97, 12, "float32", True, 0, 0, True),
+    ("window_tiles", 8, 1000, 1000, 128, "bfloat16", True, 200, 0, True),
+    ("band_offset_pos", 4, 256, 320, 128, "bfloat16", True, 100, 64, True),
 ]
+
+# the forward cases whose two launches must give the same bits
+FWD_DETERMINISM_CASES = ("flagship", "window", "band_offset_neg")
 
 
 def flash_bound(kind, T, Tk, D, BH, causal, window, band_offset, dtype):
@@ -227,7 +247,6 @@ def check_close(what, got, want, tol):
 
 def kernel_phase():
     import torch
-    import torch.nn.functional as F
     from mxnet_tpu_torch.ops import attention as att
 
     gen = torch.Generator(device="cuda").manual_seed(20261016)
@@ -254,31 +273,77 @@ def kernel_phase():
             lse_err = float(le.max().item())
             if (le > LSE_TOL["atol"] + LSE_TOL["rtol"] * rlse.abs()).any():
                 fail("flash_fwd %s: lse max abs err %g" % (label, lse_err))
+        same = ""
+        if label in FWD_DETERMINISM_CASES:
+            o2, lse2 = att.flash_fwd_cuda(q, k, v, scale, causal, window,
+                                          off, want_lse=want_lse)
+            torch.cuda.synchronize()
+            if not torch.equal(o, o2) or (want_lse
+                                          and not torch.equal(lse, lse2)):
+                fail("flash_fwd %s: two launches differ" % label)
+            same = ", two launches bit-equal"
+            del o2, lse2
         say("kernel flash_fwd %-16s BH=%d T=%d Tk=%d D=%d %s causal=%s "
-            "window=%d offset=%d: max_abs_err %.3g%s" % (
+            "window=%d offset=%d: max_abs_err %.3g%s%s" % (
                 label, BH, T, Tk, D, dt, causal, window, off, max_err,
-                "" if lse_err is None else ", lse %.3g" % lse_err))
+                "" if lse_err is None else ", lse %.3g" % lse_err, same))
         if label == "flagship":
-            ms = time_ms(lambda: att.flash_fwd_cuda(q, k, v, scale, True))
-            plain_ms = time_ms(lambda: att._flash_fwd_reference(
-                q, k, v, scale, True))
-            q4, k4, v4 = (x.view(1, BH, -1, D) for x in (q, k, v))
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=True, scale=scale))
-            bound, by = flash_bound("fwd", T, Tk, D, BH, causal, window,
-                                    off, dt)
-            record = {"name": "flash_fwd", "route": "cuda",
-                      "source": "mxnet_tpu_torch/csrc/flash_fwd.cu",
-                      "replaces": "mxnet_tpu/ops/attention.py:38",
-                      "launches": None, "max_abs_err": max_err,
-                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                      "bound_by": by, "library_ms": lib_ms}
-            say("kernel flash_fwd flagship timing: kernel %.4f ms, plain "
-                "%.4f ms, library (scaled_dot_product_attention) %.4f ms, "
-                "bound %.4f ms (%s)" % (ms, plain_ms, lib_ms, bound, by))
+            record = fwd_flagship_timing(q, k, v, scale, max_err)
         del q, k, v, o, lse, ro, rlse
     torch.cuda.empty_cache()
     return [record]
+
+
+def fwd_flagship_timing(q, k, v, scale, max_err):
+    """The flash_fwd record at the flagship shape: the kernel's device
+    time (torch.profiler, by kernel name) without the lse (the serving
+    call) and with it (the training call), CUDA events around each call
+    beside them, the plain version's time, scaled_dot_product_attention's
+    as the yardstick (``library_ms`` its device time, every kernel of the
+    call, as ``ms`` is; ``library_call_ms`` by events, as ``call_ms``
+    is), and the bound."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import attention as att
+
+    BH, T, D = q.shape
+    dt = str(q.dtype).replace("torch.", "")
+
+    def serve():
+        return att.flash_fwd_cuda(q, k, v, scale, True)
+
+    def train():
+        return att.flash_fwd_cuda(q, k, v, scale, True, want_lse=True)
+
+    ms = device_ms(serve, "flash_fwd_bf16")
+    ms_lse = device_ms(train, "flash_fwd_bf16")
+    call_ms, call_ms_lse = time_ms(serve), time_ms(train)
+    plain_ms = time_ms(lambda: att._flash_fwd_reference(q, k, v, scale,
+                                                        True), reps=5)
+    q4, k4, v4 = (x.view(1, BH, -1, D) for x in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                              scale=scale)
+
+    lib_ms, lib_call_ms = device_ms(library, ""), time_ms(library)
+    bound, by = flash_bound("fwd", T, k.shape[1], D, BH, True, 0, 0, dt)
+    say("kernel flash_fwd flagship timing: kernel %.4f ms without lse, "
+        "%.4f ms with lse (device time; %.4f, %.4f ms by events around "
+        "the call), plain %.4f ms, library (scaled_dot_product_attention) "
+        "%.4f ms device time, %.4f ms by events; bound %.4f ms (%s); "
+        "%.1f%% of the bf16 peak; against the library %.3fx by device "
+        "time, %.3fx by events" % (
+            ms, ms_lse, call_ms, call_ms_lse, plain_ms, lib_ms, lib_call_ms,
+            bound, by, 100 * bound / ms, ms / lib_ms,
+            call_ms / lib_call_ms))
+    return {"name": "flash_fwd", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/flash_fwd.cu",
+            "replaces": "mxnet_tpu/ops/attention.py:38",
+            "launches": None, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms, "ms_with_lse": ms_lse,
+            "call_ms": call_ms, "call_ms_with_lse": call_ms_lse,
+            "library_call_ms": lib_call_ms}
 
 
 # (label, BH, T, Tk, D, dtype, causal, window, band_offset, dlse)
@@ -398,10 +463,12 @@ def bwd_flagship_timing(args, o, max_err):
 
     ms = device_ms(lambda: att.flash_bwd_cuda(*args), "flash_bwd_bf16")
     call_ms = time_ms(lambda: att.flash_bwd_cuda(*args))
-    # whole backward and library in turns: library, port, port, library
+    lib_ms = device_ms(library, "")
+    # whole backward and library by events, in turns: library, port,
+    # port, library
     lib_a, whole_a = time_ms(library), time_ms(whole)
     whole_b, lib_b = time_ms(whole), time_ms(library)
-    lib_ms = statistics.median([lib_a, lib_b])
+    lib_call_ms = statistics.median([lib_a, lib_b])
     whole_ms = statistics.median([whole_a, whole_b])
     del out, q4, k4, v4
     plain_ms = time_ms(lambda: (att._flash_dq_reference(*args),
@@ -410,20 +477,71 @@ def bwd_flagship_timing(args, o, max_err):
     say("kernel flash_bwd flagship timing: kernel %.4f ms (device time; "
         "%.4f ms by events around the call, zeroed dq and counters "
         "included), plain %.4f ms, library (scaled_dot_product_attention "
-        "backward: dq, dk, dv) %.4f ms (%.4f, %.4f), fused bound %.4f ms "
-        "(%s); %.1f%% of the bf16 peak" % (
-            ms, call_ms, plain_ms, lib_ms, lib_a, lib_b, bound, by,
-            100 * bound / ms))
+        "backward: dq, dk, dv) %.4f ms device time, every kernel of the "
+        "call (%.4f ms by events: %.4f, %.4f), fused bound %.4f ms (%s); "
+        "%.1f%% of the bf16 peak; kernel against the library %.3fx by "
+        "device time" % (
+            ms, call_ms, plain_ms, lib_ms, lib_call_ms, lib_a, lib_b, bound,
+            by, 100 * bound / ms, ms / lib_ms))
     say("kernel flash_bwd whole backward (delta, scratch, kernel) %.4f ms "
-        "(%.4f, %.4f) against the library's %.4f ms: %.2fx" % (
-            whole_ms, whole_a, whole_b, lib_ms, whole_ms / lib_ms))
+        "(%.4f, %.4f) against the library's %.4f ms, both by events: "
+        "%.2fx" % (whole_ms, whole_a, whole_b, lib_call_ms,
+                   whole_ms / lib_call_ms))
     return {"name": "flash_bwd", "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/flash_bwd.cu",
             "replaces": "mxnet_tpu/ops/attention.py:279, :331",
             "launches": None, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": lib_ms, "call_ms": call_ms,
-            "whole_backward_ms": whole_ms}
+            "library_call_ms": lib_call_ms, "whole_backward_ms": whole_ms}
+
+
+# the grouped-query config of __graft_entry__.py's dryrun
+# (transformer.get_symbol(32, 16, num_layers=1, num_heads=4, dim=16,
+# num_kv_heads=2)): head dim 4, which the kernels take padded to 8
+GQA_B, GQA_HEADS, GQA_KV_HEADS, GQA_T, GQA_D = 2, 4, 2, 16, 4
+
+
+def gqa_phase():
+    """_contrib_FlashAttention at the GQA config's shape: one forward and
+    one backward on the card (the flash kernels, one launch each) in
+    float32 and bf16, against the same op on the CPU (their plain
+    versions), outputs and gradients."""
+    import torch
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.ops.registry import canon_attrs, get_op
+
+    op = get_op("_contrib_FlashAttention")
+    attrs = canon_attrs(op, {"causal": True})
+    B, H, HKV, T, D = GQA_B, GQA_HEADS, GQA_KV_HEADS, GQA_T, GQA_D
+    rng = np.random.default_rng(11)
+    arrays = [rng.standard_normal(shape, np.float32) for shape in (
+        (B, H, T, D), (B, HKV, T, D), (B, HKV, T, D), (B, H, T, D))]
+    for dt in ("float32", "bfloat16"):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            q, k, v = (torch.from_numpy(a).to(dev, getattr(torch, dt))
+                       .requires_grad_() for a in arrays[:3])
+            cot = torch.from_numpy(arrays[3]).to(dev)
+            before = (att.flash_fwd_cuda.launches,
+                      att.flash_bwd_cuda.launches)
+            out = op.fn(q, k, v, **attrs)
+            grads = torch.autograd.grad((out.float() * cot).sum(),
+                                        (q, k, v))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                after = (att.flash_fwd_cuda.launches,
+                         att.flash_bwd_cuda.launches)
+                if after != (before[0] + 1, before[1] + 1):
+                    fail("gqa %s: kernel launches %r -> %r, not one each"
+                         % (dt, before, after))
+            outs[dev] = [x.detach().float().cpu() for x in (out, *grads)]
+        errs = [check_close("gqa %s %s" % (dt, name), got, want, TOL[dt])
+                for name, got, want in zip(("o", "dq", "dk", "dv"),
+                                           outs["cuda"], outs["cpu"])]
+        say("gqa: _contrib_FlashAttention B=%d H=%d Hkv=%d T=%d D=%d %s, "
+            "card against CPU: max abs err o %.3g dq %.3g dk %.3g dv %.3g"
+            % (B, H, HKV, T, D, dt, *errs))
 
 
 # ---------------------------------------------------------------------------
@@ -1764,9 +1882,14 @@ def main():
     for name, info in sorted(built.items()):
         for line in ptxas_summary(info["log"]):
             say("build: %s: %s" % (name, line))
+    warnings = [w for info in built.values()
+                for w in ptxas_warnings(info["log"])]
+    say("build: wgmma serialization warnings: %s"
+        % ("; ".join(warnings) if warnings else "none"))
 
-    records = (kernel_phase() + bwd_kernel_phase() + bn_kernel_phase()
-               + nms_kernel_phase())
+    records = kernel_phase() + bwd_kernel_phase()
+    gqa_phase()
+    records += bn_kernel_phase() + nms_kernel_phase()
     by_path = {"serve": path_phase([att.flash_fwd_cuda]),
                "train": train_phase([att.flash_fwd_cuda,
                                      att.flash_bwd_cuda]),

@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` exports a plain C interface and is compiled by
 with ``ctypes``. The build happens at first use (or up front through
 :func:`build`), from the sources in the checkout, into ``build/kernels/``
 at the repository root; the library's file name carries a hash of its
-source and flags, so an edited source is rebuilt and a stale library is
-never loaded. Nothing here runs at import: this module imports on
+source, of the headers beside it (``csrc/hopper.cuh``) and of the flags,
+so an edited source or header is rebuilt and a stale library is never
+loaded. Nothing here runs at import: this module imports on
 machines without ``nvcc`` or a card, where only the kernels' plain
 PyTorch versions run.
 """
@@ -50,8 +51,13 @@ def _nvcc():
 
 
 def _lib_path(name):
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    """The library's path under ``BUILD_DIR``: its name carries a hash of
+    its source, of every header under ``csrc/`` (a source may include
+    any of them) and of the flags, so editing any of those rebuilds it."""
+    digest = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")) + sorted(CSRC.glob("*.h")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / ("lib%s-%s.so" % (name, digest.hexdigest()[:12]))
 
 

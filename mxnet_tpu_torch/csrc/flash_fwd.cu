@@ -6,41 +6,97 @@
 // with the running max, denominator and accumulator in f32; masking by
 // _band_valid (causal, sliding window, band_offset) and by the ragged key
 // tail; tiles wholly outside the band skipped as _band_run does; p rounded
-// to V's dtype before the PV product; fully-masked rows give 0 through
-// max(l, 1e-30); and the optional per-row lse = m + log(l) as one f32 per
-// row (the TPU kernel replicates it over 128 lanes).
+// to V's dtype before the PV product while the denominator sums the
+// unrounded p; fully-masked rows give 0 through max(l, 1e-30) and an lse of
+// -1e30; and the optional per-row lse = m + log(l) as one f32 per row (the
+// TPU kernel replicates it over 128 lanes).
 //
-// Design. One CUDA block owns one (bh, 64-row q tile) and walks the k tiles
-// that meet the band itself: that loop replaces the TPU grid's sequential
-// kb axis, and the running statistics live in registers instead of VMEM
-// scratch. The bf16 path runs both products on the tensor cores with
-// mma.sync m16n8k16 (f32 accumulation), one warp per 16 q rows, in the
-// FlashAttention-2 register layout: the S accumulator fragment is repacked
-// into the A fragment of the PV product without touching shared memory.
-// K and V tiles are double-buffered in shared memory with cp.async (the
-// next tile loads while this one computes; padded rows and head dims are
-// zero-filled by the copy, never garbage), and read with ldmatrix (.trans
-// for V). Only the tiles that cross the band's edge or the ragged tail pay
-// for per-element masking, and the softmax runs in base 2 on ex2. The f32 path is exact float32 FMA on the CUDA
-// cores (one warp per q row, lanes over keys for S and over head dims for
-// PV): tensor-core TF32 would change the numbers.
+// Bound on the H100 at the flagship shape (B*H = 128, T = Tk = 2048,
+// D = 128, bf16, causal): 4*BH*D*T*(T+1)/2 = 137 GFLOP of matrix work,
+// 0.14 ms at 989 TFLOP/s, against 268 MB of q/k/v/o traffic, 0.08 ms at
+// 3.35 TB/s: operations. So the design keeps the (T, T) scores out of
+// device memory, skips the tiles above the causal diagonal, and spends its
+// effort on keeping the tensor cores fed.
 //
-// Bound on the H100 at the flagship serving shape (B*H = 128, T = Tk =
-// 2048, D = 128, bf16, causal): 4*BH*D*T*(T+1)/2 = 137 GFLOP of matrix
-// work, 0.14 ms at 989 TFLOP/s, against 268 MB of q/k/v/o traffic, 0.08 ms
-// at 3.35 TB/s — the kernel is bound by operations, so the design keeps
-// the (T, T) scores out of device memory entirely and skips the tiles above
-// the causal diagonal (half the work). What it does not do yet: wgmma, TMA
-// and warp-specialised producer/consumer pipelining, the way to the card's
-// full tensor rate; those belong to a later change.
+// Design of flash_fwd_bf16 (persistent: one CTA an SM, 384 threads):
+// - Work. A work unit is two 128-row q tiles of one head, nq - 1 - j and
+//   j: under the causal mask every unit then has the same length, so the
+//   units, strided over the CTAs, keep them balanced without a queue, and
+//   neighbouring CTAs walk the same head, whose K and V stay in L2 (every
+//   q tile of a head reads them again; an order that spread a wave over
+//   128 heads was HBM-bound, 0.43 against 0.31 ms). A tile walks the
+//   128-key K/V tiles that meet its band ([kt0, kt1), a contiguous run).
+//   Being persistent, one tile's epilogue and the next tile's loads
+//   overlap (4% over one CTA a tile, which ordered the longest rows first).
+// - Warp specialisation. Warpgroup 0 gives its registers away (setmaxnreg
+//   24); its thread 0 issues every TMA load: per tile Q (once the last
+//   tile's S products are done with it) and K and V per K/V tile into a
+//   2-stage ring that runs on across tiles, K and V each with their own
+//   full and empty mbarriers, so the S product starts as soon as K lands.
+//   Warpgroups 1 and 2 are the consumers, 64 q rows each, at 240 registers
+//   (24 * 128 + 240 * 256 fits the 168 * 384 of the launch; 1.5% faster
+//   than 40 / 232). The TMA maps are 3-D over (BH, T, D), so a ragged tail
+//   and the head dims past D read zeros and never the next head's rows; a
+//   box is one 128-byte swizzled panel (64 bf16 columns) of 128 rows. DP
+//   (16, 32, 64, 128) sets the depth of the S product; tiles are
+//   NP = max(DP, 64) columns wide, whole panels, and the PV product and O
+//   are NP wide (the columns past D are zeros, clipped by the O map).
+//   Shared memory at D = 128: Q 32 KB, O 32 KB, the ring 128 KB.
+// - Products on wgmma with f32 accumulation. S = Q K^T (m64n128, both
+//   operands in shared memory, K-major). O += P V with P from registers:
+//   the S accumulator of k-step j (columns 16 j .. 16 j + 15) is already
+//   the A fragment of k-step j (mma.sync's m16n8k16 A layout per warp), so
+//   p is rounded to bf16 and packed in place, without shared memory; V is
+//   the N-major B operand (LBO = panel stride, SBO = 1024).
+// - Overlap, two ways. (1) Ping-pong: the two consumers take turns on the
+//   tensor cores under two named barriers; a turn issues one tile's
+//   products, then hands the turn over, so one warpgroup's softmax runs
+//   while the other's products run. A tile starts in step: consumer 1
+//   arrives on a third barrier when it reaches the tile, and consumer 0's
+//   first turn waits there instead of on its turn barrier; after its
+//   last turn consumer 0 takes consumer 1's last hand-over. So on every
+//   barrier the arrivals strictly alternate with the syncs (consumer 1
+//   arrives again only after a turn of its own, which needs consumer 0's
+//   hand-over, which follows consumer 0's last sync there). Carrying the
+//   turn across tiles instead, so that consumer 0 starts a tile without
+//   waiting for consumer 1 to reach it, measured 6% slower. (2) Within a warpgroup, a turn issues
+//   S of tile j together with PV of tile j - 1, and the softmax of tile j
+//   runs while that PV is in flight (S 64 + P 32 + O 64 registers a thread
+//   at D = 128). Every consumer issues the same wgmma sequence; nothing a
+//   wgmma depends on branches on the warpgroup. Ping-pong alone bought 1%
+//   (the softmax's latency, not its tensor time, is what it hides).
+// - Softmax in base 2 on ex2.approx: the row max is taken over the raw
+//   scores and scaled once, and scale * log2 e folds into one FFMA before
+//   each ex2 (4% faster than scaling every score first; it needs scale > 0,
+//   which the wrapper guarantees exactly by flipping the sign of k); rows
+//   reduced by quad shuffles in the accumulator layout. Only the tiles
+//   that cross the band's edge or the ragged tail (a CTA-wide test) pay for
+//   a per-element mask, which sets the score to -1e30. A row whose max is
+//   still -1e30 subtracts 0 instead (a select), so its masked scores give
+//   p = exp2(-1e30) = 0 and never exp(-1e30 - (-1e30)) = 1.
+// - Epilogue: o / max(l, 1e-30) (a reciprocal a row and a multiply an
+//   element: 11% faster than dividing every element) as bf16 into the
+//   warpgroup's rows of the O buffer (once its last store has read them),
+//   then one TMA store a
+//   panel, left to finish while the next tile runs; rows past T and
+//   columns past D are clipped by the map. lse only when asked. Every
+//   output row has one owner: two launches give the same bits.
+//
+// The f32 path is exact float32 FMA on the CUDA cores (one warp per q row,
+// lanes over keys for S and over head dims for PV): tensor-core TF32 would
+// change the numbers.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the TPU kernel's masked-score value
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ bool band_valid(int row, int col, int tk,
                                            int causal, int window,
@@ -76,321 +132,438 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync
+// bf16: TMA, mbarriers, wgmma, warp specialisation, ping-pong
 // ---------------------------------------------------------------------------
 
-constexpr int kBQ = 64;   // q rows per block: 4 warps x 16 rows
-constexpr int kBK = 64;   // keys per k tile
-constexpr int kPad = 8;   // bf16 elements of row padding (bank spread)
-constexpr int kThreads = 128;
-static_assert(kBQ == kBK, "stage_tile stages Q and K/V tiles alike");
+constexpr int kBQ = 128;            // q rows per CTA, 64 per consumer
+constexpr int kBK = 128;            // keys per K/V tile
+constexpr int kStages = 2;          // depth of the K/V ring
+constexpr int kFwdThreads = 384;    // producer warpgroup + 2 consumers
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+template <int DP>
+struct Fwd {  // shared-memory plan; every tile starts on 1024 bytes
+  static constexpr int NP = DP < 64 ? 64 : DP;   // stored width (columns)
+  static constexpr int NPAN = NP / 64;           // 128-byte panels a row
+  static constexpr int QPANEL = kBQ * kRow;      // one panel of Q (and O)
+  static constexpr int KPANEL = kBK * kRow;      // one panel of K or V
+  static constexpr int Q_BYTES = NPAN * QPANEL;
+  static constexpr int KV_BYTES = NPAN * KPANEL;
+  static constexpr int OFF_Q = 0;
+  static constexpr int OFF_O = Q_BYTES;                      // O staging
+  static constexpr int OFF_K = 2 * Q_BYTES;                  // ring
+  static constexpr int OFF_V = OFF_K + kStages * KV_BYTES;   // ring
+  static constexpr int OFF_BAR = OFF_V + kStages * KV_BYTES; // mbarriers
+  static constexpr size_t SMEM = OFF_BAR + (4 * kStages + 3) * 8 + 1024;
+};
+
+// Every pair of the rectangle is valid: no per-element mask needed (rows
+// past T are never stored, so they do not count)
+__device__ __forceinline__ bool tile_full(int q0, int bq, int k0, int bk,
+                                          int tk, int causal, int window,
+                                          int off) {
+  if (k0 + bk > tk) return false;
+  if (!causal) return true;
+  return q0 + off >= k0 + bk - 1 &&
+         (!window || q0 + bq - 1 + off - k0 < window);
 }
 
-// 16-byte global->shared copy that bypasses registers; src_bytes = 0
-// writes zeros (the padded rows and head dims)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
+// keep the compiler from moving accesses of wgmma A fragments across
+// fences and waits (a wgmma reads them until its group completes)
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
-// four 8x8 b16 matrices from shared memory; lanes 8i..8i+7 address the
-// rows of matrix i. .trans hands each lane a column pair instead of a
-// row pair, which turns row-major V into the PV product's B fragments.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
+// The thread's two rows of a 64 x 128 score tile, in the accumulator
+// layout (element 4 n + e: row 16 wi + g + 8 (e >= 2), column
+// 8 n + 2 t4 + (e & 1)).
+struct Rows {
+  float m0, m1;  // running max of the scaled scores (base 2)
+  float l0, l1;  // this thread's part of the running denominator
+  float a0, a1;  // rescale of O owed by the last tile's max
+};
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x on the special-function unit (relative error ~2^-22, far below
-// the bf16 rounding that p gets next)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two K and two V tile buffers; the Q tile is staged once into the second
-// K buffer, read into registers, and then overwritten by the k loop.
-template <int DP>
-constexpr size_t bf16_smem_bytes() {
-  return sizeof(__nv_bfloat16) * 4 * (size_t)kBK * (DP + kPad);
-}
-
-// Stage `rows` rows [row0, row0 + rows) of a (limit, D) bf16 matrix into
-// shared memory with row stride DP + kPad, zero past `limit` and past D.
-template <int DP>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* s,
-                                           const __nv_bfloat16* g, int row0,
-                                           int limit, int D, int tid) {
-  constexpr int CH = DP / 8;
-  for (int c = tid; c < kBK * CH; c += kThreads) {
-    const int r = c / CH, d = (c % CH) * 8, row = row0 + r;
-    const bool ok = row < limit && d < D;
-    cp_async16(s + r * (DP + kPad) + d, ok ? g + (size_t)row * D + d : g,
-               ok);
-  }
-}
-
-// One k tile's online-softmax update for a thread's two rows: scale (and,
-// for tiles that cross the band's edge or the ragged tail, mask) the
-// scores, rescale the running state, and leave p = exp(s - m) in s. The
-// scores and the running max m are kept in base 2 (scale_log2 = scale *
-// log2 e), so each p costs one subtract and one ex2.
-template <bool kMask, int NDT>
-__device__ __forceinline__ void softmax_tile(
-    float (&s)[kBK / 8][4], float (&acc)[NDT][4], float& m0, float& m1,
-    float& l0, float& l1, float scale_log2, int row0, int row1, int k0,
-    int t4, int Tk, int causal, int window, int off) {
-  uint32_t valid = 0xffffffffu;
+// One tile's online softmax over the raw scores s (masked to -1e30 on an
+// edge tile): the row max of s (quad shuffles), scaled by sl = scale
+// log2 e > 0 (the wrapper makes the scale positive), the rescale a =
+// 2^(m_old - m_new), p = 2^(s sl - m) (one FFMA and one ex2) left in s,
+// and l = l a + sum p. `lo`, `hi` bound the valid columns of each row
+// (only read when `edge`).
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N], Rows& r, float sl,
+                                             bool edge, int col0, int lo0,
+                                             int hi0, int lo1, int hi1) {
   float mx0 = kNegInf, mx1 = kNegInf;
+  if (edge) {
 #pragma unroll
-  for (int nt = 0; nt < kBK / 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float v0 = s[nt][e] * scale_log2, v1 = s[nt][2 + e] * scale_log2;
-      if (kMask) {
-        const int col = k0 + nt * 8 + 2 * t4 + e;
-        const bool ok0 = band_valid(row0, col, Tk, causal, window, off);
-        const bool ok1 = band_valid(row1, col, Tk, causal, window, off);
-        v0 = ok0 ? v0 : kNegInf;
-        v1 = ok1 ? v1 : kNegInf;
-        valid &= ~(((ok0 ? 0u : 1u) << (nt * 4 + e)) |
-                   ((ok1 ? 0u : 1u) << (nt * 4 + 2 + e)));
-      }
-      s[nt][e] = v0;
-      s[nt][2 + e] = v1;
-      mx0 = fmaxf(mx0, v0);
-      mx1 = fmaxf(mx1, v1);
+    for (int i = 0; i < N; ++i) {
+      const int col = col0 + 8 * (i / 4) + (i & 1);
+      const bool ok = (i & 2) ? (col >= lo1) & (col <= hi1)
+                              : (col >= lo0) & (col <= hi0);
+      s[i] = ok ? s[i] : kNegInf;
     }
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (i & 2)
+      mx1 = fmaxf(mx1, s[i]);
+    else
+      mx0 = fmaxf(mx0, s[i]);
   }
   mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
   mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
   mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
   mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-  const float a0 = fast_exp2(m0 - mn0), a1 = fast_exp2(m1 - mn1);
-  m0 = mn0;
-  m1 = mn1;
-  l0 *= a0;
-  l1 *= a1;
+  mx0 = mx0 == kNegInf ? kNegInf : mx0 * sl;  // in base 2; -1e30 kept
+  mx1 = mx1 == kNegInf ? kNegInf : mx1 * sl;
+  const float mn0 = fmaxf(r.m0, mx0), mn1 = fmaxf(r.m1, mx1);
+  r.a0 = fast_exp2(r.m0 - mn0);
+  r.a1 = fast_exp2(r.m1 - mn1);
+  r.m0 = mn0;
+  r.m1 = mn1;
+  // a row with no valid column yet subtracts 0: its -1e30 give p = 0
+  const float u0 = mn0 == kNegInf ? 0.f : mn0;
+  const float u1 = mn1 == kNegInf ? 0.f : mn1;
+  float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-  for (int nd = 0; nd < NDT; ++nd) {
-    acc[nd][0] *= a0;
-    acc[nd][1] *= a0;
-    acc[nd][2] *= a1;
-    acc[nd][3] *= a1;
+  for (int i = 0; i < N; ++i) {
+    const float p = fast_exp2(fmaf(s[i], sl, -((i & 2) ? u1 : u0)));
+    s[i] = p;
+    if (i & 2)
+      sum1 += p;
+    else
+      sum0 += p;
   }
-  // p = exp(s - m); a masked column contributes exactly 0
+  r.l0 = r.l0 * r.a0 + sum0;
+  r.l1 = r.l1 * r.a1 + sum1;
+}
+
+// p (the S accumulator, 64 x 128) rounded to bf16 as the A fragments of the
+// PV product's eight k-steps
+__device__ __forceinline__ void pack_p(const float (&s)[64],
+                                       uint32_t (&pf)[kBK / 16][4]) {
 #pragma unroll
-  for (int nt = 0; nt < kBK / 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float p = (valid >> (nt * 4 + e)) & 1u
-                          ? fast_exp2(s[nt][e] - (e < 2 ? mn0 : mn1))
-                          : 0.f;
-      s[nt][e] = p;
-      if (e < 2) l0 += p; else l1 += p;
-    }
+  for (int j = 0; j < kBK / 16; ++j) {
+    pf[j][0] = pack_bf16(s[8 * j], s[8 * j + 1]);
+    pf[j][1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
+    pf[j][2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
+    pf[j][3] = pack_bf16(s[8 * j + 6], s[8 * j + 7]);
   }
 }
 
-// DP: head dim rounded up to 16, 32, 64 or 128; dims >= D are zero-filled.
-// Three blocks per SM (3 x 70 KB of shared memory at DP = 128): the
-// register cap this sets (168 at DP = 128, with a few bytes of spill) beat
-// two blocks with 206 registers on the H100.
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const Rows& r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) o[i] *= (i & 2) ? r.a1 : r.a0;
+}
+
+// S = Q K^T over depth DP: both K-major, k-step kk 32 (kk % 4) bytes into
+// panel kk / 4
 template <int DP>
-__global__ void __launch_bounds__(kThreads, 3)
-    flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                   int T, int Tk, int D, int nq, float scale, int causal,
-                   int window, int off) {
-  constexpr int QS = DP + kPad;  // row stride of every tile buffer
-  constexpr int TILE = kBK * QS;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + 2 * TILE;
-  __nv_bfloat16* sQ = sK + TILE;  // aliases K buffer 1 until the loop
+__device__ __forceinline__ void s_product(float (&s)[64], uint64_t dsc_q,
+                                          uint64_t dsc_k) {
+  using L = Fwd<DP>;
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    wgmma_ss<0, 0>(s, desc_at(dsc_q, (kk / 4) * L::QPANEL + (kk % 4) * 32),
+                   desc_at(dsc_k, (kk / 4) * L::KPANEL + (kk % 4) * 32),
+                   kk > 0);
+}
 
-  const int bh = blockIdx.x / nq;
-  const int q0 = (nq - 1 - blockIdx.x % nq) * kBQ;  // longest rows first
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const __nv_bfloat16* kb = k + (size_t)bh * Tk * D;
-  const __nv_bfloat16* vb = v + (size_t)bh * Tk * D;
+// O += P V over the tile's 128 keys: V N-major, k-step j 16 j rows in
+template <int N>
+__device__ __forceinline__ void pv_product(float (&o)[N],
+                                           const uint32_t (&pf)[kBK / 16][4],
+                                           uint64_t dsc_v) {
+#pragma unroll
+  for (int j = 0; j < kBK / 16; ++j)
+    wgmma_rs<1>(o, pf[j], desc_at(dsc_v, j * 16 * kRow), 1);
+}
 
-  // the k tiles that meet the band: one contiguous run
-  const int nk = (Tk + kBK - 1) / kBK;
+// Named barriers: 0 is __syncthreads; 2 + w is consumer w's turn on the
+// tensor cores (its 128 threads sync, the other consumer's 128 arrive);
+// 4 + w gathers consumer w before its O store.
+constexpr int kTurnBar = 2;
+constexpr int kStoreBar = 4;
+constexpr int kTileBar = 6;
+
+// Tile h of work unit u (q tiles nq - 1 - j, then j, of head u / npairs;
+// see the note at the top) and the K/V tiles that meet its band
+struct Work {
+  int bh, q0, kt0, n_it;
+};
+
+__device__ __forceinline__ Work work_of(int u, int h, int npairs, int nq,
+                                        int nk, int causal, int window,
+                                        int off) {
+  Work wk;
+  const int j = u % npairs;
+  wk.bh = u / npairs;
+  wk.q0 = (h ? j : nq - 1 - j) * kBQ;
   int kt0 = 0;
-  while (kt0 < nk && !band_run(q0, kBQ, kt0 * kBK, kBK, causal, window, off))
+  while (kt0 < nk &&
+         !band_run(wk.q0, kBQ, kt0 * kBK, kBK, causal, window, off))
     ++kt0;
   int kt1 = kt0;
-  while (kt1 < nk && band_run(q0, kBQ, kt1 * kBK, kBK, causal, window, off))
+  while (kt1 < nk &&
+         band_run(wk.q0, kBQ, kt1 * kBK, kBK, causal, window, off))
     ++kt1;
+  wk.kt0 = kt0;
+  wk.n_it = kt1 - kt0;
+  return wk;
+}
 
-  // prologue: Q and the first K/V tile, then Q into mma A fragments
-  stage_tile<DP>(sQ, q + (size_t)bh * T * D, q0, T, D, tid);
-  if (kt0 < kt1) {
-    stage_tile<DP>(sK, kb, kt0 * kBK, Tk, D, tid);
-    stage_tile<DP>(sV, vb, kt0 * kBK, Tk, D, tid);
+// The CTA's work items t = 2 u + h run u = blockIdx.x, blockIdx.x + grid,
+// ..., h = 0, 1 each; the second tile of a unit whose two tiles are one
+// (the middle of an odd nq) is empty.
+__device__ __forceinline__ int next_work(int t) {
+  return (t & 1) ? t + 2 * (int)gridDim.x - 1 : t + 1;
+}
+
+__device__ __forceinline__ bool empty_work(int t, int npairs, int nq) {
+  const int j = (t / 2) % npairs;
+  return (t & 1) && j == nq - 1 - j;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_o,
+                   float* __restrict__ lse, int BH, int T, int Tk,
+                   float scale, int causal, int window, int off) {
+  using L = Fwd<DP>;
+  constexpr int NP = L::NP;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(sm + L::OFF_BAR);
+  uint64_t* full_v = full_k + kStages;
+  uint64_t* empty_k = full_v + kStages;
+  uint64_t* empty_v = empty_k + kStages;
+  uint64_t* qfull = empty_v + kStages;
+  uint64_t* qempty = qfull + 1;
+  uint64_t* sink = qempty + 1;  // arrivals that release nothing
+
+  const int nq = (T + kBQ - 1) / kBQ;
+  const int nk = (Tk + kBK - 1) / kBK;
+  const int npairs = (nq + 1) / 2;
+  const int n_work = BH * npairs * 2;  // (unit, h) pairs, some empty
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full_k[s], 1);     // the producer's arrival + TMA bytes
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], 256);  // every consumer thread
+      mbar_init(&empty_v[s], 256);
+    }
+    mbar_init(qfull, 1);
+    mbar_init(qempty, 256);
+    mbar_init(sink, 256);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_commit();
-  cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[DP / 16][4];
-  const int qr = warp * 16 + g;
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    const __nv_bfloat16* p0 = sQ + qr * QS + kk * 16 + 2 * t4;
-    const __nv_bfloat16* p1 = p0 + 8 * QS;
-    qf[kk][0] = ld32(p0);
-    qf[kk][1] = ld32(p1);
-    qf[kk][2] = ld32(p0 + 8);
-    qf[kk][3] = ld32(p1 + 8);
-  }
-  __syncthreads();  // sQ is K buffer 1 from here on
 
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < DP / 8; ++nd)
-    acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-  const int row0 = q0 + qr, row1 = row0 + 8;
-  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: matrix, row
-  const float scale_log2 = scale * 1.4426950408889634f;
-
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int buf = (kt - kt0) & 1, k0 = kt * kBK;
-    if (kt + 1 < kt1) {  // prefetch the next tile while this one computes
-      stage_tile<DP>(sK + (buf ^ 1) * TILE, kb, k0 + kBK, Tk, D, tid);
-      stage_tile<DP>(sV + (buf ^ 1) * TILE, vb, k0 + kBK, Tk, D, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // this tile has landed for every warp
-    const __nv_bfloat16* tK = sK + buf * TILE;
-    const __nv_bfloat16* tV = sV + buf * TILE;
-
-    // S = Q K^T for 16 rows x 64 keys: 8 n-tiles of 8 keys
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt)
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < kBK / 16; ++np) {
-        uint32_t b[4];
-        ldsm_x4(b, tK + ((2 * np + (mi >> 1)) * 8 + mr) * QS + kk * 16 +
-                       (mi & 1) * 8);
-        mma_bf16(s[2 * np], qf[kk], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], b[2], b[3]);
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread loads, the rest leave ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int kv = 0, qc = 0;
+      for (int t = 2 * blockIdx.x; t < n_work; t = next_work(t)) {
+        if (empty_work(t, npairs, nq)) continue;
+        const Work wk =
+            work_of(t / 2, t & 1, npairs, nq, nk, causal, window, off);
+        for (int it = 0; it < wk.n_it; ++it, ++kv) {
+          const int s = kv % kStages, ph = ((kv / kStages) & 1) ^ 1;
+          const int k0 = (wk.kt0 + it) * kBK;
+          mbar_wait(&empty_k[s], ph);
+          mbar_expect_tx(&full_k[s], L::KV_BYTES);
+          mbar_arrive(&full_k[s]);
+          for (int p = 0; p < L::NPAN; ++p)
+            tma_load_3d(sm + L::OFF_K + s * L::KV_BYTES + p * L::KPANEL,
+                        &tm_k, &full_k[s], 64 * p, k0, wk.bh);
+          if (it == 0) {  // Q, once the last tile's S products are done
+            mbar_wait(qempty, (qc & 1) ^ 1);
+            mbar_expect_tx(qfull, L::Q_BYTES);
+            mbar_arrive(qfull);
+            for (int p = 0; p < L::NPAN; ++p)
+              tma_load_3d(sm + L::OFF_Q + p * L::QPANEL, &tm_q, qfull,
+                          64 * p, wk.q0, wk.bh);
+            ++qc;
+          }
+          mbar_wait(&empty_v[s], ph);
+          mbar_expect_tx(&full_v[s], L::KV_BYTES);
+          mbar_arrive(&full_v[s]);
+          for (int p = 0; p < L::NPAN; ++p)
+            tma_load_3d(sm + L::OFF_V + s * L::KV_BYTES + p * L::KPANEL,
+                        &tm_v, &full_v[s], 64 * p, k0, wk.bh);
+        }
       }
     }
+  } else {
+    // ---- consumer warpgroups: q rows [q0 + 64 w, q0 + 64 w + 64) ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int w = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int wi = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+    const float sl = scale * kLog2e;
+    const uint64_t dsc_q =
+        gmma_desc(smem_addr(sm + L::OFF_Q) + 64 * w * kRow, 16, 1024);
+    const uint64_t dsc_k0 = gmma_desc(smem_addr(sm + L::OFF_K), 16, 1024);
+    const uint64_t dsc_v0 =
+        gmma_desc(smem_addr(sm + L::OFF_V), L::KPANEL, 1024);
+    const int me = kTurnBar + w, other = kTurnBar + 1 - w;
+    int kv = 0, qc = 0;
 
-    const bool full =
-        k0 + kBK <= Tk &&
-        (!causal || (q0 + off >= k0 + kBK - 1 &&
-                     (!window || q0 + kBQ - 1 + off - k0 < window)));
-    if (full)
-      softmax_tile<false>(s, acc, m0, m1, l0, l1, scale_log2, row0, row1, k0,
-                          t4, Tk, causal, window, off);
-    else
-      softmax_tile<true>(s, acc, m0, m1, l0, l1, scale_log2, row0, row1, k0,
-                         t4, Tk, causal, window, off);
+    for (int t = 2 * blockIdx.x; t < n_work; t = next_work(t)) {
+      if (empty_work(t, npairs, nq)) continue;
+      const Work wk =
+          work_of(t / 2, t & 1, npairs, nq, nk, causal, window, off);
+      const int q0 = wk.q0, kt0 = wk.kt0, n_it = wk.n_it;
+      const int row0 = q0 + 64 * w + 16 * wi + g, row1 = row0 + 8;
+      // the valid columns of each row, [lo, hi] (edge tiles only)
+      int hi0 = Tk - 1, hi1 = Tk - 1, lo0 = 0, lo1 = 0;
+      if (causal) {
+        hi0 = min(hi0, row0 + off);
+        hi1 = min(hi1, row1 + off);
+        if (window) {
+          lo0 = row0 + off - window + 1;
+          lo1 = row1 + off - window + 1;
+        }
+      }
+      Rows r = {kNegInf, kNegInf, 0.f, 0.f, 1.f, 1.f};
+      float o[NP / 2];
+#pragma unroll
+      for (int i = 0; i < NP / 2; ++i) o[i] = 0.f;
 
-    // O += P V: the S accumulators of n-tiles 2j, 2j+1 are the A
-    // fragment of k-step j (p rounded to bf16 here, as on the TPU)
+      if (n_it > 0) {
+        float s[64];
+        uint32_t pf[kBK / 16][4];
+        if (w == 1) bar_arrive(kTileBar, 256);  // consumer 0 goes first
+        mbar_wait(qfull, qc & 1);
+
+        // tile kt0: S alone
+        {
+          const int st = kv % kStages;
+          mbar_wait(&full_k[st], (kv / kStages) & 1);
+          bar_sync(w == 0 ? kTileBar : me, 256);
+          wg_fence();
+          s_product<DP>(s, dsc_q, dsc_k0 + st * (L::KV_BYTES >> 4));
+          wg_commit();
+          bar_arrive(other, 256);
+          wg_wait<0>();
+          fence_regs(s);
+          mbar_arrive(&empty_k[st]);
+          mbar_arrive(n_it == 1 ? qempty : sink);
+          softmax_tile(s, r, sl,
+                       !tile_full(q0, kBQ, kt0 * kBK, kBK, Tk, causal,
+                                  window, off),
+                       kt0 * kBK + 2 * t4, lo0, hi0, lo1, hi1);
+          pack_p(s, pf);
+        }
+
+        for (int it = 1; it < n_it; ++it) {
+          const int c = kv + it;
+          const int st = c % kStages, sp = (c - 1) % kStages;
+          const int k0 = (kt0 + it) * kBK;
+          mbar_wait(&full_k[st], (c / kStages) & 1);
+          rescale(o, r);
+          fence_regs(o);
+          fence_frags(pf);
+          mbar_wait(&full_v[sp], ((c - 1) / kStages) & 1);
+          bar_sync(me, 256);
+          wg_fence();
+          s_product<DP>(s, dsc_q, dsc_k0 + st * (L::KV_BYTES >> 4));
+          wg_commit();
+          pv_product(o, pf, dsc_v0 + sp * (L::KV_BYTES >> 4));
+          wg_commit();
+          bar_arrive(other, 256);
+          wg_wait<1>();
+          fence_regs(s);
+          mbar_arrive(&empty_k[st]);
+          mbar_arrive(it == n_it - 1 ? qempty : sink);
+          softmax_tile(s, r, sl,
+                       !tile_full(q0, kBQ, k0, kBK, Tk, causal, window, off),
+                       k0 + 2 * t4, lo0, hi0, lo1, hi1);
+          wg_wait<0>();
+          fence_regs(o);
+          fence_frags(pf);
+          mbar_arrive(&empty_v[sp]);
+          pack_p(s, pf);
+        }
+
+        // the last tile's PV
+        const int c = kv + n_it - 1, sp = c % kStages;
+        rescale(o, r);
+        fence_regs(o);
+        fence_frags(pf);
+        mbar_wait(&full_v[sp], (c / kStages) & 1);
+        bar_sync(me, 256);
+        wg_fence();
+        pv_product(o, pf, dsc_v0 + sp * (L::KV_BYTES >> 4));
+        wg_commit();
+        bar_arrive(other, 256);
+        wg_wait<0>();
+        fence_regs(o);
+        fence_frags(pf);
+        mbar_arrive(&empty_v[sp]);
+        if (w == 0) bar_sync(me, 256);  // takes consumer 1's last hand-over
+        kv += n_it;
+        ++qc;
+      }
+
+      // o / max(l, 1e-30) as bf16 into this warpgroup's rows of the O
+      // buffer (once its last store has read them), then one TMA store a
+      // panel, left to run into the next tile
+      float l0 = r.l0, l1 = r.l1;
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+      const float i0 = 1.f / d0, i1 = 1.f / d1;
+      if (tid == 0)
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      bar_sync(kStoreBar + w, 128);
+      const int rr = 64 * w + 16 * wi + g;  // rr % 8 == (rr + 8) % 8 == g
 #pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                              pack_bf16(s[2 * j][2], s[2 * j][3]),
-                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-#pragma unroll
-      for (int np = 0; np < DP / 16; ++np) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, tV + (j * 16 + (mi & 1) * 8 + mr) * QS +
-                             (2 * np + (mi >> 1)) * 8);
-        mma_bf16(acc[2 * np], pa, b[0], b[1]);
-        mma_bf16(acc[2 * np + 1], pa, b[2], b[3]);
+      for (int n = 0; n < NP / 8; ++n) {
+        unsigned char* pan = sm + L::OFF_O + (n / 8) * L::QPANEL;
+        const int cc = (((n % 8) ^ g) << 4) + 4 * t4;
+        *reinterpret_cast<uint32_t*>(pan + rr * kRow + cc) =
+            pack_bf16(o[4 * n] * i0, o[4 * n + 1] * i0);
+        *reinterpret_cast<uint32_t*>(pan + (rr + 8) * kRow + cc) =
+            pack_bf16(o[4 * n + 2] * i1, o[4 * n + 3] * i1);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      bar_sync(kStoreBar + w, 128);
+      if (tid == 0) {
+        for (int p = 0; p < L::NPAN; ++p)
+          tma_store_3d(&tm_o, sm + L::OFF_O + p * L::QPANEL + 64 * w * kRow,
+                       64 * p, q0 + 64 * w, wk.bh);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+      if (lse != nullptr && t4 == 0) {
+        // back to base e; a row with no valid column keeps -1e30
+        constexpr float kLn2 = 0.6931471805599453f;
+        if (row0 < T)
+          lse[(size_t)wk.bh * T + row0] =
+              (r.m0 > kNegInf ? r.m0 * kLn2 : kNegInf) + logf(d0);
+        if (row1 < T)
+          lse[(size_t)wk.bh * T + row1] =
+              (r.m1 > kNegInf ? r.m1 * kLn2 : kNegInf) + logf(d1);
       }
     }
-    __syncthreads();  // every warp is done with this buffer
-  }
-
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-#pragma unroll
-  for (int nd = 0; nd < DP / 8; ++nd) {
-    const int col = nd * 8 + 2 * t4;
-    if (col >= D) continue;
-    if (row0 < T)
-      *reinterpret_cast<__nv_bfloat162*>(o + ((size_t)bh * T + row0) * D +
-                                         col) =
-          __floats2bfloat162_rn(acc[nd][0] / d0, acc[nd][1] / d0);
-    if (row1 < T)
-      *reinterpret_cast<__nv_bfloat162*>(o + ((size_t)bh * T + row1) * D +
-                                         col) =
-          __floats2bfloat162_rn(acc[nd][2] / d1, acc[nd][3] / d1);
-  }
-  if (lse != nullptr && t4 == 0) {
-    // back to base e; a row with no valid column keeps the -1e30 sentinel
-    constexpr float kLn2 = 0.6931471805599453f;
-    if (row0 < T)
-      lse[(size_t)bh * T + row0] = (m0 > kNegInf ? m0 * kLn2 : kNegInf) +
-                                   logf(d0);
-    if (row1 < T)
-      lse[(size_t)bh * T + row1] = (m1 > kNegInf ? m1 * kLn2 : kNegInf) +
-                                   logf(d1);
+    if (tid == 0)
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
 }
 
@@ -398,17 +571,26 @@ template <int DP>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         float* lse, int bh, int t, int tk, int d, float scale,
                         int causal, int window, int off, cudaStream_t st) {
-  const size_t smem = bf16_smem_bytes<DP>();
+  CUtensorMap mq, mk, mv, mo;
+  if (!make_map(&mq, q, false, bh, t, d, kBQ) ||
+      !make_map(&mk, k, false, bh, tk, d, kBK) ||
+      !make_map(&mv, v, false, bh, tk, d, kBK) ||
+      !make_map(&mo, o, false, bh, t, d, kBQ / 2))
+    return cudaErrorInvalidValue;
+  const size_t smem = Fwd<DP>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_bf16<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  const int nq = (t + kBQ - 1) / kBQ;
-  flash_fwd_bf16<DP><<<bh * nq, kThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      lse, t, tk, d, nq, scale, causal, window, off);
+  // persistent: one CTA an SM (at most one a work unit)
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return e;
+  const int units = ((t + kBQ - 1) / kBQ + 1) / 2 * bh;
+  flash_fwd_bf16<DP><<<min(units, sms), kFwdThreads, smem, st>>>(
+      mq, mk, mv, mo, lse, bh, t, tk, scale, causal, window, off);
   return cudaGetLastError();
 }
 
@@ -416,8 +598,9 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 // f32: exact float32 on the CUDA cores
 // ---------------------------------------------------------------------------
 
-constexpr int kFRows = 16;  // q rows per block: 4 warps x 4 rows
-constexpr int kFBK = 32;    // keys per k tile: one per lane
+constexpr int kThreads = 128;  // 4 warps
+constexpr int kFRows = 16;     // q rows per block: 4 warps x 4 rows
+constexpr int kFBK = 32;       // keys per k tile: one per lane
 
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
@@ -511,8 +694,11 @@ __global__ void __launch_bounds__(kThreads)
 
 // q, k, v: contiguous (bh, t, d) / (bh, tk, d) / (bh, tk, d), 16-byte
 // aligned, all of one dtype (0 = float32, 1 = bfloat16); o like q; lse
-// (bh, t) float32 or null. d <= 128 and a multiple of 8. Launches on
-// `stream`, allocates nothing, and returns the launch's cudaError_t.
+// (bh, t) float32 or null. d <= 128 and a multiple of 8 (the TMA maps
+// need 16-byte rows; the wrapper pads smaller head dims with zeros);
+// bfloat16 takes scale > 0 (the wrapper flips the sign of k for a negative
+// one). Launches on `stream`, allocates nothing, and returns the launch's
+// cudaError_t.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* o, float* lse, int bh, int t, int tk, int d,
                          float scale, int causal, int window,
@@ -531,7 +717,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
         nq, scale, causal, window, band_offset);
     return (int)cudaGetLastError();
   }
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (dtype != 1 || !(scale > 0.f)) return (int)cudaErrorInvalidValue;
   if (d <= 16)
     return (int)launch_bf16<16>(q, k, v, o, lse, bh, t, tk, d, scale, causal,
                                 window, band_offset, st);

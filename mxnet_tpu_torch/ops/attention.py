@@ -113,9 +113,10 @@ def _check_kernel_inputs(q, k, v, what="flash_fwd_cuda"):
         raise ValueError("%s: shapes q %r, k %r, v %r do not agree"
                          % (what, tuple(q.shape), tuple(k.shape),
                             tuple(v.shape)))
-    if D > 128 or D % 8:
-        raise ValueError("%s: head dim %d unsupported (the kernel takes "
-                         "multiples of 8 up to 128)" % (what, D))
+    if D > 128:
+        raise ValueError("%s: head dim %d unsupported (the kernels take up "
+                         "to 128; there is no DP = 256 instance yet)"
+                         % (what, D))
     if T < 1 or k.shape[1] < 1:
         raise ValueError("%s: empty sequence" % what)
     if q.device.type != "cuda" or not (q.device == k.device == v.device):
@@ -145,11 +146,28 @@ def _kernel_operand(x):
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def flash_fwd_cuda(q, k, v, scale, causal, window=0, band_offset=0,
-                   want_lse=False):
-    """Launch the Hopper flash forward kernel on CUDA tensors. Returns
-    (o, lse or None). ``flash_fwd_cuda.launches`` counts the launches."""
-    _check_kernel_inputs(q, k, v)
+# the kernels' TMA maps need rows of a multiple of 16 bytes
+_HEAD_DIM_ALIGN = 8
+
+
+def _on_padded_head_dim(fn, *xs):
+    """``fn(*xs)`` on (BH, T, D) operands zero-padded along D up to the
+    next multiple of 8, with every (BH, T, Dp) output cut back to D (other
+    outputs, like the (BH, T) lse, pass as they are). Exact: the zero head
+    dims add exact zeros to each q.k and do.v, give zero columns of o, dq,
+    dk and dv, and leave delta = rowsum(do * o) as it was; the caller
+    passes ``scale`` explicitly, so it stays D ** -0.5 of the real D."""
+    D = xs[0].shape[-1]
+    Dp = -(-D // _HEAD_DIM_ALIGN) * _HEAD_DIM_ALIGN
+    if Dp == D:
+        return fn(*xs)
+    outs = fn(*(torch.nn.functional.pad(x, (0, Dp - D)) for x in xs))
+    return tuple(o[..., :D].contiguous()
+                 if o is not None and o.dim() == 3 and o.shape[-1] == Dp
+                 else o for o in outs)
+
+
+def _launch_fwd(q, k, v, scale, causal, window, band_offset, want_lse):
     q, k, v = _kernel_operand(q), _kernel_operand(k), _kernel_operand(v)
     BH, T, D = q.shape
     o = torch.empty_like(q)
@@ -166,6 +184,23 @@ def flash_fwd_cuda(q, k, v, scale, causal, window=0, band_offset=0,
                            int(band_offset or 0), _DTYPE_CODE[q.dtype],
                            stream)
     _kernels.check(lib, rc, "flash_fwd")
+    return o, lse
+
+
+def flash_fwd_cuda(q, k, v, scale, causal, window=0, band_offset=0,
+                   want_lse=False):
+    """Launch the Hopper flash forward kernel on CUDA tensors, any head
+    dim up to 128 (padded to a multiple of 8 for the kernel). Returns
+    (o, lse or None). ``flash_fwd_cuda.launches`` counts the launches."""
+    _check_kernel_inputs(q, k, v)
+    scale = float(scale)
+    if q.dtype == torch.bfloat16 and scale <= 0:
+        # the bf16 kernel folds a positive scale into its softmax; the same
+        # scores, exactly: (q.-k) (-scale), or q.0 times any scale
+        k, scale = (-k, -scale) if scale < 0 else (torch.zeros_like(k), 1.0)
+    o, lse = _on_padded_head_dim(
+        lambda q, k, v: _launch_fwd(q, k, v, scale, causal, window,
+                                    band_offset, want_lse), q, k, v)
     flash_fwd_cuda.launches += 1
     return o, lse
 
@@ -192,13 +227,8 @@ def flash_fwd(q, k, v, scale, causal, window=0, band_offset=0,
 _BWD_BLOCK_Q = 64
 
 
-def flash_bwd_cuda(q, k, v, do, lse, delta, scale, causal, window=0,
-                   band_offset=0):
-    """Launch the Hopper flash backward on CUDA tensors: one fused,
-    deterministic kernel for bf16 (dq summed in f32 scratch in a fixed
-    order), the exact-f32 dq and dk/dv kernels for float32. Returns
-    (dq, dk, dv). ``flash_bwd_cuda.launches`` counts the calls."""
-    _check_bwd_inputs(q, k, v, do, lse, delta, "flash_bwd_cuda")
+def _launch_bwd(q, k, v, do, lse, delta, scale, causal, window,
+                band_offset):
     q, k, v, do, lse, delta = (_kernel_operand(x)
                                for x in (q, k, v, do, lse, delta))
     BH, T, D = q.shape
@@ -224,8 +254,23 @@ def flash_bwd_cuda(q, k, v, do, lse, delta, scale, causal, window=0,
             int(bool(causal)), int(window or 0), int(band_offset or 0),
             _DTYPE_CODE[q.dtype], stream)
     _kernels.check(lib, rc, "flash_bwd")
-    flash_bwd_cuda.launches += 1
     return dq, dk, dv
+
+
+def flash_bwd_cuda(q, k, v, do, lse, delta, scale, causal, window=0,
+                   band_offset=0):
+    """Launch the Hopper flash backward on CUDA tensors: one fused,
+    deterministic kernel for bf16 (dq summed in f32 scratch in a fixed
+    order), the exact-f32 dq and dk/dv kernels for float32; any head dim
+    up to 128 (padded to a multiple of 8 for the kernels). Returns
+    (dq, dk, dv). ``flash_bwd_cuda.launches`` counts the calls."""
+    _check_bwd_inputs(q, k, v, do, lse, delta, "flash_bwd_cuda")
+    grads = _on_padded_head_dim(
+        lambda q, k, v, do: _launch_bwd(q, k, v, do, lse, delta, scale,
+                                        causal, window, band_offset),
+        q, k, v, do)
+    flash_bwd_cuda.launches += 1
+    return grads
 
 
 flash_bwd_cuda.launches = 0

@@ -231,6 +231,101 @@ def test_flash_op_gqa_gradients_match_jax(Hkv):
                  (q, k, v), "f32", [(2, 4, 24, 8)])
 
 
+# ---------------------------------------------------------------------------
+# head dims that are not a multiple of 8: the card's padded route
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def padded_route(monkeypatch):
+    """Route the port's flash entries as on the card, the plain versions
+    standing in for the kernels: q, k, v (and do) zero-padded to a
+    multiple of 8 by ``_on_padded_head_dim`` and the outputs cut back.
+    Yields the padded widths the plain versions were given."""
+    widths = []
+
+    def fwd(q, k, v, scale, causal, window=0, band_offset=0,
+            want_lse=False):
+        def run(q, k, v):
+            widths.append(q.shape[-1])
+            return tatt._flash_fwd_reference(q, k, v, scale, causal,
+                                             window, band_offset)
+        o, lse = tatt._on_padded_head_dim(run, q, k, v)
+        return o, (lse if want_lse else None)
+
+    def bwd(q, k, v, do, lse, delta, scale, causal, window=0,
+            band_offset=0):
+        def run(q, k, v, do):
+            widths.append(q.shape[-1])
+            args = (q, k, v, do, lse, delta, scale, causal, window,
+                    band_offset)
+            return (tatt._flash_dq_reference(*args),
+                    *tatt._flash_dkv_reference(*args))
+        return tatt._on_padded_head_dim(run, q, k, v, do)
+
+    monkeypatch.setattr(tatt, "flash_fwd", fwd)
+    monkeypatch.setattr(tatt, "flash_bwd", bwd)
+    return widths
+
+
+# (id, D, T, Tk, causal, window, band_offset)
+PADDED_CASES = [
+    ("d4_band_offset", 4, 24, 40, True, 0, 16),
+    ("d12_window", 12, 32, 48, True, 12, 20),
+    ("d20_full", 20, 17, 29, False, 0, 0),
+]
+
+
+@pytest.mark.parametrize("D,T,Tk,causal,window,band_offset",
+                         [c[1:] for c in PADDED_CASES],
+                         ids=[c[0] for c in PADDED_CASES])
+def test_padded_head_dim_matches_jax(padded_route, D, T, Tk, causal, window,
+                                     band_offset):
+    """flash_attention_with_lse through the padded route at D = 4, 12,
+    20 (the kernels take multiples of 8): o and lse against the JAX
+    package's Pallas kernel (interpret mode), then gradients through
+    both outputs against jax.grad."""
+    q, k, v = _arrays((2, T, D), (2, Tk, D), (2, Tk, D), seed=D)
+    kw = dict(causal=causal, block_q=8, block_k=8, window=window,
+              band_offset=band_offset)
+    jo, jl = jatt.flash_attention_with_lse(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw)
+    to, tl = tatt.flash_attention_with_lse(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), **kw)
+    assert padded_route == [-(-D // 8) * 8]
+    assert tuple(to.shape) == (2, T, D)
+    np.testing.assert_allclose(_np(to), _np(jo), **F32)
+    np.testing.assert_allclose(_np(tl), np.asarray(jl), rtol=1e-5,
+                               atol=1e-5)
+    _grads_match(lambda *x: jatt.flash_attention_with_lse(*x, **kw),
+                 lambda *x: tatt.flash_attention_with_lse(*x, **kw),
+                 (q, k, v), "f32", [(2, T, D), (2, T)])
+    assert padded_route[1:] == [-(-D // 8) * 8] * 2   # forward, backward
+
+
+# __graft_entry__.py's GQA config: transformer.get_symbol(32, 16,
+# num_layers=1, num_heads=4, dim=16, num_kv_heads=2), head dim 4
+@pytest.mark.parametrize("route", ["plain", "padded"])
+def test_flash_op_graft_gqa_config_matches_jax(request, route):
+    """_contrib_FlashAttention at the GQA config's shape (4 heads, head
+    dim 4, 2 kv heads, causal), on the plain route and on the card's
+    padded route: output and gradients against the JAX op."""
+    if route == "padded":
+        request.getfixturevalue("padded_route")
+    q, k, v = _arrays((2, 4, 16, 4), (2, 2, 16, 4), (2, 2, 16, 4),
+                      seed=9)
+    attrs = {"causal": True}
+    jop = jreg.get_op("_contrib_FlashAttention")
+    top = treg.get_op("_contrib_FlashAttention")
+    ja, ta = jreg.canon_attrs(jop, attrs), treg.canon_attrs(top, attrs)
+    ref = jop.fn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **ja)
+    out = top.fn(torch.from_numpy(q), torch.from_numpy(k),
+                 torch.from_numpy(v), **ta)
+    np.testing.assert_allclose(_np(out), _np(ref), **F32)
+    _grads_match(lambda *x: [jop.fn(*x, **ja)],
+                 lambda *x: [top.fn(*x, **ta)],
+                 (q, k, v), "f32", [(2, 4, 16, 4)])
+
+
 def test_forward_only_calls_skip_the_lse_and_the_graph(monkeypatch):
     """Without a gradient the forward asks the kernel for no lse (as
     the JAX package's forward-only calls do); with one it asks for the

@@ -10,7 +10,8 @@ runs every case, the CUDA ones included. Tests marked ``cuda`` hold each
 kernel against its plain version (``_flash_fwd_reference``,
 ``_flash_dq_reference``, ``_flash_dkv_reference``; bf16 within 2e-2,
 compared in f32; f32 within rtol 1e-4 / atol 1e-5; lse within 1e-4;
-the bf16 backward also bit-equal across two launches) and skip on
+both bf16 kernels also bit-equal across two launches; head dims 4 and 12
+through the wrappers' zero-padding) and skip on
 machines without a card; the rest pin the wrappers' contract and the
 plain versions' own rules. The BatchNorm kernels are held to their
 plain versions (``_stats_reference`` ...): the elementwise ones within
@@ -30,6 +31,11 @@ from mxnet_tpu_torch.ops import nms_kernels as tnms
 from mxnet_tpu_torch.ops.registry import get_op
 
 import chip_smoke
+
+
+# lse tolerance of the kernels against their plain versions (as
+# chip_smoke.py holds them)
+LSE_TOL = dict(chip_smoke.LSE_TOL)
 
 
 def _arrays(*shapes, seed=0):
@@ -67,7 +73,7 @@ def test_meta_tensors_give_shapes():
 
 
 @pytest.mark.parametrize("shape_q,shape_k,dtype,match", [
-    ((2, 8, 12), (2, 8, 12), torch.float32, "head dim 12"),
+    ((2, 8, 256), (2, 8, 256), torch.float32, "head dim 256"),
     ((2, 8, 136), (2, 8, 136), torch.float32, "head dim 136"),
     ((2, 8, 16), (2, 8, 16), torch.float16, "float32 or bfloat16"),
     ((2, 8, 16), (3, 8, 16), torch.float32, "do not agree"),
@@ -81,6 +87,70 @@ def test_kernel_wrapper_validates_inputs(shape_q, shape_k, dtype, match):
     k = torch.zeros(shape_k, dtype=dtype)
     with pytest.raises((ValueError, TypeError), match=match):
         tatt.flash_fwd_cuda(q, k, k, 0.25, True)
+
+
+@pytest.mark.parametrize("D", [4, 12, 20])
+def test_padded_head_dim_route_is_exact(D):
+    """The wrappers' pad/slice helper around the plain versions: q, k, v
+    (and do) zero-padded to the next multiple of 8, the outputs cut back
+    to D, equal to the unpadded plain versions (o and the lse, dq, dk,
+    dv; f32, only the summation order differs) and of the same shape."""
+    q, k, v, do = (torch.from_numpy(x) for x in _arrays(
+        (2, 20, D), (2, 27, D), (2, 27, D), (2, 20, D), seed=D))
+    attrs = (D ** -0.5, True, 9, 4)
+    widths = []
+
+    def fwd(q, k, v):
+        widths.append(q.shape[-1])
+        return tatt._flash_fwd_reference(q, k, v, *attrs)
+
+    o, lse = tatt._on_padded_head_dim(fwd, q, k, v)
+    ro, rlse = tatt._flash_fwd_reference(q, k, v, *attrs)
+    assert widths == [-(-D // 8) * 8] and o.shape == (2, 20, D)
+    torch.testing.assert_close(o, ro, rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(lse, rlse, rtol=1e-6, atol=1e-6)
+    delta = torch.sum(do * o, dim=-1)
+
+    def bwd(q, k, v, do):
+        widths.append(q.shape[-1])
+        args = (q, k, v, do, lse, delta, *attrs)
+        return (tatt._flash_dq_reference(*args),
+                *tatt._flash_dkv_reference(*args))
+
+    grads = tatt._on_padded_head_dim(bwd, q, k, v, do)
+    args = (q, k, v, do, lse, delta, *attrs)
+    want = (tatt._flash_dq_reference(*args),
+            *tatt._flash_dkv_reference(*args))
+    assert widths[-1] == widths[0]
+    for got, ref in zip(grads, want):
+        assert got.shape == ref.shape
+        torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-7)
+
+
+def test_aligned_head_dim_is_not_padded():
+    q = torch.zeros((1, 4, 16))
+    seen = []
+    out = tatt._on_padded_head_dim(lambda x: seen.append(x) or (x,), q)
+    assert seen[0] is q and out[0] is q
+
+
+def test_library_path_hashes_every_header(tmp_path, monkeypatch):
+    """A kernel library's build path changes when a header under csrc/
+    changes, not only its own source, so an edited header rebuilds every
+    library that may include it."""
+    from mxnet_tpu_torch import _kernels
+    before = {n: _kernels._lib_path(n) for n in _kernels.SOURCES}
+    for src in _kernels.CSRC.iterdir():
+        if src.suffix in (".cu", ".cuh", ".h"):
+            (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_kernels, "CSRC", tmp_path)
+    assert {n: _kernels._lib_path(n) for n in _kernels.SOURCES} == before
+    header = tmp_path / "hopper.cuh"
+    header.write_bytes(header.read_bytes() + b"\n")
+    after = {n: _kernels._lib_path(n) for n in _kernels.SOURCES}
+    assert all(after[n] != before[n] for n in _kernels.SOURCES)
+    (tmp_path / "extra.h").write_text("// a new header\n")
+    assert _kernels._lib_path("nms") != after["nms"]
 
 
 # ---------------------------------------------------------------------------
@@ -106,6 +176,16 @@ KERNEL_CASES = [
     ("f32_causal", 2, 130, 130, 64, torch.float32, True, 0, 0),
     ("f32_full_d128", 2, 70, 90, 128, torch.float32, False, 0, 0),
     ("f32_window", 2, 256, 256, 8, torch.float32, True, 40, 0),
+    ("bf16_d32", 2, 300, 300, 32, torch.bfloat16, True, 0, 0),
+    ("bf16_d4", 2, 256, 256, 4, torch.bfloat16, True, 0, 0),
+    ("bf16_d12_ragged", 2, 200, 333, 12, torch.bfloat16, True, 0, 0),
+    ("f32_d12", 2, 130, 97, 12, torch.float32, False, 0, 0),
+    ("bf16_window_tiles", 2, 1000, 1000, 128, torch.bfloat16, True, 200,
+     0),
+    ("bf16_band_offset", 2, 256, 320, 128, torch.bfloat16, True, 100, 64),
+    ("bf16_negative_offset_d128", 2, 256, 256, 128, torch.bfloat16, True,
+     0, -40),
+    ("bf16_noncausal_d128", 3, 640, 640, 128, torch.bfloat16, False, 0, 0),
 ]
 
 
@@ -113,22 +193,60 @@ KERNEL_CASES = [
 @pytest.mark.parametrize("BH,T,Tk,D,dtype,causal,window,band_offset",
                          [c[1:] for c in KERNEL_CASES],
                          ids=[c[0] for c in KERNEL_CASES])
+@pytest.mark.parametrize("want_lse", [True, False], ids=["lse", "no_lse"])
 def test_cuda_kernel_matches_plain_version(cuda_device, BH, T, Tk, D, dtype,
-                                           causal, window, band_offset):
+                                           causal, window, band_offset,
+                                           want_lse):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     q, k, v = (torch.randn((BH, n, D), generator=gen, device=cuda_device)
                .to(dtype) for n in (T, Tk, Tk))
     before = tatt.flash_fwd_cuda.launches
     o, lse = tatt.flash_fwd(q, k, v, D ** -0.5, causal, window,
-                            band_offset, want_lse=True)
+                            band_offset, want_lse=want_lse)
     torch.cuda.synchronize()
     assert tatt.flash_fwd_cuda.launches == before + 1
+    assert o.shape == q.shape and (lse is not None) == want_lse
     ro, rlse = tatt._flash_fwd_reference(q, k, v, D ** -0.5, causal,
                                          window, band_offset)
     tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 \
         else dict(rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(o.float(), ro.float(), **tol)
-    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-4)
+    if want_lse:
+        torch.testing.assert_close(lse, rlse, **LSE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [-0.3, 0.0])
+def test_cuda_bf16_kernel_takes_any_scale(cuda_device, scale):
+    """The bf16 kernel folds a positive scale into its softmax; the
+    wrapper gives it the same scores for a negative or zero one."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (torch.randn((2, 150, 64), generator=gen, device=cuda_device)
+               .bfloat16() for _ in range(3))
+    o, lse = tatt.flash_fwd(q, k, v, scale, True, want_lse=True)
+    ro, rlse = tatt._flash_fwd_reference(q, k, v, scale, True)
+    torch.testing.assert_close(o.float(), ro.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(lse, rlse, **LSE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,T,Tk,D,causal,window,band_offset", [
+    (8, 1024, 1024, 128, True, 0, 0),
+    (4, 1000, 1000, 128, True, 200, 0),
+    (4, 256, 256, 128, True, 0, -40),
+    (4, 300, 333, 12, False, 0, 0),
+], ids=["causal", "window", "negative_offset", "d12_noncausal"])
+def test_cuda_fwd_kernel_is_deterministic(cuda_device, BH, T, Tk, D, causal,
+                                          window, band_offset):
+    """Two launches on the same inputs give the same bits: every output
+    row has one owner."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = (torch.randn((BH, n, D), generator=gen, device=cuda_device)
+               .bfloat16() for n in (T, Tk, Tk))
+    args = (q, k, v, D ** -0.5, causal, window, band_offset)
+    first = tatt.flash_fwd_cuda(*args, want_lse=True)
+    second = tatt.flash_fwd_cuda(*args, want_lse=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def _bwd_inputs(BH, T, Tk, D, dtype, causal, window, band_offset, device,
