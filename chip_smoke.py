@@ -43,10 +43,13 @@ Phases (any failure exits non-zero; no phase is caught):
    step (batch 128 x 3x224x224, bf16 compute, SGD momentum with wd)
    through make_train_step with ``MXNET_BN_PALLAS=1`` (50 launches of
    each BatchNorm kernel per step) and with it off (none);
-8. NMS kernel: greedy NMS against its plain version on the card, keep
-   masks equal flag for flag, at SSD300's 8732 anchors (batch 8, every
-   row valid and the path's top 400) and at edge cases, timed beside its
-   bound at both shapes;
+8. NMS kernel (one thread-block cluster an image): greedy NMS against
+   its plain version on the card, keep masks equal flag for flag, at
+   SSD300's 8732 anchors (batch 8, every row valid and the path's top
+   400), at edge cases, with valid rows scattered, past the default
+   shared memory, at MAX_ANCHORS and at batch 32; timed (device time of
+   every kernel of the call) beside its bound at both shapes, with the
+   cluster size and the SMs it runs on;
 9. SSD path: SSD300 (VGG16-reduced, 21 classes, f32, random Xavier
    weights) served through ServeEngine -> Predictor -> Symbol graph ->
    MultiBoxDetection on the NMS kernel, 8 concurrent requests; every
@@ -87,6 +90,10 @@ WARM_STEPS, TIMED_STEPS = 2, 10
 
 TOL = {"bfloat16": dict(atol=2e-2, rtol=2e-2),
        "float32": dict(atol=1e-5, rtol=1e-4)}
+# the flash forward's own limit: its worst bf16 error over FLASH_CASES was
+# 0.0039 (this script on an H100, PERF.md): atol 8e-3 is twice that,
+# and rtol 8e-3 about one bf16 ulp (2^-7) of |o| on top
+FWD_TOL = {"bfloat16": dict(atol=8e-3, rtol=8e-3), "float32": TOL["float32"]}
 LSE_TOL = dict(atol=1e-4, rtol=1e-5)
 
 
@@ -114,7 +121,8 @@ def ptxas_summary(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?(flash_(?:fwd|bwd|dq|dkv)_"
                       r"(?:bf16|f32)|bn_(?:stats|apply|bwd_reduce|bwd_dx)_"
-                      r"(?:bf16|f32)|bn_finalize|nms_kernel)(?:ILi(\d+)E)?",
+                      r"(?:bf16|f32)|bn_finalize|"
+                      r"nms_(?:cluster_|phases_)?kernel)(?:ILi(\d+)E)?",
                       line)
         if m:   # the mangled name: ...<name>[ILi<DP>E]...
             fn = m.group(1) + ("<%s>" % m.group(2) if m.group(2) else "")
@@ -266,7 +274,7 @@ def kernel_phase():
         torch.cuda.synchronize()
         ro, rlse = att._flash_fwd_reference(q, k, v, scale, causal,
                                             window, off)
-        max_err = check_close("flash_fwd %s" % label, o, ro, TOL[dt])
+        max_err = check_close("flash_fwd %s" % label, o, ro, FWD_TOL[dt])
         lse_err = None
         if want_lse:
             le = (lse - rlse).abs()
@@ -608,7 +616,7 @@ def reference_check():
 # (first match wins)
 PROFILE_GROUPS = (
     ("flash kernels (this port)", ("flash_fwd", "flash_bwd")),
-    ("NMS kernel (this port)", ("nms_kernel",)),
+    ("NMS kernel (this port)", ("nms_cluster_kernel", "nms_kernel")),
     ("BatchNorm kernels (this port)", ("bn_stats", "bn_apply",
                                        "bn_bwd_reduce", "bn_bwd_dx",
                                        "bn_finalize")),
@@ -1185,6 +1193,9 @@ def bn_timing(x, dy, a, b, c2, c, mean, err):
     records = []
     for name, (kernel, plain) in calls.items():
         ms = time_ms(kernel)
+        # every kernel and memset of the call, without the host's enqueue
+        # time that events around a call this short include
+        dev_ms = device_ms(kernel, "")
         plain_ms = time_ms(plain)
         bound, by = bn_bound(name, N, C, HW, "bfloat16")
         pair_lib = lib_fwd if name in ("bn_stats", "bn_apply") else lib_bwd
@@ -1194,10 +1205,12 @@ def bn_timing(x, dy, a, b, c2, c, mean, err):
             "replaces": "mxnet_tpu/ops/bn_pallas.py:%d" % BN_KERNELS[name][0],
             "launches": None, "max_abs_err": err[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None, "pair_library_ms": pair_lib})
-        say("kernel %s %s timing: kernel %.4f ms, plain %.4f ms, bound "
-            "%.4f ms (%s)" % (name, "x".join(map(str, BN_SHAPE)), ms,
-                              plain_ms, bound, by))
+            "library_ms": None, "pair_library_ms": pair_lib,
+            "device_ms": dev_ms})
+        say("kernel %s %s timing: kernel %.4f ms (by events; %.4f ms device "
+            "time), plain %.4f ms, bound %.4f ms (%s)" % (
+                name, "x".join(map(str, BN_SHAPE)), ms, dev_ms, plain_ms,
+                bound, by))
     t = {r["name"]: r["ms"] for r in records}
     say("kernel bn pairs at %s bf16: stats + apply %.4f ms (library "
         "F.batch_norm forward %.4f ms); bwd_reduce + bwd_dx %.4f ms "
@@ -1430,7 +1443,11 @@ NMS_BYTES_PER_VALID = 20  # boxes 16, class 4 read: valid rows only
 # (label, B, A, valid rows, force_suppress, kind): SSD300 at batch 8 with
 # every row valid and no top-k (the worst case) and with the path's top
 # 400; A not a multiple of 128, A < 128, no valid row, zero-area and
-# inverted boxes, identical boxes, an IoU exactly at the threshold
+# inverted boxes, identical boxes, an IoU exactly at the threshold; valid
+# rows scattered over the image instead of a prefix; A past the 48 KB
+# default shared memory and at MAX_ANCHORS (rows past the kernel's
+# shared-memory cache of boxes); a batch of 32 (more clusters than fit on
+# the card at once)
 NMS_CASES = [
     ("ssd300_all", 8, SSD_ANCHORS, SSD_ANCHORS, False, "ssd"),
     ("ssd300_all_force", 8, SSD_ANCHORS, SSD_ANCHORS, True, "ssd"),
@@ -1447,6 +1464,12 @@ NMS_CASES = [
     ("identical", 2, 200, 200, False, "identical"),
     ("identical_force", 2, 200, 200, True, "identical"),
     ("at_threshold", 1, 2, 2, False, "at_threshold"),
+    ("scattered", 4, SSD_ANCHORS, 1000, False, "scattered"),
+    ("scattered_force", 2, 3000, 2500, True, "scattered"),
+    ("a60000", 1, 60000, 3000, False, "ssd"),
+    ("a60000_scattered", 1, 60000, 3000, False, "scattered"),
+    ("max_anchors", 1, 200000, 1000, False, "scattered"),
+    ("batch32", 32, SSD_ANCHORS, 400, False, "ssd"),
 ]
 
 
@@ -1465,8 +1488,9 @@ def nms_inputs(B, A, n_valid, kind, gen):
     """Score-sorted corner boxes, class ids and valid flags on the card, as
     MultiBoxDetection hands them to NMS: SSD300's anchors (cycled to A
     rows) decoded from random offsets in a random score order per image,
-    20 random classes, the first ``n_valid`` rows valid; or the edge
-    cases' boxes."""
+    20 random classes, the first ``n_valid`` rows valid (``n_valid`` rows
+    at random places in each image for the kind ``scattered``); or the
+    edge cases' boxes."""
     import torch
     from mxnet_tpu_torch.ops.detection_ops import _decode_boxes
     dev = "cuda"
@@ -1495,6 +1519,9 @@ def nms_inputs(B, A, n_valid, kind, gen):
                              device=dev)
         cls = torch.zeros((1, 2), device=dev)
     valid = (torch.arange(A, device=dev) < n_valid).expand(B, A)
+    if kind == "scattered":
+        valid = torch.argsort(torch.rand((B, A), generator=gen, device=dev),
+                              dim=1) < n_valid
     return boxes.contiguous(), cls.contiguous(), valid.contiguous()
 
 
@@ -1569,7 +1596,8 @@ def nms_kernel_phase():
         if label in ("ssd300_all", "ssd300_top400"):
             args = (boxes, cls, valid, thr, force)
             worst = label == "ssd300_all"
-            ms = device_ms(lambda: nmsk.nms_keep_cuda(*args), "nms_kernel")
+            # every kernel and memset the call launches
+            ms = device_ms(lambda: nmsk.nms_keep_cuda(*args), "")
             call_ms = time_ms(lambda: nmsk.nms_keep_cuda(*args))
             plain_ms = time_ms(lambda: nmsk._nms_reference(*args),
                                reps=5 if worst else 20,
@@ -1585,6 +1613,14 @@ def nms_kernel_phase():
         del boxes, cls, valid, keep, ref
     ms, call_ms, plain_ms, bound, by, counts = timing["ssd300_top400"]
     w_ms, w_call, w_plain, w_bound, w_by, w_counts = timing["ssd300_all"]
+    shape = nmsk.launch_shape(SSD_ANCHORS)
+    path_batch = next(c[1] for c in NMS_CASES if c[0] == "ssd300_top400")
+    say("kernel nms_keep launch at A=%d: a cluster of %d CTAs an image "
+        "(%d SMs at batch %d), %d bytes of dynamic shared memory and %d "
+        "cached rows a CTA, at most %d such clusters at once on this card"
+        % (SSD_ANCHORS, shape["cluster"], path_batch * shape["cluster"],
+           path_batch, shape["smem_bytes"], shape["cached_rows"],
+           shape["max_active_clusters"]))
     # max_abs_err: the most keep flags that differed from the plain
     # version in one case
     return [{"name": "nms_keep", "route": "cuda",
@@ -1595,6 +1631,9 @@ def nms_kernel_phase():
              "library_ms": None,
              "library_note": "no single PyTorch call computes greedy NMS",
              "shape": "B 8, A 8732, top 400 valid", "call_ms": call_ms,
+             "sms": path_batch * shape["cluster"],
+             "cluster": shape["cluster"],
+             "max_active_clusters": shape["max_active_clusters"],
              "bound_counts": counts,
              "worst_case": {"shape": "B 8, A 8732, all valid", "ms": w_ms,
                             "call_ms": w_call, "plain_ms": w_plain,

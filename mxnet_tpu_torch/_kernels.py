@@ -147,6 +147,8 @@ def _declare(name, lib):
                                  c_i, c_i, c_f, c_i, c_p]    # b a thr force
                                                              # stream
         lib.nms_keep.restype = c_i
+        lib.nms_launch_shape.argtypes = [c_i, c_p]            # a out[4]
+        lib.nms_launch_shape.restype = c_i
     lib.kernel_error_string.argtypes = [c_i]
     lib.kernel_error_string.restype = ctypes.c_char_p
 

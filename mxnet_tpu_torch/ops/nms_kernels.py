@@ -10,9 +10,10 @@ and, unless ``force_suppress``, whose class is equal.
 
 On CUDA tensors it launches the kernel of ``csrc/nms.cu``
 (``nms_keep_cuda``, with a ``.launches`` counter: one launch for the
-whole batch) or raises; on CPU (and meta) tensors it runs the kernel's
-plain version ``_nms_reference``, the TPU kernel's blocked algorithm
-step by step in eager torch. Nothing falls back from one to the other.
+whole batch, one thread-block cluster an image; ``launch_shape`` reports
+the cluster's size and shared memory) or raises; on CPU (and meta)
+tensors it runs the kernel's plain version ``_nms_reference``, the TPU
+kernel's blocked algorithm step by step in eager torch. Nothing falls back from one to the other.
 All three give the dense path's result bit for bit: the IoU is
 ``_box_iou_corner``'s f32 formula, each operation rounded on its own in
 the jnp source's order, and the threshold is rounded to f32.
@@ -23,10 +24,10 @@ import torch
 
 from .. import _kernels
 
-__all__ = ["nms_keep", "nms_keep_cuda", "MAX_ANCHORS"]
+__all__ = ["nms_keep", "nms_keep_cuda", "launch_shape", "MAX_ANCHORS"]
 
 _BLOCK = 128             # rows per row block, as the TPU kernel's _BLOCK
-MAX_ANCHORS = 200000     # the kernel keeps A flags in shared memory
+MAX_ANCHORS = 200000     # rows an image (csrc/nms.cu kMaxAnchors)
 
 
 def _box_iou_corner(a, b):
@@ -147,6 +148,21 @@ def nms_keep_cuda(boxes, cls_ids, valid, nms_threshold,
 
 
 nms_keep_cuda.launches = 0
+
+
+def launch_shape(num_anchors):
+    """How ``nms_keep_cuda`` launches for images of ``num_anchors`` rows
+    on the current CUDA device: ``{"cluster": CTAs an image,
+    "smem_bytes": dynamic shared memory a CTA, "cached_rows": rows a CTA
+    keeps in shared memory, "max_active_clusters": clusters of that shape
+    the device runs at once}``. Needs the card (it builds the kernel)."""
+    import ctypes
+    lib = _kernels.load("nms")
+    out = (ctypes.c_int * 4)()
+    _kernels.check(lib, lib.nms_launch_shape(int(num_anchors), out),
+                   "nms_launch_shape")
+    return dict(zip(("cluster", "smem_bytes", "cached_rows",
+                     "max_active_clusters"), out))
 
 
 def nms_keep(boxes, cls_ids, valid, nms_threshold, force_suppress=False):

@@ -135,6 +135,45 @@ def test_nms_reference_equals_jax_nms_keep(A, seed, force):
         torch.from_numpy(valid)[None], THR, force)[0].numpy(), want)
 
 
+@functools.lru_cache(maxsize=None)
+def _nms_sparse_case(kind):
+    """``scattered``: A = 384, 3 classes, valid rows at random places in
+    the first and last 128-row blocks and none in the middle one (a block
+    with no live row between two live ones); ``one_class``: A = 300, every
+    row of class 0, 80% of the rows valid at random places."""
+    rng = np.random.RandomState(11 if kind == "scattered" else 12)
+    if kind == "scattered":
+        A = 384
+        cls = rng.randint(0, 3, A).astype(np.float32)
+        valid = rng.rand(A) < 0.5
+        valid[128:256] = False
+    else:
+        A = 300
+        cls = np.zeros(A, np.float32)
+        valid = rng.rand(A) < 0.8
+    boxes = _boxes(A, rng, scale=0.5)
+    _assert_margin(boxes, THR)
+    return boxes, cls, valid
+
+
+@pytest.mark.parametrize("force", [False, True], ids=["class", "force"])
+@pytest.mark.parametrize("kind", ["scattered", "one_class"])
+def test_nms_reference_equals_jax_nms_keep_sparse_valid(kind, force):
+    """Valid flags that are not a prefix (a dead row block between live
+    ones), and a single class (every pair tested by IoU): the plain
+    version equals the JAX kernel (interpret mode) in both
+    force_suppress modes, and keeps only valid rows."""
+    boxes, cls, valid = _nms_sparse_case(kind)
+    want = np.asarray(jnms.nms_keep(jnp.asarray(boxes), jnp.asarray(cls),
+                                    jnp.asarray(valid), THR, force))
+    got = tnms._nms_reference(torch.from_numpy(boxes)[None],
+                              torch.from_numpy(cls)[None],
+                              torch.from_numpy(valid)[None], THR, force)
+    np.testing.assert_array_equal(got[0].numpy(), want)
+    assert not (want & ~valid).any()
+    assert 0 < want.sum() < valid.sum()       # something was suppressed
+
+
 def test_nms_reference_batch_equals_images_alone():
     rng = np.random.RandomState(5)
     boxes = np.stack([_boxes(200, rng) for _ in range(3)])

@@ -535,6 +535,18 @@ def test_nms_bound_matches_a_pair_by_pair_count(force):
     assert counts["bytes"] == 2 * B * A + 20 * int(valid.sum())
 
 
+def test_nms_cases_are_unique_and_within_the_kernel_limit():
+    """chip_smoke.NMS_CASES (also the card tests' cases): unique labels,
+    every A within MAX_ANCHORS, at most A valid rows, a known kind."""
+    labels = [c[0] for c in chip_smoke.NMS_CASES]
+    assert len(labels) == len(set(labels))
+    kinds = {"ssd", "scattered", "degenerate", "identical", "at_threshold"}
+    for label, B, A, n_valid, force, kind in chip_smoke.NMS_CASES:
+        assert B >= 1 and 1 <= A <= tnms.MAX_ANCHORS, label
+        assert 0 <= n_valid <= A and kind in kinds, label
+    assert max(c[2] for c in chip_smoke.NMS_CASES) == tnms.MAX_ANCHORS
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("label,B,A,n_valid,force,kind",
                          chip_smoke.NMS_CASES,
