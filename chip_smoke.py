@@ -18,8 +18,12 @@ Phases (any failure exits non-zero; no phase is caught):
    call's time as a yardstick (scaled_dot_product_attention; its
    backward, also against the port's whole backward: delta, scratch,
    kernel), and its bound (least time for the same work on this card);
-   then _contrib_FlashAttention at __graft_entry__'s GQA shape (head dim
-   4) forward and backward, card against CPU, f32 and bf16;
+   then the exact-f32 forward and backward (the route a float32 graph
+   takes) at the flagship shape against their plain versions, timed
+   beside their bounds and scaled_dot_product_attention's float32
+   forward and backward; then _contrib_FlashAttention at
+   __graft_entry__'s GQA shape (head dim 4) forward and backward, card
+   against CPU, f32 and bf16;
 4. serve path: the flagship transformer LM (vocab 32768, seq 2048, 4
    layers, 16 heads, dim 2048, bf16, random weights from a numpy seed)
    served through ServeEngine -> Predictor -> Symbol graph, 8 concurrent
@@ -32,32 +36,44 @@ Phases (any failure exits non-zero; no phase is caught):
    and 10 timed ones, a finite and falling loss, and 4 launches of
    flash_fwd_cuda and of flash_bwd_cuda per step; plus a small f32 LM whose one-step parameters
    on the card must match the same step on the CPU;
-6. BatchNorm kernels: each of the four (stats, apply, backward reduce,
+6. executor/eager path: the same LM bound in float32, 339.9 M
+   parameters, batch 8 of random tokens, weights from a numpy seed,
+   through Symbol.simple_bind -> copy_params_from -> forward(is_train=
+   True) -> backward() (2 warm, 5 timed, one profiled), through the
+   eager walk (mx.nd node by node under autograd.record(), parameters
+   attach_grad'ed, loss.backward(); 1 warm, 3 timed) and through
+   TrainStep._grads: gradients equal across the three (or within rtol
+   1e-5 + atol 1e-6 x max|g|), a finite loss, 4 launches of each
+   exact-f32 flash kernel per forward-and-backward on both routes and
+   no bf16 one; plus, card against CPU, a small f32 LM and a small f32
+   ResNet on the BatchNorm kernels through the Executor (gradients and
+   moving stats) and the eager MLP recipe of the verify notes;
+7. BatchNorm kernels: each of the four (stats, apply, backward reduce,
    dx) against its plain version on the card at the 12 BatchNorm shapes
    of a ResNet-50 step at batch 128 and at edge shapes, timed at
    ResNet-50's stage-2 shape beside its bound and F.batch_norm's
    forward and backward as the pair yardsticks;
-7. ResNet path: the ``entry()`` twin (ResNet-50 inference, card against
+8. ResNet path: the ``entry()`` twin (ResNet-50 inference, card against
    CPU), a small f32 ResNet's SGD step on the BatchNorm kernels (card
    against CPU, parameters and moving stats), then bench.py's ResNet-50
    step (batch 128 x 3x224x224, bf16 compute, SGD momentum with wd)
    through make_train_step with ``MXNET_BN_PALLAS=1`` (50 launches of
    each BatchNorm kernel per step) and with it off (none);
-8. NMS kernel (one thread-block cluster an image): greedy NMS against
+9. NMS kernel (one thread-block cluster an image): greedy NMS against
    its plain version on the card, keep masks equal flag for flag, at
    SSD300's 8732 anchors (batch 8, every row valid and the path's top
    400), at edge cases, with valid rows scattered, past the default
    shared memory, at MAX_ANCHORS and at batch 32; timed (device time of
    every kernel of the call) beside its bound at both shapes, with the
    cluster size and the SMs it runs on;
-9. SSD path: SSD300 (VGG16-reduced, 21 classes, f32, random Xavier
+10. SSD path: SSD300 (VGG16-reduced, 21 classes, f32, random Xavier
    weights) served through ServeEngine -> Predictor -> Symbol graph ->
    MultiBoxDetection on the NMS kernel, 8 concurrent requests; every
    response checked against MultiBoxDetection's rules and the Predictor
    alone, one batch's detections equal on the kernel and dense NMS
    routes, one kernel launch per forward; plus a small f32 SSD300 whose
    card heads and detections must agree with the CPU's;
-10. one JSON line of every ported kernel, then the result line.
+11. one JSON line of every ported kernel, then the result line.
 
 It imports nothing of JAX or of ``mxnet_tpu``. Without CUDA, or run
 outside the repository, it fails before printing any result.
@@ -612,10 +628,41 @@ def reference_check():
         "(rtol 1e-4, atol 1e-6)" % err)
 
 
+def eager_walk(sym, args, aux):
+    """Evaluate ``sym``'s graph eagerly: ``mx.nd.<op>`` called node by
+    node on NDArrays (``args``, ``aux``: name -> NDArray; the aux arrays
+    take BatchNorm's writebacks), each node's outputs dropped after their
+    last consumer. Under ``autograd.record()`` this is the eager route of
+    the graph. Returns the graph's output NDArrays."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.symbol.symbol import _topo_order
+
+    order = _topo_order(sym._entries)
+    last = {}
+    for pos, node in enumerate(order):
+        for m, _i in node.inputs:
+            last[id(m)] = pos
+    for n, _i in sym._entries:
+        last[id(n)] = len(order)
+    env = {}
+    for pos, node in enumerate(order):
+        if node.op is None:
+            env[id(node)] = [(aux if node.is_aux else args)[node.name]]
+        else:
+            out = getattr(mx.nd, node.op.name)(
+                *[env[id(m)][i] for m, i in node.inputs], **node.attrs)
+            env[id(node)] = out if isinstance(out, list) else [out]
+        for m, _i in node.inputs:
+            if last.get(id(m)) == pos:
+                env.pop(id(m), None)
+    return [env[id(n)][i] for n, i in sym._entries]
+
+
 # kernel-name substrings -> the kind of work, for the profile summary
 # (first match wins)
 PROFILE_GROUPS = (
-    ("flash kernels (this port)", ("flash_fwd", "flash_bwd")),
+    ("flash kernels (this port)", ("flash_fwd", "flash_bwd", "flash_dq",
+                                   "flash_dkv")),
     ("NMS kernel (this port)", ("nms_cluster_kernel", "nms_kernel")),
     ("BatchNorm kernels (this port)", ("bn_stats", "bn_apply",
                                        "bn_bwd_reduce", "bn_bwd_dx",
@@ -1018,6 +1065,543 @@ def train_phase(counters):
     del state, batch, step
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the exact-f32 flash kernels at the flagship shape
+# ---------------------------------------------------------------------------
+
+F32_SHAPE = (128, 2048, 128)     # BH, T, D of the flagship LM, causal
+
+
+def f32_kernel_phase():
+    """The exact-f32 flash kernels (the route a float32 graph takes) at
+    the flagship shape, causal: the forward against _flash_fwd_reference
+    (o and lse), the backward (flash_dq_f32, flash_dkv_f32) against
+    _flash_dq_reference/_flash_dkv_reference, each kernel's device time
+    (torch.profiler, by name) beside its bound (flash_bound in float32),
+    the plain versions' times, and scaled_dot_product_attention's float32
+    forward and backward as the library yardsticks."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import attention as att
+
+    BH, T, D = F32_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(20261018)
+    q, k, v, do = (torch.randn((BH, T, D), generator=gen, device="cuda")
+                   for _ in range(4))
+    scale = D ** -0.5
+    o, lse = att.flash_fwd_cuda(q, k, v, scale, True, want_lse=True)
+    torch.cuda.synchronize()
+    ro, rlse = att._flash_fwd_reference(q, k, v, scale, True)
+    fwd_err = check_close("flash_fwd f32 flagship", o, ro, FWD_TOL["float32"])
+    lse_err = float((lse - rlse).abs().max().item())
+    if lse_err > LSE_TOL["atol"] + LSE_TOL["rtol"] * float(
+            rlse.abs().max().item()):
+        fail("flash_fwd f32 flagship: lse max abs err %g" % lse_err)
+    del ro, rlse
+    delta = torch.sum(do * o, dim=-1)
+    args = (q, k, v, do, lse, delta, scale, True, 0, 0)
+    dq, dk, dv = att.flash_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    errs = [check_close("flash_bwd f32 flagship dq", dq,
+                        att._flash_dq_reference(*args), TOL["float32"])]
+    rdk, rdv = att._flash_dkv_reference(*args)
+    errs += [check_close("flash_bwd f32 flagship dk", dk, rdk,
+                         TOL["float32"]),
+             check_close("flash_bwd f32 flagship dv", dv, rdv,
+                         TOL["float32"])]
+    del rdk, rdv, dq, dk, dv
+    torch.cuda.empty_cache()
+
+    def fwd():
+        return att.flash_fwd_cuda(q, k, v, scale, True, want_lse=True)
+
+    def bwd():
+        return att.flash_bwd_cuda(*args)
+
+    fwd_ms = device_ms(fwd, "flash_fwd_f32", reps=5)
+    dq_ms = device_ms(bwd, "flash_dq_f32", reps=5)
+    dkv_ms = device_ms(bwd, "flash_dkv_f32", reps=5)
+    fwd_call, bwd_call = time_ms(fwd, reps=5, warmup=1), \
+        time_ms(bwd, reps=5, warmup=1)
+    plain_fwd = time_ms(lambda: att._flash_fwd_reference(q, k, v, scale,
+                                                         True), reps=3,
+                        warmup=1)
+    plain_bwd = time_ms(lambda: (att._flash_dq_reference(*args),
+                                 att._flash_dkv_reference(*args)), reps=3,
+                        warmup=1)
+    q4, k4, v4 = (x.view(1, BH, T, D).detach().requires_grad_()
+                  for x in (q, k, v))
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                              scale=scale)
+
+    out = lib_fwd()
+    do4 = do.view(1, BH, T, D)
+
+    def lib_bwd():
+        return torch.autograd.grad(out, (q4, k4, v4), do4,
+                                   retain_graph=True)
+
+    lib_fwd_ms, lib_bwd_ms = device_ms(lib_fwd, "", reps=5), \
+        device_ms(lib_bwd, "", reps=5)
+    del out, q4, k4, v4
+    b_fwd, by_fwd = flash_bound("fwd", T, T, D, BH, True, 0, 0, "float32")
+    b_dq, _ = flash_bound("dq", T, T, D, BH, True, 0, 0, "float32")
+    b_dkv, _ = flash_bound("dkv", T, T, D, BH, True, 0, 0, "float32")
+    b_bwd, by_bwd = flash_bound("fused", T, T, D, BH, True, 0, 0, "float32")
+    say("kernel flash f32 flagship BH=%d T=%d D=%d causal: forward %.4f ms "
+        "device time (%.4f by events; bound %.4f ms, %s; %.1f%% of the f32 "
+        "peak), lse err %.3g, max abs err %.3g; backward dq %.4f ms (bound "
+        "%.4f) + dk/dv %.4f ms (bound %.4f) = %.4f ms device time (%.4f by "
+        "events; whole-backward bound %.4f ms, %s), max abs err dq %.3g dk "
+        "%.3g dv %.3g; plain forward %.4f ms, backward %.4f ms; library "
+        "(scaled_dot_product_attention, f32) forward %.4f ms, backward %.4f "
+        "ms device time" % (
+            BH, T, D, fwd_ms, fwd_call, b_fwd, by_fwd, 100 * b_fwd / fwd_ms,
+            lse_err, fwd_err, dq_ms, b_dq, dkv_ms, b_dkv, dq_ms + dkv_ms,
+            bwd_call, b_bwd, by_bwd, *errs, plain_fwd, plain_bwd,
+            lib_fwd_ms, lib_bwd_ms))
+    del q, k, v, do, o, lse, delta, args
+    torch.cuda.empty_cache()
+    return [{"name": "flash_fwd_f32", "route": "cuda",
+             "source": "mxnet_tpu_torch/csrc/flash_fwd.cu",
+             "replaces": "mxnet_tpu/ops/attention.py:38",
+             "launches": None, "max_abs_err": fwd_err, "ms": fwd_ms,
+             "plain_ms": plain_fwd, "bound_ms": b_fwd, "bound_by": by_fwd,
+             "library_ms": lib_fwd_ms, "call_ms": fwd_call},
+            {"name": "flash_bwd_f32", "route": "cuda",
+             "source": "mxnet_tpu_torch/csrc/flash_bwd.cu",
+             "replaces": "mxnet_tpu/ops/attention.py:279, :331",
+             "launches": None, "max_abs_err": max(errs),
+             "ms": dq_ms + dkv_ms, "plain_ms": plain_bwd, "bound_ms": b_bwd,
+             "bound_by": by_bwd, "library_ms": lib_bwd_ms,
+             "dq_ms": dq_ms, "dkv_ms": dkv_ms, "dq_bound_ms": b_dq,
+             "dkv_bound_ms": b_dkv, "call_ms": bwd_call}]
+
+
+# ---------------------------------------------------------------------------
+# executor/eager phase: the flagship LM bound in float32
+# ---------------------------------------------------------------------------
+
+EXEC_BATCH = 8
+EXEC_WARM, EXEC_TIMED = 2, 5
+EAGER_WARM, EAGER_TIMED = 1, 3
+# gradients of two routes that run the same functions: equal, or within
+# rtol 1e-5 and atol 1e-6 * max|g| where cuBLAS's choices differ
+GRAD_RTOL, GRAD_ATOL_REL = 1e-5, 1e-6
+
+
+def _flash_counters():
+    from mxnet_tpu_torch.ops import attention as att
+    return att.flash_fwd_cuda, att.flash_bwd_cuda
+
+
+def _reset_flash_counts():
+    for c in _flash_counters():
+        c.launches = c.launches_f32 = 0
+
+
+def _flash_counts(what, runs):
+    """Launch counts of the last ``runs`` forward-and-backwards, keyed as
+    the kernels line reads them: the exact-f32 kernels, and the bf16
+    kernels (which must be 0 on a float32 path). Fails unless each f32
+    kernel ran once a layer a run."""
+    fwd, bwd = _flash_counters()
+    counts = {"flash_fwd_f32_cuda": fwd.launches_f32,
+              "flash_bwd_f32_cuda": bwd.launches_f32,
+              "flash_fwd_cuda": fwd.launches - fwd.launches_f32,
+              "flash_bwd_cuda": bwd.launches - bwd.launches_f32}
+    for name in ("flash_fwd_f32_cuda", "flash_bwd_f32_cuda"):
+        if counts[name] != LAYERS * runs:
+            fail("%s: %s launched %d times, not %d layers x %d runs"
+                 % (what, name, counts[name], LAYERS, runs))
+    for name in ("flash_fwd_cuda", "flash_bwd_cuda"):
+        if counts[name]:
+            fail("%s: the bf16 kernel of %s launched %d times on a float32 "
+                 "path" % (what, name, counts[name]))
+    return counts
+
+
+def compare_grads(what, got, want):
+    """Fail unless every gradient of ``got`` equals ``want``'s, or lies
+    within GRAD_RTOL and GRAD_ATOL_REL * max|g|; returns (number equal
+    bit for bit, worst abs difference, worst relative to max|g|)."""
+    import torch
+    equal, worst, worst_rel = 0, 0.0, 0.0
+    for n, w in want.items():
+        g = got[n]
+        if torch.equal(g, w):
+            equal += 1
+            continue
+        diff = float((g - w).abs().max().item())
+        scale = float(w.abs().max().item())
+        worst, worst_rel = max(worst, diff), max(worst_rel,
+                                                 diff / max(scale, 1e-30))
+        bad = (g - w).abs() > GRAD_ATOL_REL * scale + GRAD_RTOL * w.abs()
+        if not torch.isfinite(g).all() or bad.any():
+            fail("%s: gradient %s differs by %g (max|g| %g)"
+                 % (what, n, diff, scale))
+    return equal, worst, worst_rel
+
+
+def _small_lm_executor(ctx, sym, params, feed):
+    exe = sym.simple_bind(ctx=ctx, data=feed["data"].shape,
+                          softmax_label=feed["softmax_label"].shape)
+    exe.copy_params_from(params)
+    exe.forward(is_train=True, **feed)
+    exe.backward()
+    return {"out": exe.outputs[0].asnumpy(),
+            **{n: g.asnumpy() for n, g in exe.grad_dict.items()
+               if n in params}}
+
+
+def executor_reference_checks():
+    """Card against CPU, small and untimed: a 2-layer narrow f32 LM
+    through the Executor (outputs and gradients); a small f32 ResNet
+    through the Executor on the BatchNorm kernels (the moving stats
+    written back and the gradients, against the CPU's float64 run); the
+    eager MLP recipe (numpy init, autograd.record, sgd_update(out=p))
+    with a falling loss."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch.models import resnet, transformer
+    from mxnet_tpu_torch.ops import bn_kernels as bnk
+
+    T, V, B = 64, 100, 2
+    sym = transformer.get_symbol(V, T, num_layers=2, num_heads=4, dim=64)
+    params = random_params(sym, (B, T), seed=12)
+    rng = np.random.RandomState(13)
+    toks = rng.randint(0, V, (B, T)).astype(np.float32)
+    lab = np.roll(toks, -1, axis=1)
+    lab[:, -1] = -1
+    feed = {"data": toks, "softmax_label": lab}
+    card, host = (_small_lm_executor(ctx, sym, params, feed)
+                  for ctx in (mx.gpu(0), mx.cpu()))
+    worst = 0.0
+    for n, want in host.items():
+        worst = max(worst, float(np.abs(card[n] - want).max()))
+        if not np.allclose(card[n], want, rtol=1e-4, atol=1e-6):
+            fail("small f32 LM executor: %s on the card differs from the "
+                 "CPU by %g" % (n, np.abs(card[n] - want).max()))
+    say("executor reference: small f32 LM (2 layers, dim 64) forward and "
+        "backward through the Executor, card vs CPU, %d gradients: max abs "
+        "err %.3g (rtol 1e-4, atol 1e-6)" % (len(host) - 1, worst))
+
+    S = SMALL_IMAGE
+    rsym = resnet.get_symbol(num_classes=10, num_layers=SMALL_LAYERS,
+                             image_shape=(3, S, S))
+    shapes = {"data": (SMALL_BATCH, 3, S, S), "softmax_label": (SMALL_BATCH,)}
+    arg_shapes, _, aux_shapes = rsym.infer_shape(**shapes)
+    rng = np.random.RandomState(14)
+    rparams = {n: (rng.standard_normal(s) * (0.1 if len(s) > 1 else 0.05)
+                   + (1.0 if n.endswith("gamma") else 0.0)).astype(
+                       np.float32)
+               for n, s in zip(rsym.list_arguments(), arg_shapes)
+               if n not in shapes}
+    raux = {n: (rng.rand(*s) + 0.5 if n.endswith("var") else
+                rng.standard_normal(s) * 0.1).astype(np.float32)
+            for n, s in zip(rsym.list_auxiliary_states(), aux_shapes)}
+    rfeed = {"data": rng.standard_normal(shapes["data"]).astype(np.float32),
+             "softmax_label": rng.randint(0, 10, (SMALL_BATCH,)).astype(
+                 np.float32)}
+    # the card on the BatchNorm kernels, with cuDNN's convolutions (as
+    # the model runs) and with PyTorch's native ones (float32-exact); the
+    # CPU in float64, the reference
+    import torch
+    results = {}
+    for key, ctx, dt, cudnn in (("card", mx.gpu(0), "float32", True),
+                                ("card_native_conv", mx.gpu(0), "float32",
+                                 False),
+                                ("cpu64", mx.cpu(), "float64", True)):
+        config.set_override("MXNET_BN_PALLAS", dt == "float32")
+        before = bnk.bn_stats_cuda.launches
+        # the switch alone: cudnn.flags() would also reset allow_tf32
+        torch.backends.cudnn.enabled = cudnn
+        exe = rsym.simple_bind(ctx=ctx, type_dict={"data": dt}, **shapes)
+        exe.copy_params_from(rparams, raux)
+        exe.forward(is_train=True, **rfeed)
+        exe.backward()
+        torch.backends.cudnn.enabled = True
+        results[key] = (
+            {n: exe.grad_dict[n].asnumpy().astype(np.float64)
+             for n in rparams},
+            {n: a.asnumpy() for n, a in exe.aux_dict.items()})
+        if ctx.device_type == "gpu" and bnk.bn_stats_cuda.launches == before:
+            fail("small ResNet executor: the BatchNorm kernels did not run")
+    config.set_override("MXNET_BN_PALLAS", None)
+    g64, aux64 = results["cpu64"]
+    norm64 = float(np.sqrt(sum(np.sum(g ** 2) for g in g64.values())))
+    def rel_dist(got, want):
+        return float(np.sqrt(sum(np.sum((got[n] - want[n]) ** 2)
+                                 for n in want)) / np.sqrt(
+            sum(np.sum(w.astype(np.float64) ** 2) for w in want.values())))
+
+    dists, aux_dists, worst_aux = {}, {}, 0.0
+    for key in ("card", "card_native_conv"):
+        grads, aux = results[key]
+        if not all(np.isfinite(x).all() for x in list(grads.values())
+                   + list(aux.values())):
+            fail("small ResNet executor (%s): non-finite values" % key)
+        if sum(not np.array_equal(aux[n], v) for n, v in raux.items()) \
+                != len(raux):
+            fail("small ResNet executor (%s): not every moving stat was "
+                 "written back" % key)
+        dists[key], aux_dists[key] = rel_dist(grads, g64), rel_dist(aux,
+                                                                    aux64)
+    for n, want in aux64.items():
+        got = results["card_native_conv"][1][n]
+        worst_aux = max(worst_aux, float(np.abs(got - want).max()))
+        if not np.allclose(got, want, **SMALL_TOL):
+            fail("small ResNet executor: moving stat %s differs from the "
+                 "CPU's by %g" % (n, np.abs(got - want).max()))
+    # a relu or max-pool input within rounding of a tie flips the
+    # gradient's path, so the float32 gradients of a deep ResNet hang on
+    # the convolutions' rounding: cuDNN's algorithms (TF32 off; Winograd
+    # and FFT ones among them) round each convolution to ~1e-6 relative
+    # against PyTorch's own kernels' ~2e-7 (tools/conv_precision.py),
+    # which put these gradients 3.5% (in norm) from float64, against
+    # 6e-6 (the script on an H100). So: with PyTorch's convolutions the
+    # gradients are held to the float64 ones within 1e-4 (relative, in
+    # norm) and the moving stats elementwise; with cuDNN's, within 10%
+    # and 1e-3
+    if not (dists["card_native_conv"] <= 1e-4 and dists["card"] <= 0.1
+            and aux_dists["card"] <= 1e-3):
+        fail("small ResNet executor: gradients %.3g (native convolutions) "
+             "and %.3g (cuDNN), moving stats %.3g (cuDNN) from the CPU's "
+             "float64 ones, relative in norm" % (
+                 dists["card_native_conv"], dists["card"],
+                 aux_dists["card"]))
+    say("executor reference: small f32 ResNet-%d forward and backward "
+        "through the Executor on the BatchNorm kernels, card vs CPU "
+        "float64, with PyTorch's convolutions: %d moving stats all written "
+        "back, max abs err %.3g (rtol %g, atol %g), %d gradients %.3g from "
+        "the float64 ones (relative, in norm; limit 1e-4); with cuDNN's: "
+        "gradients %.3g (limit 0.1), moving stats %.3g (limit 1e-3)" % (
+            SMALL_LAYERS, len(raux), worst_aux, SMALL_TOL["rtol"],
+            SMALL_TOL["atol"], len(rparams), dists["card_native_conv"],
+            dists["card"], aux_dists["card"]))
+
+    losses = [eager_mlp_recipe(ctx) for ctx in (mx.gpu(0), mx.cpu())]
+    if not np.allclose(losses[0], losses[1], rtol=1e-4, atol=1e-6):
+        fail("eager MLP recipe: card losses %r differ from the CPU's %r"
+             % (losses[0][-3:], losses[1][-3:]))
+    if not losses[0][-1] < 0.5 * losses[0][0]:
+        fail("eager MLP recipe: loss did not fall (%g -> %g)"
+             % (losses[0][0], losses[0][-1]))
+    say("executor reference: eager MLP recipe on gpu(0): loss per sample "
+        "%.4f -> %.4f over %d epochs, card vs CPU max abs diff %.3g"
+        % (losses[0][0], losses[0][-1], len(losses[0]),
+           float(np.abs(np.array(losses[0]) - np.array(losses[1])).max())))
+
+
+def eager_mlp_recipe(ctx, epochs=60):
+    """The imperative recipe of the repository's verify notes, with numpy
+    initialisation, on ``ctx``: the loss per sample after each epoch."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+    rng = np.random.RandomState(0)
+    N = 256
+    X = rng.randn(N, 20).astype(np.float32)
+    y = (X @ rng.randn(20, 1).astype(np.float32) > 0).astype(
+        np.float32).ravel()
+    with ctx:
+        w1, b1 = nd.array(rng.randn(64, 20) * .1), nd.zeros((64,))
+        w2, b2 = nd.array(rng.randn(2, 64) * .1), nd.zeros((2,))
+        ps = [w1, b1, w2, b2]
+        for p in ps:
+            p.attach_grad()
+        d, lab = nd.array(X), nd.array(y)
+        losses = []
+        for _ in range(epochs):
+            with autograd.record():
+                h = nd.relu(nd.FullyConnected(d, w1, b1, num_hidden=64))
+                loss = nd.softmax_cross_entropy(
+                    nd.FullyConnected(h, w2, b2, num_hidden=2), lab)
+            loss.backward()
+            for p in ps:
+                nd.sgd_update(p, p.grad, lr=.1, rescale_grad=1. / N, out=p)
+            losses.append(float(loss.asscalar()) / N)
+    return losses
+
+
+def eager_dispatch_us():
+    """Host time of one eager op call (``invoke_eager``) on the card, a
+    tiny input so the device time is negligible: (outside record, under
+    record with a variable), microseconds a call."""
+    import torch
+    import mxnet_tpu_torch as mx
+    x = mx.nd.ones((4,), ctx=mx.gpu(0))
+    x.attach_grad()
+    out = []
+    for recording in (False, True):
+        with mx.autograd.record() if recording else mx.autograd.pause():
+            for _ in range(50):
+                mx.nd.relu(x)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(1000):
+                mx.nd.relu(x)
+            torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def executor_phase():
+    """The flagship LM bound in float32 through the Executor
+    (simple_bind -> copy_params_from -> forward(is_train=True) ->
+    backward()), through the eager walk (mx.nd node by node under
+    autograd.record(), parameters attach_grad'ed, loss.backward()) and
+    through TrainStep._grads, from one set of weights and one batch.
+    Returns {"executor": counts, "eager": counts}."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.parallel import make_train_step
+    from mxnet_tpu_torch.symbol.symbol import _topo_order
+
+    executor_reference_checks()
+
+    B = EXEC_BATCH
+    t0 = time.perf_counter()
+    sym = transformer.get_symbol(VOCAB, SEQ, num_layers=LAYERS,
+                                 num_heads=HEADS, dim=DIM,
+                                 ffn_hidden=4 * DIM)
+    params = random_params(sym, (B, SEQ), seed=0)
+    rng = np.random.RandomState(1)
+    toks = rng.randint(0, VOCAB, (B, SEQ)).astype(np.float32)
+    labels = np.roll(toks, -1, axis=1)
+    labels[:, -1] = -1
+    feed = {"data": toks, "softmax_label": labels}
+    nparam = sum(p.size for p in params.values())
+    say("executor: flagship LM %d params (%.1f M), batch %d x %d, float32, "
+        "weights from a numpy seed, set up in %.1f s" % (
+            nparam, nparam / 1e6, B, SEQ, time.perf_counter() - t0))
+    lab_t = torch.from_numpy(labels).cuda()
+
+    # -- route 1: the Executor ----------------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    exe = sym.simple_bind(ctx=mx.gpu(0), data=(B, SEQ),
+                          softmax_label=(B, SEQ))
+    exe.copy_params_from(params)
+    for k, v in feed.items():
+        exe.arg_dict[k][:] = v
+    bound_gb = torch.cuda.memory_allocated() / 1e9
+
+    def exec_step():
+        exe.forward(is_train=True)
+        exe.backward()
+
+    _reset_flash_counts()
+    times = []
+    for i in range(EXEC_WARM + EXEC_TIMED):
+        t = time.perf_counter()
+        if i == 1:
+            profile("executor forward+backward (warm), float32", exec_step,
+                    top=12)
+        else:
+            exec_step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    exec_counts = _flash_counts("executor", EXEC_WARM + EXEC_TIMED)
+    exec_peak = torch.cuda.max_memory_allocated() / 1e9
+    held = torch.cuda.memory_allocated()
+    nll = mean_nll(exe.outputs[0].handle, lab_t)
+    exec_ms = statistics.median(times[EXEC_WARM:])
+    names = list(params)
+    exec_grads = {n: exe.grad_dict[n].handle for n in names}
+    # a second backward() on the kept graph gives the same gradients
+    t = time.perf_counter()
+    exe.backward()
+    torch.cuda.synchronize()
+    again_ms = (time.perf_counter() - t) * 1e3
+    again = compare_grads("executor backward twice",
+                          {n: exe.grad_dict[n].handle for n in names},
+                          exec_grads)
+    exe._graph = None          # what the next forward would drop
+    graph_gb = (held - torch.cuda.memory_allocated()) / 1e9
+    del exe
+    torch.cuda.empty_cache()
+    if not np.isfinite(nll):
+        fail("executor: non-finite loss %r" % nll)
+    say("executor: forward+backward %.2f ms (median of %d timed; all: %s), "
+        "%.0f tokens/s; loss (mean NLL) %.4f; peak device memory %.2f GB "
+        "(bound arrays %.2f GB); the graph kept for a repeat backward() "
+        "holds %.2f GB after backward(); a second backward() %.2f ms, "
+        "gradients %d of %d bit-equal (worst diff %.3g)" % (
+            exec_ms, EXEC_TIMED, " ".join("%.1f" % x for x in times),
+            B * SEQ / exec_ms * 1e3, nll, exec_peak, bound_gb, graph_gb,
+            again_ms, again[0], len(names), again[1]))
+    say("executor: launches %s" % ", ".join(
+        "%s %d" % kv for kv in sorted(exec_counts.items())))
+
+    # -- route 2: the eager walk --------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    args = {n: mx.nd.array(v, ctx=mx.gpu(0)) for n, v in params.items()}
+    for a in args.values():
+        a.attach_grad()
+    args.update({k: mx.nd.array(v, ctx=mx.gpu(0)) for k, v in feed.items()})
+    n_ops = sum(1 for n in _topo_order(sym._entries) if n.op is not None)
+
+    def eager_step():
+        with mx.autograd.record():
+            outs = eager_walk(sym, args, {})
+        outs[0].backward()
+        return outs
+
+    _reset_flash_counts()
+    times = []
+    for i in range(EAGER_WARM + EAGER_TIMED):
+        t = time.perf_counter()
+        outs = eager_step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        eager_nll = mean_nll(outs[0].handle, lab_t)
+        del outs
+    eager_counts = _flash_counts("eager", EAGER_WARM + EAGER_TIMED)
+    eager_peak = torch.cuda.max_memory_allocated() / 1e9
+    eager_ms = statistics.median(times[EAGER_WARM:])
+    eager_grads = {n: args[n].grad.handle for n in names}
+    del args
+    torch.cuda.empty_cache()
+    us_plain, us_rec = eager_dispatch_us()
+    say("eager: forward+backward %.2f ms (median of %d timed; all: %s), "
+        "%d op calls a forward; loss %.4f; peak device memory %.2f GB; "
+        "host time of one eager op call %.1f us (%.1f us recording)" % (
+            eager_ms, EAGER_TIMED, " ".join("%.1f" % x for x in times),
+            n_ops, eager_nll, eager_peak, us_plain, us_rec))
+    say("eager: launches %s" % ", ".join(
+        "%s %d" % kv for kv in sorted(eager_counts.items())))
+    if not abs(eager_nll - nll) <= 1e-5 * abs(nll):
+        fail("eager: loss %r differs from the executor's %r"
+             % (eager_nll, nll))
+
+    # -- route 3: TrainStep._grads ------------------------------------------
+    step = make_train_step(sym, optimizer="sgd")
+    p = {n: torch.from_numpy(v).cuda() for n, v in params.items()}
+    batch = step.place_batch(feed)
+    _reset_flash_counts()
+    _outs, _aux, step_grads = step._grads(p, {}, batch, 0)
+    torch.cuda.synchronize()
+    _flash_counts("TrainStep._grads", 1)
+    del _outs, _aux, p, batch, step
+    vs_step = compare_grads("executor against TrainStep._grads", exec_grads,
+                            step_grads)
+    vs_eager = compare_grads("eager walk against the executor", eager_grads,
+                             exec_grads)
+    say("executor: gradients of %d parameters: executor vs TrainStep._grads "
+        "%d bit-equal (worst abs diff %.3g, %.3g of max|g|); eager walk vs "
+        "executor %d bit-equal (worst abs diff %.3g, %.3g of max|g|); "
+        "limit rtol %g + atol %g x max|g|" % (
+            len(names), vs_step[0], vs_step[1], vs_step[2], vs_eager[0],
+            vs_eager[1], vs_eager[2], GRAD_RTOL, GRAD_ATOL_REL))
+    del exec_grads, eager_grads, step_grads
+    torch.cuda.empty_cache()
+    return {"executor": exec_counts, "eager": eager_counts}
 
 
 # ---------------------------------------------------------------------------
@@ -1926,12 +2510,13 @@ def main():
     say("build: wgmma serialization warnings: %s"
         % ("; ".join(warnings) if warnings else "none"))
 
-    records = kernel_phase() + bwd_kernel_phase()
+    records = kernel_phase() + bwd_kernel_phase() + f32_kernel_phase()
     gqa_phase()
     records += bn_kernel_phase() + nms_kernel_phase()
     by_path = {"serve": path_phase([att.flash_fwd_cuda]),
                "train": train_phase([att.flash_fwd_cuda,
                                      att.flash_bwd_cuda]),
+               **executor_phase(),
                **resnet_phase([bnk.bn_stats_cuda, bnk.bn_apply_cuda,
                                bnk.bn_bwd_reduce_cuda, bnk.bn_bwd_dx_cuda]),
                "ssd": ssd_phase([nmsk.nms_keep_cuda])}

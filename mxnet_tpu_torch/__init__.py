@@ -48,6 +48,7 @@ from .context import Context, cpu, gpu, tpu, cpu_pinned, current_context  # noqa
 
 from . import ops  # noqa: E402  (populates the operator registry)
 
+from . import autograd  # noqa: E402
 from . import ndarray  # noqa: E402
 from . import ndarray as nd  # noqa: E402
 from .ndarray import NDArray  # noqa: E402

@@ -7,6 +7,7 @@ from . import registry
 from .registry import get_op, list_ops, register
 
 from . import elemwise      # noqa: F401
+from . import init_ops      # noqa: F401
 from . import matrix        # noqa: F401
 from . import indexing      # noqa: F401
 from . import nn            # noqa: F401

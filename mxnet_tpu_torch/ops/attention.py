@@ -191,7 +191,8 @@ def flash_fwd_cuda(q, k, v, scale, causal, window=0, band_offset=0,
                    want_lse=False):
     """Launch the Hopper flash forward kernel on CUDA tensors, any head
     dim up to 128 (padded to a multiple of 8 for the kernel). Returns
-    (o, lse or None). ``flash_fwd_cuda.launches`` counts the launches."""
+    (o, lse or None). ``flash_fwd_cuda.launches`` counts the launches,
+    ``flash_fwd_cuda.launches_f32`` those of the exact-f32 kernel."""
     _check_kernel_inputs(q, k, v)
     scale = float(scale)
     if q.dtype == torch.bfloat16 and scale <= 0:
@@ -202,10 +203,12 @@ def flash_fwd_cuda(q, k, v, scale, causal, window=0, band_offset=0,
         lambda q, k, v: _launch_fwd(q, k, v, scale, causal, window,
                                     band_offset, want_lse), q, k, v)
     flash_fwd_cuda.launches += 1
+    flash_fwd_cuda.launches_f32 += q.dtype == torch.float32
     return o, lse
 
 
 flash_fwd_cuda.launches = 0
+flash_fwd_cuda.launches_f32 = 0
 
 
 def flash_fwd(q, k, v, scale, causal, window=0, band_offset=0,
@@ -263,17 +266,20 @@ def flash_bwd_cuda(q, k, v, do, lse, delta, scale, causal, window=0,
     deterministic kernel for bf16 (dq summed in f32 scratch in a fixed
     order), the exact-f32 dq and dk/dv kernels for float32; any head dim
     up to 128 (padded to a multiple of 8 for the kernels). Returns
-    (dq, dk, dv). ``flash_bwd_cuda.launches`` counts the calls."""
+    (dq, dk, dv). ``flash_bwd_cuda.launches`` counts the calls,
+    ``flash_bwd_cuda.launches_f32`` those of the exact-f32 pair."""
     _check_bwd_inputs(q, k, v, do, lse, delta, "flash_bwd_cuda")
     grads = _on_padded_head_dim(
         lambda q, k, v, do: _launch_bwd(q, k, v, do, lse, delta, scale,
                                         causal, window, band_offset),
         q, k, v, do)
     flash_bwd_cuda.launches += 1
+    flash_bwd_cuda.launches_f32 += q.dtype == torch.float32
     return grads
 
 
 flash_bwd_cuda.launches = 0
+flash_bwd_cuda.launches_f32 = 0
 
 
 def flash_bwd(q, k, v, do, lse, delta, scale, causal, window=0,

@@ -1,6 +1,11 @@
-"""Indexing ops of the serving slice — ``Embedding`` and ``take`` — with
-the semantics of ``mxnet_tpu/ops/indexing.py``. Its other ops, and the
-Embedding backward choice, wait for the op-catalog slice.
+"""Indexing ops — ``Embedding``, ``take``, ``batch_take``, ``pick``,
+``one_hot``, ``gather_nd`` and ``scatter_nd`` — with the semantics of
+``mxnet_tpu/ops/indexing.py``, including jax's index rules where torch
+would raise: a negative index counts from the end; out of range,
+``take_along_axis`` (batch_take, pick) reads NaN (an int table, its
+least value), an ``x[idx]`` gather (gather_nd) clamps, and a scatter
+(scatter_nd) drops the update. ``_sparse_retain`` and ``_square_sum``
+wait for sparse storage (ROADMAP Queue A item 10).
 """
 from __future__ import annotations
 
@@ -45,3 +50,82 @@ def _take(a, indices, axis=0, mode="clip", **_):
     axis = axis % a.dim()
     return out.reshape(tuple(a.shape[:axis]) + tuple(idx.shape)
                        + tuple(a.shape[axis + 1:]))
+
+
+def _along_axis(a, idx, axis):
+    """``jnp.take_along_axis(a, idx, axis)`` in its default "fill" mode."""
+    n = a.shape[axis]
+    idx = torch.where(idx < 0, idx + n, idx)
+    valid = (idx >= 0) & (idx < n)
+    out = torch.gather(a, axis, idx.clamp(0, n - 1))
+    fill = float("nan") if a.is_floating_point() else \
+        torch.iinfo(a.dtype).min
+    return torch.where(valid, out, torch.full((), fill, dtype=a.dtype,
+                                              device=a.device))
+
+
+@register("batch_take", arg_names=("a", "indices"), nondiff_inputs=(1,))
+def _batch_take(a, indices, **_):
+    idx = indices.to(torch.int32).long()
+    return _along_axis(a, idx[:, None], 1)[:, 0]
+
+
+@register("pick", arg_names=("data", "index"), nondiff_inputs=(1,),
+          defaults={"axis": -1, "keepdims": False})
+def _pick(data, index, axis=-1, keepdims=False, **_):
+    idx = index.to(torch.int32).long()
+    idx_exp = torch.unsqueeze(idx, axis if axis >= 0 else data.dim() + axis)
+    out = _along_axis(data, idx_exp, axis)
+    if not keepdims:
+        out = torch.squeeze(out, dim=axis)
+    return out
+
+
+@register("one_hot", arg_names=("indices",), differentiable=False,
+          defaults={"depth": 0, "on_value": 1.0, "off_value": 0.0,
+                    "dtype": "float32"})
+def _one_hot(indices, depth=0, on_value=1.0, off_value=0.0,
+             dtype="float32", **_):
+    from ..base import torch_dtype
+    idx = indices.to(torch.int32)
+    oh = (idx[..., None] == torch.arange(depth, device=idx.device)).to(
+        torch_dtype(dtype))
+    return oh * on_value + (1 - oh) * off_value
+
+
+def _nd_index(idx, shape):
+    """The m index rows of gather_nd/scatter_nd, each negative index
+    counted from the end of its dim."""
+    return [torch.where(idx[i] < 0, idx[i] + shape[i], idx[i])
+            for i in range(idx.shape[0])]
+
+
+@register("gather_nd", arg_names=("data", "indices"), nondiff_inputs=(1,))
+def _gather_nd(data, indices, **_):
+    idx = _nd_index(indices.to(torch.int32).long(), data.shape)
+    return data[tuple(i.clamp(0, data.shape[d] - 1)
+                      for d, i in enumerate(idx))]
+
+
+@register("scatter_nd", arg_names=("data", "indices"), nondiff_inputs=(1,),
+          defaults={"shape": ()})
+def _scatter_nd(data, indices, shape=(), **_):
+    shape = tuple(shape)
+    m = indices.shape[0]
+    idx = _nd_index(indices.to(torch.int32).long(), shape)
+    # one linear index over the m scattered dims; an update out of range
+    # goes to one spare row past the end, which is then cut away
+    rows = 1
+    for d in shape[:m]:
+        rows *= d
+    lin = torch.zeros_like(idx[0])
+    valid = torch.ones_like(idx[0], dtype=torch.bool)
+    for d, i in enumerate(idx):
+        lin = lin * shape[d] + i
+        valid = valid & (i >= 0) & (i < shape[d])
+    lin = torch.where(valid, lin, rows)
+    out = torch.zeros((rows + 1,) + shape[m:], dtype=data.dtype,
+                      device=data.device)
+    out = out.index_put((lin.reshape(-1),),
+                        data.reshape((-1,) + shape[m:]))
+    return out[:rows].reshape(shape)

@@ -2,12 +2,9 @@
 
 Every op is ONE function ``fn(*tensors, **attrs)`` on ``torch.Tensor``s,
 registered with the same ``OpDef`` fields as the JAX package, so the
-Symbol graph, its JSON and (in a later slice) the eager ``mx.nd`` path
-and autograd all share one entry per op. PyTorch runs eagerly: there is
-no per-(op, attrs) compile cache here.
-
-The eager dispatch (``invoke_eager``) comes with NDArray autograd
-(ROADMAP Queue A item 1).
+Symbol graph, its JSON, the eager ``mx.nd`` path (``invoke_eager``) and
+autograd all share one entry per op and reach the same kernels.
+PyTorch runs eagerly: there is no per-(op, attrs) compile cache here.
 """
 from __future__ import annotations
 
@@ -18,7 +15,8 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 
 __all__ = ["OpDef", "register", "get_op", "list_ops", "canon_attrs",
-           "set_arg_select", "set_param_shapes"]
+           "set_arg_select", "set_param_shapes", "invoke_eager",
+           "OpNotPorted", "not_ported"]
 
 _OP_REGISTRY: dict[str, "OpDef"] = {}
 _ALIASES: dict[str, str] = {}
@@ -162,3 +160,174 @@ def canon_attrs(opdef, attrs):
             continue
         out[k] = _hashable(_parse_attr_value(v))
     return out
+
+
+# ---------------------------------------------------------------------------
+# eager dispatch
+# ---------------------------------------------------------------------------
+
+def _op_generator(device):
+    """A torch.Generator for one rng-drawing eager call, seeded from the
+    global stream (``mx.random``)."""
+    import torch
+    from .. import random as mx_random
+    gen = torch.Generator(device=device)
+    gen.manual_seed(mx_random.next_key())
+    return gen
+
+
+def invoke_eager(opdef, nd_inputs, attrs, out=None):
+    """Imperative invoke (analogue of ImperativeInvokeImpl,
+    src/c_api/c_api_ndarray.cc:491; the JAX package's
+    ``ops/registry.py:invoke_eager``): unwrap NDArrays, run the op's
+    function once, wrap the visible outputs, write the state outputs back
+    (BatchNorm's moving stats, the fused updates' weights and moments)
+    and honour ``out=``.
+
+    Under ``autograd.record()`` a differentiable op runs with torch's
+    grad mode on, so its outputs carry their backward; otherwise (and for
+    a non-differentiable op) grad mode is off and the outputs are
+    detached, so arrays that carry ``attach_grad`` build no graph outside
+    ``record()``. Inputs listed in ``nondiff_inputs`` enter detached and
+    never receive a gradient. Writebacks and ``out=`` give their arrays
+    new tensors (``NDArray._set_data``) and take no part in the graph."""
+    import torch
+    from ..ndarray.ndarray import NDArray, _wrap, array
+    from .. import autograd
+
+    arrays = []
+    for i, x in enumerate(nd_inputs):
+        t = x._data if isinstance(x, NDArray) else array(
+            x, ctx=_input_context(nd_inputs))._data
+        arrays.append(t.detach() if i in opdef.nondiff_inputs else t)
+
+    attrs = canon_attrs(opdef, attrs)
+    if opdef.takes_is_train and "is_train" not in attrs:
+        attrs["is_train"] = autograd.is_training()
+    if opdef.needs_rng:
+        attrs["rng"] = _op_generator(arrays[0].device if arrays else "cpu")
+
+    recording = autograd.is_recording() and opdef.differentiable
+    with torch.set_grad_enabled(recording):
+        raw = opdef.fn(*arrays, **attrs)
+    outs = list(raw) if isinstance(raw, (tuple, list)) else [raw]
+    if not recording:
+        outs = [o.detach() for o in outs]
+
+    n_state = opdef.num_state
+    if n_state:
+        state_outs = outs[-n_state:]
+        outs = outs[:-n_state]
+        for idx, val in zip(opdef.state_inputs, state_outs):
+            if idx < len(nd_inputs) and isinstance(nd_inputs[idx], NDArray):
+                nd_inputs[idx]._set_data(val.detach())
+
+    n_vis = opdef.num_visible if opdef.num_visible is not None else len(outs)
+    nd_outs = [_wrap(o) for o in outs[:n_vis]]
+
+    if out is not None:
+        out_list = out if isinstance(out, (list, tuple)) else [out]
+        for dst, src in zip(out_list, nd_outs):
+            dst._set_data(src._data)
+        return out
+    if len(nd_outs) == 1:
+        return nd_outs[0]
+    return nd_outs
+
+
+def _input_context(nd_inputs):
+    """The context of the first NDArray input (else the current one):
+    where a host array given beside it is placed."""
+    from ..context import current_context
+    from ..ndarray.ndarray import NDArray
+    for x in nd_inputs:
+        if isinstance(x, NDArray):
+            return x.context
+    return current_context()
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's ops that the port does not register yet
+# ---------------------------------------------------------------------------
+
+# JAX module -> (ROADMAP item, every name it registers, aliases included)
+_NOT_PORTED = {
+    "attention": ("Queue A item 7 (decode caches) / item 6 (RoPE)", (
+        "_contrib_CachedAttention", "_contrib_CachedAttentionQ8",
+        "_contrib_RoPE", "_contrib_RollingCachedAttention")),
+    "contrib_ops": ("Queue A item 10 (contrib_ops.py; MoE with item 9)", (
+        "_contrib_MoEFFN", "_contrib_QuantizedEmbedding",
+        "_contrib_QuantizedFullyConnected", "_contrib_count_sketch",
+        "_contrib_dequantize", "_contrib_fft", "_contrib_ifft",
+        "_contrib_moe_ffn", "_contrib_quantize", "dequantize", "fft",
+        "ifft", "quantize")),
+    "ctc": ("Queue A item 10 (ctc.py)", (
+        "CTCLoss", "_contrib_CTCLoss", "_contrib_ctc_loss", "ctc_loss")),
+    "custom": ("Queue A item 10 (custom.py)", ("Custom",)),
+    "detection_ops": ("Queue A item 10 (SSD training, ROIPooling)", (
+        "MultiBoxTarget", "ROIPooling", "_contrib_MultiBoxTarget",
+        "_contrib_ROIPooling", "_contrib_multibox_target")),
+    "indexing": ("Queue A item 10 (sparse storage)", (
+        "_sparse_retain", "_square_sum")),
+    "linalg": ("Queue A item 10 (linalg.py)", (
+        "_contrib_krprod", "_khatri_rao", "_linalg_gelqf", "_linalg_gemm",
+        "_linalg_gemm2", "_linalg_potrf", "_linalg_potri",
+        "_linalg_sumlogdiag", "_linalg_syrk", "_linalg_trmm",
+        "_linalg_trsm", "khatri_rao", "linalg_gelqf", "linalg_gemm",
+        "linalg_gemm2", "linalg_potrf", "linalg_potri", "linalg_sumlogdiag",
+        "linalg_syrk", "linalg_trmm", "linalg_trsm")),
+    "loss": ("Queue A item 2 (the rest of loss.py)", (
+        "IdentityAttachKLSparseReg", "SVMOutput",
+        "_contrib_ChunkedSoftmaxCE")),
+    "matrix": ("Queue A item 10 (sparse storage)", ("cast_storage",)),
+    "nn": ("Queue A item 2 (the rest of nn.py)", (
+        "Crop", "Deconvolution", "Dropout", "InstanceNorm", "LRN",
+        "LeakyReLU", "SequenceLast", "SequenceMask", "SequenceReverse",
+        "UpSampling")),
+    "random_ops": ("Queue A item 2 (random_ops.py, after item 7's PRNG "
+                   "decision)", (
+        "_random_exponential", "_random_gamma",
+        "_random_generalized_negative_binomial", "_random_negative_binomial",
+        "_random_normal", "_random_poisson", "_random_uniform",
+        "_sample_exponential", "_sample_gamma",
+        "_sample_generalized_negative_binomial", "_sample_multinomial",
+        "_sample_negative_binomial", "_sample_normal", "_sample_poisson",
+        "_sample_uniform", "_shuffle", "exponential",
+        "generalized_negative_binomial", "negative_binomial", "normal",
+        "poisson", "randn", "random_exponential", "random_gamma",
+        "random_generalized_negative_binomial", "random_negative_binomial",
+        "random_normal", "random_poisson", "random_uniform",
+        "sample_multinomial", "shuffle", "uniform")),
+    "rcnn_ops": ("Queue A item 10 (rcnn_ops.py)", (
+        "DeformableConvolution", "DeformablePSROIPooling", "MultiProposal",
+        "PSROIPooling", "Proposal", "_contrib_DeformableConvolution",
+        "_contrib_DeformablePSROIPooling", "_contrib_MultiProposal",
+        "_contrib_PSROIPooling", "_contrib_Proposal",
+        "_contrib_multi_proposal", "_contrib_proposal",
+        "_contrib_psroipooling")),
+    "rnn_op": ("Queue A item 10 (Gluon and RNN)", ("RNN",)),
+    "ssm": ("Queue A item 6 (SSM scan) / item 7 (SSM decode state)", (
+        "_contrib_SSMCached", "_contrib_SSMScan")),
+    "warp_ops": ("Queue A item 10 (warp_ops.py)", (
+        "BilinearSampler", "Correlation", "GridGenerator",
+        "SpatialTransformer")),
+}
+_NOT_PORTED_BY_NAME = {n: (mod, item) for mod, (item, names)
+                       in _NOT_PORTED.items() for n in names}
+
+
+class OpNotPorted(NotImplementedError, AttributeError):
+    """An op the JAX package registers and the port does not yet. An
+    AttributeError too, so ``hasattr(mx.nd, name)`` stays False."""
+
+
+def not_ported(name):
+    """The OpNotPorted error for ``name`` if the JAX package registers it
+    and the port does not yet, else None."""
+    hit = _NOT_PORTED_BY_NAME.get(name)
+    if hit is None or name in _OP_REGISTRY or name in _ALIASES:
+        return None
+    mod, item = hit
+    return OpNotPorted(
+        "operator %r (mxnet_tpu/ops/%s.py) is not ported to the PyTorch "
+        "package yet: ROADMAP %s" % (name, mod, item))

@@ -3,9 +3,10 @@
 
 The JAX package compiles forward, backward and the fused optimizer
 update into one ``jax.jit`` program. Here the same step runs eagerly:
-the Symbol graph through ``executor._graph_eval_fn`` with
-``is_train=True`` under autograd, ``torch.autograd.grad`` with ones as
-head cotangents, then the registry's fused update op per parameter.
+the Executor's forward-and-backward (``executor.forward_backward``: the
+Symbol graph under autograd with ``is_train=True``, then
+``torch.autograd.grad`` with ones as head cotangents), then the
+registry's fused update op per parameter.
 The semantics are those of the JAX step: ``compute_dtype`` casts the
 parameters and the real-valued data (never labels or inputs that feed an
 Embedding, found from the graph), gradients come back in float32 through
@@ -28,7 +29,7 @@ import torch
 
 from ..base import torch_dtype
 from ..context import context_of, cpu, current_context
-from ..executor import _graph_eval_fn
+from ..executor import _graph_eval_fn, forward_backward
 from ..ndarray import array
 from ..ops.registry import get_op
 
@@ -189,34 +190,28 @@ class TrainStep:
 
     # -- the step ----------------------------------------------------------
     def _grads(self, params, aux, batch, seed):
-        """(outputs, new_aux, grads): forward under autograd, backward
-        with ones as head cotangents, float32 gradients by name."""
-        names = self.param_names
+        """(outputs, new_aux, grads): the Executor's one forward-and-
+        backward (``executor.forward_backward``: ones as head cotangents)
+        over the parameters, float32 gradients by name."""
         cdt = self.compute_dtype
-        leaves = [params[n].detach().requires_grad_(True) for n in names]
-        with torch.enable_grad():
-            p = dict(zip(names, leaves))
-            feed = dict(batch)
-            if cdt is not None:
-                # compute-dtype cast: params + real-valued data only;
-                # the cast is linear, so the gradients come back float32
-                p = {k: v.to(cdt) for k, v in p.items()}
-                for k in self.data_names:
-                    if k not in self._id_inputs:
-                        feed[k] = feed[k].to(cdt)
-            outs, new_aux = self._eval_fn({**feed, **p}, aux, seed, True)
-            if cdt is not None:
-                # aux states (BN moving stats) keep their own dtype
-                new_aux = {k: v.to(aux[k].dtype) for k, v in new_aux.items()}
-            # ones is the reference's head-grad convention
-            # (Executor.backward); heads scale by the cotangent
-            heads = [o for o in outs if o.requires_grad]
-            grads = torch.autograd.grad(
-                heads, leaves, [torch.ones_like(o) for o in heads],
-                allow_unused=True) if heads else [None] * len(leaves)
-        grads = {n: torch.zeros_like(params[n]) if g is None else g
-                 for n, g in zip(names, grads)}
-        return tuple(o.detach() for o in outs), new_aux, grads
+        feed = dict(batch)
+        cast = None
+        if cdt is not None:
+            # compute-dtype cast: params + real-valued data only; the cast
+            # is linear, so the gradients come back float32
+            for k in self.data_names:
+                if k not in self._id_inputs:
+                    feed[k] = feed[k].to(cdt)
+
+            def cast(leaves):
+                return {k: v.to(cdt) for k, v in leaves.items()}
+        outs, new_aux, grads = forward_backward(
+            self._eval_fn, {**feed, **params}, aux, seed, self.param_names,
+            cast=cast)
+        if cdt is not None:
+            # aux states (BN moving stats) keep their own dtype
+            new_aux = {k: v.to(aux[k].dtype) for k, v in new_aux.items()}
+        return outs, new_aux, grads
 
     def __call__(self, state, batch, lr, seed=0):
         params, opt_state, aux = state

@@ -8,6 +8,13 @@ from . import op           # noqa: F401
 from ..ops import registry as _reg
 for _n in _reg.list_ops():
     globals()[_n] = getattr(op, _n)
-del _n, _reg
+del _n
 
 from . import contrib  # noqa: E402,F401 (mx.sym.contrib)
+
+
+def __getattr__(name):
+    err = _reg.not_ported(name)
+    if err is not None:
+        raise err
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))

@@ -7,10 +7,10 @@ inference and the JSON format are those of the JAX package, so a graph
 saved by either package loads in the other. Shape inference runs each
 node on ``meta`` tensors (shapes without storage) after the per-op
 backward hooks fill parameter shapes — the role ``jax.eval_shape`` plays
-there. The graph runs through ``executor._graph_eval_fn``. Composition
-(``sym(...)``), internals, ``infer_type`` and the Executor (``bind``)
-come with ROADMAP Queue A item 3; pre-0.9 reference JSON upgrades with
-it too.
+there. The graph runs through ``executor._graph_eval_fn``, and binds
+into an ``executor.Executor`` (``bind``/``simple_bind``, which allocates
+through ``infer_shape`` and ``infer_type``). Composition (``sym(...)``)
+and the pre-0.9 reference JSON upgrade are not ported yet.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import json
 import torch
 
 from .. import attribute, name as _name_mod
-from ..base import MXNetError, numeric_types, torch_dtype
+from ..base import MXNetError, np_dtype, numeric_types, torch_dtype
 from ..ops import registry as _reg
 
 __all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json"]
@@ -50,6 +50,10 @@ class _Node:
 def _num_outputs(opdef, attrs):
     """Visible output count for an op under given attrs (reference:
     nnvm num_outputs/num_visible_outputs registration)."""
+    if opdef.name == "SliceChannel":
+        return int(attrs.get("num_outputs", 1))
+    if opdef.name == "topk" and attrs.get("ret_typ") == "both":
+        return 2
     if opdef.name in ("BatchNorm", "LayerNorm"):
         return 3 if attrs.get("output_mean_var") else 1
     if opdef.num_visible is not None:
@@ -105,6 +109,31 @@ class Symbol:
         return [n.name for n in _topo_order(self._entries)
                 if n.op is None and n.is_aux]
 
+    def get_internals(self):
+        """Every output of every node of the graph, in topological order
+        (reference symbol.py:232)."""
+        entries = []
+        for node in _topo_order(self._entries):
+            for i in range(node.num_outputs()):
+                entries.append((node, i))
+        return Symbol(entries)
+
+    def get_children(self):
+        """The inputs of this symbol's nodes, or None for a variable."""
+        children = []
+        for e in self._entries:
+            children.extend(e[0].inputs)
+        return Symbol(children) if children else None
+
+    def __getitem__(self, index):
+        if isinstance(index, str):
+            names = self.list_outputs()
+            if index not in names:
+                raise ValueError("no output named %r (outputs %r)"
+                                 % (index, names))
+            index = names.index(index)
+        return Symbol([self._entries[index]])
+
     def list_outputs(self):
         outs = []
         for (node, idx) in self._entries:
@@ -146,6 +175,82 @@ class Symbol:
         out_shapes = [shapes["out", id(nd), i] for (nd, i) in self._entries]
         return arg_shapes, out_shapes, aux_shapes
 
+    def infer_type(self, *args, **kwargs):
+        """Same-dtype propagation through the graph (reference: the
+        InferType pass; the JAX package's rule): dtype flows forward (the
+        first known input dtype wins, Cast sets its own), then fills
+        unknown variables backward; float32 where nothing is known.
+        Returns numpy dtypes (``torch.bfloat16`` for bf16)."""
+        if args:
+            for n, t in zip(self.list_arguments(), args):
+                if t is not None:
+                    kwargs[n] = t
+        known_t = {k: np_dtype(v) for k, v in kwargs.items() if v is not None}
+        order = _topo_order(self._entries)
+        dt = {}
+        for node in order:
+            if node.op is None:
+                d = known_t.get(node.name)
+                if d is None and node.misc_attrs.get("__dtype__"):
+                    d = np_dtype(node.misc_attrs["__dtype__"])
+                dt[id(node)] = d
+        for _ in range(2):  # forward then backward fill, then re-forward
+            for node in order:
+                if node.op is None:
+                    continue
+                in_dts = [dt.get(id(m)) for (m, _i) in node.inputs]
+                base = next((d for d in in_dts if d is not None), None)
+                if node.op.name == "Cast":
+                    dt[id(node)] = np_dtype(node.attrs.get("dtype",
+                                                           "float32"))
+                elif base is not None:
+                    dt[id(node)] = base
+                if base is not None:
+                    for (m, _i) in node.inputs:
+                        if dt.get(id(m)) is None:
+                            dt[id(m)] = base
+        default = np_dtype("float32")
+        name2node = {n.name: n for n in order if n.op is None}
+        arg_t = [dt.get(id(name2node[n])) or default
+                 for n in self.list_arguments()]
+        aux_t = [dt.get(id(name2node[n])) or default
+                 for n in self.list_auxiliary_states()]
+        out_t = [dt.get(id(nd)) or default for (nd, _i) in self._entries]
+        return arg_t, out_t, aux_t
+
+    def debug_str(self):
+        lines = []
+        for n in _topo_order(self._entries):
+            if n.op is None:
+                lines.append("Variable:%s" % n.name)
+            else:
+                ins = ", ".join("%s[%d]" % (m.name, i) for m, i in n.inputs)
+                lines.append("Op:%s, Name=%s\nInputs:\n\t%s"
+                             % (n.op.name, n.name, ins))
+        return "\n".join(lines)
+
+    # -- binding (reference symbol.py:366-383) -------------------------------
+    def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
+             aux_states=None, group2ctx=None, shared_exec=None):
+        from ..executor import Executor
+        return Executor(self, ctx, args=args, args_grad=args_grad,
+                        grad_req=grad_req, aux_states=aux_states,
+                        group2ctx=group2ctx)
+
+    def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
+                    group2ctx=None, shared_arg_names=None, shared_exec=None,
+                    shared_buffer=None, **kwargs):
+        """Bind with zero arrays allocated from the shapes given (and the
+        ones ``infer_shape`` derives) and ``infer_type``'s dtypes."""
+        from ..executor import Executor
+        return Executor._simple_bind(self, ctx, grad_req=grad_req,
+                                     type_dict=type_dict,
+                                     group2ctx=group2ctx, **kwargs)
+
+    def eval(self, ctx=None, **kwargs):
+        ex = self.bind(ctx, kwargs, grad_req="null")
+        return ex.forward()
+
     # -- serialization -------------------------------------------------------
     def tojson(self):
         nodes = _topo_order(self._entries)
@@ -180,18 +285,67 @@ class Symbol:
         with open(fname, "w") as f:
             f.write(self.tojson())
 
-    # -- arithmetic (the ops ported so far) ----------------------------------
+    # -- arithmetic ----------------------------------------------------------
     def __add__(self, other):
         return _sym_binary("broadcast_add", "_plus_scalar", self, other)
 
     def __radd__(self, other):
         return self.__add__(other)
 
+    def __sub__(self, other):
+        return _sym_binary("broadcast_sub", "_minus_scalar", self, other)
+
+    def __rsub__(self, other):
+        return _sym_scalar("_rminus_scalar", self, other)
+
     def __mul__(self, other):
         return _sym_binary("broadcast_mul", "_mul_scalar", self, other)
 
     def __rmul__(self, other):
         return self.__mul__(other)
+
+    def __truediv__(self, other):
+        return _sym_binary("broadcast_div", "_div_scalar", self, other)
+
+    def __rtruediv__(self, other):
+        return _sym_scalar("_rdiv_scalar", self, other)
+
+    def __mod__(self, other):
+        return _sym_binary("broadcast_mod", "_mod_scalar", self, other)
+
+    def __pow__(self, other):
+        return _sym_binary("broadcast_power", "_power_scalar", self, other)
+
+    def __neg__(self):
+        return _sym_invoke(_reg.get_op("negative"), [self], {}, None)
+
+    def __abs__(self):
+        return _sym_invoke(_reg.get_op("abs"), [self], {}, None)
+
+    def __eq__(self, other):
+        return _sym_binary("broadcast_equal", "_equal_scalar", self, other)
+
+    def __ne__(self, other):
+        return _sym_binary("broadcast_not_equal", "_not_equal_scalar", self,
+                           other)
+
+    def __gt__(self, other):
+        return _sym_binary("broadcast_greater", "_greater_scalar", self,
+                           other)
+
+    def __ge__(self, other):
+        return _sym_binary("broadcast_greater_equal",
+                           "_greater_equal_scalar", self, other)
+
+    def __lt__(self, other):
+        return _sym_binary("broadcast_lesser", "_lesser_scalar", self, other)
+
+    def __le__(self, other):
+        return _sym_binary("broadcast_lesser_equal", "_lesser_equal_scalar",
+                           self, other)
+
+    def __hash__(self):
+        return id(self)
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +355,13 @@ class Symbol:
 def _sym_binary(tensor_op, scalar_op, lhs, rhs):
     if isinstance(rhs, Symbol):
         return _sym_invoke(_reg.get_op(tensor_op), [lhs, rhs], {}, None)
+    if isinstance(rhs, numeric_types):
+        return _sym_invoke(_reg.get_op(scalar_op), [lhs],
+                           {"scalar": float(rhs)}, None)
+    raise TypeError("unsupported operand type %s" % type(rhs))
+
+
+def _sym_scalar(scalar_op, lhs, rhs):
     if isinstance(rhs, numeric_types):
         return _sym_invoke(_reg.get_op(scalar_op), [lhs],
                            {"scalar": float(rhs)}, None)
@@ -387,6 +548,8 @@ def _infer_graph(entries, known_shapes, partial=False):
             attrs["is_train"] = True
         if node.op.needs_rng:
             attrs["rng"] = None       # meta tensors draw no random bits
+        if not metas:
+            attrs["device"] = "meta"  # a creation op
         try:
             out = node.op.fn(*metas, **attrs)
         except Exception as e:

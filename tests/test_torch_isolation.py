@@ -23,8 +23,10 @@ def _run(code):
 def test_port_and_chip_smoke_import_without_jax():
     """With jax made unimportable, every module of the port (and the
     chip smoke script) imports, the training slice's modules (parallel,
-    initializer, random, registry) run one step, and no jax or
-    mxnet_tpu module loads."""
+    initializer, random, registry) run one step, the eager surface's
+    (autograd, the generated ndarray.op namespace, ops.init_ops) one
+    recorded backward, the Executor one bind, and no jax or mxnet_tpu
+    module loads."""
     code = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now fails
@@ -47,6 +49,23 @@ state = step.init_state(initializer.Xavier(), {"data": (2, 4),
 toks = np.arange(8, dtype=np.float32).reshape(2, 4)
 state, outs = step(state, {"data": toks, "softmax_label": toks}, 0.01, 0)
 assert outs[0].shape == (8, 10)
+# the eager surface's modules, used: autograd over nd ops, an init op
+from mxnet_tpu_torch import autograd, nd
+from mxnet_tpu_torch.ndarray import op as nd_op
+from mxnet_tpu_torch.ops import init_ops
+with mxnet_tpu_torch.cpu():
+    x = nd.array([1.0, 2.0])
+    x.attach_grad()
+    with autograd.record():
+        y = (nd_op.exp(x) * nd._ones(shape=(2,))).sum()
+    y.backward()
+    assert x.grad.asnumpy().tolist() == nd.exp(x).asnumpy().tolist()
+    assert init_ops._eye(N=2, device="cpu").shape == (2, 2)
+    sym = transformer.get_symbol(10, 4, num_layers=1, num_heads=2, dim=8)
+    exe = sym.simple_bind(ctx=mxnet_tpu_torch.cpu(), data=(2, 4),
+                          softmax_label=(2, 4))
+    exe.forward(is_train=True)
+    exe.backward()
 bad = sorted(n for n, m in sys.modules.items() if m is not None and (
     n == "jax" or n.startswith("jax.") or n.startswith("jaxlib")
     or n == "mxnet_tpu" or n.startswith("mxnet_tpu.")))
