@@ -10,18 +10,19 @@ Phases (any failure exits non-zero; no phase is caught):
 2. build: every hand-written kernel, from the sources in this checkout,
    one nvcc per source started together;
 3. kernels: the flash forward and the fused flash backward
-   (flash_bwd_cuda) against their plain PyTorch versions on the card, at
-   the main paths' shape and at edge shapes (head dims 4 and 12 through
-   the padded route; two launches bit-equal in three forward and five
-   backward cases), with the kernel's device time (the forward without
-   and with the lse), its plain version's time, one PyTorch library
-   call's time as a yardstick (scaled_dot_product_attention; its
-   backward, also against the port's whole backward: delta, scratch,
-   kernel), and its bound (least time for the same work on this card);
-   then the exact-f32 forward and backward (the route a float32 graph
-   takes) at the flagship shape against their plain versions, timed
-   beside their bounds and scaled_dot_product_attention's float32
-   forward and backward; then _contrib_FlashAttention at
+   (flash_bwd_cuda), bf16 and exact f32, against their plain PyTorch
+   versions on the card, at the main paths' shape and at edge shapes
+   (head dims 4 and 12 through the padded route; the f32 kernels' tile
+   edges; two launches bit-equal in six forward and eight backward
+   cases), with the kernel's device time (the forward without and with
+   the lse), its plain version's time, one PyTorch library call's time
+   as a yardstick (scaled_dot_product_attention; its backward, also
+   against the port's whole backward: delta, scratch, kernel), and its
+   bound (least time for the same work on this card); then the exact-f32
+   forward and fused backward (the route a float32 graph takes) at the
+   flagship shape against their plain versions, timed beside their
+   bounds, their registers and spills, and scaled_dot_product_attention's
+   float32 forward and backward; then _contrib_FlashAttention at
    __graft_entry__'s GQA shape (head dim 4) forward and backward, card
    against CPU, f32 and bf16;
 4. serve path: the flagship transformer LM (vocab 32768, seq 2048, 4
@@ -45,9 +46,11 @@ Phases (any failure exits non-zero; no phase is caught):
    TrainStep._grads: gradients equal across the three (or within rtol
    1e-5 + atol 1e-6 x max|g|), a finite loss, 4 launches of each
    exact-f32 flash kernel per forward-and-backward on both routes and
-   no bf16 one; plus, card against CPU, a small f32 LM and a small f32
-   ResNet on the BatchNorm kernels through the Executor (gradients and
-   moving stats) and the eager MLP recipe of the verify notes;
+   no bf16 one (the profiled step ran flash_fwd_f32 and flash_bwd_f32
+   and no other flash kernel); plus, card against CPU, a small f32 LM
+   and a small f32 ResNet on the BatchNorm kernels through the Executor
+   (gradients and moving stats) and the eager MLP recipe of the verify
+   notes;
 7. BatchNorm kernels: each of the four (stats, apply, backward reduce,
    dx) against its plain version on the card at the 12 BatchNorm shapes
    of a ResNet-50 step at batch 128 and at edge shapes, timed at
@@ -223,10 +226,18 @@ FLASH_CASES = [
     ("d12_f32", 4, 130, 97, 12, "float32", True, 0, 0, True),
     ("window_tiles", 8, 1000, 1000, 128, "bfloat16", True, 200, 0, True),
     ("band_offset_pos", 4, 256, 320, 128, "bfloat16", True, 100, 64, True),
+    # the exact-f32 kernel's tile edges (64-row q tiles, 64-key tiles)
+    ("f32_t_gt_tk", 3, 333, 200, 128, "float32", True, 0, 0, True),
+    ("f32_t_lt_tk", 3, 130, 300, 128, "float32", True, 0, 0, True),
+    ("f32_short", 4, 40, 40, 128, "float32", True, 0, 0, True),
+    ("f32_window_ragged", 4, 300, 300, 128, "float32", True, 100, 0, True),
+    ("f32_offset_neg", 4, 256, 256, 64, "float32", True, 0, -40, True),
+    ("f32_d4", 4, 256, 256, 4, "float32", True, 0, 0, True),
 ]
 
 # the forward cases whose two launches must give the same bits
-FWD_DETERMINISM_CASES = ("flagship", "window", "band_offset_neg")
+FWD_DETERMINISM_CASES = ("flagship", "window", "band_offset_neg",
+                         "ragged_f32", "f32_window_ragged", "f32_offset_neg")
 
 
 def flash_bound(kind, T, Tk, D, BH, causal, window, band_offset, dtype):
@@ -234,17 +245,15 @@ def flash_bound(kind, T, Tk, D, BH, causal, window, band_offset, dtype):
     once and each output written once, against the matrix flops it does
     for every (row, col) pair the mask keeps (the work this run's mask
     needs, not the dense T*Tk): 4*D per pair for the forward (q.k, p.v),
-    6*D for dq (q.k, do.v, ds.k), 8*D for dk/dv (k.q, v.do, p.do, ds.q),
-    10*D for a fused one-pass backward (q.k, do.v, p.do, ds.q, ds.k).
-    Inputs and outputs: fwd q k v -> o; dq q k v do lse delta -> dq;
-    dkv q k v do lse delta -> dk dv; fused, all of those -> dq dk dv."""
+    10*D for the fused one-pass backward (q.k, do.v, p.do, ds.q, ds.k).
+    Inputs and outputs: fwd q k v -> o; fused q k v do lse delta ->
+    dq dk dv."""
     from mxnet_tpu_torch.ops.attention import _band_mask
     pairs = int(_band_mask(T, Tk, causal, window, band_offset,
                            "cuda").sum().item())
     elt = 2 if dtype == "bfloat16" else 4
     per_pair, rows_q, rows_k, stats = {
-        "fwd": (4, 2, 2, 0), "dq": (6, 3, 2, 2), "dkv": (8, 2, 4, 2),
-        "fused": (10, 3, 4, 2)}[kind]
+        "fwd": (4, 2, 2, 0), "fused": (10, 3, 4, 2)}[kind]
     nbytes = elt * BH * D * (rows_q * T + rows_k * Tk) + 4 * BH * T * stats
     flops = float(per_pair) * BH * D * pairs
     peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
@@ -387,12 +396,20 @@ BWD_CASES = [
     ("d64", 8, 512, 512, 64, "bfloat16", True, 0, 0, False),
     ("d16_f32", 4, 130, 97, 16, "float32", False, 0, 0, True),
     ("d128_f32", 4, 128, 128, 128, "float32", True, 0, 0, False),
+    # the exact-f32 kernel's tile edges (64-row q tiles, 64-key tiles)
+    ("f32_t_gt_tk", 3, 333, 200, 128, "float32", True, 0, 0, True),
+    ("f32_t_lt_tk", 3, 130, 300, 128, "float32", True, 0, 0, False),
+    ("f32_short", 4, 40, 40, 128, "float32", True, 0, 0, False),
+    ("f32_window_ragged", 4, 300, 300, 128, "float32", True, 100, 0, True),
+    ("f32_offset_neg", 4, 256, 256, 64, "float32", True, 0, -40, False),
+    ("f32_d4", 4, 256, 256, 4, "float32", True, 0, 0, True),
 ]
 
 
 # the cases whose two launches must give the same bits
 DETERMINISM_CASES = ("flagship", "window", "band_offset_bf16",
-                     "band_offset_neg", "noncausal")
+                     "band_offset_neg", "noncausal", "ragged_f32",
+                     "f32_window_ragged", "f32_offset_neg")
 
 
 def bwd_kernel_phase():
@@ -661,8 +678,7 @@ def eager_walk(sym, args, aux):
 # kernel-name substrings -> the kind of work, for the profile summary
 # (first match wins)
 PROFILE_GROUPS = (
-    ("flash kernels (this port)", ("flash_fwd", "flash_bwd", "flash_dq",
-                                   "flash_dkv")),
+    ("flash kernels (this port)", ("flash_fwd", "flash_bwd")),
     ("NMS kernel (this port)", ("nms_cluster_kernel", "nms_kernel")),
     ("BatchNorm kernels (this port)", ("bn_stats", "bn_apply",
                                        "bn_bwd_reduce", "bn_bwd_dx",
@@ -684,7 +700,8 @@ PROFILE_GROUPS = (
 def profile(what, fn, top=8):
     """Where one call's device time goes: a torch.profiler trace of one
     (warm) call, summed by CUDA kernel name, and the share of the wall
-    time the card was busy (one stream, so kernels never overlap)."""
+    time the card was busy (one stream, so kernels never overlap). The
+    kernel names of the call are left in ``profile.names``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -701,6 +718,7 @@ def profile(what, fn, top=8):
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
+    profile.names = set(by_name)
     say("profile: %s: %.2f ms of kernels in %.2f ms wall (device busy "
         "%.1f%%), %d kernel launches" % (
             what, busy_ms, wall_ms, 100 * busy_ms / wall_ms,
@@ -719,6 +737,9 @@ def profile(what, fn, top=8):
         say("profile:   %7.3f ms %5.1f%% x%-3d %s" % (
             ms, 100 * ms / busy_ms, n, name[:90]))
     return out
+
+
+profile.names = set()
 
 
 def path_phase(counters):
@@ -1074,13 +1095,15 @@ def train_phase(counters):
 F32_SHAPE = (128, 2048, 128)     # BH, T, D of the flagship LM, causal
 
 
-def f32_kernel_phase():
+def f32_kernel_phase(ptxas=()):
     """The exact-f32 flash kernels (the route a float32 graph takes) at
-    the flagship shape, causal: the forward against _flash_fwd_reference
-    (o and lse), the backward (flash_dq_f32, flash_dkv_f32) against
-    _flash_dq_reference/_flash_dkv_reference, each kernel's device time
-    (torch.profiler, by name) beside its bound (flash_bound in float32),
-    the plain versions' times, and scaled_dot_product_attention's float32
+    the flagship shape, causal: the forward (flash_fwd_f32) against
+    _flash_fwd_reference (o and lse), the fused backward (flash_bwd_f32)
+    against _flash_dq_reference/_flash_dkv_reference, each kernel's device
+    time (torch.profiler, by name) beside its bound (flash_bound in
+    float32; the backward's the fused count) and its share of the FFMA
+    peak, its registers and spills (the build's ``ptxas`` lines), the
+    plain versions' times, and scaled_dot_product_attention's float32
     forward and backward as the library yardsticks."""
     import torch
     import torch.nn.functional as F
@@ -1121,8 +1144,7 @@ def f32_kernel_phase():
         return att.flash_bwd_cuda(*args)
 
     fwd_ms = device_ms(fwd, "flash_fwd_f32", reps=5)
-    dq_ms = device_ms(bwd, "flash_dq_f32", reps=5)
-    dkv_ms = device_ms(bwd, "flash_dkv_f32", reps=5)
+    bwd_ms = device_ms(bwd, "flash_bwd_f32", reps=5)
     fwd_call, bwd_call = time_ms(fwd, reps=5, warmup=1), \
         time_ms(bwd, reps=5, warmup=1)
     plain_fwd = time_ms(lambda: att._flash_fwd_reference(q, k, v, scale,
@@ -1149,21 +1171,25 @@ def f32_kernel_phase():
         device_ms(lib_bwd, "", reps=5)
     del out, q4, k4, v4
     b_fwd, by_fwd = flash_bound("fwd", T, T, D, BH, True, 0, 0, "float32")
-    b_dq, _ = flash_bound("dq", T, T, D, BH, True, 0, 0, "float32")
-    b_dkv, _ = flash_bound("dkv", T, T, D, BH, True, 0, 0, "float32")
     b_bwd, by_bwd = flash_bound("fused", T, T, D, BH, True, 0, 0, "float32")
-    say("kernel flash f32 flagship BH=%d T=%d D=%d causal: forward %.4f ms "
-        "device time (%.4f by events; bound %.4f ms, %s; %.1f%% of the f32 "
-        "peak), lse err %.3g, max abs err %.3g; backward dq %.4f ms (bound "
-        "%.4f) + dk/dv %.4f ms (bound %.4f) = %.4f ms device time (%.4f by "
-        "events; whole-backward bound %.4f ms, %s), max abs err dq %.3g dk "
-        "%.3g dv %.3g; plain forward %.4f ms, backward %.4f ms; library "
-        "(scaled_dot_product_attention, f32) forward %.4f ms, backward %.4f "
-        "ms device time" % (
+    regs = {name: next((line.split(": ", 1)[1] for line in ptxas
+                        if line.startswith(name + "<%d>" % D)),
+                       "not in this run's build log")
+            for name in ("flash_fwd_f32", "flash_bwd_f32")}
+    say("kernel flash f32 flagship BH=%d T=%d D=%d causal: forward "
+        "flash_fwd_f32 %.4f ms device time (%.4f by events; bound %.4f ms, "
+        "%s; %.1f%% of the f32 FFMA peak; %s), lse err %.3g, max abs err "
+        "%.3g; backward flash_bwd_f32 %.4f ms device time (%.4f by events; "
+        "fused bound %.4f ms, %s; %.1f%% of the FFMA peak; %s), max abs err "
+        "dq %.3g dk %.3g dv %.3g; plain forward %.4f ms, backward %.4f ms; "
+        "library (scaled_dot_product_attention, f32) forward %.4f ms, "
+        "backward %.4f ms device time; kernel against library %.3fx "
+        "forward, %.3fx backward" % (
             BH, T, D, fwd_ms, fwd_call, b_fwd, by_fwd, 100 * b_fwd / fwd_ms,
-            lse_err, fwd_err, dq_ms, b_dq, dkv_ms, b_dkv, dq_ms + dkv_ms,
-            bwd_call, b_bwd, by_bwd, *errs, plain_fwd, plain_bwd,
-            lib_fwd_ms, lib_bwd_ms))
+            regs["flash_fwd_f32"], lse_err, fwd_err, bwd_ms, bwd_call, b_bwd,
+            by_bwd, 100 * b_bwd / bwd_ms, regs["flash_bwd_f32"], *errs,
+            plain_fwd, plain_bwd, lib_fwd_ms, lib_bwd_ms,
+            fwd_ms / lib_fwd_ms, bwd_ms / lib_bwd_ms))
     del q, k, v, do, o, lse, delta, args
     torch.cuda.empty_cache()
     return [{"name": "flash_fwd_f32", "route": "cuda",
@@ -1171,15 +1197,17 @@ def f32_kernel_phase():
              "replaces": "mxnet_tpu/ops/attention.py:38",
              "launches": None, "max_abs_err": fwd_err, "ms": fwd_ms,
              "plain_ms": plain_fwd, "bound_ms": b_fwd, "bound_by": by_fwd,
-             "library_ms": lib_fwd_ms, "call_ms": fwd_call},
+             "library_ms": lib_fwd_ms, "call_ms": fwd_call,
+             "ffma_peak_share": b_fwd / fwd_ms,
+             "registers": regs["flash_fwd_f32"]},
             {"name": "flash_bwd_f32", "route": "cuda",
              "source": "mxnet_tpu_torch/csrc/flash_bwd.cu",
              "replaces": "mxnet_tpu/ops/attention.py:279, :331",
-             "launches": None, "max_abs_err": max(errs),
-             "ms": dq_ms + dkv_ms, "plain_ms": plain_bwd, "bound_ms": b_bwd,
-             "bound_by": by_bwd, "library_ms": lib_bwd_ms,
-             "dq_ms": dq_ms, "dkv_ms": dkv_ms, "dq_bound_ms": b_dq,
-             "dkv_bound_ms": b_dkv, "call_ms": bwd_call}]
+             "launches": None, "max_abs_err": max(errs), "ms": bwd_ms,
+             "plain_ms": plain_bwd, "bound_ms": b_bwd, "bound_by": by_bwd,
+             "library_ms": lib_bwd_ms, "call_ms": bwd_call,
+             "ffma_peak_share": b_bwd / bwd_ms,
+             "registers": regs["flash_bwd_f32"]}]
 
 
 # ---------------------------------------------------------------------------
@@ -1223,6 +1251,21 @@ def _flash_counts(what, runs):
             fail("%s: the bf16 kernel of %s launched %d times on a float32 "
                  "path" % (what, name, counts[name]))
     return counts
+
+
+def _check_f32_flash_names(what, names):
+    """The profiled float32 step ran the exact-f32 forward and the fused
+    f32 backward, and no other flash kernel (neither bf16 nor the two-pass
+    f32 backward that the fused one replaced)."""
+    flash = {n for n in names if "flash_" in n}
+    for kernel in ("flash_fwd_f32", "flash_bwd_f32"):
+        if not any(kernel in n for n in flash):
+            fail("%s: the profiled step ran no %s" % (what, kernel))
+    stray = [n for n in flash if not ("flash_fwd_f32" in n
+                                      or "flash_bwd_f32" in n)]
+    if stray:
+        fail("%s: the profiled float32 step ran other flash kernels: %s"
+             % (what, ", ".join(sorted(stray))))
 
 
 def compare_grads(what, got, want):
@@ -1503,6 +1546,7 @@ def executor_phase():
         if i == 1:
             profile("executor forward+backward (warm), float32", exec_step,
                     top=12)
+            _check_f32_flash_names("executor", profile.names)
         else:
             exec_step()
         torch.cuda.synchronize()
@@ -2502,15 +2546,17 @@ def main():
     built = _kernels.build()
     say("build: %s in %.1f s" % (", ".join(sorted(built)),
                                  time.perf_counter() - t0))
+    ptxas = []
     for name, info in sorted(built.items()):
         for line in ptxas_summary(info["log"]):
             say("build: %s: %s" % (name, line))
+            ptxas.append(line)
     warnings = [w for info in built.values()
                 for w in ptxas_warnings(info["log"])]
     say("build: wgmma serialization warnings: %s"
         % ("; ".join(warnings) if warnings else "none"))
 
-    records = kernel_phase() + bwd_kernel_phase() + f32_kernel_phase()
+    records = kernel_phase() + bwd_kernel_phase() + f32_kernel_phase(ptxas)
     gqa_phase()
     records += bn_kernel_phase() + nms_kernel_phase()
     by_path = {"serve": path_phase([att.flash_fwd_cuda]),

@@ -5,7 +5,7 @@ Each ``csrc/<name>.cu`` exports a plain C interface and is compiled by
 with ``ctypes``. The build happens at first use (or up front through
 :func:`build`), from the sources in the checkout, into ``build/kernels/``
 at the repository root; the library's file name carries a hash of its
-source, of the headers beside it (``csrc/hopper.cuh``) and of the flags,
+source, of the headers beside it (``csrc/*.cuh``) and of the flags,
 so an edited source or header is rebuilt and a stale library is never
 loaded. Nothing here runs at import: this module imports on
 machines without ``nvcc`` or a card, where only the kernels' plain

@@ -1,6 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a), with a plain C interface:
-// one fused, deterministic pass for bf16; the FlashAttention-2 dq and
-// dk/dv passes in exact float32.
+// one fused, deterministic pass for each dtype (bf16 on wgmma, float32
+// exactly on FFMA).
 //
 // Replaces mxnet_tpu/ops/attention.py:_flash_dq_kernel and
 // _flash_dkv_kernel (wrapper _flash_backward). Given the forward's q, k, v,
@@ -71,9 +71,49 @@
 // memory, which bounds them by shared-memory bandwidth; nothing overlaps
 // one tile's elementwise work with the next tile's products.
 //
-// The f32 path is exact float32 FMA on the CUDA cores (dq and dk/dv
-// kernels, lanes over keys or rows for the scores, over head dims for the
-// products): tensor-core TF32 would change the numbers.
+// The f32 path, flash_bwd_f32<DP> (DP = 64 or 128, the head dim padded),
+// is the same fused pass in exact float32 FMA on the CUDA cores (tensor-core
+// TF32 would change the numbers the port's float32 contract holds to).
+// Bound at the flagship shape in f32: 344 GFLOP at the 67 TFLOP/s FFMA
+// peak, 5.13 ms: operations. So it does the fused count (10 D flops a
+// pair, against 14 D for a dq pass and a dk/dv pass that each recompute
+// S and dP) and feeds the FMA pipes from registers:
+// - Grid. One CTA of 256 threads per (bh, 64-key tile), kv-tile-major as
+//   above; K and V stay in shared memory, Q, dO, lse and delta of the
+//   band's 64-row q tiles (last first) stream through two cp.async stages,
+//   the next tile landing while this one computes (225 KB at DP = 128: one
+//   CTA an SM, up to 255 registers a thread).
+// - Two groups of four warps (tx = tid % 16, gy = tid % 128 / 16). Group
+//   0 computes S^T = K Q^T and owns dV, group 1 dP^T = V dO^T and owns dK:
+//   keys 8 gy .. 8 gy + 7 against q rows tx + 16 b (an 8 x 4 tile, per
+//   four depths eight K or V chunks, broadcasts, and four Q or dO chunks
+//   for 128 FMAs, one depth at a time over all 32 sums); dV += P^T dO and
+//   dK += dS^T Q over the same keys and columns 4 tx + 64 c (8 x 8 at
+//   DP = 128, per q row two P or dS chunks and two dO or Q chunks for 64
+//   FMAs). P^T and dS^T: each group hands the other half of its S^T or
+//   dP^T over through shared memory, then forms P^T = exp(scale s - lse)
+//   (ex2.approx) and dS^T = P^T (dP^T - delta) scale for its half, stored
+//   [q row][key]. dQ_i = dS K over the CTA's 64 keys: all 256 threads,
+//   rows 4 (tid / 16) + a, columns 4 tx + 64 c. Tiles are swizzled as in
+//   ftile.cuh: no bank conflicts.
+// - dq in a fixed order, without float atomics: each thread adds its dQ_i
+//   part straight into the f32 dq under the q tile's turn counter. Thread
+//   0 waits by ld.acquire and a barrier releases the rest before dS K is
+//   computed, so the loads of the sum so far (through L2) hide behind it;
+//   the first kv tile of the band stores, later ones add and store; the
+//   turn passes on (a release by thread 0) at the next tile's exchange
+//   barrier, when the stores are done and the fence is cheap. The waits
+//   cannot deadlock, by the bf16 kernel's argument: a CTA waits only on
+//   CTAs of smaller j, dispatched before it in the kv-tile-major order,
+//   resident or finished, and those never wait on a larger j; a CTA
+//   passes on every turn it holds before it waits for another. Walking
+//   the band from its last q tile down keeps the waits short: every kv
+//   tile reaches a q tile after the same number of tiles.
+// What holds it at about half the FFMA peak (tools/flash_variants.py,
+// variants with parts removed, H100): the three product loops run at
+// about 55-60% of the FFMA rate by themselves (unrolling the dV/dK loop
+// whole saved 7%), and the exchange, the dq sums and the barriers (four a
+// q tile) take a sixth of the time.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -81,11 +121,11 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "ftile.cuh"
 
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kThreads = 128;  // 4 warps (the f32 kernels)
 
 typedef __nv_bfloat16 bf16;
 
@@ -569,232 +609,341 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// f32: exact float32 on the CUDA cores
+// f32: one fused pass, exact float32 on the CUDA cores, register-tiled
 // ---------------------------------------------------------------------------
 
-constexpr int kFRows = 16;  // rows of the block's own tile: 4 warps x 4
-constexpr int kFCols = 32;  // rows of a streamed tile: one per lane
+using ftile::chunk;
+using ftile::kTile;
 
-size_t dq_f32_smem(int d) {  // Q, dO; K, V (odd stride); ds per warp
-  return sizeof(float) * (2 * (size_t)kFRows * d +
-                          2 * (size_t)kFCols * (d + 1) + 4 * kFCols);
+constexpr int kBwdF32Threads = 256;  // a 16 x 16 grid: tx = tid % 16,
+                                     // ty = tid / 16
+
+// The kv tiles [jf, jl] whose band meets the 64-row q tile at q0 (f32
+// tiling: 64 q rows, 64 keys), for a q tile that meets one
+__device__ __forceinline__ void band_span64(int q0, int nk, int causal,
+                                            int window, int off, int& jf,
+                                            int& jl) {
+  jf = 0;
+  jl = nk - 1;
+  if (!causal) return;
+  jl = min(jl, floor_div(q0 + kTile - 1 + off, kTile));
+  if (window)
+    jf = max(0, floor_div(q0 + off - window - (kTile - 1), kTile) + 1);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, float* __restrict__ dq,
-                 int T, int Tk, int D, int nq, float scale, int causal,
-                 int window, int off) {
-  extern __shared__ float fsm[];
-  const int DS = D + 1;  // odd stride: lane j reading key j hits its own bank
-  float* sQ = fsm;
-  float* sO = sQ + kFRows * D;
-  float* sK = sO + kFRows * D;
-  float* sV = sK + kFCols * DS;
-  float* sP = sV + kFCols * DS;
+template <int DP>
+struct BwdF32 {  // shared-memory plan, in floats
+  static constexpr int TILE = kTile * DP;
+  static constexpr int OFF_K = 0;
+  static constexpr int OFF_V = TILE;
+  static constexpr int OFF_Q = 2 * TILE;              // 2 stages
+  static constexpr int OFF_O = 4 * TILE;              // 2 stages (dO)
+  static constexpr int OFF_P = 6 * TILE;              // P, [q row][key]
+  static constexpr int OFF_S = OFF_P + kTile * kTile;  // dS, [q row][key]
+  static constexpr int OFF_L = OFF_S + kTile * kTile;  // lse, 2 stages
+  static constexpr int OFF_D = OFF_L + 2 * kTile;      // delta, 2 stages
+  static constexpr size_t SMEM = sizeof(float) * (OFF_D + 2 * kTile);
+};
 
-  const int bh = blockIdx.x / nq;
-  const int q0 = (nq - 1 - blockIdx.x % nq) * kFRows;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t qoff = (size_t)bh * T * D;
-  const float* kb = k + (size_t)bh * Tk * D;
-  const float* vb = v + (size_t)bh * Tk * D;
+template <int DP>
+__global__ void __launch_bounds__(kBwdF32Threads, 1)
+    flash_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v,
+                  const float* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, float* __restrict__ dq,
+                  float* __restrict__ dk, float* __restrict__ dv,
+                  int* __restrict__ turns, int BH, int T, int Tk, int D,
+                  float scale, int causal, int window, int off) {
+  using L = BwdF32<DP>;
+  constexpr int NV = DP / 64;  // 4-column chunks of dK, dV, dQ a thread owns
+  extern __shared__ float4 fsm4[];
+  float* sm = reinterpret_cast<float*>(fsm4);
+  float* sK = sm + L::OFF_K;
+  float* sV = sm + L::OFF_V;
+  float* sP = sm + L::OFF_P;
+  float* sS = sm + L::OFF_S;
 
-  for (int i = tid; i < kFRows * D; i += kThreads) {
-    const int row = q0 + i / D;
-    const bool in = row < T;
-    sQ[i] = in ? q[qoff + (size_t)row * D + i % D] : 0.f;
-    sO[i] = in ? dout[qoff + (size_t)row * D + i % D] : 0.f;
+  const int bh = blockIdx.x % BH;
+  const int j = blockIdx.x / BH;  // kv tile: kv-tile-major launch order
+  const int k0 = j * kTile;
+  const int nq = (T + kTile - 1) / kTile;
+  const int nk = (Tk + kTile - 1) / kTile;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const size_t qoff = (size_t)bh * T * D, koff = (size_t)bh * Tk * D;
+  // the q tiles that meet the band: one contiguous run [i0, i1), walked
+  // from the last one down
+  int i0 = 0;
+  while (i0 < nq &&
+         !band_run(i0 * kTile, kTile, k0, kTile, causal, window, off))
+    ++i0;
+  int i1 = i0;
+  while (i1 < nq && band_run(i1 * kTile, kTile, k0, kTile, causal, window,
+                             off))
+    ++i1;
+  const int n_it = i1 - i0;
+
+  // Q, dO, lse and delta of q tile i into stage st
+  auto load_stage = [&](int st, int i) {
+    const int q0 = i * kTile;
+    ftile::load_tile<DP, kBwdF32Threads>(sm + L::OFF_Q + st * L::TILE, q + qoff, q0, T, D,
+                        tid);
+    ftile::load_tile<DP, kBwdF32Threads>(sm + L::OFF_O + st * L::TILE, dout + qoff, q0, T, D,
+                        tid);
+    if (tid < 2 * kTile) {
+      const int r = tid % kTile, row = q0 + r;
+      const float* src = (tid < kTile ? lse : delta) + (size_t)bh * T;
+      float* dst = sm + (tid < kTile ? L::OFF_L : L::OFF_D) + st * kTile + r;
+      ftile::cp_async4(dst, row < T ? src + row : src, row < T);
+    }
+  };
+  if (n_it > 0) {
+    ftile::load_tile<DP, kBwdF32Threads>(sK, k + koff, k0, Tk, D, tid);
+    ftile::load_tile<DP, kBwdF32Threads>(sV, v + koff, k0, Tk, D, tid);
+    load_stage(0, i1 - 1);
+    ftile::cp_commit();
   }
 
-  constexpr int kRows = kFRows / 4;  // rows per warp
-  float lr[kRows], dr[kRows], acc[kRows][4];
+  // Two groups of four warps: group 0 computes S^T and owns dV, group 1
+  // dP^T and dK (keys k0 + 8 ty + a, columns 4 tx + 64 c); both share dQ.
+  const int grp = tid / 128, gt = tid % 128, gy = gt / 16;
+  const float sl = scale * kLog2e;  // exp(x) = 2^(x log2 e)
+  float4 acc[8][NV];
+  int* pending = nullptr;  // the turn counter of the last tile's dq part
 #pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) {
-    const int row = q0 + warp * kRows + rr;
-    lr[rr] = row < T ? lse[(size_t)bh * T + row] : 0.f;
-    dr[rr] = row < T ? delta[(size_t)bh * T + row] : 0.f;
+  for (int a = 0; a < 8; ++a)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[rr][i] = 0.f;
-  }
-  const int nk = (Tk + kFCols - 1) / kFCols;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kFCols;
-    if (!band_run(q0, kFRows, k0, kFCols, causal, window, off)) continue;
-    __syncthreads();
-    for (int i = tid; i < kFCols * D; i += kThreads) {
-      const int r = i / D, dd = i % D, key = k0 + r;
-      const bool in = key < Tk;
-      sK[r * DS + dd] = in ? kb[(size_t)key * D + dd] : 0.f;
-      sV[r * DS + dd] = in ? vb[(size_t)key * D + dd] : 0.f;
+    for (int c = 0; c < NV; ++c) acc[a][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1, i = i1 - 1 - it, q0 = i * kTile;
+    float* sQ = sm + L::OFF_Q + st * L::TILE;
+    float* sO = sm + L::OFF_O + st * L::TILE;
+    const float* sL = sm + L::OFF_L + st * kTile;
+    const float* sD = sm + L::OFF_D + st * kTile;
+    ftile::cp_wait_all();
+    __syncthreads();  // this stage landed; the last tile is done with the
+                      // other stage, sP and sS
+    if (it + 1 < n_it) {  // the next q tile lands during this one
+      load_stage(st ^ 1, i - 1);
+      ftile::cp_commit();
+    }
+
+    // group 0: S^T = K Q^T, group 1: dP^T = V dO^T; keys 8 gy + a, q rows
+    // tx + 16 b; in depth order
+    float* sA = grp ? sV : sK;
+    float* sB = grp ? sO : sQ;
+    float s[8][4];
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) s[a][b] = 0.f;
+#pragma unroll 2
+    for (int c = 0; c < D / 4; ++c) {
+      float4 af[8], bf[4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) bf[b] = *chunk<DP>(sB, tx + 16 * b, c);
+#pragma unroll
+      for (int a = 0; a < 8; ++a) af[a] = *chunk<DP>(sA, 8 * gy + a, c);
+      // one depth at a time over all 8 x 4 sums: 32 independent FMAs
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int a = 0; a < 8; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            s[a][b] = fmaf(ftile::get(af[a], e), ftile::get(bf[b], e),
+                           s[a][b]);
+    }
+
+    // P^T = exp(scale s - lse) and dS^T = P^T (dP^T - delta) scale over the
+    // valid pairs, 0 elsewhere (a select: a row with no valid column
+    // carries lse ~ -1e30); stored [q row][key]. The groups swap halves:
+    // group 1 hands dP^T of q rows tx, tx + 16 over through sS, group 0 S^T
+    // of q rows tx + 32, tx + 48 through sP; each then forms P^T and dS^T
+    // of its half.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = tx + 16 * (h + 2 * (1 - grp));
+      float* dst = grp ? sS : sP;
+#pragma unroll
+      for (int h4 = 0; h4 < 2; ++h4)
+        *chunk<kTile>(dst, r, 2 * gy + h4) =
+            grp ? make_float4(s[4 * h4][h], s[4 * h4 + 1][h],
+                              s[4 * h4 + 2][h], s[4 * h4 + 3][h])
+                : make_float4(s[4 * h4][h + 2], s[4 * h4 + 1][h + 2],
+                              s[4 * h4 + 2][h + 2], s[4 * h4 + 3][h + 2]);
     }
     __syncthreads();
+    {
+      const bool edge =
+          !tile_full(q0, kTile, k0, kTile, T, Tk, causal, window, off);
 #pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) {
-      const int r = warp * kRows + rr, row = q0 + r, col = k0 + lane;
-      float sc = 0.f, dpv = 0.f;
-      for (int dd = 0; dd < D; ++dd) {
-        sc = fmaf(sQ[r * D + dd], sK[lane * DS + dd], sc);
-        dpv = fmaf(sO[r * D + dd], sV[lane * DS + dd], dpv);
-      }
-      const bool ok = band_valid(row, col, T, Tk, causal, window, off);
-      const float p = ok ? expf(sc * scale - lr[rr]) : 0.f;
-      sP[warp * kFCols + lane] = ok ? p * (dpv - dr[rr]) * scale : 0.f;
-      __syncwarp();
-      for (int j = 0; j < kFCols; ++j) {
-        const float dsj = sP[warp * kFCols + j];
+      for (int h = 0; h < 2; ++h) {
+        const int b = h + 2 * grp, r = tx + 16 * b, row = q0 + r;
+        const float lq = sL[r] * kLog2e, dl = sD[r];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int dd = lane + 32 * i;
-          if (dd < D) acc[rr][i] = fmaf(dsj, sK[j * DS + dd], acc[rr][i]);
+        for (int h4 = 0; h4 < 2; ++h4) {
+          float4* pp = chunk<kTile>(sP, r, 2 * gy + h4);
+          float4* dsp = chunk<kTile>(sS, r, 2 * gy + h4);
+          // the other group's half: S^T for group 1, dP^T for group 0
+          const float4 other = grp ? *pp : *dsp;
+          float p[4], ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int a = 4 * h4 + e;
+            const float mine = grp ? s[a][h + 2] : s[a][h];
+            const float sv = grp ? ftile::get(other, e) : mine;
+            const float dpv = grp ? mine : ftile::get(other, e);
+            const bool ok = !edge || band_valid(row, k0 + 8 * gy + a, T, Tk,
+                                                causal, window, off);
+            p[e] = ok ? fast_exp2(fmaf(sv, sl, -lq)) : 0.f;
+            ds[e] = ok ? p[e] * (dpv - dl) * scale : 0.f;
+          }
+          *pp = make_float4(p[0], p[1], p[2], p[3]);
+          *dsp = make_float4(ds[0], ds[1], ds[2], ds[3]);
         }
       }
-      __syncwarp();
     }
-  }
-#pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) {
-    const int row = q0 + warp * kRows + rr;
-    if (row >= T) continue;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int dd = lane + 32 * i;
-      if (dd < D) dq[qoff + (size_t)row * D + dd] = acc[rr][i];
+    __syncthreads();  // every P and dS of the tile is stored (and the last
+                      // tile's dq part: its turn passes on)
+    if (pending != nullptr) {
+      if (tid == 0) red_release(pending, 1);
+      pending = nullptr;
     }
-  }
-}
 
-size_t dkv_f32_smem(int d) {  // K, V; Q, dO (odd stride); lse, delta;
-                              // p and ds per warp
-  return sizeof(float) * (2 * (size_t)kFRows * d +
-                          2 * (size_t)kFCols * (d + 1) + 2 * kFCols +
-                          8 * kFCols);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, float* __restrict__ dk,
-                  float* __restrict__ dv, int T, int Tk, int D, int nk,
-                  float scale, int causal, int window, int off) {
-  extern __shared__ float fsm[];
-  const int DS = D + 1;  // odd stride: lane j reading row j hits its own bank
-  float* sK = fsm;
-  float* sV = sK + kFRows * D;
-  float* sQ = sV + kFRows * D;
-  float* sO = sQ + kFCols * DS;
-  float* sL = sO + kFCols * DS;
-  float* sD = sL + kFCols;
-  float* sP = sD + kFCols;        // p, 4 warps x 32
-  float* sS = sP + 4 * kFCols;    // ds, 4 warps x 32
-
-  const int bh = blockIdx.x / nk;
-  const int k0 = (blockIdx.x % nk) * kFRows;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t koff = (size_t)bh * Tk * D;
-  const float* qb = q + (size_t)bh * T * D;
-  const float* ob = dout + (size_t)bh * T * D;
-
-  for (int i = tid; i < kFRows * D; i += kThreads) {
-    const int key = k0 + i / D;
-    const bool in = key < Tk;
-    sK[i] = in ? k[koff + (size_t)key * D + i % D] : 0.f;
-    sV[i] = in ? v[koff + (size_t)key * D + i % D] : 0.f;
-  }
-
-  constexpr int kRows = kFRows / 4;  // keys per warp
-  float dka[kRows][4], dva[kRows][4];
+    // group 0: dV += P^T dO, group 1: dK += dS^T Q; keys 8 gy + a, columns
+    // 4 tx + 64 c; in q row order
+    {
+      float* sX = grp ? sS : sP;
+      float* sY = grp ? sQ : sO;
 #pragma unroll
-  for (int rr = 0; rr < kRows; ++rr)
+      for (int r = 0; r < kTile; ++r) {
+        const float4 x0 = *chunk<kTile>(sX, r, 2 * gy);
+        const float4 x1 = *chunk<kTile>(sX, r, 2 * gy + 1);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) dka[rr][i] = dva[rr][i] = 0.f;
-
-  const int nqt = (T + kFCols - 1) / kFCols;
-  for (int qt = 0; qt < nqt; ++qt) {
-    const int q0 = qt * kFCols;
-    if (!band_run(q0, kFCols, k0, kFRows, causal, window, off)) continue;
-    __syncthreads();
-    for (int i = tid; i < kFCols * D; i += kThreads) {
-      const int r = i / D, dd = i % D, row = q0 + r;
-      const bool in = row < T;
-      sQ[r * DS + dd] = in ? qb[(size_t)row * D + dd] : 0.f;
-      sO[r * DS + dd] = in ? ob[(size_t)row * D + dd] : 0.f;
-    }
-    if (tid < kFCols) {
-      const int row = q0 + tid;
-      sL[tid] = row < T ? lse[(size_t)bh * T + row] : 0.f;
-      sD[tid] = row < T ? delta[(size_t)bh * T + row] : 0.f;
-    }
-    __syncthreads();
+        for (int c = 0; c < NV; ++c) {
+          const float4 yf = *chunk<DP>(sY, r, tx + 16 * c);
 #pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) {
-      const int r = warp * kRows + rr, key = k0 + r, row = q0 + lane;
-      float sc = 0.f, dpv = 0.f;
-      for (int dd = 0; dd < D; ++dd) {
-        sc = fmaf(sQ[lane * DS + dd], sK[r * D + dd], sc);
-        dpv = fmaf(sO[lane * DS + dd], sV[r * D + dd], dpv);
-      }
-      const bool ok = band_valid(row, key, T, Tk, causal, window, off);
-      const float p = ok ? expf(sc * scale - sL[lane]) : 0.f;
-      sP[warp * kFCols + lane] = p;
-      sS[warp * kFCols + lane] = ok ? p * (dpv - sD[lane]) * scale : 0.f;
-      __syncwarp();
-      for (int j = 0; j < kFCols; ++j) {
-        const float pj = sP[warp * kFCols + j];
-        const float dsj = sS[warp * kFCols + j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int dd = lane + 32 * i;
-          if (dd < D) {
-            dva[rr][i] = fmaf(pj, sO[j * DS + dd], dva[rr][i]);
-            dka[rr][i] = fmaf(dsj, sQ[j * DS + dd], dka[rr][i]);
+          for (int e = 0; e < 4; ++e) {
+            ftile::fma4(acc[e][c], ftile::get(x0, e), yf);
+            ftile::fma4(acc[4 + e][c], ftile::get(x1, e), yf);
           }
         }
       }
-      __syncwarp();
     }
-  }
+
+    // dq of q tile i, summed in kv-tile order under the tile's turn
+    // counter: kv tile j adds when the counter equals the number of band kv
+    // tiles before it (the first one stores), then passes the turn on. The
+    // turn is taken, and the sum so far loaded, before dS K is computed, so
+    // the loads' latency hides behind it (a later kv tile rarely waits:
+    // it started later, or one turn behind).
+    int jf, jl;
+    band_span64(q0, nk, causal, window, off, jf, jl);
+    int* cnt = turns + (size_t)bh * nq + i;
+    float4 dqa[4][NV];
+    if (j > jf) {
+      if (tid == 0)
+        while (ld_acquire(cnt) != j - jf) __nanosleep(32);
+      __syncthreads();  // the earlier kv tiles' sum is in dq
+    }
 #pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) {
-    const int key = k0 + warp * kRows + rr;
+    for (int a = 0; a < 4; ++a) {
+      const int row = q0 + 4 * ty + a;
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        const int col = 4 * tx + 64 * c;
+        dqa[a][c] = j > jf && row < T && col < D
+                        ? __ldcg(reinterpret_cast<const float4*>(
+                              dq + qoff + (size_t)row * D + col))
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+
+    // dQ_i = dS K over this kv tile: rows 4 ty + a, columns 4 tx + 64 c, in
+    // key order, summed apart and then added to the sum so far
+    float4 part[4][NV];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < NV; ++c) part[a][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int kc = 0; kc < kTile / 4; ++kc) {
+      float4 sf[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) sf[a] = *chunk<kTile>(sS, 4 * ty + a, kc);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int c = 0; c < NV; ++c) {
+          const float4 kf = *chunk<DP>(sK, 4 * kc + e, tx + 16 * c);
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+            ftile::fma4(part[a][c], ftile::get(sf[a], e), kf);
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int row = q0 + 4 * ty + a;
+      if (row >= T) continue;
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        const int col = 4 * tx + 64 * c;
+        if (col >= D) continue;
+        const float4 old = dqa[a][c], x = part[a][c];
+        __stcg(reinterpret_cast<float4*>(dq + qoff + (size_t)row * D + col),
+               j > jf ? make_float4(old.x + x.x, old.y + x.y, old.z + x.z,
+                                    old.w + x.w)
+                      : x);
+      }
+    }
+    // the turn passes on at the next tile's exchange barrier, when these
+    // stores are long done and the release's fence costs little
+    if (j < jl) pending = cnt;
+  }
+  if (pending != nullptr) {
+    __syncthreads();  // every thread's part is stored
+    if (tid == 0) red_release(pending, 1);
+  }
+
+  // group 0 stores dV, group 1 dK: rows k0 + 8 gy + a, columns 4 tx + 64 c
+  // (zeros for a kv tile no q tile meets)
+  float* out = grp ? dk : dv;
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    const int key = k0 + 8 * gy + a;
     if (key >= Tk) continue;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int dd = lane + 32 * i;
-      if (dd < D) {
-        dk[koff + (size_t)key * D + dd] = dka[rr][i];
-        dv[koff + (size_t)key * D + dd] = dva[rr][i];
-      }
+    for (int c = 0; c < NV; ++c) {
+      const int col = 4 * tx + 64 * c;
+      if (col < D)
+        *reinterpret_cast<float4*>(out + koff + (size_t)key * D + col) =
+            acc[a][c];
     }
   }
 }
 
+template <int DP>
 cudaError_t launch_f32(const float* q, const float* k, const float* v,
                        const float* dout, const float* lse,
                        const float* delta, float* dq, float* dk, float* dv,
-                       int bh, int t, int tk, int d, float scale, int causal,
-                       int window, int off, cudaStream_t st) {
-  size_t smem = dq_f32_smem(d);
+                       int* turns, int bh, int t, int tk, int d, float scale,
+                       int causal, int window, int off, cudaStream_t st) {
+  const size_t smem = BwdF32<DP>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_dq_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_bwd_f32<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return e;
-  const int nq = (t + kFRows - 1) / kFRows;
-  flash_dq_f32<<<bh * nq, kThreads, smem, st>>>(q, k, v, dout, lse, delta,
-                                                dq, t, tk, d, nq, scale,
-                                                causal, window, off);
-  e = cudaGetLastError();
+  e = cudaFuncSetAttribute(flash_bwd_f32<DP>,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           (int)cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
-  smem = dkv_f32_smem(d);
-  e = cudaFuncSetAttribute(
-      flash_dkv_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const int nk = (tk + kFRows - 1) / kFRows;
-  flash_dkv_f32<<<bh * nk, kThreads, smem, st>>>(q, k, v, dout, lse, delta,
-                                                 dk, dv, t, tk, d, nk, scale,
-                                                 causal, window, off);
+  const int nk = (tk + kTile - 1) / kTile;
+  flash_bwd_f32<DP><<<nk * bh, kBwdF32Threads, smem, st>>>(
+      q, k, v, dout, lse, delta, dq, dk, dv, turns, bh, t, tk, d, scale,
+      causal, window, off);
   return cudaGetLastError();
 }
 
@@ -803,10 +952,10 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
 // q, dout: contiguous (bh, t, d); k, v: (bh, tk, d); lse, delta: (bh, t)
 // float32; all 16-byte aligned, q/k/v/dout of one dtype (0 = float32,
 // 1 = bfloat16); dq like q, dk and dv like k. d <= 128 and a multiple of 8.
-// bf16 also takes dq zero-filled, an f32 scratch dq_acc of (bh, t, d)
-// (uninitialised) and int32 turn counters of (bh, ceil(t / 64)), zeroed;
-// f32 ignores both. Launches on `stream` (one kernel for bf16, two for
-// float32), allocates nothing, and returns the launch's cudaError_t.
+// Both dtypes take dq zero-filled and int32 turn counters of
+// (bh, ceil(t / 64)), zeroed; bf16 also takes an f32 scratch dq_acc of
+// (bh, t, d) (uninitialised), float32 none (null). Launches one kernel on
+// `stream`, allocates nothing, and returns the launch's cudaError_t.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          const void* dout, const float* lse,
                          const float* delta, void* dq, void* dk, void* dv,
@@ -814,18 +963,26 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          int d, float scale, int causal, int window,
                          int band_offset, int dtype, void* stream) {
   if (bh <= 0 || t <= 0 || tk <= 0 || d <= 0 || d > 128 || d % 8 ||
-      dq == nullptr || dk == nullptr || dv == nullptr)
+      dq == nullptr || dk == nullptr || dv == nullptr || turns == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_f32(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dq), static_cast<float*>(dk),
-        static_cast<float*>(dv), bh, t, tk, d, scale, causal, window,
-        band_offset, st);
-  if (dtype != 1 || dq_acc == nullptr || turns == nullptr)
-    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    const float* qf = static_cast<const float*>(q);
+    const float* kf = static_cast<const float*>(k);
+    const float* vf = static_cast<const float*>(v);
+    const float* of = static_cast<const float*>(dout);
+    float* dqf = static_cast<float*>(dq);
+    float* dkf = static_cast<float*>(dk);
+    float* dvf = static_cast<float*>(dv);
+    if (d <= 64)
+      return (int)launch_f32<64>(qf, kf, vf, of, lse, delta, dqf, dkf, dvf,
+                                 turns, bh, t, tk, d, scale, causal, window,
+                                 band_offset, st);
+    return (int)launch_f32<128>(qf, kf, vf, of, lse, delta, dqf, dkf, dvf,
+                                turns, bh, t, tk, d, scale, causal, window,
+                                band_offset, st);
+  }
+  if (dtype != 1 || dq_acc == nullptr) return (int)cudaErrorInvalidValue;
   if (d <= 16)
     return (int)launch_bf16<16>(q, k, v, dout, lse, delta, dq, dk, dv,
                                 dq_acc, turns, bh, t, tk, d, scale, causal,

@@ -82,9 +82,44 @@
 //   columns past D are clipped by the map. lse only when asked. Every
 //   output row has one owner: two launches give the same bits.
 //
-// The f32 path is exact float32 FMA on the CUDA cores (one warp per q row,
-// lanes over keys for S and over head dims for PV): tensor-core TF32 would
-// change the numbers.
+// The f32 path, flash_fwd_f32<DP> (DP = 64 or 128, the head dim padded), is
+// exact float32 FMA on the CUDA cores: tensor-core TF32 would change the
+// numbers the port's float32 contract holds to. Bound at the flagship
+// shape in f32: 137 GFLOP at the 67 TFLOP/s FFMA peak, 2.05 ms, against
+// 0.54 GB (0.16 ms): operations, so the design feeds the FMA pipes from
+// register tiles instead of reading both operands of every FMA from
+// shared memory:
+// - Work. One CTA of 128 threads (a 16 x 8 grid: tx = tid % 16,
+//   ty = tid / 16) a pair of 64-row q tiles of one head, nq - 1 - j then
+//   j (equal causal work for every j); two CTAs an SM (112 KB of shared
+//   memory each: Q, K, V 32 KB, P 16 KB).
+// - Register tiles. S = Q K^T: a thread owns rows 8 ty .. 8 ty + 7 and keys
+//   tx + 16 j, an 8 x 4 tile: per four depths it reads four K chunks and
+//   eight Q chunks (LDS.128; Q a broadcast in the half warp) and does 128
+//   FMAs, one depth at a time over all 32 sums (in depth order, so each
+//   sum is the plain dot product's). O += P V: the same rows and columns
+//   4 tx + 64 c (8 x 8 at DP = 128): per key two P chunks and two V
+//   chunks for 64 FMAs. Tiles are row-major with 16-byte chunks
+//   XOR-swizzled by row (ftile.cuh), so every read and every cp.async
+//   write is free of bank conflicts; P is stored key-major.
+// - Loads. Q, K and V arrive by cp.async (zero-filled past T, Tk and D):
+//   V of tile j lands while S of tile j runs, K of tile j + 1 while PV of
+//   tile j runs; two barriers a K/V tile.
+// - Softmax in base 2 (ex2.approx, 2^-22 relative): scores scaled by
+//   scale log2 e (any sign); the 16 threads of a row reduce its max and
+//   sum by shuffles in the half warp, and each rescales its own O rows.
+//   The per-element mask (the band's edge, the ragged tail) runs on edge
+//   tiles only; masked scores are -1e30 and give p = 0 by a select, so a
+//   row with no valid column gives o = 0 and lse = -1e30 + log(1e-30).
+//   Every sum runs in a fixed order and every output row has one owner:
+//   two launches give the same bits.
+// What holds it at about half the FFMA peak (tools/flash_variants.py,
+// variants with parts removed, H100): the S and PV loops run at about 55%
+// and 70% of the FFMA rate by themselves although four of five
+// instructions there are FFMA (the loads are not the limit: dropping seven
+// of eight Q loads saved 6%; unrolling the PV loop by 8 saved 3%), and
+// softmax, loads and barriers take a fifth of the time; two CTAs of four
+// warps an SM leave each scheduler two warps.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -92,11 +127,13 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "ftile.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the TPU kernel's masked-score value
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ bool band_valid(int row, int col, int tk,
                                            int causal, int window,
@@ -116,19 +153,6 @@ __device__ __forceinline__ bool band_run(int q0, int bq, int k0, int bk,
   bool run = q0 + bq - 1 + off >= k0;
   if (window) run = run && (k0 + bk - 1 > q0 + off - window);
   return run;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, s));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
-  return v;
 }
 
 // ---------------------------------------------------------------------------
@@ -553,7 +577,6 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       }
       if (lse != nullptr && t4 == 0) {
         // back to base e; a row with no valid column keeps -1e30
-        constexpr float kLn2 = 0.6931471805599453f;
         if (row0 < T)
           lse[(size_t)wk.bh * T + row0] =
               (r.m0 > kNegInf ? r.m0 * kLn2 : kNegInf) + logf(d0);
@@ -595,99 +618,226 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// f32: exact float32 on the CUDA cores
+// f32: exact float32 on the CUDA cores, register-tiled
 // ---------------------------------------------------------------------------
 
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kFRows = 16;     // q rows per block: 4 warps x 4 rows
-constexpr int kFBK = 32;       // keys per k tile: one per lane
+using ftile::kTile;
 
-__global__ void __launch_bounds__(kThreads)
+// max and sum over the 16 lanes of a half warp (the threads of one row)
+__device__ __forceinline__ float half_max(float v) {
+#pragma unroll
+  for (int s = 8; s > 0; s >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, s));
+  return v;
+}
+
+__device__ __forceinline__ float half_sum(float v) {
+#pragma unroll
+  for (int s = 8; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
+  return v;
+}
+
+constexpr int kFwdF32Threads = 128;  // a 16 x 8 grid: tx = tid % 16,
+                                     // ty = tid / 16
+constexpr int kRowsF32 = 8;          // q rows a thread: 8 ty .. 8 ty + 7
+
+template <int DP>
+__global__ void __launch_bounds__(kFwdF32Threads, 2)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
                   float* __restrict__ lse, int T, int Tk, int D, int nq,
-                  float scale, int causal, int window, int off) {
-  extern __shared__ float fsm[];
-  const int DS = D + 1;  // odd stride: lane j reading key j hits its own bank
-  float* sQ = fsm;
-  float* sK = sQ + kFRows * D;
-  float* sV = sK + kFBK * DS;
-  float* sP = sV + kFBK * D;
+                  int npairs, float scale, int causal, int window, int off) {
+  using ftile::chunk;
+  constexpr int R = kRowsF32;
+  constexpr int NV = DP / 64;  // 4-column chunks of O a thread owns
+  extern __shared__ float4 fsm4[];
+  float* sQ = reinterpret_cast<float*>(fsm4);
+  float* sK = sQ + kTile * DP;
+  float* sV = sK + kTile * DP;
+  float* sP = sV + kTile * DP;  // p, key-major: [key][q row]
 
-  const int bh = blockIdx.x / nq;
-  const int q0 = (nq - 1 - blockIdx.x % nq) * kFRows;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.x / npairs, pj = blockIdx.x % npairs;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const float* qb = q + (size_t)bh * T * D;
   const float* kb = k + (size_t)bh * Tk * D;
   const float* vb = v + (size_t)bh * Tk * D;
+  const int nk = (Tk + kTile - 1) / kTile;
+  const float sl = scale * kLog2e;  // scores in base 2: exp(x) = 2^(x log2 e)
 
-  for (int i = tid; i < kFRows * D; i += kThreads) {
-    const int row = q0 + i / D;
-    sQ[i] = row < T ? qb[(size_t)row * D + i % D] : 0.f;
-  }
+  for (int h = 0; h < 2; ++h) {
+    // q tiles nq - 1 - pj, then pj: the pair's causal work is the same for
+    // every pj (the middle tile of an odd nq runs once)
+    const int qt = h ? pj : nq - 1 - pj;
+    if (h && qt == nq - 1 - pj) break;
+    const int q0 = qt * kTile;
+    int kt0 = 0;
+    while (kt0 < nk &&
+           !band_run(q0, kTile, kt0 * kTile, kTile, causal, window, off))
+      ++kt0;
+    int kt1 = kt0;
+    while (kt1 < nk &&
+           band_run(q0, kTile, kt1 * kTile, kTile, causal, window, off))
+      ++kt1;
 
-  constexpr int kRows = kFRows / 4;  // rows per warp
-  float m[kRows], l[kRows], acc[kRows][4];
-#pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) {
-    m[rr] = kNegInf;
-    l[rr] = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[rr][i] = 0.f;
-  }
-  const int nk = (Tk + kFBK - 1) / kFBK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kFBK;
-    if (!band_run(q0, kFRows, k0, kFBK, causal, window, off)) continue;
-    __syncthreads();
-    for (int i = tid; i < kFBK * D; i += kThreads) {
-      const int r = i / D, dd = i % D, key = k0 + r;
-      const bool in = key < Tk;
-      sK[r * DS + dd] = in ? kb[(size_t)key * D + dd] : 0.f;
-      sV[r * D + dd] = in ? vb[(size_t)key * D + dd] : 0.f;
+    __syncthreads();  // the last tile's reads of sQ, sV, sP are done
+    if (kt0 < kt1) {
+      ftile::load_tile<DP, kFwdF32Threads>(sQ, qb, q0, T, D, tid);
+      ftile::load_tile<DP, kFwdF32Threads>(sK, kb, kt0 * kTile, Tk, D, tid);
+      ftile::cp_commit();
     }
-    __syncthreads();
+    // the thread's rows R ty + i: running max m (base-2 scores), its part of
+    // the running denominator l, and O's columns 4 tx + 64 c
+    float m[R], l[R];
+    float4 acc[R][NV];
 #pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) {
-      const int r = warp * kRows + rr, row = q0 + r, col = k0 + lane;
-      float sc = 0.f;
-      for (int dd = 0; dd < D; ++dd)
-        sc = fmaf(sQ[r * D + dd], sK[lane * DS + dd], sc);
-      const bool ok = band_valid(row, col, Tk, causal, window, off);
-      const float sm = ok ? sc * scale : kNegInf;
-      const float mn = fmaxf(m[rr], warp_max(sm));
-      const float a = expf(m[rr] - mn);
-      const float p = ok ? expf(sm - mn) : 0.f;
-      m[rr] = mn;
-      l[rr] = l[rr] * a + warp_sum(p);
-      sP[warp * kFBK + lane] = p;
-      __syncwarp();
+    for (int i = 0; i < R; ++i) {
+      m[i] = kNegInf;
+      l[i] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[rr][i] *= a;
-      for (int j = 0; j < kFBK; ++j) {
-        const float pj = sP[warp * kFBK + j];
+      for (int c = 0; c < NV; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+
+    for (int kt = kt0; kt < kt1; ++kt) {
+      const int k0 = kt * kTile;
+      ftile::cp_wait_all();
+      __syncthreads();  // K (and Q) landed; the last PV is done with sV, sP
+      ftile::load_tile<DP, kFwdF32Threads>(sV, vb, k0, Tk, D, tid);
+      ftile::cp_commit();  // V lands during S
+
+      // S = Q K^T: rows R ty + i, keys tx + 16 j; in depth order
+      float s[R][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int dd = lane + 32 * i;
-          if (dd < D) acc[rr][i] = fmaf(pj, sV[j * D + dd], acc[rr][i]);
-        }
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+      for (int c = 0; c < D / 4; ++c) {
+        float4 kf[4], qf[R];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) kf[j] = *chunk<DP>(sK, tx + 16 * j, c);
+#pragma unroll
+        for (int i = 0; i < R; ++i) qf[i] = *chunk<DP>(sQ, R * ty + i, c);
+        // one depth at a time over all R x 4 sums: 32 independent FMAs
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              s[i][j] = fmaf(ftile::get(qf[i], e), ftile::get(kf[j], e),
+                             s[i][j]);
       }
-      __syncwarp();
+
+      // online softmax of the thread's rows over the half warp that holds
+      // them; masked scores are -1e30 and give p = 0 by a select
+      const bool edge = !tile_full(q0, kTile, k0, kTile, Tk, causal, window,
+                                   off);
+      float alpha[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int row = q0 + R * ty + i;
+        uint32_t ok = 0xfu;
+        float mx = kNegInf;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (edge && !band_valid(row, k0 + tx + 16 * j, Tk, causal, window,
+                                  off))
+            ok &= ~(1u << j);
+          s[i][j] = (ok >> j) & 1 ? s[i][j] * sl : kNegInf;
+          mx = fmaxf(mx, s[i][j]);
+        }
+        const float mn = fmaxf(m[i], half_max(mx));
+        alpha[i] = fast_exp2(m[i] - mn);
+        m[i] = mn;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = (ok >> j) & 1 ? fast_exp2(s[i][j] - mn) : 0.f;
+          sum += s[i][j];
+        }
+        l[i] = l[i] * alpha[i] + sum;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int h4 = 0; h4 < R / 4; ++h4)
+          *chunk<kTile>(sP, tx + 16 * j, (R / 4) * ty + h4) =
+              make_float4(s[4 * h4][j], s[4 * h4 + 1][j], s[4 * h4 + 2][j],
+                          s[4 * h4 + 3][j]);
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int c = 0; c < NV; ++c) {
+          acc[i][c].x *= alpha[i];
+          acc[i][c].y *= alpha[i];
+          acc[i][c].z *= alpha[i];
+          acc[i][c].w *= alpha[i];
+        }
+      ftile::cp_wait_all();
+      __syncthreads();  // V landed, P stored, every read of sK done
+      if (kt + 1 < kt1) {  // the next K lands during PV
+        ftile::load_tile<DP, kFwdF32Threads>(sK, kb, k0 + kTile, Tk, D, tid);
+        ftile::cp_commit();
+      }
+
+      // O += P V: rows R ty + i, columns 4 tx + 64 c; in key order
+#pragma unroll 8
+      for (int key = 0; key < kTile; ++key) {
+        float4 pf[R / 4], vf[NV];
+#pragma unroll
+        for (int h4 = 0; h4 < R / 4; ++h4)
+          pf[h4] = *chunk<kTile>(sP, key, (R / 4) * ty + h4);
+#pragma unroll
+        for (int c = 0; c < NV; ++c) vf[c] = *chunk<DP>(sV, key, tx + 16 * c);
+#pragma unroll
+        for (int c = 0; c < NV; ++c)
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+            ftile::fma4(acc[i][c], ftile::get(pf[i / 4], i % 4), vf[c]);
+      }
+    }
+
+    // o = acc / max(l, 1e-30); lse = m + log(max(l, 1e-30)), back in base e
+    // (a row with no valid column keeps m = -1e30)
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const float den = fmaxf(half_sum(l[i]), 1e-30f);
+      const int row = q0 + R * ty + i;
+      if (row >= T) continue;
+      float* orow = o + ((size_t)bh * T + row) * D;
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        const int col = 4 * tx + 64 * c;
+        if (col < D)
+          *reinterpret_cast<float4*>(orow + col) =
+              make_float4(acc[i][c].x / den, acc[i][c].y / den,
+                          acc[i][c].z / den, acc[i][c].w / den);
+      }
+      if (lse != nullptr && tx == 0)
+        lse[(size_t)bh * T + row] =
+            (m[i] > kNegInf ? m[i] * kLn2 : kNegInf) + logf(den);
     }
   }
-#pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) {
-    const int row = q0 + warp * kRows + rr;
-    if (row >= T) continue;
-    const float den = fmaxf(l[rr], 1e-30f);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int dd = lane + 32 * i;
-      if (dd < D) o[((size_t)bh * T + row) * D + dd] = acc[rr][i] / den;
-    }
-    if (lse != nullptr && lane == 0)
-      lse[(size_t)bh * T + row] = m[rr] + logf(den);
-  }
+}
+
+template <int DP>
+cudaError_t launch_f32(const float* q, const float* k, const float* v,
+                       float* o, float* lse, int bh, int t, int tk, int d,
+                       float scale, int causal, int window, int off,
+                       cudaStream_t st) {
+  const size_t smem = sizeof(float) * (3 * kTile * DP + kTile * kTile);
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_f32<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(flash_fwd_f32<DP>,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           (int)cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  const int nq = (t + kTile - 1) / kTile, npairs = (nq + 1) / 2;
+  flash_fwd_f32<DP><<<bh * npairs, kFwdF32Threads, smem, st>>>(
+      q, k, v, o, lse, t, tk, d, nq, npairs, scale, causal, window, off);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -707,15 +857,15 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    const int nq = (t + kFRows - 1) / kFRows;
-    const size_t smem = sizeof(float) * ((size_t)kFRows * d +
-                                         (size_t)kFBK * (d + 1) +
-                                         (size_t)kFBK * d + 4 * kFBK);
-    flash_fwd_f32<<<bh * nq, kThreads, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, t, tk, d,
-        nq, scale, causal, window, band_offset);
-    return (int)cudaGetLastError();
+    const float* qf = static_cast<const float*>(q);
+    const float* kf = static_cast<const float*>(k);
+    const float* vf = static_cast<const float*>(v);
+    float* of = static_cast<float*>(o);
+    if (d <= 64)
+      return (int)launch_f32<64>(qf, kf, vf, of, lse, bh, t, tk, d, scale,
+                                 causal, window, band_offset, st);
+    return (int)launch_f32<128>(qf, kf, vf, of, lse, bh, t, tk, d, scale,
+                                causal, window, band_offset, st);
   }
   if (dtype != 1 || !(scale > 0.f)) return (int)cudaErrorInvalidValue;
   if (d <= 16)

@@ -5,7 +5,9 @@ path, forward and backward.
 ``flash_fwd`` and ``flash_bwd`` are the entries to the kernels
 (``csrc/flash_fwd.cu``, the port of the TPU's ``_flash_fwd_kernel``;
 ``csrc/flash_bwd.cu``, one fused pass that replaces
-``_flash_dq_kernel`` and ``_flash_dkv_kernel``). On a CUDA tensor each
+``_flash_dq_kernel`` and ``_flash_dkv_kernel``); each source holds one
+kernel for bf16 (wgmma, TMA) and one for float32 (exact FFMA on the CUDA
+cores, register-tiled). On a CUDA tensor each
 launches its kernel or raises; on a CPU (or meta) tensor it runs the
 plain versions (``_flash_fwd_reference``; ``_flash_dq_reference`` and
 ``_flash_dkv_reference``): dense f32 math with the same masking,
@@ -226,7 +228,8 @@ def flash_fwd(q, k, v, scale, causal, window=0, band_offset=0,
                      "%s" % (q.device,))
 
 
-# q rows per tile of the fused bf16 backward kernel: one turn counter each
+# q rows per tile of the fused backward kernels (both dtypes): one turn
+# counter each
 _BWD_BLOCK_Q = 64
 
 
@@ -236,24 +239,21 @@ def _launch_bwd(q, k, v, do, lse, delta, scale, causal, window,
                                for x in (q, k, v, do, lse, delta))
     BH, T, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if q.dtype == torch.bfloat16:
-        # q tiles that no kv tile meets keep these zeros
-        dq = torch.zeros_like(q)
-        dq_acc = torch.empty((BH, T, D), dtype=torch.float32,
-                             device=q.device)
-        turns = torch.zeros((BH, -(-T // _BWD_BLOCK_Q)), dtype=torch.int32,
-                            device=q.device)
-        scratch = (dq_acc.data_ptr(), turns.data_ptr())
-    else:
-        dq = torch.empty_like(q)
-        scratch = (None, None)
+    # q tiles that no kv tile meets keep these zeros
+    dq = torch.zeros_like(q)
+    turns = torch.zeros((BH, -(-T // _BWD_BLOCK_Q)), dtype=torch.int32,
+                        device=q.device)
+    # the bf16 kernel sums dq in f32 scratch; the f32 one in dq itself
+    dq_acc = torch.empty((BH, T, D), dtype=torch.float32, device=q.device) \
+        if q.dtype == torch.bfloat16 else None
     lib = _kernels.load("flash_bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), *scratch, BH, T, k.shape[1], D, float(scale),
+            dv.data_ptr(), dq_acc.data_ptr() if dq_acc is not None else None,
+            turns.data_ptr(), BH, T, k.shape[1], D, float(scale),
             int(bool(causal)), int(window or 0), int(band_offset or 0),
             _DTYPE_CODE[q.dtype], stream)
     _kernels.check(lib, rc, "flash_bwd")
@@ -263,11 +263,13 @@ def _launch_bwd(q, k, v, do, lse, delta, scale, causal, window,
 def flash_bwd_cuda(q, k, v, do, lse, delta, scale, causal, window=0,
                    band_offset=0):
     """Launch the Hopper flash backward on CUDA tensors: one fused,
-    deterministic kernel for bf16 (dq summed in f32 scratch in a fixed
-    order), the exact-f32 dq and dk/dv kernels for float32; any head dim
-    up to 128 (padded to a multiple of 8 for the kernels). Returns
-    (dq, dk, dv). ``flash_bwd_cuda.launches`` counts the calls,
-    ``flash_bwd_cuda.launches_f32`` those of the exact-f32 pair."""
+    deterministic kernel for each dtype (bf16 on the tensor cores, dq
+    summed in f32 scratch; float32 exactly on the CUDA cores, dq summed in
+    place), dq added in a fixed kv-tile order under per-q-tile turn
+    counters; any head dim up to 128 (padded to a multiple of 8 for the
+    kernels). Returns (dq, dk, dv). ``flash_bwd_cuda.launches`` counts the
+    calls, ``flash_bwd_cuda.launches_f32`` those of the exact-f32
+    kernel."""
     _check_bwd_inputs(q, k, v, do, lse, delta, "flash_bwd_cuda")
     grads = _on_padded_head_dim(
         lambda q, k, v, do: _launch_bwd(q, k, v, do, lse, delta, scale,

@@ -10,10 +10,11 @@ runs every case, the CUDA ones included. Tests marked ``cuda`` hold each
 kernel against its plain version (``_flash_fwd_reference``,
 ``_flash_dq_reference``, ``_flash_dkv_reference``; bf16 within 2e-2,
 compared in f32; f32 within rtol 1e-4 / atol 1e-5; lse within 1e-4;
-both bf16 kernels also bit-equal across two launches; head dims 4 and 12
-through the wrappers' zero-padding) and skip on
-machines without a card; the rest pin the wrappers' contract and the
-plain versions' own rules. The BatchNorm kernels are held to their
+the forward and backward of each dtype also bit-equal across two
+launches; head dims 4 and 12 through the wrappers' zero-padding; the
+exact-f32 kernels' 64-row tile edges) and skip on machines without a
+card; the rest pin the wrappers' contract (the backward's scratch through
+a fake kernel library) and the plain versions' own rules. The BatchNorm kernels are held to their
 plain versions (``_stats_reference`` ...): the elementwise ones within
 rtol/atol 1e-6 in f32 and one bf16 step (rtol 1e-2) in bf16, the f32
 sums within 1e-4 of the sum of the terms' magnitudes per channel. The
@@ -186,6 +187,13 @@ KERNEL_CASES = [
     ("bf16_negative_offset_d128", 2, 256, 256, 128, torch.bfloat16, True,
      0, -40),
     ("bf16_noncausal_d128", 3, 640, 640, 128, torch.bfloat16, False, 0, 0),
+    # the exact-f32 kernels' tile edges (64-row q tiles, 64-key tiles)
+    ("f32_t_gt_tk", 2, 333, 200, 128, torch.float32, True, 0, 0),
+    ("f32_t_lt_tk", 2, 130, 300, 128, torch.float32, True, 0, 0),
+    ("f32_short", 2, 40, 40, 128, torch.float32, True, 0, 0),
+    ("f32_window_ragged", 2, 300, 300, 128, torch.float32, True, 100, 0),
+    ("f32_negative_offset", 2, 256, 256, 64, torch.float32, True, 0, -40),
+    ("f32_d4", 2, 256, 256, 4, torch.float32, True, 0, 0),
 ]
 
 
@@ -236,13 +244,15 @@ def test_cuda_bf16_kernel_takes_any_scale(cuda_device, scale):
     (4, 256, 256, 128, True, 0, -40),
     (4, 300, 333, 12, False, 0, 0),
 ], ids=["causal", "window", "negative_offset", "d12_noncausal"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
 def test_cuda_fwd_kernel_is_deterministic(cuda_device, BH, T, Tk, D, causal,
-                                          window, band_offset):
+                                          window, band_offset, dtype):
     """Two launches on the same inputs give the same bits: every output
     row has one owner."""
     gen = torch.Generator(device=cuda_device).manual_seed(5)
     q, k, v = (torch.randn((BH, n, D), generator=gen, device=cuda_device)
-               .bfloat16() for n in (T, Tk, Tk))
+               .to(dtype) for n in (T, Tk, Tk))
     args = (q, k, v, D ** -0.5, causal, window, band_offset)
     first = tatt.flash_fwd_cuda(*args, want_lse=True)
     second = tatt.flash_fwd_cuda(*args, want_lse=True)
@@ -290,14 +300,74 @@ def test_cuda_bwd_kernel_matches_plain_versions(cuda_device, BH, T, Tk, D,
 
 
 @pytest.mark.cuda
-def test_cuda_bwd_kernel_is_deterministic(cuda_device):
+@pytest.mark.parametrize("BH,T,Tk,D,causal,window,band_offset", [
+    (6, 640, 640, 128, False, 0, 0),
+    (4, 1000, 1000, 128, True, 200, 0),
+    (4, 300, 333, 64, True, 0, -40),
+], ids=["noncausal", "window", "negative_offset"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_cuda_bwd_kernel_is_deterministic(cuda_device, BH, T, Tk, D, causal,
+                                          window, band_offset, dtype):
     """Two launches on the same inputs give the same bits: dq is summed
     in a fixed order, without float atomics."""
-    args = _bwd_inputs(6, 640, 640, 128, torch.bfloat16, False, 0, 0,
+    args = _bwd_inputs(BH, T, Tk, D, dtype, causal, window, band_offset,
                        cuda_device, True)
-    first = tatt.flash_bwd_cuda(*args, 128 ** -0.5, False)
-    second = tatt.flash_bwd_cuda(*args, 128 ** -0.5, False)
+    attrs = (D ** -0.5, causal, window, band_offset)
+    first = tatt.flash_bwd_cuda(*args, *attrs)
+    second = tatt.flash_bwd_cuda(*args, *attrs)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+class _FakeBwdLibrary:
+    """Stands in for the flash_bwd kernel library: records each call's
+    arguments and what the scratch held when the kernel would start."""
+
+    def __init__(self):
+        self.calls = []
+
+    def flash_bwd(self, q, k, v, do, lse, delta, dq, dk, dv, dq_acc, turns,
+                  bh, t, tk, d, scale, causal, window, off, dtype, stream):
+        import ctypes
+        nq = -(-t // 64)
+        dq_now = np.ctypeslib.as_array(
+            (ctypes.c_float * (bh * t * d)).from_address(dq)).copy()
+        turns_now = np.ctypeslib.as_array(
+            (ctypes.c_int32 * (bh * nq)).from_address(turns)).copy()
+        self.calls.append(dict(dq_acc=dq_acc, dtype=dtype, shape=(bh, t, tk, d),
+                               dq=dq_now, turns=turns_now, nq=nq))
+        return 0
+
+
+@pytest.mark.parametrize("T", [40, 64, 130])
+def test_launch_bwd_float32_scratch(monkeypatch, T):
+    """_launch_bwd hands the float32 kernel dq zero-filled and int32 turn
+    counters of (BH, ceil(T / 64)), zeroed, and no dq_acc; one launch a
+    call. Runs on the CPU through a fake kernel library."""
+    import contextlib
+    import types
+    from mxnet_tpu_torch import _kernels
+    fake = _FakeBwdLibrary()
+    monkeypatch.setattr(_kernels, "load", lambda name: fake)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    q, k, v, do = (torch.from_numpy(x) for x in _arrays(
+        (3, T, 16), (3, 50, 16), (3, 50, 16), (3, T, 16), seed=T))
+    lse, delta = (torch.from_numpy(x) for x in _arrays((3, T), (3, T),
+                                                       seed=T + 1))
+    for n in (1, 2):
+        dq, dk, dv = tatt._launch_bwd(q, k, v, do, lse, delta, 0.25, True,
+                                      0, 0)
+        assert len(fake.calls) == n
+    call = fake.calls[-1]
+    assert call["dq_acc"] is None and call["dtype"] == 0
+    assert call["shape"] == (3, T, 50, 16)
+    assert call["nq"] == -(-T // tatt._BWD_BLOCK_Q)
+    assert not call["dq"].any() and not call["turns"].any()
+    assert dq.shape == q.shape and dq.dtype == torch.float32
+    assert dk.shape == dv.shape == k.shape
 
 
 @pytest.mark.parametrize("bad,match", [
