@@ -76,7 +76,21 @@ Phases (any failure exits non-zero; no phase is caught):
    alone, one batch's detections equal on the kernel and dense NMS
    routes, one kernel launch per forward; plus a small f32 SSD300 whose
    card heads and detections must agree with the CPU's;
-11. one JSON line of every ported kernel, then the result line.
+11. PRNG: the threefry hash's known-answer vectors on the card; raw bits
+   (8/16/32/64) and bernoulli(0.5) masks on the card equal to the
+   port's CPU draws at (512, 4096), (70001,) and 0-d; PRNG_DIGESTS
+   (JAX's own draws, recomputed from JAX by tests/test_torch_random.py)
+   reproduced; one mask's device time and launches;
+12. AlexNet path: bench.py's alexnet workload (batch 512, 3x224x224,
+   1000 classes, bf16 compute, SGD momentum 0.9, wd 1e-4, rescale
+   1/512, Xavier from mx.random.seed(0), PRNGKey(0) each step) through
+   make_train_step: 2 warm steps (one profiled) and 10 timed ones, a
+   finite NLL whose lowest timed value is under 0.75x the first, fc6's
+   Dropout output equal to its input times 2 where the CPU's mask for
+   fold_in(PRNGKey(0), uid) keeps and 0 elsewhere; before it, AlexNet at batch 4, card against CPU (the
+   Dropouts' masks, float64 gradients); the LRN and Dropout ops and a
+   mask timed alone;
+13. one JSON line of every ported kernel, then the result line.
 
 It imports nothing of JAX or of ``mxnet_tpu``. Without CUDA, or run
 outside the repository, it fails before printing any result.
@@ -185,7 +199,8 @@ def device_ms(fn, kernel, reps=20):
     of the call's kernels when ``kernel`` is empty): a torch.profiler
     trace of ``reps`` warm calls, their kernel time summed and divided by
     ``reps`` (without the host's time to enqueue a call, which CUDA
-    events around a short call include)."""
+    events around a short call include). Those kernels' launches per
+    call are left in ``device_ms.launches``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -196,9 +211,13 @@ def device_ms(fn, kernel, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and kernel in e.name)
-    return us / 1e3 / reps
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and kernel in e.name]
+    device_ms.launches = len(kernels) / reps
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
+
+
+device_ms.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -2518,6 +2537,343 @@ def ssd_phase(counters):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# PRNG phase: the threefry stream on the card
+# ---------------------------------------------------------------------------
+
+# sha256 of JAX's own draws (jax 0.9, threefry2x32, partitionable bits),
+# recomputed from JAX by tests/test_torch_random.py: the uint32 bytes of
+# bits(PRNGKey(0), (1000,)); np.packbits of bernoulli(fold_in(PRNGKey(0),
+# 17), 0.5, (512, 4096)); the float32 bytes of mx.nd.uniform(shape=(1000,))
+# after mx.random.seed(7)
+PRNG_DIGESTS = {
+    "bits_key0_1000":
+        "93070a12a19702329476a3c27d4168bc259d91ecd4abb64f220fd8d5ae59b0aa",
+    "bernoulli_fold17_512x4096":
+        "a44d8b00e11bdcb347abe60e53b4e473bae932ed9486adb1159f1fbcb25c0906",
+    "seed7_nd_uniform_1000":
+        "147801db0370e2573ebc6c0cba76f50e895c61c36e7147cafde4418401659456",
+}
+# the Random123 known-answer vectors: (key, counter, hash)
+THREEFRY_KAT = (
+    ((0, 0), (0, 0), (0x6b200159, 0x99ba4efe)),
+    ((0xffffffff, 0xffffffff), (0xffffffff, 0xffffffff),
+     (0x1cb996fc, 0xbb002be7)),
+    ((0x13198a2e, 0x03707344), (0x243f6a88, 0x85a308d3),
+     (0xc4923a9c, 0x483df7a0)))
+
+
+def _sha256(a):
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def prng_digests(mx, ctx):
+    """PRNG_DIGESTS' three draws made by the port on ``ctx``."""
+    from mxnet_tpu_torch import _threefry as tf
+    dev = ctx.torch_device()
+    key0 = tf.PRNGKey(0)
+    bits = tf.random_bits(key0, (1000,), 32, dev).cpu().numpy()
+    mask = tf.bernoulli(tf.fold_in(key0, 17), 0.5, (512, 4096), dev)
+    mx.random.seed(7)
+    with ctx:
+        u = mx.nd.uniform(shape=(1000,))
+    return {"bits_key0_1000": _sha256(bits.astype(np.uint32)),
+            "bernoulli_fold17_512x4096": _sha256(np.packbits(
+                mask.cpu().numpy())),
+            "seed7_nd_uniform_1000": _sha256(u.asnumpy().astype(
+                np.float32))}
+
+
+def prng_phase():
+    """The threefry PRNG on the card: the known-answer vectors, raw bits
+    and a bernoulli(0.5) mask bit-equal to the port's CPU draws at
+    AlexNet's fc6 shape (512, 4096), at an odd size and at 0-d, and
+    PRNG_DIGESTS (JAX's own draws) reproduced; the cost of one mask."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _threefry as tf
+
+    dev = torch.device("cuda")
+    for key, ctr, want in THREEFRY_KAT:
+        got = tf.threefry2x32(*key, torch.tensor([ctr[0]], device=dev),
+                              torch.tensor([ctr[1]], device=dev))
+        got = (int(got[0][0]), int(got[1][0]))
+        if got != want:
+            fail("threefry on the card: key %r counter %r gave %r, not %r"
+                 % (key, ctr, tuple(map(hex, got)), tuple(map(hex, want))))
+    key = tf.fold_in(tf.PRNGKey(0), 17)
+    for shape in ((512, 4096), (70001,), ()):
+        for width in (8, 16, 32, 64):
+            card = tf.random_bits(key, shape, width, dev).cpu()
+            if not torch.equal(card, tf.random_bits(key, shape, width,
+                                                    "cpu")):
+                fail("random_bits(%d) at %r: the card's bits differ from "
+                     "the CPU's" % (width, shape))
+        card = tf.bernoulli(key, 0.5, shape, dev).cpu()
+        if not torch.equal(card, tf.bernoulli(key, 0.5, shape, "cpu")):
+            fail("bernoulli(0.5) at %r: the card's mask differs from the "
+                 "CPU's" % (shape,))
+    got = prng_digests(mx, mx.gpu(0))
+    for name, want in PRNG_DIGESTS.items():
+        if got[name] != want:
+            fail("PRNG digest %s on the card: %s, JAX's %s"
+                 % (name, got[name], want))
+    ms = device_ms(lambda: tf.bernoulli(key, 0.5, (512, 4096), dev), "",
+                   reps=5)
+    launches = device_ms.launches
+    say("prng: threefry known answers, random_bits (8/16/32/64) and "
+        "bernoulli(0.5) at (512, 4096), (70001,) and () equal to the CPU's "
+        "bit for bit, %d JAX digests reproduced; one (512, 4096) "
+        "bernoulli mask: %.4f ms device time in %d kernel launches "
+        "(int64 lanes)" % (len(PRNG_DIGESTS), ms, launches))
+    return ms, launches
+
+
+# ---------------------------------------------------------------------------
+# AlexNet phase: bench.py's alexnet workload
+# ---------------------------------------------------------------------------
+
+# bench.py _IMAGE_NETS["alexnet"] and bench_image: batch 512, 3x224x224,
+# 1000 classes, bf16 compute, SGD momentum 0.9, wd 1e-4, rescale 1/B
+ALEX_BATCH, ALEX_IMAGE, ALEX_CLASSES, ALEX_LR = 512, 224, 1000, 0.1
+ALEX_SMALL_BATCH = 4
+ALEX_KEEP = 0.5          # both Dropouts: p 0.5
+ALEX_NLL_FALL = 0.75     # the lowest timed NLL below this x the first
+
+
+def _dropout_nodes(sym):
+    """[(uid, Dropout node name, name of the node feeding it)] in the
+    graph evaluator's topological order (uid = position, as
+    ``_graph_eval_fn`` folds it into the run's key)."""
+    from mxnet_tpu_torch.symbol.symbol import _topo_order
+    order = _topo_order(sym._entries)
+    return [(uid, n.name, n.inputs[0][0].name)
+            for uid, n in enumerate(order)
+            if n.op is not None and n.op.name == "Dropout"]
+
+
+def _capture_into(store, names):
+    def capture(name, outs):
+        if name in names:
+            store[name] = outs[0].detach()
+    return capture
+
+
+def check_dropout(what, inp, out, mask):
+    """Fail unless ``out`` is ``inp / keep`` where ``mask`` (the CPU's
+    draw) keeps and 0 elsewhere, bit for bit."""
+    import torch
+    want = torch.where(mask.to(inp.device), inp / ALEX_KEEP, 0.0).to(
+        inp.dtype)
+    if not torch.equal(out, want):
+        bad = int((out != want).sum().item())
+        fail("%s: the Dropout output differs from the CPU mask's in %d of "
+             "%d elements" % (what, bad, out.numel()))
+
+
+def alexnet_reference_check():
+    """Small and untimed: AlexNet (224x224, 1000 classes) at batch 4, one
+    forward-and-backward of TrainStep._grads from one seeded init and
+    PRNGKey(0), on the card and on the CPU: every run's two Dropouts keep
+    exactly the elements of the CPU mask for fold_in(PRNGKey(0), uid),
+    and the card's float64 gradients agree with the CPU's within
+    compare_grads' tolerance. In float32 the card's gradients are held
+    in norm only: a max-pool window whose two largest inputs lie within
+    rounding of each other sends its gradient to either, and cuDNN's or
+    PyTorch's CUDA rounding flips some of the conv1/conv2 windows (4.5e-3
+    and 1.5e-3 of those gradients, in norm, on an H100), as it does the
+    ResNet's in the executor phase."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _threefry as tf
+    from mxnet_tpu_torch.executor import _graph_eval_fn
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import alexnet
+    from mxnet_tpu_torch.parallel import make_train_step
+
+    B, S = ALEX_SMALL_BATCH, ALEX_IMAGE
+    sym = alexnet.get_symbol(num_classes=ALEX_CLASSES)
+    drops = _dropout_nodes(sym)
+    rng = np.random.RandomState(15)
+    batch = {"data": rng.standard_normal((B, 3, S, S)).astype(np.float32),
+             "softmax_label": rng.randint(0, ALEX_CLASSES, (B,)).astype(
+                 np.float32)}
+    key = tf.PRNGKey(0)
+    runs = {}
+    for tag, ctx, dt in (("card64", mx.gpu(0), "float64"),
+                         ("cpu64", mx.cpu(), "float64"),
+                         ("card32", mx.gpu(0), "float32")):
+        step = make_train_step(sym, optimizer="sgd", ctx=ctx)
+        mx.random.seed(0)
+        params, _, aux = step.init_state(
+            Xavier(factor_type="in", magnitude=2.0),
+            {"data": (B, 3, S, S), "softmax_label": (B,)}, dtype=dt)
+        seen = {}
+        step._eval_fn = _graph_eval_fn(sym, capture=_capture_into(
+            seen, {n for d in drops for n in d[1:]}))
+        feed = step.place_batch(batch)
+        feed["data"] = feed["data"].to(params["conv1_weight"].dtype)
+        outs, _, grads = step._grads(params, aux, feed, key)
+        for uid, name, src in drops:
+            check_dropout("small AlexNet (%s) %s" % (tag, name), seen[src],
+                          seen[name], tf.bernoulli(tf.fold_in(key, uid),
+                                                   ALEX_KEEP,
+                                                   tuple(seen[src].shape),
+                                                   "cpu"))
+        runs[tag] = ({n: g.double().cpu() for n, g in grads.items()},
+                     outs[0].double().cpu())
+    g64, p64 = runs["cpu64"]
+    equal, worst, worst_rel = compare_grads("small AlexNet float64, card "
+                                            "vs CPU", runs["card64"][0], g64)
+    perr = float((runs["card64"][1] - p64).abs().max())
+    g32, p32 = runs["card32"]
+    num = sum(float(((g32[n] - g) ** 2).sum()) for n, g in g64.items())
+    den = sum(float((g ** 2).sum()) for g in g64.values())
+    dist32 = (num / den) ** 0.5
+    perr32 = float((p32 - p64).abs().max())
+    # SoftmaxOutput computes its probabilities in float32 whatever the
+    # input dtype, so they carry float32 rounding in both runs
+    if not (perr <= 1e-7 and perr32 <= 1e-7 and dist32 <= 1e-2 and all(
+            torch.isfinite(g).all() for g in g32.values())):
+        fail("small AlexNet: probabilities max abs err %.3g (float64) and "
+             "%.3g (float32) from the CPU's (limit 1e-7), float32 gradients "
+             "%.3g from the float64 ones (relative, in norm; limit 1e-2)"
+             % (perr, perr32, dist32))
+    say("alexnet reference: AlexNet (%dx3x%dx%d, %d classes) "
+        "TrainStep._grads with PRNGKey(0): both Dropouts (uids %s) keep "
+        "exactly the CPU mask's elements on the card (float64, float32) and "
+        "the CPU (float64); float64 card vs CPU: %d of %d gradients equal "
+        "bit for bit, worst %.3g (%.3g of max|g|; rtol %g, atol %g x "
+        "max|g|), probabilities max abs err %.3g; float32 card: gradients "
+        "%.3g from the float64 ones (relative, in norm), probabilities "
+        "%.3g" % (B, S, S, ALEX_CLASSES, [d[0] for d in drops], equal,
+                  len(g64), worst, worst_rel, GRAD_RTOL, GRAD_ATOL_REL,
+                  perr, dist32, perr32))
+
+
+def alexnet_phase():
+    """bench.py's AlexNet workload through make_train_step -> init_state
+    -> step, PRNGKey(0) every step as bench.py passes it: 2 warm steps
+    (the second profiled) and 10 timed ones. Fails unless the NLL is
+    finite, its lowest timed value under ALEX_NLL_FALL x the first, and
+    fc6's Dropout output (read through the graph
+    evaluator's capture hook, the Executor's monitor path, in one more
+    forward-and-backward of the step) keeps exactly the elements of the
+    CPU mask for fold_in(PRNGKey(0), uid), scaled by 2. Times the LRN and
+    Dropout ops and a mask at the step's shapes."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _threefry as tf
+    from mxnet_tpu_torch.executor import _graph_eval_fn
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import alexnet
+    from mxnet_tpu_torch.ops.registry import get_op
+    from mxnet_tpu_torch.parallel import make_train_step
+
+    alexnet_reference_check()
+    B, S = ALEX_BATCH, ALEX_IMAGE
+    t0 = time.perf_counter()
+    sym = alexnet.get_symbol(num_classes=ALEX_CLASSES)
+    drops = _dropout_nodes(sym)
+    step = make_train_step(sym, optimizer="sgd",
+                           optimizer_params={"momentum": 0.9, "wd": 1e-4,
+                                             "rescale_grad": 1.0 / B},
+                           compute_dtype="bfloat16")
+    x = np.random.RandomState(0).standard_normal((B, 3, S, S)).astype(
+        np.float32)
+    y = np.random.RandomState(1).randint(0, ALEX_CLASSES, (B,)).astype(
+        np.float32)
+    mx.random.seed(0)
+    state = step.init_state(Xavier(factor_type="in", magnitude=2.0),
+                            {"data": (B, 3, S, S), "softmax_label": (B,)})
+    batch = step.place_batch({"data": x, "softmax_label": y})
+    key = tf.PRNGKey(0)
+    nparam = sum(v.numel() for v in state[0].values())
+    say("alexnet: AlexNet %d params (%.1f M), batch %d x 3x%dx%d, %d "
+        "classes, SGD momentum 0.9 wd 1e-4 lr %g rescale 1/%d, bf16 "
+        "compute, Dropouts at uids %s, on %s, set up in %.1f s" % (
+            nparam, nparam / 1e6, B, S, S, ALEX_CLASSES, ALEX_LR, B,
+            [d[0] for d in drops], step.device, time.perf_counter() - t0))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nlls, times = [], []
+    for i in range(WARM_STEPS + TIMED_STEPS):
+        t = time.perf_counter()
+        if i == 1:   # the second warm step, under the profiler
+            state, outs = profile("alexnet step (warm)",
+                                  lambda: step(state, batch, ALEX_LR, key),
+                                  top=14)
+        else:
+            state, outs = step(state, batch, ALEX_LR, key)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        nlls.append(mean_nll(outs[0], batch["softmax_label"]))
+        del outs
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = statistics.median(times[WARM_STEPS:])
+    say("alexnet: NLL per step %s" % " ".join("%.4f" % v for v in nlls))
+    say("alexnet: step %.2f ms (median of %d timed steps; all: %s), %.1f "
+        "img/s, peak device memory %.2f GB" % (
+            step_ms, TIMED_STEPS, " ".join("%.1f" % v for v in times),
+            B / step_ms * 1e3, peak_gb))
+    if not all(np.isfinite(nlls)):
+        fail("alexnet: non-finite NLL %r" % (nlls,))
+    # at bench.py's lr 0.1 on one repeated batch the NLL falls and climbs
+    # back (the JAX package's too: tests/test_torch_models.py), so the
+    # lowest timed NLL is held a quarter below the first step's
+    low = min(nlls[WARM_STEPS:])
+    if not low < ALEX_NLL_FALL * nlls[0]:
+        fail("alexnet: NLL did not fall: first %g, lowest timed %g (limit "
+             "%g x first), last %g" % (nlls[0], low, ALEX_NLL_FALL,
+                                       nlls[-1]))
+
+    # fc6's Dropout in one more forward-and-backward of the step's own
+    # path, its input and output captured
+    uid, name, src = drops[0]
+    seen = {}
+    step._eval_fn = _graph_eval_fn(sym, capture=_capture_into(
+        seen, {name, src}))
+    step._grads(state[0], state[2], batch, key)
+    mask = tf.bernoulli(tf.fold_in(key, uid), ALEX_KEEP,
+                        tuple(seen[src].shape), "cpu")
+    check_dropout("alexnet fc6 (%s, uid %d)" % (name, uid), seen[src],
+                  seen[name], mask)
+    kept = float(mask.float().mean())
+    say("alexnet: fc6's Dropout (%s, uid %d, %r %s) keeps exactly the CPU "
+        "mask of fold_in(PRNGKey(0), %d), scaled by 2 (%.4f kept)" % (
+            name, uid, tuple(seen[name].shape), seen[name].dtype, uid,
+            kept))
+    del state, seen
+    torch.cuda.empty_cache()
+
+    # the new ops alone at the step's shapes (bf16), device time
+    lrn, dropout = get_op("LRN").fn, get_op("Dropout").fn
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    ops = {}
+    for label, shape in (("LRN conv1", (B, 96, 55, 55)),
+                         ("LRN conv2", (B, 256, 27, 27))):
+        a = torch.randn(shape, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        ops[label] = (device_ms(lambda: lrn(a, alpha=1e-4, beta=0.75,
+                                            knorm=2, nsize=5), "", reps=5),
+                      device_ms.launches)
+    a = torch.randn((B, 4096), device="cuda", generator=gen).to(
+        torch.bfloat16)
+    ops["Dropout fc6"] = (device_ms(lambda: dropout(
+        a, p=0.5, is_train=True, rng=key), "", reps=5), device_ms.launches)
+    ops["mask fc6"] = (device_ms(lambda: tf.bernoulli(
+        key, ALEX_KEEP, (B, 4096), a.device), "", reps=5),
+        device_ms.launches)
+    say("alexnet: forward device time alone (bf16): %s" % "; ".join(
+        "%s %.4f ms in %d launches" % (k, ms, n)
+        for k, (ms, n) in ops.items()))
+    del a
+    torch.cuda.empty_cache()
+    return step_ms
+
+
 def main():
     try:
         import torch
@@ -2559,6 +2915,7 @@ def main():
     records = kernel_phase() + bwd_kernel_phase() + f32_kernel_phase(ptxas)
     gqa_phase()
     records += bn_kernel_phase() + nms_kernel_phase()
+    prng_phase()
     by_path = {"serve": path_phase([att.flash_fwd_cuda]),
                "train": train_phase([att.flash_fwd_cuda,
                                      att.flash_bwd_cuda]),
@@ -2566,6 +2923,7 @@ def main():
                **resnet_phase([bnk.bn_stats_cuda, bnk.bn_apply_cuda,
                                bnk.bn_bwd_reduce_cuda, bnk.bn_bwd_dx_cuda]),
                "ssd": ssd_phase([nmsk.nms_keep_cuda])}
+    alexnet_phase()
     for rec in records:
         counts = {path: launches[rec["name"] + "_cuda"]
                   for path, launches in by_path.items()

@@ -6,9 +6,10 @@ The JAX package lowers a Symbol to one pure function that ``jax.jit``
 compiles. Here the same function (``_graph_eval_fn``) runs eagerly, op by
 op, on whatever device its inputs live on; each intermediate is released
 after its last consumer, so memory follows the live set as XLA's buffer
-planning does there. Aux states are threaded by ``state_inputs`` and
-every rng-drawing node gets its own generator folded from the run's seed
-and the node's topological uid, as there.
+planning does there. Aux states are threaded by ``state_inputs``, and
+every rng-drawing node gets ``fold_in(rng, uid)`` of the run's threefry
+key and its topological uid, as there, so its draws are the JAX
+package's bits.
 
 The forward-and-backward of a bound graph is one path, used by both the
 ``Executor`` and ``TrainStep``: ``_record_forward`` runs the graph under
@@ -27,25 +28,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ._threefry import as_key, fold_in
 from .base import MXNetError
 from .context import current_context
 
 __all__ = ["Executor", "forward_backward"]
 
 
-def _node_generator(seed, uid, device):
-    """A generator for node ``uid`` of a run seeded ``seed``: the torch
-    stand-in for ``jax.random.fold_in(rng, uid)``."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed((int(seed) * 1000003 + uid) & 0x7FFFFFFFFFFFFFFF)
-    return gen
-
-
 def _graph_eval_fn(symbol, capture=None):
     """Build the function evaluating `symbol`'s graph.
 
-    Returns fn(arg_vals: dict name->tensor, aux_vals: dict, seed: int,
-    is_train: bool) -> (tuple outputs, dict new_aux).
+    Returns fn(arg_vals: dict name->tensor, aux_vals: dict, rng: a
+    threefry key (an int seeds ``PRNGKey``), is_train: bool) -> (tuple
+    outputs, dict new_aux).
 
     capture: debugging hook called with (node_name, [outputs]) for every
     node (the Monitor path)."""
@@ -66,7 +61,8 @@ def _graph_eval_fn(symbol, capture=None):
     for nid, pos in last_use.items():
         release_at.setdefault(pos, []).append(nid)
 
-    def eval_fn(arg_vals, aux_vals, seed, is_train):
+    def eval_fn(arg_vals, aux_vals, rng, is_train):
+        rng = as_key(rng)
         env = {}
         aux_out = dict(aux_vals)
         device = next((v.device for v in arg_vals.values()), None)
@@ -82,8 +78,7 @@ def _graph_eval_fn(symbol, capture=None):
             if node.op.takes_is_train:
                 attrs["is_train"] = is_train
             if node.op.needs_rng:
-                attrs["rng"] = _node_generator(seed, node_uid[id(node)],
-                                               xs[0].device)
+                attrs["rng"] = fold_in(rng, node_uid[id(node)])
             if not xs and device is not None:
                 attrs["device"] = device     # a creation op
             raw = node.op.fn(*xs, **attrs)
@@ -118,7 +113,7 @@ def _graph_eval_fn(symbol, capture=None):
 # the one forward-and-backward path (Executor and TrainStep)
 # ---------------------------------------------------------------------------
 
-def _record_forward(eval_fn, arg_vals, aux_vals, seed, wrt, cast=None):
+def _record_forward(eval_fn, arg_vals, aux_vals, rng, wrt, cast=None):
     """Run the graph in training mode under autograd, differentiable in
     the arguments named by ``wrt`` (float ones; fresh leaves of their
     values). ``cast`` maps the leaves to what the graph reads (TrainStep's
@@ -129,7 +124,7 @@ def _record_forward(eval_fn, arg_vals, aux_vals, seed, wrt, cast=None):
     with torch.enable_grad():
         vals = dict(arg_vals)
         vals.update(cast(leaves) if cast is not None else leaves)
-        outs, new_aux = eval_fn(vals, aux_vals, seed, True)
+        outs, new_aux = eval_fn(vals, aux_vals, rng, True)
     return outs, new_aux, leaves
 
 
@@ -154,12 +149,12 @@ def _backward(outs, leaves, out_grads=None, retain_graph=False):
             for n, g in zip(names, grads)}
 
 
-def forward_backward(eval_fn, arg_vals, aux_vals, seed, wrt, cast=None):
+def forward_backward(eval_fn, arg_vals, aux_vals, rng, wrt, cast=None):
     """(outputs, new_aux, grads by name): ``_record_forward`` then
     ``_backward`` with ones as head cotangents, in one call, the graph
     freed by the backward."""
     outs, new_aux, leaves = _record_forward(eval_fn, arg_vals, aux_vals,
-                                            seed, wrt, cast)
+                                            rng, wrt, cast)
     grads = _backward(outs, leaves)
     return tuple(o.detach() for o in outs), new_aux, grads
 
@@ -356,16 +351,16 @@ class Executor:
                                                        self.arg_arrays)}
         aux_vals = {n: a._data.detach() for n, a in zip(self._aux_names,
                                                        self.aux_arrays)}
-        seed = mx_random.next_key()
+        rng = mx_random.next_key()
         self._graph = None
         eval_fn = self._eval()
         if is_train and self._grad_names:
             outs, new_aux, leaves = _record_forward(
-                eval_fn, arg_vals, aux_vals, seed, self._grad_names)
+                eval_fn, arg_vals, aux_vals, rng, self._grad_names)
             self._graph = (outs, leaves)
         else:
             with torch.no_grad():
-                outs, new_aux = eval_fn(arg_vals, aux_vals, seed,
+                outs, new_aux = eval_fn(arg_vals, aux_vals, rng,
                                         bool(is_train))
         if is_train:
             for n, a in zip(self._aux_names, self.aux_arrays):

@@ -67,13 +67,17 @@ def _ffn_block(x, dim, hidden, prefix):
 
 
 def _layer_block(x, num_heads, dim, ffn_hidden, prefix, window=0,
-                 num_kv_heads=None):
-    """One pre-LN transformer block: attention residual + FFN residual."""
+                 num_kv_heads=None, dropout=0.0):
+    """One pre-LN transformer block: attention residual + FFN residual
+    (the FFN's output through Dropout when dropout > 0)."""
     a = sym.LayerNorm(x, name=prefix + "ln1")
     x = x + _attention_block(a, num_heads, dim, prefix, window=window,
                              num_kv_heads=num_kv_heads)
     f = sym.LayerNorm(x, name=prefix + "ln2")
-    return x + _ffn_block(f, dim, ffn_hidden, prefix)
+    ff = _ffn_block(f, dim, ffn_hidden, prefix)
+    if dropout > 0:
+        ff = sym.Dropout(ff, p=dropout)
+    return x + ff
 
 
 def _not_ported(option, item):
@@ -113,9 +117,6 @@ def get_symbol(vocab_size, seq_len, num_layers=2, num_heads=4, dim=128,
     if seq_axis:
         _not_ported("seq_axis=%r" % (seq_axis,),
                     "Queue A item 9, ring attention")
-    if dropout > 0:
-        _not_ported("dropout=%r" % (dropout,),
-                    "Queue A item 2, Dropout")
     ffn_hidden = ffn_hidden or 4 * dim
     max_len = max_len or seq_len
     if max_len < seq_len:
@@ -140,7 +141,7 @@ def get_symbol(vocab_size, seq_len, num_layers=2, num_heads=4, dim=128,
     for i in range(num_layers):
         x = _layer_block(x, num_heads, dim, ffn_hidden, "layer%d_" % i,
                          window=attention_window,
-                         num_kv_heads=num_kv_heads)
+                         num_kv_heads=num_kv_heads, dropout=dropout)
 
     x = sym.LayerNorm(x, name="ln_f")
     logits = sym.FullyConnected(x, num_hidden=vocab_size, flatten=False,

@@ -1,4 +1,4 @@
-"""Operator catalog of the port (the ops of the slices ported so far).
+"""Operator catalog of the port.
 
 Every module registers torch ops into the shared registry; importing
 this package populates it, and ``mx.sym.*`` is generated from it.
@@ -16,4 +16,5 @@ from . import attention     # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import reduce_ops    # noqa: F401
 from . import detection_ops  # noqa: F401
+from . import random_ops    # noqa: F401
 from . import shape_hooks   # noqa: F401  (must come after all registrations)

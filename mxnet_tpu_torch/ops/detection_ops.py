@@ -4,7 +4,7 @@
 src/operator/contrib/multibox_prior.cc:35-71,
 src/operator/contrib/multibox_detection.cc:44-168). ``MultiBoxTarget``
 and ``ROIPooling`` wait for the SSD training slice (ROADMAP Queue A
-item 2).
+item 10).
 
 Anchors are built with numpy on the host exactly as the JAX package
 builds them. ``MultiBoxDetection`` writes the batch out where JAX vmaps

@@ -1,6 +1,7 @@
-"""Output/loss heads with custom backward semantics, as in
-``mxnet_tpu/ops/loss.py``: ``SoftmaxOutput``, ``MakeLoss`` and the three
-regression heads.
+"""Output/loss heads with custom backward semantics — the whole of
+``mxnet_tpu/ops/loss.py``: ``SoftmaxOutput``, ``MakeLoss``, the three
+regression heads, ``SVMOutput``, ``IdentityAttachKLSparseReg`` and the
+fused projection + cross-entropy ``_contrib_ChunkedSoftmaxCE``.
 
 These ops' backward passes are NOT the vjp of their forward
 (SoftmaxOutput forwards softmax but backprops the cross-entropy
@@ -10,13 +11,12 @@ scale contract): the training step passes ones, and a scaled cotangent
 (dynamic loss scaling) scales the whole backprop chain. Labels get no
 gradient. The backward computes in the output's dtype throughout, as the
 JAX package does — under bf16 that includes the ``valid`` count, which
-is a bf16 sum (16376 valid tokens count as 16384). ``SVMOutput`` and
-``_contrib_ChunkedSoftmaxCE`` wait for the op-catalog and ``loss_chunk``
-slices (ROADMAP Queue A items 2 and 6).
+is a bf16 sum (16376 valid tokens count as 16384).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .registry import register
 
@@ -157,3 +157,96 @@ class _MakeLossFn(torch.autograd.Function):
 def _make_loss(data, grad_scale=1.0, valid_thresh=0.0,
                normalization="null", **_):
     return _MakeLossFn.apply(data, grad_scale, valid_thresh, normalization)
+
+
+class _SVMOutputFn(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, data, label, margin, reg, use_linear):
+        ctx.save_for_backward(data, label)
+        ctx.attrs = (margin, reg, use_linear)
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        d, l = ctx.saved_tensors
+        margin, reg, use_linear = ctx.attrs
+        li = l.to(torch.int32).long()
+        onehot = _one_hot(li, d.shape[-1], d.dtype)
+        score_y = torch.gather(d, -1, li[:, None])
+        viol = ((margin - (score_y - d)) > 0) & (onehot == 0)
+        if use_linear:
+            grad = viol.to(d.dtype)
+        else:
+            grad = 2 * torch.clamp_min(margin - (score_y - d), 0) * \
+                viol.to(d.dtype)
+        grad = grad - onehot * torch.sum(grad, dim=-1, keepdim=True)
+        grad = grad * reg * g.to(grad.dtype)
+        return grad, None, None, None, None
+
+
+@register("SVMOutput", arg_names=("data", "label"), nondiff_inputs=(1,),
+          defaults={"margin": 1.0, "regularization_coefficient": 1.0,
+                    "use_linear": False})
+def _svm_output(data, label, margin=1.0, regularization_coefficient=1.0,
+                use_linear=False, **_):
+    """Forwards the scores; backprops the (squared, or linear) hinge
+    loss's gradient (reference svm_output.cc)."""
+    return _SVMOutputFn.apply(data, label, margin,
+                              regularization_coefficient, use_linear)
+
+
+@register("IdentityAttachKLSparseReg", arg_names=("data",),
+          defaults={"sparseness_target": 0.1, "penalty": 0.001,
+                    "momentum": 0.9})
+def _identity_kl(data, **_):
+    return data
+
+
+def _chunk_nll(x_c, weight, bias, l_c, k_c, scale):
+    """Per-row NLL of one chunk, scaled: float32 logits (products
+    accumulated in float32 whatever the input dtype)."""
+    logits = torch.matmul(x_c.float(), weight.float().t()) + bias.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, torch.clamp(
+        l_c, 0, weight.shape[0] - 1)[:, None])[:, 0]
+    return (lse - picked) * k_c * scale
+
+
+@register("_contrib_ChunkedSoftmaxCE",
+          arg_names=("data", "weight", "bias", "label"),
+          nondiff_inputs=(3,),
+          defaults={"chunk": 2048, "grad_scale": 1.0,
+                    "ignore_label": -1.0, "use_ignore": False,
+                    "normalization": "valid"})
+def _chunked_softmax_ce(data, weight, bias, label, chunk=2048,
+                        grad_scale=1.0, ignore_label=-1.0,
+                        use_ignore=False, normalization="valid", **_):
+    """Fused projection + softmax cross-entropy over row chunks: the
+    output is the per-row loss (already scaled by grad_scale / norm, as
+    SoftmaxOutput's backward), float32. Each chunk is checkpointed, so
+    no more than (chunk, V) logits live at once in the forward or the
+    backward, as the JAX op's checkpointed map."""
+    N = data.shape[0]
+    chunk = max(1, min(int(chunk), N))
+    lab = label.reshape(-1).to(torch.int64)
+    if use_ignore:
+        keep = (lab != int(ignore_label)).to(torch.float32)
+    else:
+        keep = torch.ones(N, dtype=torch.float32, device=data.device)
+    if normalization == "batch":
+        norm = float(N)
+    elif normalization == "valid":
+        norm = torch.clamp_min(torch.sum(keep), 1.0)
+    else:
+        norm = 1.0
+    scale = grad_scale / norm
+    outs = []
+    for start in range(0, N, chunk):
+        args = (data[start:start + chunk], weight, bias,
+                lab[start:start + chunk], keep[start:start + chunk], scale)
+        if torch.is_grad_enabled():
+            outs.append(checkpoint(_chunk_nll, *args, use_reentrant=False))
+        else:
+            outs.append(_chunk_nll(*args))
+    return torch.cat(outs)

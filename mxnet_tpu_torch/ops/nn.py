@@ -1,7 +1,8 @@
-"""Neural-network layer ops ported so far — ``FullyConnected``,
-``Convolution``, ``Pooling``, ``BatchNorm``, ``LayerNorm``,
-``Activation``, ``SoftmaxActivation`` — with the semantics of
-``mxnet_tpu/ops/nn.py``.
+"""Neural-network layer ops — the whole of ``mxnet_tpu/ops/nn.py``:
+``FullyConnected``, ``Convolution``, ``Deconvolution``, ``Pooling``,
+``BatchNorm``, ``InstanceNorm``, ``LayerNorm``, ``Activation``,
+``LeakyReLU``, ``SoftmaxActivation``, ``Dropout``, ``LRN``,
+``UpSampling``, ``Crop`` and the ``Sequence*`` ops, with its semantics.
 
 The matrix products go to ``torch.matmul`` and the convolutions to
 ``F.conv2d``/``conv3d`` (cuBLAS and cuDNN on the card), as the JAX
@@ -13,8 +14,8 @@ two-pass statistics under autograd (the default), contraction
 statistics (``MXNET_BN_STATS``), the one-pass closed-form core
 (``MXNET_BN_IMPL=onepass``) and the hand-written CUDA kernels
 (``MXNET_BN_PALLAS=1``, ``ops/bn_kernels.py``); the knobs are read at
-call time. Deconvolution, Dropout and the other layers wait (ROADMAP
-Queue A item 2).
+call time. Dropout and rrelu draw from the threefry key the caller
+passes (``rng``), so their masks are the JAX package's bits.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import config as _config
+from .. import _threefry
 from .bn_kernels import bn_train_kernels
 from .registry import register
 
@@ -78,6 +80,34 @@ def _convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
     conv = F.conv2d if nd == 2 else F.conv3d
     out = conv(data, weight, None, stride=stride, padding=pad,
                dilation=dilate, groups=num_group)
+    if not no_bias and bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * nd)
+    return out
+
+
+@register("Deconvolution", arg_names=("data", "weight", "bias"),
+          defaults={"kernel": (), "stride": (), "dilate": (), "pad": (),
+                    "adj": (), "target_shape": (), "num_filter": 0,
+                    "num_group": 1, "no_bias": True, "workspace": 512,
+                    "cudnn_tune": None, "cudnn_off": False, "layout": None})
+def _deconvolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                   pad=(), adj=(), target_shape=(), num_filter=0,
+                   num_group=1, no_bias=True, **_):
+    """The transposed convolution (the gradient of Convolution by its
+    input), weight (in_c, out_c / g, k...) as the reference stores it;
+    ``adj`` pads the high side. ``target_shape`` is taken and unused,
+    as in the JAX op."""
+    nd = len(kernel) if kernel else 2
+    stride = _pair(stride, nd) if stride else (1,) * nd
+    dilate = _pair(dilate, nd) if dilate else (1,) * nd
+    pad = _pair(pad, nd) if pad else (0,) * nd
+    adj = _pair(adj, nd) if adj else (0,) * nd
+    if weight.dtype != data.dtype:
+        weight = weight.to(data.dtype)
+    conv_t = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+              3: F.conv_transpose3d}[nd]
+    out = conv_t(data, weight, None, stride=stride, padding=pad,
+                 output_padding=adj, groups=num_group, dilation=dilate)
     if not no_bias and bias is not None:
         out = out + bias.reshape((1, -1) + (1,) * nd)
     return out
@@ -330,6 +360,17 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     return out, new_mm, new_mv
 
 
+@register("InstanceNorm", arg_names=("data", "gamma", "beta"),
+          defaults={"eps": 1e-3})
+def _instance_norm(data, gamma, beta, eps=1e-3, **_):
+    red = tuple(range(2, data.dim()))
+    mean = torch.mean(data, dim=red, keepdim=True)
+    var = torch.var(data, dim=red, keepdim=True, correction=0)
+    bshape = (1, -1) + (1,) * (data.dim() - 2)
+    return (data - mean) * torch.rsqrt(var + eps) * gamma.reshape(bshape) \
+        + beta.reshape(bshape)
+
+
 @register("LayerNorm", arg_names=("data", "gamma", "beta"),
           defaults={"axis": -1, "eps": 1e-5, "output_mean_var": False})
 def _layer_norm(data, gamma, beta, axis=-1, eps=1e-5,
@@ -371,3 +412,161 @@ def _softmax_activation(data, mode="instance", **_):
         return torch.softmax(data, dim=1)
     return torch.softmax(data.reshape(data.shape[0], -1), dim=-1).reshape(
         data.shape)
+
+
+@register("LeakyReLU", arg_names=("data", "gamma"), needs_rng=True,
+          takes_is_train=True,
+          defaults={"act_type": "leaky", "slope": 0.25,
+                    "lower_bound": 0.125, "upper_bound": 0.334})
+def _leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+                lower_bound=0.125, upper_bound=0.334, is_train=False,
+                rng=None, **_):
+    if act_type == "leaky":
+        return torch.where(data >= 0, data, slope * data)
+    if act_type == "elu":
+        return torch.where(data >= 0, data, slope * torch.expm1(data))
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.dim() - 2)) \
+            if gamma.dim() == 1 and data.dim() > 1 else gamma
+        return torch.where(data >= 0, data, g * data)
+    if act_type == "rrelu":
+        if is_train:
+            s = _threefry.uniform(rng, data.shape, data.dtype, lower_bound,
+                                  upper_bound, data.device)
+        else:
+            s = (lower_bound + upper_bound) / 2.0
+        return torch.where(data >= 0, data, s * data)
+    raise ValueError("unknown act_type %r" % act_type)
+
+
+# ---------------------------------------------------------------------------
+# Dropout — the mask from the caller's threefry key
+# ---------------------------------------------------------------------------
+
+@register("Dropout", arg_names=("data",), needs_rng=True,
+          takes_is_train=True,
+          defaults={"p": 0.5, "mode": "training"})
+def _dropout(data, p=0.5, mode="training", is_train=False, rng=None, **_):
+    """Keeps each element with probability 1 - p (a float32 uniform
+    below it, ``jax.random.bernoulli``) and scales it by 1 / (1 - p);
+    the identity when p <= 0 or outside training (mode "always" drops
+    at inference too)."""
+    if p <= 0 or (not is_train and mode != "always"):
+        return data
+    keep = 1.0 - p
+    mask = _threefry.bernoulli(rng, keep, tuple(data.shape), data.device)
+    return torch.where(mask, data / keep, 0.0).to(data.dtype)
+
+
+# ---------------------------------------------------------------------------
+# LRN — reference lrn-inl.h: the padded channel-window sum of squares
+# ---------------------------------------------------------------------------
+
+@register("LRN", arg_names=("data",),
+          defaults={"alpha": 1e-4, "beta": 0.75, "knorm": 2.0, "nsize": 5})
+def _lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5, **_):
+    sq = torch.square(data)
+    half = nsize // 2
+    sq_pad = F.pad(sq, (0, 0) * (data.dim() - 2) + (half, half))
+    window = torch.zeros_like(sq)
+    for i in range(nsize):
+        # the JAX op's order of sums: slice 0 first
+        window = window + sq_pad.narrow(1, i, data.shape[1])
+    return data / torch.pow(knorm + alpha / nsize * window, beta)
+
+
+# ---------------------------------------------------------------------------
+# UpSampling / Crop
+# ---------------------------------------------------------------------------
+
+@register("UpSampling", arg_names=None,
+          defaults={"scale": 1, "sample_type": "nearest", "num_args": 1,
+                    "num_filter": 0, "multi_input_mode": "concat",
+                    "workspace": 512})
+def _upsampling(*args, scale=1, sample_type="nearest",
+                multi_input_mode="concat", **_):
+    """Nearest repeats each pixel ``scale`` times a side; bilinear
+    resizes the first input to ``scale`` times its size in float32
+    (half-pixel centres, ``jax.image.resize``, which has no antialias
+    when upsampling)."""
+    outs = []
+    data = args[0]
+    h, w = data.shape[2] * scale, data.shape[3] * scale
+    for x in (args if sample_type == "nearest" else args[:1]):
+        if sample_type == "nearest":
+            out = torch.repeat_interleave(
+                torch.repeat_interleave(x, scale, dim=2), scale, dim=3)
+        else:
+            out = F.interpolate(x.float(), size=(h, w), mode="bilinear",
+                                align_corners=False).to(x.dtype)
+        outs.append(out)
+    if len(outs) == 1:
+        return outs[0]
+    if multi_input_mode == "sum":
+        return sum(outs)
+    return torch.cat(outs, dim=1)
+
+
+@register("Crop", arg_names=None,
+          defaults={"num_args": 1, "offset": (0, 0), "h_w": (0, 0),
+                    "center_crop": False})
+def _crop(*args, offset=(0, 0), h_w=(0, 0), center_crop=False, **_):
+    data = args[0]
+    if len(args) == 2:
+        h, w = args[1].shape[2], args[1].shape[3]
+    else:
+        h, w = h_w
+    if center_crop:
+        oy = (data.shape[2] - h) // 2
+        ox = (data.shape[3] - w) // 2
+    else:
+        oy, ox = offset
+    return data[:, :, oy:oy + h, ox:ox + w]
+
+
+# ---------------------------------------------------------------------------
+# Sequence ops — reference src/operator/sequence_*.cc
+# ---------------------------------------------------------------------------
+
+@register("SequenceMask", arg_names=("data", "sequence_length"),
+          nondiff_inputs=(1,),
+          defaults={"use_sequence_length": False, "value": 0.0, "axis": 0})
+def _sequence_mask(data, sequence_length=None, use_sequence_length=False,
+                   value=0.0, axis=0, **_):
+    if not use_sequence_length or sequence_length is None:
+        return data
+    steps = torch.arange(data.shape[axis], device=data.device)
+    mask = steps[:, None] < sequence_length[None, :].to(torch.int32)
+    if axis == 1:
+        mask = mask.t()
+    mask = mask.reshape(tuple(mask.shape) + (1,) * (data.dim() - 2))
+    return torch.where(mask, data, torch.tensor(value, dtype=data.dtype,
+                                                device=data.device))
+
+
+@register("SequenceLast", arg_names=("data", "sequence_length"),
+          nondiff_inputs=(1,),
+          defaults={"use_sequence_length": False, "axis": 0})
+def _sequence_last(data, sequence_length=None, use_sequence_length=False,
+                   axis=0, **_):
+    if not use_sequence_length or sequence_length is None:
+        return data.select(axis, data.shape[axis] - 1)
+    idx = sequence_length.to(torch.int64) - 1
+    batch = torch.arange(data.shape[1 - axis], device=data.device)
+    if axis == 0:
+        return data[idx, batch]
+    return data[batch, idx]
+
+
+@register("SequenceReverse", arg_names=("data", "sequence_length"),
+          nondiff_inputs=(1,),
+          defaults={"use_sequence_length": False, "axis": 0})
+def _sequence_reverse(data, sequence_length=None, use_sequence_length=False,
+                      axis=0, **_):
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(data, dims=(0,))
+    steps = torch.arange(data.shape[0], device=data.device)[:, None]
+    lens = sequence_length.to(torch.int64)[None, :]
+    rev_idx = torch.where(steps < lens, lens - 1 - steps, steps)
+    batch = torch.arange(data.shape[1], device=data.device)[None, :]
+    return data[rev_idx, batch]

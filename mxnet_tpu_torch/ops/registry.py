@@ -27,8 +27,8 @@ class OpDef:
     """One operator.
 
     fn: function ``(*tensors, **attrs) -> tensor | tuple``. When
-        ``needs_rng`` it must also accept an ``rng`` keyword (a
-        ``torch.Generator``); when ``takes_is_train`` it receives
+        ``needs_rng`` it must also accept an ``rng`` keyword (a threefry
+        key, numpy ``uint32[2]``: ``mxnet_tpu_torch.random``); when ``takes_is_train`` it receives
         ``is_train: bool``.
     arg_names: tensor-input names in order; None => variadic (add_n, Concat).
     num_visible: user-facing outputs (BatchNorm computes 5, exposes 3 —
@@ -166,16 +166,6 @@ def canon_attrs(opdef, attrs):
 # eager dispatch
 # ---------------------------------------------------------------------------
 
-def _op_generator(device):
-    """A torch.Generator for one rng-drawing eager call, seeded from the
-    global stream (``mx.random``)."""
-    import torch
-    from .. import random as mx_random
-    gen = torch.Generator(device=device)
-    gen.manual_seed(mx_random.next_key())
-    return gen
-
-
 def invoke_eager(opdef, nd_inputs, attrs, out=None):
     """Imperative invoke (analogue of ImperativeInvokeImpl,
     src/c_api/c_api_ndarray.cc:491; the JAX package's
@@ -194,6 +184,7 @@ def invoke_eager(opdef, nd_inputs, attrs, out=None):
     import torch
     from ..ndarray.ndarray import NDArray, _wrap, array
     from .. import autograd
+    from .. import random as mx_random
 
     arrays = []
     for i, x in enumerate(nd_inputs):
@@ -205,7 +196,8 @@ def invoke_eager(opdef, nd_inputs, attrs, out=None):
     if opdef.takes_is_train and "is_train" not in attrs:
         attrs["is_train"] = autograd.is_training()
     if opdef.needs_rng:
-        attrs["rng"] = _op_generator(arrays[0].device if arrays else "cpu")
+        # one split of the global stream per call, as the JAX package
+        attrs["rng"] = mx_random.next_key()
 
     recording = autograd.is_recording() and opdef.differentiable
     with torch.set_grad_enabled(recording):
@@ -276,28 +268,7 @@ _NOT_PORTED = {
         "_linalg_trsm", "khatri_rao", "linalg_gelqf", "linalg_gemm",
         "linalg_gemm2", "linalg_potrf", "linalg_potri", "linalg_sumlogdiag",
         "linalg_syrk", "linalg_trmm", "linalg_trsm")),
-    "loss": ("Queue A item 2 (the rest of loss.py)", (
-        "IdentityAttachKLSparseReg", "SVMOutput",
-        "_contrib_ChunkedSoftmaxCE")),
     "matrix": ("Queue A item 10 (sparse storage)", ("cast_storage",)),
-    "nn": ("Queue A item 2 (the rest of nn.py)", (
-        "Crop", "Deconvolution", "Dropout", "InstanceNorm", "LRN",
-        "LeakyReLU", "SequenceLast", "SequenceMask", "SequenceReverse",
-        "UpSampling")),
-    "random_ops": ("Queue A item 2 (random_ops.py, after item 7's PRNG "
-                   "decision)", (
-        "_random_exponential", "_random_gamma",
-        "_random_generalized_negative_binomial", "_random_negative_binomial",
-        "_random_normal", "_random_poisson", "_random_uniform",
-        "_sample_exponential", "_sample_gamma",
-        "_sample_generalized_negative_binomial", "_sample_multinomial",
-        "_sample_negative_binomial", "_sample_normal", "_sample_poisson",
-        "_sample_uniform", "_shuffle", "exponential",
-        "generalized_negative_binomial", "negative_binomial", "normal",
-        "poisson", "randn", "random_exponential", "random_gamma",
-        "random_generalized_negative_binomial", "random_negative_binomial",
-        "random_normal", "random_poisson", "random_uniform",
-        "sample_multinomial", "shuffle", "uniform")),
     "rcnn_ops": ("Queue A item 10 (rcnn_ops.py)", (
         "DeformableConvolution", "DeformablePSROIPooling", "MultiProposal",
         "PSROIPooling", "Proposal", "_contrib_DeformableConvolution",

@@ -2,7 +2,8 @@
 exposes under given attrs, and backward shape inference for parameter
 (and aux) variables. The rules are those of
 ``mxnet_tpu/ops/shape_hooks.py``; the hooks of ops not ported yet
-(Deconvolution, InstanceNorm, ...) arrive with their ops.
+(RNN, the deformable and quantized contrib ops, the decode caches)
+arrive with their ops.
 """
 from __future__ import annotations
 
@@ -62,6 +63,29 @@ def _conv_shapes(shapes, attrs):
 
 set_param_shapes("Convolution", _conv_shapes)
 
+set_arg_select("Deconvolution", lambda a: (
+    ("data", "weight") if a.get("no_bias", True)
+    else ("data", "weight", "bias")))
+
+
+def _deconv_shapes(shapes, attrs):
+    data = shapes[0]
+    if data is None:
+        return shapes
+    kernel = tuple(int(k) for k in attrs.get("kernel", ()))
+    nf = int(attrs.get("num_filter", 0))
+    ng = int(attrs.get("num_group", 1))
+    out = list(shapes)
+    if len(out) > 1 and out[1] is None:
+        # reference layout: (in_channels, num_filter/g, kh, kw)
+        out[1] = (data[1], nf // ng) + kernel
+    if len(out) > 2 and out[2] is None:
+        out[2] = (nf,)
+    return out
+
+
+set_param_shapes("Deconvolution", _deconv_shapes)
+
 
 # -- BatchNorm: gamma, beta and the aux moving stats are (C,) ---------------
 
@@ -75,6 +99,7 @@ def _bn_shapes(shapes, attrs):
 
 
 set_param_shapes("BatchNorm", _bn_shapes)
+set_param_shapes("InstanceNorm", _bn_shapes)
 
 
 # -- LayerNorm --------------------------------------------------------------
@@ -104,6 +129,31 @@ def _embedding_shapes(shapes, attrs):
 set_param_shapes("Embedding", _embedding_shapes)
 
 
+# -- LeakyReLU (gamma only for prelu) ---------------------------------------
+
+set_arg_select("LeakyReLU", lambda a: (
+    ("data", "gamma") if a.get("act_type") == "prelu" else ("data",)))
+
+
+def _prelu_shapes(shapes, attrs):
+    data = shapes[0]
+    out = list(shapes)
+    if len(out) > 1 and out[1] is None and data is not None:
+        out[1] = (data[1] if len(data) > 1 else 1,)
+    return out
+
+
+set_param_shapes("LeakyReLU", _prelu_shapes)
+
+
+# -- Sequence ops: sequence_length only when enabled ------------------------
+
+for _name in ("SequenceMask", "SequenceLast", "SequenceReverse"):
+    set_arg_select(_name, lambda a: (
+        ("data", "sequence_length") if a.get("use_sequence_length")
+        else ("data",)))
+
+
 # -- SoftmaxOutput: label shape from data shape -----------------------------
 # (reference: SoftmaxOutputProp::InferShape — label = data shape minus the
 # class axis)
@@ -122,6 +172,7 @@ def _softmax_label_shapes(shapes, attrs):
 
 
 set_param_shapes("SoftmaxOutput", _softmax_label_shapes)
+set_param_shapes("SVMOutput", _softmax_label_shapes)
 
 
 # -- regression heads: label shape = data shape -----------------------------

@@ -62,7 +62,12 @@ class TrainStep:
     """A training step on one device.
 
     state = (params: dict, opt_state: dict name -> tuple, aux: dict)
-    step(state, batch, lr, seed) -> (state, outputs)
+    step(state, batch, lr, rng) -> (state, outputs)
+
+    rng is a threefry key (``mx.random.PRNGKey(s)``, numpy ``uint32[2]``)
+    as in the JAX package, whose graph folds each rng node's uid into it
+    (Dropout's masks are then the JAX package's bits); an int ``s`` is
+    taken as ``PRNGKey(s)``.
     """
 
     def __init__(self, symbol, data_names=("data",),
@@ -189,7 +194,7 @@ class TrainStep:
         return {k: _tensor(v, self.device) for k, v in batch.items()}
 
     # -- the step ----------------------------------------------------------
-    def _grads(self, params, aux, batch, seed):
+    def _grads(self, params, aux, batch, rng):
         """(outputs, new_aux, grads): the Executor's one forward-and-
         backward (``executor.forward_backward``: ones as head cotangents)
         over the parameters, float32 gradients by name."""
@@ -206,14 +211,14 @@ class TrainStep:
             def cast(leaves):
                 return {k: v.to(cdt) for k, v in leaves.items()}
         outs, new_aux, grads = forward_backward(
-            self._eval_fn, {**feed, **params}, aux, seed, self.param_names,
+            self._eval_fn, {**feed, **params}, aux, rng, self.param_names,
             cast=cast)
         if cdt is not None:
             # aux states (BN moving stats) keep their own dtype
             new_aux = {k: v.to(aux[k].dtype) for k, v in new_aux.items()}
         return outs, new_aux, grads
 
-    def __call__(self, state, batch, lr, seed=0):
+    def __call__(self, state, batch, lr, rng):
         params, opt_state, aux = state
         batch = self.place_batch(batch)
         attrs = dict(self.opt_params)
@@ -221,7 +226,7 @@ class TrainStep:
             # Module.init_optimizer's default: the effective lr does not
             # scale with the batch unless the caller overrides
             attrs["rescale_grad"] = 1.0 / batch[self.data_names[0]].shape[0]
-        outs, new_aux, grads = self._grads(params, aux, batch, int(seed))
+        outs, new_aux, grads = self._grads(params, aux, batch, rng)
 
         with torch.no_grad():
             if self.clip_norm is not None:

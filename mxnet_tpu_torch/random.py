@@ -1,27 +1,30 @@
 """Global PRNG state — the PyTorch twin of ``mxnet_tpu/random.py``
 (reference: python/mxnet/random.py, src/resource.cc kRandom pools).
 
-``seed(s)`` reseeds two streams. The host-side numpy Generator
-(``numpy_rng``) is ``np.random.default_rng(s)`` exactly as in the JAX
-package, so initializers fill bit-identical values in both packages from
-one seed. The device-side stream hands out integer seeds (``next_key``,
-``fork_key``) from a ``torch.Generator``: the training step and the graph
-fold them per node into generators of their own. Those are torch's bits,
-not jax's threefry bits, so random ops agree with the JAX package in
-distribution, not value.
+The stream is the JAX package's: ONE threefry key (``_threefry``, bit-
+compatible with ``jax.random``), split on every draw. ``seed(s)`` sets
+it to ``PRNGKey(s)``; ``next_key()`` splits off a key for one eager op
+call or one graph run (the graph folds each rng node's uid into it), so
+``mx.random.seed(s)`` followed by the same calls gives the same bits in
+both packages. Keys are numpy ``uint32[2]`` on the host; only a draw
+over a shape runs on a device.
+
+``numpy_rng`` is the host-side ``np.random.default_rng(s)`` of the same
+seed, as in the JAX package, for the initializers' fills.
 """
 from __future__ import annotations
 
 import threading
 
 import numpy as np
-import torch
 
-__all__ = ["seed", "next_key", "fork_key", "numpy_rng"]
+from ._threefry import PRNGKey, fold_in, random_bits, split
+
+__all__ = ["seed", "next_key", "fork_key", "numpy_rng", "PRNGKey", "split",
+           "fold_in", "random_bits"]
 
 _state = threading.local()
 _DEFAULT_SEED = 0
-_SEED_BOUND = 2 ** 63 - 1
 
 
 def numpy_rng():
@@ -32,27 +35,28 @@ def numpy_rng():
     return _state.np_rng
 
 
-def _generator():
-    if not hasattr(_state, "gen"):
-        _state.gen = torch.Generator().manual_seed(_DEFAULT_SEED)
-    return _state.gen
+def _key():
+    if not hasattr(_state, "key"):
+        _state.key = PRNGKey(_DEFAULT_SEED)
+    return _state.key
 
 
 def seed(seed_state):
     """Seed all of the framework's random streams."""
     global _DEFAULT_SEED
     _DEFAULT_SEED = int(seed_state)
-    _state.gen = torch.Generator().manual_seed(int(seed_state))
+    _state.key = PRNGKey(int(seed_state))
     _state.np_rng = np.random.default_rng(int(seed_state))
 
 
 def next_key():
-    """A fresh integer seed from the global stream."""
-    return int(torch.randint(0, _SEED_BOUND, (1,),
-                             generator=_generator()).item())
+    """Split off a fresh key from the global stream."""
+    _state.key, sub = split(_key())
+    return sub
 
 
 def fork_key(n):
-    """n independent integer seeds."""
-    return [int(x) for x in torch.randint(0, _SEED_BOUND, (int(n),),
-                                          generator=_generator())]
+    """n independent keys."""
+    keys = split(_key(), n + 1)
+    _state.key = keys[0]
+    return keys[1:]

@@ -364,3 +364,47 @@ def test_executor_grads_equal_train_step_grads(case):
     for k, v in new_aux.items():
         np.testing.assert_array_equal(v.numpy(), texe.aux_dict[k].asnumpy(),
                                       err_msg=k)
+
+
+def _dropout_mlp(S):
+    x = S.Variable("data")
+    h = S.FullyConnected(x, name="fc1", num_hidden=16)
+    a = S.Activation(h, name="act1", act_type="relu")
+    d = S.Dropout(a, name="drop1", p=0.4)
+    o = S.FullyConnected(d, name="fc2", num_hidden=4)
+    return S.SoftmaxOutput(o, name="softmax")
+
+
+@pytest.mark.parametrize("seed", [0, 21])
+def test_executor_dropout_after_seed_matches_jax(seed):
+    """mx.random.seed(s), then bind -> forward(is_train=True) ->
+    backward twice: each forward draws its key from the global stream
+    (next_key) and the Dropout node folds its uid into it, so both
+    forwards' masks, outputs and gradients are the JAX package's; an
+    inference forward drops nothing."""
+    _j, _t, params, _aux, feed = _mlp_case()
+    jsym, tsym = _dropout_mlp(jmx.sym), _dropout_mlp(tmx.sym)
+    jmx.random.seed(seed)
+    tmx.random.seed(seed)
+    jexe = jsym.simple_bind(ctx=jmx.cpu(), **_shapes(feed))
+    texe = tsym.simple_bind(ctx=tmx.cpu(), **_shapes(feed))
+    for exe in (jexe, texe):
+        exe.copy_params_from(params, {})
+    captured = []
+    for _ in range(2):
+        seen = {}
+        texe.set_monitor_callback(
+            lambda name, arr: seen.setdefault(name, arr.asnumpy()))
+        for exe in (jexe, texe):
+            exe.forward(is_train=True, **feed)
+            exe.backward()
+        _check_exes(jexe, texe)
+        captured.append(seen["drop1"])
+    masks = [c != 0 for c in captured]
+    assert not np.array_equal(masks[0], masks[1])
+    jexe.forward(is_train=False)
+    texe.forward(is_train=False)
+    _check_exes(jexe, texe, grads_too=False)
+    # the stream advanced alike in both packages
+    np.testing.assert_array_equal(tmx.random.next_key(),
+                                  np.asarray(jmx.random.next_key()))

@@ -19,7 +19,10 @@ plain versions (``_stats_reference`` ...): the elementwise ones within
 rtol/atol 1e-6 in f32 and one bf16 step (rtol 1e-2) in bf16, the f32
 sums within 1e-4 of the sum of the terms' magnitudes per channel. The
 NMS kernel's keep masks equal its plain version's (``_nms_reference``)
-flag for flag, in ``chip_smoke.py``'s cases.
+flag for flag, in ``chip_smoke.py``'s cases. The threefry PRNG's bits and
+Dropout masks on the card equal its CPU draws, and both reproduce
+``chip_smoke.PRNG_DIGESTS``. ``test_utils.check_consistency`` holds
+LRN and Deconvolution on the card to their CPU runs.
 """
 import numpy as np
 import pytest
@@ -662,3 +665,71 @@ def test_cuda_multibox_detection_routes_agree(cuda_device, attrs):
     cpu = run("cpu", "auto")
     assert torch.equal(kernel[..., 0], cpu[..., 0])
     torch.testing.assert_close(kernel, cpu, rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the threefry PRNG: card bits against CPU bits (no JAX here; the JAX
+# comparison is tests/test_torch_random.py)
+# ---------------------------------------------------------------------------
+
+def test_prng_digests_on_the_cpu_match_the_table():
+    """The port's CPU draws reproduce chip_smoke.PRNG_DIGESTS (JAX's own
+    draws, recomputed from JAX by tests/test_torch_random.py)."""
+    import mxnet_tpu_torch as mx
+    assert chip_smoke.prng_digests(mx, mx.cpu()) == chip_smoke.PRNG_DIGESTS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(512, 4096), (70001,), ()], ids=str)
+@pytest.mark.parametrize("width", [8, 16, 32, 64])
+def test_cuda_random_bits_equal_cpu_bits(cuda_device, shape, width):
+    from mxnet_tpu_torch import _threefry as tf
+    key = tf.fold_in(tf.PRNGKey(0), 17)
+    assert torch.equal(tf.random_bits(key, shape, width, cuda_device).cpu(),
+                       tf.random_bits(key, shape, width, "cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_dropout_mask_equals_cpu_mask(cuda_device, dtype):
+    """Dropout on the card keeps exactly the CPU mask's elements."""
+    from mxnet_tpu_torch import _threefry as tf
+    key = tf.PRNGKey(3)
+    x = torch.randn(512, 4096).to(getattr(torch, dtype))
+    out = get_op("Dropout").fn(x.to(cuda_device), p=0.5, is_train=True,
+                               rng=key).cpu()
+    mask = tf.bernoulli(key, 0.5, (512, 4096), "cpu")
+    assert torch.equal(out, torch.where(mask, x / 0.5, 0.0).to(x.dtype))
+
+
+@pytest.mark.cuda
+def test_cuda_prng_digests_match_the_table(cuda_device):
+    import mxnet_tpu_torch as mx
+    assert chip_smoke.prng_digests(mx, mx.gpu(0)) == chip_smoke.PRNG_DIGESTS
+
+
+# ---------------------------------------------------------------------------
+# test_utils.check_consistency: the card against the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_check_consistency_holds_the_card_to_the_cpu(cuda_device):
+    """AlexNet's LRN and a Deconvolution run on gpu(0) inputs agree with
+    their CPU runs (and in bf16); a function that differs between the two
+    devices is caught."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import test_utils as ttu
+    x, w = _arrays((2, 8, 9, 9), (8, 4, 3, 3), seed=4)
+    inputs = [mx.nd.array(x, ctx=mx.gpu(0)), mx.nd.array(w, ctx=mx.gpu(0))]
+
+    def net(a, k):
+        h = mx.nd.LRN(a, nsize=5, alpha=1e-4, beta=0.75)
+        return mx.nd.Deconvolution(h, k, kernel=(3, 3), stride=(2, 2),
+                                   num_filter=4, no_bias=True)
+    out = ttu.check_consistency(net, inputs, dtypes=["bfloat16"])
+    assert out.context == mx.gpu(0) and out.shape == (2, 4, 19, 19)
+
+    def skewed(a, k):
+        return net(a, k) + (1e-3 if a.context == mx.gpu(0) else 0.0)
+    with pytest.raises(AssertionError, match="inconsistent on the CPU"):
+        ttu.check_consistency(skewed, inputs)

@@ -440,9 +440,9 @@ def test_nd_namespace_covers_the_registry():
             getattr(nd, name)
         with pytest.raises(NotImplementedError, match=name):
             getattr(tmx.sym, name)
-    assert not hasattr(nd, "Dropout")
-    with pytest.raises(treg.OpNotPorted, match="item 2"):
-        nd.Dropout
+    assert not hasattr(nd, "RNN")
+    with pytest.raises(treg.OpNotPorted, match="item 10"):
+        nd.RNN
     with pytest.raises(treg.OpNotPorted, match="item 7"):
         nd.contrib.CachedAttention
     with pytest.raises(AttributeError):

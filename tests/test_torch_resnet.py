@@ -340,7 +340,7 @@ def test_catalog_builds_resnet_and_names_what_is_not_ported():
     assert a.list_arguments() != b.list_arguments()
     assert tmodels.get_symbol("transformer", vocab_size=10,
                               seq_len=4).list_arguments()[0] == "data"
-    for name in ("lenet", "mlp", "vgg", "inception-v3", "resnext",
+    for name in ("lenet", "mlp", "googlenet", "inception-v4", "resnext",
                  "mobilenet", "inception_resnet_v2"):
         with pytest.raises(NotImplementedError, match="Queue A item 10"):
             tmodels.get_symbol(name, num_classes=10)

@@ -232,8 +232,8 @@ def test_bf16_params_round_trip_through_npz(tmp_path):
 
 @pytest.mark.parametrize("kw", [
     dict(block_type="ssm"), dict(num_experts=4), dict(pos_encoding="rope"),
-    dict(loss_chunk=8), dict(seq_axis="sp"), dict(dropout=0.1)],
-    ids=["ssm", "moe", "rope", "loss_chunk", "seq_axis", "dropout"])
+    dict(loss_chunk=8), dict(seq_axis="sp")],
+    ids=["ssm", "moe", "rope", "loss_chunk", "seq_axis"])
 def test_unported_options_raise_not_implemented(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port_symbol(**kw)

@@ -225,3 +225,35 @@ def test_lm_loss_gate():
         state, outs = step(state, feed, 3e-3, 0)
     final = lm_nll([outs[0].numpy()], labels, vocab)
     assert final < first / 2, (first, final)
+
+
+@pytest.mark.parametrize("key", ["jax_key", "int_seed"])
+def test_dropout_lm_step_matches_jax(lm, key):
+    """The LM with dropout=0.1 (a Dropout on every FFN output) trained
+    one SGD step from the same weights and key: the masks are the JAX
+    package's bits (fold_in(key, uid) per Dropout node), so the
+    outputs and the gradients agree in float32. The port takes the JAX
+    key's uint32[2], or the int seed as PRNGKey(seed)."""
+    _jsym, _tsym, state0, batch = lm
+    kw = dict(num_layers=LAYERS, num_heads=HEADS, dim=DIM, dropout=0.1)
+    jsym = jtransformer.get_symbol(V, T, **kw)
+    tsym = ttransformer.get_symbol(V, T, **kw)
+    assert sum(n.startswith("dropout") for n in
+               tsym.get_internals().list_outputs()) == LAYERS
+    opt = dict(optimizer="sgd", optimizer_params={"momentum": 0.0})
+    jstep = jmake_train_step(jsym, donate=False, **opt)
+    tstep = tmake_train_step(tsym, ctx=tmx.cpu(), **opt)
+    jkey = jax.random.PRNGKey(11)
+    jstate, jouts = jstep(state0, jstep.place_batch(batch), 1.0, jkey)
+    tstate, touts = tstep(state_from_jax(state0, "cpu"), batch, 1.0,
+                          np.asarray(jkey) if key == "jax_key" else 11)
+    np.testing.assert_allclose(touts[0].numpy(), np.asarray(jouts[0]),
+                               **F32)
+    for n, w in state0[0].items():
+        np.testing.assert_allclose(w - tstate[0][n].numpy(),
+                                   w - np.asarray(jstate[0][n]),
+                                   err_msg=n, **F32)
+    # another key draws other masks: the step's output moves
+    other, _ = tstep(state_from_jax(state0, "cpu"), batch, 1.0, 12)
+    assert not np.array_equal(other[0]["lm_head_weight"].numpy(),
+                              tstate[0]["lm_head_weight"].numpy())
