@@ -35,7 +35,8 @@ Phases (any failure exits non-zero; no phase is caught):
    compute, Xavier init, batch 8 of random tokens) through
    make_train_step -> init_state -> step: 2 warm steps (one profiled)
    and 10 timed ones, a finite and falling loss, and 4 launches of
-   flash_fwd_cuda and of flash_bwd_cuda per step; plus a small f32 LM whose one-step parameters
+   flash_fwd_cuda and of flash_bwd_cuda and one of the multi-tensor
+   update per step; plus a small f32 LM whose one-step parameters
    on the card must match the same step on the CPU;
 6. executor/eager path: the same LM bound in float32, 339.9 M
    parameters, batch 8 of random tokens, weights from a numpy seed,
@@ -90,7 +91,34 @@ Phases (any failure exits non-zero; no phase is caught):
    fold_in(PRNGKey(0), uid) keeps and 0 elsewhere; before it, AlexNet at batch 4, card against CPU (the
    Dropouts' masks, float64 gradients); the LRN and Dropout ops and a
    mask timed alone;
-13. one JSON line of every ported kernel, then the result line.
+13. multi-tensor kernels (csrc/multi_tensor.cu): the optimizer update
+   (adam_update, sgd_mom_update; float32 and bfloat16) bit-equal to its
+   plain version (the registry op parameter by parameter) in
+   MT_UPDATE_CASES (lists of more than MAX_TENSORS tensors among them)
+   and on the flagship LM's Adam list in both dtypes; the gradient
+   reduction's finite flag exact (NaN and Inf planted) and its sum of
+   squares within MT_SUM_RTOL, in MT_NORM_CASES and on the LM's
+   gradients and bf16 outputs; each wrapper's count equal to the kernels
+   it launched (one a MAX_TENSORS tensors, plus the reduction's pass
+   over its partials); each timed beside its bound, its plain version
+   and the nearest library call (torch._fused_adam_, torch._fused_sgd_,
+   torch._foreach_norm: not the same functions), with a 1 GiB copy_'s
+   rate for scale; the update launches once a step on the train, fit,
+   ResNet and AlexNet paths, the reduction twice a guarded (fit) step
+   and never on the unguarded ones;
+14. fit path: the flagship LM through make_train_step -> fit(NDArrayIter)
+   at full width (Adam, bf16, CosineScheduler, the fused
+   Perplexity(ignore_label=-1), the guardrail at its default,
+   MXNET_FAULT_SPEC=nan@6): the masked step leaves every parameter and
+   Adam state bit-equal, the last epoch's perplexity equals the host
+   recomputation over its unmasked batches within 1e-3, at most one
+   blocking host sync a step plus one a metric.get(), step ms, tokens/s,
+   peak memory; save_state -> load_state at full width bit for bit in a
+   temporary directory; at 2 layers under
+   torch.use_deterministic_algorithms(True), a fit cut by sigterm@4 and
+   resumed lands on the uninterrupted run's weights bit for bit;
+15. one JSON line of every ported kernel (a device time under its byte
+   bound fails the run: the timing lost work), then the result line.
 
 It imports nothing of JAX or of ``mxnet_tpu``. Without CUDA, or run
 outside the repository, it fails before printing any result.
@@ -104,6 +132,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 
 import numpy as np
 
@@ -155,10 +184,14 @@ def ptxas_summary(log):
         m = re.search(r"Compiling entry function '\S*?(flash_(?:fwd|bwd|dq|dkv)_"
                       r"(?:bf16|f32)|bn_(?:stats|apply|bwd_reduce|bwd_dx)_"
                       r"(?:bf16|f32)|bn_finalize|"
-                      r"nms_(?:cluster_|phases_)?kernel)(?:ILi(\d+)E)?",
+                      r"nms_(?:cluster_|phases_)?kernel|"
+                      r"mt_(?:update_kernel|norm_kernel|norm_finalize))"
+                      r"(?:ILi(\d+)E(f|13__nv_bfloat16)?)?",
                       line)
-        if m:   # the mangled name: ...<name>[ILi<DP>E]...
-            fn = m.group(1) + ("<%s>" % m.group(2) if m.group(2) else "")
+        if m:   # the mangled name: ...<name>[ILi<DP>E[<type>]]...
+            args = [{"f": "float", "13__nv_bfloat16": "bf16"}.get(a, a)
+                    for a in m.group(2, 3) if a]
+            fn = m.group(1) + ("<%s>" % ", ".join(args) if args else "")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -197,10 +230,16 @@ def time_ms(fn, reps=20, warmup=3):
 def device_ms(fn, kernel, reps=20):
     """Device time of one call's kernels whose name holds ``kernel`` (all
     of the call's kernels when ``kernel`` is empty): a torch.profiler
-    trace of ``reps`` warm calls, their kernel time summed and divided by
-    ``reps`` (without the host's time to enqueue a call, which CUDA
-    events around a short call include). Those kernels' launches per
-    call are left in ``device_ms.launches``."""
+    trace of ``reps`` warm calls, each after a marker kernel
+    (``torch.cuda._sleep(1)``), so the kernels between two markers are
+    one call's; the median over the calls of their kernel time (without
+    the host's time to enqueue a call, which CUDA events around a short
+    call include). The profiler can lose a kernel's record: on the H100
+    it dropped the first kernel of a trace launched from outside ATen,
+    and a plain mean over ``reps`` read 10-20% fast (PERF.md). So only
+    calls with the most common number of kernels count; that number is
+    left in ``device_ms.launches``, the calls left out in
+    ``device_ms.lost``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -209,15 +248,32 @@ def device_ms(fn, kernel, reps=20):
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            torch.cuda._sleep(1)
             fn()
+        torch.cuda._sleep(1)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == DeviceType.CUDA and kernel in e.name]
-    device_ms.launches = len(kernels) / reps
-    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    calls, cur = [], None
+    for e in events:
+        if "spin_kernel" in e.name:
+            if cur is not None:
+                calls.append(cur)
+            cur = []
+        elif cur is not None and kernel in e.name:
+            cur.append(e.time_range.elapsed_us())
+    if not calls:
+        fail("device_ms: no call of %r traced whole" % kernel)
+    count = statistics.mode(len(c) for c in calls)
+    whole = [sum(c) for c in calls if len(c) == count]
+    device_ms.launches = count
+    device_ms.lost = reps - len(whole)
+    return statistics.median(whole) / 1e3
 
 
 device_ms.launches = 0
+device_ms.lost = 0
 
 
 # ---------------------------------------------------------------------------
@@ -712,6 +768,9 @@ PROFILE_GROUPS = (
     ("reductions", ("reduce_kernel",)),
     ("sort", ("sort", "Sort", "radix")),
     ("embedding scatter/gather", ("index", "scatter", "gather", "cub")),
+    ("multi-tensor kernels (this port)", ("mt_update_kernel",
+                                          "mt_norm_kernel",
+                                          "mt_norm_finalize")),
     ("elementwise", ("elementwise", "Functor", "copy_kernel")),
 )
 
@@ -1069,6 +1128,7 @@ def train_phase(counters):
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
+    reset_mt_counts()
     nlls, times = [], []
     for i in range(WARM_STEPS + TIMED_STEPS):
         t = time.perf_counter()
@@ -1099,9 +1159,12 @@ def train_phase(counters):
         if n != LAYERS * steps:
             fail("train: %s launched %d times, not %d layers x %d steps"
                  % (name, n, LAYERS, steps))
-    say("train: launches %s (%d layers x %d steps each)" % (
-        ", ".join("%s %d" % kv for kv in sorted(launches.items())),
-        LAYERS, steps))
+    launches.update(check_mt_counts("train", steps, len(state[0])))
+    say("train: launches %s (%d layers x %d steps each; the multi-tensor "
+        "update once a step (under 256 parameters), the reduction never: no "
+        "guard, no clip_norm)"
+        % (", ".join("%s %d" % kv for kv in sorted(launches.items())),
+           LAYERS, steps))
     del state, batch, step
     torch.cuda.empty_cache()
     return launches
@@ -2020,6 +2083,7 @@ def resnet_train_run(kernels, counters):
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
+    reset_mt_counts()
     nlls, times = [], []
     for i in range(WARM_STEPS + TIMED_STEPS):
         t = time.perf_counter()
@@ -2057,6 +2121,8 @@ def resnet_train_run(kernels, counters):
         if n != want:
             fail("resnet %s: %s launched %d times, not %d" % (
                 route, name, n, want))
+    launches.update(check_mt_counts("resnet %s" % route, steps,
+                                    len(state[0])))
     say("resnet %s: launches %s (%d BatchNorms x %d steps each on the "
         "kernel route, none on the default route); %d moving stats "
         "finite" % (route, ", ".join("%s %d" % kv for kv in
@@ -2798,6 +2864,7 @@ def alexnet_phase():
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    reset_mt_counts()
     nlls, times = [], []
     for i in range(WARM_STEPS + TIMED_STEPS):
         t = time.perf_counter()
@@ -2812,6 +2879,8 @@ def alexnet_phase():
         nlls.append(mean_nll(outs[0], batch["softmax_label"]))
         del outs
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = check_mt_counts("alexnet", WARM_STEPS + TIMED_STEPS,
+                               len(state[0]))
     step_ms = statistics.median(times[WARM_STEPS:])
     say("alexnet: NLL per step %s" % " ".join("%.4f" % v for v in nlls))
     say("alexnet: step %.2f ms (median of %d timed steps; all: %s), %.1f "
@@ -2871,7 +2940,789 @@ def alexnet_phase():
         for k, (ms, n) in ops.items()))
     del a
     torch.cuda.empty_cache()
-    return step_ms
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the multi-tensor optimizer kernels (csrc/multi_tensor.cu)
+# ---------------------------------------------------------------------------
+
+def mt_ragged(n, big=None, seed=0):
+    """``n`` ragged tensor sizes (1 to 3000 elements) from a seeded
+    stream, with ``big`` (index, size) put in; lists of more than
+    MAX_TENSORS tensors take several launches."""
+    sizes = [int(x) for x in
+             np.random.RandomState(seed).randint(1, 3001, size=n)]
+    if big is not None:
+        sizes[big[0]] = big[1]
+    return tuple(sizes)
+
+
+# (id, op, sizes, attrs, flag, gscale, inv_scale, donate, dtype); shared
+# with tests/test_torch_kernels.py. A flag of False must leave every bit.
+MT_UPDATE_CASES = [
+    ("adam_ragged", "adam_update", (1, 2 ** 20 + 3, 7, 4096, 33), {}, None,
+     None, None, True, "float32"),
+    ("adam_wd_clip", "adam_update", (1000, 5, 2 ** 16 + 1),
+     {"wd": 1e-2, "clip_gradient": 0.05, "rescale_grad": 0.125}, True,
+     0.73, 0.25, True, "float32"),
+    ("adam_masked", "adam_update", (1, 300, 4099), {"wd": 1e-2}, False,
+     0.5, 0.5, True, "float32"),
+    ("adam_masked_fresh", "adam_update", (1, 300, 4099), {}, False, None,
+     None, False, "float32"),
+    ("adam_fresh", "adam_update", (17, 2 ** 20 + 3),
+     {"beta1": 0.8, "beta2": 0.95, "epsilon": 1e-6}, True, None, None,
+     False, "float32"),
+    ("sgd_mom", "sgd_mom_update", (1, 2 ** 20 + 3, 9),
+     {"momentum": 0.9, "wd": 1e-4, "rescale_grad": 1 / 512}, None, None,
+     None, True, "float32"),
+    ("sgd_plain_clip", "sgd_mom_update", (4096, 3),
+     {"clip_gradient": 0.01}, True, 0.9, None, True, "float32"),
+    ("sgd_masked", "sgd_mom_update", (64, 65), {"momentum": 0.9}, False,
+     None, None, True, "float32"),
+    # more than MAX_TENSORS tensors: several launches
+    ("adam_many", "adam_update", mt_ragged(300, (280, 2 ** 16 + 5)),
+     {"wd": 1e-3, "clip_gradient": 0.5}, True, 0.9, 0.5, True, "float32"),
+    ("sgd_many_masked_fresh", "sgd_mom_update", mt_ragged(520, seed=1),
+     {"momentum": 0.9}, False, None, None, False, "float32"),
+    # bfloat16 weights, gradients and states (init_state(dtype=...))
+    ("adam_bf16", "adam_update", (1, 2 ** 20 + 3, 7, 33),
+     {"wd": 1e-2, "clip_gradient": 0.3, "rescale_grad": 0.125}, True,
+     0.73, 0.25, True, "bfloat16"),
+    ("adam_bf16_fresh", "adam_update", (4099, 5),
+     {"beta1": 0.8, "epsilon": 1e-6}, None, None, None, False, "bfloat16"),
+    ("adam_bf16_masked", "adam_update", (300, 9), {}, False, 0.5, 0.5,
+     True, "bfloat16"),
+    ("sgd_mom_bf16", "sgd_mom_update", (2 ** 16 + 1, 3),
+     {"momentum": 0.9, "wd": 1e-4, "clip_gradient": 0.01}, True, 0.9,
+     None, True, "bfloat16"),
+    ("sgd_mom_bf16_many", "sgd_mom_update", mt_ragged(270, seed=2),
+     {"momentum": 0.9, "rescale_grad": 1 / 64}, None, None, 0.125, False,
+     "bfloat16"),
+]
+
+# (id, grad sizes, outputs: ((shape, dtype), ...), planted (where, value)
+# in the last gradient or output, inject, inv_scale, clip_norm); the flag
+# is exact, the sum within MT_SUM_RTOL of the plain version's
+MT_NORM_CASES = [
+    ("ragged", (1, 2 ** 20 + 3, 7, 4096), (), None, 1.0, None, None),
+    ("outs_bf16_clip", (5000, 3), (((2048, 33), "bfloat16"),), None, 1.0,
+     None, 0.5),
+    ("scaled", (70000, 1), (((100,), "float32"),), None, 1.0, 2.0 ** -10,
+     1.0),
+    ("nan_grad", (1000, 2 ** 20 + 3), (), ("grad", float("nan")), 1.0,
+     None, None),
+    ("inf_grad", (1000, 77), (), ("grad", float("inf")), 1.0, None, 2.0),
+    ("inf_out", (1000,), (((64, 65), "bfloat16"),), ("out", float("-inf")),
+     1.0, None, None),
+    ("injected_nan", (300, 4), (), None, float("nan"), None, 1.0),
+    # more than MAX_TENSORS tensors: several launches, the outputs after
+    # the gradients, straddling a launch boundary
+    ("many_grads", mt_ragged(600, (500, 2 ** 20 + 3), seed=3), (), None,
+     1.0, 2.0 ** -8, 1.0),
+    ("many_grads_nan", mt_ragged(300, seed=4),
+     (((64, 65), "bfloat16"), ((7,), "float32")), ("grad", float("nan")),
+     1.0, None, None),
+    ("outs_straddle", mt_ragged(250, seed=5),
+     tuple(((100 + i,), ("float32", "bfloat16")[i % 2]) for i in range(10)),
+     None, 1.0, 0.5, 2.0),
+    ("outs_straddle_inf", mt_ragged(250, seed=5),
+     tuple(((100 + i,), ("float32", "bfloat16")[i % 2]) for i in range(10)),
+     ("out", float("inf")), 1.0, None, None),
+]
+MT_SUM_RTOL = 1e-6
+MT_LR = 0.0123
+
+
+def mt_operands(op, sizes, device, seed=0, dtype="float32"):
+    """(weights, grads, state tuples) of ``dtype`` from a seeded CPU
+    generator, on ``device``."""
+    import torch
+    from mxnet_tpu_torch.ops import optimizer_kernels as mt
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def rnd(n, scale=1.0):
+        return (torch.randn(n, generator=gen) * scale).to(
+            getattr(torch, dtype)).to(device)
+    ws = [rnd(n) for n in sizes]
+    gs = [rnd(n, 3.0) for n in sizes]
+    if mt.MT_OPS[op][1] == 2:
+        ss = [(rnd(n, 0.1), rnd(n).abs()) for n in sizes]
+    else:
+        ss = [(rnd(n, 0.1),) for n in sizes]
+    return ws, gs, ss
+
+
+def mt_scalars(device, flag, gscale, inv):
+    """The update's device scalars (bool flag, float32 gscale and
+    inv_scale) as 0-d tensors, None where not given."""
+    import torch
+
+    def t(v, dtype):
+        return None if v is None else torch.tensor(v, dtype=dtype,
+                                                   device=device)
+    return (t(flag, torch.bool), t(gscale, torch.float32),
+            t(inv, torch.float32))
+
+
+def mt_norm_operands(case, device):
+    """(grads, outs, inv_scale tensor) of a MT_NORM_CASES case, the
+    planted value in place."""
+    import torch
+    _, sizes, outs, plant, _, inv, _ = case
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    grads = [torch.randn(n, generator=gen).to(device) for n in sizes]
+    out_t = [torch.rand(shape, generator=gen).to(getattr(torch, dtype)).to(
+        device) for shape, dtype in outs]
+    if plant is not None:
+        where, value = plant
+        target = grads[-1] if where == "grad" else out_t[-1]
+        target.view(-1)[target.numel() // 2] = value
+    inv_t = None if inv is None else torch.tensor(
+        inv, dtype=torch.float32, device=device)
+    return grads, out_t, inv_t
+
+
+def _int_bits(t):
+    """The tensor's bits, for a comparison that tells -0 from 0 and NaNs
+    apart."""
+    import torch
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def mt_launches(n_tensors, reduction=False):
+    """Kernels one call of a multi-tensor wrapper launches over
+    ``n_tensors`` non-empty tensors: one a MAX_TENSORS tensors, and the
+    reduction's pass over the partials."""
+    from mxnet_tpu_torch.ops import optimizer_kernels as mt
+    k = -(-n_tensors // mt.MAX_TENSORS)
+    return k + 1 if reduction else k
+
+
+def mt_update_check(what, op, ws, gs, ss, attrs, scalars, donate, lr):
+    """The update kernel against its plain version on copies of the same
+    operands: every weight and state bit-equal. Returns the worst
+    |kernel - plain| (0.0)."""
+    import torch
+    from mxnet_tpu_torch.ops import optimizer_kernels as mt
+    fl, gsc, inv = scalars
+    ref = ([t.clone() for t in ws], [t.clone() for t in gs],
+           [tuple(x.clone() for x in s) for s in ss])
+    before = mt.multi_tensor_opt_update_cuda.launches
+    kw, ks = mt.multi_tensor_opt_update_cuda(
+        op, ws, gs, ss, lr, attrs, flag=fl, gscale=gsc, inv_scale=inv,
+        donate=donate)
+    launched = mt.multi_tensor_opt_update_cuda.launches - before
+    if launched != mt_launches(len(ws)):
+        fail("%s: the update counted %d launches over %d tensors, not %d"
+             % (what, launched, len(ws), mt_launches(len(ws))))
+    rw, rs = mt._opt_update_reference(op, *ref, lr, attrs, flag=fl,
+                                      gscale=gsc, inv_scale=inv,
+                                      donate=donate)
+    torch.cuda.synchronize()
+    pairs = list(zip(kw, rw)) + [(a, b) for sa, sb in zip(ks, rs)
+                                 for a, b in zip(sa, sb)]
+    for a, b in pairs:
+        if not torch.equal(_int_bits(a), _int_bits(b)):
+            fail("%s: the update kernel differs from its plain version by "
+                 "%g (max abs)" % (what, float((a - b).abs().max())))
+    return 0.0
+
+
+def mt_norm_check(what, grads, outs, inject, inv, rescale, clip):
+    """The reduction against its plain version: the flag exact, the sum
+    of squares and gscale within MT_SUM_RTOL. Returns (|dS|, dS/S)."""
+    import torch
+    from mxnet_tpu_torch.ops import optimizer_kernels as mt
+    before = mt.multi_tensor_norm_finite_cuda.launches
+    s, ok, gs = mt.multi_tensor_norm_finite_cuda(
+        grads, outs, inject=inject, inv_scale=inv, rescale=rescale,
+        clip_norm=clip)
+    launched = mt.multi_tensor_norm_finite_cuda.launches - before
+    want = mt_launches(len(grads) + len(outs), reduction=True)
+    if launched != want:
+        fail("%s: the reduction counted %d launches over %d tensors, not %d"
+             % (what, launched, len(grads) + len(outs), want))
+    rs, rok, rgs = mt._norm_finite_reference(
+        grads, outs, inject=inject, inv_scale=inv, rescale=rescale,
+        clip_norm=clip)
+    torch.cuda.synchronize()
+    if bool(ok) != bool(rok):
+        fail("%s: the reduction's finite flag %s, its plain version's %s"
+             % (what, bool(ok), bool(rok)))
+    if not bool(rok):
+        return 0.0, 0.0
+    err = abs(float(s) - float(rs))
+    rel = err / abs(float(rs)) if float(rs) else err
+    gerr = abs(float(gs) - float(rgs)) / abs(float(rgs))
+    if rel > MT_SUM_RTOL or gerr > MT_SUM_RTOL:
+        fail("%s: sum of squares %r against %r (rel %.3g), gscale %r "
+             "against %r (limit %g)" % (what, float(s), float(rs), rel,
+                                        float(gs), float(rgs),
+                                        MT_SUM_RTOL))
+    return err, rel
+
+
+def param_shapes(sym, data_shapes):
+    """The parameters' shapes of a symbol at these input shapes."""
+    arg_shapes, _, _ = sym.infer_shape(**data_shapes)
+    inputs = set(data_shapes)
+    return [tuple(s) for n, s in zip(sym.list_arguments(), arg_shapes)
+            if n not in inputs]
+
+
+def mt_kernel_phase():
+    """The two multi-tensor kernels against their plain versions on the
+    card (the update bit for bit at MT_UPDATE_CASES and on the flagship
+    LM's 339.9 M-parameter Adam list; the reduction's flag exact with a
+    NaN and an Inf planted, its sum within MT_SUM_RTOL, at
+    MT_NORM_CASES and on the LM's gradients and outputs), then each
+    timed at the LM's shapes beside its bound, its plain version and the
+    nearest library call (not the same function: torch._fused_adam_
+    applies a bias correction adam_update does not; torch._foreach_norm
+    returns one norm a tensor and no flag), and the SGD-momentum update
+    at AlexNet's and ResNet-50's lists (torch._fused_sgd_)."""
+    import torch
+    from mxnet_tpu_torch.models import alexnet, resnet, transformer
+    from mxnet_tpu_torch.ops import optimizer_kernels as mt
+
+    dev = torch.device("cuda", 0)
+    for case in MT_UPDATE_CASES:
+        name, op, sizes, attrs, flag, gscale, inv, donate, dtype = case
+        ws, gs, ss = mt_operands(op, sizes, dev, dtype=dtype)
+        mt_update_check("multi_tensor update %s" % name, op, ws, gs, ss,
+                        attrs, mt_scalars(dev, flag, gscale, inv), donate,
+                        MT_LR)
+    worst_rel = 0.0
+    for case in MT_NORM_CASES:
+        grads, outs, inv = mt_norm_operands(case, dev)
+        _, rel = mt_norm_check("multi_tensor norm %s" % case[0], grads,
+                               outs, case[4], inv, 0.125, case[6])
+        worst_rel = max(worst_rel, rel)
+    say("kernel multi_tensor: the update bit-equal to its plain version in "
+        "%d cases (1 to 2^20+3 elements, wd, clip_gradient, gscale, "
+        "1/scale, a false flag, in place and fresh); the reduction's flag "
+        "exact and its sum within %.3g relative in %d cases (NaN and Inf "
+        "planted, the nan@N multiplier)" % (
+            len(MT_UPDATE_CASES), worst_rel, len(MT_NORM_CASES)))
+
+    # the flagship LM's parameter list (Adam, bench.py's step)
+    sym = transformer.get_symbol(VOCAB, SEQ, num_layers=LAYERS,
+                                 num_heads=HEADS, dim=DIM,
+                                 ffn_hidden=4 * DIM)
+    shapes = param_shapes(sym, {"data": (TRAIN_BATCH, SEQ),
+                                "softmax_label": (TRAIN_BATCH, SEQ)})
+    sizes = [int(np.prod(s)) for s in shapes]
+    N = sum(sizes)
+    attrs = {"rescale_grad": 1.0 / TRAIN_BATCH}
+    ws, gs, ss = mt_operands("adam_update", sizes, dev, seed=5)
+    err = mt_update_check("multi_tensor update, LM (%d tensors)"
+                          % len(sizes), "adam_update", ws, gs, ss, attrs,
+                          (None, None, None), False, TRAIN_LR)
+    outs = torch.rand((TRAIN_BATCH * SEQ, VOCAB), device=dev).to(
+        torch.bfloat16)
+    s_err, s_rel = mt_norm_check("multi_tensor norm, LM", gs, [outs], 1.0,
+                                 None, 1.0 / TRAIN_BATCH, 1.0)
+
+    # what the card's memory delivers to a plain copy, for scale beside
+    # the bounds' published 3.35 TB/s: 1 GiB read and 1 GiB written
+    src = torch.empty(2 ** 28, device=dev)
+    dst = torch.empty_like(src)
+    copy_ms = device_ms(lambda: dst.copy_(src), "", reps=10)
+    copy_rate = 2 * 2 ** 30 / copy_ms / 1e9
+    say("kernel multi_tensor: a 1 GiB float32 copy_ takes %.4f ms: %.3f "
+        "TB/s read + written (%d of 10 traced calls lost a record)" % (
+            copy_ms, copy_rate, device_ms.lost))
+    del src, dst
+
+    upd = lambda: mt.multi_tensor_opt_update_cuda(  # noqa: E731
+        "adam_update", ws, gs, ss, TRAIN_LR, attrs)
+    upd_ms = device_ms(upd, "", reps=10)
+    upd_launches, upd_lost = device_ms.launches, device_ms.lost
+    if upd_launches != mt_launches(len(sizes)):
+        fail("multi_tensor update, LM: %g kernels a call traced, not %d"
+             % (upd_launches, mt_launches(len(sizes))))
+    plain_ms = device_ms(lambda: mt._opt_update_reference(
+        "adam_update", ws, gs, ss, TRAIN_LR, attrs), "", reps=3)
+    plain_launches = device_ms.launches
+    means = [s[0] for s in ss]
+    variances = [s[1] for s in ss]
+    steps = [torch.ones((), device=dev) for _ in ws]
+    lib_ms = device_ms(lambda: torch._fused_adam_(
+        ws, gs, means, variances, [], steps, lr=TRAIN_LR, beta1=0.9,
+        beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
+        maximize=False), "", reps=10)
+    upd_bound = 28 * N / PEAK_BYTES_PER_S * 1e3
+    say("kernel multi_tensor_opt_update (adam, LM %d tensors, %d params): "
+        "%.4f ms device time in %g launches (%d of 10 traced calls lost a "
+        "record), bound %.4f ms (bytes, 28 B a parameter): %.3f TB/s, "
+        "%.1f%% of the copy_'s rate; plain per-parameter route %.4f ms in "
+        "%g launches, library torch._fused_adam_ %.4f ms (bias-corrected: "
+        "not the same function)" % (
+            len(sizes), N, upd_ms, upd_launches, upd_lost, upd_bound,
+            28 * N / upd_ms / 1e9, 100 * 28 * N / upd_ms / 1e9 / copy_rate,
+            plain_ms, plain_launches, lib_ms))
+
+    norm = lambda: mt.multi_tensor_norm_finite_cuda(  # noqa: E731
+        gs, [outs], rescale=1.0 / TRAIN_BATCH, clip_norm=1.0)
+    norm_ms = device_ms(norm, "", reps=10)
+    norm_launches, norm_lost = device_ms.launches, device_ms.lost
+    if norm_launches != mt_launches(len(gs) + 1, reduction=True):
+        fail("multi_tensor norm, LM: %g kernels a call traced, not %d"
+             % (norm_launches, mt_launches(len(gs) + 1, reduction=True)))
+    norm_plain = device_ms(lambda: mt._norm_finite_reference(
+        gs, [outs], rescale=1.0 / TRAIN_BATCH, clip_norm=1.0), "", reps=3)
+    norm_lib = device_ms(lambda: torch._foreach_norm(gs), "", reps=10)
+    norm_bytes = 4 * N + 2 * outs.numel()
+    norm_bound = norm_bytes / PEAK_BYTES_PER_S * 1e3
+    say("kernel multi_tensor_norm_finite (LM gradients %d params + the "
+        "bf16 outputs %r): %.4f ms device time in %g launches (%d of 10 "
+        "traced calls lost a record), bound %.4f ms (bytes: %.3f GB): "
+        "%.3f TB/s read; plain %.4f ms, library torch._foreach_norm %.4f "
+        "ms (per-tensor norms, no flag); sum of squares |err| %.3g (rel "
+        "%.3g)" % (
+            N, tuple(outs.shape), norm_ms, norm_launches, norm_lost,
+            norm_bound, norm_bytes / 1e9, norm_bytes / norm_ms / 1e9,
+            norm_plain, norm_lib, s_err, s_rel))
+    del ws, gs, ss, means, variances, steps, outs
+    torch.cuda.empty_cache()
+
+    # the LM's list in bfloat16 (init_state(dtype="bfloat16")): 14 B a
+    # parameter
+    ws, gs, ss = mt_operands("adam_update", sizes, dev, seed=7,
+                             dtype="bfloat16")
+    mt_update_check("multi_tensor update, LM bf16", "adam_update", ws, gs,
+                    ss, attrs, (None, None, None), False, TRAIN_LR)
+    bf16_ms = device_ms(lambda: mt.multi_tensor_opt_update_cuda(
+        "adam_update", ws, gs, ss, TRAIN_LR, attrs), "", reps=10)
+    bf16_plain = device_ms(lambda: mt._opt_update_reference(
+        "adam_update", ws, gs, ss, TRAIN_LR, attrs), "", reps=3)
+    bf16_bound = 14 * N / PEAK_BYTES_PER_S * 1e3
+    say("kernel multi_tensor_opt_update (adam, LM, bfloat16): %.4f ms "
+        "device time, bound %.4f ms (bytes, 14 B a parameter), plain %.4f "
+        "ms" % (bf16_ms, bf16_bound, bf16_plain))
+    del ws, gs, ss
+    torch.cuda.empty_cache()
+
+    # SGD with momentum at the image models' lists (bench.py's steps)
+    sgd = {}
+    for label, net, shape in (
+            ("alexnet", alexnet.get_symbol(num_classes=ALEX_CLASSES),
+             (ALEX_BATCH, 3, ALEX_IMAGE, ALEX_IMAGE)),
+            ("resnet-%d" % RESNET_LAYERS, resnet.get_symbol(
+                num_classes=RESNET_CLASSES, num_layers=RESNET_LAYERS,
+                image_shape=(3, RESNET_IMAGE, RESNET_IMAGE)),
+             (RESNET_BATCH, 3, RESNET_IMAGE, RESNET_IMAGE))):
+        sizes = [int(np.prod(s)) for s in param_shapes(
+            net, {"data": shape, "softmax_label": (shape[0],)})]
+        n = sum(sizes)
+        a = {"momentum": 0.9, "wd": 1e-4, "rescale_grad": 1.0 / shape[0]}
+        ws, gs, ss = mt_operands("sgd_mom_update", sizes, dev, seed=6)
+        mt_update_check("multi_tensor update, %s sgd" % label,
+                        "sgd_mom_update", ws, gs, ss, a,
+                        (None, None, None), False, 0.1)
+        k_ms = device_ms(lambda: mt.multi_tensor_opt_update_cuda(
+            "sgd_mom_update", ws, gs, ss, 0.1, a), "", reps=10)
+        p_ms = device_ms(lambda: mt._opt_update_reference(
+            "sgd_mom_update", ws, gs, ss, 0.1, a), "", reps=3)
+        moms = [s[0] for s in ss]
+        l_ms = device_ms(lambda: torch._fused_sgd_(
+            ws, gs, moms, weight_decay=1e-4, momentum=0.9, lr=0.1,
+            dampening=0.0, nesterov=False, maximize=False,
+            is_first_step=False), "", reps=10)
+        sgd[label] = (len(sizes), n, k_ms, 20 * n / PEAK_BYTES_PER_S * 1e3,
+                      p_ms, l_ms)
+        say("kernel multi_tensor_opt_update (sgd momentum, %s %d tensors, "
+            "%d params): %.4f ms device time, bound %.4f ms (bytes, 20 B a "
+            "parameter), plain %.4f ms, library torch._fused_sgd_ %.4f ms"
+            % (label, len(sizes), n, k_ms, sgd[label][3], p_ms, l_ms))
+        del ws, gs, ss, moms
+        torch.cuda.empty_cache()
+
+    return [
+        {"name": "multi_tensor_opt_update", "route": "cuda",
+         "source": "mxnet_tpu_torch/csrc/multi_tensor.cu",
+         "replaces": "mxnet_tpu/parallel/trainer.py:1076",
+         "launches": None, "max_abs_err": err, "ms": upd_ms,
+         "plain_ms": plain_ms, "bound_ms": upd_bound, "bound_by": "bytes",
+         "library_ms": lib_ms, "library": "torch._fused_adam_",
+         "shape": "LM Adam, %d params" % N,
+         "bf16": {"ms": bf16_ms, "bound_ms": bf16_bound,
+                  "plain_ms": bf16_plain},
+         "sgd": {k: {"tensors": v[0], "params": v[1], "ms": v[2],
+                     "bound_ms": v[3], "plain_ms": v[4], "library_ms": v[5]}
+                 for k, v in sgd.items()}},
+        {"name": "multi_tensor_norm_finite", "route": "cuda",
+         "source": "mxnet_tpu_torch/csrc/multi_tensor.cu",
+         "replaces": "mxnet_tpu/parallel/trainer.py:1043",
+         "launches": None, "max_abs_err": s_err, "max_rel_err": s_rel,
+         "ms": norm_ms, "plain_ms": norm_plain, "bound_ms": norm_bound,
+         "bound_by": "bytes", "library_ms": norm_lib,
+         "library": "torch._foreach_norm",
+         "shape": "LM gradients %d params + outputs %dx%d bf16" % (
+             N, TRAIN_BATCH * SEQ, VOCAB)},
+    ]
+
+
+def mt_counters():
+    from mxnet_tpu_torch.ops import optimizer_kernels as mt
+    return mt.multi_tensor_opt_update_cuda, mt.multi_tensor_norm_finite_cuda
+
+
+def reset_mt_counts():
+    for c in mt_counters():
+        c.launches = 0
+
+
+def check_mt_counts(what, steps, n_params, n_outs=None):
+    """Fail unless the multi-tensor update launched mt_launches(n_params)
+    kernels a step, and the reduction over the gradients and the
+    ``n_outs`` outputs mt_launches(n_params + n_outs, reduction=True) a
+    guarded step (``n_outs`` given) and none otherwise; their counts."""
+    upd, norm = mt_counters()
+    guarded = n_outs is not None
+    want = {upd.__name__: steps * mt_launches(n_params),
+            norm.__name__: steps * mt_launches(n_params + n_outs, True)
+            if guarded else 0}
+    got = {upd.__name__: upd.launches, norm.__name__: norm.launches}
+    if got != want:
+        fail("%s: multi-tensor launches %r, not %r (%d steps)"
+             % (what, got, want, steps))
+    return got
+
+
+# ---------------------------------------------------------------------------
+# fit path: TrainStep.fit on the flagship LM
+# ---------------------------------------------------------------------------
+
+FIT_BATCHES, FIT_EPOCHS = 4, 2     # batches an epoch, epochs
+FIT_NAN_STEP = 6                    # MXNET_FAULT_SPEC nan@6: epoch 1's 2nd
+PPL_RTOL = 1e-3
+RESUME_LAYERS, RESUME_BATCHES, RESUME_SIGTERM = 2, 3, 4
+
+
+def lm_tokens(n_batches, seed):
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(0, VOCAB, (n_batches * TRAIN_BATCH, SEQ)).astype(
+        np.float32)
+    labels = np.roll(toks, -1, axis=1)
+    labels[:, -1] = -1
+    return toks, labels
+
+
+def batch_nll(outs, placed):
+    """(sum of -log p at the labels that are not -1, their count) of one
+    batch, on the card in float32, as Perplexity sums it."""
+    import torch
+    lab = placed["softmax_label"].reshape(-1).long()
+    valid = lab >= 0
+    p = outs[0].reshape(-1, outs[0].shape[-1])[
+        torch.arange(lab.numel(), device=lab.device), lab].float()
+    p = torch.where(valid, p, torch.ones_like(p))
+    return (-torch.log(torch.clamp(p, min=1e-10)).sum(),
+            valid.sum().float())
+
+
+def fit_phase():
+    """The flagship LM through make_train_step -> fit(NDArrayIter) at
+    full width: Adam, bf16 compute, rescale 1/8, a CosineScheduler, the
+    fused Perplexity(ignore_label=-1), the guardrail at its default and
+    MXNET_FAULT_SPEC=nan@FIT_NAN_STEP. A checked run: the masked step
+    leaves every parameter and Adam state bit-equal (read through the
+    batch-end callback's locals), guard_report counts one masked step,
+    and the last epoch's perplexity equals the host recomputation over
+    its unmasked batches within PPL_RTOL, with the masked batch out of
+    the metric's count. A timed run (no callback work): at most one
+    blocking host sync a step plus one a metric.get(), step ms (median,
+    boundary to boundary), tokens/s, peak memory, and the launch counts.
+    Then save_state -> load_state at full width, bit for bit, in a
+    temporary directory; and, at depth RESUME_LAYERS under
+    torch.use_deterministic_algorithms(True), a fit cut by
+    sigterm@RESUME_SIGTERM exits at its boundary checkpoint and the
+    resumed fit lands on the uninterrupted run's weights bit for bit.
+    Returns the timed run's launch counts."""
+    import shutil
+    import tempfile
+
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import io, lr_scheduler, metric, profiler
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.parallel import make_train_step
+    from mxnet_tpu_torch.parallel import resilience
+
+    B = TRAIN_BATCH
+    steps = FIT_BATCHES * FIT_EPOCHS
+    t0 = time.perf_counter()
+    sym = transformer.get_symbol(VOCAB, SEQ, num_layers=LAYERS,
+                                 num_heads=HEADS, dim=DIM,
+                                 ffn_hidden=4 * DIM)
+    step = make_train_step(sym, optimizer="adam",
+                           optimizer_params={"rescale_grad": 1.0 / B},
+                           compute_dtype="bfloat16")
+    toks, labels = lm_tokens(FIT_BATCHES, seed=3)
+    train = io.NDArrayIter(toks, labels, batch_size=B)
+    mx.random.seed(0)
+    state = step.init_state(Xavier(), {"data": (B, SEQ),
+                                       "softmax_label": (B, SEQ)})
+
+    def sched():
+        return lr_scheduler.CosineScheduler(
+            max_update=2 * steps, base_lr=TRAIN_LR, final_lr=TRAIN_LR / 10,
+            warmup_steps=2, warmup_begin_lr=TRAIN_LR / 2)
+
+    say("fit: flagship LM, %d batches x %d epochs of %d x %d random tokens "
+        "through NDArrayIter, Adam + CosineScheduler, bf16 compute, "
+        "Perplexity(ignore_label=-1) fused, guardrail %s, "
+        "MXNET_FAULT_SPEC=nan@%d, set up in %.1f s" % (
+            FIT_BATCHES, FIT_EPOCHS, B, SEQ,
+            "on" if mx.config.get("MXNET_GUARDRAIL") else "OFF",
+            FIT_NAN_STEP, time.perf_counter() - t0))
+    if not mx.config.get("MXNET_GUARDRAIL"):
+        fail("fit: MXNET_GUARDRAIL is off; the phase runs fit's default")
+
+    # -- the checked run -------------------------------------------------
+    resilience.install_fault_injector(None)
+    os.environ["MXNET_FAULT_SPEC"] = "nan@%d" % FIT_NAN_STEP
+    seen = {"n": 0, "nll": [], "snap": None, "masked_equal": None}
+
+    def snap(state):
+        p, o, _ = state
+        return ({k: v.clone() for k, v in p.items()},
+                {k: tuple(s.clone() for s in v) for k, v in o.items()})
+
+    def check_cb(param):
+        seen["n"] += 1
+        n = seen["n"]
+        loc = param.locals
+        if param.epoch == FIT_EPOCHS - 1:
+            seen["nll"].append((n, batch_nll(loc["outs"], loc["placed"])))
+        if n == FIT_NAN_STEP - 1:
+            seen["snap"] = snap(loc["state"])
+        elif n == FIT_NAN_STEP:
+            before, (p, o, _) = seen["snap"], loc["state"]
+            seen["masked_equal"] = (
+                all(torch.equal(p[k], before[0][k]) for k in p) and
+                all(torch.equal(a, b) for k in o
+                    for a, b in zip(o[k], before[1][k])))
+            seen["snap"] = None
+    ppl = metric.Perplexity(ignore_label=-1)
+    state, val = step.fit(train, num_epoch=FIT_EPOCHS, state=state,
+                          lr_scheduler=sched(), eval_metric=ppl,
+                          batch_end_callback=check_cb)
+    del os.environ["MXNET_FAULT_SPEC"]
+    report = dict(step.guard_report)
+    if report.get("masked_steps") != 1:
+        fail("fit: guard_report %r, not one masked step" % (report,))
+    if not seen["masked_equal"]:
+        fail("fit: the masked step %d changed the parameters or the Adam "
+             "state" % FIT_NAN_STEP)
+    kept = [(float(s), float(c)) for n, (s, c) in seen["nll"]
+            if n != FIT_NAN_STEP]
+    want = float(np.exp(sum(s for s, _ in kept) / sum(c for _, c in kept)))
+    num = float(ppl._dev_stats["num"])
+    if num != sum(c for _, c in kept):
+        fail("fit: the perplexity counts %g tokens, the unmasked batches "
+             "hold %g" % (num, sum(c for _, c in kept)))
+    if not np.isfinite(val) or abs(val - want) > PPL_RTOL * want:
+        fail("fit: last epoch's perplexity %r, host recomputation over "
+             "the unmasked batches %r (rtol %g)" % (val, want, PPL_RTOL))
+    say("fit: checked run: guard_report %r; the masked step %d left every "
+        "parameter and Adam state bit-equal; last epoch's perplexity %.4f "
+        "= host recomputation over its %d unmasked batches %.4f (%d "
+        "tokens, the masked batch out)" % (
+            report, FIT_NAN_STEP, val, len(kept), want, int(num)))
+    del seen
+
+    # -- the timed run -----------------------------------------------------
+    counters = (att.flash_fwd_cuda, att.flash_bwd_cuda) + mt_counters()
+    for c in counters:
+        c.launches = 0
+    marks = []
+    resilience.install_fault_injector(
+        resilience.FaultInjector("nan@%d" % FIT_NAN_STEP))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = profiler.host_sync_count()
+    t = time.perf_counter()
+    # PyTorch's own record of the stream syncs its ops make (a D2H read,
+    # a blocking H2D copy): the fit loop's are the metric's reads
+    with warnings.catch_warnings(record=True) as flagged:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state, val2 = step.fit(
+                train, num_epoch=FIT_EPOCHS, state=state,
+                lr_scheduler=sched(),
+                eval_metric=metric.Perplexity(ignore_label=-1),
+                batch_end_callback=lambda p: marks.append(
+                    time.perf_counter()))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    syncs = profiler.host_sync_count() - base
+    flagged = [str(w.message).splitlines()[0] for w in flagged
+               if "called a synchronizing CUDA operation"
+               in str(w.message)]
+    say("fit: timed run: PyTorch's sync debug mode flagged %d "
+        "synchronizing operations (limit: the %d epochs' metric reads)"
+        % (len(flagged), FIT_EPOCHS))
+    if len(flagged) > FIT_EPOCHS:
+        fail("fit: %d stream syncs in the timed run: %s" % (
+            len(flagged), "; ".join(sorted(set(flagged))[:4])))
+    resilience.install_fault_injector(None)
+    launches = {c.__name__: c.launches for c in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gaps = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    fit_ms = statistics.median(gaps)
+    say("fit: timed run: step %.2f ms (median boundary to boundary; all: "
+        "%s), %.0f tokens/s, %d steps in %.2f s, peak device memory %.2f "
+        "GB, perplexity %.4f, %d blocking host syncs (limit %d steps + %d "
+        "metric reads), guard_report %r" % (
+            fit_ms, " ".join("%.1f" % g for g in gaps), B * SEQ / fit_ms * 1e3,
+            steps, wall, peak_gb, val2, syncs, steps, FIT_EPOCHS,
+            step.guard_report))
+    if syncs > steps + FIT_EPOCHS:
+        fail("fit: %d blocking host syncs for %d steps and %d metric "
+             "reads" % (syncs, steps, FIT_EPOCHS))
+    if step.guard_report.get("masked_steps") != 1 or not np.isfinite(val2):
+        fail("fit: timed run guard_report %r, perplexity %r"
+             % (step.guard_report, val2))
+    for name in (att.flash_fwd_cuda.__name__, att.flash_bwd_cuda.__name__):
+        if launches[name] != LAYERS * steps:
+            fail("fit: %s launched %d times, not %d layers x %d steps"
+                 % (name, launches[name], LAYERS, steps))
+    check_mt_counts("fit", steps, len(state[0]),
+                    len(step.symbol.list_outputs()))
+    say("fit: launches %s" % ", ".join("%s %d" % kv for kv in
+                                       sorted(launches.items())))
+
+    # -- save_state -> load_state at full width ----------------------------
+    need = sum(v.numel() * v.element_size() for v in state[0].values())
+    need += sum(s.numel() * s.element_size() for v in state[1].values()
+                for s in v)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ck_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        if free < 1.2 * need:
+            fail("fit: %.2f GB free under %s, the full-width checkpoint "
+                 "needs %.2f GB" % (free / 1e9, tmp, need / 1e9))
+        t = time.perf_counter()
+        path = step.save_state(os.path.join(tmp, "lm"), state)
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        loaded = step.load_state(os.path.join(tmp, "lm"))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        size = os.path.getsize(path)
+        same = (set(loaded[0]) == set(state[0]) and all(
+            torch.equal(loaded[0][k], state[0][k]) for k in state[0]) and
+            all(torch.equal(a, b) for k in state[1]
+                for a, b in zip(loaded[1][k], state[1][k])))
+        if not same:
+            fail("fit: save_state -> load_state is not bit for bit")
+        say("fit: save_state %.2f GB in %.1f s, load_state in %.1f s, "
+            "params and Adam state bit-equal" % (size / 1e9, save_s,
+                                                 load_s))
+        del loaded
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del state, step
+    torch.cuda.empty_cache()
+    resume_check()
+    return launches
+
+
+def resume_check():
+    """At depth RESUME_LAYERS, full width, under
+    torch.use_deterministic_algorithms(True): an uninterrupted fit
+    (RESUME_BATCHES x 2 epochs) against one cut by sigterm@RESUME_SIGTERM
+    (SystemExit(EXIT_PREEMPTED) with the boundary checkpoint written) and
+    resumed by the same call: the weights and Adam state bit-equal."""
+    import shutil
+    import tempfile
+
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import guardrail, io, metric
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.parallel import make_train_step
+    from mxnet_tpu_torch.parallel import resilience
+
+    B = TRAIN_BATCH
+    sym = transformer.get_symbol(VOCAB, SEQ, num_layers=RESUME_LAYERS,
+                                 num_heads=HEADS, dim=DIM,
+                                 ffn_hidden=4 * DIM)
+    toks, labels = lm_tokens(RESUME_BATCHES, seed=4)
+
+    def make():
+        return make_train_step(sym, optimizer="adam",
+                               optimizer_params={"rescale_grad": 1.0 / B},
+                               compute_dtype="bfloat16")
+    mx.random.seed(1)
+    host = {k: v.cpu() for k, v in make().init_state(
+        Xavier(), {"data": (B, SEQ), "softmax_label": (B, SEQ)})[0].items()}
+
+    def run(prefix=None):
+        return make().fit(io.NDArrayIter(toks, labels, batch_size=B),
+                          num_epoch=2, arg_params=host, lr=TRAIN_LR,
+                          eval_metric=metric.Perplexity(ignore_label=-1),
+                          checkpoint_prefix=prefix, checkpoint_period=10)
+
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        t = time.perf_counter()
+        ref, _ = run()
+        prefix = os.path.join(tmp, "ck")
+        resilience.install_fault_injector(
+            resilience.FaultInjector("sigterm@%d" % RESUME_SIGTERM))
+        code = None
+        try:
+            run(prefix)
+        except SystemExit as e:
+            code = e.code
+        resilience.install_fault_injector(None)
+        if code != guardrail.EXIT_PREEMPTED:
+            fail("resume: sigterm@%d ended fit with %r, not SystemExit(%d)"
+                 % (RESUME_SIGTERM, code, guardrail.EXIT_PREEMPTED))
+        with open(prefix + "_0001.meta.json") as f:
+            meta = json.load(f)
+        want = {"n_update": RESUME_SIGTERM - 1, "epoch": 1, "nbatch": 0}
+        if meta != want:
+            fail("resume: boundary checkpoint meta %r, not %r" % (meta,
+                                                                   want))
+        got, _ = run(prefix)
+        torch.cuda.synchronize()
+        worst = max(float((got[0][k].float() - ref[0][k].float()).abs()
+                          .max()) for k in ref[0])
+        same = all(torch.equal(got[0][k], ref[0][k]) for k in ref[0]) and \
+            all(torch.equal(a, b) for k in ref[1]
+                for a, b in zip(got[1][k], ref[1][k]))
+        if not same:
+            fail("resume: the resumed fit's state differs from the "
+                 "uninterrupted run's (max |dw| %g) under "
+                 "use_deterministic_algorithms(True)" % worst)
+        say("resume: %d layers, %d x 2 steps: sigterm@%d exited %d at the "
+            "boundary checkpoint %r; the resumed fit's weights and Adam "
+            "state bit-equal to the uninterrupted run's (deterministic "
+            "algorithms on), %.1f s" % (
+                RESUME_LAYERS, RESUME_BATCHES, RESUME_SIGTERM, code, meta,
+                time.perf_counter() - t))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if cublas is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -2914,17 +3765,26 @@ def main():
 
     records = kernel_phase() + bwd_kernel_phase() + f32_kernel_phase(ptxas)
     gqa_phase()
-    records += bn_kernel_phase() + nms_kernel_phase()
+    records += bn_kernel_phase() + nms_kernel_phase() + mt_kernel_phase()
     prng_phase()
     by_path = {"serve": path_phase([att.flash_fwd_cuda]),
                "train": train_phase([att.flash_fwd_cuda,
                                      att.flash_bwd_cuda]),
+               "fit": fit_phase(),
                **executor_phase(),
                **resnet_phase([bnk.bn_stats_cuda, bnk.bn_apply_cuda,
                                bnk.bn_bwd_reduce_cuda, bnk.bn_bwd_dx_cuda]),
-               "ssd": ssd_phase([nmsk.nms_keep_cuda])}
-    alexnet_phase()
+               "ssd": ssd_phase([nmsk.nms_keep_cuda]),
+               "alexnet": alexnet_phase()}
     for rec in records:
+        # no kernel moves its bytes faster than the memory can: a time
+        # under the byte bound means the timing lost work
+        timed = [rec] + list(rec.get("sgd", {}).values()) + (
+            [rec["bf16"]] if "bf16" in rec else [])
+        if rec["bound_by"] == "bytes" and any(
+                t["ms"] < t["bound_ms"] for t in timed):
+            fail("%s: a device time under its byte bound: %r"
+                 % (rec["name"], [(t["ms"], t["bound_ms"]) for t in timed]))
         counts = {path: launches[rec["name"] + "_cuda"]
                   for path, launches in by_path.items()
                   if rec["name"] + "_cuda" in launches}

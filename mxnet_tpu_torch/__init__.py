@@ -62,9 +62,19 @@ from . import symbol as sym  # noqa: E402
 from .symbol import Symbol  # noqa: E402
 
 from . import random  # noqa: E402
+from . import random as rnd  # noqa: E402
 from . import registry  # noqa: E402
+from . import io  # noqa: E402
 from . import initializer  # noqa: E402
 from . import initializer as init  # noqa: E402
+from . import lr_scheduler  # noqa: E402
+from . import optimizer  # noqa: E402
+from . import optimizer as opt  # noqa: E402
+from .optimizer import Optimizer  # noqa: E402
+from . import metric  # noqa: E402
+from . import callback  # noqa: E402
+from . import guardrail  # noqa: E402
+from . import profiler  # noqa: E402
 from . import executor  # noqa: E402
 from . import predictor  # noqa: E402
 from .predictor import Predictor  # noqa: E402

@@ -30,7 +30,8 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 # kernel library name -> its source under csrc/
 SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
-           "bn_train": "bn_train.cu", "nms": "nms.cu"}
+           "bn_train": "bn_train.cu", "nms": "nms.cu",
+           "multi_tensor": "multi_tensor.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -149,6 +150,31 @@ def _declare(name, lib):
         lib.nms_keep.restype = c_i
         lib.nms_launch_shape.argtypes = [c_i, c_p]            # a out[4]
         lib.nms_launch_shape.restype = c_i
+    elif name == "multi_tensor":
+        c_ll = ctypes.c_longlong
+        lib.multi_tensor_update.argtypes = [
+            c_i, c_i, c_i, ctypes.POINTER(c_ll),             # kind dtype n
+                                                             # sizes
+            c_p, c_p, c_p, c_p,                              # w g s0 s1
+            c_p, c_p, c_p,                                   # outs
+            ctypes.POINTER(c_f),                             # hyper[9]
+            c_p, c_p, c_p, c_i, c_p,                         # gscale inv
+                                                             # flag donate
+                                                             # stream
+            ctypes.POINTER(c_i)]                             # launched
+        lib.multi_tensor_update.restype = c_i
+        lib.multi_tensor_norm_parts.argtypes = [c_i, ctypes.POINTER(c_ll)]
+        lib.multi_tensor_norm_parts.restype = c_i
+        lib.multi_tensor_norm_finite.argtypes = [
+            c_i, c_i, ctypes.POINTER(c_ll), c_p,             # n grads sizes
+                                                             # ptrs
+            ctypes.POINTER(c_i), c_f, c_f, c_f,              # dtypes inject
+                                                             # rescale clip
+            c_p, c_p, c_p,                                   # inv partial okp
+            c_p, c_p, c_p, c_p,                              # sumsq finite
+                                                             # gscale stream
+            ctypes.POINTER(c_i)]                             # launched
+        lib.multi_tensor_norm_finite.restype = c_i
     lib.kernel_error_string.argtypes = [c_i]
     lib.kernel_error_string.restype = ctypes.c_char_p
 

@@ -141,3 +141,32 @@ define("MXNET_NMS_IMPL", str, "",
        "on the CPU) | xla = the dense (A, A) IoU path in plain PyTorch; "
        "empty = the kernel on CUDA tensors, the dense path on the CPU. The "
        "values are the JAX package's")
+define("MXNET_DISPATCH_AHEAD", int, 2,
+       "bounded dispatch window of TrainStep.fit: how many steps may be "
+       "queued on the card before the loop blocks on the step K back "
+       "(1 = fully synchronous stepping)")
+define("MXNET_GUARDRAIL", bool, True,
+       "non-finite step detection in TrainStep.fit: the step computes an "
+       "all-finite flag on the device and masks a bad update there "
+       "(weights never ingest a NaN); the flag is read at the dispatch "
+       "window's wait, so it adds no blocking host sync")
+define("MXNET_LOSS_SCALE", str, "",
+       "loss scaling for TrainStep.fit: empty = off | 'dynamic' = "
+       "grow/halve DynamicLossScaler | <float> = static scale; the "
+       "scaler's state rides the step's aux dict and its checkpoints")
+define("MXNET_LOSS_SCALE_WINDOW", int, 200,
+       "dynamic loss scaling: consecutive finite steps before the "
+       "scale doubles (overflow always halves it immediately)")
+define("MXNET_MAX_BAD_STEPS", int, 10,
+       "consecutive masked (non-finite) steps before the fit loop rolls "
+       "back to the newest readable checkpoint")
+define("MXNET_MAX_ROLLBACKS", int, 2,
+       "checkpoint rollbacks the guardrail may perform before raising "
+       "NumericalDivergence")
+define("MXNET_ROLLBACK_LR_FACTOR", float, 1.0,
+       "learning-rate multiplier applied on every guardrail rollback "
+       "(e.g. 0.5 halves the LR after each divergence rollback)")
+define("MXNET_BACKWARD_DO_MIRROR", bool, False,
+       "rematerialise the forward during the backward in TrainStep "
+       "(gradient mirroring): activation memory traded for recompute; "
+       "the default of TrainStep(remat=None)")

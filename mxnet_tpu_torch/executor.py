@@ -113,33 +113,54 @@ def _graph_eval_fn(symbol, capture=None):
 # the one forward-and-backward path (Executor and TrainStep)
 # ---------------------------------------------------------------------------
 
-def _record_forward(eval_fn, arg_vals, aux_vals, rng, wrt, cast=None):
+def _record_forward(eval_fn, arg_vals, aux_vals, rng, wrt, cast=None,
+                    remat=False):
     """Run the graph in training mode under autograd, differentiable in
     the arguments named by ``wrt`` (float ones; fresh leaves of their
     values). ``cast`` maps the leaves to what the graph reads (TrainStep's
     compute-dtype cast; linear, so the gradients come back in the
-    leaves' dtype). Returns (outputs, new_aux, leaves by name)."""
+    leaves' dtype). ``remat``: keep no activation of the forward and
+    run it again during the backward
+    (``torch.utils.checkpoint.checkpoint``, non-reentrant), as
+    ``jax.checkpoint`` does in the JAX package; rng nodes draw from pure
+    threefry keys, so the recomputed Dropout masks are the same bits.
+    Returns (outputs, new_aux, leaves by name)."""
     leaves = {n: arg_vals[n].detach().requires_grad_(True) for n in wrt
               if arg_vals[n].is_floating_point()}
-    with torch.enable_grad():
+    names = list(leaves)
+
+    def run(*tensors):
         vals = dict(arg_vals)
-        vals.update(cast(leaves) if cast is not None else leaves)
-        outs, new_aux = eval_fn(vals, aux_vals, rng, True)
+        given = dict(zip(names, tensors))
+        vals.update(cast(given) if cast is not None else given)
+        return eval_fn(vals, aux_vals, rng, True)
+
+    with torch.enable_grad():
+        if remat:
+            from torch.utils.checkpoint import checkpoint
+            outs, new_aux = checkpoint(run, *[leaves[n] for n in names],
+                                       use_reentrant=False)
+        else:
+            outs, new_aux = run(*[leaves[n] for n in names])
     return outs, new_aux, leaves
 
 
 def _backward(outs, leaves, out_grads=None, retain_graph=False):
     """Gradients of the recorded outputs by leaf name, zeros where an
     argument does not reach them. ``out_grads``: one cotangent an output
-    (None: ones, the reference's head-grad convention)."""
+    (None: ones, the reference's head-grad convention; a one-element
+    tensor is broadcast over its output, as the loss scale is)."""
     heads, cots = [], []
     for i, o in enumerate(outs):
         if not o.requires_grad:
             continue
         heads.append(o)
         g = None if out_grads is None else out_grads[i]
-        cots.append(torch.ones_like(o) if g is None else
-                    g.to(device=o.device, dtype=o.dtype).reshape(o.shape))
+        if g is not None:
+            g = g.to(device=o.device, dtype=o.dtype)
+            g = g.reshape(()).expand(o.shape) if g.numel() == 1 \
+                and o.numel() != 1 else g.reshape(o.shape)
+        cots.append(torch.ones_like(o) if g is None else g)
     names = list(leaves)
     grads = torch.autograd.grad(
         heads, [leaves[n] for n in names], cots, allow_unused=True,
@@ -149,13 +170,16 @@ def _backward(outs, leaves, out_grads=None, retain_graph=False):
             for n, g in zip(names, grads)}
 
 
-def forward_backward(eval_fn, arg_vals, aux_vals, rng, wrt, cast=None):
+def forward_backward(eval_fn, arg_vals, aux_vals, rng, wrt, cast=None,
+                     out_grads=None, remat=False):
     """(outputs, new_aux, grads by name): ``_record_forward`` then
-    ``_backward`` with ones as head cotangents, in one call, the graph
-    freed by the backward."""
+    ``_backward`` in one call, the graph freed by the backward.
+    ``out_grads``: one head cotangent an output (None: ones; the loss
+    scaler passes its scale, ``full_like(o, scale)``). ``remat``: see
+    ``_record_forward``."""
     outs, new_aux, leaves = _record_forward(eval_fn, arg_vals, aux_vals,
-                                            rng, wrt, cast)
-    grads = _backward(outs, leaves)
+                                            rng, wrt, cast, remat=remat)
+    grads = _backward(outs, leaves, out_grads=out_grads)
     return tuple(o.detach() for o in outs), new_aux, grads
 
 

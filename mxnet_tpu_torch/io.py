@@ -1,0 +1,476 @@
+"""Data iterators — the PyTorch twin of ``mxnet_tpu/io.py`` (reference:
+python/mxnet/io.py): the DataIter/DataBatch/DataDesc protocol,
+NDArrayIter, ResizeIter and PrefetchingIter.
+
+NDArrayIter holds its arrays on the current context (the card unless a
+``with mx.cpu():`` scope says otherwise) and slices batches there;
+shuffle draws numpy's global ``np.random.permutation``, the JAX
+package's draw. PrefetchingIter overlaps batch assembly with the step on
+a worker thread (the reference's dmlc::ThreadedIter double-buffering,
+src/io/iter_prefetcher.h:141); its ``place_fn`` runs there on the
+consumer's CUDA stream, so a placed batch is ordered with the steps that
+read it.
+
+Not ported yet: MNISTIter, CSVIter, LibSVMIter (ROADMAP Queue A item 5)
+and the image iterators (item 10).
+"""
+from __future__ import annotations
+
+import os
+import queue
+import threading
+from collections import namedtuple
+
+import contextlib
+
+import numpy as np
+import torch
+
+from . import ndarray
+from .ndarray import NDArray, array
+
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
+           "PrefetchingIter"]
+
+
+class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
+    """Name + shape (+dtype/layout) of a data source (reference
+    io.py:DataDesc)."""
+
+    def __new__(cls, name, shape, dtype=np.float32, layout="NCHW"):
+        ret = super().__new__(cls, name, tuple(shape))
+        ret.dtype = dtype
+        ret.layout = layout
+        return ret
+
+    def __repr__(self):
+        return "DataDesc[%s,%s,%s,%s]" % (self.name, self.shape, self.dtype,
+                                          self.layout)
+
+    @staticmethod
+    def get_batch_axis(layout):
+        """Index of the 'N' axis in a layout string (reference
+        io.py:DataDesc.get_batch_axis)."""
+        if layout is None:
+            return 0
+        return layout.find("N")
+
+    @staticmethod
+    def get_list(shapes, types):
+        if types is not None:
+            type_dict = dict(types)
+            return [DataDesc(x[0], x[1], type_dict[x[0]]) for x in shapes]
+        return [DataDesc(x[0], x[1]) for x in shapes]
+
+
+class DataBatch:
+    """One mini-batch (reference io.py:DataBatch)."""
+
+    def __init__(self, data, label=None, pad=None, index=None,
+                 bucket_key=None, provide_data=None, provide_label=None):
+        for field, v in (("data", data), ("label", label)):
+            if v is not None and not isinstance(v, (list, tuple)):
+                raise TypeError("%s must be a list/tuple of NDArrays"
+                                % field)
+        self.data = data
+        self.label = label
+        self.pad = pad
+        self.index = index
+        self.bucket_key = bucket_key
+        self.provide_data = provide_data
+        self.provide_label = provide_label
+
+    def __str__(self):
+        return "%s: data %s label %s" % (
+            self.__class__.__name__, [d.shape for d in self.data],
+            [l.shape for l in self.label] if self.label else None)
+
+
+class DataIter:
+    """Base iterator (reference io.py:DataIter)."""
+
+    def __init__(self, batch_size=0):
+        self.batch_size = batch_size
+
+    def __iter__(self):
+        return self
+
+    def reset(self):
+        pass
+
+    def next(self):
+        """Next DataBatch (default implementation drives iter_next +
+        getdata/getlabel/getindex/getpad)."""
+        if self.iter_next():
+            return DataBatch(data=self.getdata(), label=self.getlabel(),
+                             pad=self.getpad(), index=self.getindex())
+        raise StopIteration
+
+    def __next__(self):
+        return self.next()
+
+    def iter_next(self):
+        raise NotImplementedError()
+
+    def getdata(self):
+        raise NotImplementedError()
+
+    def getlabel(self):
+        raise NotImplementedError()
+
+    def getindex(self):
+        return None
+
+    def getpad(self):
+        raise NotImplementedError()
+
+
+class _BatchDelegate:
+    """Mixin for wrapper iterators whose getdata/getlabel/... just expose
+    fields of the wrapped iterator's last batch."""
+
+    current_batch = None
+
+    def next(self):
+        if self.iter_next():
+            return self.current_batch
+        raise StopIteration
+
+    def getdata(self):
+        return self.current_batch.data
+
+    def getlabel(self):
+        return self.current_batch.label
+
+    def getindex(self):
+        return self.current_batch.index
+
+    def getpad(self):
+        return self.current_batch.pad
+
+
+class ResizeIter(_BatchDelegate, DataIter):
+    """Resize an iterator to `size` batches per epoch, optionally resetting
+    the inner iterator on underflow (reference io.py:ResizeIter)."""
+
+    def __init__(self, data_iter, size, reset_internal=True):
+        super().__init__()
+        self.data_iter = data_iter
+        self.size = size
+        self.reset_internal = reset_internal
+        self.cur = 0
+        self.provide_data = data_iter.provide_data
+        self.provide_label = data_iter.provide_label
+        self.batch_size = data_iter.batch_size
+        if hasattr(data_iter, "default_bucket_key"):
+            self.default_bucket_key = data_iter.default_bucket_key
+
+    def reset(self):
+        self.cur = 0
+        if self.reset_internal:
+            self.data_iter.reset()
+
+    def iter_next(self):
+        if self.cur == self.size:
+            return False
+        try:
+            self.current_batch = self.data_iter.next()
+        except StopIteration:
+            # epoch underflow: restart the inner iterator mid-"epoch"
+            self.data_iter.reset()
+            self.current_batch = self.data_iter.next()
+        self.cur += 1
+        return True
+
+
+class _WorkerError:
+    """Carrier for a non-StopIteration worker failure: re-raised in the
+    consumer thread instead of starving its queue forever."""
+
+    def __init__(self, exc):
+        self.exc = exc
+
+
+class _PrefetchWorker(threading.Thread):
+    """One background thread per wrapped iterator: serves 'next'/'reset'
+    commands so batch assembly overlaps device compute. With a
+    place_fn, the worker also DISPATCHES the batch's device placement
+    (an async H2D) before handing it over — the double-buffer stage:
+    batch t+1's transfer is in flight while the consumer's step t
+    computes."""
+
+    def __init__(self, it, place_fn=None, stream=None):
+        super().__init__(daemon=True)
+        self.it = it
+        self.place_fn = place_fn
+        self.stream = stream
+        self.cmds = queue.Queue()
+        self.outs = queue.Queue()
+        self.start()
+
+    def run(self):
+        while True:
+            cmd = self.cmds.get()
+            if cmd == "stop":
+                return
+            if cmd == "reset":
+                self.it.reset()
+                self.outs.put(None)
+            else:  # "next"
+                try:
+                    item = self.it.next()
+                except StopIteration:
+                    item = StopIteration
+                except Exception as e:  # noqa: BLE001 — surface it
+                    item = _WorkerError(e)
+                else:
+                    # outside the StopIteration guard: a StopIteration
+                    # escaping place_fn is a BUG to surface, not an
+                    # epoch end (only it.next() may signal that)
+                    if self.place_fn is not None:
+                        try:
+                            with (torch.cuda.stream(self.stream)
+                                  if self.stream is not None
+                                  else contextlib.nullcontext()):
+                                item.placed = self.place_fn(item)
+                        except Exception as e:  # noqa: BLE001
+                            item = _WorkerError(e)
+                self.outs.put(item)
+
+
+class PrefetchingIter(_BatchDelegate, DataIter):
+    """Thread-backed prefetcher over one or more iterators (reference
+    io.py:PrefetchingIter; C++ analogue iter_prefetcher.h). One worker
+    thread per inner iterator; a 'next' command is always in flight so
+    the next batch is being assembled while the device computes.
+
+    place_fn (the device-prefetch stage): a callable applied to each
+    assembled DataBatch whose result lands on ``batch.placed`` — use
+    ``TrainStep.make_placer()`` to place the feed on the step's device.
+    With a single inner iterator it runs on the worker thread, on the
+    CUDA stream that was current where the iterator was made (the
+    consumer's), so the copy is off the step loop and ordered with the
+    steps; with multiple inner iterators it runs at merge time (the
+    merged batch is what needs placing)."""
+
+    def __init__(self, iters, rename_data=None, rename_label=None,
+                 place_fn=None):
+        super().__init__()
+        self.iters = iters if isinstance(iters, list) else [iters]
+        if not self.iters:
+            raise ValueError("need at least one iterator")
+        self.rename_data = rename_data
+        self.rename_label = rename_label
+        self._place_fn = place_fn
+        self.batch_size = self.provide_data[0][1][0]
+        worker_place = place_fn if len(self.iters) == 1 else None
+        stream = torch.cuda.current_stream() \
+            if worker_place is not None and torch.cuda.is_available() \
+            else None
+        self._workers = [_PrefetchWorker(it, worker_place, stream)
+                         for it in self.iters]
+        self._inflight = False
+        self._request()
+
+    def _request(self):
+        for w in self._workers:
+            w.cmds.put("next")
+        self._inflight = True
+
+    def _collect(self):
+        self._inflight = False
+        return [w.outs.get() for w in self._workers]
+
+    def __del__(self):
+        for w in getattr(self, "_workers", []):
+            w.cmds.put("stop")
+
+    def _renamed(self, which, renames):
+        descs_per_iter = [getattr(it, which) for it in self.iters]
+        if renames is None:
+            return [d for descs in descs_per_iter for d in descs]
+        out = []
+        for mapping, descs in zip(renames, descs_per_iter):
+            for d in descs:
+                d = d if isinstance(d, DataDesc) else DataDesc(*d)
+                out.append(DataDesc(mapping[d.name], d.shape, d.dtype))
+        return out
+
+    @property
+    def provide_data(self):
+        return self._renamed("provide_data", self.rename_data)
+
+    @property
+    def provide_label(self):
+        return self._renamed("provide_label", self.rename_label)
+
+    def reset(self):
+        if self._inflight:
+            self._collect()     # drain the outstanding 'next'
+        for w in self._workers:
+            w.cmds.put("reset")
+        for w in self._workers:
+            w.outs.get()
+        self._request()
+
+    def iter_next(self):
+        if not self._inflight:
+            self._request()
+        batches = self._collect()
+        for b in batches:
+            if isinstance(b, _WorkerError):
+                raise b.exc
+        ended = [b is StopIteration for b in batches]
+        if any(ended):
+            if not all(ended):
+                raise RuntimeError("inner iterators ended at different "
+                                   "batch counts")
+            return False
+        if len({b.pad for b in batches}) != 1:
+            raise RuntimeError("inner iterators disagree on pad")
+        self.current_batch = DataBatch(
+            [d for b in batches for d in b.data],
+            [l for b in batches for l in b.label]
+            if batches[0].label is not None else None,
+            batches[0].pad, batches[0].index,
+            provide_data=self.provide_data,
+            provide_label=self.provide_label)
+        if self._place_fn is not None:
+            placed = getattr(batches[0], "placed", None) \
+                if len(batches) == 1 else None
+            self.current_batch.placed = placed if placed is not None \
+                else self._place_fn(self.current_batch)
+        self._request()          # keep the pipeline primed
+        return True
+
+
+def _init_data(data, allow_empty, default_name):
+    """Normalize data input (array | list | dict | None) into a sorted
+    [(name, NDArray)] list (reference io.py:_init_data)."""
+    if data is None:
+        data = {}
+    elif isinstance(data, (np.ndarray, NDArray)):
+        data = {default_name: data}
+    elif isinstance(data, list):
+        if len(data) == 1:
+            data = {default_name: data[0]}
+        else:
+            data = {"_%d_%s" % (i, default_name): d
+                    for i, d in enumerate(data)}
+    if not isinstance(data, dict):
+        raise TypeError("data must be an array, a list of arrays, or a "
+                        "dict of name->array, got %s" % type(data))
+    if not data and not allow_empty:
+        raise ValueError("empty %s input" % default_name)
+
+    def as_nd(name, v):
+        if isinstance(v, NDArray):
+            return v
+        try:
+            return array(np.asarray(v))
+        except Exception:
+            raise TypeError("cannot convert %s (%s) to NDArray"
+                            % (name, type(v)))
+    return sorted((k, as_nd(k, v)) for k, v in data.items())
+
+
+class NDArrayIter(DataIter):
+    """Iterator over in-memory arrays with shuffle + pad/discard/roll-over
+    last-batch handling (reference io.py:NDArrayIter, :516)."""
+
+    def __init__(self, data, label=None, batch_size=1, shuffle=False,
+                 last_batch_handle="pad", data_name="data",
+                 label_name="softmax_label"):
+        super().__init__(batch_size)
+
+        self.data = _init_data(data, allow_empty=False,
+                               default_name=data_name)
+        self.label = _init_data(label, allow_empty=True,
+                                default_name=label_name)
+        n = self.data[0][1].shape[0]
+
+        def remap(pairs, idx):
+            return [(k, array(v.asnumpy()[idx])) for k, v in pairs]
+
+        if shuffle:
+            # host-side: one permutation per construction, shared by
+            # every data/label source
+            perm = np.random.permutation(n)
+            self.data, self.label = remap(self.data, perm), \
+                remap(self.label, perm)
+        if last_batch_handle == "discard":
+            # a slice on the device; no host round trip
+            keep = n - n % batch_size
+            self.data = [(k, v[:keep]) for k, v in self.data]
+            self.label = [(k, v[:keep]) for k, v in self.label]
+
+        self.data_list = [v for _, v in self.data + self.label]
+        self.num_source = len(self.data_list)
+        self.num_data = self.data_list[0].shape[0]
+        if self.num_data < batch_size:
+            raise ValueError("batch_size %d exceeds data size %d"
+                             % (batch_size, self.num_data))
+        self.cursor = -batch_size
+        self.batch_size = batch_size
+        self.last_batch_handle = last_batch_handle
+
+    @property
+    def provide_data(self):
+        return [
+            DataDesc(k, tuple([self.batch_size] + list(v.shape[1:])),
+                     v.dtype)
+            for k, v in self.data]
+
+    @property
+    def provide_label(self):
+        return [
+            DataDesc(k, tuple([self.batch_size] + list(v.shape[1:])),
+                     v.dtype)
+            for k, v in self.label]
+
+    def hard_reset(self):
+        """Ignore roll-over; fully reset (reference
+        NDArrayIter.hard_reset)."""
+        self.cursor = -self.batch_size
+
+    def reset(self):
+        if self.last_batch_handle == "roll_over" and \
+                self.cursor > self.num_data:
+            self.cursor = -self.batch_size + \
+                (self.cursor % self.num_data) % self.batch_size
+        else:
+            self.cursor = -self.batch_size
+
+    def iter_next(self):
+        self.cursor += self.batch_size
+        return self.cursor < self.num_data
+
+    def next(self):
+        if self.iter_next():
+            return DataBatch(data=self.getdata(), label=self.getlabel(),
+                             pad=self.getpad(), index=None)
+        raise StopIteration
+
+    def _getdata(self, data_source):
+        if self.cursor >= self.num_data:
+            raise RuntimeError("iterator exhausted; call reset()")
+        if self.cursor + self.batch_size <= self.num_data:
+            window = slice(self.cursor, self.cursor + self.batch_size)
+            return [v[window] for _, v in data_source]
+        # padded last batch wraps to the epoch start: stitch the epoch
+        # tail to a head slice (on the device; no host gather)
+        pad = self.cursor + self.batch_size - self.num_data
+        return [ndarray.concatenate([v[self.cursor:], v[:pad]])
+                for _, v in data_source]
+
+    def getdata(self):
+        return self._getdata(self.data)
+
+    def getlabel(self):
+        return self._getdata(self.label)
+
+    def getpad(self):
+        if self.last_batch_handle == "pad" and \
+                self.cursor + self.batch_size > self.num_data:
+            return self.cursor + self.batch_size - self.num_data
+        return 0

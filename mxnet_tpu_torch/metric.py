@@ -1,0 +1,677 @@
+"""Evaluation metrics — the PyTorch twin of ``mxnet_tpu/metric.py``
+(reference surface: python/mxnet/metric.py).
+
+Two accumulation paths:
+
+- **Host path**: every concrete metric implements
+  ``_accumulate(label, pred)`` over one numpy (label, pred) pair; the
+  base class handles NDArray→numpy conversion, list pairing, and the
+  running (sum, count) average. Each update blocks on a device→host
+  read (``asnumpy``).
+- **Device path** (the fit loop): metrics with a
+  ``_device_stats_one(label, pred)`` (or ``device_update``) override
+  compute a ``{'sum', 'num'}`` stats tree of 0-d float32 tensors with
+  torch ops on the predictions' device — no host read, so
+  ``TrainStep.fit`` runs it right after each step — and accumulate it
+  there (``update_device`` / ``accumulate_device_stats``, optionally
+  masked by the guardrail's flag). ``get()`` performs the one blocking
+  host read. Metrics without a device impl fall back to the host path
+  unchanged, so ``update_device`` is always safe to call.
+
+`get` may post-process the ratio (Perplexity exponentiates). Device
+sums are float32 (counts included; exact up to 2**24 instances per
+epoch), and the per-batch terms are computed in float32 from the
+predictions whatever their dtype (a bf16 sum over a batch would keep 8
+bits of it).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy
+
+import torch
+
+from . import registry as _registry
+from .base import numeric_types, string_types
+from .ndarray import NDArray
+
+__all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
+           "F1", "Perplexity", "MAE", "MSE", "RMSE", "CrossEntropy",
+           "NegativeLogLikelihood", "PearsonCorrelation", "Loss", "Torch",
+           "Caffe", "CustomMetric", "np", "create", "register"]
+
+
+def check_label_shapes(labels, preds, shape=0):
+    """Raise on label/pred arity (or shape, when shape=1) mismatch."""
+    a = len(labels) if shape == 0 else labels.shape
+    b = len(preds) if shape == 0 else preds.shape
+    if a != b:
+        raise ValueError(
+            "Shape of labels {} does not match shape of predictions {}"
+            .format(a, b))
+
+
+def _np(x):
+    return x.asnumpy() if isinstance(x, NDArray) else numpy.asarray(x)
+
+
+def _dev(x):
+    """Tensor view of x with no host round trip: an NDArray unwraps to
+    its tensor; tensors pass through; anything else becomes one."""
+    if isinstance(x, NDArray):
+        return x._data.detach()
+    if isinstance(x, torch.Tensor):
+        return x.detach()
+    return torch.as_tensor(numpy.asarray(x))
+
+
+def _f32(x, like):
+    """A 0-d float32 tensor of x on ``like``'s device, filled there
+    (``torch.tensor(x, device=...)`` would copy from the host and wait
+    for the stream)."""
+    return torch.full((), float(x), dtype=torch.float32, device=like.device)
+
+
+def _tree_map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], (list, tuple)):
+        return type(trees[0])(_tree_map(fn, *ts) for ts in zip(*trees))
+    return fn(*trees)
+
+
+class EvalMetric:
+    """Base metric: running average of ``sum_metric / num_inst``."""
+
+    def __init__(self, name, output_names=None, label_names=None,
+                 **kwargs):
+        self.name = str(name)
+        self.output_names = output_names
+        self.label_names = label_names
+        self._kwargs = kwargs
+        self.reset()
+
+    def __str__(self):
+        return "EvalMetric: {}".format(dict(self.get_name_value()))
+
+    def get_config(self):
+        """Serializable config (class + ctor kwargs)."""
+        cfg = dict(self._kwargs,
+                   metric=self.__class__.__name__, name=self.name,
+                   output_names=self.output_names,
+                   label_names=self.label_names)
+        return cfg
+
+    def reset(self):
+        self.num_inst = 0
+        self.sum_metric = 0.0
+        self._dev_stats = None
+
+    # -- feeding -------------------------------------------------------------
+    def update_dict(self, label, pred, device=False, ok=None):
+        """Update from {name: array} dicts, selecting the configured
+        output/label names (all values when unset). device=True routes
+        through the on-device accumulator (host fallback when the
+        metric has no device impl). ``ok`` (a device bool scalar) masks
+        the batch's device stats — the guardrail's masked-step
+        exclusion."""
+        def pick(d, names):
+            return list(d.values()) if names is None \
+                else [d[n] for n in names]
+        labels = pick(label, self.label_names)
+        preds = pick(pred, self.output_names)
+        if device:
+            self.update_device(labels, preds, ok=ok)
+        else:
+            self.update(labels, preds)
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            self._accumulate(_np(label), _np(pred))
+
+    def _accumulate(self, label, pred):
+        raise NotImplementedError()
+
+    # -- device path ---------------------------------------------------------
+    @property
+    def supports_device_update(self):
+        """True when this metric can accumulate on device (it overrides
+        device_update or _device_stats_one)."""
+        cls = type(self)
+        return (cls.device_update is not EvalMetric.device_update or
+                cls._device_stats_one is not EvalMetric._device_stats_one)
+
+    def device_update(self, labels, preds):
+        """Batch statistics ``{'sum': f32, 'num': f32}`` (0-d tensors)
+        computed with torch ops on the predictions' device — no host
+        read (TrainStep.fit calls exactly this after each step)."""
+        check_label_shapes(labels, preds)
+        s = n = None
+        for label, pred in zip(labels, preds):
+            pred = _dev(pred)
+            ds, dn = self._device_stats_one(_dev(label).to(pred.device),
+                                            pred)
+            s = ds if s is None else s + ds
+            n = dn if n is None else n + dn
+        if s is None:
+            s = n = torch.zeros((), dtype=torch.float32)
+        return {"sum": s, "num": n}
+
+    def _device_stats_one(self, label, pred):
+        """Per-(label, pred) device stats -> (sum, num) f32 scalars."""
+        raise NotImplementedError()
+
+    def update_device(self, labels, preds, ok=None):
+        """Accumulate one batch ON DEVICE (async dispatch, no host
+        sync); metrics without a device impl fall back to the blocking
+        host path unchanged. ``ok`` (device bool scalar) masks the
+        batch's stats — a guardrail-masked step contributes to neither
+        sum nor num (host-fallback metrics cannot mask without a sync
+        and accumulate unmasked)."""
+        if not self.supports_device_update:
+            return self.update(labels, preds)
+        self.accumulate_device_stats(self.device_update(labels, preds),
+                                     ok=ok)
+
+    def accumulate_device_stats(self, stats, ok=None):
+        """Fold a device_update stats pytree into the on-device
+        accumulator (a torch add — queued, not synced), optionally
+        masked by the guardrail's all-finite flag."""
+        if ok is not None:
+            stats = _tree_map(
+                lambda s: torch.where(ok, s, torch.zeros_like(s)), stats)
+        if self._dev_stats is None:
+            self._dev_stats = stats
+        else:
+            self._dev_stats = _tree_map(torch.add, self._dev_stats, stats)
+
+    def set_device_stats(self, stats):
+        """Replace the accumulator with epoch-total stats carried by the
+        fit loop (the loop owns the running tree; the metric just views
+        it so get()/callbacks read the live value)."""
+        self._dev_stats = stats
+
+    def _device_totals(self):
+        """The single blocking host read of the device accumulator."""
+        if self._dev_stats is None:
+            return 0.0, 0.0
+        from . import profiler
+        host = torch.stack([self._dev_stats["sum"].float(),
+                            self._dev_stats["num"].float().to(
+                                self._dev_stats["sum"].device)]).cpu()
+        profiler.count_host_sync("metric_get")
+        return float(host[0]), float(host[1])
+
+    # -- reading -------------------------------------------------------------
+    def get(self):
+        """(name, value); NaN before any update. Device-accumulated
+        stats are read back here (one blocking transfer), combined with
+        any host-path updates."""
+        dsum, dnum = self._device_totals()
+        num = self.num_inst + dnum
+        if num == 0:
+            return (self.name, float("nan"))
+        return (self.name, self._finalize((self.sum_metric + dsum) /
+                                          num))
+
+    def _finalize(self, ratio):
+        return ratio
+
+    def get_name_value(self):
+        name, value = self.get()
+        names = name if isinstance(name, list) else [name]
+        values = value if isinstance(value, list) else [value]
+        return list(zip(names, values))
+
+
+# -- registry ---------------------------------------------------------------
+register = _registry.get_register_func(EvalMetric, "metric")
+alias = _registry.get_alias_func(EvalMetric, "metric")
+_create = _registry.get_create_func(EvalMetric, "metric")
+
+
+def create(metric, *args, **kwargs):
+    """Metric from a name, callable (feval), or list (composite)."""
+    if callable(metric):
+        return CustomMetric(metric, *args, **kwargs)
+    if isinstance(metric, list):
+        out = CompositeEvalMetric()
+        for m in metric:
+            out.add(create(m, *args, **kwargs))
+        return out
+    return _create(metric, *args, **kwargs)
+
+
+@register
+@alias("composite")
+class CompositeEvalMetric(EvalMetric):
+    """Fans updates out to child metrics and concatenates results."""
+
+    def __init__(self, metrics=None, name="composite", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+        self.metrics = [create(m) for m in (metrics or [])]
+
+    def add(self, metric):
+        self.metrics.append(create(metric))
+
+    def get_metric(self, index):
+        try:
+            return self.metrics[index]
+        except IndexError:
+            return ValueError("Metric index {} is out of range 0 and {}"
+                              .format(index, len(self.metrics)))
+
+    def update_dict(self, labels, preds, device=False, ok=None):
+        if self.label_names is not None:
+            labels = {k: v for k, v in labels.items()
+                      if k in self.label_names}
+        if self.output_names is not None:
+            preds = {k: v for k, v in preds.items()
+                     if k in self.output_names}
+        for m in self.metrics:
+            m.update_dict(labels, preds, device=device, ok=ok)
+
+    def update(self, labels, preds):
+        for m in self.metrics:
+            m.update(labels, preds)
+
+    # -- device path: fan out to children (each child falls back to its
+    # own host path when it has no device impl) -----------------------------
+    @property
+    def supports_device_update(self):
+        return bool(self.metrics) and all(m.supports_device_update
+                                          for m in self.metrics)
+
+    def device_update(self, labels, preds):
+        return [m.device_update(labels, preds) for m in self.metrics]
+
+    def update_device(self, labels, preds, ok=None):
+        for m in self.metrics:
+            m.update_device(labels, preds, ok=ok)
+
+    def accumulate_device_stats(self, stats, ok=None):
+        for m, s in zip(self.metrics, stats):
+            m.accumulate_device_stats(s, ok=ok)
+
+    def set_device_stats(self, stats):
+        for m, s in zip(self.metrics, stats):
+            m.set_device_stats(s)
+
+    def reset(self):
+        self._dev_stats = None
+        for m in getattr(self, "metrics", []):
+            m.reset()
+
+    def get(self):
+        names, values = [], []
+        for m in self.metrics:
+            name, value = m.get()
+            names.extend([name] if isinstance(name, string_types)
+                         else name)
+            values.extend([value] if isinstance(value, numeric_types)
+                          else value)
+        return (names, values)
+
+    def get_config(self):
+        cfg = super().get_config()
+        cfg["metrics"] = [m.get_config() for m in self.metrics]
+        return cfg
+
+
+@register
+@alias("acc")
+class Accuracy(EvalMetric):
+    """Fraction of argmax predictions equal to the label."""
+
+    def __init__(self, axis=1, name="accuracy", output_names=None,
+                 label_names=None):
+        super().__init__(name, axis=axis, output_names=output_names,
+                         label_names=label_names)
+        self.axis = axis
+
+    def _accumulate(self, label, pred):
+        if pred.shape != label.shape:
+            pred = numpy.argmax(pred, axis=self.axis)
+        pred = pred.astype("int32").ravel()
+        label = label.astype("int32").ravel()
+        check_label_shapes(label, pred, shape=1)
+        self.sum_metric += int((pred == label).sum())
+        self.num_inst += pred.size
+
+    def _device_stats_one(self, label, pred):
+        if pred.shape != label.shape:
+            pred = torch.argmax(pred, dim=self.axis)
+        pred = pred.to(torch.int32).reshape(-1)
+        label = label.to(torch.int32).reshape(-1)
+        check_label_shapes(label, pred, shape=1)
+        return ((pred == label).sum().to(torch.float32),
+                _f32(pred.numel(), pred))
+
+
+@register
+@alias("top_k_accuracy", "top_k_acc")
+class TopKAccuracy(EvalMetric):
+    """Label contained in the k highest-scoring classes."""
+
+    def __init__(self, top_k=1, name="top_k_accuracy", output_names=None,
+                 label_names=None):
+        super().__init__(name, top_k=top_k, output_names=output_names,
+                         label_names=label_names)
+        assert top_k > 1, "Please use Accuracy if top_k is no more than 1"
+        self.top_k = top_k
+        self.name += "_%d" % top_k
+
+    def _accumulate(self, label, pred):
+        assert pred.ndim <= 2, "Predictions should be no more than 2 dims"
+        label = label.astype("int32").ravel()
+        if pred.ndim == 1:
+            self.sum_metric += int((pred.astype("int32") == label).sum())
+        else:
+            k = min(self.top_k, pred.shape[1])
+            # k highest columns per row (unordered — membership suffices)
+            top = numpy.argpartition(pred.astype("float32"),
+                                     -k, axis=1)[:, -k:]
+            self.sum_metric += int((top == label[:, None]).any(1).sum())
+        self.num_inst += pred.shape[0]
+
+    def _device_stats_one(self, label, pred):
+        assert pred.ndim <= 2, "Predictions should be no more than 2 dims"
+        label = label.to(torch.int32).reshape(-1)
+        if pred.ndim == 1:
+            s = (pred.to(torch.int32) == label).sum()
+        else:
+            k = min(self.top_k, pred.shape[1])
+            _, top = torch.topk(pred.float(), k, dim=1)
+            s = (top == label[:, None]).any(dim=1).sum()
+        return s.to(torch.float32), _f32(pred.shape[0], pred)
+
+
+@register
+class F1(EvalMetric):
+    """Binary F1, averaged per update batch (reference convention)."""
+
+    def __init__(self, name="f1", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    def _accumulate(self, label, pred):
+        label = label.astype("int32").ravel()
+        pred_label = numpy.argmax(pred, axis=1)
+        if numpy.unique(label).size > 2:
+            raise ValueError("F1 currently only supports binary "
+                             "classification.")
+        tp = int(((pred_label == 1) & (label == 1)).sum())
+        fp = int(((pred_label == 1) & (label == 0)).sum())
+        fn = int(((pred_label == 0) & (label == 1)).sum())
+        precision = tp / (tp + fp) if tp + fp else 0.0
+        recall = tp / (tp + fn) if tp + fn else 0.0
+        f1 = (2 * precision * recall / (precision + recall)
+              if precision + recall else 0.0)
+        self.sum_metric += f1
+        self.num_inst += 1
+
+
+@register
+class Perplexity(EvalMetric):
+    """exp(mean NLL) with an optional ignored label id."""
+
+    def __init__(self, ignore_label, axis=-1, name="perplexity",
+                 output_names=None, label_names=None):
+        super().__init__(name, ignore_label=ignore_label, axis=axis,
+                         output_names=output_names,
+                         label_names=label_names)
+        self.ignore_label = ignore_label
+        self.axis = axis
+
+    def _accumulate(self, label, pred):
+        flat = label.ravel().astype("int32")
+        assert flat.size == pred.size // pred.shape[-1], \
+            "shape mismatch: %s vs. %s" % (label.shape, pred.shape)
+        probs = pred.reshape(-1, pred.shape[-1])[
+            numpy.arange(flat.size), flat]
+        count = flat.size
+        if self.ignore_label is not None:
+            keep = flat != self.ignore_label
+            count = int(keep.sum())
+            probs = numpy.where(keep, probs, 1.0)
+        self.sum_metric += float(
+            -numpy.log(numpy.maximum(probs, 1e-10)).sum())
+        self.num_inst += count
+
+    def _device_stats_one(self, label, pred):
+        flat = label.reshape(-1).to(torch.int64)
+        assert flat.numel() == pred.numel() // pred.shape[-1], \
+            "shape mismatch: %s vs. %s" % (label.shape, pred.shape)
+        probs = pred.reshape(-1, pred.shape[-1])[
+            torch.arange(flat.numel(), device=pred.device), flat].float()
+        if self.ignore_label is not None:
+            keep = flat != self.ignore_label
+            count = keep.sum().to(torch.float32)
+            probs = torch.where(keep, probs, torch.ones_like(probs))
+        else:
+            count = _f32(flat.numel(), pred)
+        s = -torch.log(torch.clamp(probs, min=1e-10)).sum()
+        return s, count
+
+    def _finalize(self, ratio):
+        return math.exp(ratio)
+
+
+class _Regression(EvalMetric):
+    """Shared base for element-wise regression errors (per-batch
+    mean accumulated, matching the reference)."""
+
+    def _accumulate(self, label, pred):
+        if label.ndim == 1:
+            label = label[:, None]
+        if pred.ndim == 1:
+            pred = pred[:, None]
+        self.sum_metric += float(self._score(label, pred))
+        self.num_inst += 1
+
+    def _device_stats_one(self, label, pred):
+        if label.ndim == 1:
+            label = label[:, None]
+        if pred.ndim == 1:
+            pred = pred[:, None]
+        return (self._device_score(label.float(), pred.float()),
+                _f32(1, pred))
+
+
+@register
+class MAE(_Regression):
+    def __init__(self, name="mae", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    @staticmethod
+    def _score(label, pred):
+        return numpy.abs(label - pred).mean()
+
+    @staticmethod
+    def _device_score(label, pred):
+        return torch.abs(label - pred).mean()
+
+
+@register
+class MSE(_Regression):
+    def __init__(self, name="mse", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    @staticmethod
+    def _score(label, pred):
+        return numpy.square(label - pred).mean()
+
+    @staticmethod
+    def _device_score(label, pred):
+        return torch.square(label - pred).mean()
+
+
+@register
+class RMSE(_Regression):
+    def __init__(self, name="rmse", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    @staticmethod
+    def _score(label, pred):
+        return numpy.sqrt(numpy.square(label - pred).mean())
+
+    @staticmethod
+    def _device_score(label, pred):
+        return torch.sqrt(torch.square(label - pred).mean())
+
+
+class _PickedNLL(EvalMetric):
+    """Mean -log p(label) over class-probability rows."""
+
+    def __init__(self, eps, name, output_names, label_names):
+        super().__init__(name, eps=eps, output_names=output_names,
+                         label_names=label_names)
+        self.eps = eps
+
+    def _accumulate(self, label, pred):
+        flat = label.ravel().astype("int64")
+        assert flat.shape[0] == pred.shape[0]
+        picked = pred[numpy.arange(flat.shape[0]), flat]
+        self.sum_metric += float(-numpy.log(picked + self.eps).sum())
+        self.num_inst += flat.shape[0]
+
+    def _device_stats_one(self, label, pred):
+        flat = label.reshape(-1).to(torch.int64)
+        assert flat.shape[0] == pred.shape[0]
+        picked = pred[torch.arange(flat.shape[0], device=pred.device),
+                      flat].float()
+        return (-torch.log(picked + self.eps).sum(),
+                _f32(flat.shape[0], pred))
+
+
+@register
+@alias("ce")
+class CrossEntropy(_PickedNLL):
+    def __init__(self, eps=1e-12, name="cross-entropy",
+                 output_names=None, label_names=None):
+        super().__init__(eps, name, output_names, label_names)
+
+
+@register
+@alias("nll_loss")
+class NegativeLogLikelihood(_PickedNLL):
+    def __init__(self, eps=1e-12, name="nll-loss", output_names=None,
+                 label_names=None):
+        super().__init__(eps, name, output_names, label_names)
+
+
+@register
+@alias("pearsonr")
+class PearsonCorrelation(EvalMetric):
+    """Per-batch Pearson r, averaged over updates."""
+
+    def __init__(self, name="pearsonr", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    def _accumulate(self, label, pred):
+        check_label_shapes(label, pred, 1)
+        self.sum_metric += float(
+            numpy.corrcoef(pred.ravel(), label.ravel())[0, 1])
+        self.num_inst += 1
+
+
+@register
+class Loss(EvalMetric):
+    """Mean of loss-op outputs; ignores labels entirely (update is
+    overridden — no label/pred pairing)."""
+
+    def __init__(self, name="loss", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    def update(self, _, preds):
+        if isinstance(preds, NDArray):
+            preds = [preds]
+        for pred in preds:
+            arr = _np(pred)
+            self.sum_metric += float(arr.sum())
+            self.num_inst += arr.size
+
+    def device_update(self, labels, preds):
+        if not isinstance(preds, (list, tuple)):
+            preds = [preds]
+        s = None
+        n = 0
+        for pred in preds:
+            arr = _dev(pred)
+            part = arr.float().sum()
+            s = part if s is None else s + part
+            n += arr.numel()
+        if s is None:
+            s = torch.zeros((), dtype=torch.float32)
+        return {"sum": s, "num": _f32(n, s)}
+
+
+@register
+class Torch(Loss):
+    """Loss under the torch-plugin name (reference metric.py:Torch)."""
+
+    def __init__(self, name="torch", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+
+@register
+class Caffe(Loss):
+    """Loss under the caffe-plugin name (reference metric.py:Caffe)."""
+
+    def __init__(self, name="caffe", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+
+@register
+class CustomMetric(EvalMetric):
+    """Wraps feval(label, pred) -> value | (sum, count)."""
+
+    def __init__(self, feval, name=None, allow_extra_outputs=False,
+                 output_names=None, label_names=None):
+        if name is None:
+            name = feval.__name__
+            if "<" in name:
+                name = "custom(%s)" % name
+        super().__init__(name, feval=feval,
+                         allow_extra_outputs=allow_extra_outputs,
+                         output_names=output_names,
+                         label_names=label_names)
+        self._feval = feval
+        self._allow_extra_outputs = allow_extra_outputs
+
+    def update(self, labels, preds):
+        if not self._allow_extra_outputs:
+            check_label_shapes(labels, preds)
+        for pred, label in zip(preds, labels):
+            res = self._feval(_np(label), _np(pred))
+            if isinstance(res, tuple):
+                part, count = res
+            else:
+                part, count = res, 1
+            self.sum_metric += part
+            self.num_inst += count
+
+    def get_config(self):
+        raise NotImplementedError("CustomMetric cannot be serialized")
+
+
+# pylint: disable=invalid-name
+def np(numpy_feval, name=None, allow_extra_outputs=False):
+    """Metric from a bare numpy function (reference metric.py:np)."""
+    def feval(label, pred):
+        return numpy_feval(label, pred)
+    feval.__name__ = numpy_feval.__name__
+    return CustomMetric(feval, name, allow_extra_outputs)
+# pylint: enable=invalid-name

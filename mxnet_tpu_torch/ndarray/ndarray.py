@@ -103,7 +103,10 @@ class NDArray:
         self._data = _leaf_for(self, data) if _is_variable(self) else data
 
     def asnumpy(self):
-        """A fresh host copy; bf16 becomes float32."""
+        """A fresh host copy; bf16 becomes float32. One counted blocking
+        host sync (``profiler.host_sync_count``)."""
+        from ..profiler import count_host_sync
+        count_host_sync("asnumpy")
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
@@ -121,6 +124,8 @@ class NDArray:
         return self.asnumpy().tolist()
 
     def wait_to_read(self):
+        from ..profiler import count_host_sync
+        count_host_sync("wait_to_read")
         if self._data.device.type == "cuda":
             torch.cuda.synchronize(self._data.device)
 

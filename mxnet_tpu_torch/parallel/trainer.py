@@ -1,37 +1,57 @@
-"""The training step on one device — the PyTorch twin of
+"""The training step and its fit loop on one device — the PyTorch twin of
 ``mxnet_tpu/parallel/trainer.py``'s ``TrainStep`` without its mesh.
 
 The JAX package compiles forward, backward and the fused optimizer
 update into one ``jax.jit`` program. Here the same step runs eagerly:
 the Executor's forward-and-backward (``executor.forward_backward``: the
 Symbol graph under autograd with ``is_train=True``, then
-``torch.autograd.grad`` with ones as head cotangents), then the
-registry's fused update op per parameter.
+``torch.autograd.grad`` with ones, or the loss scale, as head
+cotangents), then one update of every parameter
+(``ops.optimizer_kernels.opt_update``: on the card, the multi-tensor
+kernel for Adam and SGD, one launch a 256 parameters, float32 or
+bfloat16; the registry's update op parameter by parameter for the other
+optimizers and on the CPU).
 The semantics are those of the JAX step: ``compute_dtype`` casts the
 parameters and the real-valued data (never labels or inputs that feed an
 Embedding, found from the graph), gradients come back in float32 through
 the cast, aux states keep their own dtype, ``rescale_grad`` defaults to
 1/batch, and ``clip_norm`` bounds the global norm of the rescaled
-gradient. ``donate=True`` updates the state tensors in place (the JAX
-package donates their buffers); ``donate=False`` leaves them untouched.
+gradient (``ops.optimizer_kernels.norm_finite``: one reduction over
+every gradient, a launch a 256 tensors and one to sum the partials). ``donate=True`` updates the state tensors in place
+(the JAX package donates their buffers); ``donate=False`` leaves them
+untouched. ``remat=True`` recomputes the forward during the backward.
 
-Not in this slice (ROADMAP Queue A items 4, 8 and 9): the device mesh,
+``fit`` is the JAX package's fit loop: epochs over a DataIter, the
+metric accumulated on the device (``metric.device_update`` after each
+step, masked by the step's finite flag), the guardrail (on by default:
+a non-finite step is masked on the device, rollback, loss scaling),
+preemption checkpoints and resume, telemetry and trace spans, and a
+bounded dispatch window whose wait is the one blocking host sync a
+step. ``save_state`` / ``load_state`` write and read the JAX package's
+``.npz`` layout, so a checkpoint of either package loads in the other.
+
+Not in this slice (ROADMAP Queue A items 4 and 9): the device mesh,
 sharding layouts and the sharded optimizer, which raise
-``NotImplementedError``; rematerialisation, which raises too; ``fit``
-with the fused metric, the guardrail's masking and loss scaler;
-``export`` / ``CompiledTrainStep``; ``save_state`` / ``load_state``.
+``NotImplementedError``; ``export`` / ``CompiledTrainStep``.
 """
 from __future__ import annotations
 
 import json
+import logging
+from collections import deque
 
+import numpy as np
 import torch
 
+from .. import guardrail as _guardrail
+from .. import telemetry as _telemetry
+from .. import trace as _trace
+from .._threefry import PRNGKey, fold_in
 from ..base import torch_dtype
 from ..context import context_of, cpu, current_context
 from ..executor import _graph_eval_fn, forward_backward
 from ..ndarray import array
-from ..ops.registry import get_op
+from ..ops import optimizer_kernels as _mt
 
 __all__ = ["make_train_step", "TrainStep"]
 
@@ -58,6 +78,91 @@ def _tensor(x, device):
     return array(x, ctx=context_of(device)).handle
 
 
+def _nd_wrap(x):
+    from ..ndarray.ndarray import _wrap
+    return _wrap(x)
+
+
+def _newest_readable(candidates, loader, torn_excs, logger):
+    """Newest-first checkpoint scan (a copy of
+    ``mxnet_tpu/module/base_module.py``'s): (path, loader(path)) for the
+    first candidate the loader can read, warning and falling back past
+    files torn by a crash mid-save. (None, None) when nothing is
+    readable. A model/optimizer mismatch must fail loudly, so the torn
+    set never holds ValueError here."""
+    for path in reversed(candidates):
+        try:
+            return path, loader(path)
+        except torn_excs as e:
+            logger.warning("checkpoint %s unreadable (%s); trying the "
+                           "previous one", path, e)
+    return None, None
+
+
+def _to_numpy(t):
+    """A host copy for a checkpoint: bf16 as the JAX package writes it
+    (ml_dtypes bfloat16 lands in ``.npz`` as 2-byte void), others as
+    they are."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
+def _from_numpy(a, path, key):
+    """A checkpoint array as a tensor. 2-byte void entries are bf16 bits
+    (how ``np.savez`` stores ml_dtypes bfloat16, which the JAX package
+    writes); any other void or object array fails loudly."""
+    if a.dtype.kind == "V":
+        if a.dtype.itemsize != 2:
+            raise ValueError("checkpoint %s entry %r has raw dtype %s; "
+                             "only 2-byte bfloat16 bits are readable"
+                             % (path, key, a.dtype))
+        return torch.from_numpy(np.ascontiguousarray(a).view(
+            np.int16)).view(torch.bfloat16)
+    if a.dtype.kind not in "biuf":
+        raise ValueError("checkpoint %s entry %r has dtype %s"
+                         % (path, key, a.dtype))
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+class _SimpleBatchEnd:
+    """BatchEndParam-compatible namespace for Speedometer-style
+    callbacks (reference model.py:BatchEndParam). ``locals`` carries the
+    loop's ``state``, ``outs`` and ``placed`` batch, as the reference's
+    ``locals()`` does."""
+
+    def __init__(self, epoch, nbatch, eval_metric, locals=None):
+        self.epoch = epoch
+        self.nbatch = nbatch
+        self.eval_metric = eval_metric
+        self.locals = locals
+
+
+class _InFlight:
+    """One dispatched step of the fit loop's window: an event recorded
+    after it on the card, and its finite flag copied to pinned host
+    memory behind it, so the wait for step t-K reads step t-K's flag
+    without waiting for the steps queued after it."""
+
+    def __init__(self, flag, device):
+        self.flag = flag
+        self.event = None
+        if device.type == "cuda":
+            if flag is not None:
+                host = torch.empty((), dtype=torch.bool, pin_memory=True)
+                host.copy_(flag, non_blocking=True)
+                self.flag = host
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    def wait(self):
+        """Block until the step ran; its finite flag (True unguarded)."""
+        if self.event is not None:
+            self.event.synchronize()
+        return True if self.flag is None else bool(self.flag)
+
+
 class TrainStep:
     """A training step on one device.
 
@@ -79,25 +184,29 @@ class TrainStep:
         for forward and backward (e.g. 'bfloat16') while master weights,
         gradients and optimizer state stay float32.
 
+        remat: recompute the forward during the backward (gradient
+        mirroring, reference MXNET_BACKWARD_DO_MIRROR): activation memory
+        traded for recompute. Default: the MXNET_BACKWARD_DO_MIRROR knob.
+
         clip_norm: clip gradients by global norm before the optimizer
         (the norm of the gradient after rescale_grad).
 
         ctx: the device (default: the current context, gpu(0) unless a
         ``with mx.cpu():`` scope says otherwise).
 
-        mesh / layout / optimizer_sharding / remat are not ported yet
-        and raise NotImplementedError."""
+        mesh / layout / optimizer_sharding are not ported yet and raise
+        NotImplementedError."""
+        from .. import config as _config
         for arg, value in (("mesh", mesh), ("layout", layout),
                            ("optimizer_sharding", optimizer_sharding)):
             if value is not None:
                 _not_ported("TrainStep(%s=...)" % arg,
                             "Queue A item 9, the parallel axes")
-        if remat:
-            _not_ported("TrainStep(remat=True)",
-                        "Queue A item 4, rematerialisation")
         self.symbol = symbol
         self.compute_dtype = (None if compute_dtype is None
                               else torch_dtype(compute_dtype))
+        self.remat = bool(remat) if remat is not None else \
+            bool(_config.get("MXNET_BACKWARD_DO_MIRROR"))
         self.data_names = list(data_names)
         self.label_names = list(label_names)
         self.arg_names = symbol.list_arguments()
@@ -124,6 +233,9 @@ class TrainStep:
         self.device = (ctx or current_context()).torch_device()
         self._eval_fn = _graph_eval_fn(symbol)
         self._donate = bool(donate)
+        # last fit's guardrail outcome: masked_steps/rollbacks/lr_mult
+        # ({} until a guarded fit ran) — tests and relaunchers read it
+        self.guard_report = {}
 
     @staticmethod
     def _embedding_fed_inputs(symbol):
@@ -193,11 +305,37 @@ class TrainStep:
         loop, so the host-to-device copy is not repaid every step."""
         return {k: _tensor(v, self.device) for k, v in batch.items()}
 
+    def _raw_feed(self, batch):
+        """Named feed dict from a DataBatch (NDArrays unwrap to their
+        tensors; no host round trip)."""
+        feed = dict(zip(self.data_names, batch.data))
+        if batch.label is not None:
+            feed.update(zip(self.label_names, batch.label))
+        return feed
+
+    def make_placer(self):
+        """place_fn for ``io.PrefetchingIter(place_fn=...)``: assembles
+        the named feed and places it on the step's device, so batch t+1's
+        copy runs on the prefetch thread while step t computes. ``fit``
+        picks the result up from ``batch.placed``."""
+        def place(batch):
+            return self.place_batch(self._raw_feed(batch))
+        return place
+
+    def _stage(self, batch):
+        """(batch, placed-feed): reuse an io-layer placement when the
+        iterator staged one, else place it now."""
+        placed = getattr(batch, "placed", None)
+        if placed is None:
+            placed = self.place_batch(self._raw_feed(batch))
+        return batch, placed
+
     # -- the step ----------------------------------------------------------
-    def _grads(self, params, aux, batch, rng):
+    def _grads(self, params, aux, batch, rng, head_scale=None):
         """(outputs, new_aux, grads): the Executor's one forward-and-
-        backward (``executor.forward_backward``: ones as head cotangents)
-        over the parameters, float32 gradients by name."""
+        backward (``executor.forward_backward``) over the parameters,
+        float32 gradients by name. ``head_scale`` (a 0-d device tensor,
+        the loss scale) is every head's cotangent; None means ones."""
         cdt = self.compute_dtype
         feed = dict(batch)
         cast = None
@@ -210,56 +348,570 @@ class TrainStep:
 
             def cast(leaves):
                 return {k: v.to(cdt) for k, v in leaves.items()}
+        out_grads = None
+        if head_scale is not None:
+            n_out = len(self.symbol.list_outputs())
+            out_grads = [head_scale] * n_out
         outs, new_aux, grads = forward_backward(
             self._eval_fn, {**feed, **params}, aux, rng, self.param_names,
-            cast=cast)
+            cast=cast, out_grads=out_grads, remat=self.remat)
         if cdt is not None:
             # aux states (BN moving stats) keep their own dtype
             new_aux = {k: v.to(aux[k].dtype) for k, v in new_aux.items()}
         return outs, new_aux, grads
 
-    def __call__(self, state, batch, lr, rng):
+    def _step(self, state, batch, lr, rng, guard=None, inject=1.0):
+        """One step: ((params, opt_state, aux), outs), and the finite
+        flag (a 0-d bool tensor) third when ``guard`` (a
+        ``guardrail.GuardSpec``) is given.
+
+        The guarded step: guardrail state rides ``aux`` under reserved
+        ``__gr_*`` keys and is stripped before the graph sees it; the
+        head cotangent is the loss scale when the spec has a scaler;
+        ``inject`` (1.0, or NaN on a ``nan@N`` step) multiplies the
+        gradients where the finite flag is taken (a NaN clears the flag,
+        so the masked update never reads it); the flag covers the scaled
+        gradients and the loss outputs; the gradients are unscaled exactly and clipped;
+        the whole update (params, optimizer state, aux) is masked on the
+        device when the flag is false, and the scaler's next state
+        follows the flag. ``norm_finite`` computes the flag, the clip
+        scale and the norm in one reduction over every gradient."""
         params, opt_state, aux = state
-        batch = self.place_batch(batch)
+        gr_state = {k: v for k, v in aux.items()
+                    if k.startswith(_guardrail.GR_PREFIX)}
+        if gr_state:
+            aux = {k: v for k, v in aux.items()
+                   if not k.startswith(_guardrail.GR_PREFIX)}
         attrs = dict(self.opt_params)
         if "rescale_grad" not in attrs and self.data_names:
             # Module.init_optimizer's default: the effective lr does not
             # scale with the batch unless the caller overrides
             attrs["rescale_grad"] = 1.0 / batch[self.data_names[0]].shape[0]
-        outs, new_aux, grads = self._grads(params, aux, batch, rng)
-
+        scaler = guard.scaler if guard is not None else None
+        scale = gr_state[_guardrail.SCALE_KEY] if scaler is not None \
+            else None
+        outs, new_aux, grads = self._grads(params, aux, batch, rng,
+                                           head_scale=scale)
+        names = self.param_names
         with torch.no_grad():
-            if self.clip_norm is not None:
-                # bound the EFFECTIVE gradient's global norm (after
-                # rescale_grad, i.e. the per-example mean)
-                rescale = float(attrs.get("rescale_grad", 1.0))
-                gnorm = rescale * torch.sqrt(sum(
-                    torch.sum(torch.square(g.float()))
-                    for g in grads.values()))
-                gscale = torch.clamp(
-                    self.clip_norm / torch.clamp_min(gnorm, 1e-12), max=1.0)
-                grads = {n: (g * gscale).to(g.dtype)
-                         for n, g in grads.items()}
-
-            opt_fn = get_op(self._opt_op).fn
-            new_params, new_opt = {}, {}
-            for n in self.param_names:
-                res = opt_fn(params[n], grads.pop(n), *opt_state[n],
-                             lr=float(lr), **attrs)
-                new_p = res[0] if self._n_state else res
-                new_s = tuple(res[1:]) if self._n_state else ()
-                if self._donate:
-                    params[n].copy_(new_p)
-                    for s, ns in zip(opt_state[n], new_s):
-                        s.copy_(ns)
-                    new_p, new_s = params[n], opt_state[n]
-                new_params[n], new_opt[n] = new_p, tuple(new_s)
+            glist = [grads.pop(n) for n in names]
+            inv = None if scale is None else 1.0 / scale
+            finite = gscale = None
+            if guard is not None or self.clip_norm is not None:
+                _, ok, gs = _mt.norm_finite(
+                    glist, list(outs) if guard is not None else (),
+                    inject=inject if guard is not None else 1.0,
+                    inv_scale=inv,
+                    rescale=float(attrs.get("rescale_grad", 1.0)),
+                    clip_norm=self.clip_norm)
+                finite = ok if guard is not None else None
+                gscale = gs if self.clip_norm is not None else None
+            new_w, new_s = _mt.opt_update(
+                self._opt_op, [params[n] for n in names], glist,
+                [opt_state[n] for n in names], lr, attrs, flag=finite,
+                gscale=gscale, inv_scale=inv, donate=self._donate)
+            del glist
+            new_params = dict(zip(names, new_w))
+            new_opt = dict(zip(names, new_s))
+            if finite is not None:
+                new_aux = {k: torch.where(finite, v, aux[k])
+                           for k, v in new_aux.items()}
+                if scaler is not None:
+                    new_scale, new_good = scaler.next_state(
+                        gr_state[_guardrail.SCALE_KEY],
+                        gr_state[_guardrail.GOOD_KEY], finite)
+                    new_gr = {_guardrail.SCALE_KEY: new_scale,
+                              _guardrail.GOOD_KEY: new_good}
+                    if self._donate:
+                        for k, v in new_gr.items():
+                            gr_state[k].copy_(v)
+                    else:
+                        gr_state = new_gr
             if self._donate:
                 for k, v in new_aux.items():
                     if v is not aux[k]:
                         aux[k].copy_(v)
                 new_aux = {k: aux[k] for k in new_aux}
+        new_aux = {**new_aux, **gr_state}
+        if guard is not None:
+            return (new_params, new_opt, new_aux), outs, finite
         return (new_params, new_opt, new_aux), outs
+
+    def __call__(self, state, batch, lr, rng):
+        return self._step(state, self.place_batch(batch), lr, rng)
+
+    def _metric_fused_step(self, metric, guard=None):
+        """The step followed by the metric's device update of the batch's
+        outputs: ``step_with_metric(state, placed, lr, rng, mstats,
+        inject)`` -> (state, outs, mstats, flag). The stats stay on the
+        device (a guarded step's are masked by its finite flag: a masked
+        step contributes to neither ``sum`` nor ``num``), so an epoch
+        runs without a device-to-host read."""
+        label_names = list(self.label_names)
+
+        def step_with_metric(state, placed, lr, rng, mstats, inject=1.0):
+            flag = None
+            if guard is not None:
+                state, outs, flag = self._step(state, placed, lr, rng,
+                                               guard=guard, inject=inject)
+            else:
+                state, outs = self._step(state, placed, lr, rng)
+            stats = metric.device_update(
+                [placed[n] for n in label_names], list(outs))
+            if flag is not None:
+                stats = _guardrail.mask_stats(stats, flag)
+            if mstats is not None:
+                stats = _tree_add(mstats, stats)
+            return state, outs, stats, flag
+
+        return step_with_metric
+
+    def fit(self, train_data, num_epoch, initializer=None, lr=0.01,
+            lr_scheduler=None, eval_metric="acc", state=None,
+            arg_params=None, aux_params=None, checkpoint_prefix=None,
+            checkpoint_period=1, resume=True, batch_end_callback=None,
+            epoch_end_callback=None, seed=0, logger=None,
+            fuse_metric=None, dispatch_ahead=None):
+        """Module.fit for the step: epochs over a DataIter, metric
+        tracking, periodic checkpointing and crash resume (reference
+        base_module.py:fit), on this step.
+
+        The loop is pipelined: batch t+1 is placed while step t runs,
+        the metric accumulates on the device (when it has a device
+        impl; the one host read is ``metric.get()`` at epoch end), and a
+        bounded window keeps at most MXNET_DISPATCH_AHEAD steps queued on
+        the card by waiting for the step K back: at most one blocking
+        host sync a step.
+
+        fuse_metric: None (auto: on the device when the metric has a
+            device impl) | True | False (False = host metric path).
+        dispatch_ahead: the window; default MXNET_DISPATCH_AHEAD (2).
+        train_data: DataIter yielding DataBatch.
+        lr_scheduler: callable(update_count) -> lr.
+        checkpoint_prefix: save_state to ``prefix_NNNN`` each
+            ``checkpoint_period`` epochs; with resume=True the newest
+            readable checkpoint is loaded and training continues after
+            it (the update counter too, from its ``.meta.json``).
+        seed: step t's key is ``fold_in(PRNGKey(seed), t)``.
+
+        Guardrails (MXNET_GUARDRAIL, default on): each step computes an
+        all-finite flag over the loss outputs and gradients on the
+        device and masks a non-finite step's update there; the flag is
+        read at the window's wait. After MXNET_MAX_BAD_STEPS consecutive
+        masked steps the loop restores the newest readable checkpoint
+        (the lr times MXNET_ROLLBACK_LR_FACTOR) and raises
+        NumericalDivergence once MXNET_MAX_ROLLBACKS is spent. With a
+        checkpoint_prefix, SIGTERM or SIGINT requests a checkpoint at the
+        next step boundary and the process exits with code
+        guardrail.EXIT_PREEMPTED; a rerun with resume=True continues
+        from that step. MXNET_LOSS_SCALE enables (dynamic) loss scaling.
+
+        Returns (state, final_metric_value); the metric is None when a
+        resumed run has no epochs left."""
+        from .. import config as _config
+        from .. import metric as metric_mod
+        from .. import profiler as _profiler
+        from ..initializer import Uniform
+
+        log = logger or logging.getLogger(__name__)
+        metric = metric_mod.create(eval_metric) \
+            if not hasattr(eval_metric, "update") else eval_metric
+
+        begin_epoch = 0
+        n_update = 0
+        skip_batches = 0
+        if checkpoint_prefix and resume:
+            found = self._scan_checkpoints(checkpoint_prefix, log)
+            if found is not None:
+                state, begin_epoch, n_update, skip_batches = found
+        if begin_epoch >= num_epoch:
+            log.info("checkpoints already cover all %d epochs; "
+                     "nothing to train", num_epoch)
+            return state, None
+        if state is None:
+            shapes = {}
+            for name, shape in (train_data.provide_data
+                                + train_data.provide_label):
+                shapes[name] = tuple(shape)
+            state = self.init_state(initializer or Uniform(0.01),
+                                    shapes, arg_params=arg_params,
+                                    aux_params=aux_params)
+
+        guard = _guardrail.FitGuard.create(
+            logger=log, checkpointing=bool(checkpoint_prefix))
+        spec = guard.spec
+        state = self._ensure_scaler_state(state, spec)
+
+        ahead = dispatch_ahead if dispatch_ahead is not None \
+            else _config.get("MXNET_DISPATCH_AHEAD")
+        ahead = max(1, int(ahead))
+        use_dev = bool(getattr(metric, "supports_device_update", False))
+        fuse = use_dev if fuse_metric is None else bool(fuse_metric)
+        fuse = fuse and use_dev
+        fused_step = self._metric_fused_step(metric, spec) if fuse else None
+
+        # telemetry: the journal and trace handles are hoisted out of the
+        # loop — when both are off, the loop pays nothing; all of it is
+        # host wall clock and adds no blocking host sync
+        jr = _telemetry.journal()
+        tr = _trace.tracer()
+        timed = jr is not None or tr is not None
+        step_hist = _telemetry.histogram("trainstep.step_ms") \
+            if jr is not None else None
+        _telemetry.journal_event("fit.start", loop="trainstep",
+                                 num_epoch=num_epoch,
+                                 begin_epoch=begin_epoch)
+        compile_logged = False
+
+        rng = PRNGKey(seed)
+        inflight = deque()
+
+        def drain_one():
+            # the one blocking sync a step: the dispatch window's wait.
+            # With the guardrail on it reads the step's finite flag
+            item = inflight.popleft()
+            _profiler.count_host_sync("dispatch_window")
+            finite = item.wait()
+            if spec is not None:
+                guard.policy.record(finite)
+
+        last_val = None
+        with guard.shutdown_scope():
+            epoch = begin_epoch
+            while epoch < num_epoch:
+                train_data.reset()
+                metric.reset()
+                mstats = None
+                batches = iter(train_data)
+                if skip_batches:
+                    log.info("mid-epoch resume: skipping %d already-"
+                             "trained batches of epoch %d",
+                             skip_batches, epoch)
+                    for _ in range(skip_batches):
+                        if next(batches, None) is None:
+                            break
+                    skip_batches = 0
+                nxt = next(batches, None)
+                staged = None if nxt is None else self._stage(nxt)
+                nbatch = 0
+                t_iter = _telemetry.now_ms() if timed else 0.0
+                try:
+                    while staged is not None:
+                        inject = guard.poll_faults() \
+                            if spec is not None or \
+                            guard.shutdown is not None else 1.0
+                        if guard.preempt_requested():
+                            self._preempt_exit(
+                                checkpoint_prefix, epoch, nbatch,
+                                state, n_update, log)
+                        batch, placed = staged
+                        # the step span carries the journal's step seq
+                        ssp = _trace.start_span(
+                            "train.step", loop="trainstep",
+                            step=n_update, epoch=epoch) \
+                            if tr is not None else None
+                        cur_lr = (lr_scheduler(n_update) if lr_scheduler
+                                  else lr) * guard.lr_mult
+                        step_rng = fold_in(rng, n_update)
+                        flag = None
+                        t_disp = _telemetry.now_ms() if jr is not None \
+                            else 0.0
+                        with _profiler.step_scope(n_update):
+                            if fuse:
+                                state, outs, mstats, flag = fused_step(
+                                    state, placed, cur_lr, step_rng,
+                                    mstats, inject)
+                                # the metric VIEWS the live epoch totals,
+                                # so get() works mid-epoch (Speedometer)
+                                # at the cost of that caller's one sync
+                                metric.set_device_stats(mstats)
+                            elif spec is not None:
+                                state, outs, flag = self._step(
+                                    state, placed, cur_lr, step_rng,
+                                    guard=spec, inject=inject)
+                            else:
+                                state, outs = self._step(
+                                    state, placed, cur_lr, step_rng)
+                        n_update += 1
+                        if jr is not None and not compile_logged:
+                            # the first step builds and loads the kernels
+                            compile_logged = True
+                            _telemetry.journal_event(
+                                "compile", site="TrainStep.fit",
+                                wall_ms=round(
+                                    _telemetry.now_ms() - t_disp, 3))
+                        inflight.append(_InFlight(flag, self.device))
+                        # stage batch t+1: its copy overlaps the step just
+                        # queued on the card
+                        t_data = _telemetry.now_ms() if timed else 0.0
+                        nxt = next(batches, None)
+                        staged = None if nxt is None \
+                            else self._stage(nxt)
+                        data_ms = _telemetry.now_ms() - t_data \
+                            if timed else 0.0
+                        if not fuse:
+                            # the host metric path
+                            metric.update(batch.label,
+                                          [_nd_wrap(o) for o in outs])
+                        t_win = _telemetry.now_ms() if timed else 0.0
+                        while len(inflight) > ahead:
+                            drain_one()
+                        if timed:
+                            # boundary-to-boundary iteration wall: the
+                            # sum over an epoch is the epoch's wall
+                            now_ = _telemetry.now_ms()
+                            if jr is not None:
+                                step_hist.observe(now_ - t_iter)
+                                _telemetry.journal_step(
+                                    loop="trainstep", step=n_update - 1,
+                                    epoch=epoch,
+                                    wall_ms=round(now_ - t_iter, 3),
+                                    data_wait_ms=round(data_ms, 3),
+                                    window_wait_ms=round(now_ - t_win,
+                                                         3),
+                                    samples=int(placed[
+                                        self.data_names[0]].shape[0])
+                                    if self.data_names else 0)
+                            if tr is not None:
+                                _trace.add_span("step.data_wait",
+                                                t_data,
+                                                t_data + data_ms,
+                                                parent=ssp)
+                                _trace.add_span("step.window_wait",
+                                                t_win, now_,
+                                                parent=ssp)
+                            t_iter = now_
+                        _trace.end_span(ssp)
+                        if batch_end_callback:
+                            batch_end_callback(_SimpleBatchEnd(
+                                epoch, nbatch, metric,
+                                locals={"state": state, "outs": outs,
+                                        "placed": placed}))
+                        del outs
+                        nbatch += 1
+                    if spec is not None:
+                        # drain the window so a bad tail is seen BEFORE
+                        # this epoch's checkpoint is published
+                        while inflight:
+                            drain_one()
+                except _guardrail.RollbackNeeded:
+                    # the jump abandoned the open step span
+                    _trace.unwind()
+                    state, epoch, n_update, skip_batches = \
+                        self._rollback(checkpoint_prefix, guard, log)
+                    state = self._ensure_scaler_state(state, spec)
+                    inflight.clear()
+                    continue
+                name, val = metric.get()     # the one blocking read
+                last_val = val
+                log.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+                if jr is not None:
+                    _telemetry.journal_event("epoch.end",
+                                             loop="trainstep",
+                                             epoch=epoch, steps=nbatch)
+                # device-memory watermark: at epoch boundaries only
+                _profiler.sample_device_memory("epoch.end")
+                if checkpoint_prefix and \
+                        (epoch + 1) % checkpoint_period == 0:
+                    self._save_fit_checkpoint(checkpoint_prefix, epoch,
+                                              state, n_update)
+                if epoch_end_callback:
+                    epoch_end_callback(epoch, state)
+                epoch += 1
+        self.guard_report = guard.report()
+        return state, last_val
+
+    # -- fit plumbing (checkpoint scan / publish / rollback / preempt) -----
+    def _ensure_scaler_state(self, state, spec):
+        """Seed the loss scaler's device state into aux when enabled
+        and absent (fresh runs and checkpoints from unscaled runs)."""
+        if spec is None or spec.scaler is None:
+            return state
+        params, opt_state, aux = state
+        if _guardrail.SCALE_KEY in aux:
+            return state
+        aux = dict(aux)
+        aux.update(spec.scaler.init_aux(self.device))
+        _telemetry.gauge("guardrail.loss_scale").set(
+            spec.scaler.init_scale)
+        return params, opt_state, aux
+
+    def _scan_checkpoints(self, checkpoint_prefix, log):
+        """Newest readable ``prefix_NNNN.npz`` → (state, begin_epoch,
+        n_update, skip_batches), or None. A preemption boundary
+        checkpoint (meta carries epoch/nbatch) resumes INSIDE the epoch
+        it interrupted, at the exact step."""
+        import glob as _glob
+        import re as _re
+        import zipfile as _zipfile
+
+        found = sorted(
+            p for p in _glob.glob(checkpoint_prefix + "_*.npz")
+            if _re.search(r"_\d{4}\.npz$", p))
+        # a model/optimizer MISMATCH (ValueError) is NOT in the torn
+        # set: it must fail loudly, not fall back silently
+        path, loaded = _newest_readable(
+            found, lambda p: self.load_state(p[:-len(".npz")]),
+            (OSError, EOFError, _zipfile.BadZipFile), log)
+        if path is None:
+            return None
+        latest = path[:-len(".npz")]
+        begin_epoch = int(latest.rsplit("_", 1)[1]) + 1
+        n_update = 0
+        skip_batches = 0
+        try:
+            with open(latest + ".meta.json") as f:
+                meta = json.load(f)
+            n_update = int(meta["n_update"])
+            if "nbatch" in meta:
+                begin_epoch = int(meta["epoch"])
+                skip_batches = int(meta["nbatch"])
+        except (OSError, ValueError, KeyError):
+            log.warning(
+                "%s.meta.json missing/unreadable; lr schedule "
+                "and rng folds restart from update 0", latest)
+        log.info("resumed %s (continuing at epoch %d, update %d%s)",
+                 latest, begin_epoch, n_update,
+                 ", batch %d" % skip_batches if skip_batches else "")
+        return loaded, begin_epoch, n_update, skip_batches
+
+    def _save_fit_checkpoint(self, prefix, epoch, state, n_update,
+                             extra_meta=None):
+        ck = "%s_%04d" % (prefix, epoch)
+        self.save_state(ck, state)
+        meta = {"n_update": n_update}
+        if extra_meta:
+            meta.update(extra_meta)
+        tmp = ck + ".meta.json.tmp"
+        with open(tmp, "w") as f:
+            json.dump(meta, f)
+        _guardrail.durable_replace(tmp, ck + ".meta.json")
+        return ck
+
+    def _rollback(self, checkpoint_prefix, guard, log):
+        """Escalation: restore the newest readable checkpoint after
+        MXNET_MAX_BAD_STEPS consecutive masked steps. Raises
+        NumericalDivergence when no checkpoint exists or the rollback
+        budget is spent."""
+        if not checkpoint_prefix:
+            guard.policy.no_checkpoint("no checkpoint_prefix "
+                                       "configured")
+        guard.policy.begin_rollback()
+        found = self._scan_checkpoints(checkpoint_prefix, log)
+        if found is None:
+            guard.policy.no_checkpoint(
+                "no readable checkpoint under %r" % checkpoint_prefix)
+        state, begin_epoch, n_update, skip = found
+        log.warning(
+            "guardrail: rolled back to the newest finite checkpoint "
+            "(epoch %d, update %d); lr multiplier now %g "
+            "(rollback %d/%d)", begin_epoch, n_update,
+            guard.policy.lr_mult, guard.policy.rollbacks_done,
+            guard.policy.max_rollbacks)
+        return state, begin_epoch, n_update, skip
+
+    def _preempt_exit(self, prefix, epoch, nbatch, state, n_update,
+                      log):
+        """Graceful-shutdown endgame: publish the boundary checkpoint
+        (meta records the exact step) and exit EXIT_PREEMPTED so a
+        relauncher rerunning the same command resumes seamlessly."""
+        if prefix:
+            ck = self._save_fit_checkpoint(
+                prefix, epoch, state, n_update,
+                {"epoch": epoch, "nbatch": nbatch})
+            _telemetry.counter("guardrail.preempt_checkpoints").inc()
+            _telemetry.journal_event("guardrail.preempt_checkpoint",
+                                     loop="trainstep", epoch=epoch,
+                                     nbatch=nbatch)
+            log.warning(
+                "preemption: boundary checkpoint %s written at epoch "
+                "%d batch %d (update %d); exiting with code %d",
+                ck, epoch, nbatch, n_update, _guardrail.EXIT_PREEMPTED)
+        raise SystemExit(_guardrail.EXIT_PREEMPTED)
+
+    def save_state(self, prefix, state):
+        """Checkpoint (params, opt_state, aux) to ``prefix.npz`` in the
+        JAX package's layout (keys ``p:<name>``, ``o<i>:<name>``,
+        ``a:<name>``; bf16 as the 2-byte void entries ml_dtypes
+        bfloat16 becomes in ``.npz``), published durably: written aside,
+        fsynced, renamed, the directory fsynced."""
+        params, opt_state, aux = state
+        if _guardrail.SCALE_KEY in aux:
+            # the checkpoint read materializes the scale on the host
+            # anyway: the one place the gauge updates without a sync of
+            # its own
+            _telemetry.gauge("guardrail.loss_scale").set(
+                float(aux[_guardrail.SCALE_KEY]))
+        blob = {}
+        for n, v in params.items():
+            blob["p:%s" % n] = _to_numpy(v)
+        for n, states in opt_state.items():
+            for i, s in enumerate(states):
+                blob["o%d:%s" % (i, n)] = _to_numpy(s)
+        for n, v in aux.items():
+            blob["a:%s" % n] = _to_numpy(v)
+        tmp = prefix + ".npz.tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **blob)
+        _guardrail.durable_replace(tmp, prefix + ".npz")
+        return prefix + ".npz"
+
+    def load_state(self, prefix):
+        """Restore a save_state checkpoint (of either package) onto this
+        step's device. Mismatched checkpoints (another model's params or
+        aux, another optimizer's state-slot count) fail loudly."""
+        path = prefix + ".npz"
+        params, opt_state, aux = {}, {}, {}
+        slots = {}
+        with np.load(path, allow_pickle=False) as blob:
+            for key in blob.files:
+                kind, name = key.split(":", 1)
+                t = _from_numpy(blob[key], path, key).to(self.device)
+                if kind == "p":
+                    params[name] = t
+                elif kind == "a":
+                    aux[name] = t
+                else:
+                    slots.setdefault(name, {})[int(kind[1:])] = t
+
+        def _mismatch(what, names):
+            raise ValueError("checkpoint %s %s %r — saved from a "
+                             "different model/optimizer"
+                             % (path, what, sorted(names)))
+
+        if set(params) != set(self.param_names):
+            missing = set(self.param_names) - set(params)
+            _mismatch("is missing params" if missing else
+                      "has unknown params",
+                      missing or set(params) - set(self.param_names))
+        # guardrail state (loss scale etc.) rides aux under reserved
+        # __gr_* keys; it is optional — not part of the model contract
+        aux_model = {n for n in aux
+                     if not n.startswith(_guardrail.GR_PREFIX)}
+        if aux_model != set(self.aux_names):
+            missing = set(self.aux_names) - aux_model
+            _mismatch("is missing aux states" if missing else
+                      "has unknown aux states",
+                      missing or aux_model - set(self.aux_names))
+        for n in self.param_names:
+            saved = slots.get(n, {})
+            if sorted(saved) != list(range(self._n_state)):
+                raise ValueError(
+                    "checkpoint %s has optimizer slots %r for %r; this "
+                    "step's %r optimizer needs exactly %d — resuming "
+                    "across optimizers would silently corrupt the "
+                    "trajectory" % (path, sorted(saved), n,
+                                    self.opt_name, self._n_state))
+            opt_state[n] = tuple(saved[i] for i in range(self._n_state))
+        return params, opt_state, aux
+
+
+def _tree_add(a, b):
+    if isinstance(a, dict):
+        return {k: _tree_add(a[k], b[k]) for k in a}
+    if isinstance(a, (list, tuple)):
+        return type(a)(_tree_add(x, y) for x, y in zip(a, b))
+    return a + b
 
 
 def make_train_step(symbol, **kwargs):

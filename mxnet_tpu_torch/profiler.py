@@ -1,14 +1,61 @@
-"""Device-memory sampling for the telemetry registry — the piece of
-``mxnet_tpu/profiler.py`` the serving engine uses. The profiler proper
-(host timeline, ``torch.profiler`` device traces) comes with ROADMAP
-Queue A item 9."""
+"""The pieces of ``mxnet_tpu/profiler.py`` that serving and the fit loop
+use: device-memory sampling, the blocking-host-sync counter and the
+per-step marker. The profiler proper (host timeline, ``torch.profiler``
+device traces, ``dump_profile``) comes with ROADMAP Queue A item 9."""
 from __future__ import annotations
 
 import torch
 
 from . import telemetry as _telemetry
 
-__all__ = ["sample_device_memory"]
+__all__ = ["sample_device_memory", "count_host_sync", "host_sync_count",
+           "reset_host_sync_count", "step_scope"]
+
+# -- blocking-host-sync accounting ------------------------------------------
+# The fit loop's claim "at most one blocking host sync a step" is asserted
+# by tests against this counter, so it is always on (one locked int
+# increment). Counted sites: NDArray.asnumpy / wait_to_read, the metric
+# accumulator's read in EvalMetric.get, and the fit loop's dispatch-window
+# waits. The count lives in the telemetry registry ("host_syncs").
+
+_HOST_SYNCS = _telemetry.counter("host_syncs")
+
+
+def count_host_sync(kind="sync"):
+    """Count one blocking host synchronization (a device-to-host read or
+    a wait for the card). ``kind`` names the site."""
+    _HOST_SYNCS.inc()
+
+
+def host_sync_count():
+    """Monotonic count of blocking host syncs since import (tests take
+    deltas around the region under scrutiny)."""
+    return _HOST_SYNCS.value
+
+
+def reset_host_sync_count():
+    _HOST_SYNCS.reset()
+
+
+class step_scope:
+    """Step marker for training loops: one ``torch.profiler``
+    ``record_function`` range named ``train_step#N`` around the step, so
+    a device trace groups each step's kernels under it."""
+
+    def __init__(self, step_num, name="train_step"):
+        self.name = name
+        self.step_num = int(step_num)
+        self._ctx = None
+
+    def __enter__(self):
+        self._ctx = torch.profiler.record_function(
+            "%s#%d" % (self.name, self.step_num))
+        self._ctx.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._ctx.__exit__(*exc)
+        return False
 
 
 def sample_device_memory(site="boundary"):

@@ -100,6 +100,18 @@ class Symbol:
         return "<Symbol group [%s]>" % ", ".join(
             e[0].name for e in self._entries)
 
+    def attr_dict(self):
+        """{node name: {attr: str value}} over the graph: user attrs
+        (``__lr_mult__``, ``__wd_mult__``, ...) and op attrs."""
+        out = {}
+        for node in _topo_order(self._entries):
+            d = dict(node.misc_attrs)
+            if node.op is not None:
+                d.update({k: str(v) for k, v in node.attrs.items()})
+            if d:
+                out[node.name] = d
+        return out
+
     # -- introspection -------------------------------------------------------
     def list_arguments(self):
         return [n.name for n in _topo_order(self._entries)

@@ -23,7 +23,9 @@ def _run(code):
 def test_port_and_chip_smoke_import_without_jax():
     """With jax made unimportable, every module of the port (and the
     chip smoke script) imports, the training slice's modules (parallel,
-    initializer, random, registry) run one step, the eager surface's
+    initializer, random, registry) run one step, the training loop's
+    (io, metric, lr_scheduler, callback, guardrail, resilience) one fit
+    epoch with a masked step, optimizer one update, the eager surface's
     (autograd, the generated ndarray.op namespace, ops.init_ops) one
     recorded backward, the Executor one bind, and no jax or mxnet_tpu
     module loads."""
@@ -49,6 +51,26 @@ state = step.init_state(initializer.Xavier(), {"data": (2, 4),
 toks = np.arange(8, dtype=np.float32).reshape(2, 4)
 state, outs = step(state, {"data": toks, "softmax_label": toks}, 0.01, 0)
 assert outs[0].shape == (8, 10)
+# the training loop's modules, used: fit over io, metric, lr_scheduler,
+# the guardrail and a nan@1 fault, then the optimizer through an Updater
+from mxnet_tpu_torch import (callback, guardrail, io, lr_scheduler, metric,
+                             optimizer)
+from mxnet_tpu_torch.parallel import resilience
+resilience.install_fault_injector(resilience.FaultInjector("nan@1"))
+with mxnet_tpu_torch.cpu():
+    it = io.NDArrayIter(np.concatenate([toks, toks]),
+                        np.concatenate([toks, toks]), batch_size=2)
+state, ppl = step.fit(it, num_epoch=1, state=state,
+                      lr_scheduler=lr_scheduler.FactorScheduler(1, 0.5),
+                      eval_metric=metric.Perplexity(ignore_label=None),
+                      batch_end_callback=callback.log_train_metric(1))
+assert step.guard_report["masked_steps"] == 1 and ppl > 0
+resilience.install_fault_injector(None)
+up = optimizer.get_updater(optimizer.create("adam"))
+with mxnet_tpu_torch.cpu():
+    w = mxnet_tpu_torch.nd.ones((3,))
+    up(0, mxnet_tpu_torch.nd.ones((3,)), w)
+assert w.asnumpy()[0] < 1 and guardrail.EXIT_PREEMPTED == 83
 # the eager surface's modules, used: autograd over nd ops, an init op
 from mxnet_tpu_torch import autograd, nd
 from mxnet_tpu_torch.ndarray import op as nd_op

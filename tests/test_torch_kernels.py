@@ -1,6 +1,7 @@
 """The port's CUDA kernels (flash forward; the fused flash backward,
-``flash_bwd_cuda``; the four BatchNorm training kernels; greedy NMS) and
-their wrappers, without the JAX package:
+``flash_bwd_cuda``; the four BatchNorm training kernels; greedy NMS; the
+multi-tensor optimizer update and gradient reduction) and their
+wrappers, without the JAX package:
 importable where only PyTorch is installed, as on the card's machine,
 where
 
@@ -22,7 +23,15 @@ NMS kernel's keep masks equal its plain version's (``_nms_reference``)
 flag for flag, in ``chip_smoke.py``'s cases. The threefry PRNG's bits and
 Dropout masks on the card equal its CPU draws, and both reproduce
 ``chip_smoke.PRNG_DIGESTS``. ``test_utils.check_consistency`` holds
-LRN and Deconvolution on the card to their CPU runs.
+LRN and Deconvolution on the card to their CPU runs. The multi-tensor
+update equals its plain version (the registry op parameter by parameter)
+bit for bit in ``chip_smoke.MT_UPDATE_CASES`` (float32 and bfloat16, and
+lists of more than ``MAX_TENSORS`` tensors), and a numpy float32
+emulation of its arithmetic (rounded to bfloat16 after each operation
+for bfloat16) equals the registry op on the CPU; the reduction's finite
+flag is exact and its sum within ``chip_smoke.MT_SUM_RTOL`` in
+``chip_smoke.MT_NORM_CASES``; each wrapper counts the kernels it
+launched.
 """
 import numpy as np
 import pytest
@@ -733,3 +742,166 @@ def test_cuda_check_consistency_holds_the_card_to_the_cpu(cuda_device):
         return net(a, k) + (1e-3 if a.context == mx.gpu(0) else 0.0)
     with pytest.raises(AssertionError, match="inconsistent on the CPU"):
         ttu.check_consistency(skewed, inputs)
+
+
+# ---------------------------------------------------------------------------
+# the multi-tensor optimizer update and gradient reduction
+# (csrc/multi_tensor.cu, ops/optimizer_kernels.py)
+# ---------------------------------------------------------------------------
+
+from mxnet_tpu_torch.ops import optimizer_kernels as tmt  # noqa: E402
+
+MT_UPDATE_CASES = chip_smoke.MT_UPDATE_CASES
+MT_NORM_CASES = chip_smoke.MT_NORM_CASES
+_mt_operands = chip_smoke.mt_operands
+_mt_scalars = chip_smoke.mt_scalars
+_bits = chip_smoke._int_bits
+
+
+def test_multi_tensor_wrappers_refuse_cpu_tensors():
+    ws, gs, ss = _mt_operands("adam_update", (3,), "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        tmt.multi_tensor_opt_update_cuda("adam_update", ws, gs, ss, 0.1,
+                                         {})
+    with pytest.raises(ValueError, match="CUDA"):
+        tmt.multi_tensor_norm_finite_cuda(gs)
+    with pytest.raises(ValueError, match="not one of"):
+        tmt.multi_tensor_opt_update_cuda("rmsprop_update", ws, gs, ss, 0.1,
+                                         {})
+
+
+@pytest.mark.cuda
+def test_cuda_multi_tensor_update_refuses_other_dtypes(cuda_device):
+    """float16 and mixed float32/bfloat16 lists raise; nothing falls back
+    to the per-parameter route."""
+    ws, gs, ss = _mt_operands("adam_update", (3, 5), cuda_device)
+    with pytest.raises(TypeError, match="share one dtype"):
+        tmt.opt_update("adam_update", ws, [g.bfloat16() for g in gs], ss,
+                       0.1, {})
+    half = [w.half() for w in ws]
+    with pytest.raises(TypeError, match="must be"):
+        tmt.opt_update("adam_update", half, [g.half() for g in gs],
+                       [tuple(x.half() for x in s) for s in ss], 0.1, {})
+
+
+def _emulate_update(op, w, g, s, lr, attrs, inv=1.0, gscale=1.0,
+                    dtype="float32"):
+    """The kernel's arithmetic (csrc/multi_tensor.cu update_one) in numpy
+    float32, one rounding an operation, with the kernel's host scalars;
+    for bfloat16 each result is rounded to bfloat16 (``r``) and so are
+    clamp's bounds. The square root is PyTorch's: on the CPU it is not
+    correctly rounded (it differs from numpy's in the last bit), while on
+    the card both torch.sqrt and the kernel's __fsqrt_rn are."""
+    f = np.float32
+    if dtype == "bfloat16":
+        def r(x):
+            return torch.from_numpy(np.asarray(x, f)).bfloat16().float(
+                ).numpy()
+    else:
+        def r(x):
+            return x
+    lr_, rescale, clip, wd, a, b, c, d, eps = (
+        f(x) for x in tmt._hyper(op, lr, attrs))
+    g = r(g * f(inv))
+    g = r(g * f(gscale))
+    g = r(g * rescale)
+    if clip > 0:
+        cb = r(clip)
+        g = np.where(np.isnan(g), g, np.minimum(np.maximum(g, -cb), cb))
+    g = r(g + r(w * wd))
+    if op == "adam_update":
+        m1 = r(r(s[0] * a) + r(g * b))
+        v1 = r(r(s[1] * c) + r(r(g * g) * d))
+        root = r(torch.sqrt(torch.from_numpy(v1)).numpy())
+        return r(w - r(r(m1 * lr_) / r(root + eps))), (m1, v1)
+    m1 = r(r(s[0] * a) - r(g * lr_))
+    return r(w + m1), (m1,)
+
+
+@pytest.mark.parametrize("case", MT_UPDATE_CASES, ids=lambda c: c[0])
+def test_multi_tensor_arithmetic_equals_the_registry_op(case):
+    """The kernel's per-element arithmetic, emulated in numpy float32,
+    equals the registry op (and the plain version) bit for bit on the
+    CPU: the order of operations and the host-rounded scalars."""
+    _, op, sizes, attrs, flag, gscale, inv, donate, dtype = case
+    sizes = tuple(min(n, 5000) for n in sizes)
+    ws, gs, ss = _mt_operands(op, sizes, "cpu", seed=1, dtype=dtype)
+    lr = 0.0123
+
+    def host(t):
+        return t.float().numpy().copy()
+    np_args = [(host(w), host(g), tuple(host(x) for x in s))
+               for w, g, s in zip(ws, gs, ss)]
+    fl, gsc, inv_t = _mt_scalars("cpu", flag, gscale, inv)
+    new_w, new_s = tmt._opt_update_reference(
+        op, ws, gs, ss, lr, attrs, flag=fl, gscale=gsc, inv_scale=inv_t,
+        donate=donate)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for (w, g, s), nw, ns in zip(np_args, new_w, new_s):
+            ew, es = _emulate_update(op, w, g, s, lr, attrs,
+                                     1.0 if inv is None else inv,
+                                     1.0 if gscale is None else gscale,
+                                     dtype)
+            if flag is False:
+                ew, es = w, s
+            assert np.array_equal(host(nw).view(np.int32),
+                                  ew.view(np.int32))
+            for x, y in zip(ns, es):
+                assert np.array_equal(host(x).view(np.int32),
+                                      y.view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MT_UPDATE_CASES, ids=lambda c: c[0])
+def test_cuda_multi_tensor_update_is_bit_equal(cuda_device, case):
+    _, op, sizes, attrs, flag, gscale, inv, donate, dtype = case
+    ws, gs, ss = _mt_operands(op, sizes, cuda_device, dtype=dtype)
+    ref = [[t.clone() for t in ws], [t.clone() for t in gs],
+           [tuple(x.clone() for x in s) for s in ss]]
+    before = [t.clone() for t in ws]
+    fl, gsc, inv_t = _mt_scalars(cuda_device, flag, gscale, inv)
+    launches = tmt.multi_tensor_opt_update_cuda.launches
+    kw, ks = tmt.multi_tensor_opt_update_cuda(
+        op, ws, gs, ss, 0.0123, attrs, flag=fl, gscale=gsc,
+        inv_scale=inv_t, donate=donate)
+    torch.cuda.synchronize()
+    assert tmt.multi_tensor_opt_update_cuda.launches == (
+        launches + chip_smoke.mt_launches(len(sizes)))
+    rw, rs = tmt._opt_update_reference(op, *ref, 0.0123, attrs, flag=fl,
+                                       gscale=gsc, inv_scale=inv_t,
+                                       donate=donate)
+    for a, b, w, w0 in zip(kw, rw, ws, before):
+        assert a.dtype == getattr(torch, dtype)
+        assert torch.equal(_bits(a), _bits(b))
+        assert (a is w) == donate
+        if not donate:
+            assert torch.equal(w, w0)
+    for sa, sb in zip(ks, rs):
+        for a, b in zip(sa, sb):
+            assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MT_NORM_CASES, ids=lambda c: c[0])
+def test_cuda_multi_tensor_norm_finite(cuda_device, case):
+    """Sum of squares within 1e-6 relative of the plain version's, the
+    finite flag exact (NaN and Inf planted), gscale within 1e-6."""
+    _, sizes, outs, plant, inject, inv, clip = case
+    grads, out_t, inv_t = chip_smoke.mt_norm_operands(case, cuda_device)
+    launches = tmt.multi_tensor_norm_finite_cuda.launches
+    s, ok, gs = tmt.multi_tensor_norm_finite_cuda(
+        grads, out_t, inject=inject, inv_scale=inv_t, rescale=0.125,
+        clip_norm=clip)
+    torch.cuda.synchronize()
+    assert tmt.multi_tensor_norm_finite_cuda.launches == (
+        launches + chip_smoke.mt_launches(len(sizes) + len(outs), True))
+    rs, rok, rgs = tmt._norm_finite_reference(
+        grads, out_t, inject=inject, inv_scale=inv_t, rescale=0.125,
+        clip_norm=clip)
+    assert bool(ok) == bool(rok) == (plant is None and inject == 1.0)
+    if bool(rok):
+        rtol = chip_smoke.MT_SUM_RTOL
+        torch.testing.assert_close(s, rs, rtol=rtol, atol=0)
+        torch.testing.assert_close(gs, rgs, rtol=rtol, atol=0)
+        if clip is None:
+            assert float(gs) == 1.0

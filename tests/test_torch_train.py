@@ -191,7 +191,6 @@ def torch_equal(a, b):
     ({"mesh": object()}, "Queue A item 9"),
     ({"layout": object()}, "Queue A item 9"),
     ({"optimizer_sharding": "zero1"}, "Queue A item 9"),
-    ({"remat": True}, "rematerialisation"),
 ])
 def test_unported_options_raise(lm, kw, match):
     with pytest.raises(NotImplementedError, match=match):
