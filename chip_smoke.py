@@ -100,7 +100,9 @@ Phases (any failure exits non-zero; no phase is caught):
    squares within MT_SUM_RTOL, in MT_NORM_CASES and on the LM's
    gradients and bf16 outputs; each wrapper's count equal to the kernels
    it launched (one a MAX_TENSORS tensors, plus the reduction's pass
-   over its partials); each timed beside its bound, its plain version
+   over its partials); the update with its lr read on the device (a
+   captured step's) bit-equal and timed; each timed beside its bound,
+   its plain version
    and the nearest library call (torch._fused_adam_, torch._fused_sgd_,
    torch._foreach_norm: not the same functions), with a 1 GiB copy_'s
    rate for scale; the update launches once a step on the train, fit,
@@ -117,11 +119,30 @@ Phases (any failure exits non-zero; no phase is caught):
    temporary directory; at 2 layers under
    torch.use_deterministic_algorithms(True), a fit cut by sigterm@4 and
    resumed lands on the uninterrupted run's weights bit for bit;
-15. one JSON line of every ported kernel (a device time under its byte
+15. module path: bench.py's ResNet-50 in float32 on the BatchNorm
+   kernels through Module.fit (kvstore local, the default guardrail,
+   "acc", one epoch of 4 seeded batches, then score): after 3 updates the
+   Module's parameters and moving stats equal a float32 TrainStep's bit
+   for bit (deterministic algorithms), a module_checkpoint loads back bit
+   for bit; step ms, img/s, the peak memory of each step (flat from step
+   2), busy share and launches of a profiled step, each BatchNorm kernel
+   50 launches a step; the float32 step without cuDNN beside it (ROADMAP
+   Queue C item 8);
+16. compiled step: ResNet-50's bf16 kernel-route step through
+   TrainStep.export -> CompiledTrainStep: the capturing step and 10 CUDA
+   graph replays, each with its own lr, equal 11 direct steps bit for
+   bit; one profiled replay launches each BatchNorm kernel 50 times and
+   the multi-tensor update once; the replay's ms by events, step()'s ms,
+   the capture's time and memory, beside the direct step in this call;
+   then AlexNet's replays with seeds 0, 1, 2 equal direct steps with
+   PRNGKey(seed), Dropout masks included;
+17. one JSON line of every ported kernel (a device time under its byte
    bound fails the run: the timing lost work), then the result line.
 
 It imports nothing of JAX or of ``mxnet_tpu``. Without CUDA, or run
 outside the repository, it fails before printing any result.
+``--only=PHASE,...`` runs the named phases alone after the build
+(``PARTIAL``) and prints no result line.
 """
 from __future__ import annotations
 
@@ -227,26 +248,50 @@ def time_ms(fn, reps=20, warmup=3):
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def device_ms(fn, kernel, reps=20):
+def device_ms(fn, kernel, reps=20, tries=3):
     """Device time of one call's kernels whose name holds ``kernel`` (all
     of the call's kernels when ``kernel`` is empty): a torch.profiler
     trace of ``reps`` warm calls, each after a marker kernel
     (``torch.cuda._sleep(1)``), so the kernels between two markers are
     one call's; the median over the calls of their kernel time (without
     the host's time to enqueue a call, which CUDA events around a short
-    call include). The profiler can lose a kernel's record: on the H100
-    it dropped the first kernel of a trace launched from outside ATen,
-    and a plain mean over ``reps`` read 10-20% fast (PERF.md). So only
-    calls with the most common number of kernels count; that number is
-    left in ``device_ms.launches``, the calls left out in
-    ``device_ms.lost``."""
+    call include). The profiler can lose records at the start of a
+    trace: on the H100 it dropped the first kernel of every trace, and
+    once every marker of a short trace. So each trace opens with an
+    unmarked call and a synchronize, a trace that holds no call whole is
+    taken again (``tries`` traces in all), and only calls with the most
+    common number of kernels count; that number is left in
+    ``device_ms.launches``, the calls left out in ``device_ms.lost``."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, tries + 1):
+        calls, markers, n_events = _traced_calls(fn, kernel, reps)
+        if calls:
+            break
+        say("device_ms: trace %d of %d for %r held %d device records and "
+            "%d markers of %d, no call whole" % (
+                attempt, tries, kernel, n_events, markers, reps + 1))
+    else:
+        fail("device_ms: no call of %r traced whole in %d traces"
+             % (kernel, tries))
+    count = statistics.mode(len(c) for c in calls)
+    whole = [sum(c) for c in calls if len(c) == count]
+    device_ms.launches = count
+    device_ms.lost = reps - len(whole)
+    return statistics.median(whole) / 1e3
+
+
+def _traced_calls(fn, kernel, reps):
+    """One trace for ``device_ms``: the kernel times (us) of each marked
+    call, the number of markers recorded and of device records."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
-    fn()
-    torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
+        fn()   # unmarked: takes what the trace loses at its start
+        torch.cuda.synchronize()
         for _ in range(reps):
             torch.cuda._sleep(1)
             fn()
@@ -255,21 +300,16 @@ def device_ms(fn, kernel, reps=20):
     events = sorted((e for e in prof.events()
                      if e.device_type == DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
-    calls, cur = [], None
+    calls, cur, markers = [], None, 0
     for e in events:
         if "spin_kernel" in e.name:
+            markers += 1
             if cur is not None:
                 calls.append(cur)
             cur = []
         elif cur is not None and kernel in e.name:
             cur.append(e.time_range.elapsed_us())
-    if not calls:
-        fail("device_ms: no call of %r traced whole" % kernel)
-    count = statistics.mode(len(c) for c in calls)
-    whole = [sum(c) for c in calls if len(c) == count]
-    device_ms.launches = count
-    device_ms.lost = reps - len(whole)
-    return statistics.median(whole) / 1e3
+    return calls, markers, len(events)
 
 
 device_ms.launches = 0
@@ -786,17 +826,22 @@ def profile(what, fn, top=8):
 
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
+        # a marker first: it takes what the trace loses at its start
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     by_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name:
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
     profile.names = set(by_name)
+    profile.counts = {name: n for name, (_, n) in by_name.items()}
+    profile.busy = busy_ms / wall_ms
     say("profile: %s: %.2f ms of kernels in %.2f ms wall (device busy "
         "%.1f%%), %d kernel launches" % (
             what, busy_ms, wall_ms, 100 * busy_ms / wall_ms,
@@ -818,6 +863,15 @@ def profile(what, fn, top=8):
 
 
 profile.names = set()
+profile.counts = {}
+profile.busy = 0.0
+
+
+def kernel_counts(counts, keys):
+    """{key: launches of the kernels whose name holds key} from
+    ``profile.counts``."""
+    return {k: sum(n for name, n in counts.items() if k in name)
+            for k in keys}
 
 
 def path_phase(counters):
@@ -3239,6 +3293,13 @@ def mt_kernel_phase():
         "adam_update", ws, gs, ss, TRAIN_LR, attrs)
     upd_ms = device_ms(upd, "", reps=10)
     upd_launches, upd_lost = device_ms.launches, device_ms.lost
+    # the lr read on the device (a captured step's): bit-equal, and timed
+    lr_dev = torch.full((), TRAIN_LR, dtype=torch.float32, device=dev)
+    mt_update_check("multi_tensor update, LM, lr on the device",
+                    "adam_update", ws, gs, ss, attrs, (None, None, None),
+                    False, lr_dev)
+    upd_dev_ms = device_ms(lambda: mt.multi_tensor_opt_update_cuda(
+        "adam_update", ws, gs, ss, lr_dev, attrs), "", reps=10)
     if upd_launches != mt_launches(len(sizes)):
         fail("multi_tensor update, LM: %g kernels a call traced, not %d"
              % (upd_launches, mt_launches(len(sizes))))
@@ -3256,12 +3317,13 @@ def mt_kernel_phase():
     say("kernel multi_tensor_opt_update (adam, LM %d tensors, %d params): "
         "%.4f ms device time in %g launches (%d of 10 traced calls lost a "
         "record), bound %.4f ms (bytes, 28 B a parameter): %.3f TB/s, "
-        "%.1f%% of the copy_'s rate; plain per-parameter route %.4f ms in "
+        "%.1f%% of the copy_'s rate; with the lr read on the device "
+        "%.4f ms, bit-equal; plain per-parameter route %.4f ms in "
         "%g launches, library torch._fused_adam_ %.4f ms (bias-corrected: "
         "not the same function)" % (
             len(sizes), N, upd_ms, upd_launches, upd_lost, upd_bound,
             28 * N / upd_ms / 1e9, 100 * 28 * N / upd_ms / 1e9 / copy_rate,
-            plain_ms, plain_launches, lib_ms))
+            upd_dev_ms, plain_ms, plain_launches, lib_ms))
 
     norm = lambda: mt.multi_tensor_norm_finite_cuda(  # noqa: E731
         gs, [outs], rescale=1.0 / TRAIN_BATCH, clip_norm=1.0)
@@ -3323,6 +3385,12 @@ def mt_kernel_phase():
                         (None, None, None), False, 0.1)
         k_ms = device_ms(lambda: mt.multi_tensor_opt_update_cuda(
             "sgd_mom_update", ws, gs, ss, 0.1, a), "", reps=10)
+        lr_dev = torch.full((), 0.1, dtype=torch.float32, device=dev)
+        mt_update_check("multi_tensor update, %s sgd, lr on the device"
+                        % label, "sgd_mom_update", ws, gs, ss, a,
+                        (None, None, None), False, lr_dev)
+        kd_ms = device_ms(lambda: mt.multi_tensor_opt_update_cuda(
+            "sgd_mom_update", ws, gs, ss, lr_dev, a), "", reps=10)
         p_ms = device_ms(lambda: mt._opt_update_reference(
             "sgd_mom_update", ws, gs, ss, 0.1, a), "", reps=3)
         moms = [s[0] for s in ss]
@@ -3331,11 +3399,12 @@ def mt_kernel_phase():
             dampening=0.0, nesterov=False, maximize=False,
             is_first_step=False), "", reps=10)
         sgd[label] = (len(sizes), n, k_ms, 20 * n / PEAK_BYTES_PER_S * 1e3,
-                      p_ms, l_ms)
+                      p_ms, l_ms, kd_ms)
         say("kernel multi_tensor_opt_update (sgd momentum, %s %d tensors, "
-            "%d params): %.4f ms device time, bound %.4f ms (bytes, 20 B a "
-            "parameter), plain %.4f ms, library torch._fused_sgd_ %.4f ms"
-            % (label, len(sizes), n, k_ms, sgd[label][3], p_ms, l_ms))
+            "%d params): %.4f ms device time (the lr read on the device: "
+            "%.4f ms, bit-equal), bound %.4f ms (bytes, 20 B a parameter), "
+            "plain %.4f ms, library torch._fused_sgd_ %.4f ms"
+            % (label, len(sizes), n, k_ms, kd_ms, sgd[label][3], p_ms, l_ms))
         del ws, gs, ss, moms
         torch.cuda.empty_cache()
 
@@ -3346,11 +3415,12 @@ def mt_kernel_phase():
          "launches": None, "max_abs_err": err, "ms": upd_ms,
          "plain_ms": plain_ms, "bound_ms": upd_bound, "bound_by": "bytes",
          "library_ms": lib_ms, "library": "torch._fused_adam_",
-         "shape": "LM Adam, %d params" % N,
+         "shape": "LM Adam, %d params" % N, "lr_device_ms": upd_dev_ms,
          "bf16": {"ms": bf16_ms, "bound_ms": bf16_bound,
                   "plain_ms": bf16_plain},
          "sgd": {k: {"tensors": v[0], "params": v[1], "ms": v[2],
-                     "bound_ms": v[3], "plain_ms": v[4], "library_ms": v[5]}
+                     "bound_ms": v[3], "plain_ms": v[4], "library_ms": v[5],
+                     "lr_device_ms": v[6]}
                  for k, v in sgd.items()}},
         {"name": "multi_tensor_norm_finite", "route": "cuda",
          "source": "mxnet_tpu_torch/csrc/multi_tensor.cu",
@@ -3725,6 +3795,573 @@ def resume_check():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Module path (path A) and the compiled step (paths B and C)
+# ---------------------------------------------------------------------------
+
+MODULE_BATCHES = 4        # one epoch of 4 distinct seeded batches
+MODULE_CHECK_UPDATES = 3  # the updates held to TrainStep's bit for bit
+MODULE_PEAK_RTOL = 0.02   # steps 2..4's peak memory within 2% of step 2's
+NATIVE_CONV_LIMIT_S = 5.0  # a float32 step without cuDNN over this: batch 32
+NATIVE_CONV_SMALL_BATCH = 32
+COMPILED_REPLAYS = 10     # path B: replays after the capturing step
+ALEX_SEEDS = (0, 0, 1, 2)  # path C: the capturing step, then 3 replays
+BN_KERNEL_KEYS = ("bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_dx")
+
+
+def _bn_counters():
+    from mxnet_tpu_torch.ops import bn_kernels as bnk
+    return (bnk.bn_stats_cuda, bnk.bn_apply_cuda, bnk.bn_bwd_reduce_cuda,
+            bnk.bn_bwd_dx_cuda)
+
+
+def _reset_counts(counters):
+    for c in counters:
+        c.launches = 0
+
+
+def _state_equal(a, b):
+    """(equal, worst |a - b|) over two (params, opt_state, aux) tuples."""
+    import torch
+    same, worst = True, 0.0
+    for da, db in zip(a, b):
+        for k in db:
+            xs = da[k] if isinstance(da[k], tuple) else (da[k],)
+            ys = db[k] if isinstance(db[k], tuple) else (db[k],)
+            for x, y in zip(xs, ys):
+                if not torch.equal(x, y):
+                    same = False
+                    worst = max(worst, float((x.float() - y.float())
+                                             .abs().max()))
+    return same, worst
+
+
+def _clone_state(state):
+    params, opt_state, aux = state
+    return ({k: v.clone() for k, v in params.items()},
+            {k: tuple(s.clone() for s in v) for k, v in opt_state.items()},
+            {k: v.clone() for k, v in aux.items()})
+
+
+class _deterministic:
+    """torch.use_deterministic_algorithms(True) (with the cuBLAS workspace
+    it needs) for the duration of a block."""
+
+    def __enter__(self):
+        import torch
+        self.cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+
+    def __exit__(self, *exc):
+        import torch
+        torch.use_deterministic_algorithms(False)
+        if self.cublas is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = self.cublas
+        return False
+
+
+def module_phase():
+    """Path A: bench.py's ResNet-50 in float32 (the dtype the Module binds
+    its Executor in) on the BatchNorm kernels through Module.fit: kvstore
+    "local" (None on one device), the default guardrail, eval_metric
+    "acc", one epoch over an NDArrayIter of MODULE_BATCHES distinct
+    seeded batches, then score on one. SGD momentum 0.9, wd 1e-4 on every
+    parameter (TrainStep's rule: the optimizer's wd_mult set to 1), lr
+    0.1, rescale 1/128, initial weights from TrainStep.init_state. A
+    checked run under torch.use_deterministic_algorithms(True): after
+    MODULE_CHECK_UPDATES updates the Module's parameters and moving stats
+    equal a float32 TrainStep's bit for bit; a module_checkpoint written
+    at the epoch's end loads back bit for bit. A timed run: step ms
+    (boundary to boundary of the batch-end callbacks), img/s, the peak
+    memory of each step (flat from step 2: a training forward drops the
+    previous step's graph), the launches a step of each BatchNorm kernel
+    and of the guardrail's reduction, one profiled step's busy share and
+    launches. Then the float32 step with cuDNN off (PyTorch's own
+    convolutions), beside the cuDNN step at the same batch. Returns the
+    timed run's launch counts."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import callback, config, io, optimizer as opt
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.ops import optimizer_kernels as mt
+    from mxnet_tpu_torch.parallel import make_train_step
+
+    B, S, K = RESNET_BATCH, RESNET_IMAGE, MODULE_BATCHES
+    t0 = time.perf_counter()
+    sym = resnet.get_symbol(num_classes=RESNET_CLASSES,
+                            num_layers=RESNET_LAYERS, image_shape=(3, S, S))
+    n_bn = sum(n["op"] == "BatchNorm"
+               for n in json.loads(sym.tojson())["nodes"])
+    rng = np.random.RandomState(20)
+    X = rng.standard_normal((K * B, 3, S, S)).astype(np.float32)
+    Y = rng.randint(0, RESNET_CLASSES, (K * B,)).astype(np.float32)
+    optp = {"momentum": 0.9, "wd": 1e-4, "rescale_grad": 1.0 / B}
+    ref = make_train_step(sym, optimizer="sgd", optimizer_params=optp)
+    shapes = {"data": (B, 3, S, S), "softmax_label": (B,)}
+    mx.random.seed(0)
+    init = ref.init_state(Xavier(factor_type="in", magnitude=2.0), shapes)
+    host_args = {k: v.cpu() for k, v in init[0].items()}
+    host_aux = {k: v.cpu() for k, v in init[2].items()}
+    del init
+    names = list(ref.param_names)
+
+    def nd_params():
+        with mx.cpu():
+            return ({k: mx.nd.array(v) for k, v in host_args.items()},
+                    {k: mx.nd.array(v) for k, v in host_aux.items()})
+
+    def make_opt():
+        o = opt.create("sgd", learning_rate=RESNET_LR,
+                       param_idx2name=dict(enumerate(names)), **optp)
+        o.set_wd_mult({n: 1.0 for n in names})
+        return o
+
+    def batches():
+        return io.NDArrayIter(X, Y, batch_size=B)
+
+    nparam = sum(v.numel() for v in host_args.values())
+    say("module: ResNet-%d v2 %d params (%.1f M), %d BatchNorms, %d "
+        "batches of %d x 3x%dx%d, float32, MXNET_BN_PALLAS=1, SGD momentum "
+        "0.9 wd 1e-4 lr %g rescale 1/%d, kvstore local, guardrail %s, "
+        "set up in %.1f s" % (
+            RESNET_LAYERS, nparam, nparam / 1e6, n_bn, K, B, S, S,
+            RESNET_LR, B, "on" if mx.config.get("MXNET_GUARDRAIL")
+            else "OFF", time.perf_counter() - t0))
+    if not mx.config.get("MXNET_GUARDRAIL"):
+        fail("module: MXNET_GUARDRAIL is off; the phase runs fit's default")
+
+    config.set_override("MXNET_BN_PALLAS", True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_module_")
+    try:
+        # -- the checked run -------------------------------------------
+        snap = {}
+        with _deterministic():
+            mod = mx.mod.Module(sym, context=mx.gpu(0))
+
+            def check_cb(param):
+                if param.nbatch == MODULE_CHECK_UPDATES - 1:
+                    exe = mod._exec_group.execs[0]
+                    snap["params"] = {n: exe.arg_dict[n]._data.clone()
+                                      for n in names}
+                    snap["aux"] = {n: a._data.clone()
+                                   for n, a in exe.aux_dict.items()}
+            prefix = os.path.join(tmp, "resnet")
+            args, auxs = nd_params()
+            t = time.perf_counter()
+            mod.fit(batches(), num_epoch=1, optimizer=make_opt(),
+                    eval_metric="acc", kvstore="local", arg_params=args,
+                    aux_params=auxs, batch_end_callback=check_cb,
+                    epoch_end_callback=callback.module_checkpoint(
+                        mod, prefix))
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t
+            state = ref.init_state(None, shapes, arg_params=host_args,
+                                   aux_params=host_aux)
+            for i in range(MODULE_CHECK_UPDATES):
+                state, _ = ref(state, {"data": X[i * B:(i + 1) * B],
+                                       "softmax_label": Y[i * B:(i + 1) * B]},
+                               RESNET_LR, i)
+            torch.cuda.synchronize()
+        same, worst = _state_equal(
+            (snap["params"], snap["aux"]), (state[0], state[2]))
+        if not same:
+            fail("module: after %d updates the Module's parameters or "
+                 "moving stats differ from TrainStep's (max |d| %g)"
+                 % (MODULE_CHECK_UPDATES, worst))
+        del state, snap
+        args_now, aux_now = mod.get_params()
+        _, ck_args, ck_aux = mx.model.load_checkpoint(prefix, 1)
+        ck_same = sorted(ck_args) == sorted(args_now) and all(
+            torch.equal(ck_args[k]._data.cpu(), args_now[k]._data.cpu())
+            for k in args_now) and all(
+            torch.equal(ck_aux[k]._data.cpu(), aux_now[k]._data.cpu())
+            for k in aux_now)
+        if not ck_same:
+            fail("module: the module_checkpoint %s-0001.params does not "
+                 "load back bit for bit" % prefix)
+        say("module: checked run (deterministic algorithms, %.1f s): after "
+            "%d updates the Module's %d parameters and %d moving stats "
+            "bit-equal to a float32 TrainStep's; module_checkpoint "
+            "%s-0001.params (%.1f MB) loads back bit for bit" % (
+                fit_s, MODULE_CHECK_UPDATES, len(names), len(aux_now),
+                os.path.basename(prefix),
+                os.path.getsize(prefix + "-0001.params") / 1e6))
+        del mod, args_now, aux_now, ck_args, ck_aux
+        # the checked Module holds its last step's graph (float32
+        # activations); when this is the process's first Module, frames of
+        # its bind stay in a cycle with torch's lazy import of its
+        # compiler stack (on the first elementwise op on meta tensors), so
+        # only the cycle collector frees it
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- the timed run ---------------------------------------------
+        counters = _bn_counters() + mt_counters()
+        mod = mx.mod.Module(sym, context=mx.gpu(0))
+        marks, peaks = [], []
+
+        def timed_cb(param):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            peaks.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+        args, auxs = nd_params()
+        it = batches()
+        mod.bind(it.provide_data, it.provide_label)
+        mod.init_params(None, arg_params=args, aux_params=auxs)
+        mod.init_optimizer(kvstore="local", optimizer=make_opt())
+        torch.cuda.synchronize()
+        _reset_counts(counters)
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        marks.append(t)
+        mod.fit(it, num_epoch=1, eval_metric="acc", kvstore="local",
+                batch_end_callback=timed_cb)
+        launches = {c.__name__: c.launches for c in counters}
+        gaps = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+        step_ms = statistics.median(gaps[1:])
+        for c in _bn_counters():
+            if launches[c.__name__] != n_bn * K:
+                fail("module: %s launched %d times in %d steps, not %d "
+                     "BatchNorms a step" % (c.__name__, launches[c.__name__],
+                                            K, n_bn))
+        want = K * mt_launches(len(names) + 1, reduction=True)
+        if launches[mt.multi_tensor_norm_finite_cuda.__name__] != want or \
+                launches[mt.multi_tensor_opt_update_cuda.__name__] != 0:
+            fail("module: multi-tensor launches %r, want the guardrail's "
+                 "reduction %d times and no multi-tensor update (the "
+                 "Updater runs the registry op)" % (launches, want))
+        if max(peaks[1:]) > (1 + MODULE_PEAK_RTOL) * peaks[1]:
+            fail("module: peak memory grows after step 2 (%s GB): a "
+                 "previous step's graph is kept" % " ".join(
+                     "%.2f" % (p / 1e9) for p in peaks))
+        score = mod.score(io.NDArrayIter(X[:B], Y[:B], batch_size=B), "acc")
+        acc = score[0][1]
+        if not 0.0 <= acc <= 1.0:
+            fail("module: score %r" % (score,))
+        batch = next(iter(batches()))
+
+        def one_step():
+            mod.forward_backward(batch)
+            mod.update()
+        profile("module step (ResNet-50, float32, BatchNorm kernels)",
+                one_step, top=10)
+        prof_launches = sum(profile.counts.values())
+        busy = profile.busy
+        say("module: timed run: step %.2f ms (median of steps 2..%d, "
+            "boundary to boundary; all: %s), %.1f img/s, peak device "
+            "memory a step %s GB (flat from step 2; %.2f GB allocated "
+            "before the run: the module, its data and optimizer state), "
+            "busy %.1f%% and %d "
+            "launches in a profiled step, each BatchNorm kernel %d "
+            "launches a step, the guardrail's reduction %d; score "
+            "accuracy %.4f" % (
+                step_ms, K, " ".join("%.1f" % g for g in gaps),
+                B / step_ms * 1e3, " ".join("%.2f" % (p / 1e9)
+                                            for p in peaks), base_gb,
+                100 * busy, prof_launches, n_bn,
+                mt_launches(len(names) + 1, reduction=True), acc))
+
+        # -- the float32 step with PyTorch's own convolutions -----------
+        native_conv_check(mod, X, Y, step_ms)
+        del mod, batch
+    finally:
+        config.set_override("MXNET_BN_PALLAS", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    say("module: %.2f GB still allocated on the card after the "
+        "phase" % (torch.cuda.memory_allocated() / 1e9))
+    return launches
+
+
+def native_conv_check(mod, X, Y, cudnn_ms):
+    """ROADMAP Queue C item 8's measurement: path A's float32 step (the
+    Module's forward_backward + update) with torch.backends.cudnn.enabled
+    False, so PyTorch's own convolutions run, one warm and one timed
+    step at batch NATIVE_CONV_SMALL_BATCH (the Module reshapes) beside
+    the cuDNN step at that batch; then at the full batch when the small
+    one's time scaled to it stays under NATIVE_CONV_LIMIT_S."""
+    import torch
+    from mxnet_tpu_torch import io
+
+    def timed(b, reps):
+        batch = io.DataBatch(data=[X[:b]], label=[Y[:b]])
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            mod.forward_backward(batch)
+            mod.update()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t) * 1e3)
+        return out[-1]
+
+    small = NATIVE_CONV_SMALL_BATCH
+    cudnn_small = timed(small, 3)
+    torch.backends.cudnn.enabled = False
+    try:
+        native_small = timed(small, 2)
+        native_full = None
+        if native_small * RESNET_BATCH / small < NATIVE_CONV_LIMIT_S * 1e3:
+            native_full = timed(RESNET_BATCH, 2)
+    finally:
+        torch.backends.cudnn.enabled = True
+    say("module: float32 step without cuDNN (PyTorch's own "
+        "convolutions): batch %d %.1f ms against cuDNN's %.1f ms (%.2fx); "
+        "batch %d %s against cuDNN's %.2f ms" % (
+            small, native_small, cudnn_small, native_small / cudnn_small,
+            RESNET_BATCH, "%.1f ms" % native_full if native_full is not None
+            else "not timed (batch %d's time scaled past %.0f s)" % (
+                small, NATIVE_CONV_LIMIT_S), cudnn_ms))
+
+
+def compiled_resnet_phase():
+    """Path B: bench.py's ResNet-50 step (bf16 compute, the kernel route,
+    MXNET_BN_PALLAS=1) through TrainStep.export ->
+    CompiledTrainStep.load -> step. A checked run under
+    torch.use_deterministic_algorithms(True): the first step warms up and
+    captures the CUDA graph, then COMPILED_REPLAYS replays, each with its
+    own lr (a cosine over them) and the default seed; the state equals as
+    many direct TrainStep steps with the same lrs and keys, bit for bit
+    (a frozen lr would show). A timed run from a fresh load: one replay
+    profiled (each BatchNorm kernel launched once per BatchNorm, the
+    multi-tensor update once; busy share), the replay's ms by events,
+    step()'s ms (its batch copied in, its outputs out), the capture time
+    and the memory the capture took, beside the direct step's ms and busy
+    share in this call. Returns the launch counts of the wrappers (the
+    warm-up step and the capture, which records each launch once)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.parallel import make_train_step
+    from mxnet_tpu_torch.parallel.trainer import CompiledTrainStep
+
+    B, S = RESNET_BATCH, RESNET_IMAGE
+    sym = resnet.get_symbol(num_classes=RESNET_CLASSES,
+                            num_layers=RESNET_LAYERS, image_shape=(3, S, S))
+    n_bn = sum(n["op"] == "BatchNorm"
+               for n in json.loads(sym.tojson())["nodes"])
+    step = make_train_step(sym, optimizer="sgd",
+                           optimizer_params={"momentum": 0.9, "wd": 1e-4,
+                                             "rescale_grad": 1.0 / B},
+                           compute_dtype="bfloat16")
+    batch = {"data": np.random.RandomState(0).standard_normal(
+        (B, 3, S, S)).astype(np.float32),
+        "softmax_label": np.random.RandomState(1).randint(
+            0, RESNET_CLASSES, (B,)).astype(np.float32)}
+    mx.random.seed(0)
+    init = step.init_state(Xavier(factor_type="in", magnitude=2.0),
+                           {"data": (B, 3, S, S), "softmax_label": (B,)})
+    lrs = [RESNET_LR] + [
+        RESNET_LR * (0.55 + 0.45 * np.cos(np.pi * i / COMPILED_REPLAYS))
+        for i in range(1, COMPILED_REPLAYS + 1)]
+    counters = _bn_counters() + mt_counters()
+    config.set_override("MXNET_BN_PALLAS", True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_compiled_")
+    try:
+        prefix = os.path.join(tmp, "resnet")
+        t = time.perf_counter()
+        step.export(prefix, init, batch)
+        export_s = time.perf_counter() - t
+
+        # -- the checked run -------------------------------------------
+        with _deterministic():
+            t = time.perf_counter()
+            ct = CompiledTrainStep.load(prefix)
+            load_s = time.perf_counter() - t
+            _reset_counts(counters)
+            got = [ct.step(batch, lr) for lr in lrs]
+            launches = {c.__name__: c.launches for c in counters}
+            state = _clone_state(init)
+            want = []
+            for i, lr in enumerate(lrs):
+                state, outs = step(state, batch, lr, mx.random.PRNGKey(i))
+                want.append(outs[0].float().cpu().numpy())
+            torch.cuda.synchronize()
+        same, worst = _state_equal(ct._unflat(), state)
+        outs_same = all(np.array_equal(a[0], b) for a, b in zip(got, want))
+        if not same or not outs_same:
+            fail("compiled resnet: after the capturing step and %d replays "
+                 "with lrs %s the state (max |d| %g) or outputs (%s) differ "
+                 "from the direct steps'" % (
+                     COMPILED_REPLAYS, ["%.5f" % v for v in lrs], worst,
+                     "equal" if outs_same else "differ"))
+        for c in _bn_counters():
+            if launches[c.__name__] != 2 * n_bn:
+                fail("compiled resnet: %s launched %d times in the warm-up "
+                     "and the capture, not 2 x %d" % (
+                         c.__name__, launches[c.__name__], n_bn))
+        nlls = [mean_nll(torch.from_numpy(g[0]),
+                         torch.from_numpy(batch["softmax_label"]))
+                for g in got]
+        say("compiled resnet: checked run (deterministic algorithms): "
+            "export %.1f s, load %.1f s; the capturing step and %d replays "
+            "with lrs %s equal %d direct TrainStep steps bit for bit (every "
+            "parameter, momentum and moving stat, and the outputs); NLL %s"
+            % (export_s, load_s, COMPILED_REPLAYS,
+               " ".join("%.4f" % v for v in lrs), len(lrs),
+               " ".join("%.4f" % v for v in nlls)))
+        del ct, state, got, want
+        torch.cuda.empty_cache()
+
+        # -- the timed run ---------------------------------------------
+        ct = CompiledTrainStep.load(prefix)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_reserved()
+        ct.step(batch, RESNET_LR)
+        torch.cuda.synchronize()
+        # what stays reserved once the warm-up's blocks are released: the
+        # graph's private pool and its static inputs
+        torch.cuda.empty_cache()
+        graph_gb = (torch.cuda.memory_reserved() - mem0) / 1e9
+        profile("compiled resnet replay (one CUDA graph)", ct._graph.replay,
+                top=8)
+        counts = kernel_counts(profile.counts, BN_KERNEL_KEYS +
+                               ("mt_update_kernel",))
+        replay_busy, replay_launches = profile.busy, \
+            sum(profile.counts.values())
+        for k in BN_KERNEL_KEYS:
+            if counts[k] != n_bn:
+                fail("compiled resnet: one replay launched %s %d times, "
+                     "not %d" % (k, counts[k], n_bn))
+        if counts["mt_update_kernel"] != 1:
+            fail("compiled resnet: one replay launched the multi-tensor "
+                 "update %d times" % counts["mt_update_kernel"])
+        replay_ms = time_ms(ct._graph.replay, reps=10, warmup=2)
+        step_times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            ct.step(batch, RESNET_LR)
+            step_times.append((time.perf_counter() - t) * 1e3)
+        call_ms = statistics.median(step_times)
+        capture_ms = ct.capture_ms
+        del ct
+        torch.cuda.empty_cache()
+
+        state = _clone_state(init)
+        placed = step.place_batch(batch)
+        direct = []
+        for i in range(WARM_STEPS + 5):
+            t = time.perf_counter()
+            if i == 1:
+                state, _ = profile("compiled resnet: the direct step",
+                                   lambda: step(state, placed, RESNET_LR,
+                                                i), top=4)
+            else:
+                state, _ = step(state, placed, RESNET_LR, i)
+            torch.cuda.synchronize()
+            direct.append((time.perf_counter() - t) * 1e3)
+        direct_ms = statistics.median(direct[WARM_STEPS:])
+        direct_busy = profile.busy
+        direct_launches = sum(profile.counts.values())
+        say("compiled resnet: timed run: one replay %.2f ms by events "
+            "(%.1f img/s), busy %.1f%%, %d launches (each BatchNorm kernel "
+            "%d, the multi-tensor update 1); step() %.2f ms with its batch "
+            "copied in and its outputs out (all: %s); capture %.1f ms, the "
+            "graph's pool and static inputs %.2f GB; the direct step in this call %.2f ms "
+            "(all: %s), busy %.1f%%, %d launches: the replay %.2fx faster" % (
+                replay_ms, B / replay_ms * 1e3, 100 * replay_busy,
+                replay_launches, n_bn, call_ms,
+                " ".join("%.1f" % v for v in step_times), capture_ms,
+                graph_gb, direct_ms, " ".join("%.1f" % v for v in direct),
+                100 * direct_busy, direct_launches, direct_ms / replay_ms))
+        del state, placed, init
+    finally:
+        config.set_override("MXNET_BN_PALLAS", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    say("compiled resnet: %.2f GB still allocated on the card after the "
+        "phase" % (torch.cuda.memory_allocated() / 1e9))
+    return launches
+
+
+def compiled_alexnet_phase():
+    """Path C: bench.py's AlexNet (batch 512, two Dropouts, bf16, SGD
+    momentum) through TrainStep.export -> CompiledTrainStep, under
+    torch.use_deterministic_algorithms(True): the capturing step with
+    seed 0, then replays with seeds 0, 1, 2 (ALEX_SEEDS), the key built
+    from the seed inside the graph; every step's outputs and the final
+    state equal direct steps with PRNGKey(seed) bit for bit, so each
+    replay's Dropout masks are the direct step's. Returns the wrappers'
+    launch counts (the multi-tensor update: the warm-up and the
+    capture)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import alexnet
+    from mxnet_tpu_torch.parallel import make_train_step
+    from mxnet_tpu_torch.parallel.trainer import CompiledTrainStep
+
+    B, S = ALEX_BATCH, ALEX_IMAGE
+    sym = alexnet.get_symbol(num_classes=ALEX_CLASSES)
+    step = make_train_step(sym, optimizer="sgd",
+                           optimizer_params={"momentum": 0.9, "wd": 1e-4,
+                                             "rescale_grad": 1.0 / B},
+                           compute_dtype="bfloat16")
+    batch = {"data": np.random.RandomState(0).standard_normal(
+        (B, 3, S, S)).astype(np.float32),
+        "softmax_label": np.random.RandomState(1).randint(
+            0, ALEX_CLASSES, (B,)).astype(np.float32)}
+    mx.random.seed(0)
+    init = step.init_state(Xavier(factor_type="in", magnitude=2.0),
+                           {"data": (B, 3, S, S), "softmax_label": (B,)})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_alexnet_")
+    try:
+        prefix = os.path.join(tmp, "alexnet")
+        step.export(prefix, init, batch)
+        with _deterministic():
+            ct = CompiledTrainStep.load(prefix)
+            reset_mt_counts()
+            got = [ct.step(batch, ALEX_LR, seed=s) for s in ALEX_SEEDS]
+            launches = {c.__name__: c.launches for c in mt_counters()}
+            state = _clone_state(init)
+            want = []
+            for s in ALEX_SEEDS:
+                state, outs = step(state, batch, ALEX_LR,
+                                   mx.random.PRNGKey(s))
+                want.append(outs[0].float().cpu().numpy())
+            torch.cuda.synchronize()
+        same, worst = _state_equal(ct._unflat(), state)
+        outs_same = [np.array_equal(a[0], b) for a, b in zip(got, want)]
+        if not same or not all(outs_same):
+            fail("compiled alexnet: seeds %s: outputs equal %s, state equal "
+                 "%s (max |d| %g) against the direct steps with "
+                 "PRNGKey(seed)" % (ALEX_SEEDS, outs_same, same, worst))
+        if np.array_equal(got[1][0], got[2][0]):
+            fail("compiled alexnet: seeds 0 and 1 gave the same outputs")
+        say("compiled alexnet: the capturing step (seed %d) and replays "
+            "with seeds %s, the key built from the seed inside the graph: "
+            "outputs and state (the Dropout masks with them) bit-equal to "
+            "direct steps with PRNGKey(seed) (deterministic algorithms); "
+            "capture %.1f ms" % (ALEX_SEEDS[0], list(ALEX_SEEDS[1:]),
+                                 ct.capture_ms))
+        del ct, state, got, want, init
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    say("compiled alexnet: %.2f GB still allocated on the card after the "
+        "phase" % (torch.cuda.memory_allocated() / 1e9))
+    return launches
+
+
 def main():
     try:
         import torch
@@ -3741,6 +4378,17 @@ def main():
     from mxnet_tpu_torch.ops import attention as att
     from mxnet_tpu_torch.ops import bn_kernels as bnk
     from mxnet_tpu_torch.ops import nms_kernels as nmsk
+
+    only = []
+    for arg in sys.argv[1:]:
+        if not arg.startswith("--only="):
+            fail("unknown argument %r (the one option: --only=PHASE,...; "
+                 "phases %s)" % (arg, ", ".join(sorted(PARTIAL))))
+        only = arg[len("--only="):].split(",")
+        unknown = sorted(set(only) - set(PARTIAL))
+        if unknown:
+            fail("unknown phases %s (phases %s)"
+                 % (unknown, ", ".join(sorted(PARTIAL))))
 
     t_start = time.perf_counter()
     smi = smi_line()
@@ -3763,6 +4411,13 @@ def main():
     say("build: wgmma serialization warnings: %s"
         % ("; ".join(warnings) if warnings else "none"))
 
+    if only:
+        for name in only:
+            PARTIAL[name]()
+        say("partial run (%s) done in %.1f s: no result line" % (
+            ",".join(only), time.perf_counter() - t_start))
+        return
+
     records = kernel_phase() + bwd_kernel_phase() + f32_kernel_phase(ptxas)
     gqa_phase()
     records += bn_kernel_phase() + nms_kernel_phase() + mt_kernel_phase()
@@ -3775,7 +4430,10 @@ def main():
                **resnet_phase([bnk.bn_stats_cuda, bnk.bn_apply_cuda,
                                bnk.bn_bwd_reduce_cuda, bnk.bn_bwd_dx_cuda]),
                "ssd": ssd_phase([nmsk.nms_keep_cuda]),
-               "alexnet": alexnet_phase()}
+               "alexnet": alexnet_phase(),
+               "module": module_phase(),
+               "compiled_resnet": compiled_resnet_phase(),
+               "compiled_alexnet": compiled_alexnet_phase()}
     for rec in records:
         # no kernel moves its bytes faster than the memory can: a time
         # under the byte bound means the timing lost work
@@ -3796,6 +4454,13 @@ def main():
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+# the phases ``--only=`` runs alone (a partial run prints no result line)
+PARTIAL = {"mt": mt_kernel_phase, "bn": bn_kernel_phase,
+           "alexnet": alexnet_phase, "module": module_phase,
+           "compiled": lambda: (compiled_resnet_phase(),
+                                compiled_alexnet_phase())}
 
 
 if __name__ == "__main__":

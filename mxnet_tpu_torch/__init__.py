@@ -72,7 +72,11 @@ from . import optimizer  # noqa: E402
 from . import optimizer as opt  # noqa: E402
 from .optimizer import Optimizer  # noqa: E402
 from . import metric  # noqa: E402
+from . import kvstore  # noqa: E402
+from . import kvstore as kv  # noqa: E402
 from . import callback  # noqa: E402
+from . import monitor  # noqa: E402
+from .monitor import Monitor  # noqa: E402
 from . import guardrail  # noqa: E402
 from . import profiler  # noqa: E402
 from . import executor  # noqa: E402
@@ -82,4 +86,9 @@ from . import serve  # noqa: E402
 from . import models  # noqa: E402
 from . import convert  # noqa: E402
 from . import model  # noqa: E402
+from .model import FeedForward  # noqa: E402
+from . import module  # noqa: E402
+from . import module as mod  # noqa: E402
+from .module import Module  # noqa: E402
 from . import parallel  # noqa: E402
+from . import recordio  # noqa: E402

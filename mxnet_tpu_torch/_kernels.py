@@ -158,7 +158,7 @@ def _declare(name, lib):
             c_p, c_p, c_p, c_p,                              # w g s0 s1
             c_p, c_p, c_p,                                   # outs
             ctypes.POINTER(c_f),                             # hyper[9]
-            c_p, c_p, c_p, c_i, c_p,                         # gscale inv
+            c_p, c_p, c_p, c_p, c_i, c_p,                    # lr gscale inv
                                                              # flag donate
                                                              # stream
             ctypes.POINTER(c_i)]                             # launched

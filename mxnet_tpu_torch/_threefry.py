@@ -7,7 +7,10 @@ This module is that scheme in PyTorch integer ops, so that one key gives
 the same bits, and the samplers the same values, in both packages:
 
 - a key is a numpy ``uint32[2]`` on the host (``PRNGKey``, ``split``,
-  ``fold_in`` run there and cost no device sync);
+  ``fold_in`` run there and cost no device sync), or an int64 tensor of
+  two 32-bit words on a device (``PRNGKey`` of a device seed tensor, and
+  ``fold_in`` of such a key, run there with no host value: what a step
+  captured as a CUDA graph draws from);
 - ``random_bits`` hashes a flat counter over a shape on a device: the
   counter's index ``i`` is the pair ``(i >> 32, i & 0xffffffff)``
   (jax's ``iota_2x32_shape``), the hash gives ``(b1, b2)``, and 32-bit
@@ -69,27 +72,42 @@ def threefry2x32(k1, k2, x1, x2):
 
 
 def _key_words(key):
-    key = np.asarray(key)
-    if key.shape != (2,):
+    """The key's two words: Python ints of a host key, 0-d int64 tensors
+    of a device key."""
+    if not isinstance(key, torch.Tensor):
+        key = np.asarray(key)
+    if tuple(key.shape) != (2,):
         raise ValueError("a threefry key is a uint32[2], got shape %r"
-                         % (key.shape,))
+                         % (tuple(key.shape),))
+    if isinstance(key, torch.Tensor):
+        return key[0], key[1]
     return int(key[0]), int(key[1])
 
 
 def _as_key(w1, w2):
+    if isinstance(w1, torch.Tensor):
+        return torch.stack([w1, w2])
     return np.array([int(w1), int(w2)], dtype=np.uint32)
 
 
 def PRNGKey(seed):  # noqa: N802 (jax's name)
     """The key of an integer seed, as ``jax.random.PRNGKey`` makes it
     with 32-bit default ints: the seed's low 32 bits under a zero high
-    word (jax ``threefry_seed``)."""
+    word (jax ``threefry_seed``). A 0-d integer tensor seed gives a
+    device key, computed on its device."""
+    if isinstance(seed, torch.Tensor):
+        seed = seed.to(torch.int64)
+        return torch.stack([torch.zeros_like(seed), seed & _M32])
     return _as_key(0, int(seed) & _M32)
 
 
 def as_key(rng):
-    """A key from a key (any uint32[2] array-like, a jax key's too) or
-    an int seed (``PRNGKey(seed)``)."""
+    """A key from a key (any uint32[2] array-like, a jax key's too, or a
+    device key tensor, returned as it is) or an int seed
+    (``PRNGKey(seed)``)."""
+    if isinstance(rng, torch.Tensor):
+        _key_words(rng)
+        return rng
     if isinstance(rng, (int, np.integer)):
         return PRNGKey(int(rng))
     return np.asarray(rng, dtype=np.uint32)
@@ -97,10 +115,20 @@ def as_key(rng):
 
 def fold_in(key, data):
     """``jax.random.fold_in``: the key hashed with the counter
-    ``(0, data)`` (data taken as uint32)."""
+    ``(0, data)`` (data taken as uint32); on the key's device for a
+    device key."""
     k1, k2 = _key_words(key)
     y1, y2 = threefry2x32(k1, k2, 0, int(data) & _M32)
     return _as_key(y1, y2)
+
+
+def _const(value, dtype, device):
+    """``value`` as a 0-d tensor of ``dtype`` on ``device`` (a tensor is
+    converted; a Python number is filled on the device, which needs no
+    copy from the host, so a captured CUDA graph can hold it)."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=dtype)
+    return torch.full((), value, dtype=dtype, device=device)
 
 
 def split(key, num=2):
@@ -189,7 +217,10 @@ def fma(a, b, c):
     if wide is None:
         return a * b + c
     p = a.to(wide) * b.to(wide)
-    c = torch.as_tensor(c, device=p.device).to(wide)
+    # a Python float takes the default float dtype first, as as_tensor
+    # would give it
+    c = c.to(wide) if isinstance(c, torch.Tensor) else \
+        torch.full((), c, device=p.device).to(wide)
     s = p + c
     t = s - p
     err = (p - (s - t)) + (c - t)              # TwoSum: exact p + c - s
@@ -206,8 +237,8 @@ def _range(floats, minval, maxval, dtype):
             not isinstance(maxval, torch.Tensor) and \
             float(minval) == 0.0 and float(maxval) == 1.0:
         return floats          # floats * 1 + 0, exactly
-    lo = torch.as_tensor(minval, dtype=dtype, device=floats.device)
-    hi = torch.as_tensor(maxval, dtype=dtype, device=floats.device)
+    lo = _const(minval, dtype, floats.device)
+    hi = _const(maxval, dtype, floats.device)
     return torch.maximum(lo, fma(floats, hi - lo, lo))
 
 
@@ -235,9 +266,9 @@ def bernoulli(key, p=0.5, shape=None, device=None):
     else:
         dtype, dev = torch.float32, device
         shape = () if shape is None else shape
-        pt = torch.tensor(float(p), dtype=torch.float32)
+        pt = float(p)
     u = uniform(key, shape, dtype, device=dev)
-    return u < pt.to(u.device)
+    return u < _const(pt, dtype, u.device)
 
 
 # XLA's float32 erf_inv (Giles, "Approximating the erfinv function"),
@@ -263,8 +294,8 @@ def erf_inv(x):
     w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
 
     def coef(i):
-        return torch.where(lt, torch.tensor(_ERFINV_LT5[i], device=x.device),
-                           torch.tensor(_ERFINV_GE5[i], device=x.device))
+        return torch.where(lt, _const(_ERFINV_LT5[i], x.dtype, x.device),
+                           _const(_ERFINV_GE5[i], x.dtype, x.device))
     p = coef(0)
     for i in range(1, len(_ERFINV_LT5)):
         p = fma(p, w, coef(i))
@@ -273,8 +304,7 @@ def erf_inv(x):
 
 
 def _normal_from_uniform(u, dtype):
-    return torch.tensor(math.sqrt(2), dtype=dtype, device=u.device) * \
-        erf_inv(u)
+    return _const(math.sqrt(2), dtype, u.device) * erf_inv(u)
 
 
 def _normal_lo(dtype):

@@ -9,7 +9,7 @@ import numpy as np
 import torch
 
 __all__ = ["MXNetError", "string_types", "numeric_types", "torch_dtype",
-           "np_dtype"]
+           "np_dtype", "_as_list"]
 
 
 class MXNetError(RuntimeError):
@@ -53,3 +53,9 @@ def np_dtype(dtype):
     if dtype == torch.bfloat16:
         return torch.bfloat16
     return _TORCH_TO_NP[dtype]
+
+
+def _as_list(obj):
+    if isinstance(obj, (list, tuple)):
+        return list(obj)
+    return [obj]

@@ -2,9 +2,6 @@
 copy of ``mxnet_tpu/callback.py`` (reference python/mxnet/callback.py),
 which holds no JAX: epoch-end checkpoint factories and batch-end logging
 callbacks used by the fit loops.
-
-``module_checkpoint`` saves a Module, which is not ported yet (ROADMAP
-Queue A item 5): it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,11 +20,15 @@ def _every(period):
 
 
 def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
-    """Epoch-end callback saving a Module every `period` epochs. Module
-    is not ported yet: raises NotImplementedError."""
-    raise NotImplementedError(
-        "callback.module_checkpoint saves a Module, which is not ported "
-        "to the PyTorch package yet (ROADMAP Queue A item 5)")
+    """Epoch-end callback saving a Module (symbol, params and, when asked,
+    the optimizer states) every `period` epochs."""
+    due = _every(period)
+
+    def _callback(epoch_no, sym=None, arg=None, aux=None):
+        if due(epoch_no):
+            mod.save_checkpoint(prefix, epoch_no + 1,
+                                save_optimizer_states)
+    return _callback
 
 
 def do_checkpoint(prefix, period=1):

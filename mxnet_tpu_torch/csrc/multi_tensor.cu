@@ -47,10 +47,13 @@
 //   clamp's bounds in bfloat16; the kernel does the same (Elt<T>::rnd after
 //   every operation). The unscale and the clip scale are applied in
 //   float32 and rounded once each.
-// - Three device scalars are read on the device, with no host sync: the
+// - Four device scalars are read on the device, with no host sync: the
 //   guard's finite flag (when false nothing is written in place, and the
-//   old bits are copied to fresh outputs), the clip scale and the loss
-//   scaler's 1/scale. Null pointers stand for true, 1 and 1.
+//   old bits are copied to fresh outputs), the clip scale, the loss
+//   scaler's 1/scale and the learning rate. Null pointers stand for true,
+//   1, 1 and the lr of the host's table. A step captured as a CUDA graph
+//   passes its lr this way, so each replay reads the lr written before
+//   it.
 // - The reduction sums in a fixed order: a per-thread sum over its
 //   elements, warp shuffles and a shared-memory tree give one partial a
 //   block, and a second kernel sums the partials in a fixed order. No float
@@ -202,12 +205,15 @@ __device__ __forceinline__ void update_one(float w, float g, float s0,
 
 template <int K, typename T>
 __global__ void __launch_bounds__(kThreads)
-mt_update_kernel(const __grid_constant__ UpdateTable<T> t, const Hyper h,
+mt_update_kernel(const __grid_constant__ UpdateTable<T> t, const Hyper hp,
+                 const float* __restrict__ lr,
                  const float* __restrict__ gscale,
                  const float* __restrict__ inv_scale,
                  const unsigned char* __restrict__ flag, int donate) {
   const bool ok = flag == nullptr || *flag != 0;
   if (!ok && donate) return;                 // masked: nothing moves
+  Hyper h = hp;
+  if (lr != nullptr) h.lr = *lr;
   const float gs = gscale == nullptr ? 1.f : *gscale;
   const float inv = inv_scale == nullptr ? 1.f : *inv_scale;
   const int k = find_tensor(t.block_start, t.n, blockIdx.x);
@@ -392,7 +398,8 @@ template <typename T>
 int update_all(int kind, int n, const long long* sizes, void* const* w,
                void* const* g, void* const* s0, void* const* s1,
                void* const* w_out, void* const* s0_out, void* const* s1_out,
-               const Hyper& h, const float* gs, const float* inv,
+               const Hyper& h, const float* lr, const float* gs,
+               const float* inv,
                const unsigned char* fl, int donate, cudaStream_t st,
                int* launched) {
   for (int first = 0; first < n; first += kMaxTensors) {
@@ -415,11 +422,11 @@ int update_all(int kind, int n, const long long* sizes, void* const* w,
     t.block_start[t.n] = blocks;
     if (blocks == 0) continue;
     if (kind == kAdam)
-      mt_update_kernel<kAdam, T><<<blocks, kThreads, 0, st>>>(t, h, gs, inv,
-                                                             fl, donate);
+      mt_update_kernel<kAdam, T><<<blocks, kThreads, 0, st>>>(
+          t, h, lr, gs, inv, fl, donate);
     else
-      mt_update_kernel<kSgdMom, T><<<blocks, kThreads, 0, st>>>(t, h, gs, inv,
-                                                               fl, donate);
+      mt_update_kernel<kSgdMom, T><<<blocks, kThreads, 0, st>>>(
+          t, h, lr, gs, inv, fl, donate);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     ++*launched;
@@ -432,28 +439,32 @@ int update_all(int kind, int n, const long long* sizes, void* const* w,
 // One fused update of n tensors (in batches of kMaxTensors). kind: 0
 // sgd_mom_update, 1 adam_update. dtype: 0 float32, 1 bfloat16, for every
 // w/g/s0/s1 (contiguous); *_out may alias the inputs (donate). hyper: 9
-// floats (struct Hyper). *launched: the kernels launched.
+// floats (struct Hyper). lr: a float32 on the device that replaces
+// hyper[0], or null. *launched: the kernels launched.
 extern "C" int multi_tensor_update(int kind, int dtype, int n,
                                    const long long* sizes, void* const* w,
                                    void* const* g, void* const* s0,
                                    void* const* s1, void* const* w_out,
                                    void* const* s0_out, void* const* s1_out,
-                                   const float* hyper, const void* gscale,
-                                   const void* inv_scale, const void* flag,
-                                   int donate, void* stream, int* launched) {
+                                   const float* hyper, const void* lr,
+                                   const void* gscale, const void* inv_scale,
+                                   const void* flag, int donate,
+                                   void* stream, int* launched) {
   const Hyper h = {hyper[0], hyper[1], hyper[2], hyper[3], hyper[4],
                    hyper[5], hyper[6], hyper[7], hyper[8]};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* lrp = static_cast<const float*>(lr);
   const float* gs = static_cast<const float*>(gscale);
   const float* inv = static_cast<const float*>(inv_scale);
   const unsigned char* fl = static_cast<const unsigned char*>(flag);
   *launched = 0;
   if (dtype == 1)
     return update_all<__nv_bfloat16>(kind, n, sizes, w, g, s0, s1, w_out,
-                                     s0_out, s1_out, h, gs, inv, fl, donate,
-                                     st, launched);
+                                     s0_out, s1_out, h, lrp, gs, inv, fl,
+                                     donate, st, launched);
   return update_all<float>(kind, n, sizes, w, g, s0, s1, w_out, s0_out,
-                           s1_out, h, gs, inv, fl, donate, st, launched);
+                           s1_out, h, lrp, gs, inv, fl, donate, st,
+                           launched);
 }
 
 // Partials the reduction needs for these sizes (the workspace's length).

@@ -330,7 +330,7 @@ class Executor:
         """Install a per-node value callback (reference
         ExecuteMonCallback, graph_executor.h:200), called with each op
         node's outputs (and, with monitor_all, each variable's) as
-        (name, NDArray); ``monitor.py`` itself is not ported yet."""
+        (name, NDArray); ``monitor.Monitor.install`` sets it."""
         self._monitor_callback = callback
         self._monitor_all = monitor_all
 

@@ -11,8 +11,10 @@ src/io/iter_prefetcher.h:141); its ``place_fn`` runs there on the
 consumer's CUDA stream, so a placed batch is ordered with the steps that
 read it.
 
-Not ported yet: MNISTIter, CSVIter, LibSVMIter (ROADMAP Queue A item 5)
-and the image iterators (item 10).
+MNISTIter and CSVIter read their files on the host into an NDArrayIter.
+Not ported yet: LibSVMIter, whose batches are CSR storage (ROADMAP Queue
+A item 10's sparse work), and ImageRecordIter / ImageDetRecordIter
+(item 10's ``image/*``); each raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ from . import ndarray
 from .ndarray import NDArray, array
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
-           "PrefetchingIter"]
+           "PrefetchingIter", "MNISTIter", "CSVIter", "LibSVMIter",
+           "ImageRecordIter", "ImageDetRecordIter"]
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -474,3 +477,79 @@ class NDArrayIter(DataIter):
                 self.cursor + self.batch_size > self.num_data:
             return self.cursor + self.batch_size - self.num_data
         return 0
+
+
+class MNISTIter(NDArrayIter):
+    """MNIST idx-ubyte iterator (reference: the registered C++
+    'MNISTIter', src/io/iter_mnist.cc:259; the same file format and
+    kwargs). Files may be gzipped (``path.gz``)."""
+
+    def __init__(self, image="train-images-idx3-ubyte",
+                 label="train-labels-idx1-ubyte", batch_size=128,
+                 shuffle=True, flat=False, silent=False, seed=0,
+                 data_name="data", label_name="softmax_label", **kwargs):
+        import gzip
+        import struct
+
+        def _open(p):
+            if os.path.exists(p):
+                return open(p, "rb")
+            if os.path.exists(p + ".gz"):
+                return gzip.open(p + ".gz", "rb")
+            raise IOError("MNIST file %s not found" % p)
+
+        with _open(label) as fin:
+            _magic, _n = struct.unpack(">II", fin.read(8))
+            y = np.frombuffer(fin.read(), dtype=np.uint8).astype(
+                np.float32)
+        with _open(image) as fin:
+            _magic, n, rows, cols = struct.unpack(">IIII", fin.read(16))
+            x = np.frombuffer(fin.read(), dtype=np.uint8).astype(
+                np.float32) / 255.0
+            x = x.reshape(n, rows * cols) if flat else \
+                x.reshape(n, 1, rows, cols)
+        if shuffle:
+            idx = np.random.RandomState(seed).permutation(n)
+            x, y = x[idx], y[idx]
+        super().__init__(data={data_name: x}, label={label_name: y},
+                         batch_size=batch_size,
+                         last_batch_handle="discard")
+
+
+class CSVIter(NDArrayIter):
+    """CSV iterator (reference: the registered C++ 'CSVIter',
+    src/io/iter_csv.cc:150)."""
+
+    def __init__(self, data_csv, data_shape, label_csv=None,
+                 label_shape=(1,), batch_size=128, round_batch=True,
+                 **kwargs):
+        data = np.loadtxt(data_csv, delimiter=",",
+                          dtype=np.float32, ndmin=2)
+        data = data.reshape((-1,) + tuple(data_shape))
+        label = None
+        if label_csv is not None:
+            label = np.loadtxt(label_csv, delimiter=",",
+                               dtype=np.float32, ndmin=1)
+            if tuple(label_shape) != (1,):
+                label = label.reshape((-1,) + tuple(label_shape))
+        super().__init__(data, label, batch_size=batch_size,
+                         last_batch_handle="pad" if round_batch
+                         else "discard")
+
+
+def _not_ported_iter(name, what):
+    def make(*args, **kwargs):
+        raise NotImplementedError(
+            "io.%s is not ported to the PyTorch package yet: %s (ROADMAP "
+            "Queue A item 10)" % (name, what))
+    make.__name__ = name
+    make.__doc__ = "Not ported yet (ROADMAP Queue A item 10): %s." % what
+    return make
+
+
+LibSVMIter = _not_ported_iter(
+    "LibSVMIter", "its batches are CSR storage, the sparse work")
+ImageRecordIter = _not_ported_iter(
+    "ImageRecordIter", "it decodes through image/*")
+ImageDetRecordIter = _not_ported_iter(
+    "ImageDetRecordIter", "it decodes through image/*")

@@ -1,0 +1,723 @@
+"""BaseModule — the abstract high-level training interface; the
+PyTorch twin of ``mxnet_tpu/module/base_module.py`` (reference
+python/mxnet/module/base_module.py).
+
+State checks go through one ``_require`` helper, batch evaluation is one
+generator shared by score/predict/iter_predict, and modules that steer an
+inner module inherit ``DelegatingModule``. The fit loop is the JAX
+package's: batch t+1 staged while step t runs, the metric accumulated on
+the device, a bounded dispatch window whose wait is the one blocking
+host sync a step (and reads the guardrail's finite flag), rollback to
+the newest readable checkpoint, and preemption checkpoints with a
+``.resume.json`` sidecar.
+"""
+from __future__ import annotations
+
+import logging
+import os
+import time
+
+import numpy as np
+
+from .. import metric as metric_mod
+from .. import io
+from ..base import _as_list
+from ..model import BatchEndParam
+from ..initializer import Uniform
+
+
+def _newest_readable(candidates, loader, torn_excs, logger):
+    """Newest-first checkpoint scan: (path, loader(path)) for the
+    first candidate the loader can read, warning and falling back past
+    files torn by a crash mid-save (predating the atomic-rename
+    write) instead of killing the restarted worker. (None, None) when
+    nothing is readable. Which exceptions count as 'torn' is caller
+    policy — a model/optimizer MISMATCH must fail loudly, so put
+    ValueError in the torn set only when the loader's format raises it
+    for truncation."""
+    for path in reversed(candidates):
+        try:
+            return path, loader(path)
+        except torn_excs as e:
+            logger.warning("checkpoint %s unreadable (%s); trying the "
+                           "previous one", path, e)
+    return None, None
+
+
+def _latest_checkpoint(prefix, logger):
+    """Newest readable ``prefix-NNNN.params`` → (epochs_completed,
+    arg_params, aux_params), or (None, None, None)."""
+    import glob
+    import re
+    import zipfile
+
+    from .. import ndarray as nd_mod
+
+    found = sorted(p for p in glob.glob(prefix + "-*.params")
+                   if re.search(r"-\d{4}\.params$", p))
+    path, blob = _newest_readable(
+        found, nd_mod.load,
+        (OSError, ValueError, EOFError, zipfile.BadZipFile), logger)
+    if path is None:
+        return None, None, None
+    arg_params = {k.split(":", 1)[1]: v for k, v in blob.items()
+                  if k.startswith("arg:")}
+    aux_params = {k.split(":", 1)[1]: v for k, v in blob.items()
+                  if k.startswith("aux:")}
+    return int(path[:-len(".params")].rsplit("-", 1)[1]), \
+        arg_params, aux_params
+
+
+def _read_resume_sidecar(prefix, epoch, logger=None):
+    """Batches already trained in the (preempted) epoch recorded by a
+    boundary checkpoint's ``prefix-NNNN.resume.json`` sidecar; 0 when
+    there is none (a normal end-of-epoch checkpoint)."""
+    import json
+    try:
+        with open("%s-%04d.resume.json" % (prefix, epoch)) as f:
+            return int(json.load(f).get("nbatch", 0))
+    except (OSError, ValueError):
+        return 0
+
+
+def _clear_resume_sidecar(prefix, epoch):
+    """A normal end-of-epoch checkpoint supersedes any boundary
+    checkpoint of the same index — drop its stale sidecar."""
+    import contextlib
+    with contextlib.suppress(OSError):
+        os.remove("%s-%04d.resume.json" % (prefix, epoch))
+
+
+def _check_input_names(symbol, names, typename, throw):
+    """Ensure each user-given input name exists among the symbol's
+    arguments; suggest likely candidates otherwise."""
+    known = set(symbol.list_arguments())
+    suffixes = ("_weight", "_bias", "_gamma", "_beta")
+    for name in names:
+        if name in known:
+            continue
+        likely = [a for a in known if not a.endswith(suffixes)]
+        msg = ("\033[91mYou created Module with Module(..., %s_names=%s) but "
+               "input with name '%s' is not found in "
+               "symbol.list_arguments(). Did you mean one of:\n\t%s\033[0m"
+               % (typename, names, name, "\n\t".join(sorted(likely))))
+        if throw:
+            raise ValueError(msg)
+        logging.warning(msg)
+
+
+def _check_names_match(data_names, data_shapes, name, throw):
+    """data_shapes' names must cover exactly data_names."""
+    given = sorted(d[0] for d in data_shapes)
+    if given != sorted(data_names):
+        msg = ("Data provided by %s_shapes don't match names specified by "
+               "%s_names (%s vs. %s)"
+               % (name, name, data_shapes, data_names))
+        if throw:
+            raise ValueError(msg)
+        logging.warning(msg)
+
+
+def _parse_data_desc(data_names, label_names, data_shapes, label_shapes):
+    """Normalize (name, shape) pairs to io.DataDesc and validate them."""
+    def to_descs(shapes):
+        return [s if isinstance(s, io.DataDesc) else io.DataDesc(*s)
+                for s in shapes]
+
+    data_shapes = to_descs(data_shapes)
+    _check_names_match(data_names, data_shapes, "data", True)
+    if label_shapes is None:
+        _check_names_match(label_names, [], "label", False)
+    else:
+        label_shapes = to_descs(label_shapes)
+        _check_names_match(label_names, label_shapes, "label", False)
+    return data_shapes, label_shapes
+
+
+class BaseModule:
+    """Abstract module: bound state + parameters + optimizer, with
+    forward/backward/update primitives and fit/predict/score loops on
+    top. Subclasses implement the computation interface."""
+
+    def __init__(self, logger=logging):
+        self.logger = logger
+        self.binded = False
+        self.for_training = False
+        self.inputs_need_grad = False
+        self.params_initialized = False
+        self.optimizer_initialized = False
+        self._symbol = None
+        self._total_exec_bytes = 0
+
+    # -- shared bookkeeping ------------------------------------------------
+    def _require(self, params=True, optimizer=False, inputs_grad=False):
+        """One place for the bound/initialized preconditions the reference
+        re-asserts at the top of every method."""
+        assert self.binded, "call bind() first"
+        if params:
+            assert self.params_initialized, "call init_params() first"
+        if optimizer:
+            assert self.optimizer_initialized, "call init_optimizer() first"
+        if inputs_grad:
+            assert self.inputs_need_grad, \
+                "bind with inputs_need_grad=True to get input gradients"
+
+    def _eval_batches(self, eval_data, num_batch=None, reset=True):
+        """Yield (nbatch, batch, unpadded_outputs) over an iterator in
+        inference mode — the engine behind predict/iter_predict/score."""
+        self._require()
+        if reset:
+            eval_data.reset()
+        for nbatch, batch in enumerate(eval_data):
+            if num_batch is not None and nbatch >= num_batch:
+                return
+            self.forward(batch, is_train=False)
+            keep = None if not batch.pad else -batch.pad
+            yield nbatch, batch, [o[:keep] if keep else o
+                                  for o in self.get_outputs()]
+
+    # -- high-level interface ----------------------------------------------
+    def forward_backward(self, data_batch):
+        """One training forward+backward."""
+        self.forward(data_batch, is_train=True)
+        self.backward()
+
+    def score(self, eval_data, eval_metric, num_batch=None,
+              batch_end_callback=None, score_end_callback=None, reset=True,
+              epoch=0):
+        """Run inference over eval_data, accumulating eval_metric."""
+        eval_metric = metric_mod.create(eval_metric) \
+            if not isinstance(eval_metric, metric_mod.EvalMetric) \
+            else eval_metric
+        eval_metric.reset()
+
+        seen = 0
+        for nbatch, batch, _ in self._eval_batches(eval_data, num_batch,
+                                                   reset):
+            self.update_metric(eval_metric, batch.label)
+            seen = nbatch + 1
+            if batch_end_callback is not None:
+                info = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                     eval_metric=eval_metric,
+                                     locals=locals())
+                for cb in _as_list(batch_end_callback):
+                    cb(info)
+        if score_end_callback is not None:
+            info = BatchEndParam(epoch=epoch, nbatch=seen,
+                                 eval_metric=eval_metric, locals=locals())
+            for cb in _as_list(score_end_callback):
+                cb(info)
+        return eval_metric.get_name_value()
+
+    def iter_predict(self, eval_data, num_batch=None, reset=True):
+        """Yield (outputs, i_batch, batch) in inference mode."""
+        for nbatch, batch, outs in self._eval_batches(eval_data, num_batch,
+                                                      reset):
+            yield outs, nbatch, batch
+
+    def predict(self, eval_data, num_batch=None, merge_batches=True,
+                reset=True, always_output_list=False):
+        """Collect predictions; merged across batches by default."""
+        from ..ndarray import array
+
+        collected = [outs for _, _, outs in
+                     self._eval_batches(eval_data, num_batch, reset)]
+        if not collected:
+            return collected
+        if not merge_batches:
+            return collected
+
+        width = {len(outs) for outs in collected}
+        assert len(width) == 1, \
+            "Cannot merge batches, as num of outputs is not the same " \
+            "in mini-batches. Maybe bucketing is used?"
+        merged = [array(np.concatenate([outs[i].asnumpy()
+                                        for outs in collected]))
+                  for i in range(width.pop())]
+        if len(merged) == 1 and not always_output_list:
+            return merged[0]
+        return merged
+
+    def fit(self, train_data, eval_data=None, eval_metric="acc",
+            epoch_end_callback=None, batch_end_callback=None,
+            kvstore="local", optimizer="sgd",
+            optimizer_params=(("learning_rate", 0.01),),
+            eval_end_callback=None, eval_batch_end_callback=None,
+            initializer=Uniform(0.01), arg_params=None, aux_params=None,
+            allow_missing=False, force_rebind=False, force_init=False,
+            begin_epoch=0, num_epoch=None, validation_metric=None,
+            monitor=None, checkpoint_prefix=None, checkpoint_period=1,
+            resume=True):
+        """The training loop: bind, init, then per-epoch train+eval.
+
+        checkpoint_prefix: save ``prefix-NNNN.params`` (NNNN = epochs
+        completed) every ``checkpoint_period`` epochs and, with
+        ``resume=True``, continue AFTER the newest readable checkpoint
+        on restart — the elastic-restart hook: a worker killed anywhere
+        and rerun with the same command rejoins the job.
+
+        Guardrails (MXNET_GUARDRAIL, default on):
+        non-finite gradients are zeroed on device before update() (the
+        weights never ingest a NaN) and device-path metrics exclude the
+        masked step; after MXNET_MAX_BAD_STEPS consecutive masked steps
+        the newest readable checkpoint is restored (NumericalDivergence
+        once MXNET_MAX_ROLLBACKS is spent). With a checkpoint_prefix,
+        SIGTERM/SIGINT writes a boundary checkpoint (plus a
+        ``.resume.json`` sidecar recording the exact batch) and exits
+        with code guardrail.EXIT_PREEMPTED; a rerun resumes from that
+        step."""
+        assert num_epoch is not None, "please specify number of epochs"
+        from .. import guardrail as _guardrail
+        from .. import telemetry as _telemetry
+
+        skip_batches = 0
+        if checkpoint_prefix and resume:
+            found_epoch, found_arg, found_aux = _latest_checkpoint(
+                checkpoint_prefix, self.logger)
+            if found_epoch is not None:
+                begin_epoch = found_epoch
+                arg_params, aux_params = found_arg, found_aux
+                force_init = True
+                skip_batches = _read_resume_sidecar(checkpoint_prefix,
+                                                    found_epoch)
+                self.logger.info(
+                    "resumed %s-%04d.params; continuing at epoch %d%s",
+                    checkpoint_prefix, found_epoch, begin_epoch,
+                    ", batch %d" % skip_batches if skip_batches else "")
+
+        self.bind(data_shapes=train_data.provide_data,
+                  label_shapes=train_data.provide_label,
+                  for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
+        self.init_params(initializer=initializer, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init)
+        self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
+                            optimizer_params=optimizer_params)
+
+        if not isinstance(eval_metric, metric_mod.EvalMetric):
+            eval_metric = metric_mod.create(eval_metric)
+        validation_metric = validation_metric or eval_metric
+
+        guard = _guardrail.FitGuard.create(
+            logger=self.logger, checkpointing=bool(checkpoint_prefix))
+        _telemetry.journal_event("fit.start", loop="module",
+                                 num_epoch=num_epoch,
+                                 begin_epoch=begin_epoch)
+        with guard.shutdown_scope():
+            epoch = begin_epoch
+            while epoch < num_epoch:
+                tic = time.time()
+                eval_metric.reset()
+                try:
+                    self._fit_epoch(train_data, epoch, eval_metric,
+                                    batch_end_callback, monitor,
+                                    guard=guard,
+                                    skip_batches=skip_batches)
+                    skip_batches = 0
+                except _guardrail.RollbackNeeded:
+                    from .. import trace as _trace
+                    _trace.unwind()   # drop the abandoned step span
+                    epoch, skip_batches = self._guard_rollback(
+                        checkpoint_prefix, guard)
+                    train_data.reset()
+                    continue
+                except _guardrail.PreemptionSignal as preempted:
+                    self._guard_preempt(checkpoint_prefix, epoch,
+                                        preempted.nbatch)
+                for name, val in eval_metric.get_name_value():
+                    self.logger.info("Epoch[%d] Train-%s=%f", epoch,
+                                     name, val)
+                self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                                 time.time() - tic)
+
+                # pull trained values host-side (also re-syncs aux
+                # stats)
+                arg_now, aux_now = self.get_params()
+                self.set_params(arg_now, aux_now)
+                if checkpoint_prefix and \
+                        (epoch + 1) % checkpoint_period == 0:
+                    from ..model import save_checkpoint
+                    save_checkpoint(checkpoint_prefix, epoch + 1,
+                                    self.symbol, arg_now, aux_now)
+                    _clear_resume_sidecar(checkpoint_prefix, epoch + 1)
+                for cb in _as_list(epoch_end_callback or []):
+                    cb(epoch, self.symbol, arg_now, aux_now)
+
+                if eval_data is not None:
+                    for name, val in self.score(
+                            eval_data, validation_metric, epoch=epoch,
+                            batch_end_callback=eval_batch_end_callback,
+                            score_end_callback=eval_end_callback):
+                        self.logger.info("Epoch[%d] Validation-%s=%f",
+                                         epoch, name, val)
+                train_data.reset()
+                epoch += 1
+
+    def _guard_rollback(self, checkpoint_prefix, guard):
+        """Escalation: restore the newest readable checkpoint after the
+        consecutive-bad-step threshold fired. Returns (epoch to restart
+        at, batches to skip). NumericalDivergence when rollback is
+        impossible or the budget is spent."""
+        if not checkpoint_prefix:
+            guard.policy.no_checkpoint("no checkpoint_prefix "
+                                       "configured")
+        guard.policy.begin_rollback()
+        found_epoch, found_arg, found_aux = _latest_checkpoint(
+            checkpoint_prefix, self.logger)
+        if found_epoch is None:
+            guard.policy.no_checkpoint(
+                "no readable checkpoint under %r" % checkpoint_prefix)
+        self.set_params(found_arg, found_aux)
+        optimizer = getattr(self, "_optimizer", None)
+        if optimizer is not None and guard.policy.lr_factor != 1.0:
+            if optimizer.lr_scheduler is None:
+                optimizer.lr *= guard.policy.lr_factor
+            else:
+                self.logger.warning(
+                    "guardrail: MXNET_ROLLBACK_LR_FACTOR ignored — "
+                    "this optimizer's lr is driven by an LRScheduler")
+        self.logger.warning(
+            "guardrail: rolled back to checkpoint %s-%04d.params "
+            "(rollback %d/%d)", checkpoint_prefix, found_epoch,
+            guard.policy.rollbacks_done, guard.policy.max_rollbacks)
+        return found_epoch, _read_resume_sidecar(checkpoint_prefix,
+                                                 found_epoch)
+
+    def _guard_preempt(self, checkpoint_prefix, epoch, nbatch):
+        """Graceful-shutdown endgame: publish the boundary checkpoint
+        (sidecar records the exact batch) and exit EXIT_PREEMPTED so a
+        relauncher rerunning the same command resumes seamlessly."""
+        import json
+
+        from .. import guardrail as _guardrail
+        from .. import telemetry as _telemetry
+        from ..model import save_checkpoint
+
+        arg_now, aux_now = self.get_params()
+        save_checkpoint(checkpoint_prefix, epoch, self.symbol,
+                        arg_now, aux_now)
+        sidecar = "%s-%04d.resume.json" % (checkpoint_prefix, epoch)
+        tmp = sidecar + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"epoch": epoch, "nbatch": nbatch}, f)
+        _guardrail.durable_replace(tmp, sidecar)
+        _telemetry.counter("guardrail.preempt_checkpoints").inc()
+        _telemetry.journal_event("guardrail.preempt_checkpoint",
+                                 loop="module", epoch=epoch,
+                                 nbatch=nbatch)
+        self.logger.warning(
+            "preemption: boundary checkpoint %s-%04d.params written at "
+            "epoch %d batch %d; exiting with code %d",
+            checkpoint_prefix, epoch, epoch, nbatch,
+            _guardrail.EXIT_PREEMPTED)
+        raise SystemExit(_guardrail.EXIT_PREEMPTED)
+
+    def _fit_epoch(self, train_data, epoch, eval_metric,
+                   batch_end_callback, monitor, guard=None,
+                   skip_batches=0):
+        """One pipelined epoch of the fit loop: batch t+1 is staged
+        (prepare() dispatches its device placement) while step t runs,
+        the metric accumulates on device when it has a device impl (no
+        per-step host read — ``get()`` does the one blocking read), and
+        a bounded dispatch window (MXNET_DISPATCH_AHEAD) blocks on the
+        step K back so async dispatch can't run away from the device.
+
+        With a guard (fit passes one): non-finite gradients are masked
+        to zero on device before update(), the step's all-finite flag
+        rides the dispatch window in place of the output handle (the
+        flag read IS the window wait — no extra sync), device metrics
+        exclude masked steps, and a shutdown request surfaces as
+        PreemptionSignal at the next step boundary."""
+        from collections import deque
+
+        from .. import config as _config
+        from .. import guardrail as _guardrail
+        from .. import profiler as _profiler
+        from .. import telemetry as _telemetry
+        from .. import trace as _trace
+        from ..parallel.trainer import _InFlight
+
+        # telemetry: hoisted handle — zero cost when off; all timing
+        # below is host wall-clock and adds no blocking sync. The trace
+        # handle is hoisted the same way; `timed` gates the shared
+        # timestamp capture.
+        jr = _telemetry.journal()
+        tr = _trace.tracer()
+        timed = jr is not None or tr is not None
+        step_hist = _telemetry.histogram("module.step_ms") \
+            if jr is not None else None
+
+        ahead = max(1, int(_config.get("MXNET_DISPATCH_AHEAD")))
+        inflight = deque()
+        masker = getattr(self, "_mask_nonfinite", None) \
+            if guard is not None and guard.spec is not None else None
+
+        def drain_one():
+            # the window's wait: for the step K back (an event), not for
+            # the steps queued after it; its flag is the guardrail's read
+            item = inflight.popleft()
+            _profiler.count_host_sync("dispatch_window")
+            finite = item.wait()
+            if masker is not None:
+                guard.policy.record(finite)
+
+        batches = iter(train_data)
+        if skip_batches:
+            self.logger.info(
+                "mid-epoch resume: skipping %d already-trained batches "
+                "of epoch %d", skip_batches, epoch)
+            for _ in range(skip_batches):
+                if next(batches, None) is None:
+                    break
+        pending = next(batches, None)
+        nbatch = skip_batches
+        t_iter = _telemetry.now_ms() if timed else 0.0
+        while pending is not None:
+            batch = pending
+            # step span: annotated with the journal's step seq (nbatch
+            # == the record's `step`) so traces and the telemetry
+            # report cross-reference; open (not retroactive) so the
+            # kvstore's ps.op spans dispatched inside update() join it
+            ssp = _trace.start_span("train.step", loop="module",
+                                    step=nbatch, epoch=epoch) \
+                if tr is not None else None
+            inject = None
+            if guard is not None:
+                if guard.spec is not None or guard.shutdown is not None:
+                    inject = guard.poll_faults()
+                if guard.preempt_requested():
+                    _trace.end_span(ssp, preempted=True)
+                    raise _guardrail.PreemptionSignal(nbatch)
+            if monitor is not None:
+                monitor.tic()
+            ok = None
+            with _profiler.step_scope(nbatch):
+                self.forward_backward(batch)
+                if masker is not None:
+                    ok = masker(inject=inject)
+                self.update()
+            t_data = _telemetry.now_ms() if timed else 0.0
+            pending = next(batches, None)
+            if pending is not None:
+                self.prepare(pending)     # H2D of t+1 overlaps step t
+            data_ms = _telemetry.now_ms() - t_data if timed else 0.0
+            if ok is not None:
+                self.update_metric(eval_metric, batch.label, ok=ok)
+            else:
+                self.update_metric(eval_metric, batch.label)
+            if ok is not None:
+                inflight.append(_InFlight(ok, ok.device))
+            else:
+                outs = self.get_outputs()
+                if outs and hasattr(outs[0], "wait_to_read"):
+                    inflight.append(_InFlight(None, outs[0]._data.device))
+            t_win = _telemetry.now_ms() if timed else 0.0
+            while len(inflight) > ahead:
+                # the ONE allowed blocking sync per step: back-pressure
+                # on the step K back
+                drain_one()
+            if timed:
+                now_ = _telemetry.now_ms()
+                if jr is not None:
+                    step_hist.observe(now_ - t_iter)
+                    _telemetry.journal_step(
+                        loop="module", step=nbatch, epoch=epoch,
+                        wall_ms=round(now_ - t_iter, 3),
+                        data_wait_ms=round(data_ms, 3),
+                        window_wait_ms=round(now_ - t_win, 3),
+                        samples=int(batch.data[0].shape[0])
+                        if batch.data else 0)
+                if tr is not None:
+                    # wait children reconstructed from the timestamps
+                    # already taken — no extra clock reads
+                    _trace.add_span("step.data_wait", t_data,
+                                    t_data + data_ms, parent=ssp)
+                    _trace.add_span("step.window_wait", t_win, now_,
+                                    parent=ssp)
+                t_iter = now_
+            _trace.end_span(ssp)
+            if monitor is not None:
+                monitor.toc_print()
+            if batch_end_callback is not None:
+                info = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                     eval_metric=eval_metric,
+                                     locals=locals())
+                for cb in _as_list(batch_end_callback):
+                    cb(info)
+            nbatch += 1
+        if masker is not None:
+            # drain the window so a bad tail is seen BEFORE this
+            # epoch's checkpoint is published
+            while inflight:
+                drain_one()
+        if jr is not None:
+            _telemetry.journal_event("epoch.end", loop="module",
+                                     epoch=epoch, steps=nbatch)
+        # HBM watermark: boundary-only sample, never per step
+        _profiler.sample_device_memory("epoch.end")
+
+    # -- symbol/params accessors -------------------------------------------
+    @property
+    def symbol(self):
+        return self._symbol
+
+    def get_params(self):
+        raise NotImplementedError()
+
+    def init_params(self, initializer=Uniform(0.01), arg_params=None,
+                    aux_params=None, allow_missing=False,
+                    force_init=False, allow_extra=False):
+        raise NotImplementedError()
+
+    def set_params(self, arg_params, aux_params,
+                   allow_missing=False, force_init=True,
+                   allow_extra=False):
+        """Assign parameter values (init_params with explicit sources)."""
+        self.init_params(initializer=None, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init, allow_extra=allow_extra)
+
+    def save_params(self, fname):
+        """Write all parameters to an ndarray file with arg:/aux: tags."""
+        from ..ndarray import save
+        arg_params, aux_params = self.get_params()
+        blob = {"arg:" + k: v for k, v in arg_params.items()}
+        blob.update(("aux:" + k, v) for k, v in aux_params.items())
+        save(fname, blob)
+
+    def load_params(self, fname):
+        """Read parameters written by save_params."""
+        from ..ndarray import load
+        groups = {"arg": {}, "aux": {}}
+        for key, value in load(fname).items():
+            kind, _, name = key.partition(":")
+            if kind not in groups or not name:
+                raise ValueError("Invalid param file " + fname)
+            groups[kind][name] = value
+        self.set_params(groups["arg"], groups["aux"])
+
+    def get_states(self, merge_multi_context=True):
+        """Stateful-module states (RNN hidden); none by default."""
+        self._require()
+        return []
+
+    def set_states(self, states=None, value=None):
+        self._require()
+        assert not states and not value
+
+    def install_monitor(self, mon):
+        raise NotImplementedError()
+
+    def prepare(self, data_batch):
+        """Hook called on the upcoming batch (default no-op)."""
+
+    # -- computation interface ---------------------------------------------
+    def forward(self, data_batch, is_train=None):
+        raise NotImplementedError()
+
+    def backward(self, out_grads=None):
+        raise NotImplementedError()
+
+    def get_outputs(self, merge_multi_context=True):  # noqa: D102
+        raise NotImplementedError()
+
+    def get_input_grads(self, merge_multi_context=True):  # noqa: D102
+        raise NotImplementedError()
+
+    def update(self):
+        raise NotImplementedError()
+
+    def update_metric(self, eval_metric, labels):
+        raise NotImplementedError()
+
+    # -- bind/optimizer ----------------------------------------------------
+    def bind(self, data_shapes, label_shapes=None, for_training=True,
+             inputs_need_grad=False, force_rebind=False,
+             shared_module=None, grad_req="write"):
+        raise NotImplementedError()
+
+    def init_optimizer(self, kvstore="local", optimizer="sgd",
+                       optimizer_params=(("learning_rate",
+                                          0.01),), force_init=False):
+        raise NotImplementedError()
+
+    # -- shapes ------------------------------------------------------------
+    @property
+    def data_names(self):
+        raise NotImplementedError()
+
+    @property
+    def output_names(self):
+        raise NotImplementedError()
+
+    @property
+    def data_shapes(self):
+        raise NotImplementedError()
+
+    @property
+    def label_shapes(self):
+        raise NotImplementedError()
+
+    @property
+    def output_shapes(self):
+        raise NotImplementedError()
+
+
+class DelegatingModule(BaseModule):
+    """Base for modules that steer one active inner module (bucketing).
+
+    The whole computation interface forwards to `_active_module()`;
+    subclasses manage which module is active and how parameters move
+    between them."""
+
+    def _active_module(self):
+        raise NotImplementedError()
+
+    def forward(self, data_batch, is_train=None):
+        self._require()
+        self._active_module().forward(data_batch, is_train=is_train)
+
+    def backward(self, out_grads=None):
+        self._require()
+        self._active_module().backward(out_grads=out_grads)
+
+    def update(self):
+        self._require(optimizer=True)
+        self._active_module().update()
+
+    def get_outputs(self, merge_multi_context=True):  # noqa: D102
+        self._require()
+        return self._active_module().get_outputs(merge_multi_context)
+
+    def get_input_grads(self, merge_multi_context=True):  # noqa: D102
+        self._require(inputs_grad=True)
+        return self._active_module().get_input_grads(merge_multi_context)
+
+    def get_states(self, merge_multi_context=True):
+        self._require()
+        return self._active_module().get_states(merge_multi_context)
+
+    def set_states(self, states=None, value=None):
+        self._require()
+        self._active_module().set_states(states, value)
+
+    def update_metric(self, eval_metric, labels):
+        self._require()
+        self._active_module().update_metric(eval_metric, labels)
+
+    @property
+    def data_shapes(self):
+        assert self.binded
+        return self._active_module().data_shapes
+
+    @property
+    def label_shapes(self):
+        assert self.binded
+        return self._active_module().label_shapes
+
+    @property
+    def output_shapes(self):
+        assert self.binded
+        return self._active_module().output_shapes

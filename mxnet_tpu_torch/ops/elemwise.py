@@ -190,8 +190,9 @@ def _add_n(*args, **_):
 def _as_scalar(x, scalar):
     # the scalar takes x's dtype first (jnp.asarray(scalar, x.dtype)):
     # an int tensor stays int, and a bf16 tensor takes the bf16-rounded
-    # scalar
-    return torch.as_tensor(scalar, dtype=x.dtype, device=x.device)
+    # scalar; filled on the device (no copy from the host, so a captured
+    # CUDA graph can hold it)
+    return torch.full((), scalar, dtype=x.dtype, device=x.device)
 
 
 def _s(name, fn, aliases=(), differentiable=True):
@@ -231,8 +232,8 @@ def _clip(x, a_min=0.0, a_max=1.0, **_):
     # jnp.clip is maximum then minimum against weakly-typed scalars: a
     # float bound turns an int tensor into float32, a bf16 tensor rounds
     # the bound to bf16, and a tie passes half the gradient
-    lo = torch.as_tensor(a_min, device=x.device)
-    hi = torch.as_tensor(a_max, device=x.device)
+    lo = torch.full((), a_min, device=x.device)
+    hi = torch.full((), a_max, device=x.device)
     return torch.minimum(hi, torch.maximum(lo, x))
 
 

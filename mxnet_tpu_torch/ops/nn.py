@@ -540,8 +540,8 @@ def _sequence_mask(data, sequence_length=None, use_sequence_length=False,
     if axis == 1:
         mask = mask.t()
     mask = mask.reshape(tuple(mask.shape) + (1,) * (data.dim() - 2))
-    return torch.where(mask, data, torch.tensor(value, dtype=data.dtype,
-                                                device=data.device))
+    return torch.where(mask, data, torch.full((), value, dtype=data.dtype,
+                                              device=data.device))
 
 
 @register("SequenceLast", arg_names=("data", "sequence_length"),

@@ -33,7 +33,9 @@ guard's finite flag (when false nothing changes: in place, or copied to
 fresh outputs with ``donate=False``), the clip scale and the loss
 scaler's ``1/scale``; the gradient is multiplied by ``1/scale``, then by
 ``gscale`` (each in float32, rounded once to the gradient's dtype), then
-prepared as the registry op prepares it.
+prepared as the registry op prepares it. ``lr`` is a host float, or a
+0-d float32 device tensor that the kernel reads when it runs: a step
+captured as a CUDA graph then takes a new lr at each replay.
 """
 from __future__ import annotations
 
@@ -62,15 +64,17 @@ def _f32(x):
 
 
 def _hyper(op_name, lr, attrs):
-    """The kernel's 9 floats: lr, rescale, clip (-1: none), wd, then
-    adam's beta1, 1 - beta1, beta2, 1 - beta2, epsilon or sgd's
-    momentum. ``1 - beta`` is computed in double and rounded once, as
-    ``(1 - beta1) * g`` rounds the Python scalar."""
+    """The kernel's 9 floats: lr (0 when the kernel reads it from the
+    device), rescale, clip (-1: none), wd, then adam's beta1, 1 - beta1,
+    beta2, 1 - beta2, epsilon or sgd's momentum. ``1 - beta`` is
+    computed in double and rounded once, as ``(1 - beta1) * g`` rounds
+    the Python scalar."""
     defaults = get_op(op_name).defaults
     a = {**defaults, **attrs}
     clip = a.get("clip_gradient")
     clip = -1.0 if clip is None or not clip > 0 else clip
-    common = [_f32(lr), _f32(a["rescale_grad"]), _f32(clip), _f32(a["wd"])]
+    lr = 0.0 if isinstance(lr, torch.Tensor) else _f32(lr)
+    common = [lr, _f32(a["rescale_grad"]), _f32(clip), _f32(a["wd"])]
     if op_name == "adam_update":
         b1, b2 = a["beta1"], a["beta2"]
         rest = [_f32(b1), _f32(1 - b1), _f32(b2), _f32(1 - b2),
@@ -142,7 +146,7 @@ def _norm_finite_reference(grads, outs=(), inject=1.0, inv_scale=None,
         gscale = torch.ones((), dtype=torch.float32, device=dev)
     else:
         gnorm = _f32(rescale) * torch.sqrt(sumsq)
-        clip = torch.tensor(clip_norm, dtype=torch.float32, device=dev)
+        clip = torch.full((), clip_norm, dtype=torch.float32, device=dev)
         gscale = torch.clamp(clip / torch.clamp_min(gnorm, 1e-12), max=1.0)
     return sumsq, finite, gscale
 
@@ -187,8 +191,9 @@ def multi_tensor_opt_update_cuda(op_name, weights, grads, states, lr, attrs,
     """Launch the multi-tensor update (``adam_update`` or
     ``sgd_mom_update``) over every (weight, grad, state) on one card, all
     float32 or all bfloat16: one launch a ``MAX_TENSORS`` tensors.
-    ``flag`` (bool), ``gscale`` and ``inv_scale`` (float32) are 0-d
-    device tensors or None. Returns (new weights, new state tuples);
+    ``lr`` is a host float or a 0-d float32 device tensor; ``flag``
+    (bool), ``gscale`` and ``inv_scale`` (float32) are 0-d device
+    tensors or None. Returns (new weights, new state tuples);
     with ``donate`` they are the given tensors, updated in place.
     ``multi_tensor_opt_update_cuda.launches`` counts the launches."""
     if op_name not in MT_OPS:
@@ -214,7 +219,9 @@ def multi_tensor_opt_update_cuda(op_name, weights, grads, states, lr, attrs,
             raise ValueError("multi_tensor_opt_update_cuda: a gradient or "
                              "state differs from its weight's shape %r, or "
                              "not %d states" % (tuple(w.shape), n_state))
-    ptr = {"flag": _scalar_ptr("flag", flag, torch.bool, dev),
+    ptr = {"lr": _scalar_ptr("lr", lr, torch.float32, dev)
+           if isinstance(lr, torch.Tensor) else None,
+           "flag": _scalar_ptr("flag", flag, torch.bool, dev),
            "gscale": _scalar_ptr("gscale", gscale, torch.float32, dev),
            "inv": _scalar_ptr("inv_scale", inv_scale, torch.float32, dev)}
     if donate:
@@ -236,7 +243,7 @@ def multi_tensor_opt_update_cuda(op_name, weights, grads, states, lr, attrs,
         rc = lib.multi_tensor_update(
             kind, _DTYPE_CODE[dtype], n, sizes, _ptrs(weights), _ptrs(grads),
             _ptrs(s0), _ptrs(s1), _ptrs(w_out), _ptrs(s0o), _ptrs(s1o),
-            hyper, ptr["gscale"], ptr["inv"], ptr["flag"],
+            hyper, ptr["lr"], ptr["gscale"], ptr["inv"], ptr["flag"],
             int(bool(donate)), stream, ctypes.byref(launched))
     multi_tensor_opt_update_cuda.launches += launched.value
     _kernels.check(lib, rc, "multi_tensor_update")

@@ -51,8 +51,8 @@ _rand("_random_uniform",
 _rand("_random_normal",
       lambda rng, s, dt, dev, kw: tf.fma(
           tf.normal(rng, s, dt, dev),
-          torch.tensor(kw.get("scale", 1.0), dtype=dt, device=dev),
-          torch.tensor(kw.get("loc", 0.0), dtype=dt, device=dev)),
+          torch.full((), kw.get("scale", 1.0), dtype=dt, device=dev),
+          torch.full((), kw.get("loc", 0.0), dtype=dt, device=dev)),
       {"loc": 0.0, "scale": 1.0}, aliases=("normal", "random_normal",
                                            "randn"))
 

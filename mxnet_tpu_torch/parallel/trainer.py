@@ -30,9 +30,15 @@ bounded dispatch window whose wait is the one blocking host sync a
 step. ``save_state`` / ``load_state`` write and read the JAX package's
 ``.npz`` layout, so a checkpoint of either package loads in the other.
 
-Not in this slice (ROADMAP Queue A items 4 and 9): the device mesh,
-sharding layouts and the sharded optimizer, which raise
-``NotImplementedError``; ``export`` / ``CompiledTrainStep``.
+``export`` writes the step as the JAX package's flat artifact (its
+``.train.meta.json`` keys and values and ``.state.npz`` layout) plus what
+the port needs to rebuild the step, since a StableHLO program cannot run
+without JAX. ``CompiledTrainStep.load`` rebuilds it from those files
+alone; on the card, its first ``step`` captures the step as one CUDA
+graph, which every later ``step`` replays.
+
+Not in this slice (ROADMAP Queue A item 9): the device mesh, sharding
+layouts and the sharded optimizer, which raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -53,7 +59,11 @@ from ..executor import _graph_eval_fn, forward_backward
 from ..ndarray import array
 from ..ops import optimizer_kernels as _mt
 
-__all__ = ["make_train_step", "TrainStep"]
+__all__ = ["make_train_step", "TrainStep", "CompiledTrainStep"]
+
+# the meta key holding what the port needs to rebuild an exported step
+# (every other key of the meta is the JAX package's)
+_REBUILD_KEY = "torch_step"
 
 # fused optimizer ops: name -> (#state tensors, op name)
 _OPT_OPS = {
@@ -439,6 +449,61 @@ class TrainStep:
 
     def __call__(self, state, batch, lr, rng):
         return self._step(state, self.place_batch(batch), lr, rng)
+
+    def export(self, prefix, state, batch):
+        """Write the step for ``CompiledTrainStep.load``:
+
+            prefix.train.meta.json   the JAX package's flat layout (state,
+                                     batch and output names, shapes,
+                                     dtypes; the same keys and values),
+                                     plus ``torch_step``: the symbol's
+                                     JSON, the optimizer and its params,
+                                     compute_dtype, clip_norm, remat, the
+                                     data and label names
+            prefix.state.npz         the state in flat order (``s%05d``,
+                                     ``step_count``)
+
+        Flat order: params (sorted), the optimizer slots of each param,
+        aux (sorted). The JAX package also writes the step as a StableHLO
+        program, which runs only under JAX: here the step is rebuilt from
+        the meta. Returns the meta's path."""
+        params, opt_state, aux = state
+        pn = sorted(params)
+        an = sorted(aux)
+        batch_names = list(self.data_names) + [
+            k for k in sorted(batch) if k not in self.data_names]
+        state_flat = [_to_numpy(t) for t in _flat_state(state, pn, an)]
+        batch_vals = [_host_array(batch[n]) for n in batch_names]
+        outputs = self.symbol.list_outputs()
+        meta = {
+            "param_names": pn,
+            "n_opt_slots": self._n_state,
+            "aux_names": an,
+            "batch_names": batch_names,
+            "batch_shapes": {n: list(np.shape(v)) for n, v in
+                             zip(batch_names, batch_vals)},
+            "batch_dtypes": {n: str(v.dtype) for n, v in
+                             zip(batch_names, batch_vals)},
+            "n_state_leaves": len(state_flat),
+            "n_outputs": len(outputs),
+            "output_names": outputs,
+            _REBUILD_KEY: {
+                "symbol": self.symbol.tojson(),
+                "optimizer": self.opt_name,
+                "optimizer_params": self.opt_params,
+                "compute_dtype": None if self.compute_dtype is None
+                else str(self.compute_dtype).replace("torch.", ""),
+                "clip_norm": self.clip_norm,
+                "remat": self.remat,
+                "data_names": self.data_names,
+                "label_names": self.label_names,
+            },
+        }
+        with open(prefix + ".train.meta.json", "w") as f:
+            json.dump(meta, f)
+        np.savez(prefix + ".state.npz", step_count=np.int64(0),
+                 **{"s%05d" % i: a for i, a in enumerate(state_flat)})
+        return prefix + ".train.meta.json"
 
     def _metric_fused_step(self, metric, guard=None):
         """The step followed by the metric's device update of the batch's
@@ -904,6 +969,231 @@ class TrainStep:
                                     self.opt_name, self._n_state))
             opt_state[n] = tuple(saved[i] for i in range(self._n_state))
         return params, opt_state, aux
+
+
+def _flat_state(state, param_names, aux_names):
+    """The export's flat order: params, the optimizer slots of each
+    param, aux."""
+    params, opt_state, aux = state
+    flat = [params[n] for n in param_names]
+    for n in param_names:
+        flat.extend(opt_state[n])
+    flat.extend(aux[n] for n in aux_names)
+    return flat
+
+
+def _host_array(v):
+    """A batch value as a host numpy array (NDArray, tensor or
+    array-like)."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    if hasattr(v, "asnumpy"):
+        return v.asnumpy()
+    return np.asarray(v)
+
+
+class CompiledTrainStep:
+    """Runs an exported training step, rebuilt from its files alone
+    (``prefix.train.meta.json`` and ``prefix.state.npz``): no symbol or
+    optimizer is passed in. The surface is the JAX package's
+    ``CompiledTrainStep``: ``step(batch, lr, seed=None)`` feeds a batch,
+    runs one update and returns the outputs as numpy (bf16 ones as
+    float32); ``seed`` defaults to the running step count, and the step's
+    key is ``PRNGKey(seed)``.
+
+    The state lives in static device tensors, updated in place. On the
+    card the first ``step`` runs the step on a side stream (the warm-up,
+    which is that step's update), then captures the step as one
+    ``torch.cuda.CUDAGraph`` whose inputs are static tensors: the batch,
+    the seed (the key is built from it inside the graph) and the lr (the
+    multi-tensor update reads it on the device). Every later ``step``
+    copies its batch in, writes its seed and lr and replays the graph. A
+    capture that fails raises; nothing falls back to running the step
+    eagerly. On the CPU (``ctx=mx.cpu()``) the same object runs the step
+    directly, each call."""
+
+    def __init__(self, train_step, meta, state_flat, step_count=0):
+        self._train = train_step
+        self._meta = meta
+        self._step_count = int(step_count)
+        device = train_step.device
+        self._state = [t.to(device, copy=True) for t in state_flat]
+        self._graph = None
+        self._static = None      # (batch, seed, lr, outputs) of the graph
+        self._pinned = None
+        self.capture_ms = None
+
+    @classmethod
+    def load(cls, prefix, ctx=None):
+        """Rebuild the step exported under ``prefix`` on ``ctx`` (default:
+        the current context, gpu(0) unless a ``with mx.cpu():`` scope
+        says otherwise)."""
+        import os
+
+        from ..symbol import load_json
+        meta_path = prefix + ".train.meta.json"
+        meta = None
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                meta = json.load(f)
+        if meta is None or _REBUILD_KEY not in meta:
+            if os.path.exists(prefix + ".train.stablehlo"):
+                raise ValueError(
+                    "%s holds a training step exported by the JAX package "
+                    "(a StableHLO program, which runs only under JAX) and "
+                    "no %r entry in its meta; export the step with the "
+                    "PyTorch package's TrainStep.export" % (prefix,
+                                                            _REBUILD_KEY))
+            raise ValueError("%s is no exported training step: %s has no "
+                             "%r entry" % (prefix, meta_path, _REBUILD_KEY))
+        spec = meta[_REBUILD_KEY]
+        step = TrainStep(load_json(spec["symbol"]),
+                         data_names=spec["data_names"],
+                         label_names=spec["label_names"],
+                         optimizer=spec["optimizer"],
+                         optimizer_params=spec["optimizer_params"],
+                         compute_dtype=spec["compute_dtype"],
+                         remat=spec["remat"], clip_norm=spec["clip_norm"],
+                         ctx=ctx)
+        path = prefix + ".state.npz"
+        with np.load(path, allow_pickle=False) as blob:
+            state = [_from_numpy(blob["s%05d" % i], path, "s%05d" % i)
+                     for i in range(meta["n_state_leaves"])]
+            count = int(blob["step_count"]) \
+                if "step_count" in blob.files else 0
+        return cls(step, meta, state, step_count=count)
+
+    @property
+    def batch_names(self):
+        return list(self._meta["batch_names"])
+
+    @property
+    def batch_shapes(self):
+        return {n: tuple(s) for n, s in
+                self._meta["batch_shapes"].items()}
+
+    @property
+    def device(self):
+        return self._train.device
+
+    def _unflat(self):
+        meta = self._meta
+        pn, an = meta["param_names"], meta["aux_names"]
+        k = meta["n_opt_slots"]
+        flat = self._state
+        params = dict(zip(pn, flat[:len(pn)]))
+        i = len(pn)
+        opt_state = {}
+        for n in pn:
+            opt_state[n] = tuple(flat[i:i + k])
+            i += k
+        return params, opt_state, dict(zip(an, flat[i:i + len(an)]))
+
+    def _run(self, batch, lr, seed):
+        """The unguarded step on the state tensors, in place; the key is
+        ``PRNGKey(seed)`` (a device key for a device seed)."""
+        state, outs = self._train._step(self._unflat(), batch, lr,
+                                        PRNGKey(seed))
+        for old, new in zip(self._state, _flat_state(
+                state, self._meta["param_names"], self._meta["aux_names"])):
+            if new is not old:
+                old.copy_(new)
+        return outs
+
+    def _feed(self, batch):
+        missing = [n for n in self._meta["batch_names"] if n not in batch]
+        if missing:
+            raise ValueError("batch missing inputs: %s" % missing)
+        feed = {}
+        for n in self._meta["batch_names"]:
+            a = np.asarray(_host_array(batch[n]),
+                           dtype=self._meta["batch_dtypes"][n])
+            want = tuple(self._meta["batch_shapes"][n])
+            if a.shape != want:
+                raise ValueError("input %r: shape %s, exported %s"
+                                 % (n, a.shape, want))
+            feed[n] = torch.from_numpy(np.ascontiguousarray(a))
+        return feed
+
+    def _capture(self, feed, lr, seed):
+        """Warm up on a side stream (this step's update), then capture
+        the step into one CUDA graph over static inputs."""
+        if self._train._opt_op not in _mt.MT_OPS:
+            raise ValueError(
+                "a captured step reads its lr on the device, which only the "
+                "multi-tensor update does (%s); the %r optimizer's update "
+                "reads it on the host" % (sorted(_mt.MT_OPS),
+                                          self._train.opt_name))
+        dev = self.device
+        batch = {n: t.to(dev) for n, t in feed.items()}
+        seed_t = torch.full((), seed, dtype=torch.int64, device=dev)
+        lr_t = torch.full((), float(np.float32(lr)), dtype=torch.float32,
+                          device=dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            outs = self._run(batch, lr_t, seed_t)
+            outs = [o.clone() for o in outs]
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        graph = torch.cuda.CUDAGraph()
+        t0 = _telemetry.now_ms()
+        with torch.cuda.graph(graph):
+            static_outs = self._run(batch, lr_t, seed_t)
+        torch.cuda.synchronize(dev)
+        self.capture_ms = _telemetry.now_ms() - t0
+        self._graph = graph
+        self._static = (batch, seed_t, lr_t, list(static_outs))
+        self._pinned = {n: torch.empty_like(t, pin_memory=True)
+                        for n, t in feed.items()}
+        return outs
+
+    def step(self, batch, lr, seed=None):
+        """One training step. batch: dict name -> array of the exported
+        shapes. Returns the step's outputs (loss heads) as numpy."""
+        feed = self._feed(batch)
+        if seed is None:
+            seed = self._step_count
+        seed = int(seed) & 0xFFFFFFFF
+        if self.device.type != "cuda":
+            outs = self._run({n: t.to(self.device) for n, t in feed.items()},
+                             float(lr), seed)
+        elif self._graph is None:
+            outs = self._capture(feed, lr, seed)
+        else:
+            static_batch, seed_t, lr_t, outs = self._static
+            for n, t in feed.items():
+                self._pinned[n].copy_(t)
+                static_batch[n].copy_(self._pinned[n], non_blocking=True)
+            seed_t.fill_(seed)
+            lr_t.fill_(float(np.float32(lr)))
+            self._graph.replay()
+        self._step_count += 1
+        return [(o.float() if o.dtype == torch.bfloat16 else o)
+                .detach().cpu().numpy().copy() for o in outs]
+
+    def get_params(self):
+        """The current parameters by name, as numpy (bf16 as float32)."""
+        params, _, _ = self._unflat()
+        return {n: (t.float() if t.dtype == torch.bfloat16 else t)
+                .detach().cpu().numpy() for n, t in params.items()}
+
+    def get_param_shape(self, name):
+        """Shape of a parameter without a copy."""
+        pn = self._meta["param_names"]
+        if name not in pn:
+            raise KeyError("unknown param %r; params: %s"
+                           % (name, sorted(pn)))
+        return tuple(self._state[pn.index(name)].shape)
+
+    def save_state(self, prefix):
+        """``prefix.state.npz`` in the exported layout, with the step
+        count, so a reloaded step continues the default seeds."""
+        np.savez(prefix + ".state.npz",
+                 step_count=np.int64(self._step_count),
+                 **{"s%05d" % i: _to_numpy(t)
+                    for i, t in enumerate(self._state)})
+        return prefix + ".state.npz"
 
 
 def _tree_add(a, b):

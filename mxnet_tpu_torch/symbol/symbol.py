@@ -9,8 +9,9 @@ node on ``meta`` tensors (shapes without storage) after the per-op
 backward hooks fill parameter shapes — the role ``jax.eval_shape`` plays
 there. The graph runs through ``executor._graph_eval_fn``, and binds
 into an ``executor.Executor`` (``bind``/``simple_bind``, which allocates
-through ``infer_shape`` and ``infer_type``). Composition (``sym(...)``)
-and the pre-0.9 reference JSON upgrade are not ported yet.
+through ``infer_shape`` and ``infer_type``). ``sym(...)`` composes: it
+binds a copy's free variables to other symbols; ``load_json`` upgrades
+the reference's pre-0.9 saves as it reads them.
 """
 from __future__ import annotations
 
@@ -145,6 +146,55 @@ class Symbol:
                                  % (index, names))
             index = names.index(index)
         return Symbol([self._entries[index]])
+
+    def __call__(self, *args, **kwargs):
+        """Compose: bind this symbol's free variables to other symbols
+        (reference symbol.py Symbol.__call__/_compose), on a copy."""
+        s = self._deepcopy()
+        s._compose(*args, **kwargs)
+        return s
+
+    def _deepcopy(self):
+        mapping = {}
+        for node in _topo_order(self._entries):
+            new = _Node(node.op, node.name, node.attrs,
+                        [(mapping[id(n)], i) for (n, i) in node.inputs],
+                        node.is_aux, node.misc_attrs)
+            mapping[id(node)] = new
+        return Symbol([(mapping[id(n)], i) for (n, i) in self._entries])
+
+    def __copy__(self):
+        return self._deepcopy()
+
+    def __deepcopy__(self, memo):
+        return self._deepcopy()
+
+    def _compose(self, *args, **kwargs):
+        """Replace free variables in place: positional symbols take the
+        free variables in topological order, keyword ones by name."""
+        kwargs.pop("name", None)
+        order = _topo_order(self._entries)
+        by_name = {n.name: n for n in order if n.op is None}
+        if args and kwargs:
+            raise TypeError("compose only accepts input Symbols "
+                            "either as positional or keyword arguments")
+        if args:
+            free = [n for n in order if n.op is None]
+            if len(args) > len(free):
+                raise TypeError("too many positional compose args")
+            kwargs = {n.name: a for n, a in zip(free, args)}
+        replace = {}
+        for k, v in kwargs.items():
+            if not isinstance(v, Symbol) or len(v._entries) != 1:
+                raise TypeError("compose expects single-output Symbols")
+            if k not in by_name:
+                raise ValueError("no variable named %r in symbol" % k)
+            replace[id(by_name[k])] = v._entries[0]
+        for node in order:
+            node.inputs = [replace.get(id(n), (n, i)) for (n, i) in
+                           node.inputs]
+        self._entries = [replace.get(id(n), (n, i)) for (n, i) in
+                         self._entries]
 
     def list_outputs(self):
         outs = []
@@ -466,12 +516,26 @@ def Group(symbols):
     return Symbol(entries)
 
 
+# pre-0.9 checkpoints store these per-node without the __dunder__ wrapping
+# (reference: kHiddenKeys, src/nnvm/legacy_json_util.cc:24)
+_LEGACY_HIDDEN_KEYS = ("ctx_group", "lr_mult", "wd_mult", "force_mirroring",
+                       "mirror_stage")
+
+
 def load_json(json_str):
-    """Parse a symbol JSON as ``tojson`` (of either package) writes it."""
+    """Parse a symbol JSON as ``tojson`` (of either package) writes it,
+    upgrading pre-0.9 saves on the fly (reference: the UpgradeJSON_*
+    passes, src/nnvm/legacy_json_util.cc): ``param`` dicts become attrs,
+    bare hidden keys (lr_mult, ctx_group, ...) become ``__dunder__``
+    attrs, and layer nodes saved without their parameter inputs get
+    their variables (v0.8 graphs stored only data edges)."""
     data = json.loads(json_str)
     nodes = []
     for jn in data["nodes"]:
-        attrs = dict(jn.get("attrs") or {})
+        attrs = dict(jn.get("attrs", jn.get("param", {})) or {})
+        for key in _LEGACY_HIDDEN_KEYS:
+            if key in attrs:
+                attrs["__%s__" % key] = attrs.pop(key)
         misc = {k: v for k, v in attrs.items()
                 if k.startswith("__") and k.endswith("__")}
         op_attrs = {k: v for k, v in attrs.items() if k not in misc}
@@ -481,9 +545,20 @@ def load_json(json_str):
                          misc_attrs=misc)
         else:
             opdef = _reg.get_op(jn["op"])
-            node = _Node(opdef, jn["name"], _reg.canon_attrs(opdef, op_attrs),
-                         [(nodes[i], oi) for (i, oi, *_v) in jn["inputs"]],
-                         misc_attrs=misc)
+            canon = _reg.canon_attrs(opdef, op_attrs)
+            inputs = [(nodes[i], oi) for (i, oi, *_v) in jn["inputs"]]
+            expected = opdef.active_args(canon)
+            if expected is not None and len(inputs) < len(expected):
+                # v0.8 upgrade (UpgradeJSON_000800_000900): the missing
+                # parameter inputs as new variables, kept out of `nodes`
+                # (JSON ids index the original table); state slots (BN
+                # moving stats) become aux variables
+                aux_slots = set(opdef.state_inputs)
+                inputs += [
+                    (_Node(None, "%s_%s" % (jn["name"], arg),
+                           is_aux=expected.index(arg) in aux_slots), 0)
+                    for arg in expected[len(inputs):]]
+            node = _Node(opdef, jn["name"], canon, inputs, misc_attrs=misc)
         nodes.append(node)
     heads = data.get("heads") or [[len(nodes) - 1, 0, 0]]
     return Symbol([(nodes[i], oi) for (i, oi, *_v) in heads])

@@ -27,8 +27,10 @@ def test_port_and_chip_smoke_import_without_jax():
     (io, metric, lr_scheduler, callback, guardrail, resilience) one fit
     epoch with a masked step, optimizer one update, the eager surface's
     (autograd, the generated ndarray.op namespace, ops.init_ops) one
-    recorded backward, the Executor one bind, and no jax or mxnet_tpu
-    module loads."""
+    recorded backward, the Executor one bind, the Module slice's
+    (module/*, monitor, model, kvstore, recordio, the exported step and
+    CompiledTrainStep) one Module fit epoch, a store push, a record and
+    a compiled step, and no jax or mxnet_tpu module loads."""
     code = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now fails
@@ -88,6 +90,44 @@ with mxnet_tpu_torch.cpu():
                           softmax_label=(2, 4))
     exe.forward(is_train=True)
     exe.backward()
+# the Module slice, used: a Module fit epoch with a Monitor and a
+# module_checkpoint, a KVStore with the optimizer on the store, a record
+# file written and read, and an exported step run by CompiledTrainStep
+import os, tempfile
+from mxnet_tpu_torch import kvstore, monitor, recordio
+from mxnet_tpu_torch.parallel.trainer import CompiledTrainStep
+tmp = tempfile.mkdtemp()
+with mxnet_tpu_torch.cpu():
+    net = mxnet_tpu_torch.sym.SoftmaxOutput(mxnet_tpu_torch.sym.FullyConnected(
+        mxnet_tpu_torch.sym.Variable("data"), num_hidden=2, name="fc"),
+        name="softmax")
+    x = np.arange(16, dtype=np.float32).reshape(8, 2) / 16
+    it = io.NDArrayIter(x, (x[:, 0] > 0.5).astype(np.float32), batch_size=4)
+    mod = mxnet_tpu_torch.mod.Module(net, context=mxnet_tpu_torch.cpu())
+    mon = monitor.Monitor(1)
+    mod.fit(it, num_epoch=1, monitor=mon,
+            epoch_end_callback=callback.module_checkpoint(
+                mod, os.path.join(tmp, "m")))
+    assert os.path.exists(os.path.join(tmp, "m-0001.params"))
+    kv = kvstore.create("local")
+    kv.set_optimizer(optimizer.create("sgd", learning_rate=0.5))
+    kv.init(0, nd.ones((2,)))
+    kv.push(0, [nd.ones((2,)), nd.ones((2,))])
+    out = nd.zeros((2,))
+    kv.pull(0, out=out)
+    assert out.asnumpy().tolist() == [0.0, 0.0]
+    rec = recordio.MXRecordIO(os.path.join(tmp, "r.rec"), "w")
+    rec.write(recordio.pack((0, 1.0, 0, 0), b"abc"))
+    rec.close()
+    rec = recordio.MXRecordIO(os.path.join(tmp, "r.rec"), "r")
+    assert recordio.unpack(rec.read())[1] == b"abc"
+    tstep = make_train_step(net, optimizer="sgd", ctx=mxnet_tpu_torch.cpu())
+    st = tstep.init_state(initializer.Xavier(), {"data": (4, 2),
+                                                 "softmax_label": (4,)})
+    b = {"data": x[:4], "softmax_label": np.zeros(4, np.float32)}
+    tstep.export(os.path.join(tmp, "s"), st, b)
+    ct = CompiledTrainStep.load(os.path.join(tmp, "s"))
+    assert ct.step(b, 0.1)[0].shape == (4, 2)
 bad = sorted(n for n, m in sys.modules.items() if m is not None and (
     n == "jax" or n.startswith("jax.") or n.startswith("jaxlib")
     or n == "mxnet_tpu" or n.startswith("mxnet_tpu.")))

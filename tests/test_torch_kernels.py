@@ -905,3 +905,110 @@ def test_cuda_multi_tensor_norm_finite(cuda_device, case):
         torch.testing.assert_close(gs, rgs, rtol=rtol, atol=0)
         if clip is None:
             assert float(gs) == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MT_UPDATE_CASES, ids=lambda c: c[0])
+def test_cuda_multi_tensor_update_reads_lr_on_the_device(cuda_device, case):
+    """With lr a 0-d float32 tensor on the card (a captured step's), the
+    update equals its plain version with the host float lr bit for
+    bit."""
+    _, op, sizes, attrs, flag, gscale, inv, donate, dtype = case
+    ws, gs, ss = _mt_operands(op, sizes, cuda_device, dtype=dtype)
+    ref = [[t.clone() for t in ws], [t.clone() for t in gs],
+           [tuple(x.clone() for x in s) for s in ss]]
+    fl, gsc, inv_t = _mt_scalars(cuda_device, flag, gscale, inv)
+    lr = torch.full((), 0.0123, dtype=torch.float32, device=cuda_device)
+    kw, ks = tmt.multi_tensor_opt_update_cuda(
+        op, ws, gs, ss, lr, attrs, flag=fl, gscale=gsc, inv_scale=inv_t,
+        donate=donate)
+    rw, rs = tmt._opt_update_reference(op, *ref, 0.0123, attrs, flag=fl,
+                                       gscale=gsc, inv_scale=inv_t,
+                                       donate=donate)
+    torch.cuda.synchronize()
+    for a, b in zip(kw, rw):
+        assert torch.equal(_bits(a), _bits(b))
+    for sa, sb in zip(ks, rs):
+        for a, b in zip(sa, sb):
+            assert torch.equal(_bits(a), _bits(b))
+    with pytest.raises(ValueError, match="device scalar"):
+        tmt.multi_tensor_opt_update_cuda(
+            op, ws, gs, ss, lr.double(), attrs)
+
+
+def _captured_nets():
+    """(id, symbol, data shape, classes, compute dtype, optimizer): an
+    MLP with a Dropout (the seed path) and a small conv net on the
+    BatchNorm kernels."""
+    import mxnet_tpu_torch as mx
+    sym = mx.sym
+    h = sym.Activation(sym.FullyConnected(sym.Variable("data"),
+                                          num_hidden=64, name="fc1"),
+                       act_type="relu")
+    h = sym.Dropout(h, p=0.5, name="drop")
+    mlp = sym.SoftmaxOutput(sym.FullyConnected(h, num_hidden=10,
+                                               name="fc2"), name="softmax")
+    x = sym.Convolution(sym.Variable("data"), num_filter=16, kernel=(3, 3),
+                        pad=(1, 1), name="conv1")
+    x = sym.Activation(sym.BatchNorm(x, name="bn1"), act_type="relu")
+    x = sym.Pooling(x, global_pool=True, kernel=(2, 2), pool_type="avg")
+    conv = sym.SoftmaxOutput(sym.FullyConnected(sym.Flatten(x),
+                                                num_hidden=10, name="fc"),
+                             name="softmax")
+    return [("mlp_dropout_f32_sgd", mlp, (32, 20), None, "sgd"),
+            ("conv_bn_bf16_adam", conv, (8, 3, 16, 16), "bfloat16",
+             "adam")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", range(2), ids=["mlp_dropout_f32_sgd",
+                                                "conv_bn_bf16_adam"])
+def test_cuda_captured_step_equals_eager_steps(cuda_device, net, tmp_path,
+                                               monkeypatch):
+    """TrainStep.export -> CompiledTrainStep.load on the card: the first
+    step warms up and captures the CUDA graph, five more replay it, each
+    with its own lr and the default seed; the state equals six direct
+    TrainStep steps with the same lrs and PRNGKey(i), bit for bit, under
+    torch.use_deterministic_algorithms(True)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.parallel import make_train_step
+    from mxnet_tpu_torch.parallel.trainer import CompiledTrainStep
+
+    _, sym, shape, cdt, opt = _captured_nets()[net]
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    config.set_override("MXNET_BN_PALLAS", True)
+    torch.use_deterministic_algorithms(True)
+    try:
+        step = make_train_step(sym, optimizer=opt, compute_dtype=cdt,
+                               optimizer_params={"momentum": 0.9}
+                               if opt == "sgd" else {}, ctx=mx.gpu(0))
+        B = shape[0]
+        mx.random.seed(0)
+        state = step.init_state(Xavier(), {"data": shape,
+                                           "softmax_label": (B,)})
+        rng = np.random.RandomState(0)
+        batches = [{"data": rng.standard_normal(shape).astype(np.float32),
+                    "softmax_label": rng.randint(0, 10, (B,)).astype(
+                        np.float32)} for _ in range(3)]
+        prefix = str(tmp_path / "net")
+        step.export(prefix, state, batches[0])
+        ct = CompiledTrainStep.load(prefix, ctx=mx.gpu(0))
+        lrs = [0.05 / (i + 1) for i in range(6)]
+        outs = [ct.step(batches[i % 3], lrs[i]) for i in range(6)]
+        assert ct.capture_ms is not None and ct.capture_ms > 0
+        for i in range(6):
+            state, o = step(state, batches[i % 3], lrs[i],
+                            mx.random.PRNGKey(i))
+            assert np.array_equal(outs[i][0], o[0].float().cpu().numpy())
+        got = ct._unflat()
+        for a, b in zip(got, state):
+            for k in b:
+                x = b[k] if isinstance(b[k], tuple) else (b[k],)
+                y = a[k] if isinstance(a[k], tuple) else (a[k],)
+                for u, v in zip(x, y):
+                    assert torch.equal(u, v), k
+    finally:
+        torch.use_deterministic_algorithms(False)
+        config.set_override("MXNET_BN_PALLAS", None)
