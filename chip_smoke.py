@@ -136,13 +136,39 @@ Phases (any failure exits non-zero; no phase is caught):
    the capture's time and memory, beside the direct step in this call;
    then AlexNet's replays with seeds 0, 1, 2 equal direct steps with
    PRNGKey(seed), Dropout masks included;
-17. one JSON line of every ported kernel (a device time under its byte
+17. LM options: bench.py's flagship training step (Adam, bf16, batch 8 x
+   2048) in three configurations through make_train_step: (a) the
+   chunked-CE head (loss_chunk=2048), (b) RoPE, (c) the hybrid stack
+   (attention, ssm, attention, ssm) with RoPE; 2 warm steps (one
+   profiled) and 5 timed each, a finite loss whose lowest timed value is
+   under the first, each flash kernel once an attention layer a step and
+   the multi-tensor update once a step; step ms, tokens/s, peak memory
+   ((a)'s beside the train phase's dense head), busy share; before them
+   each configuration small and f32, card against CPU after one step, and
+   one SSM layer's scan at full width (its memory kept for the backward,
+   its forward and backward ms);
+18. generation: bench.py bench_decode's workload (the flagship LM with
+   learned positions, max_len 384, batch 8, prompt 128, 256 new tokens,
+   bf16, Xavier): greedy and seeded generate_on_device (the decode step
+   captured as one CUDA graph) equal generate; ms a step by bench.py's
+   difference of runs at 256 and 32 tokens, tokens/s, prefill ms, KV
+   bytes, peak memory, beside the decode bound (decode_bound); one replay
+   and one eager step profiled and timed by events; the last decode
+   step's logits against a prefill of the same sequence; int8 weights,
+   int8 caches, beam 4 on the device (its step captured; equal to the
+   host loop) and speculative decoding with bench.py's draft (its round
+   captured; equal to generate in float32; bf16 agreement reported),
+   timed briefly; configuration (c)'s trained hybrid decoded on both
+   loops; a width-1 ssm_chunk_scan equal to ssm_recurrent_step bit for
+   bit on the card; a small f32 hybrid RoPE LM card against CPU;
+19. one JSON line of every ported kernel (a device time under its byte
    bound fails the run: the timing lost work), then the result line.
 
 It imports nothing of JAX or of ``mxnet_tpu``. Without CUDA, or run
 outside the repository, it fails before printing any result.
 ``--only=PHASE,...`` runs the named phases alone after the build
-(``PARTIAL``) and prints no result line.
+(``PARTIAL``; ``generate`` needs ``lm_options`` before it) and prints no
+result line.
 """
 from __future__ import annotations
 
@@ -842,6 +868,7 @@ def profile(what, fn, top=8):
     profile.names = set(by_name)
     profile.counts = {name: n for name, (_, n) in by_name.items()}
     profile.busy = busy_ms / wall_ms
+    profile.busy_ms = busy_ms
     say("profile: %s: %.2f ms of kernels in %.2f ms wall (device busy "
         "%.1f%%), %d kernel launches" % (
             what, busy_ms, wall_ms, 100 * busy_ms / wall_ms,
@@ -865,6 +892,7 @@ def profile(what, fn, top=8):
 profile.names = set()
 profile.counts = {}
 profile.busy = 0.0
+profile.busy_ms = 0.0
 
 
 def kernel_counts(counts, keys):
@@ -1197,6 +1225,7 @@ def train_phase(counters):
         del outs
     launches = {c.__name__: c.launches for c in counters}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    TRAIN_PEAK_GB["dense"] = peak_gb
     steps = WARM_STEPS + TIMED_STEPS
     step_ms = statistics.median(times[WARM_STEPS:])
     say("train: NLL per step %s" % " ".join("%.4f" % x for x in nlls))
@@ -1836,6 +1865,18 @@ def bn_bound(kernel, N, C, HW, dtype):
     t_bytes = (tensors * elt * n + 4 * C * chans) / PEAK_BYTES_PER_S * 1e3
     t_ops = ops * n / PEAK_F32_FLOPS * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def decode_bound(gen):
+    """(bound_ms, bytes) of one (B, 1) decode step: each weight other than
+    the token and position tables read once (int8 weights as int8, with
+    their scales) and every layer's caches whole (the step reads all Tmax
+    columns, as the op does), over the memory rate; the products' flops
+    (2 a weight a row) are far under it."""
+    nbytes = sum(t.numel() * t.element_size() for n, t in gen._params.items()
+                 if n not in ("tok_embed_weight", "pos_embed_weight"))
+    nbytes += gen.kv_cache_bytes()
+    return nbytes / PEAK_BYTES_PER_S * 1e3, nbytes
 
 
 def check_sums(what, got, want, magnitude):
@@ -4362,6 +4403,531 @@ def compiled_alexnet_phase():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# LM options: the chunked-CE head, RoPE, the hybrid attention/SSM stack
+# ---------------------------------------------------------------------------
+
+LMO_WARM, LMO_TIMED = 2, 5
+# (label, get_symbol options): bench.py's BENCH_TLM_LOSS_CHUNK=2048,
+# pos_encoding="rope", and the hybrid stack with RoPE
+HYBRID_BLOCKS = ("attention", "ssm", "attention", "ssm")
+LMO_CONFIGS = (
+    ("loss_chunk", dict(loss_chunk=2048)),
+    ("rope", dict(pos_encoding="rope")),
+    ("hybrid", dict(block_type=HYBRID_BLOCKS, pos_encoding="rope")),
+)
+# filled by the phases: the dense head's peak (train phase) and
+# configuration (c)'s trained parameters (lm_options), which the
+# generate phase decodes
+TRAIN_PEAK_GB = {}
+HYBRID_PARAMS = {}
+
+
+def lm_nll(outs, labels, chunked):
+    """Mean NLL of a step's output: the (B*T, V) probabilities, or the
+    chunked head's per-token losses (already divided by the valid count,
+    so their sum)."""
+    if chunked:
+        return float(outs[0].float().sum().item())
+    return mean_nll(outs[0], labels)
+
+
+def lm_options_reference_check():
+    """Each configuration at small width in float32: one SGD-momentum step
+    on the card (f32 flash kernels, the SSM scan's products without TF32)
+    against the same step on the CPU, from one seeded Xavier init: every
+    parameter within TOL["float32"]."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.parallel import make_train_step
+
+    T, V, B = 64, 100, 2
+    rng = np.random.RandomState(9)
+    toks = rng.randint(0, V, (B, T)).astype(np.float32)
+    labels = np.roll(toks, -1, axis=1)
+    labels[:, -1] = -1
+    for label, kw in LMO_CONFIGS:
+        kw = dict(kw)
+        if "loss_chunk" in kw:
+            kw["loss_chunk"] = 48          # a ragged last chunk
+        if "block_type" in kw:
+            kw["block_type"] = ("attention", "ssm")
+        sym = transformer.get_symbol(V, T, num_layers=2, num_heads=4,
+                                     dim=64, **kw)
+        after = []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            step = make_train_step(sym, optimizer="sgd", ctx=ctx,
+                                   optimizer_params={"momentum": 0.9})
+            mx.random.seed(7)
+            state = step.init_state(Xavier(), {"data": (B, T),
+                                               "softmax_label": (B, T)})
+            state, _ = step(state, {"data": toks, "softmax_label": labels},
+                            0.1, 0)
+            after.append({n: v for n, v in state[0].items()})
+        worst = 0.0
+        for n, w in after[0].items():
+            worst = max(worst, check_close(
+                "lm_options reference %s: %s" % (label, n), w.cpu(),
+                after[1][n], TOL["float32"]))
+        say("lm_options reference: small f32 %s LM one-step parameters, "
+            "card vs CPU max abs err %.3g (atol %g, rtol %g)" % (
+                label, worst, TOL["float32"]["atol"],
+                TOL["float32"]["rtol"]))
+
+
+def ssm_scan_memory():
+    """One SSM layer's chunked scan at the flagship's training shape
+    (batch 8, 16 heads, T 2048, head dim 128, bf16 q/k/v, chunk 64) under
+    autograd: the memory its forward keeps for the backward, and its
+    forward and forward + backward times by events."""
+    import torch
+    from mxnet_tpu_torch.ops.ssm import ssm_chunk_scan
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    shape = (TRAIN_BATCH, HEADS, SEQ, DIM // HEADS)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_() for _ in range(3))
+    g = torch.randn(shape[:3], generator=gen, device="cuda",
+                    requires_grad=True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out, _ = ssm_chunk_scan(q, k, v, g, chunk=64)
+    torch.cuda.synchronize()
+    kept = torch.cuda.memory_allocated() - before - out.numel() * 2
+    del out
+    fwd_ms = time_ms(lambda: ssm_chunk_scan(q, k, v, g, chunk=64), reps=5,
+                     warmup=1)
+
+    def fwd_bwd():
+        o, _ = ssm_chunk_scan(q, k, v, g, chunk=64)
+        torch.autograd.grad(o, (q, k, v, g), torch.ones_like(o))
+
+    both_ms = time_ms(fwd_bwd, reps=5, warmup=1)
+    say("lm_options: one SSM layer's scan at %s bf16, chunk 64: %.3f GB "
+        "kept for the backward (%d chunks), forward %.2f ms, forward + "
+        "backward %.2f ms (events)" % (shape, kept / 1e9, SEQ // 64, fwd_ms,
+                                       both_ms))
+
+
+def lm_options_phase():
+    """The flagship LM's training step (bench.py's settings: Adam lr 1e-4,
+    rescale 1/8, bf16 compute, Xavier, batch 8 x 2048) through
+    make_train_step -> init_state -> step in three configurations: (a)
+    the chunked-CE head (loss_chunk=2048), (b) RoPE, (c) the hybrid stack
+    (attention, ssm, attention, ssm) with RoPE. Each: 2 warm steps (one
+    profiled) and 5 timed; a finite loss whose lowest timed value is under
+    the first; flash_fwd_cuda and flash_bwd_cuda once an attention layer a
+    step and the multi-tensor update once a step; step ms, tokens/s, peak
+    memory, busy share. Before them, each configuration small and f32,
+    card against CPU. Keeps (c)'s parameters for the generate phase.
+    Returns the launch counts over the three runs."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.parallel import make_train_step
+
+    lm_options_reference_check()
+    ssm_scan_memory()
+    fwd, bwd = _flash_counters()
+    B = TRAIN_BATCH
+    steps = LMO_WARM + LMO_TIMED
+    rng_np = np.random.RandomState(0)
+    toks = rng_np.randint(0, VOCAB, (B, SEQ)).astype(np.float32)
+    labels = np.roll(toks, -1, axis=1)
+    labels[:, -1] = -1
+    total = {}
+    for label, kw in LMO_CONFIGS:
+        t0 = time.perf_counter()
+        sym = transformer.get_symbol(VOCAB, SEQ, num_layers=LAYERS,
+                                     num_heads=HEADS, dim=DIM,
+                                     ffn_hidden=4 * DIM, **kw)
+        step = make_train_step(sym, optimizer="adam",
+                               optimizer_params={"rescale_grad": 1.0 / B},
+                               compute_dtype="bfloat16")
+        mx.random.seed(0)
+        state = step.init_state(Xavier(), {"data": (B, SEQ),
+                                           "softmax_label": (B, SEQ)})
+        batch = step.place_batch({"data": toks, "softmax_label": labels})
+        n_attn = list(kw.get("block_type", ("attention",) * LAYERS)).count(
+            "attention")
+        chunked = "loss_chunk" in kw
+        say("lm_options %s: %s, %.1f M params, set up in %.1f s" % (
+            label, kw, sum(v.numel() for v in state[0].values()) / 1e6,
+            time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_flash_counts()
+        reset_mt_counts()
+        nlls, times = [], []
+        for i in range(steps):
+            t = time.perf_counter()
+            if i == 1:
+                state, outs = profile("lm_options %s step (warm)" % label,
+                                      lambda: step(state, batch, TRAIN_LR,
+                                                   i), top=10)
+                busy = profile.busy
+            else:
+                state, outs = step(state, batch, TRAIN_LR, i)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            nlls.append(lm_nll(outs, batch["softmax_label"], chunked))
+            del outs
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        step_ms = statistics.median(times[LMO_WARM:])
+        say("lm_options %s: NLL per step %s" % (
+            label, " ".join("%.4f" % x for x in nlls)))
+        say("lm_options %s: step %.2f ms (median of %d timed; all: %s), "
+            "%.0f tokens/s, peak device memory %.2f GB, busy %.1f%%" % (
+                label, step_ms, LMO_TIMED,
+                " ".join("%.1f" % x for x in times),
+                B * SEQ / step_ms * 1e3, peak_gb, 100 * busy))
+        if chunked:
+            dense = TRAIN_PEAK_GB.get("dense")
+            say("lm_options %s: peak %.2f GB beside the dense head's %s "
+                "(train phase)" % (label, peak_gb, "%.2f GB" % dense
+                                   if dense is not None else "(not run)"))
+        if not all(np.isfinite(nlls)):
+            fail("lm_options %s: non-finite loss %r" % (label, nlls))
+        if not min(nlls[LMO_WARM:]) < nlls[0]:
+            fail("lm_options %s: the lowest timed NLL %g is not under the "
+                 "first %g" % (label, min(nlls[LMO_WARM:]), nlls[0]))
+        launches = {"flash_fwd_cuda": fwd.launches,
+                    "flash_bwd_cuda": bwd.launches}
+        for name, n in launches.items():
+            if n != n_attn * steps:
+                fail("lm_options %s: %s launched %d times, not %d attention "
+                     "layers x %d steps" % (label, name, n, n_attn, steps))
+        launches.update(check_mt_counts("lm_options %s" % label, steps,
+                                        len(state[0])))
+        say("lm_options %s: launches %s" % (label, ", ".join(
+            "%s %d" % kv for kv in sorted(launches.items()))))
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        if label == "hybrid":
+            HYBRID_PARAMS.update(state[0])
+        del state, batch, step
+        torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# generation: bench.py bench_decode's workload
+# ---------------------------------------------------------------------------
+
+GEN_MAX_LEN, GEN_PROMPT, GEN_NEW = 384, 128, 256   # bench.py bench_decode
+GEN_SHORT = GEN_NEW // 8          # bench.py's N_SHORT: the difference run
+GEN_ITERS = 3
+GEN_SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.9, seed=1)
+GEN_VARIANT_NEW = 64              # beam and speculative, timed briefly
+GEN_BEAM = 4
+SPEC_LOOKAHEAD = 4
+
+
+def decode_speed(label, gen, prompt):
+    """bench.py's marginal decode rate: generate_on_device at GEN_NEW and
+    at GEN_SHORT tokens (each captured before the timing), GEN_ITERS runs
+    each; ms a step = the difference over the tokens between them.
+    Returns (ms a step, tokens/s, ms of the long run)."""
+    B = gen.batch_size
+    gen.generate_on_device(prompt, GEN_NEW, seed=0)
+    gen.generate_on_device(prompt, GEN_SHORT, seed=0)
+
+    def timed(n):
+        t = time.perf_counter()
+        for i in range(GEN_ITERS):
+            gen.generate_on_device(prompt, n, seed=i)  # ends in a host read
+        return (time.perf_counter() - t) / GEN_ITERS
+
+    dt_long = timed(GEN_NEW)
+    dt_short = timed(GEN_SHORT)
+    dt = max(dt_long - dt_short, 1e-9)
+    ms_tok = dt / (GEN_NEW - GEN_SHORT) * 1e3
+    tok_s = B * (GEN_NEW - GEN_SHORT) / dt
+    bound, nbytes = decode_bound(gen)
+    say("generate %s: %.4f ms a step (%.0f tokens/s; bound %.4f ms, %.1f MB "
+        "a step: %.2fx), %.1f ms for %d tokens end to end" % (
+            label, ms_tok, tok_s, bound, nbytes / 1e6, ms_tok / bound,
+            dt_long * 1e3, GEN_NEW))
+    return ms_tok, tok_s, dt_long * 1e3
+
+
+def check_tokens_equal(what, got, want):
+    if got.shape != want.shape or not (got == want).all():
+        rows = (got != want).any(axis=1) if got.shape == want.shape else None
+        fail("%s: tokens differ (shapes %r / %r; rows differing %s)" % (
+            what, got.shape, want.shape,
+            None if rows is None else np.nonzero(rows)[0].tolist()))
+
+
+def ssm_state_bit_check():
+    """On the card, at the decode path's shape (batch 8, 16 heads, head
+    dim 128, bf16 q/k/v, a float32 state): a width-1 ssm_chunk_scan's
+    output and exit state equal ssm_recurrent_step's bit for bit, one
+    token and a chain of 5."""
+    import torch
+    from mxnet_tpu_torch.ops.ssm import ssm_chunk_scan, ssm_recurrent_step
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    shape = (TRAIN_BATCH, HEADS, 5, DIM // HEADS)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(3))
+    g = torch.randn(shape[:3], generator=gen, device="cuda")
+    s0 = torch.randn(shape[:2] + (shape[3], shape[3]), generator=gen,
+                     device="cuda")
+    out_c, st_c = ssm_chunk_scan(q, k, v, g, state=s0, chunk=1)
+    st_r, outs = s0, []
+    for t in range(shape[2]):
+        o, st_r = ssm_recurrent_step(q[:, :, t:t + 1], k[:, :, t:t + 1],
+                                     v[:, :, t:t + 1], g[:, :, t:t + 1],
+                                     st_r)
+        outs.append(o)
+    out_r = torch.cat(outs, dim=2)
+    if not (torch.equal(out_c, out_r) and torch.equal(st_c, st_r)):
+        fail("generate: a width-1 ssm_chunk_scan differs from the recurrent "
+             "step on the card (out %g, state %g)" % (
+                 float((out_c.float() - out_r.float()).abs().max()),
+                 float((st_c - st_r).abs().max())))
+    say("generate: width-1 ssm_chunk_scan == ssm_recurrent_step bit for bit "
+        "on the card (B %d, H %d, hd %d, 5 tokens: outputs and states)"
+        % (shape[0], shape[1], shape[3]))
+
+
+def generate_reference_check():
+    """A small f32 hybrid (attention, ssm) RoPE LM, card against CPU:
+    greedy generate's tokens equal, and the prefill logits within
+    TOL["float32"]."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.generation import Generator
+    from mxnet_tpu_torch.models import transformer
+
+    V, T, B = 100, 48, 2
+    kw = dict(num_layers=2, num_heads=4, dim=64,
+              block_type=("attention", "ssm"), pos_encoding="rope")
+    sym = transformer.get_symbol(V, T, **kw)
+    params = random_params(sym, (B, T), seed=11)
+    for name in params:            # large enough to make the logits differ
+        if name.endswith("_weight"):
+            params[name] *= 10.0
+    prompt = np.random.RandomState(12).randint(0, V, (B, 8))
+    toks, logits = [], []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        gen = Generator(params, V, T, batch_size=B, ctx=ctx, **kw)
+        toks.append(gen.generate(prompt, 24))
+        logits.append(gen._forward(gen._fresh_aux(), prompt, 0)[0].cpu())
+    check_tokens_equal("generate reference: small f32 hybrid RoPE LM, card "
+                       "vs CPU greedy", toks[0], toks[1])
+    err = check_close("generate reference: prefill logits card vs CPU",
+                      logits[0], logits[1], TOL["float32"])
+    say("generate reference: small f32 hybrid RoPE LM, card vs CPU: 24 "
+        "greedy tokens equal, prefill logits max abs err %.3g" % err)
+
+
+def generate_phase():
+    """bench.py bench_decode's workload at full width: the flagship LM
+    (learned positions, max_len 384), batch 8, prompt 128 from
+    RandomState(0), 256 new tokens, bf16, parameters from init_state
+    (Xavier()). Greedy and seeded-sampled generate_on_device (the decode
+    step captured as one CUDA graph) equal generate (eager, a host read a
+    token); ms a step by bench.py's difference of runs, tokens/s, prefill
+    ms, KV bytes, peak memory, beside the decode bound; one replay and one
+    eager step profiled and timed by events; the last decode step's
+    logits against a full prefill (teacher forcing); int8 weights, int8
+    caches, beam search on the device (equal to the host loop) and
+    speculative decoding on the device with bench.py's draft (equal to
+    generate, greedy and seeded), each timed briefly. Then configuration
+    (c)'s trained hybrid decoded greedily (device loop equal to the host
+    loop), the SSM state bit check and a small f32 hybrid card vs CPU.
+    No hand-written kernel runs on this path: returns {}."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.generation import Generator
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.parallel import make_train_step
+
+    if not HYBRID_PARAMS:
+        fail("generate: run after lm_options (it decodes configuration "
+             "(c)'s trained parameters)")
+    generate_reference_check()
+    ssm_state_bit_check()
+
+    B, P, N, ML = TRAIN_BATCH, GEN_PROMPT, GEN_NEW, GEN_MAX_LEN
+    t0 = time.perf_counter()
+    arch = dict(num_layers=LAYERS, num_heads=HEADS, dim=DIM,
+                ffn_hidden=4 * DIM)
+    sym = transformer.get_symbol(VOCAB, ML, **arch)
+    mx.random.seed(0)
+    state = make_train_step(sym, optimizer="sgd").init_state(
+        Xavier(), {"data": (B, ML), "softmax_label": (B, ML)})
+    params = state[0]
+    del state
+    gen = Generator(params, VOCAB, ML, batch_size=B, dtype="bfloat16", **arch)
+    prompt = np.random.RandomState(0).randint(0, VOCAB, (B, P))
+    say("generate: flagship LM %.1f M params, bf16, max_len %d, batch %d, "
+        "prompt %d, %d new tokens; KV caches %.1f MB; set up in %.1f s" % (
+            sum(t.numel() for t in params.values()) / 1e6, ML, B, P, N,
+            gen.kv_cache_bytes() / 1e6, time.perf_counter() - t0))
+
+    # -- equality: the captured loop against the eager one ---------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    eager = gen.generate(prompt, N)
+    eager_s = time.perf_counter() - t
+    t = time.perf_counter()
+    dev = gen.generate_on_device(prompt, N)
+    first_s = time.perf_counter() - t
+    check_tokens_equal("generate: greedy generate_on_device vs generate",
+                       dev, eager)
+    loop = gen._loop_cache[(P, N, 0.0, 0, 0.0, None)]
+    # teacher forcing: the last decode step's logits (loop.last, from the
+    # forward of token P + N - 2) against a prefill of the same sequence
+    # (bf16 rounds every layer's activations, at its own points in each:
+    # held within TOL["bfloat16"] of the logits' largest magnitude)
+    full, _ = gen._forward(gen._fresh_aux(), dev[:, :P + N - 1], 0)
+    want = full[:, -1].float()
+    tf_err = float((loop.last - want).abs().max())
+    tf_scale = float(want.abs().max())
+    tol = TOL["bfloat16"]
+    if not np.isfinite(tf_err) or tf_err > tol["atol"] + tol["rtol"] * \
+            tf_scale:
+        fail("generate: last decode step vs prefill logits: max abs err %g "
+             "beyond atol %g + rtol %g x max|logit| %g" % (
+                 tf_err, tol["atol"], tol["rtol"], tf_scale))
+    del full, want
+    nv = GEN_VARIANT_NEW
+    sampled = gen.generate(prompt, nv, **GEN_SAMPLED)
+    check_tokens_equal("generate: sampled generate_on_device vs generate",
+                       gen.generate_on_device(prompt, nv, **GEN_SAMPLED),
+                       sampled)
+    say("generate: greedy (%d tokens a row) and sampled (%s, %d) "
+        "generate_on_device == generate; eager loop %.2f s, first device "
+        "run (capture "
+        "%s ms) %.2f s; teacher forcing: last step vs prefill logits max "
+        "abs err %.3g, max|logit| %.3g (atol %g + rtol %g x max|logit|)" % (
+            N, GEN_SAMPLED, nv, eager_s, loop.capture_ms, first_s, tf_err,
+            tf_scale, tol["atol"], tol["rtol"]))
+
+    # -- speed --------------------------------------------------------------
+    ms_tok, tok_s, long_ms = decode_speed("bf16", gen, prompt)
+    prefill_ms = time_ms(lambda: gen._forward(gen._fresh_aux(), prompt, 0),
+                         reps=5, warmup=1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # (the profiled call's wall holds the profiler's own time; the busy
+    # share is the kernels' time over the step's time by events)
+    loop.i.fill_(0)
+    profile("decode step, one replay of the captured graph",
+            loop.graph.replay, top=8)
+    replay_kern, replay_n = profile.busy_ms, sum(profile.counts.values())
+    loop.i.fill_(0)
+    replay_ms = time_ms(loop.graph.replay, reps=20, warmup=3)
+    loop.i.fill_(0)
+    profile("decode step, eager", loop._step, top=8)
+    eager_kern, eager_n = profile.busy_ms, sum(profile.counts.values())
+    loop.i.fill_(0)
+    eager_ms = time_ms(loop._step, reps=20, warmup=3)
+    bound, _ = decode_bound(gen)
+    say("generate bf16: prefill %.2f ms (%d tokens x %d rows), KV caches %d "
+        "bytes, peak %.2f GB; a step by events: replay %.4f ms (%.4f ms of "
+        "kernels: busy %.1f%%, %d launches), eager %.4f ms (%.4f ms of "
+        "kernels: busy %.1f%%, %d launches): %.2fx; bound %.4f ms" % (
+            prefill_ms, P, B, gen.kv_cache_bytes(), peak_gb, replay_ms,
+            replay_kern, 100 * replay_kern / replay_ms, replay_n, eager_ms,
+            eager_kern, 100 * eager_kern / eager_ms, eager_n,
+            eager_ms / replay_ms, bound))
+
+    # -- variants -----------------------------------------------------------
+    for label, kw in (("int8", dict(quantize="int8")),
+                      ("kv8", dict(quantize_kv=True))):
+        t = time.perf_counter()
+        var = Generator(params, VOCAB, ML, batch_size=B, dtype="bfloat16",
+                        **arch, **kw)
+        check_tokens_equal(
+            "generate %s: greedy generate_on_device vs generate" % label,
+            var.generate_on_device(prompt, GEN_SHORT),
+            var.generate(prompt, GEN_SHORT))
+        say("generate %s: built in %.1f s; %d greedy tokens equal on both "
+            "loops; KV caches %d bytes" % (label, time.perf_counter() - t,
+                                           GEN_SHORT, var.kv_cache_bytes()))
+        decode_speed(label, var, prompt)
+        del var
+        torch.cuda.empty_cache()
+
+    host = gen.beam_search(prompt, nv, beam_size=GEN_BEAM)
+    beam = gen.beam_search_on_device(prompt, nv, beam_size=GEN_BEAM)
+    # (the first device run captured the beam step)
+    check_tokens_equal("generate beam: beam_search_on_device vs beam_search",
+                       beam, host)
+    t = time.perf_counter()
+    gen.beam_search_on_device(prompt, nv, beam_size=GEN_BEAM)
+    beam_ms = (time.perf_counter() - t) * 1e3
+    say("generate beam %d: on-device == host loop, %d tokens; %.1f ms a "
+        "run (%.3f ms a token)" % (GEN_BEAM, nv, beam_ms, beam_ms / nv))
+
+    # bench.py's draft: a quarter of the layers, half the width, its own
+    # Xavier init
+    dL, dD, dH = max(1, LAYERS // 4), DIM // 2, max(1, HEADS // 2)
+    dsym = transformer.get_symbol(VOCAB, ML, num_layers=dL, num_heads=dH,
+                                  dim=dD, ffn_hidden=4 * dD)
+    mx.random.seed(1)
+    dparams = make_train_step(dsym, optimizer="sgd").init_state(
+        Xavier(), {"data": (B, ML), "softmax_label": (B, ML)})[0]
+    # the greedy run timed in bf16; the token-for-token checks in float32
+    # (the same weights, no cast): the verify forward scores g + 1 tokens
+    # in one pass and a one-token step scores one, so their bf16 roundings
+    # differ and can flip a pick at a bf16 near-tie (the JAX package's
+    # docstring states the same caveat); float32 leaves no such tie in
+    # reach. The bf16 rows that agree are reported.
+    for dt, cases in (("bfloat16", (("greedy", {}, nv),)),
+                      (None, (("greedy", {}, nv),
+                              ("sampled", GEN_SAMPLED, GEN_SHORT)))):
+        target = gen if dt else Generator(params, VOCAB, ML, batch_size=B,
+                                          **arch)
+        draft = Generator(dparams, VOCAB, ML, num_layers=dL, num_heads=dH,
+                          dim=dD, ffn_hidden=4 * dD, batch_size=B, dtype=dt)
+        for what, kw, n_spec in cases:
+            want = target.generate(prompt, n_spec, **kw)
+            got, rounds = target.generate_speculative_on_device(
+                draft, prompt, n_spec, lookahead=SPEC_LOOKAHEAD,
+                return_rounds=True, **kw)       # captures the round
+            t = time.perf_counter()
+            target.generate_speculative_on_device(
+                draft, prompt, n_spec, lookahead=SPEC_LOOKAHEAD, **kw)
+            spec_ms = (time.perf_counter() - t) * 1e3
+            agree = int((got == want).all(axis=1).sum())
+            if dt is None:
+                check_tokens_equal("generate speculative %s float32: "
+                                   "on-device vs generate" % what, got, want)
+            say("generate speculative %s %s (lookahead %d): %d of %d rows "
+                "equal to generate%s, %d tokens in %d rounds (%.2f accepted "
+                "a round); %.1f ms a run (%.3f ms a token)" % (
+                    dt or "float32", what, SPEC_LOOKAHEAD, agree, B,
+                    " (checked)" if dt is None else "", n_spec, rounds,
+                    n_spec / rounds - 1, spec_ms, spec_ms / n_spec))
+        del target, draft
+    del dparams, gen, params, loop
+    torch.cuda.empty_cache()
+
+    # -- configuration (c)'s trained hybrid ----------------------------------
+    hyb = Generator(dict(HYBRID_PARAMS), VOCAB, ML, batch_size=B,
+                    dtype="bfloat16", block_type=HYBRID_BLOCKS,
+                    pos_encoding="rope", **arch)
+    check_tokens_equal("generate hybrid: greedy generate_on_device vs "
+                       "generate", hyb.generate_on_device(prompt, nv),
+                       hyb.generate(prompt, nv))
+    say("generate hybrid: configuration (c)'s trained weights (attention, "
+        "ssm, attention, ssm; RoPE), %d greedy tokens equal on both loops; "
+        "decode state %d bytes" % (nv, hyb.kv_cache_bytes()))
+    decode_speed("hybrid", hyb, prompt)
+    del hyb
+    HYBRID_PARAMS.clear()
+    torch.cuda.empty_cache()
+    return {}
+
+
 def main():
     try:
         import torch
@@ -4433,7 +4999,9 @@ def main():
                "alexnet": alexnet_phase(),
                "module": module_phase(),
                "compiled_resnet": compiled_resnet_phase(),
-               "compiled_alexnet": compiled_alexnet_phase()}
+               "compiled_alexnet": compiled_alexnet_phase(),
+               "lm_options": lm_options_phase(),
+               "generate": generate_phase()}
     for rec in records:
         # no kernel moves its bytes faster than the memory can: a time
         # under the byte bound means the timing lost work
@@ -4460,7 +5028,8 @@ def main():
 PARTIAL = {"mt": mt_kernel_phase, "bn": bn_kernel_phase,
            "alexnet": alexnet_phase, "module": module_phase,
            "compiled": lambda: (compiled_resnet_phase(),
-                                compiled_alexnet_phase())}
+                                compiled_alexnet_phase()),
+           "lm_options": lm_options_phase, "generate": generate_phase}
 
 
 if __name__ == "__main__":

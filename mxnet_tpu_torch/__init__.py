@@ -84,6 +84,7 @@ from . import predictor  # noqa: E402
 from .predictor import Predictor  # noqa: E402
 from . import serve  # noqa: E402
 from . import models  # noqa: E402
+from . import generation  # noqa: E402
 from . import convert  # noqa: E402
 from . import model  # noqa: E402
 from .model import FeedForward  # noqa: E402

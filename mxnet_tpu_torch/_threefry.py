@@ -134,10 +134,18 @@ def _const(value, dtype, device):
 def split(key, num=2):
     """``jax.random.split``: ``num`` keys (an int or a shape), key ``i``
     being the hash of the counter ``(i >> 32, i & 0xffffffff)``. Returns
-    a numpy uint32 array of shape ``(*num, 2)``."""
+    a numpy uint32 array of shape ``(*num, 2)`` for a host key, and an
+    int64 tensor of that shape on the key's device for a device key
+    (computed there, with no host value: a captured decode step splits
+    its key so)."""
     shape = tuple(num) if isinstance(num, (tuple, list)) else (int(num),)
     k1, k2 = _key_words(key)
-    idx = np.arange(math.prod(shape), dtype=np.int64)
+    n = math.prod(shape)
+    if isinstance(key, torch.Tensor):
+        idx = torch.arange(n, dtype=torch.int64, device=key.device)
+        y1, y2 = threefry2x32(k1, k2, idx >> 32, idx & _M32)
+        return torch.stack([y1, y2], dim=-1).reshape(shape + (2,))
+    idx = np.arange(n, dtype=np.int64)
     y1, y2 = threefry2x32(k1, k2, idx >> 32, idx & _M32)
     return np.stack([y1, y2], axis=-1).astype(np.uint32).reshape(
         shape + (2,))

@@ -13,6 +13,8 @@ from . import indexing      # noqa: F401
 from . import nn            # noqa: F401
 from . import loss          # noqa: F401
 from . import attention     # noqa: F401
+from . import ssm           # noqa: F401
+from . import contrib_ops   # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import reduce_ops    # noqa: F401
 from . import detection_ops  # noqa: F401

@@ -21,11 +21,22 @@ emits the lse only when a gradient is needed, and the backward computes
 delta = rowsum(do * o) - dlse in plain torch, then launches the
 backward kernel once. The ``block_q`` / ``block_k`` attrs are accepted for
 graph and JSON parity; the kernels pick their own tiling, and results do
-not depend on them beyond rounding. The decode-cache ops come with
-generation (ROADMAP Queue A item 7).
+not depend on them beyond rounding.
+
+RoPE and the decode-cache ops (``cached_attention`` and its per-row,
+rolling and int8 forms) are plain PyTorch, as they are plain jnp in the
+JAX package: decode reads one (Tnew, Tmax) strip a head, so cuBLAS
+products and torch's softmax carry it. A cache op writes its new rows
+in place (``index_copy_``/``scatter_``) and returns the same tensors, so
+a decode step captured as a CUDA graph keeps its caches at fixed
+addresses. A tensor ``pos`` stays on its device: the write starts at
+``clamp(pos, 0, Tmax - Tnew)``, as ``dynamic_update_slice`` clamps under
+jit, and the mask reads the unclamped pos; only a host pos (an int or a
+numpy array) is checked for overrun, as the JAX op checks a concrete one.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import _kernels
@@ -423,3 +434,298 @@ def _flash_attention_op(query, key, value, scale=None, causal=False,
     return flash_attention(query, key, value, scale=scale, causal=causal,
                            block_q=block_q, block_k=block_k,
                            window=int(window or 0) or None)
+
+
+# ---------------------------------------------------------------------------
+# RoPE and the decode caches (plain PyTorch, as plain jnp in the JAX package)
+# ---------------------------------------------------------------------------
+
+def rope(x, positions, base=10000.0):
+    """Rotary position embedding over (B, H, T, hd).
+
+    positions: (T,) ids shared across the batch, or (B, T) per-row ids.
+    HALF-SPLIT pairing (GPT-NeoX): (x[i], x[i + hd/2]) rotate together by
+    pos * base^(-i/(hd/2)), not the interleaved (x[2i], x[2i+1]) layout;
+    a checkpoint crossing to an interleaved implementation must repack.
+    The angles and the rotation are float32, the result in x's dtype."""
+    B, H, T, D = x.shape
+    half = D // 2
+    dev = x.device
+    expo = -torch.arange(0, half, dtype=torch.float32, device=dev) / half
+    freqs = torch.pow(torch.full((), float(base), dtype=torch.float32,
+                                 device=dev), expo)
+    ang = positions.to(device=dev, dtype=torch.float32)[..., None] * freqs
+    if ang.dim() == 2:                        # shared (T, half)
+        cos, sin = torch.cos(ang)[None, None], torch.sin(ang)[None, None]
+    else:                                     # per-row (B, T, half)
+        cos, sin = torch.cos(ang)[:, None], torch.sin(ang)[:, None]
+    x1 = x[..., :half].float()
+    x2 = x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+@register("_contrib_RoPE", arg_names=("data", "positions"),
+          nondiff_inputs=(1,), defaults={"base": 10000.0})
+def _rope_op(data, positions, base=10000.0, **_):
+    """(B, H, T, hd) rotary position embedding; positions (T,)."""
+    return rope(data, positions, base=float(base))
+
+
+def _matmul_t_f32(a, b):
+    """a (..., M, K) @ b (..., N, K)^T in float32: the operands' products
+    summed in float32 (the JAX einsum's ``preferred_element_type=
+    float32``). A bf16 pair on the card goes to cuBLAS with a float32
+    output; elsewhere both operands are widened first, which is exact."""
+    bt = b.transpose(-1, -2)
+    if a.dtype == b.dtype == torch.bfloat16 and a.device.type == "cuda":
+        s = torch.bmm(a.reshape(-1, *a.shape[-2:]),
+                      bt.reshape(-1, *bt.shape[-2:]),
+                      out_dtype=torch.float32)
+        return s.reshape(*a.shape[:-1], s.shape[-1])
+    return torch.matmul(a.float(), bt.float())
+
+
+def _gqa_groups(H, Hkv):
+    if H % Hkv:
+        raise ValueError(
+            "query heads (%d) must be a multiple of cache kv heads (%d) — "
+            "grouped-query attention groups q heads over kv heads"
+            % (H, Hkv))
+    return H // Hkv
+
+
+def _pos_tensor(pos, device):
+    """pos (a tensor, an int or an array) as a flat int64 tensor on
+    ``device``; float ids truncate toward zero, as ``astype`` does."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(-1).to(device=device, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(pos, dtype=np.float64).reshape(-1)
+                           .astype(np.int64), device=device)
+
+
+def _check_host_overrun(what, pos, Tn, C):
+    """Raise for a host pos (int or array) whose rows pass the capacity;
+    a tensor pos is device data and is never read back (its writes
+    clamp)."""
+    if isinstance(pos, torch.Tensor):
+        return
+    worst = int(np.asarray(pos, dtype=np.float64).max())
+    if worst + Tn > C:
+        raise ValueError(
+            "%s overrun: pos (%d) + Tnew (%d) exceeds cache capacity "
+            "Tmax=%d — the write would clamp and silently corrupt the "
+            "cache" % (what, worst, Tn, C))
+
+
+def _write_rows(cache, new, start):
+    """Write ``new`` (B, Hkv, Tn, ...) into ``cache`` (B, Hkv, C, ...) in
+    place, rows [start, start + Tn) of dim 2; ``start`` is a 0-d (shared)
+    or (B,) (per-row) int64 tensor. Returns ``cache``."""
+    Tn = new.shape[2]
+    rows = torch.arange(Tn, device=cache.device)
+    new = new.to(cache.dtype)
+    if start.dim() == 0:
+        return cache.index_copy_(2, start + rows, new)
+    idx = (start[:, None] + rows).reshape(
+        (start.shape[0], 1, Tn) + (1,) * (cache.dim() - 3))
+    return cache.scatter_(2, idx.expand(new.shape), new)
+
+
+def _clamped(p, Tn, C):
+    """The start ``dynamic_update_slice`` writes at: clamp(p, 0, C - Tn)."""
+    return torch.clamp(p, 0, C - Tn)
+
+
+def _decode_valid(p, Tn, C, window):
+    """Validity of the (Tn, C) scores (with a (B, 1, 1) ``p``: (B, Tn, C)):
+    cache column c is seen by new row r iff c <= p + r, and, with a
+    window, p + r - c < window."""
+    cols = torch.arange(C, device=p.device)
+    rows = torch.arange(Tn, device=p.device)[:, None]
+    valid = cols <= p + rows
+    if window:
+        valid = valid & (p + rows - cols < window)
+    return valid
+
+
+def _attend(query, k_cache, v_cache, valid, scale, pv_dtype):
+    """Grouped decode attention over full caches: softmax of the float32
+    scores (masked with -1e30 where ``valid`` is false, ``valid``
+    broadcasting over (B, Hkv, G, Tn, C)), then p, cast to ``pv_dtype``,
+    against v. Each cache head is read once for its q-head group."""
+    B, H, Tn, D = query.shape
+    Hkv, C = k_cache.shape[1], k_cache.shape[2]
+    G = H // Hkv
+    qg = query.reshape(B, Hkv, G * Tn, D)
+    s = _matmul_t_f32(qg, k_cache).reshape(B, Hkv, G, Tn, C) * scale
+    s = torch.where(valid, s, _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.matmul(p.to(pv_dtype).reshape(B, Hkv, G * Tn, C), v_cache)
+    return out.reshape(B, H, Tn, D).to(query.dtype)
+
+
+def cached_attention(query, key, value, k_cache, v_cache, pos, scale=None,
+                     window=0):
+    """Incremental-decode attention over a KV cache.
+
+    query/key/value: (B, H, Tnew, hd) projections of the tokens being
+    appended (the prompt at prefill, one a step after); k_cache/v_cache:
+    (B, Hkv, Tmax, hd). pos: (1,) tokens already cached — the new keys
+    land at [pos, pos + Tnew) and query row r attends cache columns
+    <= pos + r — or (B,), one position a batch row (continuous batching;
+    ``_cached_attention_per_row``). Capacity: pos + Tnew <= Tmax; past it
+    a tensor pos's write clamps, as ``dynamic_update_slice`` does under
+    jit, and a host pos raises. The caches are written in place and
+    returned: (out, k_cache, v_cache)."""
+    B, H, Tn, D = query.shape
+    _gqa_groups(H, k_cache.shape[1])
+    C = k_cache.shape[2]
+    if scale is None:
+        scale = D ** -0.5
+    pt = _pos_tensor(pos, query.device)
+    if pt.numel() > 1:
+        if pt.numel() != B:
+            raise ValueError("per-row pos must have one entry per batch "
+                             "row: got %r for batch %d"
+                             % (tuple(np.shape(pos)), B))
+        return _cached_attention_per_row(query, key, value, k_cache,
+                                         v_cache, pos, pt, float(scale),
+                                         int(window or 0))
+    _check_host_overrun("cached_attention", pos, Tn, C)
+    p0 = pt.reshape(())
+    _write_rows(k_cache, key, _clamped(p0, Tn, C))
+    _write_rows(v_cache, value, _clamped(p0, Tn, C))
+    valid = _decode_valid(p0, Tn, C, int(window or 0))
+    return (_attend(query, k_cache, v_cache, valid, scale, v_cache.dtype),
+            k_cache, v_cache)
+
+
+def _cached_attention_per_row(query, key, value, k_cache, v_cache, pos,
+                              pb, scale, window):
+    """cached_attention's per-row core: pb (B,) — row b's new tokens land
+    at [pb[b], pb[b] + Tn) (each start clamped on its own) and mask
+    against pb[b]."""
+    Tn, C = query.shape[2], k_cache.shape[2]
+    _check_host_overrun("cached_attention", pos, Tn, C)
+    _write_rows(k_cache, key, _clamped(pb, Tn, C))
+    _write_rows(v_cache, value, _clamped(pb, Tn, C))
+    valid = _decode_valid(pb[:, None, None], Tn, C, window)[:, None, None]
+    return (_attend(query, k_cache, v_cache, valid, scale, v_cache.dtype),
+            k_cache, v_cache)
+
+
+def rolling_cached_attention(query, key, value, k_cache, v_cache, pos,
+                             window, scale=None):
+    """Sliding-window decode attention over a CIRCULAR cache of capacity
+    C = k_cache.shape[2]: position p lives in slot p % C, so memory stays
+    O(C) however long generation runs. Needs C >= window + Tnew - 1.
+    After appending through pos_end, slot s holds the absolute position
+    p_s = pos_end - ((pos_end - s) mod C); row r sees it iff
+    0 <= p_s <= p0 + r and p0 + r - p_s < window."""
+    B, H, Tn, D = query.shape
+    _gqa_groups(H, k_cache.shape[1])
+    C = k_cache.shape[2]
+    if scale is None:
+        scale = D ** -0.5
+    p0 = _pos_tensor(pos, query.device).reshape(())
+    slots = (p0 + torch.arange(Tn, device=query.device)) % C
+    k_cache.index_copy_(2, slots, key.to(k_cache.dtype))
+    v_cache.index_copy_(2, slots, value.to(v_cache.dtype))
+    pos_end = p0 + Tn - 1
+    p_s = pos_end - ((pos_end - torch.arange(C, device=query.device)) % C)
+    rows = p0 + torch.arange(Tn, device=query.device)[:, None]
+    valid = (p_s >= 0) & (p_s <= rows) & (rows - p_s < window)
+    return (_attend(query, k_cache, v_cache, valid, scale, v_cache.dtype),
+            k_cache, v_cache)
+
+
+@register("_contrib_RollingCachedAttention",
+          arg_names=("query", "key", "value", "k_cache", "v_cache", "pos"),
+          state_inputs=(3, 4), nondiff_inputs=(5,), differentiable=False,
+          defaults={"scale": None, "max_len": 0, "window": 0})
+def _rolling_cached_attention_op(query, key, value, k_cache, v_cache, pos,
+                                 scale=None, window=0, **_):
+    """Circular-buffer twin of _contrib_CachedAttention for sliding-window
+    models; max_len is the cache CAPACITY here."""
+    if not window:
+        raise ValueError("_contrib_RollingCachedAttention needs window > 0")
+    return rolling_cached_attention(query, key, value, k_cache, v_cache,
+                                    pos, int(window), scale=scale)
+
+
+@register("_contrib_CachedAttention",
+          arg_names=("query", "key", "value", "k_cache", "v_cache", "pos"),
+          state_inputs=(3, 4), nondiff_inputs=(5,), differentiable=False,
+          defaults={"scale": None, "max_len": 0, "window": 0})
+def _cached_attention_op(query, key, value, k_cache, v_cache, pos,
+                         scale=None, window=0, **_):
+    """(B, H, Tnew, hd) decode attention; k_cache/v_cache are aux states
+    the executor threads (written in place)."""
+    return cached_attention(query, key, value, k_cache, v_cache, pos,
+                            scale=scale, window=int(window or 0))
+
+
+def _q8_quantize(x):
+    """Per-token-per-head symmetric int8: absmax/127 scale over the head
+    dim, clamped at 1e-8 so an all-zero row stores zeros. The one rule
+    both cache writers use, so a row's stored entry does not depend on
+    which wrote it."""
+    xf = x.float()
+    s = torch.clamp_min(xf.abs().amax(dim=-1), 1e-8) / 127.0
+    return torch.round(xf / s[..., None]).to(torch.int8), s
+
+
+def cached_attention_q8(query, key, value, k_cache, v_cache, k_scale,
+                        v_scale, pos, scale=None, window=0):
+    """cached_attention over INT8 caches: k_cache/v_cache (B, Hkv, Tmax,
+    hd) int8, k_scale/v_scale (B, Hkv, Tmax) float32, each token's rows
+    quantized once when they enter (``_q8_quantize``). The caches are
+    dequantized to float32 (a materialized copy here, where XLA fuses it
+    into the product's reads) and the attention runs in float32. pos
+    (1,) or (B,) as in cached_attention. Returns (out, k_cache, v_cache,
+    k_scale, v_scale), all caches written in place."""
+    B, H, Tn, D = query.shape
+    _gqa_groups(H, k_cache.shape[1])
+    C = k_cache.shape[2]
+    if scale is None:
+        scale = D ** -0.5
+    pt = _pos_tensor(pos, query.device)
+    if pt.numel() > 1:
+        if pt.numel() != B:
+            raise ValueError("per-row pos must have one entry per batch "
+                             "row: got %r for batch %d"
+                             % (tuple(np.shape(pos)), B))
+        start = pt
+        p = pt[:, None, None]
+    else:
+        start = p = pt.reshape(())
+    _check_host_overrun("cached_attention_q8", pos, Tn, C)
+    kq, ks = _q8_quantize(key)
+    vq, vs = _q8_quantize(value)
+    at = _clamped(start, Tn, C)
+    for cache, new in ((k_cache, kq), (v_cache, vq), (k_scale, ks),
+                       (v_scale, vs)):
+        _write_rows(cache, new, at)
+    valid = _decode_valid(p, Tn, C, int(window or 0))
+    if pt.numel() > 1:
+        valid = valid[:, None, None]
+    kf = k_cache.float() * k_scale[..., None]
+    vf = v_cache.float() * v_scale[..., None]
+    out = _attend(query.float(), kf, vf, valid, scale, torch.float32)
+    return out.to(query.dtype), k_cache, v_cache, k_scale, v_scale
+
+
+@register("_contrib_CachedAttentionQ8",
+          arg_names=("query", "key", "value", "k_cache", "v_cache",
+                     "k_scale", "v_scale", "pos"),
+          state_inputs=(3, 4, 5, 6), nondiff_inputs=(7,),
+          differentiable=False,
+          defaults={"scale": None, "max_len": 0, "window": 0})
+def _cached_attention_q8_op(query, key, value, k_cache, v_cache, k_scale,
+                            v_scale, pos, scale=None, window=0, **_):
+    """Int8-cache decode attention; the caches and their per-token scales
+    are aux states threaded by the executor."""
+    return cached_attention_q8(query, key, value, k_cache, v_cache,
+                               k_scale, v_scale, pos, scale=scale,
+                               window=int(window or 0))

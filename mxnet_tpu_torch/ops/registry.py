@@ -244,12 +244,8 @@ def _input_context(nd_inputs):
 
 # JAX module -> (ROADMAP item, every name it registers, aliases included)
 _NOT_PORTED = {
-    "attention": ("Queue A item 7 (decode caches) / item 6 (RoPE)", (
-        "_contrib_CachedAttention", "_contrib_CachedAttentionQ8",
-        "_contrib_RoPE", "_contrib_RollingCachedAttention")),
     "contrib_ops": ("Queue A item 10 (contrib_ops.py; MoE with item 9)", (
-        "_contrib_MoEFFN", "_contrib_QuantizedEmbedding",
-        "_contrib_QuantizedFullyConnected", "_contrib_count_sketch",
+        "_contrib_MoEFFN", "_contrib_count_sketch",
         "_contrib_dequantize", "_contrib_fft", "_contrib_ifft",
         "_contrib_moe_ffn", "_contrib_quantize", "dequantize", "fft",
         "ifft", "quantize")),
@@ -277,8 +273,6 @@ _NOT_PORTED = {
         "_contrib_multi_proposal", "_contrib_proposal",
         "_contrib_psroipooling")),
     "rnn_op": ("Queue A item 10 (Gluon and RNN)", ("RNN",)),
-    "ssm": ("Queue A item 6 (SSM scan) / item 7 (SSM decode state)", (
-        "_contrib_SSMCached", "_contrib_SSMScan")),
     "warp_ops": ("Queue A item 10 (warp_ops.py)", (
         "BilinearSampler", "Correlation", "GridGenerator",
         "SpatialTransformer")),

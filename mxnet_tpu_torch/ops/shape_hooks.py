@@ -2,8 +2,7 @@
 exposes under given attrs, and backward shape inference for parameter
 (and aux) variables. The rules are those of
 ``mxnet_tpu/ops/shape_hooks.py``; the hooks of ops not ported yet
-(RNN, the deformable and quantized contrib ops, the decode caches)
-arrive with their ops.
+(RNN, the deformable contrib ops) arrive with their ops.
 """
 from __future__ import annotations
 
@@ -188,3 +187,120 @@ def _regression_label_shapes(shapes, attrs):
 for _name in ("LinearRegressionOutput", "MAERegressionOutput",
               "LogisticRegressionOutput"):
     set_param_shapes(_name, _regression_label_shapes)
+
+
+# -- CachedAttention (decode KV caches sized by the max_len attr) -----------
+
+def _cached_attention_shapes(shapes, attrs):
+    q = shapes[0]
+    k = shapes[1] if len(shapes) > 1 else None
+    out = list(shapes)
+    tmax = int(attrs.get("max_len", 0))
+    if q is not None and tmax:
+        # cache head count follows the KEY projection, not the query —
+        # under grouped-query attention Hkv < H and the cache stores
+        # only the kv heads
+        heads = k[1] if k is not None else q[1]
+        cache = (q[0], heads, tmax, q[3])
+        if len(out) > 3 and out[3] is None:
+            out[3] = cache
+        if len(out) > 4 and out[4] is None:
+            out[4] = cache
+    if len(out) > 5 and out[5] is None:
+        out[5] = (1,)
+    return out
+
+
+set_param_shapes("_contrib_CachedAttention", _cached_attention_shapes)
+
+
+# -- QuantizedFullyConnected ------------------------------------------------
+
+set_arg_select("_contrib_QuantizedFullyConnected", lambda a: (
+    ("data", "weight", "scale") if str(a.get("no_bias", False)) in
+    ("True", "true", "1") else ("data", "weight", "scale", "bias")))
+
+
+def _quant_fc_shapes(shapes, attrs):
+    # data/weight/bias follow FullyConnected's rule; the extra scale
+    # slot (index 2) is (num_hidden,)
+    fc = _fc_shapes([shapes[0], shapes[1],
+                     shapes[3] if len(shapes) > 3 else None], attrs)
+    out = list(shapes)
+    if len(out) > 1 and out[1] is None:
+        out[1] = fc[1]
+    if len(out) > 2 and out[2] is None and int(attrs.get(
+            "num_hidden", 0)):
+        out[2] = (int(attrs["num_hidden"]),)
+    if len(out) > 3 and out[3] is None and len(fc) > 2:
+        out[3] = fc[2]
+    return out
+
+
+set_param_shapes("_contrib_QuantizedFullyConnected", _quant_fc_shapes)
+
+
+def _quant_embedding_shapes(shapes, attrs):
+    out = list(shapes)
+    vd = (int(attrs.get("input_dim", 0)), int(attrs.get("output_dim",
+                                                        0)))
+    if len(out) > 1 and out[1] is None:
+        out[1] = vd
+    if len(out) > 2 and out[2] is None:
+        out[2] = (vd[0],)
+    return out
+
+
+set_param_shapes("_contrib_QuantizedEmbedding", _quant_embedding_shapes)
+
+
+set_param_shapes("_contrib_RollingCachedAttention",
+                 _cached_attention_shapes)
+
+
+def _cached_attention_q8_shapes(shapes, attrs):
+    """Int8 variant: slots 3/4 are the int8 caches, 5/6 the per-token
+    (B, Hkv, Tmax) scale caches, 7 the pos scalar. NOTE on dtypes:
+    infer_type's same-dtype propagation cannot express the int8/f32
+    aux split — Generator._fresh_aux (the supported allocator for this
+    op) creates them by suffix; Executor-bound users must supply aux
+    explicitly."""
+    q = shapes[0]
+    k = shapes[1] if len(shapes) > 1 else None
+    out = list(shapes)
+    tmax = int(attrs.get("max_len", 0))
+    if q is not None and tmax:
+        heads = k[1] if k is not None else q[1]
+        cache = (q[0], heads, tmax, q[3])
+        for i in (3, 4):
+            if len(out) > i and out[i] is None:
+                out[i] = cache
+        for i in (5, 6):
+            if len(out) > i and out[i] is None:
+                out[i] = cache[:3]
+    if len(out) > 7 and out[7] is None:
+        out[7] = (1,)
+    return out
+
+
+set_param_shapes("_contrib_CachedAttentionQ8",
+                 _cached_attention_q8_shapes)
+
+
+# -- SSMCached (O(1) decode state — a fixed blob, no length axis) -----------
+
+def _ssm_cached_shapes(shapes, attrs):
+    """Slot 4 is the (B, H, hd, hd) recurrent state — sized entirely
+    from the query projection; max_len never appears (THE point of the
+    op). Slot 5 is the pos scalar, accepted for cached-attention attr
+    parity and ignored by the op."""
+    q = shapes[0]
+    out = list(shapes)
+    if q is not None and len(out) > 4 and out[4] is None:
+        out[4] = (q[0], q[1], q[3], q[3])
+    if len(out) > 5 and out[5] is None:
+        out[5] = (1,)
+    return out
+
+
+set_param_shapes("_contrib_SSMCached", _ssm_cached_shapes)

@@ -2,6 +2,7 @@
 from .symbol import Symbol, Variable, var, Group, load, load_json
 from .op import *          # noqa: F401,F403 — generated op namespace
 from . import op           # noqa: F401
+from .op import _arange as arange  # noqa: F401  (mx.sym.arange)
 
 # `import *` skips underscore-prefixed generated ops (_contrib_*, ...);
 # surface them all, as the reference namespace does

@@ -30,7 +30,10 @@ def test_port_and_chip_smoke_import_without_jax():
     recorded backward, the Executor one bind, the Module slice's
     (module/*, monitor, model, kvstore, recordio, the exported step and
     CompiledTrainStep) one Module fit epoch, a store push, a record and
-    a compiled step, and no jax or mxnet_tpu module loads."""
+    a compiled step, the generation slice's (generation, ops/ssm,
+    ops/contrib_ops) a hybrid RoPE LM decoded through both loops and an
+    int8 one (an SSM layer, the int8 ops), and no jax or mxnet_tpu module
+    loads."""
     code = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now fails
@@ -128,6 +131,23 @@ with mxnet_tpu_torch.cpu():
     tstep.export(os.path.join(tmp, "s"), st, b)
     ct = CompiledTrainStep.load(os.path.join(tmp, "s"))
     assert ct.step(b, 0.1)[0].shape == (4, 2)
+# the generation slice, used: a hybrid (attention, ssm) RoPE LM decoded by
+# Generator through both loops, and an int8-weight, int8-cache Generator
+from mxnet_tpu_torch import generation
+hyb = dict(block_type=("attention", "ssm"), pos_encoding="rope")
+tstep = make_train_step(transformer.get_symbol(10, 4, num_layers=2,
+                        num_heads=2, dim=8, **hyb), optimizer="sgd",
+                        ctx=mxnet_tpu_torch.cpu())
+params = tstep.init_state(initializer.Xavier(), {"data": (2, 4),
+                          "softmax_label": (2, 4)})[0]
+gen = generation.Generator(params, 10, 8, num_layers=2, num_heads=2, dim=8,
+                           batch_size=2, ctx=mxnet_tpu_torch.cpu(), **hyb)
+prompt = np.array([[1, 2, 3], [4, 5, 6]])
+assert (gen.generate_on_device(prompt, 4) == gen.generate(prompt, 4)).all()
+q8 = generation.Generator(params, 10, 8, num_layers=2, num_heads=2, dim=8,
+                          batch_size=2, ctx=mxnet_tpu_torch.cpu(),
+                          quantize="int8", quantize_kv=True, **hyb)
+assert q8.generate(prompt, 3).shape == (2, 6)
 bad = sorted(n for n, m in sys.modules.items() if m is not None and (
     n == "jax" or n.startswith("jax.") or n.startswith("jaxlib")
     or n == "mxnet_tpu" or n.startswith("mxnet_tpu.")))

@@ -1012,3 +1012,46 @@ def test_cuda_captured_step_equals_eager_steps(cuda_device, net, tmp_path,
     finally:
         torch.use_deterministic_algorithms(False)
         config.set_override("MXNET_BN_PALLAS", None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", [
+    {}, dict(block_type=("attention", "ssm"), pos_encoding="rope")],
+    ids=["learned", "hybrid_rope"])
+def test_cuda_captured_generation_loops_equal_eager_loops(cuda_device,
+                                                           arch):
+    """Generator on the card, a small bf16 LM: generate_on_device (the
+    decode step captured as one CUDA graph; twice, the second run
+    replaying the first's graph), greedy and sampled, equals generate;
+    beam_search_on_device equals beam_search; the captured speculative
+    rounds equal generate (float32, a truncated draft)."""
+    from mxnet_tpu_torch.generation import Generator
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.parallel import make_train_step
+
+    V, ML, B = 50, 32, 2
+    kw = dict(num_layers=2, num_heads=4, dim=32, **arch)
+    sym = transformer.get_symbol(V, ML, **kw)
+    params = make_train_step(sym, optimizer="sgd").init_state(
+        Xavier(magnitude=6.0), {"data": (B, ML), "softmax_label": (B, ML)})[0]
+    prompt = np.random.RandomState(0).randint(0, V, (B, 5))
+    gen = Generator(params, V, ML, batch_size=B, dtype="bfloat16", **kw)
+    for skw in ({}, dict(temperature=0.9, top_k=8, seed=4)):
+        want = gen.generate(prompt, 12, **skw)
+        for _ in range(2):
+            np.testing.assert_array_equal(
+                gen.generate_on_device(prompt, 12, **skw), want)
+    assert gen._loop_cache[(5, 12, 0.0, 0, 0.0, None)].graph is not None
+    if "block_type" in arch:
+        return
+    np.testing.assert_array_equal(
+        gen.beam_search_on_device(prompt, 6, beam_size=3),
+        gen.beam_search(prompt, 6, beam_size=3))
+    f32 = Generator(params, V, ML, batch_size=B, **kw)
+    draft = f32.truncated_draft(1)
+    for _ in range(2):
+        np.testing.assert_array_equal(
+            f32.generate_speculative_on_device(draft, prompt, 12,
+                                               lookahead=3),
+            f32.generate(prompt, 12))

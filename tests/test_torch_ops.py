@@ -701,6 +701,54 @@ CASES += [
     ("r_shuffle_1d", "_shuffle", [_f32(9)], {"rng": 21}),
 ]
 
+# the LM options' and the decode path's ops: RoPE and the SSM scan (their
+# gradients too), the cache ops (the caches they write in place are
+# outputs, the int8 rows and scales compared exactly) and the weight-only
+# int8 ops
+_I8 = np.int8
+CASES += [
+    ("c_rope", "_contrib_RoPE",
+     [_f32(2, 3, 5, 8), np.arange(5, dtype=np.float32)], {}),
+    ("c_rope_per_row_base", "_contrib_RoPE",
+     [_f32(2, 3, 4, 6), _ids((2, 4), 100)], {"base": 500.0}),
+    ("c_ssm_scan", "_contrib_SSMScan",
+     [_f32(1, 2, 5, 4), _f32(1, 2, 5, 4, seed=1), _f32(1, 2, 5, 4, seed=2),
+      _f32(1, 2, 5, seed=3)], {"chunk": 2}),
+    ("c_ssm_cached_prefill", "_contrib_SSMCached",
+     [_f32(1, 2, 5, 4), _f32(1, 2, 5, 4, seed=1), _f32(1, 2, 5, 4, seed=2),
+      _f32(1, 2, 5, seed=3), _f32(1, 2, 4, 4, seed=4),
+      np.zeros((1,), np.float32)], {"chunk": 2}),
+    ("c_ssm_cached_step", "_contrib_SSMCached",
+     [_f32(1, 2, 1, 4), _f32(1, 2, 1, 4, seed=1), _f32(1, 2, 1, 4, seed=2),
+      _f32(1, 2, 1, seed=3), _f32(1, 2, 4, 4, seed=4),
+      np.full((1,), 5.0, np.float32)], {"gate_bias": 2.0}),
+    ("c_cached_attention_gqa_window", "_contrib_CachedAttention",
+     [_f32(2, 4, 3, 4), _f32(2, 2, 3, 4, seed=1), _f32(2, 2, 3, 4, seed=2),
+      _f32(2, 2, 6, 4, seed=3), _f32(2, 2, 6, 4, seed=4),
+      np.array([2.0], np.float32)], {"window": 2, "max_len": 6}),
+    ("c_cached_attention_per_row", "_contrib_CachedAttention",
+     [_f32(2, 2, 1, 4), _f32(2, 2, 1, 4, seed=1), _f32(2, 2, 1, 4, seed=2),
+      _f32(2, 2, 6, 4, seed=3), _f32(2, 2, 6, 4, seed=4),
+      np.array([0.0, 4.0], np.float32)], {}),
+    ("c_rolling_cached_attention", "_contrib_RollingCachedAttention",
+     [_f32(2, 2, 1, 4), _f32(2, 2, 1, 4, seed=1), _f32(2, 2, 1, 4, seed=2),
+      _f32(2, 2, 4, 4, seed=3), _f32(2, 2, 4, 4, seed=4),
+      np.array([5.0], np.float32)], {"window": 3, "max_len": 4}),
+    ("c_cached_attention_q8", "_contrib_CachedAttentionQ8",
+     [_f32(2, 2, 2, 4), _f32(2, 2, 2, 4, seed=1), _f32(2, 2, 2, 4, seed=2),
+      np.zeros((2, 2, 5, 4), _I8), np.zeros((2, 2, 5, 4), _I8),
+      np.zeros((2, 2, 5), np.float32), np.zeros((2, 2, 5), np.float32),
+      np.array([1.0], np.float32)], {"window": 2}),
+    ("c_quantized_fc", "_contrib_QuantizedFullyConnected",
+     [_f32(3, 6), np.random.RandomState(5).randint(-127, 128, (4, 6)).astype(
+         _I8), np.abs(_f32(4, seed=1)) / 50, _f32(4, seed=2)],
+     {"num_hidden": 4}),
+    ("c_quantized_embedding", "_contrib_QuantizedEmbedding",
+     [_ids((2, 3), 5), np.random.RandomState(6).randint(
+         -127, 128, (5, 6)).astype(_I8), np.abs(_f32(5, seed=1)) / 50],
+     {"input_dim": 5, "output_dim": 6}),
+]
+
 # the rejection samplers (jax random.py's gamma and poisson loops, and
 # the negative binomials over them): the same algorithms on the same
 # per-element keys, but an accept test can flip on the last bit of a

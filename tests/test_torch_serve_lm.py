@@ -76,8 +76,11 @@ def test_port_graph_equals_jax_graph():
 
 
 @pytest.mark.parametrize("kw", [dict(attention_window=4),
-                                dict(num_kv_heads=2)],
-                         ids=["window", "gqa"])
+                                dict(num_kv_heads=2),
+                                dict(block_type="ssm"),
+                                dict(pos_encoding="rope"),
+                                dict(loss_chunk=8)],
+                         ids=["window", "gqa", "ssm", "rope", "loss_chunk"])
 def test_port_graph_options_equal_jax(kw):
     jsym, tsym = _jax_symbol(**kw), _port_symbol(**kw)
     assert json.loads(tsym.tojson()) == json.loads(jsym.tojson())
@@ -230,10 +233,8 @@ def test_bf16_params_round_trip_through_npz(tmp_path):
     assert torch.equal(via_jax["w"], w)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(block_type="ssm"), dict(num_experts=4), dict(pos_encoding="rope"),
-    dict(loss_chunk=8), dict(seq_axis="sp")],
-    ids=["ssm", "moe", "rope", "loss_chunk", "seq_axis"])
+@pytest.mark.parametrize("kw", [dict(num_experts=4), dict(seq_axis="sp")],
+                         ids=["moe", "seq_axis"])
 def test_unported_options_raise_not_implemented(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port_symbol(**kw)
