@@ -161,7 +161,27 @@ Phases (any failure exits non-zero; no phase is caught):
    timed briefly; configuration (c)'s trained hybrid decoded on both
    loops; a width-1 ssm_chunk_scan equal to ssm_recurrent_step bit for
    bit on the card; a small f32 hybrid RoPE LM card against CPU;
-19. one JSON line of every ported kernel (a device time under its byte
+19. serve_decode: bench_decode's model through ContinuousDecoder (8
+   slots, max_len 384): 24 float32 requests (greedy, seeded, streamed; 4
+   speculative over truncated_draft(1); MXNET_PREFILL_CHUNK=64) each equal
+   to generate of its prompt alone, stream frames equal to their rows,
+   one captured step graph after the turnover; the bf16 rows that agree;
+   64 bf16 requests timed: tokens/s, ms a step by events and by the host
+   clock, busy share, TTFT and inter-token p50/p99, slot fill, beside
+   generate_on_device's rate;
+20. serve_fleet: a ServeRouter over two decode replicas and a prefill
+   replica on 127.0.0.1 (float32), 8 ServeClient threads, 32
+   disaggregated requests (greedy, seeded, streamed, speculative), one
+   decode replica recycled mid-run (its sessions evacuate and resume):
+   one response a request, each equal to generate, no decode-side
+   prefill; requests/s, tokens/s, blob bytes and ms, evacuation ms;
+21. compiled_serve: Predictor.export_buckets -> ServeEngine.from_export
+   for the flagship LM (bf16) and SSD300 (float32), buckets 1, 2, 4, 8,
+   each bucket's forward one captured CUDA graph: each replay bit-equal
+   to the eager forward, flash_fwd_bf16 x4 and nms_cluster_kernel x1 in
+   a profiled replay, replay ms beside the eager forward's, 8 concurrent
+   requests served and checked;
+22. one JSON line of every ported kernel (a device time under its byte
    bound fails the run: the timing lost work), then the result line.
 
 It imports nothing of JAX or of ``mxnet_tpu``. Without CUDA, or run
@@ -4928,6 +4948,641 @@ def generate_phase():
     return {}
 
 
+# ---------------------------------------------------------------------------
+# the serving stack: the continuous decoder, the fleet, compiled buckets
+# ---------------------------------------------------------------------------
+
+SD_REQUESTS = 24                  # serve_decode's checked requests
+SD_SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+SD_CHUNK = 64                     # MXNET_PREFILL_CHUNK for the checked run
+SD_SPEC = (0, 1, 3, 4)            # speculative requests (2 greedy, 2 seeded)
+SD_TIMED = 64                     # the timed closed loop's requests
+FLIP_RTOL = 1e-5                  # an accepted flip's top-two logit gap
+FLEET_REQUESTS, FLEET_CLIENTS = 32, 8
+FLEET_EVACUATE_AFTER = 12         # completed requests before the recycle
+
+_DECODE_PARAMS = {}
+
+
+def decode_params():
+    """bench_decode's flagship LM parameters (learned positions, max_len
+    384, init_state(Xavier()) after mx.random.seed(0)), float32 on the
+    card, built once for serve_decode and serve_fleet."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.parallel import make_train_step
+
+    if not _DECODE_PARAMS:
+        B, ML = TRAIN_BATCH, GEN_MAX_LEN
+        sym = transformer.get_symbol(VOCAB, ML, **decode_arch())
+        mx.random.seed(0)
+        _DECODE_PARAMS.update(make_train_step(sym, optimizer="sgd")
+                              .init_state(Xavier(), {
+                                  "data": (B, ML),
+                                  "softmax_label": (B, ML)})[0])
+    return _DECODE_PARAMS
+
+
+def decode_arch():
+    return dict(num_layers=LAYERS, num_heads=HEADS, dim=DIM,
+                ffn_hidden=4 * DIM)
+
+
+def decode_gen(batch_size, dtype=None):
+    from mxnet_tpu_torch.generation import Generator
+    return Generator(decode_params(), VOCAB, GEN_MAX_LEN,
+                     batch_size=batch_size, dtype=dtype, **decode_arch())
+
+
+def oracle_rows(what, reqs, rows, dtype=None, check=True):
+    """Each served row against ``Generator.generate`` of its request alone
+    (batch 1, the same seed). A row that differs is rerun at the pool's
+    batch (the prompt in all 8 rows, row 0: the products see the same M,
+    and threefry's partitionable draws give row 0 the batch-1 noise). A
+    row that still differs is accepted only where the oracle's top two
+    float32 logits at the first differing position lie within FLIP_RTOL x
+    max|logit|, and in at most one row; anything else fails when
+    ``check``. Returns (rows equal to the batch-1 oracle, notes)."""
+    g1, g8 = decode_gen(1, dtype), None
+    equal, notes, flips = 0, [], []
+    for i, ((p, n, kw), row) in enumerate(zip(reqs, rows)):
+        want = g1.generate(p[None], n, **kw)[0]
+        if np.array_equal(row, want):
+            equal += 1
+            continue
+        if not check:
+            continue
+        g8 = g8 or decode_gen(TRAIN_BATCH, dtype)
+        want8 = g8.generate(np.repeat(p[None], TRAIN_BATCH, 0), n, **kw)[0]
+        if np.array_equal(row, want8):
+            notes.append("request %d equals the pool-batch oracle" % i)
+            continue
+        j = int(np.nonzero(row != want)[0][0]) if row.shape == want.shape \
+            else len(p)
+        lg = g1._forward(g1._fresh_aux(), want[None, :j], 0)[0][0, -1]
+        top = torch_topk2(lg)
+        scale = float(lg.float().abs().max())
+        rel = (top[0] - top[1]) / scale
+        flips.append((i, j - len(p), rel))
+        say("%s: request %d differs from generate at token %d: the "
+            "oracle's top two logits %.9g, %.9g (gap %.3g of max|logit| "
+            "%.6g)" % (what, i, j - len(p), top[0], top[1], rel, scale))
+        if rel >= FLIP_RTOL:
+            fail("%s: request %d differs from generate at token %d, the "
+                 "oracle's top-two gap %.3g x max|logit| >= %g"
+                 % (what, i, j - len(p), rel, FLIP_RTOL))
+    if len(flips) > 1:
+        fail("%s: %d rows flipped at near-ties %s (at most one accepted)"
+             % (what, len(flips), flips))
+    notes += ["request %d: an accepted near-tie flip at token %d (gap %.3g "
+              "x max|logit|)" % f for f in flips]
+    return equal, notes
+
+
+def torch_topk2(logits):
+    import torch
+    v = torch.topk(logits.float(), 2).values.cpu().numpy()
+    return float(v[0]), float(v[1])
+
+
+def serve_decode_phase():
+    """bench_decode's workload through ContinuousDecoder at full width:
+    the flagship LM (vocab 32768, dim 2048, 4 layers, 16 heads, learned
+    positions, max_len 384, 8 slots). (1) Correctness in float32: 24
+    requests (prompts 16-128, max_new 8-200 from RandomState(0)), a third
+    greedy, a third seeded (temperature 0.8, top_k 50, top_p 0.95), a
+    third streamed (handle_generate_stream), 4 of them speculative
+    (truncated_draft(num_layers=1), lookahead 4), MXNET_PREFILL_CHUNK=64:
+    every row equals generate of its prompt alone (oracle_rows), each
+    stream's frames equal its row, one captured step graph (and one draft
+    step graph) after all the turnover. (2) The same requests in bf16:
+    the rows that agree with bf16 generate, reported. (3) Timing in bf16:
+    64 greedy requests (prompt 128, max_new 32-256 from RandomState(0))
+    submitted at once: tokens/s, ms a step by events (one replay of the
+    captured step) and by the host clock (the decode loop's whole step,
+    the logits' read and the picks included), the busy share of 16
+    profiled live steps, TTFT and inter-token p50/p99 from the decoder's
+    histograms, slot fill; beside generate_on_device's rate for the same
+    model in this call. No hand-written kernel runs here: returns {}."""
+    import torch
+    from mxnet_tpu_torch import config, telemetry
+    from mxnet_tpu_torch.serve import ContinuousDecoder
+
+    B = TRAIN_BATCH
+    t0 = time.perf_counter()
+    decode_params()
+    rs = np.random.RandomState(0)
+    lens = rs.randint(16, 129, SD_REQUESTS)
+    news = rs.randint(8, 201, SD_REQUESTS)
+    reqs, kinds = [], []
+    for i, (p, n) in enumerate(zip(lens, news)):
+        kind = ("greedy", "seeded", "streamed")[i % 3]
+        seeded = kind == "seeded" or (kind == "streamed" and (i // 3) % 2)
+        kw = dict(SD_SAMPLED, seed=100 + i) if seeded else {}
+        reqs.append((rs.randint(0, VOCAB, (int(p),)), int(n), kw))
+        kinds.append(kind)
+    n_long = int((lens > SD_CHUNK).sum())
+    if n_long < 2:
+        fail("serve_decode: %d prompts past the chunk width" % n_long)
+    say("serve_decode: %d requests (%s), prompts %d-%d (%d past the "
+        "%d-token prefill chunk), max_new %d-%d, %d speculative; set up "
+        "in %.1f s" % (SD_REQUESTS, ", ".join(
+            "%d %s" % (kinds.count(k), k) for k in ("greedy", "seeded",
+                                                    "streamed")),
+            lens.min(), lens.max(), n_long, SD_CHUNK, news.min(),
+            news.max(), len(SD_SPEC), time.perf_counter() - t0))
+
+    def run(dtype):
+        gen = decode_gen(B, dtype)
+        config.set_override("MXNET_PREFILL_CHUNK", SD_CHUNK)
+        dec = ContinuousDecoder(gen, draft=gen.truncated_draft(num_layers=1),
+                                lookahead=SPEC_LOOKAHEAD, queue_cap=64)
+        rows = [None] * len(reqs)
+        frames = {}
+        try:
+            t = time.perf_counter()
+            futs, threads = {}, []
+            for i, (p, n, kw) in enumerate(reqs):
+                spec = i in SD_SPEC
+                if kinds[i] == "streamed":
+                    frames[i] = []
+
+                    def stream(i=i, p=p, n=n, kw=kw, spec=spec):
+                        rows[i] = dec.handle_generate_stream(
+                            dict(prompt=p, max_new_tokens=n,
+                                 speculative=spec, **kw),
+                            lambda toks, off, i=i: frames[i].append(
+                                (off, list(toks))))
+                    th = threading.Thread(target=stream)
+                    th.start()
+                    threads.append(th)
+                else:
+                    futs[i] = dec.submit(p, n, speculative=spec, **kw)
+            for i, f in futs.items():
+                rows[i] = f.result(600)
+            for th in threads:
+                th.join(600)
+            wall = time.perf_counter() - t
+            st = dec.stats()
+            graphs = (dec._row.programs, dec._drow.programs,
+                      telemetry.gauge("serve.decode.jit_cache_size").value)
+        finally:
+            dec.close()
+            config.clear_override("MXNET_PREFILL_CHUNK")
+        if any(r is None for r in rows):
+            fail("serve_decode %s: a request got no response" % dtype)
+        for i, fr in frames.items():
+            toks = [t for _, chunk in fr for t in chunk]
+            offs = [o for o, _ in fr]
+            want_offs = list(np.cumsum([0] + [len(c) for _, c in fr])[:-1])
+            if toks != rows[i][len(reqs[i][0]):].tolist() or \
+                    offs != want_offs:
+                fail("serve_decode %s: request %d's stream frames differ "
+                     "from its row" % (dtype, i))
+        if graphs != (1, 1, 1.0):
+            fail("serve_decode %s: step graphs (target, draft, gauge) %r, "
+                 "not one each after the turnover" % (dtype, graphs))
+        return rows, st, wall, gen
+
+    rows, st, wall, gen = run(None)
+    equal, notes = oracle_rows("serve_decode float32", reqs, rows)
+    say("serve_decode float32: %d requests in %.2f s, %d steps (%d spec "
+        "rounds, %d of %d proposals accepted), %d prefills, %d prefill "
+        "chunks' worth of long prompts, %d finished; %d of %d rows equal "
+        "to the batch-1 oracle%s; stream frames equal their rows; one "
+        "captured step graph and one draft graph after the turnover" % (
+            len(reqs), wall, st["steps"], st["spec_rounds"],
+            st["spec_accepted"], st["spec_proposed"], st["prefills"],
+            n_long, st["finished"], equal, len(reqs),
+            "" if not notes else " (" + "; ".join(notes) + ")"))
+    del gen
+    rows16, st16, wall16, gen16 = run("bfloat16")
+    agree, _ = oracle_rows("serve_decode bf16", reqs, rows16,
+                           dtype="bfloat16", check=False)
+    say("serve_decode bf16: the same requests in %.2f s; %d of %d rows "
+        "equal to bf16 generate of the request alone (ROADMAP Queue C "
+        "item 9: bf16 near-ties)" % (wall16, agree, len(reqs)))
+    del gen16
+    torch.cuda.empty_cache()
+
+    # -- timing, bf16 ------------------------------------------------------
+    rs = np.random.RandomState(0)
+    treqs = [(rs.randint(0, VOCAB, (GEN_PROMPT,)), int(rs.randint(32, 257)))
+             for _ in range(SD_TIMED)]
+    reg = telemetry.registry()
+    for name in ("serve.ttft_ms", "serve.inter_token_ms",
+                 "serve.decode.slot_fill"):
+        reg._metrics.pop(name, None)       # fresh histograms for this run
+    gen = decode_gen(B, "bfloat16")
+    dec = ContinuousDecoder(gen, queue_cap=SD_TIMED)
+    host_ms, profiling = [], [False]
+    step = dec._step
+
+    def timed_step():
+        t = time.perf_counter()
+        step()
+        if not profiling[0]:
+            host_ms.append((time.perf_counter() - t) * 1e3)
+
+    dec._step = timed_step
+    left = [SD_TIMED - B]
+    try:
+        t = time.perf_counter()
+        futs = [dec.submit(p, n) for p, n in treqs]
+        for f in futs:
+            f.result(900)
+            left[0] -= 1
+            if left[0] == SD_TIMED // 2:
+                profiling[0] = True
+                s0 = dec._steps
+
+                def window():
+                    while dec._steps < s0 + 16:
+                        time.sleep(0.0002)
+                profile("serve_decode: 16 live decode steps (8 slots, the "
+                        "queue non-empty)", window, top=6)
+                profiling[0] = False
+                busy = profile.busy
+        wall = time.perf_counter() - t
+        st = dec.stats()
+        row = dec._row
+        replay_ms = time_ms(row.graph.replay, reps=20, warmup=3)
+        capture_ms = row.capture_ms
+    finally:
+        dec.close()
+    toks = sum(n for _, n in treqs)
+    ttft = telemetry.histogram("serve.ttft_ms")
+    itl = telemetry.histogram("serve.inter_token_ms")
+    fill = telemetry.histogram("serve.decode.slot_fill")
+    say("serve_decode bf16 timed: %d requests (prompt %d, max_new 32-256), "
+        "%d tokens in %.3f s: %.1f tokens/s; %d steps; a step %.4f ms by "
+        "events (one replay of the captured step; capture %.1f ms), %.4f ms "
+        "by the host clock (median; mean %.4f, p99 %.4f: the replay, the "
+        "logits' read and the picks); busy %.1f%% over 16 profiled steps; "
+        "TTFT p50 %.2f ms p99 %.2f ms; inter-token p50 %.3f ms p99 %.3f "
+        "ms; slot fill %.2f of %d" % (
+            SD_TIMED, GEN_PROMPT, toks, wall, toks / wall, st["steps"],
+            replay_ms, capture_ms, statistics.median(host_ms),
+            statistics.mean(host_ms), float(np.percentile(host_ms, 99)),
+            100 * busy, ttft.quantile(0.5), ttft.quantile(0.99),
+            itl.quantile(0.5), itl.quantile(0.99), fill.sum / fill.count,
+            B))
+    prompt = np.stack([p for p, _ in treqs[:B]])
+    decode_speed("serve_decode baseline (generate_on_device, the same "
+                 "bf16 model)", gen, prompt)
+    del gen, dec, row
+    torch.cuda.empty_cache()
+    return {}
+
+
+def serve_fleet_phase():
+    """The fleet in float32 on 127.0.0.1: a ServeRouter over two
+    ServeServer(ContinuousDecoder) replicas (each with a truncated draft,
+    lookahead 4) and one ServeServer(PrefillEngine), all in this process,
+    each over its own Generator of the same weights. 8 ServeClient threads
+    send 32 requests through a ServeServer fronting the router: greedy,
+    seeded, streamed and speculative, every one disaggregated (prefill
+    replica -> KV blob -> decode replica). After 12 responses one decode
+    replica is recycled (its sessions evacuate and resume on the other,
+    and the router readmits it). Every request resolves to exactly one
+    response equal to the in-process generate oracle, the decode replicas'
+    prefills stat stays 0, and the run reports requests/s, tokens/s, the
+    handoff's blob bytes and ms and the evacuation's ms. Returns {}."""
+    import torch
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.serve import (ContinuousDecoder, PrefillEngine,
+                                       ServeClient, ServeRouter, ServeServer)
+
+    B = TRAIN_BATCH
+    reg = telemetry.registry()
+    for name in ("serve.prefill.blob_bytes", "serve.prefill.ms",
+                 "serve.decode.import_ms"):
+        reg._metrics.pop(name, None)
+    decs = []
+    for _ in range(2):
+        g = decode_gen(B)
+        decs.append(ContinuousDecoder(g, draft=g.truncated_draft(1),
+                                      lookahead=SPEC_LOOKAHEAD))
+    pre = PrefillEngine(decode_gen(1))
+    # each pool captures its step graphs before the fleet's traffic
+    for d in decs:
+        d.submit(np.arange(1, 9), 2).result(120)
+        d.submit(np.arange(1, 9), 2, speculative=True).result(120)
+    prefills0 = [d.stats()["prefills"] for d in decs]
+    servers = [ServeServer(d) for d in decs] + [ServeServer(pre)]
+    router = ServeRouter()
+    for name, s in zip(("d0", "d1", "p0"), servers):
+        router.add_replica(s.host, s.port, name=name)
+    router.poll_now()
+    front = ServeServer(router)
+
+    rs = np.random.RandomState(1)
+    reqs = []
+    for i in range(FLEET_REQUESTS):
+        p = rs.randint(0, VOCAB, (int(rs.randint(16, 129)),))
+        n = int(rs.randint(8, 121))
+        kind = ("greedy", "seeded", "streamed", "speculative")[i % 4]
+        kw = dict(SD_SAMPLED, seed=200 + i) if i % 8 in (1, 6, 7) else {}
+        reqs.append((p, n, kw, kind))
+    results = [None] * len(reqs)
+    streamed = {}
+    errors = []
+    finished = threading.Condition()
+    n_done = [0]
+
+    def client(c):
+        cli = ServeClient(front.host, front.port)
+        try:
+            for i in range(c, len(reqs), FLEET_CLIENTS):
+                p, n, kw, kind = reqs[i]
+                extra = {}
+                if kind == "streamed":
+                    streamed[i] = []
+                    extra["on_token"] = streamed[i].append
+                if kind == "speculative":
+                    extra["speculative"] = True
+                try:
+                    results[i] = cli.generate(p, n, **kw, **extra)
+                except Exception as exc:     # noqa: BLE001 — reported
+                    errors.append((i, exc))
+                with finished:
+                    n_done[0] += 1
+                    finished.notify_all()
+        finally:
+            cli.close()
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(FLEET_CLIENTS)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    with finished:
+        finished.wait_for(lambda: n_done[0] >= FLEET_EVACUATE_AFTER, 600)
+    active = decs[0].stats()["active"]
+    te = time.perf_counter()
+    router.recycle("d0")
+    evac_ms = (time.perf_counter() - te) * 1e3
+    for th in threads:
+        th.join(900)
+    wall = time.perf_counter() - t
+    stats = [d.stats() for d in decs]
+    front.close()
+    router.close()
+    for s in servers:
+        s.close()
+    for d in decs:
+        d.close()
+    pre.close()
+    if errors or any(r is None for r in results):
+        fail("serve_fleet: requests without one response: %r"
+             % (errors or [i for i, r in enumerate(results) if r is None]))
+    for i, toks in streamed.items():
+        if toks != results[i][len(reqs[i][0]):].tolist():
+            fail("serve_fleet: request %d's streamed tokens differ from its "
+                 "row" % i)
+    prefills = [s["prefills"] - p0 for s, p0 in zip(stats, prefills0)]
+    if any(prefills):
+        fail("serve_fleet: a decode replica ran a prefill for a handoff: %r"
+             % prefills)
+    if stats[0]["evacuated"] < 1 or sum(s["resumed"] for s in stats) < 1:
+        fail("serve_fleet: the recycle of d0 (%d active) migrated no session"
+             " (evacuated %d, resumed %d)" % (
+                 active, stats[0]["evacuated"],
+                 sum(s["resumed"] for s in stats)))
+    equal, notes = oracle_rows("serve_fleet", [r[:3] for r in reqs],
+                               results)
+    toks = sum(len(r) - len(q[0]) for r, q in zip(results, reqs))
+    blob = telemetry.histogram("serve.prefill.blob_bytes")
+    pms = telemetry.histogram("serve.prefill.ms")
+    ims = telemetry.histogram("serve.decode.import_ms")
+    say("serve_fleet: %d requests from %d clients through the router (2 "
+        "decode replicas with drafts, 1 prefill replica) in %.3f s: %.2f "
+        "requests/s, %.1f tokens/s; every one disaggregated: blob %.0f "
+        "bytes a request (mean), prefill p50 %.2f ms, import p50 %.3f ms; "
+        "recycle of d0 with %d active sessions (evacuate, resume on d1, "
+        "readmit) %.1f ms; evacuated %d, resumed %d, imported %d, decode "
+        "prefills %d; %d of %d rows equal to the batch-1 oracle%s" % (
+            len(reqs), FLEET_CLIENTS, wall, len(reqs) / wall, toks / wall,
+            blob.sum / blob.count, pms.quantile(0.5), ims.quantile(0.5),
+            active, evac_ms, stats[0]["evacuated"],
+            sum(s["resumed"] for s in stats),
+            sum(s["imported"] for s in stats), sum(prefills), equal,
+            len(reqs),
+            "" if not notes else " (" + "; ".join(notes) + ")"))
+    _DECODE_PARAMS.clear()
+    torch.cuda.empty_cache()
+    return {}
+
+
+def compiled_serve_phase(counters):
+    """Predictor.export_buckets -> ServeEngine.from_export, each bucket's
+    forward captured as one CUDA graph (CompiledPredictor): the flagship
+    LM in bf16 (seq 2048, buckets 1, 2, 4, 8; phase 4's weights, its
+    probabilities reshaped to (B, T, V)) and SSD300 in float32 (phase
+    10's). Each bucket's replay equals the eager Predictor's forward bit
+    for bit; one profiled replay launches flash_fwd_bf16 4 times (the LM)
+    and nms_cluster_kernel once (SSD300); each bucket's replay ms by
+    events beside the eager forward's; 8 concurrent requests served from
+    the export (the LM's within 2e-2 of the predictor alone, as phase 4;
+    SSD300's equal bit for bit to the compiled forward of the batch they
+    rode in); SSD300 bucket 8's wall ms and busy share, compiled and
+    eager. Returns the wrappers' launch counts over the exports' loads
+    (each bucket's warm-up and capture; a replay does not pass through
+    the wrapper)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.convert import params_from_jax
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.serve import ServeEngine
+
+    dev = mx.current_context().torch_device()
+    tmp = tempfile.mkdtemp(prefix="compiled_serve_")
+    launches = {c.__name__: 0 for c in counters}
+    try:
+        base = transformer.get_symbol(VOCAB, SEQ, num_layers=LAYERS,
+                                      num_heads=HEADS, dim=DIM)
+        params = params_from_jax(random_params(base, (1, SEQ), seed=0), dev,
+                                 dtype="bfloat16")
+        lm = mx.sym.reshape(base, shape=(-1, SEQ, VOCAB))
+        lm_pred = mx.Predictor(lm, params, data_names=("data",
+                                                       "softmax_label"))
+        rng = np.random.default_rng(1)
+
+        def lm_inputs(b):
+            toks = rng.integers(0, VOCAB, (b, SEQ)).astype(np.float32)
+            return [toks, np.zeros_like(toks)]
+
+        ssd = ssd300_symbol(mx.sym, SSD_CLASSES, SSD_WIDTH_DIV)
+        ssd_pred = mx.Predictor(ssd, params_from_jax(ssd_params(ssd, seed=0),
+                                                     dev),
+                                data_names=("data",))
+        rs = np.random.RandomState(0)
+
+        def ssd_inputs(b):
+            return [rs.standard_normal((b, 3, SSD_IMAGE, SSD_IMAGE))
+                    .astype(np.float32)]
+
+        for label, pred, feats, inputs, key, per_fwd in (
+                ("lm", lm_pred, [(SEQ,), (SEQ,)], lm_inputs,
+                 "flash_fwd_bf16", LAYERS),
+                ("ssd", ssd_pred, [(3, SSD_IMAGE, SSD_IMAGE)], ssd_inputs,
+                 "nms_cluster_kernel", 1)):
+            prefix = os.path.join(tmp, label)
+            t = time.perf_counter()
+            manifest = pred.export_buckets(prefix, feats, buckets=BUCKETS)
+            export_s = time.perf_counter() - t
+            for c in counters:
+                c.launches = 0
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            engine = ServeEngine.from_export(prefix, buckets=BUCKETS,
+                                             max_wait_ms=200.0,
+                                             install_sigterm=False)
+            load_s = time.perf_counter() - t
+            graph_gb = (torch.cuda.memory_allocated() - mem0) / 1e9
+            for c in counters:
+                launches[c.__name__] += c.launches
+            with open(manifest) as f:
+                model_id = json.load(f)["model_id"]
+            say("compiled_serve %s: export_buckets %.1f s (model_id %s), "
+                "from_export (rebuild, warm-up and capture of %d buckets) "
+                "%.1f s, %.2f GB on the card" % (
+                    label, export_s, model_id, len(BUCKETS), load_s,
+                    graph_gb))
+            for b in BUCKETS:
+                cp = engine._by_bucket[b]
+                xs = inputs(b)
+                got = cp.forward(*xs)[0].handle
+                want = pred.forward(*xs)[0].handle
+                if not torch.equal(got, want):
+                    fail("compiled_serve %s bucket %d: the replay differs "
+                         "from the eager forward (max abs err %g)" % (
+                             label, b, float((got.float() - want.float())
+                                             .abs().max())))
+                static = cp._static[0]
+
+                def eager(static=static):
+                    with torch.no_grad():
+                        pred._fwd(*static)
+                rep_ms = time_ms(cp._graph.replay, reps=10, warmup=2)
+                eager_ms = time_ms(eager, reps=5, warmup=1)
+                say("compiled_serve %s bucket %d: replay equal to the eager "
+                    "forward bit for bit; %.3f ms a replay by events, eager "
+                    "forward %.3f ms (%.2fx)" % (label, b, rep_ms, eager_ms,
+                                                 eager_ms / rep_ms))
+            profile("compiled_serve %s bucket %d, one replay" % (label, b),
+                    cp._graph.replay, top=6)
+            n = kernel_counts(profile.counts, [key])[key]
+            if n != per_fwd:
+                fail("compiled_serve %s: one replay launched %s %d times, "
+                     "not %d" % (label, key, n, per_fwd))
+            if label == "ssd":
+                rep_busy = profile.busy
+
+                def host_replay():
+                    cp.forward(*xs)
+                    torch.cuda.synchronize()
+
+                def host_eager():
+                    pred.forward(*xs)
+                    torch.cuda.synchronize()
+                walls = {}
+                for what, fn in (("compiled", host_replay),
+                                 ("eager", host_eager)):
+                    fn()
+                    ts = []
+                    for _ in range(5):
+                        t = time.perf_counter()
+                        fn()
+                        ts.append((time.perf_counter() - t) * 1e3)
+                    walls[what] = statistics.median(ts)
+                profile("ssd300 bucket 8, eager forward", host_eager, top=4)
+                say("compiled_serve ssd bucket 8: wall %.2f ms compiled "
+                    "(inputs copied in, one replay, outputs copied; busy "
+                    "%.1f%% in the replay) vs %.2f ms eager (busy %.1f%%)" % (
+                        walls["compiled"], 100 * rep_busy, walls["eager"],
+                        100 * profile.busy))
+            # 8 concurrent requests through the engine
+            rec = {}
+            if label == "ssd":
+                engine._by_bucket = {b: Recording(m) for b, m in
+                                     engine._by_bucket.items()}
+            requests = [inputs(r) for r in REQUEST_ROWS]
+            results = [None] * len(requests)
+            barrier = threading.Barrier(len(requests))
+
+            def client(i):
+                barrier.wait()
+                results[i] = engine.infer(*requests[i], timeout=600)
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(requests))]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(900)
+            serve_s = time.perf_counter() - t
+            stats = engine.stats()
+            if label == "ssd":
+                rec = engine._by_bucket
+            engine.close()
+            if any(r is None for r in results):
+                fail("compiled_serve %s: not every request got a response"
+                     % label)
+            worst = 0.0
+            for i, (xs, res) in enumerate(zip(requests, results)):
+                out = res[0]
+                if label == "lm":
+                    if out.shape != (xs[0].shape[0], SEQ, VOCAB) or \
+                            not np.isfinite(out).all():
+                        fail("compiled_serve lm: response %d shape %r or "
+                             "non-finite" % (i, out.shape))
+                    alone = pred.forward(*xs)[0].handle.float().cpu().numpy()
+                    diff = float(np.abs(out - alone).max())
+                    worst = max(worst, diff)
+                    if diff > 2e-2 * float(np.abs(alone).max()):
+                        fail("compiled_serve lm: response %d differs from "
+                             "the predictor alone by %g" % (i, diff))
+                else:
+                    check_detections("compiled_serve ssd response %d" % i,
+                                     out)
+                    hit = [(feed, o, j) for m in rec.values()
+                           for feed, o in m.batches
+                           for j in range(len(feed) - len(xs[0]) + 1)
+                           if np.array_equal(feed[j:j + len(xs[0])], xs[0])]
+                    if len(hit) != 1 or not np.array_equal(
+                            out, hit[0][1][hit[0][2]:hit[0][2] +
+                                           len(xs[0])]):
+                        fail("compiled_serve ssd: response %d is not its "
+                             "rows of the compiled batch it rode in" % i)
+                    alone = pred.forward(hit[0][0])[0].asnumpy()
+                    if not np.array_equal(alone, hit[0][1]):
+                        fail("compiled_serve ssd: the eager Predictor gives "
+                             "another output for a served batch")
+            say("compiled_serve %s: %d requests (%d rows) in %d engine "
+                "forwards, %.3f s: %.2f requests/s; every response checked "
+                "(%s)" % (
+                    label, len(requests), sum(REQUEST_ROWS),
+                    stats["forwards"], serve_s, len(requests) / serve_s,
+                    "within 2e-2 of the predictor alone, worst %.3g" % worst
+                    if label == "lm" else
+                    "detections' rules; equal bit for bit to the compiled "
+                    "and the eager forward of the batch it rode in"))
+            del engine, rec, results, requests
+            torch.cuda.empty_cache()
+        del lm_pred, ssd_pred, params
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     try:
         import torch
@@ -5001,7 +5656,11 @@ def main():
                "compiled_resnet": compiled_resnet_phase(),
                "compiled_alexnet": compiled_alexnet_phase(),
                "lm_options": lm_options_phase(),
-               "generate": generate_phase()}
+               "generate": generate_phase(),
+               "serve_decode": serve_decode_phase(),
+               "serve_fleet": serve_fleet_phase(),
+               "compiled_serve": compiled_serve_phase(
+                   [att.flash_fwd_cuda, nmsk.nms_keep_cuda])}
     for rec in records:
         # no kernel moves its bytes faster than the memory can: a time
         # under the byte bound means the timing lost work
@@ -5029,7 +5688,16 @@ PARTIAL = {"mt": mt_kernel_phase, "bn": bn_kernel_phase,
            "alexnet": alexnet_phase, "module": module_phase,
            "compiled": lambda: (compiled_resnet_phase(),
                                 compiled_alexnet_phase()),
-           "lm_options": lm_options_phase, "generate": generate_phase}
+           "lm_options": lm_options_phase, "generate": generate_phase,
+           "serve_decode": serve_decode_phase,
+           "serve_fleet": serve_fleet_phase,
+           "compiled_serve": lambda: compiled_serve_phase(_serve_counters())}
+
+
+def _serve_counters():
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.ops import nms_kernels as nmsk
+    return [att.flash_fwd_cuda, nmsk.nms_keep_cuda]
 
 
 if __name__ == "__main__":

@@ -174,3 +174,156 @@ define("MXNET_BACKWARD_DO_MIRROR", bool, False,
        "rematerialise the forward during the backward in TrainStep "
        "(gradient mirroring): activation memory traded for recompute; "
        "the default of TrainStep(remat=None)")
+
+# the serving stack's knobs (serve/decode.py, prefill.py, net.py,
+# router.py, controller.py) and RetryPolicy's, as the JAX package
+# declares them
+define("MXNET_DECODE_SLOTS", str, "",
+       "decode slot-pool sizing hint: 'auto' logs a "
+       "ContinuousDecoder.describe() report at construction — cache "
+       "bytes per slot (int8 + per-token scales under quantize_kv) "
+       "and how many slots fit the device's reported HBM limit at "
+       "the configured max_len; 'auto:<bytes>' sizes against an "
+       "explicit budget (e.g. auto:16e9). Empty = no report; the "
+       "serve.decode.kv_bytes_per_slot gauge is published either way")
+define("MXNET_DECODE_DRAIN_TIMEOUT", float, 60.0,
+       "continuous-decode drain budget: seconds "
+       "ContinuousDecoder.close() waits for admitted sequences to "
+       "finish, and the budget router.recycle() uses to drain a "
+       "replica whose hello declared role 'decode' (one drain clock "
+       "for the decode path; MXNET_ROUTER_DRAIN_TIMEOUT keeps "
+       "covering every other role). Must be positive and finite — "
+       "validated loudly at use")
+define("MXNET_PREFILL_CHUNK", int, 0,
+       "colocated chunked-prefill width (tokens): a queued prompt "
+       "longer than this is fed to the cache in chunk-sized forwards, "
+       "one chunk interleaved per decode-loop iteration, so active "
+       "sessions keep emitting tokens while a long prompt prefills "
+       "(bounds inter-token p99 under long-prompt arrivals; "
+       "docs/serving.md §streaming). 0 = off (whole-prompt prefill). "
+       "Chunk forwards ride the shared-position prefill graph — the "
+       "(B, 1) decode step stays a single XLA specialization")
+define("MXNET_SPEC_DRAFT", str, "",
+       "speculative-decoding draft for the serving decoder: "
+       "'layers=<d>[,gamma=<g>]' makes every ContinuousDecoder built "
+       "without an explicit draft= attach a truncated_draft of its "
+       "own generator (the first <d> transformer blocks, shared "
+       "weights) and verify <g> proposed tokens per round (default "
+       "gamma=4). Requests still opt in per call "
+       "(submit(speculative=True)); the knob only provisions the "
+       "draft, so whole fleets — including subprocess replicas — "
+       "turn it on through the environment. Empty = no draft. "
+       "Validated loudly at decoder construction; docs/serving.md "
+       "§speculative")
+define("MXNET_STREAM_IDLE_TIMEOUT", float, 30.0,
+       "streamed-generate per-frame idle timeout (seconds): a "
+       "streaming client (ServeClient.generate(on_token=) and every "
+       "router decode leg relaying frames) fails the read when the "
+       "gap since the previous frame exceeds it — a hung replica "
+       "fails over after one missed inter-frame gap instead of the "
+       "old whole-completion deadline (120 s + 1 s/token). Must be "
+       "positive and finite — validated loudly at use")
+define("MXNET_ROUTER_POLL_MS", float, 200.0,
+       "fleet router stats-poll period: how often the ServeRouter's "
+       "background poller refreshes each replica's cached load "
+       "signals (queue depth, in-flight, warmed buckets, free decode "
+       "slots) via the stats frame. 0 disables the background poller "
+       "— deterministic tests drive router.poll_now() explicitly")
+define("MXNET_ROUTER_CONNS", int, 8,
+       "fleet router data-connection pool: idle connections kept per "
+       "replica (bursts open extras; surplus closes on release). "
+       "Concurrency to one replica is bounded only by offered load, "
+       "not by this")
+define("MXNET_ROUTER_SESSION_CAP", int, 4096,
+       "fleet router session-affinity table bound: pinned "
+       "continuous-decode sessions beyond it evict "
+       "least-recently-dispatched (an evicted session re-places like "
+       "a new one — decode state on the old replica is orphaned until "
+       "its slot frees)")
+define("MXNET_ROUTER_IO_TIMEOUT", float, 30.0,
+       "fleet router per-replica socket timeout (seconds): a replica "
+       "that accepts but never answers surfaces as a transport fault "
+       "(suspect + reroute) instead of wedging the dispatching thread "
+       "and the stats poller forever. 0 = unbounded (trusted local "
+       "fleets only)")
+define("MXNET_ROUTER_DRAIN_TIMEOUT", float, 60.0,
+       "fleet router recycle budget: seconds router.recycle() waits "
+       "for a draining replica's in-flight work (router-tracked and "
+       "stats-observed) to reach zero before giving up loudly")
+define("MXNET_ROUTER_FAILOVER", bool, True,
+       "fleet router generate failover: when the replica pinned to an "
+       "in-flight generate dies mid-call (transport fault + failed "
+       "control probe), the router replays its retained recovery "
+       "record (prompt, sampling opts, seed, handoff blob) on a "
+       "survivor — token-for-token identical, and the decode-side "
+       "admit-id dedup table makes a replay onto a replica that "
+       "actually survived admit exactly once. Off restores the "
+       "pre-failover contract: an established session's transport "
+       "fault retries only its own replica")
+define("MXNET_ROUTER_MIGRATION_LIMIT", int, 8,
+       "fleet router migration bound: how many evacuated-session "
+       "resume hops one generate may take (each migrating recycle or "
+       "SIGTERM evacuation crossing the request's path costs one) "
+       "before the router fails it with EngineClosed — a cascade of "
+       "evacuating replicas must not bounce a request forever")
+define("MXNET_CTRL_MIN_REPLICAS", int, 1,
+       "fleet controller floor: scale-in never takes the fleet below "
+       "this many live replicas (and the controller refuses to retire "
+       "the last live replica regardless). Must be >= 1 — validated "
+       "loudly at controller construction")
+define("MXNET_CTRL_MAX_REPLICAS", int, 8,
+       "fleet controller ceiling: scale-out never spawns past this "
+       "many live replicas, however hard the load signal pushes. Must "
+       "be >= MXNET_CTRL_MIN_REPLICAS — validated loudly at "
+       "controller construction")
+define("MXNET_CTRL_SCALE_OUT_DEPTH", float, 4.0,
+       "fleet controller scale-out trigger: mean polled queue depth "
+       "per live replica at or above this for MXNET_CTRL_SUSTAIN "
+       "consecutive ticks requests one spawn (shed_rate crossing "
+       "MXNET_CTRL_SCALE_OUT_SHED is the OR'd second trigger)")
+define("MXNET_CTRL_SCALE_OUT_SHED", float, 1.0,
+       "fleet controller scale-out trigger on backpressure: fleet-wide "
+       "shed_rate (requests shed per poll window, summed over "
+       "replicas) at or above this for MXNET_CTRL_SUSTAIN consecutive "
+       "ticks requests one spawn — sheds mean admission is already "
+       "failing, so this fires even while queues look shallow")
+define("MXNET_CTRL_SCALE_IN_DEPTH", float, 0.5,
+       "fleet controller scale-in trigger: mean polled queue depth "
+       "per live replica at or below this AND a zero-shed window for "
+       "MXNET_CTRL_SUSTAIN consecutive ticks retires one replica "
+       "through the zero-drop drain path (never below "
+       "MXNET_CTRL_MIN_REPLICAS)")
+define("MXNET_CTRL_SUSTAIN", int, 3,
+       "fleet controller hysteresis: consecutive ticks a scale signal "
+       "must hold before the controller acts — a one-tick spike (or "
+       "an oscillating signal that keeps resetting the streak) never "
+       "moves the fleet. Must be >= 1 — validated loudly at "
+       "controller construction")
+define("MXNET_CTRL_COOLDOWN", int, 5,
+       "fleet controller cooldown: ticks after any scale action "
+       "during which further scaling is suppressed, so the fleet "
+       "observes the new capacity before deciding again (healing is "
+       "exempt — a dead replica is replaced immediately)")
+define("MXNET_CTRL_CANARY_TIMEOUT", float, 30.0,
+       "fleet controller rollout health gate: seconds a freshly "
+       "promoted replica has to answer the canary infer before the "
+       "gate fails and the rollout rolls back. Must be positive and "
+       "finite — validated loudly at controller construction")
+define("MXNET_CTRL_POLL_MS", float, 500.0,
+       "fleet controller tick period: how often the background "
+       "supervision loop polls the router and evaluates the capacity "
+       "policy. 0 disables the background loop — deterministic tests "
+       "drive controller.tick() explicitly (the poll_now() "
+       "discipline)")
+define("MXNET_PS_RETRY_MAX", float, 8,
+       "RetryPolicy default retry count (parallel/resilience.py; the "
+       "policy reads the environment directly and falls back to this "
+       "default on a malformed value)")
+define("MXNET_PS_RETRY_BASE", float, 0.05,
+       "RetryPolicy default first backoff in seconds (doubling per "
+       "retry, deterministic jitter)")
+define("MXNET_PS_RETRY_MAX_DELAY", float, 2.0,
+       "RetryPolicy default cap on one backoff sleep, in seconds")
+define("MXNET_PS_OP_DEADLINE", float, 120.0,
+       "RetryPolicy default budget for one op including its retries and "
+       "backoff sleeps, in seconds (0 = unlimited)")

@@ -21,8 +21,9 @@ Sampling follows the JAX package's key discipline bit for bit
 logits. ``beam_search_on_device`` and ``generate_speculative_on_device``
 capture their step (a beam step, a speculative round) the same way.
 
-The mesh (``mesh=``, ROADMAP Queue A item 9) and the continuous-batching
-decoder (``serving_decoder``, item 8) are not ported yet and raise.
+``serving_decoder`` returns the continuous-batching decoder
+(``serve/decode.py``). The mesh (``mesh=``, ROADMAP Queue A item 9) is not
+ported yet and raises.
 """
 from __future__ import annotations
 
@@ -615,11 +616,14 @@ class Generator:
         return np.concatenate([prompt.astype(np.int64), toks], axis=1)
 
     def serving_decoder(self, **kwargs):
-        """The continuous-batching decoder: not ported yet."""
-        raise NotImplementedError(
-            "Generator.serving_decoder (serve/decode.py ContinuousDecoder) "
-            "is not ported to the PyTorch package yet (ROADMAP Queue A "
-            "item 8)")
+        """A continuous-batching decoder over this Generator's decode
+        state (``serve.ContinuousDecoder``): a fixed slot pool of width
+        batch_size where finished sequences free their slot and queued
+        prompts are admitted the following step, the (B, 1) per-row step
+        one captured CUDA graph on the card. kwargs go to its
+        constructor."""
+        from .serve.decode import ContinuousDecoder
+        return ContinuousDecoder(self, **kwargs)
 
     def generate(self, prompt, max_new_tokens, temperature=0.0, top_k=None,
                  top_p=None, eos_id=None, seed=0, on_token=None):
@@ -679,7 +683,12 @@ class _CapturedLoop:
         torch.cuda.synchronize(dev)
         graph = torch.cuda.CUDAGraph()
         t0 = _telemetry.now_ms()
-        with torch.cuda.graph(graph):
+        # on its own stream, thread_local: a serving process captures on
+        # its decode thread while other threads (replicas, prefill) keep
+        # using the card (torch.cuda.graph's default capture stream is
+        # shared by every capture of the process)
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
             self._step()
         torch.cuda.synchronize(dev)
         self.capture_ms = _telemetry.now_ms() - t0

@@ -36,8 +36,10 @@ from .registry import register
 
 
 def _weak(x, value):
-    """A Python scalar as jnp takes it against ``x``: in x's dtype."""
-    return torch.tensor(value, dtype=x.dtype, device=x.device)
+    """A Python scalar as jnp takes it against ``x``: in x's dtype, filled
+    on x's device (no copy from the host, so a CUDA graph can capture
+    it)."""
+    return torch.full((), value, dtype=x.dtype, device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -53,15 +55,20 @@ def _multibox_prior(data, sizes=(1.0,), ratios=(1.0,), clip=False,
                     steps=(-1.0, -1.0), offsets=(0.5, 0.5), **_):
     """Anchors from a feature map: (1, H*W*num_anchors, 4) corner boxes in
     [0,1] image coordinates; num_anchors = len(sizes)-1+len(ratios). On
-    the data's device (a meta tensor for meta data)."""
+    the data's device (a meta tensor for meta data), built there with no
+    copy from the host, so a CUDA graph can capture it: the per-anchor
+    half-extents are float32 host scalars (numpy's arithmetic) filled in
+    on the device, the centres float32 device arithmetic in numpy's
+    order."""
     h, w = data.shape[2], data.shape[3]
     sizes = np.atleast_1d(np.asarray(sizes, np.float32))
     ratios = np.atleast_1d(np.asarray(ratios, np.float32))
     step_y = steps[0] if steps[0] > 0 else 1.0 / h
     step_x = steps[1] if steps[1] > 0 else 1.0 / w
+    dev, f32 = data.device, torch.float32
 
-    cy = (np.arange(h, dtype=np.float32) + offsets[0]) * step_y
-    cx = (np.arange(w, dtype=np.float32) + offsets[1]) * step_x
+    cy = (torch.arange(h, dtype=f32, device=dev) + offsets[0]) * step_y
+    cx = (torch.arange(w, dtype=f32, device=dev) + offsets[1]) * step_x
 
     # per-location half-extents, reference order: all sizes at ratio 1,
     # then ratios[1:] at sizes[0]
@@ -73,18 +80,19 @@ def _multibox_prior(data, sizes=(1.0,), ratios=(1.0,), clip=False,
         sr = np.sqrt(r)
         ws.append(sizes[0] * h / w * sr / 2.0)
         hs.append(sizes[0] / sr / 2.0)
-    ws = np.asarray(ws, np.float32)     # (K,)
-    hs = np.asarray(hs, np.float32)
+    ws, hs = (torch.stack([torch.full((), float(np.float32(v)), dtype=f32,
+                                      device=dev) for v in vals])
+              for vals in (ws, hs))                     # (K,)
 
-    cyg, cxg = np.meshgrid(cy, cx, indexing="ij")     # (h, w)
+    cyg, cxg = torch.meshgrid(cy, cx, indexing="ij")  # (h, w)
     cxg = cxg[:, :, None]
     cyg = cyg[:, :, None]
-    boxes = np.stack([cxg - ws, cyg - hs, cxg + ws, cyg + hs],
-                     axis=-1)                         # (h, w, K, 4)
+    boxes = torch.stack([cxg - ws, cyg - hs, cxg + ws, cyg + hs],
+                        dim=-1)                       # (h, w, K, 4)
     boxes = boxes.reshape(1, -1, 4)
     if clip:
-        boxes = np.clip(boxes, 0.0, 1.0)
-    return torch.from_numpy(np.ascontiguousarray(boxes)).to(data.device)
+        boxes = torch.clamp(boxes, 0.0, 1.0)
+    return boxes
 
 
 # ---------------------------------------------------------------------------

@@ -1,22 +1,170 @@
-"""Deterministic fault injection for the fit loop — the part of
-``mxnet_tpu/parallel/resilience.py`` that ``TrainStep.fit`` needs.
+"""Fault tolerance: retry policy and deterministic fault injection — the
+PyTorch twin of ``mxnet_tpu/parallel/resilience.py`` (which imports no
+jax; this is its copy).
 
-:class:`FaultInjector` parses the ``MXNET_FAULT_SPEC`` grammar, the
-whole of it (a spec written for the JAX package parses the same here),
-and serves its step-indexed rules: ``nan@N`` poisons the N-th training
-step's gradients and ``sigterm@N`` raises a real SIGTERM at the N-th
-step boundary (``guardrail.FitGuard.poll_faults``). The wire points'
-hooks (the parameter server's and the serving front end's socket
-plumbing), ``RetryPolicy`` and ``DeadWorkerError`` come with the
-distributed KVStore (ROADMAP Queue A item 9).
+* :class:`RetryPolicy` — exponential backoff with deterministic jitter,
+  per-op deadlines, and transient-vs-fatal error classification
+  (transport faults retry; replies the server sent are fatal).
+* :class:`FaultInjector` parses the ``MXNET_FAULT_SPEC`` grammar and
+  serves its rules: the wire points (``on_send`` / ``on_recv``, called
+  by the serving front end's framing, ``serve/_wire.py``), the
+  step-indexed rules (``nan@N`` poisons the N-th training step's
+  gradients and ``sigterm@N`` raises a real SIGTERM at the N-th step
+  boundary, ``guardrail.FitGuard.poll_faults``) and the chaos schedule's
+  ``kill<I>@N`` (``on_chaos_tick``).
+* :class:`DeadWorkerError` — a cohort member was declared dead (the
+  distributed KVStore's barrier, ROADMAP Queue A item 9, raises it;
+  ``RetryPolicy`` classifies it fatal).
 """
 from __future__ import annotations
 
+import errno
 import os
 import re
+import socket
 import threading
+import time
+import zlib
 
-__all__ = ["FaultInjector", "active_injector", "install_fault_injector"]
+__all__ = ["DeadWorkerError", "FaultInjected", "FaultInjector",
+           "RetryPolicy", "active_injector", "install_fault_injector"]
+
+class DeadWorkerError(RuntimeError):
+    """A worker in the cohort was declared dead (heartbeat lapse).
+
+    Raised server-side to every barrier waiter — the cohort can never
+    complete, so surviving workers fail loudly instead of hanging.
+    Under ``MXNET_PS_ELASTIC=1`` the server shrinks the cohort instead
+    and this error is not raised."""
+
+
+class FaultInjected(ConnectionError):
+    """The error a :class:`FaultInjector` rule raises — a subclass of
+    ConnectionError so retry classification treats it exactly like the
+    real transport fault it simulates."""
+
+
+# errno values that indicate a transport-level (retryable) failure
+_TRANSIENT_ERRNOS = frozenset(
+    getattr(errno, name) for name in
+    ("ECONNREFUSED", "ECONNRESET", "ECONNABORTED", "EPIPE", "ETIMEDOUT",
+     "EHOSTUNREACH", "ENETUNREACH", "ENETRESET", "EAGAIN")
+    if hasattr(errno, name))
+
+
+def _env_float(name, default):
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        return float(default)
+
+
+class RetryPolicy:
+    """Exponential backoff with deterministic jitter and a per-op
+    deadline.
+
+    delay(attempt) = min(base * multiplier^(attempt-1), max_delay)
+                     * (0.5 + 0.5 * jitter_frac(seed, attempt))
+
+    The jitter fraction is a crc32 of ``(seed, attempt)`` — spread
+    across workers (each seeds with its worker id) yet bit-reproducible
+    run to run, so a fault-injection test replays the exact schedule.
+
+    Env defaults: ``MXNET_PS_RETRY_MAX`` (8 retries),
+    ``MXNET_PS_RETRY_BASE`` (0.05s), ``MXNET_PS_RETRY_MAX_DELAY`` (2s),
+    ``MXNET_PS_OP_DEADLINE`` (120s; 0 = unlimited) — the total budget
+    for one op *including* its retries and backoff sleeps."""
+
+    def __init__(self, max_retries=None, base_delay=None, max_delay=None,
+                 multiplier=2.0, deadline=None, seed=0):
+        self.max_retries = int(max_retries if max_retries is not None
+                               else _env_float("MXNET_PS_RETRY_MAX", 8))
+        self.base_delay = float(base_delay if base_delay is not None
+                                else _env_float("MXNET_PS_RETRY_BASE",
+                                                0.05))
+        self.max_delay = float(max_delay if max_delay is not None
+                               else _env_float("MXNET_PS_RETRY_MAX_DELAY",
+                                               2.0))
+        self.multiplier = float(multiplier)
+        self.deadline = float(deadline if deadline is not None
+                              else _env_float("MXNET_PS_OP_DEADLINE",
+                                              120.0))
+        self.seed = seed
+
+    # -- classification -----------------------------------------------------
+    @staticmethod
+    def is_transient(exc):
+        """True when retrying can plausibly succeed: the TRANSPORT
+        failed. False when the server answered (application error) or
+        the cohort is dead — a retry would re-fail identically or,
+        worse, re-apply a non-idempotent op."""
+        if isinstance(exc, DeadWorkerError):
+            return False
+        if isinstance(exc, (ConnectionError, BrokenPipeError,
+                            socket.timeout, TimeoutError, EOFError)):
+            return True
+        if isinstance(exc, OSError):
+            return exc.errno in _TRANSIENT_ERRNOS
+        return False
+
+    # -- schedule -----------------------------------------------------------
+    def delay(self, attempt):
+        """Backoff before retry #attempt (1-based). Deterministic."""
+        d = self.base_delay * (self.multiplier ** (max(1, attempt) - 1))
+        d = min(d, self.max_delay)
+        frac = (zlib.crc32(("%s:%d" % (self.seed, attempt))
+                           .encode("utf-8")) % 1024) / 1024.0
+        return d * (0.5 + 0.5 * frac)
+
+    def run(self, fn, describe="op", on_retry=None, on_fatal=None):
+        """Call ``fn()`` until it succeeds, a fatal error occurs, the
+        retry count is exhausted, or the deadline would be overrun by
+        the next backoff sleep. ``on_retry(exc, attempt, delay)`` fires
+        before each sleep (the client uses it to drop the broken
+        connection and to log).
+
+        ``on_fatal(exc)`` is the per-call reroute hook: consulted for
+        errors :meth:`is_transient` classifies FATAL, and only for
+        those — and only when a retry is actually available (budget
+        and deadline permitting), so the hook's bookkeeping never
+        records a retry that cannot happen. Returning True retries
+        anyway (same budget, same backoff schedule); False/None
+        preserves the fast-fail raise. The fatal classification
+        itself never changes — the hook exists for callers whose
+        ``fn`` re-targets each attempt, e.g. the serve router
+        retrying an ``Overloaded`` on the next-least-loaded replica
+        (a single-replica client keeps its fast-fail contract by
+        simply not passing one: retrying an Overloaded against the
+        same full queue is a retry storm)."""
+        start = time.monotonic()
+        attempt = 0
+        while True:
+            try:
+                return fn()
+            except Exception as exc:  # noqa: BLE001 — classified below
+                fatal = not self.is_transient(exc)
+                if fatal and on_fatal is None:
+                    raise
+                if attempt + 1 > self.max_retries:
+                    raise
+                d = self.delay(attempt + 1)
+                if self.deadline > 0 and \
+                        time.monotonic() - start + d > self.deadline:
+                    raise
+                if fatal and not on_fatal(exc):
+                    raise
+                attempt += 1
+                if on_retry is not None:
+                    on_retry(exc, attempt, d)
+                # the backoff sleep as a trace span (no-op when tracing
+                # is off): in a trace of a retried op the wait between
+                # attempts is visible, not an unexplained gap
+                from .. import trace as _trace
+                bsp = _trace.start_span("retry.backoff", op=describe,
+                                        attempt=attempt)
+                time.sleep(d)
+                _trace.end_span(bsp)
+
 
 _RULE_RE = re.compile(
     r"^(?P<point>\w+):(?P<action>drop|disconnect|delay)"
@@ -128,6 +276,50 @@ class FaultInjector:
                     self.fired.append((point, n, rule.action))
                     return rule
         return None
+
+    @staticmethod
+    def _sever(sock):
+        try:
+            sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass  # already dead — severing twice is the point, not a bug
+        sock.close()
+
+    # -- hooks (called from serve/_wire.py _send_msg/_recv_msg) ---------
+    def on_send(self, point, sock, frame):
+        """Before a frame is written. May sleep, or sever the
+        connection (optionally after leaking half the frame) and raise
+        FaultInjected — the caller must not then write."""
+        rule = self._step(point)
+        if rule is None:
+            return
+        if rule.action == "delay":
+            time.sleep(rule.arg)
+            return
+        if rule.action == "disconnect":
+            # mid-message disconnect: the peer receives a torn frame
+            try:
+                sock.sendall(frame[:max(1, len(frame) // 2)])
+            except OSError:
+                pass  # peer already gone; the sever below still holds
+        self._sever(sock)
+        raise FaultInjected("injected %s at %s #%d"
+                            % (rule.action, point,
+                               self._counts.get(point, 0)))
+
+    def on_recv(self, point, sock):
+        """Before a frame is read. drop/disconnect sever the socket and
+        raise; delay sleeps."""
+        rule = self._step(point)
+        if rule is None:
+            return
+        if rule.action == "delay":
+            time.sleep(rule.arg)
+            return
+        self._sever(sock)
+        raise FaultInjected("injected %s at %s #%d"
+                            % (rule.action, point,
+                               self._counts.get(point, 0)))
 
     def on_train_step(self, point):
         """Step-indexed guardrail points (``nan`` / ``sigterm``):

@@ -23,12 +23,13 @@ telemetry.
   ``serve.drain`` journal events.
 
 The model is anything with ``forward(*arrays) -> [outputs]``: an
-in-process :class:`~mxnet_tpu_torch.predictor.Predictor`, or any user
-callable wrapper. Outputs must be row-aligned with inputs (axis 0 is the
-batch). Outputs come back to the host as numpy arrays; a bfloat16 output
-becomes float32 there, because numpy has no bfloat16. The AOT deploy
-chain (``from_export``) waits for the port's export path (ROADMAP Queue
-A item 8).
+in-process :class:`~mxnet_tpu_torch.predictor.Predictor`, a ``{bucket:
+CompiledPredictor}`` dict from
+:meth:`~mxnet_tpu_torch.predictor.Predictor.export_buckets` (see
+:meth:`ServeEngine.from_export`), or any user callable wrapper. Outputs
+must be row-aligned with inputs (axis 0 is the batch). Outputs come back
+to the host as numpy arrays; a bfloat16 output becomes float32 there,
+because numpy has no bfloat16.
 """
 from __future__ import annotations
 
@@ -604,8 +605,25 @@ class ServeEngine:
 
     # -- AOT deploy chain ---------------------------------------------------
     @classmethod
-    def from_export(cls, prefix, **kwargs):
-        """Serve a bucketed AOT export; the port has no export path yet."""
-        raise NotImplementedError(
-            "ServeEngine.from_export needs Predictor.export_buckets, not "
-            "ported yet (ROADMAP Queue A item 8)")
+    def from_export(cls, prefix, ctx=None, **kwargs):
+        """Serve a :meth:`Predictor.export_buckets` artifact set: loads
+        one CompiledPredictor per bucket (``prefix.b<K>``, each captured
+        as one CUDA graph on the card) by the ``prefix.serve.json``
+        manifest — the headless deployment target (no symbol source or
+        parameters passed in). ``ctx``: where the forwards run (default
+        the current context)."""
+        import json
+
+        from ..predictor import CompiledPredictor
+        with open(prefix + ".serve.json") as f:
+            manifest = json.load(f)
+        models = {int(b): CompiledPredictor.load("%s.b%d" % (prefix, b),
+                                                 ctx=ctx)
+                  for b in manifest["buckets"]}
+        kwargs.setdefault("feature_shapes",
+                          [tuple(s) for s in
+                           manifest["feature_shapes"]])
+        kwargs.setdefault("dtype", manifest.get("dtype", "float32"))
+        engine = cls(models, **kwargs)
+        engine.model_id = manifest.get("model_id")
+        return engine

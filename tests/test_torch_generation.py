@@ -500,8 +500,9 @@ def test_generator_validation_matches_jax():
 
 def test_defaults_and_routing():
     """ctx=cpu() runs on the CPU; the default context is the card (here,
-    without CUDA, it raises rather than fall back); mesh= and
-    serving_decoder raise naming ROADMAP items 9 and 8."""
+    without CUDA, it raises rather than fall back); mesh= raises naming
+    ROADMAP item 9; serving_decoder returns the continuous-batching
+    decoder over this Generator (ported with item 8)."""
     p = _params()
     kw = dict(num_layers=L, num_heads=H, dim=DIM, batch_size=B)
     t = tgen.Generator(p, V, ML, ctx=tmx.cpu(), **kw)
@@ -515,6 +516,8 @@ def test_defaults_and_routing():
         assert tgen.Generator(p, V, ML, **kw).device.type == "cpu"
     with pytest.raises(NotImplementedError, match="item 9"):
         tgen.Generator(p, V, ML, ctx=tmx.cpu(), mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t.serving_decoder()
+    from mxnet_tpu_torch.serve import ContinuousDecoder
+    with t.serving_decoder(queue_cap=3) as dec:
+        assert isinstance(dec, ContinuousDecoder) and dec._gen is t
+        assert dec._cap == 3
     assert tmx.generation is tgen

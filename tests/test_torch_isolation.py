@@ -32,8 +32,11 @@ def test_port_and_chip_smoke_import_without_jax():
     CompiledTrainStep) one Module fit epoch, a store push, a record and
     a compiled step, the generation slice's (generation, ops/ssm,
     ops/contrib_ops) a hybrid RoPE LM decoded through both loops and an
-    int8 one (an SSM layer, the int8 ops), and no jax or mxnet_tpu module
-    loads."""
+    int8 one (an SSM layer, the int8 ops), the serving stack's
+    (serve/*, the wire, the compiled predictor) a ContinuousDecoder, a
+    PrefillEngine, a ServeServer/ServeClient pair, a ServeRouter, a
+    FleetController and a CompiledPredictor serving a request each, and no
+    jax or mxnet_tpu module loads."""
     code = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now fails
@@ -148,6 +151,43 @@ q8 = generation.Generator(params, 10, 8, num_layers=2, num_heads=2, dim=8,
                           batch_size=2, ctx=mxnet_tpu_torch.cpu(),
                           quantize="int8", quantize_kv=True, **hyb)
 assert q8.generate(prompt, 3).shape == (2, 6)
+# the serving stack, used: a ContinuousDecoder and a PrefillEngine behind
+# ServeServers, a ServeClient, a ServeRouter (a disaggregated generate), a
+# FleetController's tick, and a CompiledPredictor served by from_export
+from mxnet_tpu_torch.serve import (ContinuousDecoder, FleetController,
+                                   PrefillEngine, ServeClient, ServeEngine,
+                                   ServeRouter, ServeServer)
+from mxnet_tpu_torch.predictor import CompiledPredictor
+pool = generation.Generator(params, 10, 8, num_layers=2, num_heads=2, dim=8,
+                            batch_size=2, ctx=mxnet_tpu_torch.cpu(), **hyb)
+one = generation.Generator(params, 10, 8, num_layers=2, num_heads=2, dim=8,
+                           batch_size=1, ctx=mxnet_tpu_torch.cpu(), **hyb)
+want = one.generate(prompt[:1], 3)[0].tolist()
+dec, pre = ContinuousDecoder(pool), PrefillEngine(one)
+assert dec.submit(prompt[0], 3).result(60).tolist() == want
+dsrv, psrv = ServeServer(dec), ServeServer(pre)
+cli = ServeClient(dsrv.host, dsrv.port)
+assert cli.generate(prompt[0], 3).tolist() == want
+router = ServeRouter(poll_ms=0)
+router.add_replica(psrv.host, psrv.port, name="p")
+router.add_replica(dsrv.host, dsrv.port, name="d")
+router.poll_now()
+assert router.generate(prompt[0], 3).tolist() == want
+ctrl = FleetController(router, lambda m=None: (dsrv.host, dsrv.port),
+                       poll_ms=0, sustain=99)
+assert ctrl.tick()["healed"] == []
+ctrl.close(); router.close(); cli.close()
+dsrv.close(); psrv.close(); dec.close(); pre.close()
+with mxnet_tpu_torch.cpu():
+    pred = mxnet_tpu_torch.Predictor(net, {"fc_weight": np.ones((2, 2),
+        np.float32), "fc_bias": np.zeros(2, np.float32)})
+    pred.export_buckets(os.path.join(tmp, "e"), [(2,)], buckets=(1, 2))
+    eng = ServeEngine.from_export(os.path.join(tmp, "e"),
+                                  install_sigterm=False)
+    assert eng.infer(x[:1], timeout=60)[0].shape == (1, 2)
+    eng.close()
+    assert CompiledPredictor.load(os.path.join(tmp, "e.b1")).forward(
+        x[:1])[0].shape == (1, 2)
 bad = sorted(n for n, m in sys.modules.items() if m is not None and (
     n == "jax" or n.startswith("jax.") or n.startswith("jaxlib")
     or n == "mxnet_tpu" or n.startswith("mxnet_tpu.")))

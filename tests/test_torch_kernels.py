@@ -1055,3 +1055,53 @@ def test_cuda_captured_generation_loops_equal_eager_loops(cuda_device,
             f32.generate_speculative_on_device(draft, prompt, 12,
                                                lookahead=3),
             f32.generate(prompt, 12))
+
+
+@pytest.mark.cuda
+def test_captured_bucket_graph_equals_eager(cuda_device, tmp_path):
+    """Predictor.export -> CompiledPredictor on the card: the forward
+    captured as one CUDA graph (the flash kernel in a bf16 LM, the NMS
+    kernel in MultiBoxDetection) replays to the eager Predictor's output
+    bit for bit, twice, with new inputs each time; the wrappers ran in the
+    warm-up and the capture only."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.predictor import CompiledPredictor
+
+    V, T, B = 64, 128, 2
+    lm = transformer.get_symbol(V, T, num_layers=2, num_heads=2, dim=64)
+    rng = np.random.RandomState(0)
+    shapes, _, _ = lm.infer_shape(data=(B, T), softmax_label=(B, T))
+    w = {n: torch.from_numpy(rng.randn(*s).astype(np.float32) * 0.3)
+         .to(cuda_device, torch.bfloat16)
+         for n, s in zip(lm.list_arguments(), shapes)
+         if n not in ("data", "softmax_label")}
+    names = ("data", "softmax_label")
+    det = mx.sym.contrib.MultiBoxDetection(
+        mx.sym.Variable("cls_prob"), mx.sym.Variable("loc_pred"),
+        mx.sym.Variable("anchor"), nms_threshold=0.45, nms_topk=400)
+    A, C = 600, 5
+    anchors = np.sort(rng.rand(1, A, 2, 2), axis=2).reshape(1, A, 4)
+    cases = [
+        (lm, w, names, tatt.flash_fwd_cuda, 2,
+         lambda i: [np.random.RandomState(i).randint(0, V, (B, T))
+                    .astype(np.float32), np.zeros((B, T), np.float32)]),
+        (det, {}, ("cls_prob", "loc_pred", "anchor"), tnms.nms_keep_cuda, 1,
+         lambda i: [np.random.RandomState(i).dirichlet(
+             np.ones(C), (B, A)).transpose(0, 2, 1).astype(np.float32),
+             np.random.RandomState(i + 1).randn(B, A * 4).astype(
+                 np.float32) * 0.1, anchors.astype(np.float32)])]
+    for k, (sym, params, names, wrapper, per_fwd, inputs) in enumerate(cases):
+        pred = mx.Predictor(sym, params, data_names=names)
+        prefix = str(tmp_path / ("m%d" % k))
+        first = inputs(0)
+        pred.export(prefix, {n: a.shape for n, a in zip(names, first)})
+        before = wrapper.launches
+        cp = CompiledPredictor.load(prefix)
+        assert cp._graph is not None
+        assert wrapper.launches == before + 2 * per_fwd
+        for i in range(2):
+            xs = inputs(10 + i)
+            got = cp.forward(*xs)[0].handle
+            want = pred.forward(*xs)[0].handle
+            assert torch.equal(got, want)
