@@ -181,7 +181,28 @@ Phases (any failure exits non-zero; no phase is caught):
    to the eager forward, flash_fwd_bf16 x4 and nms_cluster_kernel x1 in
    a profiled replay, replay ms beside the eager forward's, 8 concurrent
    requests served and checked;
-22. one JSON line of every ported kernel (a device time under its byte
+22. moe_lm: the MoE flagship of bench_scaling.py --full-size
+   --expert-parallel at its 4-device row, one device's share (the flagship
+   LM with 8 experts, capacity factor 1.25; 1.28 G parameters; batch 8,
+   bf16, SGD momentum 0.9) trained 3 steps through make_train_step (the
+   expert axis has one rank: dense_moe): ms a step, tokens/s, peak memory,
+   a profile by kernel kind with the flash kernels' counts; then
+   bench_decode's settings through Generator(num_experts=8) with the
+   trained weights: float32 generate_on_device (the route, dispatch and
+   combine inside the captured step) equal to generate, bf16 ms a step
+   and one replay by events; before them a small float32 MoE LM at 2
+   layers, card against CPU;
+23. mesh2: two ranks of this script sharing the card over gloo (named
+   explicitly; ``--mesh-rank=`` runs one), after the windowed ring's
+   visiting block (band offset 1024) held against the plain versions in
+   this process: the ring at the flagship attention
+   shape (T 2048 split 1024 + 1024), causal and window 512, forward and
+   backward, f32 against a one-rank flash call (bf16 reported); moe_ffn
+   at expert=2 against its per-rank rule; one step of the flagship LM at 2
+   layers in float32 over data=2 with and without zero1 (bit-equal), sp=2
+   and expert=2, each against the one-rank step; pipeline_from_symbol at
+   pipe=2 against the sequential stages; ms and staged bytes of each;
+24. one JSON line of every ported kernel (a device time under its byte
    bound fails the run: the timing lost work), then the result line.
 
 It imports nothing of JAX or of ``mxnet_tpu``. Without CUDA, or run
@@ -192,6 +213,7 @@ result line.
 """
 from __future__ import annotations
 
+import faulthandler
 import json
 import os
 import statistics
@@ -861,17 +883,21 @@ PROFILE_GROUPS = (
 )
 
 
+PROFILE_TRIES = 3      # traces of one call before a kernel count is refused
+
+
+def _tracer():
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    return tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
 def profile(what, fn, top=8):
     """Where one call's device time goes: a torch.profiler trace of one
     (warm) call, summed by CUDA kernel name, and the share of the wall
     time the card was busy (one stream, so kernels never overlap). The
     kernel names of the call are left in ``profile.names``."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+    with _tracer() as prof:
         # a marker first: it takes what the trace loses at its start
         torch.cuda._sleep(1)
         torch.cuda.synchronize()
@@ -879,6 +905,13 @@ def profile(what, fn, top=8):
         out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+    profile_report(what, prof, wall_ms, top)
+    return out
+
+
+def profile_report(what, prof, wall_ms, top=8):
+    """``profile``'s summary of a finished trace over ``wall_ms``."""
+    from torch.autograd import DeviceType
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name:
@@ -906,7 +939,6 @@ def profile(what, fn, top=8):
                                 key=lambda kv: -kv[1][0])[:top]:
         say("profile:   %7.3f ms %5.1f%% x%-3d %s" % (
             ms, 100 * ms / busy_ms, n, name[:90]))
-    return out
 
 
 profile.names = set()
@@ -4290,10 +4322,17 @@ def compiled_resnet_phase():
         # graph's private pool and its static inputs
         torch.cuda.empty_cache()
         graph_gb = (torch.cuda.memory_reserved() - mem0) / 1e9
-        profile("compiled resnet replay (one CUDA graph)", ct._graph.replay,
-                top=8)
-        counts = kernel_counts(profile.counts, BN_KERNEL_KEYS +
-                               ("mt_update_kernel",))
+        # a trace short of a count (a lost record) is taken again, up to
+        # PROFILE_TRIES, as compiled_serve's
+        want = {**{k: n_bn for k in BN_KERNEL_KEYS}, "mt_update_kernel": 1}
+        for attempt in range(1, PROFILE_TRIES + 1):
+            profile("compiled resnet replay (one CUDA graph)",
+                    ct._graph.replay, top=8)
+            counts = kernel_counts(profile.counts, tuple(want))
+            if all(counts[k] >= n for k, n in want.items()):
+                break
+            say("compiled resnet: trace %d of %d short of a count (%r): "
+                "traced again" % (attempt, PROFILE_TRIES, counts))
         replay_busy, replay_launches = profile.busy, \
             sum(profile.counts.values())
         for k in BN_KERNEL_KEYS:
@@ -4957,6 +4996,8 @@ SD_SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
 SD_CHUNK = 64                     # MXNET_PREFILL_CHUNK for the checked run
 SD_SPEC = (0, 1, 3, 4)            # speculative requests (2 greedy, 2 seeded)
 SD_TIMED = 64                     # the timed closed loop's requests
+SD_WINDOW_S = 60                  # the profiled window's longest wait
+SD_HANG_S = 600                   # the timed run's limit (it takes ~40 s)
 FLIP_RTOL = 1e-5                  # an accepted flip's top-two logit gap
 FLEET_REQUESTS, FLEET_CLIENTS = 32, 8
 FLEET_EVACUATE_AFTER = 12         # completed requests before the recycle
@@ -5178,15 +5219,30 @@ def serve_decode_phase():
     dec = ContinuousDecoder(gen, queue_cap=SD_TIMED)
     host_ms, profiling = [], [False]
     step = dec._step
+    # the 16 profiled steps: the trace opens and closes while the
+    # decoder's thread waits at a step boundary (a trace opened while that
+    # thread was launching work hung two full smokes)
+    held, go, traced, resume = (threading.Event() for _ in range(4))
+    window = {"n": 0}
 
     def timed_step():
+        if profiling[0] and not go.is_set():
+            held.set()
+            go.wait(SD_WINDOW_S)
         t = time.perf_counter()
         step()
-        if not profiling[0]:
+        if go.is_set() and not traced.is_set():
+            window["n"] += 1
+            if window["n"] == 16:
+                traced.set()
+                resume.wait(SD_WINDOW_S)
+        elif not profiling[0]:
             host_ms.append((time.perf_counter() - t) * 1e3)
 
     dec._step = timed_step
     left = [SD_TIMED - B]
+    # a hang anywhere in the timed run fails it with every thread's stack
+    faulthandler.dump_traceback_later(SD_HANG_S, exit=True)
     try:
         t = time.perf_counter()
         futs = [dec.submit(p, n) for p, n in treqs]
@@ -5195,14 +5251,26 @@ def serve_decode_phase():
             left[0] -= 1
             if left[0] == SD_TIMED // 2:
                 profiling[0] = True
-                s0 = dec._steps
-
-                def window():
-                    while dec._steps < s0 + 16:
-                        time.sleep(0.0002)
-                profile("serve_decode: 16 live decode steps (8 slots, the "
-                        "queue non-empty)", window, top=6)
+                if not held.wait(SD_WINDOW_S):
+                    fail("serve_decode: the decoder reached no step in %d s "
+                         "with requests queued" % SD_WINDOW_S)
+                with _tracer() as prof:
+                    torch.cuda._sleep(1)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    go.set()
+                    ok = traced.wait(SD_WINDOW_S)
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t0) * 1e3
                 profiling[0] = False
+                resume.set()
+                if not ok:
+                    fail("serve_decode: the decoder made %d of 16 steps in "
+                         "%d s with requests queued" % (window["n"],
+                                                        SD_WINDOW_S))
+                profile_report("serve_decode: 16 live decode steps (8 "
+                               "slots, the queue non-empty)", prof, wall_ms,
+                               top=6)
                 busy = profile.busy
         wall = time.perf_counter() - t
         st = dec.stats()
@@ -5211,6 +5279,7 @@ def serve_decode_phase():
         capture_ms = row.capture_ms
     finally:
         dec.close()
+        faulthandler.cancel_dump_traceback_later()
     toks = sum(n for _, n in treqs)
     ttft = telemetry.histogram("serve.ttft_ms")
     itl = telemetry.histogram("serve.inter_token_ms")
@@ -5319,7 +5388,17 @@ def serve_fleet_phase():
         th.start()
     with finished:
         finished.wait_for(lambda: n_done[0] >= FLEET_EVACUATE_AFTER, 600)
-    active = decs[0].stats()["active"]
+    # the router places new sessions by polled free slots, so d0 can be
+    # idle at that moment: recycle once it decodes two sessions (one in
+    # the last wave), or the recycle would have nothing to migrate
+    deadline = time.monotonic() + 600
+    while True:
+        active = decs[0].stats()["active"]
+        if active >= 2 or (active >= 1 and n_done[0] >= len(reqs)
+                           - FLEET_CLIENTS) or n_done[0] >= len(reqs) \
+                or time.monotonic() > deadline:
+            break
+        time.sleep(0.005)
     te = time.perf_counter()
     router.recycle("d0")
     evac_ms = (time.perf_counter() - te) * 1e3
@@ -5475,9 +5554,19 @@ def compiled_serve_phase(counters):
                     "forward bit for bit; %.3f ms a replay by events, eager "
                     "forward %.3f ms (%.2fx)" % (label, b, rep_ms, eager_ms,
                                                  eager_ms / rep_ms))
-            profile("compiled_serve %s bucket %d, one replay" % (label, b),
-                    cp._graph.replay, top=6)
-            n = kernel_counts(profile.counts, [key])[key]
+            # torch.profiler can drop a kernel's record from a trace
+            # (device_ms): a trace short of the count is taken again, up
+            # to PROFILE_TRIES; more than the count fails at once
+            for attempt in range(1, PROFILE_TRIES + 1):
+                profile("compiled_serve %s bucket %d, one replay" % (
+                    label, b), cp._graph.replay, top=6)
+                n = kernel_counts(profile.counts, [key])[key]
+                if n >= per_fwd:
+                    break
+                say("compiled_serve %s: trace %d of %d holds %d records of "
+                    "%s, not %d: traced again" % (label, attempt,
+                                                  PROFILE_TRIES, n, key,
+                                                  per_fwd))
             if n != per_fwd:
                 fail("compiled_serve %s: one replay launched %s %d times, "
                      "not %d" % (label, key, n, per_fwd))
@@ -5583,6 +5672,645 @@ def compiled_serve_phase(counters):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# moe_lm: the MoE flagship on one rank (bench_scaling.py --full-size
+# --expert-parallel at its 4-device row, one device's share)
+# ---------------------------------------------------------------------------
+
+MOE_EXPERTS, MOE_CF = 8, 1.25     # 2 experts a device x 4 devices
+MOE_STEPS, MOE_LR = 3, 0.1        # bench_scaling.py: SGD momentum 0.9, lr 0.1
+MOE_SMALL = dict(T=64, V=100, layers=2, heads=4, dim=64, experts=4)
+
+
+def moe_reference_check():
+    """A small float32 MoE LM at 2 layers (4 experts, capacity 1.25: tokens
+    drop): one SGD-momentum step on the card (f32 flash kernels, the
+    route, dispatch and combine on the device) against the same step on
+    the CPU, from one seeded Xavier init; the step's probabilities and
+    parameters within rtol 1e-4, atol 1e-6."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.parallel import make_train_step
+
+    c = MOE_SMALL
+    B = 2
+    sym = transformer.get_symbol(c["V"], c["T"], num_layers=c["layers"],
+                                 num_heads=c["heads"], dim=c["dim"],
+                                 num_experts=c["experts"],
+                                 moe_capacity_factor=MOE_CF)
+    rng = np.random.RandomState(11)
+    toks = rng.randint(0, c["V"], (B, c["T"])).astype(np.float32)
+    labels = np.roll(toks, -1, axis=1)
+    labels[:, -1] = -1
+    after, probs = [], []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        step = make_train_step(sym, optimizer="sgd", ctx=ctx,
+                               optimizer_params={"momentum": 0.9})
+        mx.random.seed(7)
+        state = step.init_state(Xavier(), {"data": (B, c["T"]),
+                                           "softmax_label": (B, c["T"])})
+        state, outs = step(state, {"data": toks, "softmax_label": labels},
+                           0.1, 0)
+        after.append({n: v.cpu().numpy() for n, v in state[0].items()})
+        probs.append(outs[0].detach().cpu().numpy())
+    worst = float(np.abs(probs[0] - probs[1]).max())
+    if not np.allclose(probs[0], probs[1], rtol=1e-4, atol=1e-6):
+        fail("moe_lm reference: the small f32 MoE LM's probabilities on the "
+             "card differ from the CPU by %g" % worst)
+    for n, w in after[0].items():
+        worst = max(worst, float(np.abs(w - after[1][n]).max()))
+        if not np.allclose(w, after[1][n], rtol=1e-4, atol=1e-6):
+            fail("moe_lm reference: %s on the card differs from the CPU by "
+                 "%g" % (n, np.abs(w - after[1][n]).max()))
+    say("moe_lm reference: small f32 MoE LM (2 layers, %d experts) one step, "
+        "card vs CPU: probabilities and parameters max abs err %.3g (rtol "
+        "1e-4, atol 1e-6)" % (c["experts"], worst))
+
+
+def moe_lm_phase():
+    """The MoE flagship LM at full width on one rank: vocab 32768, seq
+    2048, 4 layers, 16 heads, dim 2048, ffn 8192, 8 experts at capacity
+    1.25 (dense_moe: the expert axis has one rank), batch 8, bf16 compute,
+    SGD momentum 0.9, Xavier from mx.random.seed(0). MOE_STEPS TrainStep
+    steps (the second profiled): ms a step, tokens/s, peak memory, the
+    flash kernels once a layer a step and the multi-tensor update once a
+    step. Then bench_decode's settings (batch 8, prompt 128, 256 new
+    tokens, max_len 384) through Generator(num_experts=8) with the trained
+    weights: float32 generate_on_device (the decode step, route, dispatch
+    and combine included, captured as one CUDA graph) equal to the eager
+    generate token for token; bf16 ms a step (bench.py's difference of
+    runs) and one replay by events. Returns the launch counts."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.generation import Generator
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.parallel import make_train_step
+
+    moe_reference_check()
+
+    B = TRAIN_BATCH
+    t0 = time.perf_counter()
+    arch = dict(num_layers=LAYERS, num_heads=HEADS, dim=DIM,
+                ffn_hidden=4 * DIM, num_experts=MOE_EXPERTS)
+    sym = transformer.get_symbol(VOCAB, SEQ, moe_capacity_factor=MOE_CF,
+                                 **arch)
+    step = make_train_step(sym, optimizer="sgd",
+                           optimizer_params={"momentum": 0.9},
+                           compute_dtype="bfloat16")
+    rng_np = np.random.RandomState(0)
+    toks = rng_np.randint(0, VOCAB, (B, SEQ)).astype(np.float32)
+    labels = np.roll(toks, -1, axis=1)
+    labels[:, -1] = -1
+    mx.random.seed(0)
+    state = step.init_state(Xavier(), {"data": (B, SEQ),
+                                       "softmax_label": (B, SEQ)})
+    batch = step.place_batch({"data": toks, "softmax_label": labels})
+    nparam = sum(v.numel() for v in state[0].values())
+    say("moe_lm: MoE flagship %d params (%.1f M; %d experts, capacity "
+        "factor %g), batch %d x %d, SGD momentum 0.9 lr %g, bf16 compute, "
+        "on %s, set up in %.1f s" % (
+            nparam, nparam / 1e6, MOE_EXPERTS, MOE_CF, B, SEQ, MOE_LR,
+            step.device, time.perf_counter() - t0))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = (att.flash_fwd_cuda, att.flash_bwd_cuda)
+    for c in counters:
+        c.launches = 0
+    reset_mt_counts()
+    nlls, times = [], []
+    for i in range(MOE_STEPS):
+        t = time.perf_counter()
+        if i == 1:
+            state, outs = profile("moe_lm train step (warm)", lambda: step(
+                state, batch, MOE_LR, i), top=14)
+            flash = kernel_counts(profile.counts, ("flash_fwd_bf16",
+                                                   "flash_bwd_bf16"))
+        else:
+            state, outs = step(state, batch, MOE_LR, i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        nlls.append(mean_nll(outs[0], batch["softmax_label"]))
+        del outs
+    launches = {c.__name__: c.launches for c in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = times[-1]
+    say("moe_lm: NLL per step %s" % " ".join("%.4f" % x for x in nlls))
+    say("moe_lm: step %.2f ms (the last of %d; all: %s), %.0f tokens/s, "
+        "peak device memory %.2f GB; the profiled step's flash kernel "
+        "records %s (the wrappers' counts below are the check)" % (
+            step_ms, MOE_STEPS, " ".join("%.1f" % x for x in times),
+            B * SEQ / step_ms * 1e3, peak_gb, flash))
+    if not all(np.isfinite(nlls)):
+        fail("moe_lm: non-finite loss %r" % (nlls,))
+    for name, n in launches.items():
+        if n != LAYERS * MOE_STEPS:
+            fail("moe_lm: %s launched %d times, not %d layers x %d steps"
+                 % (name, n, LAYERS, MOE_STEPS))
+    launches.update(check_mt_counts("moe_lm", MOE_STEPS, len(state[0])))
+    params = {n: v for n, v in state[0].items()}
+    del state, batch, step
+    torch.cuda.empty_cache()
+
+    # -- decode: bench_decode's settings with the trained weights ---------
+    P, N, ML = GEN_PROMPT, GEN_NEW, GEN_MAX_LEN
+    params["pos_embed_weight"] = params["pos_embed_weight"][:ML]
+    prompt = np.random.RandomState(0).randint(0, VOCAB, (B, P))
+    t = time.perf_counter()
+    gen32 = Generator(params, VOCAB, ML, batch_size=B, **arch)
+    eager = gen32.generate(prompt, N)
+    check_tokens_equal("moe_lm decode: float32 greedy generate_on_device vs "
+                       "generate", gen32.generate_on_device(prompt, N), eager)
+    say("moe_lm decode: float32, %d new tokens a row x %d rows: the captured "
+        "loop equals the eager one token for token (%.1f s with the capture)"
+        % (N, B, time.perf_counter() - t))
+    del gen32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = Generator(params, VOCAB, ML, batch_size=B, dtype="bfloat16", **arch)
+    del params
+    ms_tok, tok_s, _ = decode_speed("moe_lm bf16", gen, prompt)
+    loop = next(iter(gen._loop_cache.values()))
+    loop.i.fill_(0)
+    profile("moe_lm decode step, one replay of the captured graph",
+            loop.graph.replay, top=8)
+    loop.i.fill_(0)
+    replay_ms = time_ms(loop.graph.replay, reps=20, warmup=3)
+    bound, nbytes = decode_bound(gen)
+    say("moe_lm decode bf16: %.4f ms a step (%.0f tokens/s); one replay "
+        "%.4f ms by events (%.4f ms of kernels, busy %.1f%%); bound %.4f ms "
+        "(%.1f MB a step); peak %.2f GB" % (
+            ms_tok, tok_s, replay_ms, profile.busy_ms,
+            100 * profile.busy_ms / replay_ms, bound, nbytes / 1e6,
+            torch.cuda.max_memory_allocated() / 1e9))
+    del gen, loop
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# mesh2: two ranks that share the card, backend gloo
+# ---------------------------------------------------------------------------
+
+# the ring at the flagship attention shape (B, H, T, D), T split over 2
+MESH_RING = (8, 16, 2048, 128)
+MESH_WINDOW = 512
+MESH_MOE = dict(tokens=8192, dim=2048, hidden=8192, experts=4)
+MESH_TRAIN = dict(layers=2, batch=2, lr=0.1)
+MESH_PIPE = dict(micro=4, mb=2)
+MESH_RANK_TIMEOUT_S = 900
+RING_F32_RTOL = 1e-5              # the merge reorders sums
+TRAIN_TOL = dict(rtol=2e-4, atol=1e-5)
+MESH_TINY = dict(ring=(1, 2, 16, 8), window=5, moe=dict(
+    tokens=32, dim=8, hidden=16, experts=4), vocab=64, seq=16, heads=2,
+    dim=16, pipe_dim=16, pipe_seq=8)
+
+
+def _rel_err(got, want):
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+def _mesh_rank(rank, world, port, out, device, tiny):
+    """One rank of mesh2 (run as ``chip_smoke.py --mesh-rank=...``): every
+    case on the same seeded inputs, results to ``out/rank<r>.json``."""
+    import torch
+    torch.set_num_threads(4)
+    sys.path.insert(0, HERE)
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.ops import optimizer_kernels as mt
+    from mxnet_tpu_torch.parallel import (_comm, dist, make_mesh,
+                                          make_train_step, moe_ffn,
+                                          pipeline_from_symbol,
+                                          ring_attention)
+    from mxnet_tpu_torch.parallel.moe import _route, moe_ffn_reference
+
+    dev = torch.device(device, 0) if device == "cuda" else \
+        torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init("127.0.0.1:%d" % port, world, rank, backend="gloo",
+              timeout=300)
+    ctx = mx.gpu(0) if dev.type == "cuda" else mx.cpu()
+    res = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def gen(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return g
+
+    def randn(shape, seed, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen(seed), device=dev)
+                * scale).to(dtype)
+
+    for c in (att.flash_fwd_cuda, att.flash_bwd_cuda):
+        c.launches = c.launches_f32 = 0
+    for c in (mt.multi_tensor_opt_update_cuda,
+              mt.multi_tensor_norm_finite_cuda):
+        c.launches = 0
+    staged0 = telemetry.counter(_comm.STAGED_BYTES).value
+
+    def kcounts():
+        """The flash forward, flash backward and multi-tensor update
+        wrappers' launches so far (a case's own are a difference)."""
+        return [att.flash_fwd_cuda.launches, att.flash_bwd_cuda.launches,
+                mt.multi_tensor_opt_update_cuda.launches]
+
+    def since(c0):
+        return [a - b for a, b in zip(kcounts(), c0)]
+
+    # -- the ring at the flagship attention shape --------------------------
+    B, H, T, D = MESH_TINY["ring"] if tiny else MESH_RING
+    window = MESH_TINY["window"] if tiny else MESH_WINDOW
+    mesh = make_mesh({"sp": world})
+    for dtype in (torch.float32, torch.bfloat16):
+        for win in (0, window):
+            tag = "ring_%s_%s" % ("f32" if dtype == torch.float32 else "bf16",
+                                  "w%d" % win if win else "causal")
+            q, k, v = (randn((B, H, T, D), s, 1.0, dtype).requires_grad_()
+                       for s in (1, 2, 3))
+            cot = randn((B, H, T, D), 4, 1.0, dtype)
+
+            def run():
+                o = ring_attention(q, k, v, mesh, "sp", causal=True,
+                                   window=win)
+                return o, torch.autograd.grad(o, (q, k, v), cot)
+
+            run()                     # the case's first call: warm-up
+            sync()
+            c0 = kcounts()
+            t = time.perf_counter()
+            o, grads = run()
+            sync()
+            ms = (time.perf_counter() - t) * 1e3
+            calls = since(c0)[:2]
+            q1, k1, v1 = (x.detach().reshape(B * H, T, D).requires_grad_()
+                          for x in (q, k, v))
+            o1, _ = att.flash_attention_with_lse(q1, k1, v1, causal=True,
+                                                 window=win)
+            want = torch.autograd.grad(o1, (q1, k1, v1),
+                                       cot.reshape(B * H, T, D))
+            res[tag] = {"ms": ms, "o": _rel_err(o.reshape(B * H, T, D), o1),
+                        "kernel_calls": calls}
+            for n, g, w in zip("qkv", grads, want):
+                res[tag]["d" + n] = _rel_err(g.reshape(B * H, T, D), w)
+            del q, k, v, o, grads, q1, k1, v1, o1, want
+
+    # -- moe_ffn at expert=2 against its plain per-rank rule ---------------
+    cfg = MESH_TINY["moe"] if tiny else MESH_MOE
+    mesh = make_mesh({"expert": world})
+    E, Dm, Hh, Tt = cfg["experts"], cfg["dim"], cfg["hidden"], cfg["tokens"]
+    x = randn((Tt, Dm), 5)
+    gw = randn((Dm, E), 6, 0.5 / Dm ** 0.5)
+    w1 = randn((E, Dm, Hh), 7, 1.0 / Dm ** 0.5)
+    w2 = randn((E, Hh, Dm), 8, 1.0 / Hh ** 0.5)
+    sync()
+    t = time.perf_counter()
+    o = moe_ffn(x, gw, w1, w2, mesh)
+    sync()
+    ms = (time.perf_counter() - t) * 1e3
+    want = moe_ffn_reference(x, gw, w1, w2, world)
+    mine = x.chunk(world)[rank]
+    ids = _route(_comm.scatter_to_axis(x, mesh, "expert", 0), gw, E, 1)[0]
+    ids_ref = _route(mine, gw, E, 1)[0]
+    res["moe_ffn"] = {"ms": ms, "o": _rel_err(o, want),
+                      "ids_equal": bool(torch.equal(ids, ids_ref)),
+                      "kept": int((o.abs().sum(-1) > 0).sum())}
+    del x, w1, w2, o, want
+
+    # -- training steps at 2 layers against the one-rank step -------------
+    V, S = (MESH_TINY["vocab"], MESH_TINY["seq"]) if tiny else (VOCAB, SEQ)
+    heads = MESH_TINY["heads"] if tiny else HEADS
+    dim = MESH_TINY["dim"] if tiny else DIM
+    Bt = MESH_TRAIN["batch"]
+    rng = np.random.RandomState(3)
+    toks = rng.randint(0, V, (Bt, S)).astype(np.float32)
+    labels = np.roll(toks, -1, axis=1)
+    labels[:, -1] = -1
+    feed = {"data": toks, "softmax_label": labels}
+    shapes = {k: v.shape for k, v in feed.items()}
+
+    def params_for(sym):
+        arg_shapes, _, _ = sym.infer_shape(**shapes)
+        out = {}
+        for i, (n, s) in enumerate(zip(sym.list_arguments(), arg_shapes)):
+            if n in shapes:
+                continue
+            if n.endswith("_gamma"):
+                out[n] = torch.ones(s, device=dev)
+            elif n.endswith("_beta") or n.endswith("_bias"):
+                out[n] = torch.zeros(s, device=dev)
+            else:
+                out[n] = randn(tuple(s), 100 + i, 0.02)
+        return out
+
+    def one_step(sym, mesh, zero=None):
+        step = make_train_step(sym, optimizer="sgd", ctx=ctx, mesh=mesh,
+                               optimizer_params={"momentum": 0.9},
+                               optimizer_sharding=zero)
+        state = step.init_state(None, shapes, arg_params=params_for(sym))
+        placed = step.place_batch(feed)
+        sync()
+        c0 = kcounts()
+        t = time.perf_counter()
+        state, _ = step(state, placed, MESH_TRAIN["lr"], 0)
+        sync()
+        ms = (time.perf_counter() - t) * 1e3
+        calls = since(c0)
+        full = step._global_state(state)[0]
+        return ({n: v.detach().cpu() for n, v in full.items()}, ms,
+                calls, len(full))
+
+    arch = dict(num_layers=MESH_TRAIN["layers"], num_heads=heads, dim=dim)
+    dense = transformer.get_symbol(V, S, **arch)
+    cases = (("data2", dense, {"data": world}, None),
+             ("data2_zero1", dense, {"data": world}, "zero1"),
+             ("sp2", transformer.get_symbol(V, S, seq_axis="sp", **arch),
+              {"sp": world}, None),
+             # capacity factor = E: no token drops in either form, so the
+             # per-rank and the one-rank routing compute the same function
+             ("expert2", transformer.get_symbol(
+                 V, S, num_experts=4, expert_axis="expert",
+                 moe_capacity_factor=4.0, **arch), {"expert": world}, None))
+    after = {}
+    for name, sym, axes, zero in cases:
+        staged = telemetry.counter(_comm.STAGED_BYTES).value
+        after[name], ms, calls, n_params = one_step(sym, make_mesh(axes),
+                                                    zero)
+        res[name] = {"ms": ms, "staged": telemetry.counter(
+            _comm.STAGED_BYTES).value - staged, "kernel_calls": calls,
+            "n_params": n_params}
+    res["data2_zero1"]["bit_equal"] = all(
+        torch.equal(after["data2"][n], after["data2_zero1"][n])
+        for n in after["data2"])
+    if rank == 0:
+        # the one-rank step of the same global batch (no collective)
+        single = {}
+        for name, sym, _, _ in cases:
+            key = id(sym)
+            if key not in single:
+                single[key] = one_step(sym, None)[0]
+            want = single[key]
+            worst = max(float((after[name][n] - want[n]).abs().max())
+                        for n in want)
+            res[name]["max_abs_err"] = worst
+            res[name]["within"] = all(
+                bool(torch.allclose(after[name][n], want[n], **TRAIN_TOL))
+                for n in want)
+    del after
+
+    # -- pipeline_from_symbol at pipe=2 over get_stage_symbol --------------
+    pd = MESH_TINY["pipe_dim"] if tiny else DIM
+    ps = MESH_TINY["pipe_seq"] if tiny else SEQ
+    stage = transformer.get_stage_symbol(num_heads=heads, dim=pd)
+    arg_shapes, _, _ = stage.infer_shape(data=(MESH_PIPE["mb"], ps, pd))
+    stacked = {n: randn((world,) + tuple(s), 200 + i, 0.02)
+               for i, (n, s) in enumerate(zip(stage.list_arguments(),
+                                              arg_shapes)) if n != "data"}
+    stream = randn((MESH_PIPE["micro"], MESH_PIPE["mb"], ps, pd), 9)
+    mesh = make_mesh({"pipe": world})
+    sync()
+    c0 = kcounts()
+    t = time.perf_counter()
+    o = pipeline_from_symbol(stage, stacked, stream, mesh)
+    sync()
+    ms = (time.perf_counter() - t) * 1e3
+    calls = since(c0)[:2]
+    from mxnet_tpu_torch.executor import _graph_eval_fn
+    fn = _graph_eval_fn(stage)
+    want = []
+    for m in range(stream.shape[0]):
+        h = stream[m]
+        for s in range(world):
+            h = fn({**{n: p[s] for n, p in stacked.items()}, "data": h}, {},
+                   0, False)[0][0]
+        want.append(h)
+    res["pipe2"] = {"ms": ms, "o": _rel_err(o, torch.stack(want)),
+                    "kernel_calls": calls}
+
+    res["staged_bytes"] = telemetry.counter(_comm.STAGED_BYTES).value - \
+        staged0
+    fwd, bwd = att.flash_fwd_cuda, att.flash_bwd_cuda
+    res["launches"] = {
+        "flash_fwd_cuda": fwd.launches - fwd.launches_f32,
+        "flash_bwd_cuda": bwd.launches - bwd.launches_f32,
+        "flash_fwd_f32_cuda": fwd.launches_f32,
+        "flash_bwd_f32_cuda": bwd.launches_f32,
+        "multi_tensor_opt_update_cuda":
+            mt.multi_tensor_opt_update_cuda.launches,
+        "multi_tensor_norm_finite_cuda":
+            mt.multi_tensor_norm_finite_cuda.launches}
+    with open(os.path.join(out, "rank%d.json" % rank), "w") as f:
+        json.dump(res, f)
+    dist.shutdown()
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _launch_ranks(flag, args_of, world, limit_s):
+    """Start ``world`` ranks of this script (``--<flag>=...``) together;
+    kill them all at the time limit. Returns their exit codes and logs."""
+    procs = []
+    for r in range(world):
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--%s=%s" % (flag, args_of(r))], cwd=HERE,
+            env=dict(os.environ, OMP_NUM_THREADS="4"),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    deadline = time.time() + limit_s
+    logs, rcs = [], []
+    for p in procs:
+        try:
+            log, _ = p.communicate(timeout=max(1, deadline - time.time()))
+            rcs.append(p.returncode)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            log, _ = p.communicate()
+            rcs.append("timeout after %d s" % limit_s)
+        logs.append(log)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    return rcs, logs
+
+
+def mesh_block_check():
+    """The windowed ring's visiting block on the card at the flagship
+    shape, in this process: rank 1's queries (rows 1024..2047) against
+    rank 0's keys (band offset 1024, window 512: rows past the window
+    fully masked), both kernels, bf16 and f32, against their plain
+    versions, the backward with an lse cotangent."""
+    import torch
+    from mxnet_tpu_torch.ops import attention as att
+    B, H, T, D = MESH_RING
+    Tb = T // 2
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev)
+    g.manual_seed(21)
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = (torch.randn((B * H, Tb, D), generator=g, device=dev)
+                       .to(dtype) for _ in range(4))
+        attrs = (D ** -0.5, True, MESH_WINDOW, Tb)
+        o, lse = att.flash_fwd_cuda(q, k, v, *attrs, want_lse=True)
+        ro, rlse = att._flash_fwd_reference(q, k, v, *attrs)
+        dlse = torch.randn((B * H, Tb), generator=g, device=dev)
+        delta = torch.sum(do.float() * ro.float(), dim=-1) - dlse
+        grads = att.flash_bwd_cuda(q, k, v, do, rlse, delta, *attrs)
+        want = (att._flash_dq_reference(q, k, v, do, rlse, delta, *attrs),
+                *att._flash_dkv_reference(q, k, v, do, rlse, delta, *attrs))
+        tol = TOL["bfloat16" if dtype == torch.bfloat16 else "float32"]
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        for what, got, ref, t in (("o", o, ro, tol), ("lse", lse, rlse,
+                                                      LSE_TOL),
+                                  ("dq", grads[0], want[0], tol),
+                                  ("dk", grads[1], want[1], tol),
+                                  ("dv", grads[2], want[2], tol)):
+            err = float((got.float() - ref.float()).abs().max())
+            check_close("mesh2 visiting block %s %s (band offset %d, window "
+                        "%d)" % (name, what, Tb, MESH_WINDOW), got.float(),
+                        ref.float(), t)
+            out.append("%s %s %.3g" % (name, what, err))
+        masked = int((rlse < -1e29).sum())
+        out.append("%s rows fully masked %d" % (name, masked))
+    say("mesh2: the windowed ring's visiting block (band offset %d, window "
+        "%d) on the card against the plain versions: %s" % (
+            Tb, MESH_WINDOW, "; ".join(out)))
+
+
+def mesh2_phase(device="cuda", tiny=False):
+    """Two ranks sharing the card, backend gloo named explicitly, one
+    launch with every case:
+    the ring at the flagship attention shape (B 8, H 16, T 2048 split
+    1024 + 1024, D 128), causal and windowed (512), forward and backward,
+    f32 against a one-rank flash call within RING_F32_RTOL of the largest
+    magnitude (bf16 reported); moe_ffn at expert=2 (E 4, dim 2048, hidden
+    8192, 8192 tokens, f32) against its plain per-rank rule
+    (moe_ffn_reference) with the same expert ids; one SGD-momentum step of
+    the flagship LM at 2 layers, float32, batch 2, over data=2 with and
+    without zero1 (bit-equal), sp=2 and expert=2 (capacity factor 4: no
+    drops), each against the one-rank step of the same global batch within
+    TRAIN_TOL; pipeline_from_symbol at pipe=2 over get_stage_symbol (dim
+    2048) against the sequential stages. Reports each case's ms and the
+    bytes staged through host memory (gloo is no deployment transport).
+    Returns the launch counts of both ranks."""
+    import tempfile
+    out = tempfile.mkdtemp(prefix="mesh2_")
+    if device == "cuda":
+        mesh_block_check()
+    port = _free_port()
+    t = time.perf_counter()
+    rcs, logs = _launch_ranks(
+        "mesh-rank", lambda r: "%d,2,%d,%s,%s,%d" % (
+            r, port, out, device, int(tiny)), 2, MESH_RANK_TIMEOUT_S)
+    launch_s = time.perf_counter() - t
+    if rcs != [0, 0]:
+        for r, log in enumerate(logs):
+            sys.stderr.write("mesh2 rank %d log (tail):\n%s\n"
+                             % (r, log[-6000:]))
+        fail("mesh2: the ranks exited %r" % (rcs,))
+    res = []
+    for r in range(2):
+        with open(os.path.join(out, "rank%d.json" % r)) as f:
+            res.append(json.load(f))
+    r0 = res[0]
+    for r, rr in enumerate(res):
+        for tag in ("ring_f32_causal", "ring_f32_w%d" % (
+                MESH_TINY["window"] if tiny else MESH_WINDOW)):
+            bad = {k: v for k, v in rr[tag].items()
+                   if k not in ("ms", "kernel_calls") and v > RING_F32_RTOL}
+            if bad:
+                fail("mesh2 rank %d %s: relative errors %r over %g"
+                     % (r, tag, bad, RING_F32_RTOL))
+        if rr["moe_ffn"]["o"] > RING_F32_RTOL or \
+                not rr["moe_ffn"]["ids_equal"]:
+            fail("mesh2 rank %d moe_ffn: %r" % (r, rr["moe_ffn"]))
+        if rr["pipe2"]["o"] > RING_F32_RTOL:
+            fail("mesh2 rank %d pipe2: relative error %g"
+                 % (r, rr["pipe2"]["o"]))
+        if not rr["data2_zero1"]["bit_equal"]:
+            fail("mesh2 rank %d: zero1 is not bit-equal to the replicated "
+                 "update" % r)
+    if device == "cuda":
+        # each rank's launches by case, from the schedules: the ring (one
+        # rotation, causal or window 512) runs rank r's r + 1 visiting
+        # blocks, a forward and a backward each; a training step a
+        # forward and a backward a layer (the ring's r + 1 a layer under
+        # sp) and one multi-tensor update; the pipeline its M + S - 1
+        # ticks, a stage forward each
+        L = MESH_TRAIN["layers"]
+        for r, rr in enumerate(res):
+            want = {tag: [r + 1, r + 1] for tag in rr
+                    if tag.startswith("ring_")}
+            for name in ("data2", "data2_zero1", "sp2", "expert2"):
+                per = L * (r + 1 if name == "sp2" else 1)
+                want[name] = [per, per, mt_launches(rr[name]["n_params"])]
+            want["pipe2"] = [MESH_PIPE["micro"] + 2 - 1, 0]
+            got = {k: rr[k]["kernel_calls"] for k in want}
+            if got != want:
+                fail("mesh2 rank %d: launches by case %r, not %r"
+                     % (r, got, want))
+            say("mesh2 rank %d: launches by case (flash forward, flash "
+                "backward[, multi-tensor update]) %s, as the schedules "
+                "give" % (r, json.dumps(got, sort_keys=True)))
+    for name in ("data2", "data2_zero1", "sp2", "expert2"):
+        if not r0[name]["within"]:
+            fail("mesh2 %s: the step's parameters differ from the one-rank "
+                 "step's by %g (beyond %r)" % (name, r0[name]["max_abs_err"],
+                                               TRAIN_TOL))
+    for tag in sorted(k for k in r0 if k.startswith("ring_")):
+        say("mesh2 %s: %.1f ms forward + backward (rank 0, after a warm-up "
+            "call); relative errors against a one-rank flash call: o %.3g, "
+            "dq %.3g, dk %.3g, dv %.3g (rank 1: o %.3g); flash forward and "
+            "backward launches rank 0 %s, rank 1 %s" % (
+                tag, r0[tag]["ms"], r0[tag]["o"], r0[tag]["dq"],
+                r0[tag]["dk"], r0[tag]["dv"], res[1][tag]["o"],
+                r0[tag]["kernel_calls"], res[1][tag]["kernel_calls"]))
+    say("mesh2 moe_ffn (expert=2, %r): %.1f ms; relative error against the "
+        "per-rank rule %.3g, expert ids equal, %d of the tokens kept" % (MESH_TINY["moe"] if tiny else MESH_MOE, r0["moe_ffn"]["ms"],
+                  r0["moe_ffn"]["o"], r0["moe_ffn"]["kept"]))
+    for name in ("data2", "data2_zero1", "sp2", "expert2"):
+        say("mesh2 train %s: one step %.1f ms (rank 0), %.1f MB staged; "
+            "parameters against the one-rank step max abs err %.3g%s" % (
+                name, r0[name]["ms"], r0[name]["staged"] / 1e6,
+                r0[name]["max_abs_err"],
+                "; bit-equal to data2" if name == "data2_zero1" else ""))
+    say("mesh2 pipe2: %.1f ms, relative error against the sequential "
+        "stages %.3g" % (r0["pipe2"]["ms"], r0["pipe2"]["o"]))
+    say("mesh2: parallel.comm.staged_bytes %d (rank 0), %d (rank 1); the "
+        "launch took %.1f s" % (r0["staged_bytes"], res[1]["staged_bytes"],
+                                launch_s))
+    launches = {k: r0["launches"][k] + res[1]["launches"][k]
+                for k in r0["launches"]}
+    say("mesh2: launches of both ranks %s" % ", ".join(
+        "%s %d" % kv for kv in sorted(launches.items())))
+    if device == "cuda":
+        for name in ("flash_fwd_cuda", "flash_bwd_cuda",
+                     "flash_fwd_f32_cuda", "flash_bwd_f32_cuda",
+                     "multi_tensor_opt_update_cuda"):
+            if not launches[name]:
+                fail("mesh2: %s was not launched on the mesh path" % name)
+    return launches
+
+
 def main():
     try:
         import torch
@@ -5660,7 +6388,9 @@ def main():
                "serve_decode": serve_decode_phase(),
                "serve_fleet": serve_fleet_phase(),
                "compiled_serve": compiled_serve_phase(
-                   [att.flash_fwd_cuda, nmsk.nms_keep_cuda])}
+                   [att.flash_fwd_cuda, nmsk.nms_keep_cuda]),
+               "moe_lm": moe_lm_phase(),
+               "mesh2": mesh2_phase()}
     for rec in records:
         # no kernel moves its bytes faster than the memory can: a time
         # under the byte bound means the timing lost work
@@ -5691,7 +6421,8 @@ PARTIAL = {"mt": mt_kernel_phase, "bn": bn_kernel_phase,
            "lm_options": lm_options_phase, "generate": generate_phase,
            "serve_decode": serve_decode_phase,
            "serve_fleet": serve_fleet_phase,
-           "compiled_serve": lambda: compiled_serve_phase(_serve_counters())}
+           "compiled_serve": lambda: compiled_serve_phase(_serve_counters()),
+           "moe_lm": moe_lm_phase, "mesh2": mesh2_phase}
 
 
 def _serve_counters():
@@ -5701,4 +6432,9 @@ def _serve_counters():
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 2 and sys.argv[1].startswith("--mesh-rank="):
+        # one rank of the mesh2 phase (started by mesh2_phase)
+        r, w, p, d, device, tiny = sys.argv[1].split("=", 1)[1].split(",")
+        _mesh_rank(int(r), int(w), int(p), d, device, bool(int(tiny)))
+    else:
+        main()

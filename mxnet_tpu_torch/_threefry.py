@@ -157,22 +157,29 @@ def _device(device):
     return current_context().torch_device()
 
 
-def _counter_bits(k1, k2, shape, device):
+def _counter_bits(k1, k2, shape, device, offset=0, total=None):
     """The hash words of every element of ``shape`` on ``device`` (int64
     tensors of ``shape``); ``k1``/``k2`` are ints or per-element
-    tensors."""
+    tensors. ``offset``/``total``: the elements are the flat positions
+    [offset, offset + prod(shape)) of a draw over ``total`` elements (a
+    rank's slice of a draw over the whole batch)."""
     shape = tuple(int(s) for s in shape)
     n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    hi = (idx >> 32) if n > _M32 else 0
+    total = n if total is None else int(total)
+    idx = torch.arange(int(offset), int(offset) + n, dtype=torch.int64,
+                       device=device)
+    hi = (idx >> 32) if total > _M32 else 0
     y1, y2 = threefry2x32(k1, k2, hi, idx & _M32)
     return y1.reshape(shape), y2.reshape(shape)
 
 
-def random_bits(key, shape=(), bit_width=32, device=None):
+def random_bits(key, shape=(), bit_width=32, device=None, offset=0,
+                total=None):
     """``jax.random.bits``: uniform random bits of ``bit_width`` (8, 16,
     32 or 64) over ``shape`` on ``device``, as an int64 tensor holding
-    the unsigned value (for 64 bits, its two's-complement pattern)."""
+    the unsigned value (for 64 bits, its two's-complement pattern).
+    offset/total: the flat slice [offset, offset + prod(shape)) of a draw
+    over ``total`` elements (``_counter_bits``)."""
     if bit_width not in (8, 16, 32, 64):
         raise ValueError("bit_width must be 8, 16, 32 or 64, got %r"
                          % (bit_width,))
@@ -180,7 +187,7 @@ def random_bits(key, shape=(), bit_width=32, device=None):
     if device.type == "meta":       # shape inference: no key, no bits
         return torch.empty(tuple(shape), dtype=torch.int64, device=device)
     k1, k2 = _key_words(key)
-    b1, b2 = _counter_bits(k1, k2, shape, device)
+    b1, b2 = _counter_bits(k1, k2, shape, device, offset, total)
     return _combine(b1, b2, bit_width)
 
 
@@ -251,22 +258,24 @@ def _range(floats, minval, maxval, dtype):
 
 
 def uniform(key, shape=(), dtype=torch.float32, minval=0.0, maxval=1.0,
-            device=None):
+            device=None, offset=0, total=None):
     """``jax.random.uniform``: values in [minval, maxval) of a float
     ``dtype`` (8-bit draws for dtypes with fewer than 8 mantissa bits,
-    as jax makes bfloat16's)."""
+    as jax makes bfloat16's). offset/total as in ``random_bits``."""
     dtype = torch_dtype(dtype)
     nbits, nmant = _FLOAT_BITS[dtype]
     rng_bits = 8 if nmant < 8 else nbits
-    bits = random_bits(key, shape, rng_bits, device)
+    bits = random_bits(key, shape, rng_bits, device, offset, total)
     return _range(_unit_floats(bits, rng_bits, dtype), minval, maxval,
                   dtype)
 
 
-def bernoulli(key, p=0.5, shape=None, device=None):
+def bernoulli(key, p=0.5, shape=None, device=None, offset=0, total=None):
     """``jax.random.bernoulli``: ``uniform(key, shape, dtype of p) < p``.
     A Python float ``p`` means a float32 uniform, whatever the data's
-    dtype (as the JAX package's Dropout draws)."""
+    dtype (as the JAX package's Dropout draws). offset/total: this
+    tensor is the flat slice [offset, offset + numel) of a draw over
+    ``total`` elements (``random_bits``)."""
     if isinstance(p, torch.Tensor):
         dtype, dev = p.dtype, p.device if device is None else device
         shape = tuple(p.shape) if shape is None else shape
@@ -275,7 +284,7 @@ def bernoulli(key, p=0.5, shape=None, device=None):
         dtype, dev = torch.float32, device
         shape = () if shape is None else shape
         pt = float(p)
-    u = uniform(key, shape, dtype, device=dev)
+    u = uniform(key, shape, dtype, device=dev, offset=offset, total=total)
     return u < _const(pt, dtype, u.device)
 
 

@@ -35,7 +35,7 @@ from .context import current_context
 __all__ = ["Executor", "forward_backward"]
 
 
-def _graph_eval_fn(symbol, capture=None):
+def _graph_eval_fn(symbol, capture=None, mesh=None):
     """Build the function evaluating `symbol`'s graph.
 
     Returns fn(arg_vals: dict name->tensor, aux_vals: dict, rng: a
@@ -43,7 +43,15 @@ def _graph_eval_fn(symbol, capture=None):
     outputs, dict new_aux).
 
     capture: debugging hook called with (node_name, [outputs]) for every
-    node (the Monitor path)."""
+    node (the Monitor path).
+
+    mesh: a ``parallel.sharding`` mesh the graph runs over: it is the
+    ambient mesh (``ops._mesh_ctx.use_mesh``) while the graph runs, so
+    the mesh-aware ops (``seq_axis``, ``expert_axis``, the reductions
+    over the batch under ``data``) take their parallel forms. The
+    ``__shard__``/``__shard_hint__`` attributes are the JAX package's
+    GSPMD constraints and are read nowhere here (ROADMAP Queue A item
+    9b): tensors stay local."""
     from .symbol.symbol import _topo_order
 
     entries = symbol._entries
@@ -62,6 +70,13 @@ def _graph_eval_fn(symbol, capture=None):
         release_at.setdefault(pos, []).append(nid)
 
     def eval_fn(arg_vals, aux_vals, rng, is_train):
+        if mesh is None:
+            return _eval_body(arg_vals, aux_vals, rng, is_train)
+        from .ops._mesh_ctx import use_mesh
+        with use_mesh(mesh):
+            return _eval_body(arg_vals, aux_vals, rng, is_train)
+
+    def _eval_body(arg_vals, aux_vals, rng, is_train):
         rng = as_key(rng)
         env = {}
         aux_out = dict(aux_vals)
@@ -209,7 +224,8 @@ class Executor:
         if group2ctx:
             raise NotImplementedError(
                 "Executor(group2ctx=...) places graph groups on a device "
-                "mesh, which is not ported yet (ROADMAP Queue A item 9)")
+                "mesh by GSPMD constraints, which is not ported yet "
+                "(ROADMAP Queue A item 9b)")
         self._symbol = symbol
         self._ctx = ctx if ctx is not None else current_context()
         self._device = self._ctx.torch_device()

@@ -22,8 +22,10 @@ logits. ``beam_search_on_device`` and ``generate_speculative_on_device``
 capture their step (a beam step, a speculative round) the same way.
 
 ``serving_decoder`` returns the continuous-batching decoder
-(``serve/decode.py``). The mesh (``mesh=``, ROADMAP Queue A item 9) is not
-ported yet and raises.
+(``serve/decode.py``). ``num_experts`` decodes the MoE LM (the route,
+dispatch and combine hold no host read, so the captured step holds them).
+The mesh (``mesh=``: GSPMD-sharded decoding, ROADMAP Queue A item 9b) is
+not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -89,8 +91,9 @@ class Generator:
                  quantize_kv=False, block_type="attention", ctx=None):
         if mesh is not None:
             raise NotImplementedError(
-                "Generator(mesh=...) needs the parallel axes, not ported "
-                "to the PyTorch package yet (ROADMAP Queue A item 9)")
+                "Generator(mesh=...) shards decoding by GSPMD constraints, "
+                "not ported to the PyTorch package yet (ROADMAP Queue A "
+                "item 9b)")
         if quantize not in (None, "int8"):
             raise ValueError("quantize must be None or 'int8', got %r"
                              % (quantize,))

@@ -9,20 +9,20 @@ training checkpoint binds the decode graph. Training attention runs
 through ``_contrib_FlashAttention`` over the hand-written Hopper flash
 kernels; the options are ported: learned or rotary positions
 (``pos_encoding="rope"``), GQA, a sliding window, SSM layers
-(``block_type``, uniform or per layer), Dropout and the chunked-CE head
-(``loss_chunk``). The decode twin (``get_decode_symbol``) threads KV
+(``block_type``, uniform or per layer), Dropout, the chunked-CE head
+(``loss_chunk``), the Switch MoE FFN (``num_experts``, with
+``expert_axis`` for expert parallelism) and ring attention over a mesh
+axis (``seq_axis``). The decode twin (``get_decode_symbol``) threads KV
 caches (plain, rolling, int8) and SSM states as aux and takes the
-weight-only int8 layers; ``generation.Generator`` drives it.
-
-The MoE FFN (``num_experts``), ring attention (``seq_axis``) and the
-pipeline stage (``get_stage_symbol``) come with the parallel axes
-(ROADMAP Queue A item 9); asking for them raises ``NotImplementedError``.
+weight-only int8 layers and the MoE FFN; ``generation.Generator`` drives
+it. ``get_stage_symbol`` is one block, the stage of
+``parallel.pipeline_from_symbol``.
 """
 from __future__ import annotations
 
 from .. import symbol as sym
 
-__all__ = ["get_symbol", "get_decode_symbol"]
+__all__ = ["get_symbol", "get_decode_symbol", "get_stage_symbol"]
 
 
 def _fc(x, num_hidden, name, quantized=False):
@@ -65,17 +65,20 @@ def _merge_heads_proj(att, dim, prefix, quantized=False):
     return _fc(att, dim, prefix + "proj", quantized)
 
 
-def _attention_block(x, num_heads, dim, prefix, rope_positions=None,
-                     window=0, num_kv_heads=None):
-    """x: (B, T, C) -> (B, T, C); causal flash attention. rope_positions:
-    a (T,) position-id symbol — q and k rotate (RoPE) when given."""
+def _attention_block(x, num_heads, dim, prefix, seq_axis=None,
+                     rope_positions=None, window=0, num_kv_heads=None):
+    """x: (B, T, C) -> (B, T, C); causal flash attention (ring attention
+    over ``seq_axis`` when the graph runs on a mesh carrying that axis).
+    rope_positions: a (T,) position-id symbol — q and k rotate (RoPE)
+    when given."""
     q, k, v = _qkv_heads(x, num_heads, dim, prefix,
                          num_kv_heads=num_kv_heads)
     if rope_positions is not None:
         q = sym.contrib.RoPE(q, rope_positions)
         k = sym.contrib.RoPE(k, rope_positions)
-    att = sym.contrib.FlashAttention(q, k, v, causal=True, seq_axis=None,
-                                     window=window, name=prefix + "attn")
+    att = sym.contrib.FlashAttention(q, k, v, causal=True,
+                                     seq_axis=seq_axis, window=window,
+                                     name=prefix + "attn")
     return _merge_heads_proj(att, dim, prefix)
 
 
@@ -114,6 +117,31 @@ def _ffn_block(x, dim, hidden, prefix, quantized=False):
     return _fc(h, dim, prefix + "fc2", quantized)
 
 
+def _moe_block(x, dim, hidden, num_experts, prefix, expert_axis=None,
+               capacity_factor=1.25):
+    """Switch-style MoE FFN (the residual around it lives in the layer
+    loop, so capacity-dropped tokens pass through unchanged).
+
+    The 3D expert weights carry explicit per-expert Xavier bounds:
+    suffix-dispatched Xavier would read (E, D, H) as a conv kernel and
+    scale by the D*H "receptive field" — ~sqrt(hidden) too small."""
+    from .. import initializer as init_mod
+
+    def xavier(fan_in, fan_out):
+        return init_mod.Uniform(scale=(6.0 / (fan_in + fan_out)) ** 0.5)
+
+    gate = sym.Variable(prefix + "gate_weight", shape=(dim, num_experts))
+    w1 = sym.Variable(prefix + "experts_w1_weight",
+                      shape=(num_experts, dim, hidden),
+                      init=xavier(dim, hidden))
+    w2 = sym.Variable(prefix + "experts_w2_weight",
+                      shape=(num_experts, hidden, dim),
+                      init=xavier(hidden, dim))
+    return sym.contrib.MoEFFN(x, gate, w1, w2, expert_axis=expert_axis,
+                              capacity_factor=capacity_factor,
+                              name=prefix + "moe")
+
+
 def _check_kv_heads(num_heads, num_kv_heads):
     if num_kv_heads and num_heads % int(num_kv_heads):
         raise ValueError(
@@ -148,30 +176,66 @@ def _check_pos_encoding(pos_encoding, dim, num_heads):
                          "got %d" % (dim // num_heads))
 
 
-def _layer_block(x, num_heads, dim, ffn_hidden, prefix, dropout=0.0,
-                 rope_positions=None, window=0, num_kv_heads=None,
-                 block_type="attention"):
+def _layer_block(x, num_heads, dim, ffn_hidden, prefix, seq_axis=None,
+                 num_experts=0, expert_axis=None, dropout=0.0,
+                 moe_capacity_factor=1.25, rope_positions=None, window=0,
+                 num_kv_heads=None, block_type="attention"):
     """One pre-LN transformer block: the mixing residual (attention or
-    SSM, by block_type) + the FFN residual (its output through Dropout
-    when dropout > 0)."""
+    SSM, by block_type) + the FFN or MoE residual (its output through
+    Dropout when dropout > 0). Shared by get_symbol's layer loop and
+    get_stage_symbol, so the two cannot drift."""
     a = sym.LayerNorm(x, name=prefix + "ln1")
     if block_type == "ssm":
         x = x + _ssm_block(a, num_heads, dim, prefix)
     else:
         x = x + _attention_block(a, num_heads, dim, prefix,
+                                 seq_axis=seq_axis,
                                  rope_positions=rope_positions,
                                  window=window, num_kv_heads=num_kv_heads)
     f = sym.LayerNorm(x, name=prefix + "ln2")
-    ff = _ffn_block(f, dim, ffn_hidden, prefix)
+    ff = _moe_block(f, dim, ffn_hidden, num_experts, prefix,
+                    expert_axis=expert_axis,
+                    capacity_factor=moe_capacity_factor) \
+        if num_experts else _ffn_block(f, dim, ffn_hidden, prefix)
     if dropout > 0:
         ff = sym.Dropout(ff, p=dropout)
-    return x + ff
+    out = x + ff
+    if seq_axis:
+        # the JAX package's lenient sharding hint on the residual stream;
+        # this port's mesh keeps activations replicated and reads it
+        # nowhere, but the symbol JSON stays the JAX package's
+        out._set_attr(__shard_hint__="None,%s,None" % seq_axis)
+    return out
 
 
-def _not_ported(what, option, item):
-    raise NotImplementedError(
-        "transformer.%s(%s) needs ops not ported to the PyTorch package "
-        "yet (ROADMAP %s)" % (what, option, item))
+def get_stage_symbol(num_heads=4, dim=128, ffn_hidden=None,
+                     seq_axis=None, pos_encoding="learned",
+                     seq_len=None, attention_window=0):
+    """One transformer block as a standalone symbol: data (mb, T, C) ->
+    (mb, T, C). The pipeline-parallel stage for
+    ``parallel.pipeline_from_symbol``: stack L layers' params on a
+    leading stage dim and stream microbatches through a ``pipe`` mesh
+    axis. Pre-LN and aux-free by construction, as the GPipe schedule
+    requires.
+
+    pos_encoding: "learned" means position information enters before
+    stage 0, so the stage itself is position-free; "rope" rotates inside
+    every attention layer, so a rope stage needs ``seq_len``."""
+    ffn_hidden = ffn_hidden or 4 * dim
+    if dim % num_heads:
+        raise ValueError("dim (%d) must be divisible by num_heads (%d)"
+                         % (dim, num_heads))
+    _check_pos_encoding(pos_encoding, dim, num_heads)
+    rope_positions = None
+    if pos_encoding == "rope":
+        if not seq_len:
+            raise ValueError("pos_encoding='rope' stages need seq_len "
+                             "(RoPE applies inside each layer)")
+        rope_positions = sym.arange(start=0, stop=seq_len)
+    return _layer_block(sym.Variable("data"), num_heads, dim,
+                        ffn_hidden, "", seq_axis=seq_axis,
+                        rope_positions=rope_positions,
+                        window=attention_window)
 
 
 def _decode_attention_block(x, num_heads, dim, prefix, max_len, pos,
@@ -234,10 +298,9 @@ def get_decode_symbol(vocab_size, max_len, num_layers=2, num_heads=4,
     Knob composition, as in the JAX package: rolling_cache needs
     attention_window and refuses kv_quantize, per_row_pos and SSM layers;
     kv_quantize and attention_window need an attention layer;
-    quantized=True swaps in the weight-only int8 layers."""
-    if num_experts:
-        _not_ported("get_decode_symbol", "num_experts=%r" % (num_experts,),
-                    "Queue A item 9, the MoE FFN")
+    quantized=True swaps in the weight-only int8 layers. num_experts > 0
+    swaps each FFN for the MoE FFN with capacity_factor = num_experts, so
+    that a decode step drops no token (the expert weights stay float)."""
     if dim % num_heads:
         raise ValueError("dim (%d) must be divisible by num_heads (%d)"
                          % (dim, num_heads))
@@ -313,7 +376,13 @@ def get_decode_symbol(vocab_size, max_len, num_layers=2, num_heads=4,
                 rope_positions=rope_positions, window=attention_window,
                 rolling=rolling_cache, kv_quantize=kv_quantize)
         f = sym.LayerNorm(x, name=prefix + "ln2")
-        x = x + _ffn_block(f, dim, ffn_hidden, prefix, quantized=quantized)
+        # inference never capacity-drops: the factor is E, so the
+        # capacity is the token count
+        ff = _moe_block(f, dim, ffn_hidden, num_experts, prefix,
+                        capacity_factor=num_experts) \
+            if num_experts else _ffn_block(f, dim, ffn_hidden, prefix,
+                                           quantized=quantized)
+        x = x + ff
 
     x = sym.LayerNorm(x, name="ln_f")
     return _fc(x, vocab_size, "lm_head", quantized)
@@ -339,13 +408,15 @@ def get_symbol(vocab_size, seq_len, num_layers=2, num_heads=4, dim=128,
     (q/k rotate in every attention layer; no position parameters).
     attention_window: sliding-window width of every attention layer (0 =
     full causal). num_kv_heads < num_heads is grouped-query attention.
-    block_type: "attention", "ssm", or a per-layer sequence."""
-    if num_experts:
-        _not_ported("get_symbol", "num_experts=%r" % (num_experts,),
-                    "Queue A item 9, the MoE FFN")
-    if seq_axis:
-        _not_ported("get_symbol", "seq_axis=%r" % (seq_axis,),
-                    "Queue A item 9, ring attention")
+    block_type: "attention", "ssm", or a per-layer sequence.
+
+    num_experts > 0 swaps each FFN for the Switch top-1 MoE FFN
+    (``_contrib_MoEFFN``, capacity factor ``moe_capacity_factor``);
+    expert_axis names a mesh axis over which the experts split (tokens
+    exchange through all_to_all). seq_axis names a mesh axis for ring
+    attention in every attention layer (refused with SSM layers, whose
+    scan is sequential over the sequence). Both are inert without a mesh
+    carrying the axis."""
     ffn_hidden = ffn_hidden or 4 * dim
     max_len = max_len or seq_len
     if max_len < seq_len:
@@ -357,6 +428,11 @@ def get_symbol(vocab_size, seq_len, num_layers=2, num_heads=4, dim=128,
     _check_kv_heads(num_heads, num_kv_heads)
     _check_pos_encoding(pos_encoding, dim, num_heads)
     btypes = _canon_block_types(block_type, num_layers)
+    if seq_axis and "ssm" in btypes:
+        raise ValueError(
+            "seq_axis (ring sequence parallelism) is not supported with "
+            "ssm blocks — the chunked scan is sequential over the "
+            "sequence; shard batch/tensor axes instead")
     if attention_window and "attention" not in btypes:
         raise ValueError("attention_window needs at least one attention "
                          "layer (SSM layers have no attention window)")
@@ -375,7 +451,10 @@ def get_symbol(vocab_size, seq_len, num_layers=2, num_heads=4, dim=128,
 
     for i in range(num_layers):
         x = _layer_block(x, num_heads, dim, ffn_hidden, "layer%d_" % i,
-                         dropout=dropout, rope_positions=rope_positions,
+                         seq_axis=seq_axis, num_experts=num_experts,
+                         expert_axis=expert_axis, dropout=dropout,
+                         moe_capacity_factor=moe_capacity_factor,
+                         rope_positions=rope_positions,
                          window=attention_window,
                          num_kv_heads=num_kv_heads, block_type=btypes[i])
 

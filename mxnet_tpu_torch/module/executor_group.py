@@ -6,8 +6,8 @@ each batch across contexts, binds an executor a device and reduces the
 grads through the KVStore. The JAX package binds one executor for the
 whole batch and partitions it over a device mesh when it is given
 several contexts. Here one ``Executor`` runs the whole batch on one
-device; several contexts raise ``NotImplementedError`` (the mesh is
-ROADMAP Queue A item 9). The views keep the reference's shapes: a list
+device; several contexts raise ``NotImplementedError`` (a Module over a
+device mesh is ROADMAP Queue A item 9b). The views keep the reference's shapes: a list
 over params of a list over devices, one device long.
 """
 from __future__ import annotations
@@ -42,12 +42,12 @@ class DataParallelExecutorGroup:
             raise NotImplementedError(
                 "a Module over %d contexts partitions its batch over a "
                 "device mesh, which is not ported to the PyTorch package "
-                "yet (ROADMAP Queue A item 9)" % len(contexts))
+                "yet (ROADMAP Queue A item 9b)" % len(contexts))
         if layout is not None:
             raise NotImplementedError(
                 "Module(layout=...) places parameters on a device mesh, "
                 "which is not ported to the PyTorch package yet (ROADMAP "
-                "Queue A item 9)")
+                "Queue A item 9b)")
         self.param_names = param_names
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()

@@ -7,7 +7,7 @@ One ``Executor`` on one device runs the whole batch, so the update never
 slices or reduces: the optimizer runs on the executor's gradients through
 the Updater (the registry's update op a parameter), or on the KVStore
 when one is given. ``layout=`` (a device mesh) raises
-``NotImplementedError`` (ROADMAP Queue A item 9).
+``NotImplementedError`` (ROADMAP Queue A item 9b).
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ class Module(BaseModule):
         """context: one Context (default: the current context, gpu(0)
         unless a ``with mx.cpu():`` scope says otherwise); a list of
         several, and ``layout``, raise NotImplementedError at bind (ROADMAP
-        Queue A item 9)."""
+        Queue A item 9b)."""
         super().__init__(logger=logger)
         self._layout = layout
 

@@ -420,9 +420,13 @@ def _flash_attention_op(query, key, value, scale=None, causal=False,
 
     Grouped-query attention: k/v may carry FEWER heads than q (Hkv
     dividing H); they are repeated to the q-head count here, before the
-    kernel. seq_axis names a mesh axis for ring attention; the port has
-    no device mesh yet (ROADMAP Queue A item 9), so — as in the JAX
-    package without a mesh carrying that axis — the op runs the
+    kernel (and before the ring, so GQA trains sequence-parallel).
+
+    seq_axis: a mesh axis to sequence-parallelize over. When the graph is
+    evaluated over a mesh carrying that axis with more than one rank
+    (``_mesh_ctx.active_mesh_axis``), the op keeps this rank's T/n rows
+    of its replicated inputs, runs ring attention
+    (``parallel/ring.py``) and gathers the output; otherwise it is the
     single-device kernel."""
     if query.dim() == 4 and key.shape[1] != query.shape[1]:
         H, Hkv = query.shape[1], key.shape[1]
@@ -431,6 +435,18 @@ def _flash_attention_op(query, key, value, scale=None, causal=False,
                              "kv heads (%d)" % (H, Hkv))
         key = torch.repeat_interleave(key, H // Hkv, dim=1)
         value = torch.repeat_interleave(value, H // Hkv, dim=1)
+    if seq_axis:
+        from ._mesh_ctx import active_mesh_axis
+        mesh = active_mesh_axis(seq_axis)
+        if mesh is not None:
+            if query.dim() != 4:
+                raise ValueError(
+                    "seq_axis ring attention needs (B, H, T, D) inputs, "
+                    "got ndim=%d" % query.dim())
+            from ..parallel.ring import ring_attention
+            return ring_attention(query, key, value, mesh, seq_axis,
+                                  causal=bool(causal), scale=scale,
+                                  window=int(window or 0))
     return flash_attention(query, key, value, scale=scale, causal=causal,
                            block_q=block_q, block_k=block_k,
                            window=int(window or 0) or None)

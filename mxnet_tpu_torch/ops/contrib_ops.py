@@ -1,8 +1,9 @@
-"""The weight-only int8 ops of ``mxnet_tpu/ops/contrib_ops.py``:
-``_contrib_QuantizedFullyConnected`` and ``_contrib_QuantizedEmbedding``,
-the decode side of ``Generator(quantize="int8")``. The module's other
-ops (fft, count_sketch, the affine quantize pair, MoE) wait for ROADMAP
-Queue A items 9 and 10.
+"""The weight-only int8 ops of ``mxnet_tpu/ops/contrib_ops.py``
+(``_contrib_QuantizedFullyConnected`` and ``_contrib_QuantizedEmbedding``,
+the decode side of ``Generator(quantize="int8")``) and the MoE FFN
+(``_contrib_MoEFFN``, over ``parallel/moe.py``). The module's other ops
+(fft, count_sketch, the affine quantize pair) wait for ROADMAP Queue A
+item 10.
 
 Both are plain PyTorch. The weights are dequantized to the compute dtype
 before the product (a materialized copy, where XLA fuses the convert
@@ -57,3 +58,69 @@ def _quantized_embedding(data, weight, scale, dtype="float32", **_):
     out = rows * _gather_rows(scale.reshape(-1, 1), flat)
     return out.reshape(tuple(ids.shape) + (weight.shape[1],)).to(
         torch_dtype(dtype))
+
+
+@register("_contrib_MoEFFN",
+          arg_names=("data", "gate_weight", "expert_w1", "expert_w2"),
+          aliases=("_contrib_moe_ffn",),
+          defaults={"capacity_factor": 1.25, "expert_axis": None})
+def _moe_ffn_op(data, gate_weight, expert_w1, expert_w2,
+                capacity_factor=1.25, expert_axis=None, **_):
+    """Switch-style top-1 mixture-of-experts FFN.
+
+    data (B, T, D) or (N, D); gate_weight (D, E); expert_w1 (E, D, H);
+    expert_w2 (E, H, D). Tokens beyond an expert's capacity
+    (ceil(N * capacity_factor / E)) output zero — pair with a residual.
+
+    expert_axis: a mesh axis for expert parallelism. When the graph is
+    evaluated over a mesh carrying that axis with more than one rank,
+    the expert weights hold this rank's E/n experts and tokens exchange
+    through all_to_all (``parallel.moe.moe_ffn``); a ``data`` axis beside
+    it all-gathers the tokens first, so every data rank routes the global
+    tokens as the JAX op does, and keeps its own rows of the result.
+    Otherwise it is
+    ``dense_moe`` — over the global token order when a ``data`` axis
+    splits the batch (``dense_moe_over_data``), as the JAX package's one
+    global program routes it."""
+    from ..parallel import moe
+    from ._mesh_ctx import active_mesh_axis
+    orig_shape = data.shape
+    x = data.reshape(-1, orig_shape[-1])
+    if expert_axis:
+        mesh = active_mesh_axis(expert_axis)
+        if mesh is not None:
+            from ..parallel import _comm
+            # a data axis splits the batch: every rank of it routes the
+            # GLOBAL tokens, as the JAX op's in_specs=P(expert_axis)
+            # replicates them over 'data'
+            dmesh = active_mesh_axis("data")
+            shape = tuple(orig_shape)
+            if dmesh is not None:
+                x = _comm.all_gather(x, dmesh, "data", 0)
+                shape = (shape[0] * dmesh.shape["data"],) + shape[1:]
+            n = mesh.shape[expert_axis]
+            if x.shape[0] % n:
+                raise ValueError(
+                    "expert_axis=%r: token count %d (=prod of %r[:-1]) "
+                    "must divide over the %d devices of that mesh axis"
+                    % (expert_axis, x.shape[0], shape, n))
+            if gate_weight.shape[1] % n:
+                raise ValueError(
+                    "expert_axis=%r: num_experts %d must divide over "
+                    "the %d devices of that mesh axis"
+                    % (expert_axis, gate_weight.shape[1], n))
+            out = moe.moe_ffn(x, gate_weight, expert_w1, expert_w2, mesh,
+                              axis_name=expert_axis,
+                              capacity_factor=float(capacity_factor))
+            if dmesh is not None:
+                out = _comm.take_from_axis(out, dmesh, "data", 0)
+            return out.to(data.dtype).reshape(orig_shape)
+    mesh = active_mesh_axis("data")
+    if mesh is not None:
+        out = moe.dense_moe_over_data(
+            x, gate_weight, expert_w1, expert_w2, mesh,
+            capacity_factor=float(capacity_factor))
+    else:
+        out = moe.dense_moe(x, gate_weight, expert_w1, expert_w2,
+                            capacity_factor=float(capacity_factor))
+    return out.to(data.dtype).reshape(orig_shape)

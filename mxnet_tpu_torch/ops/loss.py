@@ -21,13 +21,37 @@ from torch.utils.checkpoint import checkpoint
 from .registry import register
 
 
+def _data_ranks():
+    """The mesh and rank count of an active ``data`` axis (the batch
+    splits over it), else (None, 1)."""
+    from ._mesh_ctx import active_mesh_axis
+    mesh = active_mesh_axis("data")
+    return mesh, (1 if mesh is None else mesh.shape["data"])
+
+
+def _batch_total(count):
+    """A count over this rank's batch rows as the whole batch's: summed
+    over an active ``data`` axis (a forward-time collective; no
+    gradient)."""
+    mesh, n = _data_ranks()
+    if mesh is None:
+        return count
+    from ..parallel import _comm
+    out = count.detach().clone()
+    _comm.all_reduce_([out], mesh, "data")
+    return out
+
+
 def _norm_factor(normalization, label, valid_mask=None):
+    """The head's gradient divisor over the WHOLE batch (under a ``data``
+    mesh axis each rank holds 1/n of it)."""
+    _, n = _data_ranks()
     if normalization == "batch":
-        return float(label.shape[0]) if label.dim() else 1.0
+        return float(label.shape[0] * n) if label.dim() else 1.0
     if normalization == "valid" and valid_mask is not None:
-        return torch.clamp_min(torch.sum(valid_mask), 1.0)
+        return torch.clamp_min(_batch_total(torch.sum(valid_mask)), 1.0)
     if normalization == "valid":
-        return float(label.numel())
+        return float(label.numel() * n)
     return 1.0
 
 
@@ -48,6 +72,13 @@ class _SoftmaxOutputFn(torch.autograd.Function):
         p = torch.softmax(data.float(), dim=axis).to(data.dtype)
         ctx.save_for_backward(p, label)
         ctx.attrs = attrs
+        # the divisor is taken here, where every rank runs the head, so
+        # a count over a data axis is a forward-time collective
+        ctx.norm = None
+        if attrs["normalization"] != "null":
+            valid = (label != attrs["ignore_label"]).to(p.dtype) \
+                if attrs["use_ignore"] else None
+            ctx.norm = _norm_factor(attrs["normalization"], label, valid)
         return p
 
     @staticmethod
@@ -65,10 +96,8 @@ class _SoftmaxOutputFn(torch.autograd.Function):
             onehot = onehot * (1 - a["smooth_alpha"]) + \
                 a["smooth_alpha"] / nclass
         grad = p - onehot
-        valid = None
         if a["use_ignore"]:
             keep = (l != a["ignore_label"]).to(p.dtype)
-            valid = keep
             if multi:
                 keep_b = keep.unsqueeze(1)
             else:
@@ -76,7 +105,7 @@ class _SoftmaxOutputFn(torch.autograd.Function):
                                       + (1,) * (p.dim() - l.dim()))
             grad = grad * keep_b
         grad = grad * (a["grad_scale"]
-                       / _norm_factor(a["normalization"], l, valid))
+                       / (1.0 if ctx.norm is None else ctx.norm))
         grad = grad * g.to(grad.dtype)
         return grad.to(p.dtype), None, None
 
@@ -134,21 +163,22 @@ class _MakeLossFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, grad_scale, valid_thresh, normalization):
         ctx.save_for_backward(data)
-        ctx.attrs = (grad_scale, valid_thresh, normalization)
+        # the divisor over the WHOLE batch, taken here as SoftmaxOutput
+        # takes its own (a count over a data axis is a forward-time
+        # collective)
+        if normalization == "batch":
+            ctx.scale = grad_scale / (data.shape[0] * _data_ranks()[1])
+        elif normalization == "valid":
+            ctx.scale = grad_scale / torch.clamp_min(_batch_total(
+                torch.sum((data > valid_thresh).to(data.dtype))), 1.0)
+        else:
+            ctx.scale = grad_scale
         return data.clone()
 
     @staticmethod
     def backward(ctx, g):
         (d,) = ctx.saved_tensors
-        grad_scale, valid_thresh, normalization = ctx.attrs
-        if normalization == "batch":
-            scale = grad_scale / d.shape[0]
-        elif normalization == "valid":
-            scale = grad_scale / torch.clamp_min(
-                torch.sum((d > valid_thresh).to(d.dtype)), 1.0)
-        else:
-            scale = grad_scale
-        return g.to(d.dtype) * scale, None, None, None
+        return g.to(d.dtype) * ctx.scale, None, None, None
 
 
 @register("MakeLoss", arg_names=("data",),
@@ -234,12 +264,7 @@ def _chunked_softmax_ce(data, weight, bias, label, chunk=2048,
         keep = (lab != int(ignore_label)).to(torch.float32)
     else:
         keep = torch.ones(N, dtype=torch.float32, device=data.device)
-    if normalization == "batch":
-        norm = float(N)
-    elif normalization == "valid":
-        norm = torch.clamp_min(torch.sum(keep), 1.0)
-    else:
-        norm = 1.0
+    norm = _norm_factor(normalization, lab, keep)
     scale = grad_scale / norm
     outs = []
     for start in range(0, N, chunk):

@@ -316,7 +316,32 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     # statistics in f32 whatever the compute dtype; the output in the
     # input's dtype
     if is_train and not use_global_stats:
-        if _config.get("MXNET_BN_PALLAS") and data.dim() == 4 \
+        from ._mesh_ctx import active_mesh_axis
+        dmesh = active_mesh_axis("data")
+        if dmesh is not None:
+            if _config.get("MXNET_BN_PALLAS") or \
+                    _config.get("MXNET_BN_IMPL") == "onepass":
+                raise NotImplementedError(
+                    "BatchNorm's kernel and one-pass routes shift their "
+                    "sums by a per-rank constant, so partial sums over a "
+                    "'data' mesh axis do not combine; under data "
+                    "parallelism the two-pass route runs (unset "
+                    "MXNET_BN_PALLAS and MXNET_BN_IMPL; ROADMAP Queue A "
+                    "item 9b)")
+            # the whole batch's statistics, two-pass, as the JAX
+            # package's one global program computes them
+            xf = data.float()
+            m = dmesh.shape["data"]
+            for i in red:
+                m *= data.shape[i]
+            mean = _data_axis_sum(torch.sum(xf, dim=red)) / m
+            var = _data_axis_sum(torch.sum(torch.square(
+                xf - mean.reshape(bshape)), dim=red)) / m
+            inv = torch.rsqrt(var.reshape(bshape) + eps)
+            out = ((xf - mean.reshape(bshape)) * inv
+                   * g.reshape(bshape).float()
+                   + beta.reshape(bshape).float()).to(data.dtype)
+        elif _config.get("MXNET_BN_PALLAS") and data.dim() == 4 \
                 and axis == 1:
             out, mean, var = bn_train_kernels(data, g, beta, float(eps))
         elif _config.get("MXNET_BN_IMPL") == "onepass":
@@ -439,6 +464,29 @@ def _leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
     raise ValueError("unknown act_type %r" % act_type)
 
 
+def _batch_slice(data):
+    """(offset, total) of ``data``'s elements in the flat whole batch
+    when a ``data`` mesh axis splits dim 0 over ranks, else (0, None)."""
+    from ._mesh_ctx import active_mesh_axis
+    mesh = active_mesh_axis("data")
+    if mesh is None:
+        return 0, None
+    n = data.numel()
+    return mesh.axis_index("data") * n, n * mesh.shape["data"]
+
+
+def _data_axis_sum(x):
+    """``x`` summed over the ranks of an active ``data`` axis, with a
+    summed cotangent (the statistic is the whole batch's, and each rank's
+    loss covers its own rows), else ``x``."""
+    from ..parallel import _comm
+    from ._mesh_ctx import active_mesh_axis
+    mesh = active_mesh_axis("data")
+    if mesh is None:
+        return x
+    return _comm.copy_to_axis(_comm.psum(x, mesh, "data"), mesh, "data")
+
+
 # ---------------------------------------------------------------------------
 # Dropout — the mask from the caller's threefry key
 # ---------------------------------------------------------------------------
@@ -450,11 +498,15 @@ def _dropout(data, p=0.5, mode="training", is_train=False, rng=None, **_):
     """Keeps each element with probability 1 - p (a float32 uniform
     below it, ``jax.random.bernoulli``) and scales it by 1 / (1 - p);
     the identity when p <= 0 or outside training (mode "always" drops
-    at inference too)."""
+    at inference too). Under a ``data`` mesh axis the tensor is this
+    rank's slice of the batch (dim 0), and its mask is that slice of the
+    whole batch's mask: the threefry counters of its own elements."""
     if p <= 0 or (not is_train and mode != "always"):
         return data
     keep = 1.0 - p
-    mask = _threefry.bernoulli(rng, keep, tuple(data.shape), data.device)
+    offset, total = _batch_slice(data)
+    mask = _threefry.bernoulli(rng, keep, tuple(data.shape), data.device,
+                               offset=offset, total=total)
     return torch.where(mask, data / keep, 0.0).to(data.dtype)
 
 

@@ -244,11 +244,10 @@ def _input_context(nd_inputs):
 
 # JAX module -> (ROADMAP item, every name it registers, aliases included)
 _NOT_PORTED = {
-    "contrib_ops": ("Queue A item 10 (contrib_ops.py; MoE with item 9)", (
-        "_contrib_MoEFFN", "_contrib_count_sketch",
-        "_contrib_dequantize", "_contrib_fft", "_contrib_ifft",
-        "_contrib_moe_ffn", "_contrib_quantize", "dequantize", "fft",
-        "ifft", "quantize")),
+    "contrib_ops": ("Queue A item 10 (contrib_ops.py)", (
+        "_contrib_count_sketch", "_contrib_dequantize", "_contrib_fft",
+        "_contrib_ifft", "_contrib_quantize", "dequantize", "fft", "ifft",
+        "quantize")),
     "ctc": ("Queue A item 10 (ctc.py)", (
         "CTCLoss", "_contrib_CTCLoss", "_contrib_ctc_loss", "ctc_loss")),
     "custom": ("Queue A item 10 (custom.py)", ("Custom",)),

@@ -1,5 +1,6 @@
-"""The training step and its fit loop on one device — the PyTorch twin of
-``mxnet_tpu/parallel/trainer.py``'s ``TrainStep`` without its mesh.
+"""The training step and its fit loop — the PyTorch twin of
+``mxnet_tpu/parallel/trainer.py``'s ``TrainStep``, on one device or over
+a mesh of ``torch.distributed`` ranks.
 
 The JAX package compiles forward, backward and the fused optimizer
 update into one ``jax.jit`` program. Here the same step runs eagerly:
@@ -37,8 +38,29 @@ without JAX. ``CompiledTrainStep.load`` rebuilds it from those files
 alone; on the card, its first ``step`` captures the step as one CUDA
 graph, which every later ``step`` replays.
 
-Not in this slice (ROADMAP Queue A item 9): the device mesh, sharding
-layouts and the sharded optimizer, which raise ``NotImplementedError``.
+``mesh=`` (``sharding.make_mesh`` over the ranks of ``dist.init``)
+takes the axes on which the JAX package writes its collectives by hand:
+every rank runs the graph on its own tensors, and the graph's mesh-aware
+ops take their parallel forms (``seq_axis``: ring attention;
+``expert_axis``: the all_to_all MoE; the whole batch's reductions under
+``data``). ``place_batch`` keeps this rank's slice of the global batch
+over ``data`` and the whole batch over ``sp``, ``expert`` and ``pipe``;
+parameters of an expert-sharded stack hold this rank's E/n experts and
+every other one is replicated. The gradients of a step are summed over
+``data`` (the JAX step's gradient is the global batch's: a sum, with
+``rescale_grad`` defaulting to 1 / the global batch), the guardrail's
+finite flag is the minimum over ``data`` and ``clip_norm`` reads the
+summed gradients. ``optimizer_sharding='zero1'`` keeps each optimizer
+state 1/N over ``data`` (``sharding.zero1_sharding``): the update runs on
+this rank's slice of each parameter and the parameters are all-gathered
+after it; the update is elementwise, so the trajectory is the replicated
+update's, bit for bit. A step's outputs are this rank's rows.
+``save_state`` and ``export`` write the global arrays (gathered over the
+axes; rank 0 writes), so a checkpoint restores onto another mesh.
+
+Not in this slice (ROADMAP Queue A item 9b): ``layout=`` (``SpecLayout``,
+GSPMD tensor and parameter sharding) and ``CompiledTrainStep`` over more
+than one rank, which raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -58,6 +80,8 @@ from ..context import context_of, cpu, current_context
 from ..executor import _graph_eval_fn, forward_backward
 from ..ndarray import array
 from ..ops import optimizer_kernels as _mt
+from . import _comm
+from . import sharding as shd
 
 __all__ = ["make_train_step", "TrainStep", "CompiledTrainStep"]
 
@@ -136,6 +160,11 @@ def _from_numpy(a, path, key):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+class _Placed(dict):
+    """A batch ``place_batch`` placed (this rank's slice): placing it
+    again is the identity, as ``jax.device_put`` of a placed array is."""
+
+
 class _SimpleBatchEnd:
     """BatchEndParam-compatible namespace for Speedometer-style
     callbacks (reference model.py:BatchEndParam). ``locals`` carries the
@@ -201,18 +230,38 @@ class TrainStep:
         clip_norm: clip gradients by global norm before the optimizer
         (the norm of the gradient after rescale_grad).
 
-        ctx: the device (default: the current context, gpu(0) unless a
-        ``with mx.cpu():`` scope says otherwise).
+        ctx: the device of this rank (default: the current context, gpu(0)
+        unless a ``with mx.cpu():`` scope says otherwise).
 
-        mesh / layout / optimizer_sharding are not ported yet and raise
-        NotImplementedError."""
+        mesh: a ``sharding.make_mesh`` mesh over the data, sp, expert and
+        pipe axes (see the module doc). optimizer_sharding: None or
+        'zero1' (the optimizer state 1/N over 'data'). layout= (a GSPMD
+        ``SpecLayout``) is ROADMAP Queue A item 9b and raises."""
         from .. import config as _config
-        for arg, value in (("mesh", mesh), ("layout", layout),
-                           ("optimizer_sharding", optimizer_sharding)):
-            if value is not None:
-                _not_ported("TrainStep(%s=...)" % arg,
-                            "Queue A item 9, the parallel axes")
+        if layout is not None:
+            _not_ported("TrainStep(layout=...)",
+                        "Queue A item 9b, GSPMD layouts")
+        if mesh is not None and not isinstance(mesh, shd.Mesh):
+            _not_ported("TrainStep(mesh=%s) (a mesh other than "
+                        "parallel.sharding.make_mesh's, placed by GSPMD)"
+                        % type(mesh).__name__, "Queue A item 9b")
         self.symbol = symbol
+        self.mesh = mesh
+        self._layout = shd.as_layout(mesh)
+        if optimizer_sharding not in (None, "zero1"):
+            raise ValueError("optimizer_sharding must be None or 'zero1', "
+                             "got %r" % (optimizer_sharding,))
+        if optimizer_sharding == "zero1" and (
+                self._layout is None or not self._layout.zero_axes):
+            raise ValueError(
+                "optimizer_sharding='zero1' needs a replica axis to shard "
+                "the optimizer state over: a bare mesh= with a 'data' axis "
+                "(a layout=SpecLayout(...), which folds over 'data' and "
+                "'fsdp', is ROADMAP Queue A item 9b) — got mesh axes %r"
+                % (None if mesh is None else list(mesh.axis_names)))
+        self.optimizer_sharding = optimizer_sharding
+        # ranks over which the batch splits (the gradient sum's axis)
+        self._data_n = 1 if mesh is None else mesh.shape.get("data", 1)
         self.compute_dtype = (None if compute_dtype is None
                               else torch_dtype(compute_dtype))
         self.remat = bool(remat) if remat is not None else \
@@ -241,7 +290,10 @@ class TrainStep:
         self._id_inputs = self._embedding_fed_inputs(symbol) \
             & set(self.data_names)
         self.device = (ctx or current_context()).torch_device()
-        self._eval_fn = _graph_eval_fn(symbol)
+        self._eval_fn = _graph_eval_fn(symbol, mesh=mesh)
+        # name -> spec of each parameter and of its optimizer state
+        self._pspec = {}
+        self._ospec = {}
         self._donate = bool(donate)
         # last fit's guardrail outcome: masked_steps/rollbacks/lr_mult
         # ({} until a guarded fit ran) — tests and relaunchers read it
@@ -266,9 +318,10 @@ class TrainStep:
         """(params, opt_state, aux) on this step's device.
 
         initializer: an ``initializer.Initializer`` applied host-side,
-        from the ``mx.random`` numpy stream. arg_params / aux_params:
-        values (NDArray, tensor or array) to adopt instead; optimizer
-        state starts at zero either way."""
+        from the ``mx.random`` numpy stream (every rank of a mesh draws
+        the same global arrays, then keeps its slice). arg_params /
+        aux_params: values (NDArray, tensor or array, global shapes) to
+        adopt instead; optimizer state starts at zero either way."""
         from ..initializer import InitDesc
         from ..ndarray import zeros as nd_zeros
 
@@ -296,11 +349,16 @@ class TrainStep:
                 v = arr.handle
             if dtype is not None:
                 v = v.to(torch_dtype(dtype))
+            self._set_specs(n, tuple(v.shape))
             # a copy: donated updates must not write into the caller's
             # arrays
-            params[n] = v.to(self.device, copy=True)
-            opt_state[n] = tuple(torch.zeros_like(params[n])
-                                 for _ in range(self._n_state))
+            params[n] = shd.place(v, self._pspec[n], self.mesh).to(
+                self.device, copy=True)
+            opt_state[n] = tuple(
+                torch.zeros(shd.local_shape(v.shape, self._ospec[n],
+                                            self.mesh),
+                            dtype=params[n].dtype, device=self.device)
+                for _ in range(self._n_state))
         for n in self.aux_names:
             if n in aux_params:
                 v = aux_params[n]
@@ -310,10 +368,42 @@ class TrainStep:
             aux[n] = v.to(self.device, copy=True)
         return params, opt_state, aux
 
+    def _set_specs(self, name, shape):
+        """Record the parameter's spec and its optimizer state's (the
+        zero1 spec under optimizer_sharding='zero1'), from its global
+        shape."""
+        if self.mesh is None:
+            self._pspec[name] = self._ospec[name] = ()
+            return
+        lay = self._layout
+        self._pspec[name] = lay.param_nsharding(name, shape)
+        self._ospec[name] = lay.opt_nsharding(
+            name, shape, zero=self.optimizer_sharding == "zero1")
+
+    def _zero_dim(self, name):
+        """The dim of the parameter that zero1 splits over 'data' (None
+        when its state is not split)."""
+        spec = self._ospec.get(name, ())
+        return spec.index("data") if "data" in spec else None
+
     def place_batch(self, batch):
         """Move batch arrays to the step's device once, before the step
-        loop, so the host-to-device copy is not repaid every step."""
-        return {k: _tensor(v, self.device) for k, v in batch.items()}
+        loop, so the host-to-device copy is not repaid every step. Under
+        a 'data' axis this rank keeps its slice of each array's dim 0
+        (the global batch splits over the axis); the sp, expert and pipe
+        axes take the whole batch. A batch placed already is returned
+        as it is."""
+        if isinstance(batch, _Placed):
+            return batch
+        out = _Placed()
+        for k, v in batch.items():
+            t = _tensor(v, self.device) if self._data_n == 1 else \
+                _tensor(v, torch.device("cpu"))
+            if self._data_n > 1:
+                spec = self._layout.batch_nsharding(t.dim())
+                t = shd.place(t, spec, self.mesh).to(self.device)
+            out[k] = t
+        return out
 
     def _raw_feed(self, batch):
         """Named feed dict from a DataBatch (NDArrays unwrap to their
@@ -396,7 +486,8 @@ class TrainStep:
         if "rescale_grad" not in attrs and self.data_names:
             # Module.init_optimizer's default: the effective lr does not
             # scale with the batch unless the caller overrides
-            attrs["rescale_grad"] = 1.0 / batch[self.data_names[0]].shape[0]
+            attrs["rescale_grad"] = 1.0 / (
+                batch[self.data_names[0]].shape[0] * self._data_n)
         scaler = guard.scaler if guard is not None else None
         scale = gr_state[_guardrail.SCALE_KEY] if scaler is not None \
             else None
@@ -405,6 +496,9 @@ class TrainStep:
         names = self.param_names
         with torch.no_grad():
             glist = [grads.pop(n) for n in names]
+            if self._data_n > 1:
+                # the global batch's gradient: a sum over 'data'
+                _comm.all_reduce_(glist, self.mesh, "data")
             inv = None if scale is None else 1.0 / scale
             finite = gscale = None
             if guard is not None or self.clip_norm is not None:
@@ -415,14 +509,24 @@ class TrainStep:
                     rescale=float(attrs.get("rescale_grad", 1.0)),
                     clip_norm=self.clip_norm)
                 finite = ok if guard is not None else None
+                if finite is not None and self._data_n > 1:
+                    # every rank masks the step if any rank's loss is
+                    # not finite
+                    finite = finite.clone()
+                    _comm.all_reduce_([finite], self.mesh, "data", "min")
                 gscale = gs if self.clip_norm is not None else None
-            new_w, new_s = _mt.opt_update(
-                self._opt_op, [params[n] for n in names], glist,
-                [opt_state[n] for n in names], lr, attrs, flag=finite,
-                gscale=gscale, inv_scale=inv, donate=self._donate)
+            if self.optimizer_sharding == "zero1":
+                new_params, new_opt = self._zero1_update(
+                    params, opt_state, glist, lr, attrs, finite, gscale,
+                    inv)
+            else:
+                new_w, new_s = _mt.opt_update(
+                    self._opt_op, [params[n] for n in names], glist,
+                    [opt_state[n] for n in names], lr, attrs, flag=finite,
+                    gscale=gscale, inv_scale=inv, donate=self._donate)
+                new_params = dict(zip(names, new_w))
+                new_opt = dict(zip(names, new_s))
             del glist
-            new_params = dict(zip(names, new_w))
-            new_opt = dict(zip(names, new_s))
             if finite is not None:
                 new_aux = {k: torch.where(finite, v, aux[k])
                            for k, v in new_aux.items()}
@@ -447,6 +551,42 @@ class TrainStep:
             return (new_params, new_opt, new_aux), outs, finite
         return (new_params, new_opt, new_aux), outs
 
+    def _zero1_update(self, params, opt_state, glist, lr, attrs, finite,
+                      gscale, inv):
+        """ZeRO-1: the update of this rank's slice of every parameter
+        whose state is split over 'data' (the whole of the others), in
+        one ``opt_update``; then each split parameter is all-gathered."""
+        names = self.param_names
+        mesh = self.mesh
+        dspec = {}
+        ws, gs, ss = [], [], []
+        for n, g in zip(names, glist):
+            d = self._zero_dim(n)
+            w = params[n]
+            if d is not None:
+                spec = (None,) * d + ("data",)
+                dspec[n] = spec
+                # a view of the parameter when d == 0 (updated in place
+                # under donation), else a copy
+                w = shd.place(w, spec, mesh)
+                g = shd.place(g, spec, mesh)
+            ws.append(w)
+            gs.append(g)
+            ss.append(opt_state[n])
+        new_w, new_s = _mt.opt_update(
+            self._opt_op, ws, gs, ss, lr, attrs, flag=finite,
+            gscale=gscale, inv_scale=inv, donate=self._donate)
+        new_params = {}
+        for n, w in zip(names, new_w):
+            if n in dspec:
+                full = shd.gather(w, dspec[n], mesh)
+                if self._donate:
+                    params[n].copy_(full)
+                    full = params[n]
+                w = full
+            new_params[n] = w
+        return new_params, dict(zip(names, new_s))
+
     def __call__(self, state, batch, lr, rng):
         return self._step(state, self.place_batch(batch), lr, rng)
 
@@ -466,7 +606,9 @@ class TrainStep:
         Flat order: params (sorted), the optimizer slots of each param,
         aux (sorted). The JAX package also writes the step as a StableHLO
         program, which runs only under JAX: here the step is rebuilt from
-        the meta. Returns the meta's path."""
+        the meta. Under a mesh every rank calls it and rank 0 writes the
+        global arrays. Returns the meta's path."""
+        state = self._global_state(state)
         params, opt_state, aux = state
         pn = sorted(params)
         an = sorted(aux)
@@ -499,10 +641,12 @@ class TrainStep:
                 "label_names": self.label_names,
             },
         }
-        with open(prefix + ".train.meta.json", "w") as f:
-            json.dump(meta, f)
-        np.savez(prefix + ".state.npz", step_count=np.int64(0),
-                 **{"s%05d" % i: a for i, a in enumerate(state_flat)})
+        if self._writer():
+            with open(prefix + ".train.meta.json", "w") as f:
+                json.dump(meta, f)
+            np.savez(prefix + ".state.npz", step_count=np.int64(0),
+                     **{"s%05d" % i: a for i, a in enumerate(state_flat)})
+        self._barrier()
         return prefix + ".train.meta.json"
 
     def _metric_fused_step(self, metric, guard=None):
@@ -523,6 +667,9 @@ class TrainStep:
                 state, outs = self._step(state, placed, lr, rng)
             stats = metric.device_update(
                 [placed[n] for n in label_names], list(outs))
+            if self._data_n > 1:
+                # the whole batch's sums
+                _comm.all_reduce_(_tree_leaves(stats), self.mesh, "data")
             if flag is not None:
                 stats = _guardrail.mask_stats(stats, flag)
             if mstats is not None:
@@ -715,8 +862,12 @@ class TrainStep:
                         data_ms = _telemetry.now_ms() - t_data \
                             if timed else 0.0
                         if not fuse:
-                            # the host metric path
-                            metric.update(batch.label,
+                            # the host metric path (this rank's rows
+                            # under a data axis)
+                            labels = batch.label if self._data_n == 1 \
+                                else [_nd_wrap(placed[n])
+                                      for n in self.label_names]
+                            metric.update(labels,
                                           [_nd_wrap(o) for o in outs])
                         t_win = _telemetry.now_ms() if timed else 0.0
                         while len(inflight) > ahead:
@@ -843,15 +994,45 @@ class TrainStep:
     def _save_fit_checkpoint(self, prefix, epoch, state, n_update,
                              extra_meta=None):
         ck = "%s_%04d" % (prefix, epoch)
-        self.save_state(ck, state)
         meta = {"n_update": n_update}
         if extra_meta:
             meta.update(extra_meta)
-        tmp = ck + ".meta.json.tmp"
-        with open(tmp, "w") as f:
-            json.dump(meta, f)
-        _guardrail.durable_replace(tmp, ck + ".meta.json")
+
+        def write_meta():
+            tmp = ck + ".meta.json.tmp"
+            with open(tmp, "w") as f:
+                json.dump(meta, f)
+            _guardrail.durable_replace(tmp, ck + ".meta.json")
+
+        self.save_state(ck, state, also=write_meta)
         return ck
+
+    # -- the state as global arrays (checkpoints, export) ------------------
+    def _writer(self):
+        """True on the rank that writes files (rank 0 of the mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _barrier(self):
+        if self.mesh is not None and self.mesh.size > 1:
+            import torch.distributed as dist
+            dist.barrier()
+
+    def _global_state(self, state):
+        """(params, opt_state, aux) as the global arrays: each split
+        tensor gathered over its axes (a collective under a mesh)."""
+        if self.mesh is None:
+            return state
+        params, opt_state, aux = state
+        missing = [n for n in params if n not in self._pspec]
+        if missing:
+            raise ValueError("state holds params %r this step did not "
+                             "place (init_state or load_state places them)"
+                             % missing[:4])
+        gp = {n: shd.gather(v, self._pspec[n], self.mesh)
+              for n, v in params.items()}
+        go = {n: tuple(shd.gather(t, self._ospec[n], self.mesh) for t in ss)
+              for n, ss in opt_state.items()}
+        return gp, go, dict(aux)
 
     def _rollback(self, checkpoint_prefix, guard, log):
         """Escalation: restore the newest readable checkpoint after
@@ -894,13 +1075,19 @@ class TrainStep:
                 ck, epoch, nbatch, n_update, _guardrail.EXIT_PREEMPTED)
         raise SystemExit(_guardrail.EXIT_PREEMPTED)
 
-    def save_state(self, prefix, state):
+    def save_state(self, prefix, state, also=None):
         """Checkpoint (params, opt_state, aux) to ``prefix.npz`` in the
         JAX package's layout (keys ``p:<name>``, ``o<i>:<name>``,
         ``a:<name>``; bf16 as the 2-byte void entries ml_dtypes
         bfloat16 becomes in ``.npz``), published durably: written aside,
-        fsynced, renamed, the directory fsynced."""
-        params, opt_state, aux = state
+        fsynced, renamed, the directory fsynced. Under a mesh every rank
+        calls it: the state is gathered into the global arrays and rank 0
+        writes them (then ``also()``, if given), before every rank goes
+        on."""
+        params, opt_state, aux = self._global_state(state)
+        if not self._writer():
+            self._barrier()
+            return prefix + ".npz"
         if _guardrail.SCALE_KEY in aux:
             # the checkpoint read materializes the scale on the host
             # anyway: the one place the gauge updates without a sync of
@@ -919,19 +1106,31 @@ class TrainStep:
         with open(tmp, "wb") as f:
             np.savez(f, **blob)
         _guardrail.durable_replace(tmp, prefix + ".npz")
+        if also is not None:
+            also()
+        self._barrier()
         return prefix + ".npz"
 
     def load_state(self, prefix):
         """Restore a save_state checkpoint (of either package) onto this
-        step's device. Mismatched checkpoints (another model's params or
-        aux, another optimizer's state-slot count) fail loudly."""
+        step's device; under a mesh each rank keeps its slices of the
+        global arrays, whatever mesh wrote them. Mismatched checkpoints
+        (another model's params or aux, another optimizer's state-slot
+        count) fail loudly."""
         path = prefix + ".npz"
         params, opt_state, aux = {}, {}, {}
         slots = {}
         with np.load(path, allow_pickle=False) as blob:
             for key in blob.files:
                 kind, name = key.split(":", 1)
-                t = _from_numpy(blob[key], path, key).to(self.device)
+                t = _from_numpy(blob[key], path, key)
+                if kind == "p":
+                    self._set_specs(name, tuple(t.shape))
+                    t = shd.place(t, self._pspec[name], self.mesh)
+                elif kind != "a" and self.mesh is not None:
+                    self._set_specs(name, tuple(t.shape))
+                    t = shd.place(t, self._ospec[name], self.mesh)
+                t = t.to(self.device)
                 if kind == "p":
                     params[name] = t
                 elif kind == "a":
@@ -1024,11 +1223,17 @@ class CompiledTrainStep:
         self.capture_ms = None
 
     @classmethod
-    def load(cls, prefix, ctx=None):
+    def load(cls, prefix, ctx=None, mesh=None):
         """Rebuild the step exported under ``prefix`` on ``ctx`` (default:
         the current context, gpu(0) unless a ``with mx.cpu():`` scope
-        says otherwise)."""
+        says otherwise). It runs on one device: a mesh of more than one
+        rank raises (capturing collectives in the graph is ROADMAP Queue
+        A item 9b)."""
         import os
+
+        if mesh is not None and mesh.size > 1:
+            _not_ported("CompiledTrainStep over a mesh of %d ranks"
+                        % mesh.size, "Queue A item 9b")
 
         from ..symbol import load_json
         meta_path = prefix + ".train.meta.json"
@@ -1194,6 +1399,14 @@ class CompiledTrainStep:
                  **{"s%05d" % i: _to_numpy(t)
                     for i, t in enumerate(self._state)})
         return prefix + ".state.npz"
+
+
+def _tree_leaves(t):
+    if isinstance(t, dict):
+        return [x for k in t for x in _tree_leaves(t[k])]
+    if isinstance(t, (list, tuple)):
+        return [x for v in t for x in _tree_leaves(v)]
+    return [t]
 
 
 def _tree_add(a, b):

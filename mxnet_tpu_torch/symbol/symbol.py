@@ -113,6 +113,11 @@ class Symbol:
                 out[node.name] = d
         return out
 
+    def _set_attr(self, **kwargs):
+        if len(self._entries) != 1:
+            raise ValueError("_set_attr only supports single-output symbols")
+        self._entries[0][0].misc_attrs.update(kwargs)
+
     # -- introspection -------------------------------------------------------
     def list_arguments(self):
         return [n.name for n in _topo_order(self._entries)
@@ -494,14 +499,29 @@ def _sym_invoke(opdef, inputs, attrs, name, kw_inputs=None):
         else Symbol([(node, 0)])
 
 
-def Variable(name, attr=None, shape=None):
+def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
+             dtype=None, init=None, stype=None, **kwargs):
     """Create a symbolic variable (reference symbol.py `var`); ``shape``
-    rides the graph as the ``__shape__`` attribute shape inference reads."""
+    rides the graph as the ``__shape__`` attribute shape inference reads,
+    and dtype / lr_mult / wd_mult / init (an initializer, stored as its
+    ``dumps()``) and any ``__dunder__`` keyword as their attributes, as
+    the JAX package writes them."""
     if not isinstance(name, str):
         raise TypeError("Expect a string for variable name")
     misc = attribute.current().get(attr or {})
     if shape is not None:
         misc["__shape__"] = str(tuple(shape))
+    if dtype is not None:
+        misc["__dtype__"] = str(np_dtype(dtype).name if dtype else "")
+    if lr_mult is not None:
+        misc["__lr_mult__"] = str(lr_mult)
+    if wd_mult is not None:
+        misc["__wd_mult__"] = str(wd_mult)
+    if init is not None:
+        misc["__init__"] = init if isinstance(init, str) else init.dumps()
+    for k, v in kwargs.items():
+        if k.startswith("__") and k.endswith("__"):
+            misc[k] = str(v)
     return Symbol([(_Node(None, name, misc_attrs=misc), 0)])
 
 

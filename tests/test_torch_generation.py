@@ -501,7 +501,7 @@ def test_generator_validation_matches_jax():
 def test_defaults_and_routing():
     """ctx=cpu() runs on the CPU; the default context is the card (here,
     without CUDA, it raises rather than fall back); mesh= raises naming
-    ROADMAP item 9; serving_decoder returns the continuous-batching
+    ROADMAP item 9b; serving_decoder returns the continuous-batching
     decoder over this Generator (ported with item 8)."""
     p = _params()
     kw = dict(num_layers=L, num_heads=H, dim=DIM, batch_size=B)

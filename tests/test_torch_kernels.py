@@ -311,6 +311,46 @@ def test_cuda_bwd_kernel_matches_plain_versions(cuda_device, BH, T, Tk, D,
     torch.testing.assert_close(dv.float(), rdv.float(), **tol)
 
 
+# (id, BH, Tb, D, window, band offset): the windowed ring's visiting
+# blocks, a band offset t*Tb > 0 (rows past the window fully masked in
+# the last two)
+RING_BAND_CASES = [
+    ("one_hop", 4, 256, 128, 300, 256),
+    ("two_hops", 2, 128, 64, 300, 256),
+    ("masked_rows", 2, 128, 64, 100, 128),
+    ("ragged_d", 2, 192, 40, 150, 192),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,Tb,D,window,band_offset",
+                         [c[1:] for c in RING_BAND_CASES],
+                         ids=[c[0] for c in RING_BAND_CASES])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_cuda_kernels_at_ring_band_offsets(cuda_device, BH, Tb, D, window,
+                                           band_offset, dtype):
+    """The ring's visiting blocks (parallel/ring.py): both kernels at a
+    band offset > 0 against their plain versions, the forward with its
+    lse, the backward with an lse cotangent folded into delta."""
+    args = _bwd_inputs(BH, Tb, Tb, D, dtype, True, window, band_offset,
+                       cuda_device, dlse=True)
+    q, k, v = args[:3]
+    attrs = (D ** -0.5, True, window, band_offset)
+    o, lse = tatt.flash_fwd_cuda(q, k, v, *attrs, want_lse=True)
+    ro, rlse = tatt._flash_fwd_reference(q, k, v, *attrs)
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(o.float(), ro.float(), **tol)
+    torch.testing.assert_close(lse, rlse, **LSE_TOL)
+    dq, dk, dv = tatt.flash_bwd_cuda(*args, *attrs)
+    torch.testing.assert_close(dq.float(), tatt._flash_dq_reference(
+        *args, *attrs).float(), **tol)
+    rdk, rdv = tatt._flash_dkv_reference(*args, *attrs)
+    torch.testing.assert_close(dk.float(), rdk.float(), **tol)
+    torch.testing.assert_close(dv.float(), rdv.float(), **tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("BH,T,Tk,D,causal,window,band_offset", [
     (6, 640, 640, 128, False, 0, 0),

@@ -141,11 +141,20 @@ def test_option_refusals_match_jax(kw, match):
 @pytest.mark.parametrize("kw", [dict(num_experts=4), dict(seq_axis="sp")],
                          ids=["moe", "seq_axis"])
 def test_parallel_options_raise_naming_item_9(kw):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ttransformer.get_symbol(V, T, **kw)
+    """Item 9a ported these options: the graphs equal the JAX package's
+    (MoE in the decode graph too), and seq_axis keeps the JAX refusal
+    with SSM layers."""
+    jsym, tsym = _symbols(**kw)
+    assert json.loads(tsym.tojson()) == json.loads(jsym.tojson())
     if "num_experts" in kw:
-        with pytest.raises(NotImplementedError, match="item 9"):
-            ttransformer.get_decode_symbol(V, T, **kw)
+        with jmx.name.NameManager():
+            jdec = jtransformer.get_decode_symbol(V, T, **kw)
+        with tmx.name.NameManager():
+            tdec = ttransformer.get_decode_symbol(V, T, **kw)
+        assert json.loads(tdec.tojson()) == json.loads(jdec.tojson())
+    else:
+        with pytest.raises(ValueError, match="ssm"):
+            ttransformer.get_symbol(V, T, block_type="ssm", **kw)
 
 
 def _np(x):

@@ -443,8 +443,8 @@ def test_nd_namespace_covers_the_registry():
     assert not hasattr(nd, "RNN")
     with pytest.raises(treg.OpNotPorted, match="item 10"):
         nd.RNN
-    with pytest.raises(treg.OpNotPorted, match="MoE with item 9"):
-        nd.contrib.MoEFFN
+    with pytest.raises(treg.OpNotPorted, match="item 10"):
+        nd.contrib.fft
     with pytest.raises(AttributeError):
         nd.no_such_op
     assert treg.not_ported("no_such_op") is None

@@ -747,6 +747,15 @@ CASES += [
      [_ids((2, 3), 5), np.random.RandomState(6).randint(
          -127, 128, (5, 6)).astype(_I8), np.abs(_f32(5, seed=1)) / 50],
      {"input_dim": 5, "output_dim": 6}),
+    # Switch MoE (dense form, no mesh): 12 tokens over 4 experts at
+    # capacity ceil(12 * 1.25 / 4) = 4, so some tokens drop
+    ("c_moe_ffn", "_contrib_MoEFFN",
+     [_f32(2, 6, 8), _f32(8, 4, seed=1) * 0.5, _f32(4, 8, 16, seed=2) * 0.2,
+      _f32(4, 16, 8, seed=3) * 0.2], {"capacity_factor": 1.25}),
+    ("c_moe_ffn_alias", "_contrib_moe_ffn",
+     [_f32(10, 8, seed=4), _f32(8, 4, seed=5) * 0.5,
+      _f32(4, 8, 16, seed=6) * 0.2, _f32(4, 16, 8, seed=7) * 0.2],
+     {"capacity_factor": 2.0}),
 ]
 
 # the rejection samplers (jax random.py's gamma and poisson loops, and

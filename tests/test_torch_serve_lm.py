@@ -236,5 +236,12 @@ def test_bf16_params_round_trip_through_npz(tmp_path):
 @pytest.mark.parametrize("kw", [dict(num_experts=4), dict(seq_axis="sp")],
                          ids=["moe", "seq_axis"])
 def test_unported_options_raise_not_implemented(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_symbol(**kw)
+    """The MoE FFN and ring attention are ported (ROADMAP Queue A item
+    9a): the options build the JAX package's graph, and the one option
+    of the serving path left, a Generator over a mesh, raises naming
+    item 9b."""
+    assert json.loads(_port_symbol(**kw).tojson()) == \
+        json.loads(_jax_symbol(**kw).tojson())
+    from mxnet_tpu_torch.generation import Generator
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 9b"):
+        Generator({}, V, T, ctx=tmx.cpu(), mesh=object())
