@@ -202,7 +202,17 @@ Phases (any failure exits non-zero; no phase is caught):
    layers in float32 over data=2 with and without zero1 (bit-equal), sp=2
    and expert=2, each against the one-rank step; pipeline_from_symbol at
    pipe=2 against the sequential stages; ms and staged bytes of each;
-24. one JSON line of every ported kernel (a device time under its byte
+24. gspmd2: two ranks of this script sharing the card over gloo
+   (``--gspmd-rank=`` runs one): bench_scaling.py --full-size's GSPMD row
+   at n = 2 (the flagship LM at 2 layers, data=1 x fsdp=2, SpecLayout,
+   Adam zero1, bf16, batch 8 a rank; a warm step and 2 timed: ms, the
+   loss, the parameters and Adam state at 1/2 a rank, the launches) and
+   its float32 parity step against one rank; the same LM over tp=2
+   (column-parallel qkv/proj/fc1/fc2) against one rank; ResNet-50 under
+   data=2 on the BatchNorm kernels (batch 16 a rank, f32) against one
+   rank; Generator over model=2 (bench_decode's model, f32) against the
+   one-rank generate;
+25. one JSON line of every ported kernel (a device time under its byte
    bound fails the run: the timing lost work), then the result line.
 
 It imports nothing of JAX or of ``mxnet_tpu``. Without CUDA, or run
@@ -6311,6 +6321,505 @@ def mesh2_phase(device="cuda", tiny=False):
     return launches
 
 
+
+GSPMD_LAYERS = 2                  # the flagship LM cut to 2 layers
+GSPMD_BATCH = 8                   # bench_scaling.py's per-device batch
+GSPMD_F32_BATCH = 2               # the float32 parity check, a rank
+GSPMD_F32_LR = 0.1                # SGD momentum 0.9 (Queue C 19: not Adam)
+GSPMD_RESNET_BATCH = 16           # a rank (bench.py's 128, cut)
+GSPMD_GEN_NEW = 32
+GSPMD_GEN_BATCH = 8
+GSPMD_LOGIT_TOL = 1e-4            # the near-tie rule of Queue C 9 and 15
+RESNET_FLOOR_X = 2.0              # (c): L2 distance against the reorder floor
+GSPMD_TP_RULES = (("*_qkv_weight", "tp,None"), ("*_proj_weight", "tp,None"),
+                  ("*_fc1_weight", "tp,None"), ("*_fc2_weight", "tp,None"))
+GSPMD_TINY = dict(vocab=64, seq=16, heads=2, dim=32, batch=2, resnet=(
+    18, 32, 2, 10), gen=(4, 32, 8, 8))
+
+
+def _gspmd_rank(rank, world, port, out, device, tiny):
+    """One rank of gspmd2 (run as ``chip_smoke.py --gspmd-rank=...``):
+    (a) bench_scaling.py's GSPMD row at n = 2 and its float32 parity
+    check, (b) the tensor-parallel LM, (c) ResNet-50 under data=2 on the
+    BatchNorm kernels, (d) Generator over a model axis; results to
+    ``out/rank<r>.json``."""
+    import torch
+    torch.set_num_threads(4)
+    sys.path.insert(0, HERE)
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import config, telemetry
+    from mxnet_tpu_torch.generation import Generator
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import resnet, transformer
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.ops import bn_kernels as bnk
+    from mxnet_tpu_torch.ops import optimizer_kernels as mt
+    from mxnet_tpu_torch.parallel import (SpecLayout, _comm, dist, make_mesh,
+                                          make_train_step)
+
+    dev = torch.device(device, 0) if device == "cuda" else \
+        torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+    dist.init("127.0.0.1:%d" % port, world, rank, backend="gloo",
+              timeout=600)
+    ctx = mx.gpu(0) if dev.type == "cuda" else mx.cpu()
+    T = GSPMD_TINY if tiny else None
+    V, S, H, Dm = (T["vocab"], T["seq"], T["heads"], T["dim"]) if tiny \
+        else (VOCAB, SEQ, HEADS, DIM)
+    L = GSPMD_LAYERS
+    fwd, bwd = att.flash_fwd_cuda, att.flash_bwd_cuda
+    bn = (bnk.bn_stats_cuda, bnk.bn_apply_cuda, bnk.bn_bwd_reduce_cuda,
+          bnk.bn_bwd_dx_cuda)
+    mtu, mtn = mt.multi_tensor_opt_update_cuda, \
+        mt.multi_tensor_norm_finite_cuda
+    for c in (fwd, bwd):
+        c.launches = c.launches_f32 = 0
+    for c in (mtu, mtn) + bn:
+        c.launches = 0
+    keys = ("flash_fwd_cuda", "flash_bwd_cuda", "flash_fwd_f32_cuda",
+            "flash_bwd_f32_cuda", "multi_tensor_opt_update_cuda",
+            "multi_tensor_norm_finite_cuda") + tuple(
+                c.__name__ for c in bn)
+
+    def kcounts():
+        return dict(zip(keys, (
+            fwd.launches - fwd.launches_f32, bwd.launches - bwd.launches_f32,
+            fwd.launches_f32, bwd.launches_f32, mtu.launches, mtn.launches)
+            + tuple(c.launches for c in bn)))
+
+    path = dict.fromkeys(keys, 0)     # the mesh runs' launches
+
+    def since(c0, on_path=True):
+        d = {k: v - c0[k] for k, v in kcounts().items()}
+        if on_path:
+            for k, v in d.items():
+                path[k] += v
+        return d
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def staged():
+        return telemetry.counter(_comm.STAGED_BYTES).value
+
+    def free():
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def host(params):
+        return {n: v.detach().float().cpu() for n, v in params.items()}
+
+    def compare(got, want):
+        """(worst |got - want|, the parameter it is in, all within
+        TRAIN_TOL)."""
+        err = {n: float((got[n] - want[n]).abs().max()) for n in want}
+        worst = max(err, key=err.get)
+        within = all(bool(torch.allclose(got[n], want[n], **TRAIN_TOL))
+                     for n in want)
+        return err[worst], worst, within
+
+    res = {"n_rank": world}
+    staged0 = staged()
+
+    # -- (a) bench_scaling.py's GSPMD row at n = 2 -------------------------
+    sym = transformer.get_symbol(V, S, num_layers=L, num_heads=H, dim=Dm)
+    Bt = T["batch"] if tiny else GSPMD_BATCH
+    rng = np.random.RandomState(3)
+    toks = rng.randint(0, V, (Bt * world, S)).astype(np.float32)
+    labels = np.roll(toks, -1, axis=1)
+    labels[:, -1] = -1
+    feed = {"data": toks, "softmax_label": labels}
+    shapes = {k: v.shape for k, v in feed.items()}
+    params = random_params(sym, (Bt * world, S), 5)
+    n_elems = sum(int(np.prod(v.shape)) for v in params.values())
+    mesh = make_mesh({"data": 1, "fsdp": world})
+    step = make_train_step(sym, optimizer="adam", ctx=ctx,
+                           layout=SpecLayout(mesh),
+                           optimizer_sharding="zero1",
+                           compute_dtype="bfloat16")
+    state = step.init_state(None, shapes, arg_params=params)
+    placed = step.place_batch(feed)
+    st0 = staged()
+    c0 = kcounts()
+    state, outs = step(state, placed, TRAIN_LR, 0)          # warm-up
+    sync()
+    c1 = kcounts()
+    t = time.perf_counter()
+    for i in range(2):
+        state, outs = step(state, placed, TRAIN_LR, i + 1)
+    sync()
+    ms = (time.perf_counter() - t) / 2 * 1e3
+    timed = {k: v - c1[k] for k, v in kcounts().items()}
+    since(c0)
+    nll, cnt = batch_nll(outs, placed)
+    res["row"] = {
+        "ms": ms, "tokens_s": Bt * world * S / ms * 1e3,
+        "nll": float(nll / cnt), "staged": staged() - st0,
+        "timed_calls": timed, "n_params": len(params),
+        "param_bytes": sum(v.numel() * v.element_size()
+                           for v in state[0].values()),
+        "param_bytes_whole": 4 * n_elems,
+        "opt_bytes": telemetry.gauge("gspmd.opt_state_bytes_per_dev").value,
+        "opt_bytes_whole": 2 * 4 * n_elems,
+        "sharded_params": telemetry.gauge("gspmd.sharded_params").value,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9
+        if dev.type == "cuda" else 0.0}
+    del step, state, outs, placed
+    free()
+
+    # the float32 parity check: data x fsdp with zero1 against one rank
+    B2 = GSPMD_F32_BATCH * world
+    feed2 = {k: v[:B2] for k, v in feed.items()}
+    shapes2 = {k: v.shape for k, v in feed2.items()}
+    sgd = dict(optimizer="sgd", optimizer_params={"momentum": 0.9}, ctx=ctx)
+    step = make_train_step(sym, layout=SpecLayout(mesh),
+                           optimizer_sharding="zero1", **sgd)
+    state = step.init_state(None, shapes2, arg_params=params)
+    st0, c0 = staged(), kcounts()
+    state, _ = step(state, step.place_batch(feed2), GSPMD_F32_LR, 0)
+    sync()
+    calls = since(c0)
+    got = host(step._global_state(state)[0])
+    res["f32"] = {"calls": calls, "staged": staged() - st0,
+                  "opt_local": sum(s.numel() for ss in state[1].values()
+                                   for s in ss), "opt_whole": n_elems}
+    del step, state
+    one = None
+    if rank == 0:
+        step = make_train_step(sym, **sgd)
+        state = step.init_state(None, shapes2, arg_params=params)
+        c0 = kcounts()
+        state, _ = step(state, feed2, GSPMD_F32_LR, 0)
+        sync()
+        since(c0, on_path=False)
+        one = host(state[0])
+        del step, state
+        res["f32"]["max_abs_err"], res["f32"]["worst"], \
+            res["f32"]["within"] = compare(got, one)
+    del got
+    free()
+
+    # -- (b) tensor parallelism: the same float32 LM over tp ---------------
+    tp_mesh = make_mesh({"tp": world})
+    step = make_train_step(sym, layout=SpecLayout(tp_mesh,
+                                                  rules=GSPMD_TP_RULES),
+                           **sgd)
+    state = step.init_state(None, shapes2, arg_params=params)
+    st0, c0 = staged(), kcounts()
+    t = time.perf_counter()
+    state, _ = step(state, step.place_batch(feed2), GSPMD_F32_LR, 0)
+    sync()
+    res["tp"] = {"ms": (time.perf_counter() - t) * 1e3, "calls": since(c0),
+                 "staged": staged() - st0,
+                 "halved": all(
+                     state[0][n].shape[0] * world == params[n].shape[0]
+                     for n in params if any(
+                         n.endswith(r[0][1:]) for r in GSPMD_TP_RULES))}
+    got = host(step._global_state(state)[0])
+    del step, state
+    if rank == 0:
+        res["tp"]["max_abs_err"], res["tp"]["worst"], \
+            res["tp"]["within"] = compare(got, one)
+    del got, one, params
+    free()
+
+    # -- (c) ResNet-50 under data=2 on the BatchNorm kernels ---------------
+    rl, img, rb, ncls = T["resnet"] if tiny else (
+        50, RESNET_IMAGE, GSPMD_RESNET_BATCH, RESNET_CLASSES)
+    rsym = resnet.get_symbol(num_classes=ncls, num_layers=rl,
+                             image_shape=(3, img, img))
+    n_bn = sum(1 for n in json.loads(rsym.tojson())["nodes"]
+               if n["op"] == "BatchNorm")
+    rng = np.random.RandomState(11)
+    rfeed = {"data": rng.standard_normal((rb * world, 3, img, img))
+             .astype(np.float32),
+             "softmax_label": rng.randint(0, ncls, (rb * world,))
+             .astype(np.float32)}
+    rshapes = {k: v.shape for k, v in rfeed.items()}
+    config.set_override("MXNET_BN_PALLAS", True)
+    # a float32 ResNet-50 step does not reproduce its parameters to
+    # TRAIN_TOL when its own rows are reordered (from Xavier at lr 0.1 the
+    # first step moves conv0 by up to 0.36: BatchNorm sums rounded in
+    # another order flip relu and max-pool near-ties, ~1e-3 in conv0);
+    # its moving stats (the forward alone) do. So the moving stats are
+    # held to TRAIN_TOL, and the parameters' L2 distance from the one-rank
+    # step to RESNET_FLOOR_X times the one-rank step's own distance from
+    # the same step on its rows with the halves swapped. The check runs
+    # PyTorch's own convolutions (per-sample GEMMs, the same for any
+    # batch); cuDNN's, whose algorithms follow the batch size, is reported
+    swap = np.concatenate([np.arange(rb, 2 * rb), np.arange(rb)]) \
+        if world == 2 else np.arange(rb * world)
+    for conv in ("native", "cudnn"):
+        torch.backends.cudnn.enabled = conv == "cudnn"
+        after = []
+        runs = [(make_mesh({"data": world}), rfeed)]
+        if rank == 0:
+            runs.append((None, rfeed))
+            if conv == "native":
+                runs.append((None, {k: v[swap] for k, v in rfeed.items()}))
+        for mesh_r, batch in runs:
+            step = make_train_step(rsym, mesh=mesh_r, **sgd)
+            mx.random.seed(7)
+            state = step.init_state(Xavier(factor_type="in", magnitude=2.0),
+                                    rshapes)
+            st0, c0 = staged(), kcounts()
+            t = time.perf_counter()
+            state, _ = step(state, step.place_batch(batch), RESNET_LR, 0)
+            sync()
+            ms = (time.perf_counter() - t) * 1e3
+            calls = since(c0, on_path=mesh_r is not None)
+            full = step._global_state(state)
+            after.append({**host(full[0]), **{
+                "aux " + n: v for n, v in host(full[2]).items()}})
+            if mesh_r is not None:
+                res["resnet_" + conv] = {"ms": ms, "calls": calls,
+                                         "n_bn": n_bn,
+                                         "staged": staged() - st0}
+            del step, state, full
+            free()
+        if rank == 0:
+            r = res["resnet_" + conv]
+            r["max_abs_err"], r["worst"], r["within"] = compare(after[0],
+                                                               after[1])
+            if conv == "native":
+                params_ = [n for n in after[1] if not n.startswith("aux ")]
+
+                def l2(a, b):
+                    return float(torch.sqrt(sum(
+                        ((a[n] - b[n]).double() ** 2).sum()
+                        for n in params_)))
+                r["l2"] = l2(after[0], after[1])
+                r["floor_l2"] = l2(after[2], after[1])
+                r["floor_max"], r["floor_worst"], _ = compare(after[2],
+                                                              after[1])
+                r["over_tol"] = sum(1 for n in params_ if not torch.allclose(
+                    after[0][n], after[1][n], **TRAIN_TOL))
+                r["floor_over_tol"] = sum(
+                    1 for n in params_ if not torch.allclose(
+                        after[2][n], after[1][n], **TRAIN_TOL))
+                r["n_params"] = len(params_)
+                r["aux_within"] = all(
+                    torch.allclose(after[0][n], after[1][n], **TRAIN_TOL)
+                    for n in after[1] if n.startswith("aux "))
+                r["within"] = r["aux_within"] and \
+                    r["l2"] <= RESNET_FLOOR_X * r["floor_l2"]
+        del after
+    torch.backends.cudnn.enabled = True
+    config.set_override("MXNET_BN_PALLAS", None)
+    free()
+
+    # -- (d) Generator over a model axis ---------------------------------
+    gl, ml, gb, gp = T["gen"] if tiny else (
+        LAYERS, GEN_MAX_LEN, GSPMD_GEN_BATCH, GEN_PROMPT)
+    arch = dict(num_layers=gl, num_heads=H, dim=Dm, ffn_hidden=4 * Dm)
+    gsym = transformer.get_symbol(V, ml, **arch)
+    mx.random.seed(0)
+    gparams = make_train_step(gsym, optimizer="sgd", ctx=ctx).init_state(
+        Xavier(), {"data": (gb, ml), "softmax_label": (gb, ml)})[0]
+    new = T["gen"][3] if tiny else GSPMD_GEN_NEW
+    prompt = np.random.RandomState(13).randint(0, V, (gb, gp))
+    gen = Generator(gparams, V, ml, batch_size=gb, ctx=ctx,
+                    mesh=make_mesh({"model": world}), **arch)
+    one = Generator(gparams, V, ml, batch_size=gb, ctx=ctx, **arch)
+    gen.generate(prompt, 2)                                   # warm-up
+    sync()
+    st0 = staged()
+    t = time.perf_counter()
+    toks = gen.generate(prompt, new)
+    sync()
+    ms = (time.perf_counter() - t) * 1e3
+    st1 = staged()
+    want = one.generate(prompt, new)
+    rows = [int(r) for r in np.nonzero((toks != want).any(axis=1))[0]]
+    worst = 0.0
+    for r in rows:
+        i = int(np.nonzero(toks[r] != want[r])[0][0])
+        prefix = toks[:, :i]
+        lg = gen._forward(gen._fresh_aux(), prefix, 0)[0][r, -1]
+        lo = one._forward(one._fresh_aux(), prefix, 0)[0][r, -1]
+        worst = max(worst, float((lg.float() - lo.float()).abs().max()))
+    res["gen"] = {"ms": ms, "ms_token": ms / new, "rows_equal": gb - len(rows),
+                  "rows": gb, "logit_err": worst, "staged": st1 - st0,
+                  "qkv_local": list(gen._params["layer0_qkv_weight"].shape),
+                  "cache": list(next(iter(gen._fresh_aux().values()))
+                                .shape)}
+    del gen, one, gparams
+    free()
+
+    res["staged_bytes"] = staged() - staged0
+    res["launches"] = path
+    with open(os.path.join(out, "rank%d.json" % rank), "w") as f:
+        json.dump(res, f)
+    dist.shutdown()
+
+
+def gspmd2_phase(device="cuda", tiny=False):
+    """Two ranks sharing the card, backend gloo named explicitly, one
+    launch with every case (rank 0's figures; the ranks' launch counts
+    from the kernel wrappers' counters):
+    (a) bench_scaling.py --full-size's GSPMD row at n = 2: the flagship
+    LM at full width cut to 2 layers, make_mesh({'data': 1, 'fsdp': 2}),
+    SpecLayout(mesh) at the default MXNET_FSDP_MIN_SIZE, Adam with
+    optimizer_sharding='zero1', bf16, batch 8 a rank: one warm step and 2
+    timed; a finite loss, parameters and Adam state at 1/2 a rank, the
+    flash kernels twice and the multi-tensor update once a rank a step;
+    then in float32 at batch 2 a rank one SGD-momentum step against the
+    one-rank step of the same 4 rows within TRAIN_TOL (the exact-f32
+    flash kernels); (b) the same float32 LM under make_mesh({'tp': 2})
+    with the qkv/proj/fc1/fc2 weights 'tp,None' (column-parallel): one
+    step against the one-rank step, each rank holding half of those
+    weights; (c) ResNet-50 under data=2 with MXNET_BN_PALLAS=1, float32,
+    batch 16 a rank: parameters and moving stats after one SGD-momentum
+    step against the one-rank step of the 32 rows, each BatchNorm kernel
+    once a BatchNorm a rank; (d) Generator(mesh=make_mesh({'model': 2}))
+    on bench_decode's model in float32: generate of 32 tokens equal to
+    the one-rank generate, or within GSPMD_LOGIT_TOL of its logits at the
+    first differing step (a near-tie), and ms a token. The times measure
+    gloo over host memory, not a deployment. Returns the launch counts of
+    both ranks."""
+    import tempfile
+    out = tempfile.mkdtemp(prefix="gspmd2_")
+    port = _free_port()
+    t = time.perf_counter()
+    rcs, logs = _launch_ranks(
+        "gspmd-rank", lambda r: "%d,2,%d,%s,%s,%d" % (
+            r, port, out, device, int(tiny)), 2, MESH_RANK_TIMEOUT_S)
+    launch_s = time.perf_counter() - t
+    if rcs != [0, 0]:
+        for r, log in enumerate(logs):
+            sys.stderr.write("gspmd2 rank %d log (tail):\n%s\n"
+                             % (r, log[-6000:]))
+        fail("gspmd2: the ranks exited %r" % (rcs,))
+    res = []
+    for r in range(2):
+        with open(os.path.join(out, "rank%d.json" % r)) as f:
+            res.append(json.load(f))
+    r0 = res[0]
+    row = r0["row"]
+    gen = r0["gen"]
+    say("gspmd2 (a) GSPMD row (flagship LM, %d layers, data=1 x fsdp=2, "
+        "SpecLayout, Adam zero1, bf16, batch %d a rank): %.1f ms a step "
+        "(rank 0, 2 timed steps after a warm-up), %.0f tokens/s over both "
+        "ranks, loss %.4f, parameters %d of %d bytes a rank, Adam state %d "
+        "of %d bytes a rank, %d sharded parameters, %.1f MB staged a "
+        "step, peak %.2f GB" % (
+            GSPMD_LAYERS, GSPMD_TINY["batch"] if tiny else GSPMD_BATCH,
+            row["ms"],
+            row["tokens_s"], row["nll"], row["param_bytes"],
+            row["param_bytes_whole"], row["opt_bytes"],
+            row["opt_bytes_whole"], row["sharded_params"],
+            row["staged"] / 3e6, row["peak_gb"]))
+    say("gspmd2 (a) float32 parity (batch %d a rank, SGD momentum, zero1: "
+        "%d of %d state elements a rank): max abs err %.3g (%s) against "
+        "the one-rank step" % (GSPMD_F32_BATCH, r0["f32"]["opt_local"],
+                               r0["f32"]["opt_whole"],
+                               r0["f32"]["max_abs_err"], r0["f32"]["worst"]))
+    say("gspmd2 (b) tp=2 (qkv/proj/fc1/fc2 column-parallel): one step %.1f "
+        "ms, %.1f MB staged, max abs err %.3g (%s) against the one-rank "
+        "step" % (r0["tp"]["ms"], r0["tp"]["staged"] / 1e6,
+                  r0["tp"]["max_abs_err"], r0["tp"]["worst"]))
+    for conv in ("native", "cudnn"):
+        rr = r0["resnet_" + conv]
+        say("gspmd2 (c) ResNet-50 data=2 on the BatchNorm kernels (batch %d "
+            "a rank, f32, %s convolutions): one step %.1f ms, %.1f MB "
+            "staged, max abs err %.3g (%s) against the one-rank step "
+            "(parameters and moving stats)%s" % (
+                GSPMD_TINY["resnet"][2] if tiny else GSPMD_RESNET_BATCH,
+                conv, rr["ms"], rr["staged"] / 1e6, rr["max_abs_err"],
+                rr["worst"], "; L2 over the parameters %.4g, %d of %d "
+                "beyond %r; the one-rank step on its rows with the halves "
+                "swapped: max %.3g (%s), L2 %.4g, %d beyond; the moving "
+                "stats within: %s" % (
+                    rr["l2"], rr["over_tol"], rr["n_params"], TRAIN_TOL,
+                    rr["floor_max"], rr["floor_worst"], rr["floor_l2"],
+                    rr["floor_over_tol"], rr["aux_within"])
+                if conv == "native" else " (reported: cuDNN's algorithms "
+                "differ by batch size)"))
+    say("gspmd2 (d) Generator model=2 (bench_decode's model, f32, batch %d):"
+        " %d new tokens in %.1f ms (%.2f ms a token, prefill included), "
+        "%d of %d rows equal to the one-rank generate (logits at the first "
+        "differing step within %.3g), %.1f MB staged; qkv weight a rank %r,"
+        " a cache a rank %r" % (
+            gen["rows"], GSPMD_GEN_NEW if not tiny else GSPMD_TINY["gen"][3],
+            gen["ms"], gen["ms_token"], gen["rows_equal"], gen["rows"],
+            gen["logit_err"], gen["staged"] / 1e6, gen["qkv_local"],
+            gen["cache"]))
+    say("gspmd2: parallel.comm.staged_bytes %d (rank 0), %d (rank 1); the "
+        "launch took %.1f s" % (r0["staged_bytes"], res[1]["staged_bytes"],
+                                launch_s))
+    if not np.isfinite(row["nll"]):
+        fail("gspmd2 (a): the loss is not finite: %r" % row["nll"])
+    for what, got, whole in (("parameter", row["param_bytes"],
+                              row["param_bytes_whole"]),
+                             ("Adam state", row["opt_bytes"],
+                              row["opt_bytes_whole"])):
+        # at full width every parameter has over MXNET_FSDP_MIN_SIZE
+        # elements and an even dim (the toy sizes keep small ones whole)
+        if got * 2 != whole and not tiny:
+            fail("gspmd2 (a): each rank holds %d %s bytes, not 1/2 of %d"
+                 % (got, what, whole))
+    for name in ("f32", "tp", "resnet_native"):
+        if not r0[name]["within"]:
+            fail("gspmd2 %s: the step's parameters differ from the one-rank "
+                 "step's by %g in %s (beyond %r%s)" % (
+                     name, r0[name]["max_abs_err"], r0[name]["worst"],
+                     TRAIN_TOL, "" if name != "resnet_native" else
+                     "; or the moving stats beyond it, or the parameters' "
+                     "L2 distance beyond %g x the one-rank step's own under "
+                     "a reordering of its rows" % RESNET_FLOOR_X))
+    if not r0["tp"]["halved"]:
+        fail("gspmd2 (b): a rank does not hold half of each tp weight")
+    if gen["rows_equal"] < gen["rows"] and \
+            not gen["logit_err"] <= GSPMD_LOGIT_TOL:
+        fail("gspmd2 (d): %d of %d rows differ from the one-rank generate, "
+             "with logits %g apart at the first differing step (beyond %g)"
+             % (gen["rows"] - gen["rows_equal"], gen["rows"],
+                gen["logit_err"], GSPMD_LOGIT_TOL))
+    if device == "cuda":
+        L = GSPMD_LAYERS
+        for r, rr in enumerate(res):
+            want = {"row": [2 * L, 2 * L, 2 * mt_launches(
+                rr["row"]["n_params"])],
+                "f32": [L, L], "tp": [L, L],
+                "resnet": [rr["resnet_native"]["n_bn"]] * 8}
+            got = {"row": [rr["row"]["timed_calls"][k] for k in (
+                "flash_fwd_cuda", "flash_bwd_cuda",
+                "multi_tensor_opt_update_cuda")],
+                "f32": [rr["f32"]["calls"][k] for k in (
+                    "flash_fwd_f32_cuda", "flash_bwd_f32_cuda")],
+                "tp": [rr["tp"]["calls"][k] for k in (
+                    "flash_fwd_f32_cuda", "flash_bwd_f32_cuda")],
+                "resnet": [rr["resnet_" + conv]["calls"][k]
+                           for conv in ("native", "cudnn") for k in (
+                               "bn_stats_cuda", "bn_apply_cuda",
+                               "bn_bwd_reduce_cuda", "bn_bwd_dx_cuda")]}
+            if got != want:
+                fail("gspmd2 rank %d: launches by case %r, not %r"
+                     % (r, got, want))
+            say("gspmd2 rank %d: launches by case (row: 2 timed steps' "
+                "flash forward, backward, multi-tensor update; f32 and tp: "
+                "exact-f32 flash forward, backward; resnet: the four "
+                "BatchNorm kernels) %s, as the schedules give"
+                % (r, json.dumps(got, sort_keys=True)))
+    launches = {k: r0["launches"][k] + res[1]["launches"][k]
+                for k in r0["launches"]}
+    say("gspmd2: launches of both ranks %s" % ", ".join(
+        "%s %d" % kv for kv in sorted(launches.items())))
+    if device == "cuda":
+        for name in ("flash_fwd_cuda", "flash_bwd_cuda",
+                     "flash_fwd_f32_cuda", "flash_bwd_f32_cuda",
+                     "multi_tensor_opt_update_cuda", "bn_stats_cuda",
+                     "bn_apply_cuda", "bn_bwd_reduce_cuda",
+                     "bn_bwd_dx_cuda"):
+            if not launches[name]:
+                fail("gspmd2: %s was not launched on the path" % name)
+    return launches
+
+
 def main():
     try:
         import torch
@@ -6390,7 +6899,8 @@ def main():
                "compiled_serve": compiled_serve_phase(
                    [att.flash_fwd_cuda, nmsk.nms_keep_cuda]),
                "moe_lm": moe_lm_phase(),
-               "mesh2": mesh2_phase()}
+               "mesh2": mesh2_phase(),
+               "gspmd2": gspmd2_phase()}
     for rec in records:
         # no kernel moves its bytes faster than the memory can: a time
         # under the byte bound means the timing lost work
@@ -6422,7 +6932,8 @@ PARTIAL = {"mt": mt_kernel_phase, "bn": bn_kernel_phase,
            "serve_decode": serve_decode_phase,
            "serve_fleet": serve_fleet_phase,
            "compiled_serve": lambda: compiled_serve_phase(_serve_counters()),
-           "moe_lm": moe_lm_phase, "mesh2": mesh2_phase}
+           "moe_lm": moe_lm_phase, "mesh2": mesh2_phase,
+           "gspmd2": gspmd2_phase}
 
 
 def _serve_counters():
@@ -6432,9 +6943,12 @@ def _serve_counters():
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 2 and sys.argv[1].startswith("--mesh-rank="):
-        # one rank of the mesh2 phase (started by mesh2_phase)
+    if len(sys.argv) == 2 and sys.argv[1].startswith(("--mesh-rank=",
+                                                      "--gspmd-rank=")):
+        # one rank of the mesh2 or gspmd2 phase (started by the phase)
         r, w, p, d, device, tiny = sys.argv[1].split("=", 1)[1].split(",")
-        _mesh_rank(int(r), int(w), int(p), d, device, bool(int(tiny)))
+        rank_main = _mesh_rank if sys.argv[1].startswith("--mesh") \
+            else _gspmd_rank
+        rank_main(int(r), int(w), int(p), d, device, bool(int(tiny)))
     else:
         main()

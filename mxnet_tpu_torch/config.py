@@ -135,6 +135,16 @@ define("MXNET_BN_PALLAS", bool, False,
        "route 4-D NCHW training BatchNorm (axis 1) through the hand-written "
        "CUDA kernels of csrc/bn_train.cu on the card (their plain PyTorch "
        "versions on the CPU); the name is the JAX package's")
+define("MXNET_FSDP_MIN_SIZE", int, 1024,
+       "SpecLayout auto-rule threshold: parameters with fewer elements "
+       "than this replicate instead of sharding over the 'fsdp' mesh "
+       "axis (a per-layer all-gather costs more than the memory a tiny "
+       "tensor saves)")
+define("MXNET_GSPMD_CONSTRAIN_ACTS", bool, True,
+       "with a SpecLayout bound, pin activation batch dims to the "
+       "data axes at module boundaries (lenient sharding constraints "
+       "at FullyConnected/Convolution/... outputs) so GSPMD "
+       "propagation can't drift activations off the batch sharding")
 define("MXNET_NMS_IMPL", str, "",
        "MultiBoxDetection NMS route when impl='auto': pallas = the "
        "hand-written CUDA kernel of csrc/nms.cu (its plain PyTorch version "

@@ -1,6 +1,6 @@
 """Graph evaluation and the ``Executor`` — the PyTorch twin of
-``mxnet_tpu/executor.py`` without the mesh/sharding lowering,
-``group2ctx`` specs, Custom-op host callbacks and XLA cost analysis.
+``mxnet_tpu/executor.py`` without ``group2ctx`` placement, Custom-op host
+callbacks and XLA cost analysis.
 
 The JAX package lowers a Symbol to one pure function that ``jax.jit``
 compiles. Here the same function (``_graph_eval_fn``) runs eagerly, op by
@@ -35,7 +35,73 @@ from .context import current_context
 __all__ = ["Executor", "forward_backward"]
 
 
-def _graph_eval_fn(symbol, capture=None, mesh=None):
+def _shard_check(mesh, spec, shape, strict=True):
+    """Validate a ``__shard__`` (strict) or ``__shard_hint__`` (lenient)
+    spec against a node output's global ``shape``, with the JAX package's
+    messages: an axis the mesh lacks or a dim the axes do not divide
+    raises under ``strict`` and is skipped otherwise. Tensors here are
+    this rank's batch rows, whole on their other dims, so a valid spec
+    changes no number (the JAX constraint changes none either)."""
+    from .parallel.sharding import parse_spec
+    from .parallel._comm import entry_axes
+    parts = parse_spec(spec)
+    if len(parts) > len(shape):
+        return      # an annotation written for a different-rank tensor
+    for dim, entry in enumerate(parts):
+        axes = entry_axes(entry)
+        if not axes:
+            continue
+        missing = [a for a in axes if a not in mesh.axis_names]
+        if missing:
+            if not strict:
+                return
+            raise MXNetError("__shard__ axis %r not in mesh axes %r"
+                             % (missing[0], mesh.axis_names))
+        n_shards = int(np.prod([mesh.shape[a] for a in axes]))
+        if shape[dim] % n_shards != 0:
+            if not strict:
+                return
+            raise MXNetError(
+                "__shard__=%r: dim %d of shape %r not divisible by mesh "
+                "axes %r (total shards %d)"
+                % (spec, dim, tuple(shape), axes, n_shards))
+
+
+def _node_shard_spec(node, group2spec):
+    """The sharding annotation of a node, if any: explicit __shard__ wins,
+    else its ctx_group's entry in group2spec."""
+    attrs = node.misc_attrs
+    spec = attrs.get("__shard__")
+    if spec is not None:
+        return spec
+    group = attrs.get("__ctx_group__") or attrs.get("ctx_group")
+    if group is not None and group2spec:
+        return group2spec.get(group)
+    return None
+
+
+def _column_parallel(node, specs, mesh):
+    """(mesh, axis, bias_split) when ``node`` is a FullyConnected whose
+    weight variable is split on dim 0 over one tensor-parallel axis (and
+    whole on its other dims): it then runs column-parallel on the
+    rank's slice (``ops.nn``); else None."""
+    from .parallel.sharding import MODEL_AXES
+    if node.op.name != "FullyConnected" or len(node.inputs) < 2:
+        return None
+    w = node.inputs[1][0]
+    spec = specs.get(w.name) if w.op is None else None
+    if not spec or len(spec) != 1 or spec[0] not in MODEL_AXES or \
+            mesh.shape[spec[0]] == 1:
+        return None
+    bias_split = False
+    if len(node.inputs) > 2:
+        b = node.inputs[2][0]
+        bias_split = b.op is None and specs.get(b.name) == spec
+    return (mesh, spec[0], bias_split)
+
+
+def _graph_eval_fn(symbol, capture=None, mesh=None, param_specs=None,
+                   batch_names=None, group2spec=None):
     """Build the function evaluating `symbol`'s graph.
 
     Returns fn(arg_vals: dict name->tensor, aux_vals: dict, rng: a
@@ -47,12 +113,30 @@ def _graph_eval_fn(symbol, capture=None, mesh=None):
 
     mesh: a ``parallel.sharding`` mesh the graph runs over: it is the
     ambient mesh (``ops._mesh_ctx.use_mesh``) while the graph runs, so
-    the mesh-aware ops (``seq_axis``, ``expert_axis``, the reductions
-    over the batch under ``data``) take their parallel forms. The
-    ``__shard__``/``__shard_hint__`` attributes are the JAX package's
-    GSPMD constraints and are read nowhere here (ROADMAP Queue A item
-    9b): tensors stay local."""
+    the mesh-aware ops (``seq_axis``, ``expert_axis``, the batch-global
+    routes under the replica axes) take their parallel forms.
+
+    param_specs: {name: spec} of the arguments given as this rank's
+    shard (a dict the caller may fill later, as placement happens).
+    Each reaches its consumers whole through the param gather
+    (``_comm.param_gather``), except the weight (and a bias split the
+    same way) of a FullyConnected the layout splits on dim 0 over
+    ``tp``/``model``: that op runs column-parallel on the slice.
+
+    batch_names: the arguments that hold this rank's rows of the batch
+    on dim 0. With them the evaluator tracks which tensors hold batch
+    rows and, under an active replica axis, runs the batch reductions
+    globally and refuses the ops that would mix rows
+    (``ops._batch_global``, ROADMAP Queue C 17).
+
+    The ``__shard__`` attribute (or a ``__ctx_group__``'s entry in
+    ``group2spec``) is read strictly and ``__shard_hint__`` leniently, on
+    the output's global shape (``_shard_check``)."""
     from .symbol.symbol import _topo_order
+    from .ops import _batch_global
+    from .ops._mesh_ctx import replica_of, use_tp
+    from .parallel._comm import entry_axes
+    from .parallel.sharding import GATHERED_AXES
 
     entries = symbol._entries
     order = _topo_order(entries)
@@ -68,27 +152,63 @@ def _graph_eval_fn(symbol, capture=None, mesh=None):
     release_at = {}
     for nid, pos in last_use.items():
         release_at.setdefault(pos, []).append(nid)
+    specs = param_specs if param_specs is not None else {}
+    batch_names = frozenset(batch_names or ())
+    annotated = mesh is not None and any(
+        "__shard__" in n.misc_attrs or "__shard_hint__" in n.misc_attrs or
+        (group2spec and ("__ctx_group__" in n.misc_attrs or
+                         "ctx_group" in n.misc_attrs))
+        for n in order)
 
     def eval_fn(arg_vals, aux_vals, rng, is_train):
+        """(outputs, new_aux); under the replica axes ``out_batched`` then
+        says which outputs hold this rank's batch rows."""
         if mesh is None:
             return _eval_body(arg_vals, aux_vals, rng, is_train)
         from .ops._mesh_ctx import use_mesh
         with use_mesh(mesh):
             return _eval_body(arg_vals, aux_vals, rng, is_train)
 
+    def _whole(node, local, gathered):
+        spec = specs.get(node.name)
+        if not spec or node.is_aux or not all(
+                a in GATHERED_AXES for e in spec for a in entry_axes(e)):
+            # replicated, or split over an axis its op reads split
+            # (an expert stack over 'expert')
+            return local
+        if id(node) not in gathered:
+            from .parallel._comm import param_gather
+            gathered[id(node)] = param_gather(local, mesh, spec)
+        return gathered[id(node)]
+
     def _eval_body(arg_vals, aux_vals, rng, is_train):
         rng = as_key(rng)
         env = {}
+        gathered = {}
         aux_out = dict(aux_vals)
+        rep = replica_of(mesh) if batch_names else None
+        batched = set()         # ids of nodes whose outputs hold batch rows
         device = next((v.device for v in arg_vals.values()), None)
         for pos, node in enumerate(order):
             if node.op is None:
                 env[id(node)] = [aux_out[node.name] if node.is_aux
                                  else arg_vals[node.name]]
+                if rep is not None and node.name in batch_names:
+                    batched.add(id(node))
                 if capture is not None:
                     capture(node.name, env[id(node)])
                 continue
-            xs = [env[id(m)][i] for (m, i) in node.inputs]
+            tp = _column_parallel(node, specs, mesh) if specs else None
+            xs = []
+            for slot, (m, i) in enumerate(node.inputs):
+                v = env[id(m)][i]
+                # a column-parallel FullyConnected reads its weight (and a
+                # bias split with it) as this rank's slice
+                local = tp is not None and (slot == 1 or
+                                            (slot == 2 and tp[2]))
+                if m.op is None and specs and not local:
+                    v = _whole(m, v, gathered)
+                xs.append(v)
             attrs = dict(node.attrs)
             if node.op.takes_is_train:
                 attrs["is_train"] = is_train
@@ -96,7 +216,15 @@ def _graph_eval_fn(symbol, capture=None, mesh=None):
                 attrs["rng"] = fold_in(rng, node_uid[id(node)])
             if not xs and device is not None:
                 attrs["device"] = device     # a creation op
-            raw = node.op.fn(*xs, **attrs)
+            in_b = [id(m) in batched for (m, _i) in node.inputs]
+            if tp is not None:
+                with use_tp(tp):
+                    raw = node.op.fn(*xs, **attrs)
+                out_b = any(in_b)
+            elif rep is not None:
+                raw, out_b = _batch_global.run(node.op, xs, attrs, in_b, rep)
+            else:
+                raw, out_b = node.op.fn(*xs, **attrs), False
             del xs
             outs = list(raw) if isinstance(raw, (tuple, list)) else [raw]
             n_state = node.op.num_state
@@ -113,13 +241,36 @@ def _graph_eval_fn(symbol, capture=None, mesh=None):
                     m, _i = node.inputs[active.index(sname)]
                     if m.op is None and m.is_aux:
                         aux_out[m.name] = val
+            if out_b:
+                batched.add(id(node))
+            if annotated:
+                _check_annotations(node, outs, out_b)
             if capture is not None:
                 capture(node.name, outs)
             env[id(node)] = outs
             for nid in release_at.get(pos, ()):
                 env.pop(nid, None)
+                gathered.pop(nid, None)
         outputs = tuple(env[id(n)][i] for (n, i) in entries)
+        if rep is not None:
+            eval_fn.out_batched = [id(n) in batched for (n, _i) in entries]
+            outputs = tuple(o if id(n) in batched
+                            else _batch_global.scale_replicated(o, rep)
+                            for o, (n, _i) in zip(outputs, entries))
         return outputs, aux_out
+
+    def _check_annotations(node, outs, out_b):
+        rep = replica_of(mesh)
+        k = rep.n if (rep is not None and out_b) else 1
+        spec = _node_shard_spec(node, group2spec)
+        hint = node.misc_attrs.get("__shard_hint__")
+        for o in outs:
+            shape = (o.shape[0] * k,) + tuple(o.shape[1:]) if o.dim() \
+                else ()
+            if spec is not None:
+                _shard_check(mesh, spec, shape)
+            elif hint is not None:
+                _shard_check(mesh, hint, shape, strict=False)
 
     return eval_fn
 
@@ -220,12 +371,20 @@ class Executor:
     the JAX package's ``Executor``)."""
 
     def __init__(self, symbol, ctx=None, args=None, args_grad=None,
-                 grad_req="write", aux_states=None, group2ctx=None):
+                 grad_req="write", aux_states=None, group2ctx=None,
+                 mesh=None, param_specs=None, batch_names=None):
+        """mesh, param_specs, batch_names: run over the ranks of a mesh
+        (``_graph_eval_fn``'s arguments): the arrays named in
+        ``param_specs`` hold this rank's shard, those in ``batch_names``
+        this rank's rows of the batch; ``backward`` sums each parameter's
+        gradient over the replica axes it is not split on, so the
+        gradient arrays hold the global batch's gradient of the shard
+        (the Module under a layout)."""
         if group2ctx:
             raise NotImplementedError(
                 "Executor(group2ctx=...) places graph groups on a device "
                 "mesh by GSPMD constraints, which is not ported yet "
-                "(ROADMAP Queue A item 9b)")
+                "(ROADMAP Queue A item 9b.4)")
         self._symbol = symbol
         self._ctx = ctx if ctx is not None else current_context()
         self._device = self._ctx.torch_device()
@@ -261,13 +420,43 @@ class Executor:
                         self._grad_req[n] != "null":
                     self._grad_req[n] = "null"
 
-        self._eval_fn = _graph_eval_fn(symbol)
+        self._mesh = mesh
+        self._param_specs = dict(param_specs or {})
+        self._batch_names = tuple(batch_names or ())
+        self._eval_fn = self._graph_fn()
         self._grad_names = [n for n in arg_names
                             if self._grad_req[n] != "null"]
         self.outputs = []
         self._graph = None      # (recorded outputs, leaves) of a train forward
 
     # -- construction helpers ----------------------------------------------
+    def _graph_fn(self, capture=None):
+        return _graph_eval_fn(self._symbol, capture=capture, mesh=self._mesh,
+                              param_specs=self._param_specs,
+                              batch_names=self._batch_names
+                              if self._mesh is not None else None)
+
+    def _sum_over_replicas(self, grads):
+        """Each parameter's gradient summed over the replica axes its
+        spec does not split it on (in place; batch inputs keep their
+        rows' gradients)."""
+        from .ops._mesh_ctx import replica_of
+        from .parallel import _comm
+        rep = replica_of(self._mesh)
+        if rep is None:
+            return
+        by_axes = {}
+        for n, g in grads.items():
+            if n in self._batch_names:
+                continue
+            used = {a for e in self._param_specs.get(n, ())
+                    for a in _comm.entry_axes(e)}
+            axes = tuple(a for a in rep.axes if a not in used)
+            by_axes.setdefault(axes, []).append(g)
+        with torch.no_grad():
+            for axes, gs in by_axes.items():
+                _comm.all_reduce_(gs, self._mesh, axes)
+
     def _on_device(self, v):
         from .ndarray.ndarray import NDArray, array
         if v is None:
@@ -373,7 +562,7 @@ class Executor:
                 label = name if len(outs) == 1 else "%s_out%d" % (name, i)
                 cb(label, _wrap(o.detach()))
 
-        return _graph_eval_fn(self._symbol, capture=capture)
+        return self._graph_fn(capture)
 
     def forward(self, is_train=False, **kwargs):
         """Run the forward (reference MXExecutorForward). kwargs update
@@ -424,6 +613,7 @@ class Executor:
             out_grads = [None if g is None else _tensor_like(g, o)
                          for g, o in zip(out_grads, outs)]
         grads = _backward(outs, leaves, out_grads, retain_graph=True)
+        self._sum_over_replicas(grads)
         for n, gbuf in zip(self._arg_names, self.grad_arrays):
             if gbuf is None or self._grad_req[n] == "null" or \
                     n not in grads:
@@ -449,7 +639,9 @@ class Executor:
                                                         arg_shapes)],
                         grad_req=dict(self._grad_req),
                         aux_states=[fit(a, s) for a, s in
-                                    zip(self.aux_arrays, aux_shapes)])
+                                    zip(self.aux_arrays, aux_shapes)],
+                        mesh=self._mesh, param_specs=self._param_specs,
+                        batch_names=self._batch_names)
 
     def debug_str(self):
         return self._symbol.debug_str()

@@ -24,8 +24,21 @@ capture their step (a beam step, a speculative round) the same way.
 ``serving_decoder`` returns the continuous-batching decoder
 (``serve/decode.py``). ``num_experts`` decodes the MoE LM (the route,
 dispatch and combine hold no host read, so the captured step holds them).
-The mesh (``mesh=``: GSPMD-sharded decoding, ROADMAP Queue A item 9b) is
-not ported yet and raises.
+``mesh=`` (``parallel.sharding.make_mesh`` over the ranks of the process
+group) decodes over ranks as the JAX package's GSPMD placement does:
+every rank runs the same ``Generator`` calls on the global prompt and
+gets the global tokens. Parameters are placed by ``param_sharding``
+(int8 weights as float ones): a FullyConnected whose weight splits on dim
+0 over ``model`` runs column-parallel, every other split parameter is
+gathered whole where it is used. The caches split the batch over
+``data`` (where it divides) and the kv heads over ``model`` (where they
+divide), so each rank's cached attention runs on its own heads and the
+heads' outputs are all-gathered. Under ``data`` each rank runs its rows,
+and the logits are all-gathered after every forward, so the picks (the
+sampled ones included) are the global picks on every rank. The captured
+loops need NCCL with one GPU a rank on CUDA (over gloo each collective
+syncs the host, which a CUDA graph cannot hold): there they raise; on
+the CPU the step runs uncaptured.
 """
 from __future__ import annotations
 
@@ -38,6 +51,7 @@ from .base import torch_dtype
 from .context import current_context
 from .executor import _graph_eval_fn
 from .models import transformer
+from .parallel import sharding as shd
 from .ndarray.ndarray import _from_numpy, _to_numpy_exact
 
 __all__ = ["Generator", "kv_blob_nbytes", "replay_key"]
@@ -81,7 +95,9 @@ class Generator:
     parameters and caches (e.g. "bfloat16"). quantize="int8": weight-only
     int8 layers; quantize_kv: int8 KV caches; rolling_cache: circular
     caches of one window. ctx: where it runs (default: the current
-    context, gpu(0) unless a ``with mx.cpu():`` scope says otherwise)."""
+    context, gpu(0) unless a ``with mx.cpu():`` scope says otherwise).
+    mesh: decode over the ranks of a ``parallel.sharding.make_mesh`` mesh
+    (see the module doc)."""
 
     def __init__(self, arg_params, vocab_size, max_len, num_layers=2,
                  num_heads=4, dim=128, ffn_hidden=None, batch_size=1,
@@ -89,11 +105,10 @@ class Generator:
                  pos_encoding="learned", attention_window=0,
                  rolling_cache=False, num_kv_heads=None,
                  quantize_kv=False, block_type="attention", ctx=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Generator(mesh=...) shards decoding by GSPMD constraints, "
-                "not ported to the PyTorch package yet (ROADMAP Queue A "
-                "item 9b)")
+        if mesh is not None and not isinstance(mesh, shd.Mesh):
+            raise TypeError("Generator(mesh=%s): pass a mesh of "
+                            "parallel.sharding.make_mesh"
+                            % type(mesh).__name__)
         if quantize not in (None, "int8"):
             raise ValueError("quantize must be None or 'int8', got %r"
                              % (quantize,))
@@ -132,12 +147,17 @@ class Generator:
         if quantize:
             arg_params = _quantize_weights(arg_params, sym.list_arguments())
         self._sym = sym
-        self._eval_fn = _graph_eval_fn(sym)
+        self.mesh = mesh
+        # name -> spec of each parameter held as this rank's shard
+        self._pspec = {}
+        self._eval_fn = _graph_eval_fn(sym, mesh=mesh,
+                                       param_specs=self._pspec)
         self._loop_cache = {}
 
         cdt = torch_dtype(dtype) if dtype else None
         wanted = set(sym.list_arguments())
         self._params = {}
+        self._pos_rows = None
         for k, v in arg_params.items():
             if k not in wanted:
                 continue
@@ -146,18 +166,22 @@ class Generator:
             if cdt is not None and t.is_floating_point() and \
                     not k.endswith("_scale"):
                 t = t.to(cdt)
+            if k == "pos_embed_weight":
+                self._pos_rows = int(t.shape[0])
+            if mesh is not None:
+                self._pspec[k] = shd.param_sharding(mesh, k, tuple(t.shape))
+                t = shd.place(t, self._pspec[k], mesh)
             self._params[k] = t
         missing = wanted - set(self._params) - {"data", "positions",
                                                  "cache_pos"}
         if missing:
             raise ValueError("Generator missing parameters: %s"
                              % sorted(missing))
-        self._pos_rows = None
-        if pos_encoding == "learned":
-            self._pos_rows = int(self._params["pos_embed_weight"].shape[0])
-            if not self._rolling and self._pos_rows < self.max_len:
-                # the decode graph's position lookup clips
-                raise ValueError(
+        if pos_encoding != "learned":
+            self._pos_rows = None
+        elif not self._rolling and self._pos_rows < self.max_len:
+            # the decode graph's position lookup clips
+            raise ValueError(
                     "max_len=%d exceeds the trained position table (%d "
                     "rows) — generation past it would silently clip"
                     % (self.max_len, self._pos_rows))
@@ -172,6 +196,19 @@ class Generator:
         self._state_shape = (self.batch_size, int(num_heads), head_dim,
                              head_dim)
         self._quantize_kv = bool(quantize_kv)
+        # the caches' placement (the JAX rule): batch over 'data', kv
+        # heads over 'model', each where it divides
+        self._row_split = None
+        self._cache_spec = ()
+        if mesh is not None:
+            spec = [None, None]
+            d = mesh.shape.get("data", 1)
+            if d > 1 and self.batch_size % d == 0:
+                spec[0] = self._row_split = "data"
+            m = mesh.shape.get("model", 1)
+            if m > 1 and kv_heads % m == 0:
+                spec[1] = "model"
+            self._cache_spec = tuple(spec)
         _telemetry.gauge("serve.decode.kv_bytes_per_slot").set(
             self.state_bytes_per_slot())
 
@@ -222,6 +259,7 @@ class Generator:
         2-byte words, as the JAX package saves it). The rows are copied
         before they leave, so later in-place cache writes do not reach
         the blob. Returns ``{"v": 1, "pos": pos, "rows": {name: array}}``."""
+        self._check_slot_rows("export_kv_rows")
         if self._rolling:
             raise ValueError(
                 "export_kv_rows does not support rolling caches (a "
@@ -288,22 +326,66 @@ class Generator:
         return prompt, P
 
     def _fresh_aux(self, rows=None):
-        """Zeroed decode state, ``rows`` batch rows (default batch_size)."""
+        """Zeroed decode state, ``rows`` batch rows (default batch_size);
+        under a mesh this rank's part (its rows over 'data', its kv heads
+        over 'model'; SSM states keep every head)."""
         aux = {}
         for name in self._sym.list_auxiliary_states():
             shape, dtype = self._aux_spec(name)
             if rows is not None:
                 shape = (rows,) + tuple(shape[1:])
+            if self.mesh is not None:
+                spec = self._cache_spec[:1] if name.endswith("_state") \
+                    else self._cache_spec
+                shape = shd.local_shape(shape, spec, self.mesh)
             aux[name] = torch.zeros(shape, dtype=dtype, device=self.device)
         return aux
+
+    def _local_rows(self, idx):
+        """Row indices into a global cache batch, as indices into this
+        rank's rows (rows move only within a batch row's beams, which one
+        rank holds)."""
+        if self._row_split is None:
+            return idx
+        n = idx.numel() // self.mesh.shape["data"]
+        lo = self.mesh.axis_index("data") * n
+        return idx[lo:lo + n] - lo
+
+    def _check_capture(self, what):
+        """The captured loops hold no collective over gloo (see the
+        module doc)."""
+        if self.mesh is not None and self.mesh.size > 1 and \
+                self.device.type == "cuda":
+            raise NotImplementedError(
+                "%s over a mesh of %d ranks on CUDA: the captured step's "
+                "collectives need NCCL with one GPU a rank (backend %r "
+                "here; over gloo each collective syncs the host through "
+                "pinned buffers, which a CUDA graph cannot hold); use the "
+                "eager loop (generate)" % (what, self.mesh.size,
+                                           self.mesh.backend))
+
+    def _check_slot_rows(self, what):
+        if self._row_split is not None:
+            raise ValueError(
+                "%s addresses cache rows by slot, and this Generator's "
+                "mesh splits the rows over 'data'; build it over a mesh "
+                "without a data axis" % what)
 
     def _run(self, args, aux):
         """The decode graph over ``args`` (data, positions, cache_pos
         beside the parameters); the caches are written in place. Returns
-        (logits (B, Tnew, V), aux)."""
+        (logits (B, Tnew, V), aux). Under a mesh that splits the rows
+        over 'data', ``args["data"]`` is the global batch: the graph runs
+        this rank's rows and the logits are all-gathered."""
+        if self._row_split is not None:
+            args = dict(args)
+            args["data"] = shd.place(args["data"], ("data",), self.mesh)
         with torch.no_grad():
             outs, new_aux = self._eval_fn(args, aux, 0, False)
-        return outs[0], new_aux
+        logits = outs[0]
+        if self._row_split is not None:
+            logits = shd.gather(logits, ("data",), self.mesh)
+        return logits, new_aux
 
     def _forward(self, aux, tokens, pos):
         """tokens: (B, Tnew) ids (host or device); pos: a Python int.
@@ -398,7 +480,8 @@ class Generator:
             flat_idx = torch.from_numpy(
                 (np.arange(B)[:, None] * W + parent).reshape(-1)).to(
                     self.device)
-            aux = {k: v.index_select(0, flat_idx) for k, v in aux.items()}
+            aux = {k: v.index_select(0, self._local_rows(flat_idx))
+                   for k, v in aux.items()}
             logits, aux = self._forward(aux, tok.reshape(-1, 1), P + t)
             last = _log_softmax_last(logits).cpu().numpy()
         return np.concatenate([prompt.astype(np.int64),
@@ -417,6 +500,7 @@ class Generator:
         the host loop's, so both pick the same beams from the same logits.
         Each (P, max_new_tokens, beam_size, eos_id) keeps its own captured
         step. Returns (B, P + n) ids."""
+        self._check_capture("beam_search_on_device")
         prompt, P = self._check_prompt(prompt, max_new_tokens)
         W = int(beam_size)
         if W < 1:
@@ -541,8 +625,11 @@ class Generator:
         if not 1 <= nl <= self.num_layers:
             raise ValueError("truncated_draft num_layers=%d out of range "
                              "1..%d" % (nl, self.num_layers))
+        params = self._params if self.mesh is None else {
+            k: shd.gather(v, self._pspec.get(k, ()), self.mesh)
+            for k, v in self._params.items()}
         return Generator(
-            self._params, o["vocab_size"],
+            params, o["vocab_size"],
             int(max_len) if max_len else o["max_len"], num_layers=nl,
             num_heads=o["num_heads"], dim=o["dim"],
             ffn_hidden=o["ffn_hidden"],
@@ -551,7 +638,7 @@ class Generator:
             pos_encoding=o["pos_encoding"],
             attention_window=o["attention_window"],
             num_kv_heads=o["num_kv_heads"], quantize_kv=o["kv_quantize"],
-            ctx=self.ctx)
+            mesh=self.mesh, ctx=self.ctx)
 
     def generate_speculative_on_device(self, draft, prompt, max_new_tokens,
                                        lookahead=4, return_rounds=False,
@@ -566,6 +653,7 @@ class Generator:
         it emits nothing) and the tokens once at the end. Both caches need
         max_len >= P + n + lookahead. Returns the ids, and with
         ``return_rounds`` the rounds that emitted tokens."""
+        self._check_capture("generate_speculative_on_device")
         self._check_draft(draft)
         self._check_sampling(temperature, top_k, top_p)
         prompt, P = self._check_prompt(prompt, max_new_tokens)
@@ -604,6 +692,7 @@ class Generator:
         max_new_tokens) shape with finished rows padded by eos. Each
         (P, max_new_tokens, temperature, top_k, top_p, eos_id) keeps its
         own captured step. Returns (B, P + n) ids."""
+        self._check_capture("generate_on_device")
         self._check_sampling(temperature, top_k, top_p)
         prompt, P = self._check_prompt(prompt, max_new_tokens)
         n = int(max_new_tokens)
@@ -626,6 +715,8 @@ class Generator:
         one captured CUDA graph on the card. kwargs go to its
         constructor."""
         from .serve.decode import ContinuousDecoder
+        self._check_slot_rows("serving_decoder")
+        self._check_capture("serving_decoder")
         return ContinuousDecoder(self, **kwargs)
 
     def generate(self, prompt, max_new_tokens, temperature=0.0, top_k=None,
@@ -865,7 +956,7 @@ class _BeamLoop(_CapturedLoop):
 
     def _step(self):
         parent, tok = self._select()
-        rows = (self.base + parent).reshape(-1)
+        rows = self.gen._local_rows((self.base + parent).reshape(-1))
         for v in self.aux.values():
             v.copy_(v.index_select(0, rows))
         self.args["data"].copy_(tok.reshape(-1, 1))

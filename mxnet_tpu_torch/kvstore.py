@@ -11,7 +11,7 @@ The type string only named where the reduce ran; it changes nothing
 here, as it changes nothing in the JAX package.
 
 Not ported yet: the ``dist_*`` types (a process group; ROADMAP Queue A
-item 9b) and sparse values with ``row_sparse_pull`` (item 10); each
+item 9b.4) and sparse values with ``row_sparse_pull`` (item 10); each
 raises ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -57,7 +57,7 @@ class KVStore:
         if kv_type.startswith("dist"):
             raise NotImplementedError(
                 "kvstore %r spans processes, which is not ported to the "
-                "PyTorch package yet (ROADMAP Queue A item 9b)" % kv_type)
+                "PyTorch package yet (ROADMAP Queue A item 9b.4)" % kv_type)
         self.type = kv_type
         self._store = {}          # key -> the stored NDArray
         self._updater = None
@@ -152,7 +152,7 @@ class KVStore:
 def create(name="local"):
     """Factory (reference kvstore.py:create, kvstore.cc:34-61): local |
     device | local_allreduce_cpu | local_allreduce_device; the dist types
-    raise NotImplementedError (ROADMAP Queue A item 9b)."""
+    raise NotImplementedError (ROADMAP Queue A item 9b.4)."""
     if not isinstance(name, string_types):
         raise TypeError("name must be a string")
     if name not in _TYPES:

@@ -1,14 +1,23 @@
-"""DataParallelExecutorGroup on one device — the PyTorch twin of
-``mxnet_tpu/module/executor_group.py`` without its mesh.
+"""DataParallelExecutorGroup on one device a rank — the PyTorch twin of
+``mxnet_tpu/module/executor_group.py``.
 
 Reference: python/mxnet/module/executor_group.py (600 LoC): it slices
 each batch across contexts, binds an executor a device and reduces the
 grads through the KVStore. The JAX package binds one executor for the
 whole batch and partitions it over a device mesh when it is given
-several contexts. Here one ``Executor`` runs the whole batch on one
-device; several contexts raise ``NotImplementedError`` (a Module over a
-device mesh is ROADMAP Queue A item 9b). The views keep the reference's shapes: a list
-over params of a list over devices, one device long.
+several contexts or a layout. Here one ``Executor`` runs on this rank's
+device. With ``layout=`` (a ``parallel.sharding.SpecLayout``, or a mesh
+for its heuristic rules) every rank binds the same group: the executor
+holds this rank's shard of each parameter (the layout's spec) and this
+rank's rows of the batch (its replica axes, data × fsdp, split the
+global batch, which must divide them); batches come in global and leave
+as this rank's rows, parameters go in and come out as global arrays, the
+outputs read global (gathered over the replica axes), and the gradients
+are the global batch's (``Executor`` sums them over the replica axes).
+Several contexts raise ``NotImplementedError`` (a Module over a device
+mesh of contexts is ROADMAP Queue A item 9b.4). The views keep the
+reference's shapes: a list over params of a list over devices, one
+device long.
 """
 from __future__ import annotations
 
@@ -18,6 +27,8 @@ import torch
 
 from .. import io
 from .. import telemetry as _telemetry
+from ..parallel import _comm
+from ..parallel import sharding as shd
 from .. import trace as _trace
 from ..base import MXNetError
 from ..executor import Executor
@@ -42,12 +53,16 @@ class DataParallelExecutorGroup:
             raise NotImplementedError(
                 "a Module over %d contexts partitions its batch over a "
                 "device mesh, which is not ported to the PyTorch package "
-                "yet (ROADMAP Queue A item 9b)" % len(contexts))
-        if layout is not None:
-            raise NotImplementedError(
-                "Module(layout=...) places parameters on a device mesh, "
-                "which is not ported to the PyTorch package yet (ROADMAP "
-                "Queue A item 9b)")
+                "yet (ROADMAP Queue A item 9b.4)" % len(contexts))
+        self._layout = shd.as_layout(layout)
+        if layout is not None and not isinstance(
+                getattr(self._layout, "mesh", None), shd.Mesh):
+            raise TypeError(
+                "Module(layout=%s): pass a parallel.sharding.SpecLayout "
+                "(or a make_mesh mesh)" % type(layout).__name__)
+        self._mesh = None if layout is None else self._layout.mesh
+        # name -> spec of each parameter's shard under the layout
+        self._pspec = {}
         self.param_names = param_names
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
@@ -122,6 +137,29 @@ class DataParallelExecutorGroup:
             input_types[lb.name] = lb.dtype
         arg_shapes, _, aux_shapes = self.symbol.infer_shape(**input_shapes)
         arg_types, _, aux_types = self.symbol.infer_type(**input_types)
+        batch_names = set(input_shapes)
+        if self._layout is not None:
+            n = 1
+            for a in self._layout.batch_axes:
+                n *= self._mesh.shape[a]
+            if self.batch_size % n != 0:
+                raise MXNetError(
+                    "batch size %d must be divisible by the number of "
+                    "batch shards %d (mesh data-parallel)"
+                    % (self.batch_size, n))
+            local = []
+            for name, shape in zip(self.arg_names, arg_shapes):
+                if name in batch_names:
+                    shape = shd.local_shape(
+                        shape, self._layout.batch_nsharding(len(shape)),
+                        self._mesh)
+                elif name in self.param_names:
+                    self._pspec[name] = self._layout.param_nsharding(
+                        name, tuple(shape))
+                    shape = shd.local_shape(shape, self._pspec[name],
+                                            self._mesh)
+                local.append(tuple(shape))
+            arg_shapes = local
 
         prev_args = self.execs[0].arg_dict if self.execs else {}
         prev_aux = self.execs[0].aux_dict if self.execs else {}
@@ -194,7 +232,9 @@ class DataParallelExecutorGroup:
         executor = Executor(self.symbol, ctx=ctx,
                             args=[args[n] for n in self.arg_names],
                             args_grad=args_grad,
-                            grad_req=self.grad_req, aux_states=aux)
+                            grad_req=self.grad_req, aux_states=aux,
+                            mesh=self._mesh, param_specs=self._pspec,
+                            batch_names=sorted(batch_names))
         self.execs = [executor]
 
         self.param_arrays = [[executor.arg_dict[n]]
@@ -225,15 +265,31 @@ class DataParallelExecutorGroup:
     # -- params ------------------------------------------------------------
     def set_params(self, arg_params, aux_params, allow_extra=False):
         """Copy params into the bound executor (reference
-        executor_group.py:set_params)."""
+        executor_group.py:set_params); under a layout each global array
+        is placed as this rank's shard."""
+        if self._layout is not None and arg_params:
+            arg_params = {n: self._place(n, v)
+                          for n, v in arg_params.items()}
         self.execs[0].copy_params_from(arg_params, aux_params,
                                        allow_extra_params=allow_extra)
+
+    def _place(self, name, value):
+        spec = self._pspec.get(name)
+        if not spec:
+            return value
+        t = value._data if isinstance(value, NDArray) else \
+            array(value, ctx=self.contexts[0])._data
+        return NDArray(shd.place(t, spec, self._mesh))
 
     def get_params(self, arg_params, aux_params):
         """Copy the current params out into the given dicts (reference
         executor_group.py:get_params)."""
         for name in self.param_names:
-            arg_params[name] = self.execs[0].arg_dict[name].copy()
+            arr = self.execs[0].arg_dict[name]
+            spec = self._pspec.get(name)
+            if spec:
+                arr = NDArray(shd.gather(arr._data, spec, self._mesh))
+            arg_params[name] = arr.copy()
         for name in self.aux_names:
             aux_params[name] = self.execs[0].aux_dict[name].copy()
 
@@ -246,6 +302,10 @@ class DataParallelExecutorGroup:
         def place(arr):
             t = arr._data if isinstance(arr, NDArray) else \
                 array(arr, ctx=self.contexts[0])._data
+            if self._layout is not None:
+                # this rank's rows of the global batch
+                t = shd.place(t, self._layout.batch_nsharding(t.dim()),
+                              self._mesh)
             return NDArray(t.to(device, non_blocking=True))
 
         feeds = {name: place(arr)
@@ -286,8 +346,20 @@ class DataParallelExecutorGroup:
             "backward"
         self.execs[0].backward(out_grads=out_grads)
 
+    def _global_outputs(self):
+        """The outputs; under a layout each output holding batch rows is
+        gathered over the replica axes into the global batch's."""
+        exe = self.execs[0]
+        outs = list(exe.outputs)
+        flags = getattr(exe._eval_fn, "out_batched", None)
+        if self._layout is None or flags is None:
+            return outs
+        spec = self._layout.batch_nsharding(1)
+        return [NDArray(shd.gather(o._data, spec, self._mesh)) if b else o
+                for o, b in zip(outs, flags)]
+
     def get_outputs(self, merge_multi_context=True):
-        outs = [[o] for o in self.execs[0].outputs]
+        outs = [[o] for o in self._global_outputs()]
         if merge_multi_context:
             return [o[0] for o in outs]
         return outs
@@ -329,6 +401,12 @@ class DataParallelExecutorGroup:
         with torch.no_grad():
             _, ok, _ = _mt.norm_finite(
                 grads, outs, inject=1.0 if inject is None else inject)
+            if self._mesh is not None:
+                # every rank masks the step if any rank's part is not
+                # finite
+                ok = ok.clone()
+                _comm.all_reduce_([ok], self._mesh,
+                                  tuple(self._mesh.axis_names), "min")
             for holder, g in zip(holders, grads):
                 holder._set_data(torch.where(ok, g, 0.0))
         return ok
@@ -341,7 +419,7 @@ class DataParallelExecutorGroup:
         labels_ = {name: lb for name, lb in
                    zip(self.label_names, labels or [])}
         preds = dict(zip(self.symbol.list_outputs(),
-                         self.execs[0].outputs))
+                         self._global_outputs()))
         eval_metric.update_dict(labels_, preds, device=True, ok=ok)
 
     def install_monitor(self, mon):

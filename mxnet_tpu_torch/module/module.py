@@ -6,8 +6,10 @@ the optimizer-state I/O.
 One ``Executor`` on one device runs the whole batch, so the update never
 slices or reduces: the optimizer runs on the executor's gradients through
 the Updater (the registry's update op a parameter), or on the KVStore
-when one is given. ``layout=`` (a device mesh) raises
-``NotImplementedError`` (ROADMAP Queue A item 9b).
+when one is given. ``layout=`` (a ``parallel.sharding.SpecLayout``) runs
+the Module over the ranks of its mesh, one context a rank: parameters
+live as the layout's shards, the batch splits over its replica axes, and
+the update runs on each rank's shards (``executor_group``).
 """
 from __future__ import annotations
 
@@ -34,8 +36,9 @@ class Module(BaseModule):
                  state_names=None, layout=None):
         """context: one Context (default: the current context, gpu(0)
         unless a ``with mx.cpu():`` scope says otherwise); a list of
-        several, and ``layout``, raise NotImplementedError at bind (ROADMAP
-        Queue A item 9b)."""
+        several raises NotImplementedError at bind (ROADMAP Queue A item
+        9b.4). layout: a ``parallel.sharding.SpecLayout`` (or a mesh, for
+        its heuristic rules) over the ranks of the process group."""
         super().__init__(logger=logger)
         self._layout = layout
 
@@ -130,14 +133,15 @@ class Module(BaseModule):
             return
         assert self.binded, "call bind before initializing the parameters"
 
-        if self._arg_params is None:
-            self._arg_params = {n: vals[0].copy() for n, vals in
-                                zip(self._param_names,
-                                    self._exec_group.param_arrays)}
-        if self._aux_params is None:
-            self._aux_params = {n: vals[0].copy() for n, vals in
-                                zip(self._aux_names,
-                                    self._exec_group.aux_arrays)}
+        if self._arg_params is None or self._aux_params is None:
+            # host copies of the global arrays (under a layout the
+            # executor holds shards)
+            arg, aux = {}, {}
+            self._exec_group.get_params(arg, aux)
+            if self._arg_params is None:
+                self._arg_params = arg
+            if self._aux_params is None:
+                self._aux_params = aux
 
         attrs = self._symbol.attr_dict()
 

@@ -656,6 +656,29 @@ def rolling_cached_attention(query, key, value, k_cache, v_cache, pos,
             k_cache, v_cache)
 
 
+def _on_local_heads(fn, query, key, value, k_cache, *rest, **kw):
+    """``fn(query, key, value, k_cache, *rest)`` on this rank's heads when
+    a ``model`` mesh axis splits the caches' kv heads (``Generator(mesh=)``):
+    the rank's q heads and kv heads (a contiguous block each, so GQA
+    groups stay whole), then the heads' outputs all-gathered. Otherwise
+    ``fn`` on everything."""
+    from ._mesh_ctx import active_mesh_axis
+    mesh = active_mesh_axis("model")
+    if mesh is None or k_cache.shape[1] == key.shape[1]:
+        return fn(query, key, value, k_cache, *rest, **kw)
+    m, r = mesh.shape["model"], mesh.axis_index("model")
+    hk, hq = k_cache.shape[1], query.shape[1] // m
+    if hk * m != key.shape[1] or hq * m != query.shape[1]:
+        raise ValueError(
+            "cached attention over a 'model' axis of %d ranks: the cache "
+            "holds %d of %d kv heads and the query has %d heads"
+            % (m, hk, key.shape[1], query.shape[1]))
+    out = fn(query.narrow(1, r * hq, hq), key.narrow(1, r * hk, hk),
+             value.narrow(1, r * hk, hk), k_cache, *rest, **kw)
+    from ..parallel._comm import gather_local
+    return (gather_local(out[0], (None, "model"), mesh),) + tuple(out[1:])
+
+
 @register("_contrib_RollingCachedAttention",
           arg_names=("query", "key", "value", "k_cache", "v_cache", "pos"),
           state_inputs=(3, 4), nondiff_inputs=(5,), differentiable=False,
@@ -666,8 +689,8 @@ def _rolling_cached_attention_op(query, key, value, k_cache, v_cache, pos,
     models; max_len is the cache CAPACITY here."""
     if not window:
         raise ValueError("_contrib_RollingCachedAttention needs window > 0")
-    return rolling_cached_attention(query, key, value, k_cache, v_cache,
-                                    pos, int(window), scale=scale)
+    return _on_local_heads(rolling_cached_attention, query, key, value,
+                           k_cache, v_cache, pos, int(window), scale=scale)
 
 
 @register("_contrib_CachedAttention",
@@ -678,8 +701,9 @@ def _cached_attention_op(query, key, value, k_cache, v_cache, pos,
                          scale=None, window=0, **_):
     """(B, H, Tnew, hd) decode attention; k_cache/v_cache are aux states
     the executor threads (written in place)."""
-    return cached_attention(query, key, value, k_cache, v_cache, pos,
-                            scale=scale, window=int(window or 0))
+    return _on_local_heads(cached_attention, query, key, value, k_cache,
+                           v_cache, pos, scale=scale,
+                           window=int(window or 0))
 
 
 def _q8_quantize(x):
@@ -742,6 +766,6 @@ def _cached_attention_q8_op(query, key, value, k_cache, v_cache, k_scale,
                             v_scale, pos, scale=None, window=0, **_):
     """Int8-cache decode attention; the caches and their per-token scales
     are aux states threaded by the executor."""
-    return cached_attention_q8(query, key, value, k_cache, v_cache,
-                               k_scale, v_scale, pos, scale=scale,
-                               window=int(window or 0))
+    return _on_local_heads(cached_attention_q8, query, key, value, k_cache,
+                           v_cache, k_scale, v_scale, pos, scale=scale,
+                           window=int(window or 0))

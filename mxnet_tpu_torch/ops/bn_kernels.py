@@ -22,7 +22,9 @@ f32 or bf16; ``dy`` has x's dtype and ``y``/``dx`` come out in it.
 (y, mean, var) with the closed-form backward as a
 ``torch.autograd.Function``. The shift c is the first sample's channel
 mean, taken in plain torch outside the kernels as in the JAX package,
-and keeps E[x^2] - E[x]^2 accurate when |mean| >> std.
+and keeps E[x^2] - E[x]^2 accurate when |mean| >> std. Under the replica
+axes (``rep=``) the same kernels compute the whole batch's statistics
+from all-reduced partial sums.
 """
 from __future__ import annotations
 
@@ -234,15 +236,29 @@ def bn_bwd_dx(dy3, x3, a, c2, b, mean, out_dtype=None):
 
 class _BnTrainKernels(torch.autograd.Function):
     """(y, mean, var) of an NCHW batch with the closed-form backward,
-    including the mean/var outputs' own cotangents (zero when unused)."""
+    including the mean/var outputs' own cotangents (zero when unused).
+
+    Under the replica ``rep`` (``_mesh_ctx.Replica``: the batch split
+    over ranks) the statistics are the whole batch's: the shift is
+    replica rank 0's first sample's channel mean (the global batch's
+    first sample, a C-length psum masked to that rank), the stats
+    kernel's shifted sums and the backward reduce kernel's sums are
+    all-reduced, and gamma's and beta's gradients stay this rank's part
+    (the step sums them over the replica axes). The kernels are the
+    one-rank kernels: they take the shift and the mean as inputs."""
 
     @staticmethod
-    def forward(ctx, x, g, beta, eps):
+    def forward(ctx, x, g, beta, eps, rep):
         N, C, H, W = x.shape
         x3 = x.reshape(N, C, H * W)
-        m = N * H * W
+        m = N * H * W * (1 if rep is None else rep.n)
         c = x3[0].float().mean(dim=1)      # the shift: first sample's mean
+        if rep is not None:
+            c = _replica_total(c if rep.index == 0 else torch.zeros_like(c),
+                             rep)
         s1, s2 = bn_stats(x3, c)
+        if rep is not None:
+            s1, s2 = _replica_total(s1, rep), _replica_total(s2, rep)
         mean_s = s1 / m
         mean = c + mean_s
         var = torch.clamp_min(s2 / m - mean_s * mean_s, 0.0)
@@ -252,29 +268,46 @@ class _BnTrainKernels(torch.autograd.Function):
         y = bn_apply(x3, a, b).reshape(x.shape)
         ctx.save_for_backward(x, g, mean, inv)
         ctx.beta_dtype = beta.dtype
+        ctx.rep = rep
         return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, dmean, dvar):
         x, g, mean, inv = ctx.saved_tensors
+        rep = ctx.rep
         N, C, H, W = x.shape
-        m = N * H * W
+        m = N * H * W * (1 if rep is None else rep.n)
         x3 = x.reshape(N, C, H * W)
         # dy stays in its own dtype: the kernels read it as they read x
         dy3 = dy.reshape(N, C, H * W)
         db, dxc = bn_bwd_reduce(dy3, x3, mean)
         dgx = dxc * inv                        # = sum(dy * xhat)
+        db_all, dgx_all = db, dgx
+        dmean, dvar = dmean.float(), dvar.float()
+        if rep is not None:
+            db_all, dgx_all, dmean, dvar = (
+                _replica_total(t, rep) for t in (db, dgx, dmean, dvar))
         gf = g.float()
         k = gf * inv / m
         a = gf * inv
-        c2 = -k * inv * dgx + (2.0 / m) * dvar.float()
-        b = -k * db + dmean.float() / m
+        c2 = -k * inv * dgx_all + (2.0 / m) * dvar
+        b = -k * db_all + dmean / m
         dx = bn_bwd_dx(dy3, x3, a, c2, b, mean, x.dtype).reshape(x.shape)
-        return dx, dgx.to(g.dtype), db.to(ctx.beta_dtype), None
+        return dx, dgx.to(g.dtype), db.to(ctx.beta_dtype), None, None
 
 
-def bn_train_kernels(x, g, beta, eps):
+def _replica_total(t, rep):
+    """A per-channel f32 sum over the replica axes ``rep`` (no
+    autograd)."""
+    from ..parallel import _comm
+    out = t.detach().contiguous().clone()
+    _comm.all_reduce_([out], rep.mesh, rep.axes)
+    return out
+
+
+def bn_train_kernels(x, g, beta, eps, rep=None):
     """Training BatchNorm of a 4-D NCHW ``x`` over the kernels: returns
     (y in x's dtype, mean f32, var f32), differentiable in x, g and
-    beta; dgamma and dbeta come back in g's and beta's dtypes."""
-    return _BnTrainKernels.apply(x, g, beta, float(eps))
+    beta; dgamma and dbeta come back in g's and beta's dtypes. ``rep``:
+    the replica axes the batch splits over (see ``_BnTrainKernels``)."""
+    return _BnTrainKernels.apply(x, g, beta, float(eps), rep)

@@ -83,21 +83,21 @@ def _moe_ffn_op(data, gate_weight, expert_w1, expert_w2,
     splits the batch (``dense_moe_over_data``), as the JAX package's one
     global program routes it."""
     from ..parallel import moe
-    from ._mesh_ctx import active_mesh_axis
+    from ._mesh_ctx import active_mesh_axis, replica
     orig_shape = data.shape
     x = data.reshape(-1, orig_shape[-1])
+    rep = replica()
     if expert_axis:
         mesh = active_mesh_axis(expert_axis)
         if mesh is not None:
             from ..parallel import _comm
-            # a data axis splits the batch: every rank of it routes the
-            # GLOBAL tokens, as the JAX op's in_specs=P(expert_axis)
+            # the replica axes split the batch: every rank of them routes
+            # the GLOBAL tokens, as the JAX op's in_specs=P(expert_axis)
             # replicates them over 'data'
-            dmesh = active_mesh_axis("data")
             shape = tuple(orig_shape)
-            if dmesh is not None:
-                x = _comm.all_gather(x, dmesh, "data", 0)
-                shape = (shape[0] * dmesh.shape["data"],) + shape[1:]
+            if rep is not None:
+                x = _comm.all_gather_axes(x, rep.mesh, rep.axes, 0)
+                shape = (shape[0] * rep.n,) + shape[1:]
             n = mesh.shape[expert_axis]
             if x.shape[0] % n:
                 raise ValueError(
@@ -112,13 +112,12 @@ def _moe_ffn_op(data, gate_weight, expert_w1, expert_w2,
             out = moe.moe_ffn(x, gate_weight, expert_w1, expert_w2, mesh,
                               axis_name=expert_axis,
                               capacity_factor=float(capacity_factor))
-            if dmesh is not None:
-                out = _comm.take_from_axis(out, dmesh, "data", 0)
+            if rep is not None:
+                out = _comm.take_from_axes(out, rep.mesh, rep.axes, 0)
             return out.to(data.dtype).reshape(orig_shape)
-    mesh = active_mesh_axis("data")
-    if mesh is not None:
+    if rep is not None:
         out = moe.dense_moe_over_data(
-            x, gate_weight, expert_w1, expert_w2, mesh,
+            x, gate_weight, expert_w1, expert_w2, rep.mesh, rep.axes,
             capacity_factor=float(capacity_factor))
     else:
         out = moe.dense_moe(x, gate_weight, expert_w1, expert_w2,

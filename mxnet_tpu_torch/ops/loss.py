@@ -22,29 +22,30 @@ from .registry import register
 
 
 def _data_ranks():
-    """The mesh and rank count of an active ``data`` axis (the batch
-    splits over it), else (None, 1)."""
-    from ._mesh_ctx import active_mesh_axis
-    mesh = active_mesh_axis("data")
-    return mesh, (1 if mesh is None else mesh.shape["data"])
+    """The replica (``_mesh_ctx.Replica``: the active ``data`` and
+    ``fsdp`` axes, which split the batch over ranks) and its rank count,
+    else (None, 1)."""
+    from ._mesh_ctx import replica
+    rep = replica()
+    return rep, (1 if rep is None else rep.n)
 
 
 def _batch_total(count):
     """A count over this rank's batch rows as the whole batch's: summed
-    over an active ``data`` axis (a forward-time collective; no
+    over the active replica axes (a forward-time collective; no
     gradient)."""
-    mesh, n = _data_ranks()
-    if mesh is None:
+    rep, n = _data_ranks()
+    if rep is None:
         return count
     from ..parallel import _comm
     out = count.detach().clone()
-    _comm.all_reduce_([out], mesh, "data")
+    _comm.all_reduce_([out], rep.mesh, rep.axes)
     return out
 
 
 def _norm_factor(normalization, label, valid_mask=None):
-    """The head's gradient divisor over the WHOLE batch (under a ``data``
-    mesh axis each rank holds 1/n of it)."""
+    """The head's gradient divisor over the WHOLE batch (under the replica
+    axes each rank holds 1/n of it)."""
     _, n = _data_ranks()
     if normalization == "batch":
         return float(label.shape[0] * n) if label.dim() else 1.0

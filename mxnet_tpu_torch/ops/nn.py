@@ -14,7 +14,10 @@ two-pass statistics under autograd (the default), contraction
 statistics (``MXNET_BN_STATS``), the one-pass closed-form core
 (``MXNET_BN_IMPL=onepass``) and the hand-written CUDA kernels
 (``MXNET_BN_PALLAS=1``, ``ops/bn_kernels.py``); the knobs are read at
-call time. Dropout and rrelu draw from the threefry key the caller
+call time. Under the replica axes (``data``, ``fsdp``) every route
+computes the whole batch's statistics: two-pass sums all-reduced, and
+the one-pass and kernel routes shifted by the global batch's first
+sample (replica rank 0's) with their shifted sums all-reduced. Dropout and rrelu draw from the threefry key the caller
 passes (``rng``), so their masks are the JAX package's bits.
 """
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch.nn.functional as F
 
 from .. import config as _config
 from .. import _threefry
-from .bn_kernels import bn_train_kernels
+from .bn_kernels import _replica_total, bn_train_kernels
 from .registry import register
 
 
@@ -38,9 +41,26 @@ def _pair(v, n=2):
           defaults={"num_hidden": 0, "no_bias": False, "flatten": True})
 def _fully_connected(data, weight, bias=None, num_hidden=0, no_bias=False,
                      flatten=True, **_):
+    """Under a layout that splits the weight on dim 0 over a
+    tensor-parallel axis (the executor announces it, ``_mesh_ctx.tp_form``)
+    the op runs column-parallel, Megatron's f and g:
+    ``gather_from_axis(linear(copy_to_axis(x), W_slice, b_slice))``, the
+    bias added after the gather when it is not split with the weight."""
+    from ._mesh_ctx import tp_form
     x = data.reshape(data.shape[0], -1) if flatten else data
     if weight.dtype != x.dtype:
         weight = weight.to(x.dtype)
+    form = tp_form()
+    if form is not None:
+        from ..parallel import _comm
+        mesh, axis, bias_split = form
+        out = torch.matmul(_comm.copy_to_axis(x, mesh, axis), weight.t())
+        if not no_bias and bias is not None and bias_split:
+            out = out + bias
+        out = _comm.gather_from_axis(out, mesh, axis, out.dim() - 1)
+        if not no_bias and bias is not None and not bias_split:
+            out = out + bias
+        return out
     # weight layout (num_hidden, in), as the reference stores it
     out = torch.matmul(x, weight.t())
     if not no_bias and bias is not None:
@@ -245,19 +265,28 @@ class _BnOnePass(torch.autograd.Function):
     """The one-pass core (``MXNET_BN_IMPL=onepass``), the twin of the
     JAX package's ``_bn_train_core``: shifted sibling sums for the
     statistics and the textbook closed-form backward, with the mean/var
-    outputs' own cotangents folded into dx."""
+    outputs' own cotangents folded into dx. Under the replica ``rep``
+    the shift is replica rank 0's first sample's (the global batch's
+    first sample) and the shifted sums, and the backward's sums, are
+    all-reduced; gamma's and beta's gradients stay this rank's part."""
 
     @staticmethod
-    def forward(ctx, x, g, b, eps, red, bshape):
-        m = 1
+    def forward(ctx, x, g, b, eps, red, bshape, rep):
+        m = 1 if rep is None else rep.n
         for i in red:
             m *= x.shape[i]
         xf = x.float()
         # the shift: the first sample's channel mean
         cb = torch.mean(xf.narrow(red[0], 0, 1), dim=red, keepdim=True)
+        if rep is not None:
+            # replica rank 0's: the global batch's first sample
+            cb = _replica_total(cb if rep.index == 0
+                                else torch.zeros_like(cb), rep)
         c = cb.reshape(-1)
         s1 = torch.sum(xf - cb, dim=red)
         s2 = torch.sum(torch.square(xf - cb), dim=red)
+        if rep is not None:
+            s1, s2 = _replica_total(s1, rep), _replica_total(s2, rep)
         mean_s = s1 / m
         mean = c + mean_s
         var = torch.clamp_min(s2 / m - torch.square(mean_s), 0.0)
@@ -266,24 +295,30 @@ class _BnOnePass(torch.autograd.Function):
              * (inv.reshape(bshape) * g.reshape(bshape).float())
              + b.reshape(bshape).float()).to(x.dtype)
         ctx.save_for_backward(x, g, mean, inv)
-        ctx.attrs = (red, bshape, m, b.dtype)
+        ctx.attrs = (red, bshape, m, b.dtype, rep)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, dmean, dvar):
         x, g, mean, inv = ctx.saved_tensors
-        red, bshape, m, beta_dtype = ctx.attrs
+        red, bshape, m, beta_dtype, rep = ctx.attrs
         dy = dy.float()
         xc = x.float() - mean.reshape(bshape)
         db = torch.sum(dy, dim=red)
         dgx = torch.sum(dy * xc, dim=red) * inv
+        db_all, dgx_all = db, dgx
+        dmean, dvar = dmean.float(), dvar.float()
+        if rep is not None:
+            db_all, dgx_all, dmean, dvar = (
+                _replica_total(t, rep) for t in (db, dgx, dmean, dvar))
         k = (g.float() * inv) / m
         dx = (k.reshape(bshape)
-              * (m * dy - db.reshape(bshape)
-                 - xc * (inv * dgx).reshape(bshape))
-              + (dmean.float() / m).reshape(bshape)
-              + (2.0 / m) * xc * dvar.float().reshape(bshape)).to(x.dtype)
-        return dx, dgx.to(g.dtype), db.to(beta_dtype), None, None, None
+              * (m * dy - db_all.reshape(bshape)
+                 - xc * (inv * dgx_all).reshape(bshape))
+              + (dmean / m).reshape(bshape)
+              + (2.0 / m) * xc * dvar.reshape(bshape)).to(x.dtype)
+        return dx, dgx.to(g.dtype), db.to(beta_dtype), None, None, None, \
+            None
 
 
 def _bn_dot_ok(data, axis):
@@ -316,27 +351,27 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     # statistics in f32 whatever the compute dtype; the output in the
     # input's dtype
     if is_train and not use_global_stats:
-        from ._mesh_ctx import active_mesh_axis
-        dmesh = active_mesh_axis("data")
-        if dmesh is not None:
-            if _config.get("MXNET_BN_PALLAS") or \
-                    _config.get("MXNET_BN_IMPL") == "onepass":
-                raise NotImplementedError(
-                    "BatchNorm's kernel and one-pass routes shift their "
-                    "sums by a per-rank constant, so partial sums over a "
-                    "'data' mesh axis do not combine; under data "
-                    "parallelism the two-pass route runs (unset "
-                    "MXNET_BN_PALLAS and MXNET_BN_IMPL; ROADMAP Queue A "
-                    "item 9b)")
+        from ._mesh_ctx import replica
+        rep = replica()
+        if rep is not None and _config.get("MXNET_BN_PALLAS") and \
+                data.dim() == 4 and axis == 1:
+            # the kernels over the whole batch: the shift from replica
+            # rank 0, the shifted sums all-reduced (ops/bn_kernels.py)
+            out, mean, var = bn_train_kernels(data, g, beta, float(eps),
+                                              rep=rep)
+        elif rep is not None and _config.get("MXNET_BN_IMPL") == "onepass":
+            out, mean, var = _BnOnePass.apply(data, g, beta, float(eps),
+                                              red, bshape, rep)
+        elif rep is not None:
             # the whole batch's statistics, two-pass, as the JAX
             # package's one global program computes them
             xf = data.float()
-            m = dmesh.shape["data"]
+            m = rep.n
             for i in red:
                 m *= data.shape[i]
-            mean = _data_axis_sum(torch.sum(xf, dim=red)) / m
-            var = _data_axis_sum(torch.sum(torch.square(
-                xf - mean.reshape(bshape)), dim=red)) / m
+            mean = _global_sum(torch.sum(xf, dim=red), rep) / m
+            var = _global_sum(torch.sum(torch.square(
+                xf - mean.reshape(bshape)), dim=red), rep) / m
             inv = torch.rsqrt(var.reshape(bshape) + eps)
             out = ((xf - mean.reshape(bshape)) * inv
                    * g.reshape(bshape).float()
@@ -346,7 +381,7 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
             out, mean, var = bn_train_kernels(data, g, beta, float(eps))
         elif _config.get("MXNET_BN_IMPL") == "onepass":
             out, mean, var = _BnOnePass.apply(data, g, beta, float(eps),
-                                              red, bshape)
+                                              red, bshape, None)
         else:
             xf = data.float()
             if _bn_dot_ok(data, axis):
@@ -466,25 +501,21 @@ def _leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
 
 def _batch_slice(data):
     """(offset, total) of ``data``'s elements in the flat whole batch
-    when a ``data`` mesh axis splits dim 0 over ranks, else (0, None)."""
-    from ._mesh_ctx import active_mesh_axis
-    mesh = active_mesh_axis("data")
-    if mesh is None:
+    when the replica axes split dim 0 over ranks, else (0, None)."""
+    from ._mesh_ctx import replica
+    rep = replica()
+    if rep is None:
         return 0, None
     n = data.numel()
-    return mesh.axis_index("data") * n, n * mesh.shape["data"]
+    return rep.index * n, n * rep.n
 
 
-def _data_axis_sum(x):
-    """``x`` summed over the ranks of an active ``data`` axis, with a
-    summed cotangent (the statistic is the whole batch's, and each rank's
-    loss covers its own rows), else ``x``."""
+def _global_sum(x, rep):
+    """``x`` summed over the ranks of the replica ``rep``, with a summed
+    cotangent (the statistic is the whole batch's, and each rank's loss
+    covers its own rows)."""
     from ..parallel import _comm
-    from ._mesh_ctx import active_mesh_axis
-    mesh = active_mesh_axis("data")
-    if mesh is None:
-        return x
-    return _comm.copy_to_axis(_comm.psum(x, mesh, "data"), mesh, "data")
+    return _comm.global_sum(x, rep.mesh, rep.axes)
 
 
 # ---------------------------------------------------------------------------
@@ -498,9 +529,9 @@ def _dropout(data, p=0.5, mode="training", is_train=False, rng=None, **_):
     """Keeps each element with probability 1 - p (a float32 uniform
     below it, ``jax.random.bernoulli``) and scales it by 1 / (1 - p);
     the identity when p <= 0 or outside training (mode "always" drops
-    at inference too). Under a ``data`` mesh axis the tensor is this
-    rank's slice of the batch (dim 0), and its mask is that slice of the
-    whole batch's mask: the threefry counters of its own elements."""
+    at inference too). Under the replica axes the tensor is this rank's
+    slice of the batch (dim 0), and its mask is that slice of the whole
+    batch's mask: the threefry counters of its own elements."""
     if p <= 0 or (not is_train and mode != "always"):
         return data
     keep = 1.0 - p

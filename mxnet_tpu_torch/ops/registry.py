@@ -5,6 +5,28 @@ registered with the same ``OpDef`` fields as the JAX package, so the
 Symbol graph, its JSON, the eager ``mx.nd`` path (``invoke_eager``) and
 autograd all share one entry per op and reach the same kernels.
 PyTorch runs eagerly: there is no per-(op, attrs) compile cache here.
+
+Under the replica mesh axes (``data``, ``fsdp``: the batch split over
+ranks) a graph's tensors hold this rank's batch rows, and the ops that
+reduce over or mix the batch axis follow ``ops/_batch_global.py``'s
+rules (ROADMAP Queue C 17):
+
+* global when the reduced axes include the batch axis (axis None among
+  them): ``sum``/``sum_axis``, ``nansum``, ``mean`` (the global count),
+  ``prod``, ``nanprod``, ``max``/``max_axis``, ``min``/``min_axis``,
+  ``norm`` (axis None or one axis) and ``softmax_cross_entropy``; the
+  loss heads' divisors (``SoftmaxOutput``, ``MakeLoss``,
+  ``_contrib_ChunkedSoftmaxCE``), ``BatchNorm``'s statistics on every
+  route, ``Dropout``'s counters and the MoE route are global in the ops
+  themselves;
+* refused with ``MXNetError`` naming Queue C 17 when they mix batch rows:
+  ``slice_axis``, ``take``, ``pick`` along axis 0, ``slice`` cutting dim
+  0, a ``reshape`` that moves or merges the batch axis out of dim 0,
+  ``transpose``, ``SwapAxis``, ``expand_dims`` and ``stack`` moving it,
+  ``dot`` contracting over it, ``batch_dot`` on a batched operand of
+  fewer than 3 dims, and ``softmax``, ``log_softmax``, ``sort``,
+  ``argsort``, ``topk``, ``argmax``, ``argmin``, ``reverse``, ``Concat``,
+  ``SliceChannel`` along axis 0.
 """
 from __future__ import annotations
 

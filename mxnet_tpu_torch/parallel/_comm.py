@@ -36,6 +36,19 @@ around a mesh-aware op whose input every rank holds whole:
 and ``take_from_axis`` keeps this rank's slice of a result every rank
 computed whole from an all-gathered input (backward: the zero-padded
 cotangent, so the gradients behind it stay this rank's part).
+``global_sum`` is the sum of a statistic over the ranks of an axis whose
+every rank's loss covers its own rows (BatchNorm's sums, a graph's
+reduction over the batch): a psum forward and a psum of the partial
+cotangents backward. The ``*_axes`` forms apply one of these over
+several axes in turn (the replica axes ``data`` and ``fsdp``).
+
+The param gather (``param_gather``) hands the graph a whole parameter
+from this rank's shard under its spec: forward, an all-gather over the
+spec's axes (the minor axis of a merged entry first); backward, the sum
+of the cotangents over the spec's batch axes (``data``, ``fsdp``: each
+rank's cotangent covers its own rows) and this rank's slice over its
+model axes (``tp``, ``model``: the cotangent is the same on every rank
+of them), a reduce-scatter and a slice.
 
 With these rules a parameter replicated over ``sp``, ``expert`` or
 ``pipe`` gets the same, complete gradient on every rank, and a training
@@ -64,10 +77,12 @@ import math
 import torch
 
 from .. import telemetry as _telemetry
+from ..ops._mesh_ctx import REPLICA_AXES
 
 __all__ = ["Mesh", "ppermute", "all_to_all", "psum", "all_gather",
            "axis_index", "scatter_to_axis", "copy_to_axis",
-           "gather_from_axis", "tie", "all_reduce_", "STAGED_BYTES"]
+           "gather_from_axis", "take_from_axis", "global_sum", "tie",
+           "all_reduce_", "param_gather", "STAGED_BYTES"]
 
 STAGED_BYTES = "parallel.comm.staged_bytes"
 
@@ -209,9 +224,14 @@ def _raw_all_reduce(x, group):
 
 
 def all_reduce_(tensors, mesh, axis, op="sum"):
-    """In-place all-reduce of a list of tensors over ``axis`` (no
-    autograd: gradients, metric sums, flags). op: 'sum', 'max' or
-    'min'. The tensors of one dtype go as one flat buffer."""
+    """In-place all-reduce of a list of tensors over ``axis``, or over
+    each axis of a tuple in turn (no autograd: gradients, metric sums,
+    flags). op: 'sum', 'max' or 'min'. The tensors of one dtype go as one
+    flat buffer."""
+    if isinstance(axis, tuple):
+        for a in axis:
+            all_reduce_(tensors, mesh, a, op)
+        return tensors
     if mesh is None or mesh.shape.get(axis, 1) == 1 or not tensors:
         return tensors
     dist = _dist()
@@ -306,6 +326,47 @@ def _raw_ppermute(x, mesh, axis, perm):
 
 def _one_rank(mesh, axis):
     return mesh is None or mesh.shape.get(axis, 1) == 1
+
+
+def entry_axes(entry):
+    """A spec entry as a tuple of axis names, major first (None: ())."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def place_local(value, spec, mesh):
+    """This rank's slice of a whole ``value`` under ``spec`` (no
+    autograd); a merged entry splits by its first axis, then each piece by
+    the next, as a JAX ``NamedSharding`` lays out a tuple entry."""
+    if mesh is None:
+        return value
+    for d, entry in enumerate(spec):
+        for axis in entry_axes(entry):
+            n = mesh.shape[axis]
+            if n == 1:
+                continue
+            if value.shape[d] % n:
+                raise ValueError(
+                    "dim %d of shape %r does not split over the %d ranks "
+                    "of mesh axis %r" % (d, tuple(value.shape), n, axis))
+            step = value.shape[d] // n
+            value = value.narrow(d, mesh.axis_index(axis) * step, step)
+    return value.contiguous()
+
+
+def gather_local(value, spec, mesh):
+    """The whole array from every rank's slice under ``spec`` (no
+    autograd; the minor axis of a merged entry is gathered first)."""
+    if mesh is None:
+        return value
+    for d, entry in reversed(list(enumerate(spec))):
+        for axis in reversed(entry_axes(entry)):
+            if mesh.shape[axis] == 1:
+                continue
+            value = _raw_all_gather(value.contiguous(), mesh.group(axis),
+                                    mesh.shape[axis], d)
+    return value
 
 
 # ---------------------------------------------------------------------------
@@ -507,6 +568,62 @@ def take_from_axis(x, mesh, axis, dim):
     if _one_rank(mesh, axis):
         return x
     return _Take.apply(x, mesh, axis, int(dim))
+
+
+def global_sum(x, mesh, axes):
+    """The sum of ``x`` over the ranks of each of ``axes`` (an axis or a
+    tuple), with the partial cotangents summed back (``copy_to_axis`` of
+    a ``psum``): the rule for a statistic of the whole batch that meets
+    this rank's rows again."""
+    for a in ((axes,) if isinstance(axes, str) else axes):
+        x = copy_to_axis(psum(x, mesh, a), mesh, a)
+    return x
+
+
+def all_gather_axes(x, mesh, axes, dim=0):
+    """``all_gather`` over several axes, the minor (last) one first: the
+    rows of a batch split over merged axes, whole on every rank."""
+    for a in reversed(tuple(axes)):
+        x = all_gather(x, mesh, a, dim)
+    return x
+
+
+def take_from_axes(x, mesh, axes, dim=0):
+    """``take_from_axis`` over several axes, major first: this rank's rows
+    of a value every rank computed whole."""
+    for a in axes:
+        x = take_from_axis(x, mesh, a, dim)
+    return x
+
+
+
+class _ParamGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, spec):
+        ctx.args = (mesh, spec)
+        return gather_local(x, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, spec = ctx.args
+        for entry in spec:
+            for a in entry_axes(entry):
+                # ranks of a batch axis hold different rows: their
+                # cotangents are partial and sum; over tp and model the
+                # cotangent is the same on every rank
+                if a in REPLICA_AXES and mesh.shape[a] > 1:
+                    g = _raw_all_reduce(g.contiguous(), mesh.group(a))
+        return place_local(g, spec, mesh), None, None
+
+
+def param_gather(x, mesh, spec):
+    """The whole parameter from this rank's shard under ``spec``;
+    backward: the reduce-scatter over the spec's batch axes and this
+    rank's slice over its model axes (see the module doc)."""
+    if mesh is None or not any(mesh.shape[a] > 1 for e in spec
+                               for a in entry_axes(e)):
+        return x
+    return _ParamGather.apply(x, mesh, tuple(spec))
 
 
 class _Tie(torch.autograd.Function):

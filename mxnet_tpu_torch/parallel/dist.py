@@ -17,9 +17,9 @@ with ``nccl`` ``init`` raises before NCCL's own duplicate-GPU error can
 occur. ``timeout`` bounds every collective, so a hung rank fails instead
 of hanging its peers.
 
-``default_mesh()`` without sizes is the GSPMD ``data × fsdp`` mesh of
-the JAX package, which waits for ROADMAP Queue A item 9b; with sizes it
-is ``sharding.make_mesh(axis_sizes)``.
+``default_mesh()`` without sizes is the JAX package's GSPMD ``data ×
+fsdp`` mesh: ``fsdp`` over the ranks of one host, ``data`` over hosts;
+with sizes it is ``sharding.make_mesh(axis_sizes)``.
 """
 from __future__ import annotations
 
@@ -142,14 +142,32 @@ def shutdown():
 
 
 def default_mesh(axis_sizes=None):
-    """``sharding.make_mesh(axis_sizes)``. Without sizes the JAX package
-    builds its GSPMD ``data × fsdp`` mesh, whose ``fsdp`` axis waits for
-    ROADMAP Queue A item 9b."""
+    """The ``data × fsdp`` mesh of the GSPMD path (docs/parallelism.md):
+    ``fsdp`` spans the ranks of one host (parameter all-gathers stay on
+    the host's fabric), ``data`` spans hosts (only gradient reductions
+    cross between them). A host's ranks must hold consecutive ranks and
+    every host as many, else the mesh is ``fsdp`` over every rank, as
+    the JAX package falls back. A process without a group gets ``data=1,
+    fsdp=1``.
+
+    axis_sizes: an override forwarded to ``sharding.make_mesh`` (e.g.
+    ``{"data": 2, "fsdp": 2, "tp": 2}``)."""
     from .sharding import make_mesh
-    if axis_sizes is None:
-        raise NotImplementedError(
-            "dist.default_mesh() without axis_sizes is the GSPMD "
-            "data x fsdp mesh, not ported to the PyTorch package yet "
-            "(ROADMAP Queue A item 9b); pass axis_sizes over the data, "
-            "sp, expert and pipe axes")
-    return make_mesh(axis_sizes)
+    if axis_sizes is not None:
+        return make_mesh(axis_sizes)
+    n = size()
+    if n == 1:
+        return make_mesh({"data": 1, "fsdp": 1})
+    import torch.distributed as dist
+    hosts = [None] * n
+    dist.all_gather_object(hosts, socket.gethostname())
+    order = []
+    for h in hosts:
+        if not order or order[-1] != h:
+            order.append(h)
+    per = n // len(order)
+    if len(order) != len(set(order)) or per * len(order) != n or any(
+            hosts[i * per:(i + 1) * per] != [h] * per
+            for i, h in enumerate(order)):
+        return make_mesh({"data": 1, "fsdp": n})
+    return make_mesh({"data": len(order), "fsdp": per})

@@ -107,21 +107,26 @@ def dense_moe(x, gate_w, w1, w2, capacity_factor=1.25):
 def dense_moe_over_data(x, gate_w, w1, w2, mesh, axis_name="data",
                         capacity_factor=1.25):
     """``dense_moe`` of the whole batch when each rank of ``axis_name``
+    (an axis, or a tuple of axes merged major first: the replica axes)
     holds a contiguous slice of its tokens (the data-parallel step): the
     capacity comes from the global token count and slots follow the
     global token order (each expert's count on earlier ranks offsets this
     rank's slots), as the JAX package's one global program routes them.
     The experts run on this rank's kept tokens only."""
-    n = mesh.shape[axis_name]
+    axes = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+    n, me = 1, 0
+    for a in axes:
+        n *= mesh.shape[a]
+        me = me * mesh.shape[a] + mesh.axis_index(a)
     N = x.shape[0]
     E = gate_w.shape[1]
     cap = _capacity(N * n, capacity_factor, E)
     with torch.no_grad():
         probs = torch.softmax(x.float() @ gate_w.float(), dim=-1)
         counts = _hits(torch.argmax(probs, dim=-1), E).sum(1)
-        every = _comm._raw_all_gather(counts[None].contiguous(),
-                                      mesh.group(axis_name), n, 0)
-        me = mesh.axis_index(axis_name)
+        every = _comm.gather_local(counts[None].contiguous(),
+                                   ((axes if len(axes) > 1 else axes[0]),),
+                                   mesh)
         offset = every[:me].sum(0)
     expert, slot, keep, gate = _route(x, gate_w, E, cap, offset=offset)
     # a kept token's local slot is below both the capacity and N

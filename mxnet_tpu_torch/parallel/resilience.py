@@ -13,7 +13,7 @@ jax; this is its copy).
   boundary, ``guardrail.FitGuard.poll_faults``) and the chaos schedule's
   ``kill<I>@N`` (``on_chaos_tick``).
 * :class:`DeadWorkerError` — a cohort member was declared dead (the
-  distributed KVStore's barrier, ROADMAP Queue A item 9b, raises it;
+  distributed KVStore's barrier, ROADMAP Queue A item 9b.4, raises it;
   ``RetryPolicy`` classifies it fatal).
 """
 from __future__ import annotations

@@ -38,29 +38,32 @@ without JAX. ``CompiledTrainStep.load`` rebuilds it from those files
 alone; on the card, its first ``step`` captures the step as one CUDA
 graph, which every later ``step`` replays.
 
-``mesh=`` (``sharding.make_mesh`` over the ranks of ``dist.init``)
-takes the axes on which the JAX package writes its collectives by hand:
-every rank runs the graph on its own tensors, and the graph's mesh-aware
-ops take their parallel forms (``seq_axis``: ring attention;
-``expert_axis``: the all_to_all MoE; the whole batch's reductions under
-``data``). ``place_batch`` keeps this rank's slice of the global batch
-over ``data`` and the whole batch over ``sp``, ``expert`` and ``pipe``;
-parameters of an expert-sharded stack hold this rank's E/n experts and
-every other one is replicated. The gradients of a step are summed over
-``data`` (the JAX step's gradient is the global batch's: a sum, with
-``rescale_grad`` defaulting to 1 / the global batch), the guardrail's
-finite flag is the minimum over ``data`` and ``clip_norm`` reads the
+``mesh=`` (``sharding.make_mesh`` over the ranks of ``dist.init``) or
+``layout=`` (a ``sharding.SpecLayout``, which carries its mesh) runs the
+step over ranks: every rank runs the graph on its own tensors, and the
+graph's mesh-aware ops take their parallel forms (``seq_axis``: ring
+attention; ``expert_axis``: the all_to_all MoE; the whole batch's
+reductions under the replica axes; a FullyConnected whose weight splits
+on dim 0 over ``tp``/``model``: column-parallel). ``place_batch`` keeps
+this rank's rows of the global batch over the replica axes (``data``,
+and ``fsdp`` under a layout, merged ``data`` major) and the whole batch
+over the other axes. Each parameter lives as this rank's shard of its
+layout spec (the heuristic rules of a bare mesh, or the layout's rules
+and auto rule), and the graph reads it whole through the param gather
+(``_comm.param_gather``) or, column-parallel, as its slice. The
+gradients of a step are summed over the replica axes (the JAX step's
+gradient is the global batch's: a sum, with ``rescale_grad`` defaulting
+to 1 / the global batch), except over an axis the parameter is split on,
+which its gather's backward has summed already; the guardrail's finite
+flag is the minimum over the replica axes and ``clip_norm`` reads the
 summed gradients. ``optimizer_sharding='zero1'`` keeps each optimizer
-state 1/N over ``data`` (``sharding.zero1_sharding``): the update runs on
-this rank's slice of each parameter and the parameters are all-gathered
-after it; the update is elementwise, so the trajectory is the replicated
-update's, bit for bit. A step's outputs are this rank's rows.
-``save_state`` and ``export`` write the global arrays (gathered over the
-axes; rank 0 writes), so a checkpoint restores onto another mesh.
-
-Not in this slice (ROADMAP Queue A item 9b): ``layout=`` (``SpecLayout``,
-GSPMD tensor and parameter sharding) and ``CompiledTrainStep`` over more
-than one rank, which raise ``NotImplementedError``.
+state 1/N over the replica axes (``layout.opt_nsharding(zero=True)``):
+the update runs on this rank's slice of each parameter shard and the
+shard is all-gathered after it; the update is elementwise, so the
+trajectory is the replicated update's, bit for bit. A step's outputs are
+this rank's rows. ``save_state`` and ``export`` write the global arrays
+(gathered over the axes; rank 0 writes), so a checkpoint restores onto
+another mesh or layout.
 """
 from __future__ import annotations
 
@@ -80,6 +83,7 @@ from ..context import context_of, cpu, current_context
 from ..executor import _graph_eval_fn, forward_backward
 from ..ndarray import array
 from ..ops import optimizer_kernels as _mt
+from ..ops._mesh_ctx import replica_of
 from . import _comm
 from . import sharding as shd
 
@@ -97,12 +101,6 @@ _OPT_OPS = {
     "ftrl": (2, "ftrl_update"),
     "signum": (0, "signsgd_update"),
 }
-
-
-def _not_ported(what, item):
-    raise NotImplementedError(
-        "%s is not ported to the PyTorch package yet (ROADMAP %s)"
-        % (what, item))
 
 
 def _tensor(x, device):
@@ -233,35 +231,50 @@ class TrainStep:
         ctx: the device of this rank (default: the current context, gpu(0)
         unless a ``with mx.cpu():`` scope says otherwise).
 
-        mesh: a ``sharding.make_mesh`` mesh over the data, sp, expert and
-        pipe axes (see the module doc). optimizer_sharding: None or
-        'zero1' (the optimizer state 1/N over 'data'). layout= (a GSPMD
-        ``SpecLayout``) is ROADMAP Queue A item 9b and raises."""
+        mesh: a ``sharding.make_mesh`` mesh (see the module doc); its
+        heuristic rules place the parameters. layout: a
+        ``sharding.SpecLayout`` (it carries its own mesh; don't also pass
+        ``mesh=``): parameters and optimizer state placed by its rules,
+        the batch over its data axes (data × fsdp). optimizer_sharding:
+        None or 'zero1' (the optimizer state 1/N over the replica
+        axes)."""
         from .. import config as _config
         if layout is not None:
-            _not_ported("TrainStep(layout=...)",
-                        "Queue A item 9b, GSPMD layouts")
+            if not isinstance(getattr(layout, "mesh", None), shd.Mesh):
+                raise TypeError("TrainStep(layout=%s): pass a "
+                                "parallel.sharding.SpecLayout"
+                                % type(layout).__name__)
+            if mesh is not None and mesh is not layout.mesh:
+                raise ValueError(
+                    "pass either layout= or mesh=, not both — the "
+                    "layout carries its own mesh")
+            mesh = layout.mesh
         if mesh is not None and not isinstance(mesh, shd.Mesh):
-            _not_ported("TrainStep(mesh=%s) (a mesh other than "
-                        "parallel.sharding.make_mesh's, placed by GSPMD)"
-                        % type(mesh).__name__, "Queue A item 9b")
+            raise TypeError("TrainStep(mesh=%s): pass a mesh of "
+                            "parallel.sharding.make_mesh"
+                            % type(mesh).__name__)
         self.symbol = symbol
         self.mesh = mesh
-        self._layout = shd.as_layout(mesh)
+        # one placement seam for the registry (SpecLayout) and the
+        # heuristic rules of a bare mesh; None = one device
+        self._layout = layout if layout is not None \
+            else shd.as_layout(mesh)
+        self._spec_layout = layout
         if optimizer_sharding not in (None, "zero1"):
             raise ValueError("optimizer_sharding must be None or 'zero1', "
                              "got %r" % (optimizer_sharding,))
         if optimizer_sharding == "zero1" and (
                 self._layout is None or not self._layout.zero_axes):
             raise ValueError(
-                "optimizer_sharding='zero1' needs a replica axis to shard "
-                "the optimizer state over: a bare mesh= with a 'data' axis "
-                "(a layout=SpecLayout(...), which folds over 'data' and "
-                "'fsdp', is ROADMAP Queue A item 9b) — got mesh axes %r"
+                "optimizer_sharding='zero1' needs a replica axis to "
+                "shard the optimizer state over: a bare mesh= with a "
+                "'data' axis, or a layout=SpecLayout(...) (which folds "
+                "over 'data' and 'fsdp') — got mesh axes %r"
                 % (None if mesh is None else list(mesh.axis_names)))
         self.optimizer_sharding = optimizer_sharding
-        # ranks over which the batch splits (the gradient sum's axis)
-        self._data_n = 1 if mesh is None else mesh.shape.get("data", 1)
+        # the replica axes the batch splits over (the gradient sum's)
+        self._rep = replica_of(mesh)
+        self._n_rep = 1 if self._rep is None else self._rep.n
         self.compute_dtype = (None if compute_dtype is None
                               else torch_dtype(compute_dtype))
         self.remat = bool(remat) if remat is not None else \
@@ -290,10 +303,13 @@ class TrainStep:
         self._id_inputs = self._embedding_fed_inputs(symbol) \
             & set(self.data_names)
         self.device = (ctx or current_context()).torch_device()
-        self._eval_fn = _graph_eval_fn(symbol, mesh=mesh)
+        self._global_shape = {}
         # name -> spec of each parameter and of its optimizer state
         self._pspec = {}
         self._ospec = {}
+        self._eval_fn = _graph_eval_fn(
+            symbol, mesh=mesh, param_specs=self._pspec,
+            batch_names=self.input_names if mesh is not None else None)
         self._donate = bool(donate)
         # last fit's guardrail outcome: masked_steps/rollbacks/lr_mult
         # ({} until a guarded fit ran) — tests and relaunchers read it
@@ -366,12 +382,39 @@ class TrainStep:
                 v = (torch.ones if n.endswith("var") else torch.zeros)(
                     tuple(aux2shape[n]), dtype=torch.float32)
             aux[n] = v.to(self.device, copy=True)
+        if self._spec_layout is not None:
+            self._report_layout(params, opt_state)
         return params, opt_state, aux
+
+    def _report_layout(self, params, opt_state):
+        """The layout gauges at placement (shape math, no device sync):
+        ``gspmd.sharded_params`` (parameters held as a shard) and
+        ``gspmd.opt_state_bytes_per_dev`` (this rank's optimizer-state
+        bytes); the whole report is ``describe_layout()``."""
+        sharded = sum(1 for n, v in params.items()
+                      if v.numel() < np.prod(self._global_shape[n]))
+        opt_bytes = sum(s.numel() * s.element_size()
+                        for states in opt_state.values() for s in states)
+        _telemetry.gauge("gspmd.sharded_params").set(sharded)
+        _telemetry.gauge("gspmd.opt_state_bytes_per_dev").set(opt_bytes)
+        _telemetry.journal_event(
+            "layout.bind", mesh=dict(self.mesh.shape), params=len(params),
+            sharded_params=sharded, opt_state_bytes_per_dev=opt_bytes,
+            rules=len(self._spec_layout.rules))
+
+    def describe_layout(self):
+        """The layout's per-parameter placement report (which rule
+        claimed each parameter, global -> per-rank shard shapes), filled
+        by ``init_state``/``load_state``."""
+        if self._layout is None:
+            return "no mesh/layout bound (single-device step)"
+        return self._layout.describe()
 
     def _set_specs(self, name, shape):
         """Record the parameter's spec and its optimizer state's (the
         zero1 spec under optimizer_sharding='zero1'), from its global
         shape."""
+        self._global_shape[name] = tuple(shape)
         if self.mesh is None:
             self._pspec[name] = self._ospec[name] = ()
             return
@@ -380,26 +423,43 @@ class TrainStep:
         self._ospec[name] = lay.opt_nsharding(
             name, shape, zero=self.optimizer_sharding == "zero1")
 
-    def _zero_dim(self, name):
-        """The dim of the parameter that zero1 splits over 'data' (None
-        when its state is not split)."""
-        spec = self._ospec.get(name, ())
-        return spec.index("data") if "data" in spec else None
+    def _zero_extra(self, name):
+        """The spec that zero1 splits the rank's parameter shard by
+        further (the replica axes the optimizer state folds in beyond the
+        parameter's own spec, each the minor axis of its entry), or None
+        when the state is the shard itself."""
+        pspec, ospec = self._pspec.get(name, ()), self._ospec.get(name, ())
+        extra, real = [], False
+        for d, entry in enumerate(ospec):
+            have = _comm.entry_axes(pspec[d]) if d < len(pspec) else ()
+            more = _comm.entry_axes(entry)[len(have):]
+            real = real or any(self.mesh.shape[a] > 1 for a in more)
+            extra.append(more if len(more) > 1 else
+                         (more[0] if more else None))
+        return tuple(extra) if real else None
+
+    def _grad_axes(self, name):
+        """The replica axes the parameter's gradient still sums over: all
+        but those its spec splits it on (its gather's backward summed
+        those)."""
+        used = {a for e in self._pspec.get(name, ())
+                for a in _comm.entry_axes(e)}
+        return tuple(a for a in self._rep.axes if a not in used)
 
     def place_batch(self, batch):
         """Move batch arrays to the step's device once, before the step
         loop, so the host-to-device copy is not repaid every step. Under
-        a 'data' axis this rank keeps its slice of each array's dim 0
-        (the global batch splits over the axis); the sp, expert and pipe
-        axes take the whole batch. A batch placed already is returned
-        as it is."""
+        the replica axes (data, fsdp) this rank keeps its rows of each
+        array's dim 0 (the global batch splits over them, data major);
+        the other axes take the whole batch. A batch placed already is
+        returned as it is."""
         if isinstance(batch, _Placed):
             return batch
         out = _Placed()
         for k, v in batch.items():
-            t = _tensor(v, self.device) if self._data_n == 1 else \
+            t = _tensor(v, self.device) if self._n_rep == 1 else \
                 _tensor(v, torch.device("cpu"))
-            if self._data_n > 1:
+            if self._n_rep > 1:
                 spec = self._layout.batch_nsharding(t.dim())
                 t = shd.place(t, spec, self.mesh).to(self.device)
             out[k] = t
@@ -487,7 +547,7 @@ class TrainStep:
             # Module.init_optimizer's default: the effective lr does not
             # scale with the batch unless the caller overrides
             attrs["rescale_grad"] = 1.0 / (
-                batch[self.data_names[0]].shape[0] * self._data_n)
+                batch[self.data_names[0]].shape[0] * self._n_rep)
         scaler = guard.scaler if guard is not None else None
         scale = gr_state[_guardrail.SCALE_KEY] if scaler is not None \
             else None
@@ -496,9 +556,14 @@ class TrainStep:
         names = self.param_names
         with torch.no_grad():
             glist = [grads.pop(n) for n in names]
-            if self._data_n > 1:
-                # the global batch's gradient: a sum over 'data'
-                _comm.all_reduce_(glist, self.mesh, "data")
+            if self._rep is not None:
+                # the global batch's gradient: a sum over the replica
+                # axes the parameter is not split on
+                by_axes = {}
+                for n, g in zip(names, glist):
+                    by_axes.setdefault(self._grad_axes(n), []).append(g)
+                for axes, gs in by_axes.items():
+                    _comm.all_reduce_(gs, self.mesh, axes)
             inv = None if scale is None else 1.0 / scale
             finite = gscale = None
             if guard is not None or self.clip_norm is not None:
@@ -509,11 +574,12 @@ class TrainStep:
                     rescale=float(attrs.get("rescale_grad", 1.0)),
                     clip_norm=self.clip_norm)
                 finite = ok if guard is not None else None
-                if finite is not None and self._data_n > 1:
+                if finite is not None and self._rep is not None:
                     # every rank masks the step if any rank's loss is
                     # not finite
                     finite = finite.clone()
-                    _comm.all_reduce_([finite], self.mesh, "data", "min")
+                    _comm.all_reduce_([finite], self.mesh, self._rep.axes,
+                                      "min")
                 gscale = gs if self.clip_norm is not None else None
             if self.optimizer_sharding == "zero1":
                 new_params, new_opt = self._zero1_update(
@@ -554,20 +620,20 @@ class TrainStep:
     def _zero1_update(self, params, opt_state, glist, lr, attrs, finite,
                       gscale, inv):
         """ZeRO-1: the update of this rank's slice of every parameter
-        whose state is split over 'data' (the whole of the others), in
-        one ``opt_update``; then each split parameter is all-gathered."""
+        shard whose state folds in more replica axes (the whole shard
+        for the others), in one ``opt_update``; then each such shard is
+        all-gathered over those axes."""
         names = self.param_names
         mesh = self.mesh
         dspec = {}
         ws, gs, ss = [], [], []
         for n, g in zip(names, glist):
-            d = self._zero_dim(n)
+            spec = self._zero_extra(n)
             w = params[n]
-            if d is not None:
-                spec = (None,) * d + ("data",)
+            if spec is not None:
                 dspec[n] = spec
-                # a view of the parameter when d == 0 (updated in place
-                # under donation), else a copy
+                # a view of the shard when the split dim is 0 (updated
+                # in place under donation), else a copy
                 w = shd.place(w, spec, mesh)
                 g = shd.place(g, spec, mesh)
             ws.append(w)
@@ -667,9 +733,10 @@ class TrainStep:
                 state, outs = self._step(state, placed, lr, rng)
             stats = metric.device_update(
                 [placed[n] for n in label_names], list(outs))
-            if self._data_n > 1:
+            if self._rep is not None:
                 # the whole batch's sums
-                _comm.all_reduce_(_tree_leaves(stats), self.mesh, "data")
+                _comm.all_reduce_(_tree_leaves(stats), self.mesh,
+                                  self._rep.axes)
             if flag is not None:
                 stats = _guardrail.mask_stats(stats, flag)
             if mstats is not None:
@@ -864,7 +931,7 @@ class TrainStep:
                         if not fuse:
                             # the host metric path (this rank's rows
                             # under a data axis)
-                            labels = batch.label if self._data_n == 1 \
+                            labels = batch.label if self._n_rep == 1 \
                                 else [_nd_wrap(placed[n])
                                       for n in self.label_names]
                             metric.update(labels,
@@ -1017,6 +1084,18 @@ class TrainStep:
             import torch.distributed as dist
             dist.barrier()
 
+    def _place_flat(self, meta, flat):
+        """An export's flat global state as this rank's shards."""
+        pn, k = meta["param_names"], meta["n_opt_slots"]
+        out = list(flat)
+        for i, n in enumerate(pn):
+            self._set_specs(n, tuple(flat[i].shape))
+            out[i] = shd.place(flat[i], self._pspec[n], self.mesh)
+            for j in range(k):
+                at = len(pn) + i * k + j
+                out[at] = shd.place(flat[at], self._ospec[n], self.mesh)
+        return out
+
     def _global_state(self, state):
         """(params, opt_state, aux) as the global arrays: each split
         tensor gathered over its axes (a collective under a mesh)."""
@@ -1167,6 +1246,8 @@ class TrainStep:
                     "trajectory" % (path, sorted(saved), n,
                                     self.opt_name, self._n_state))
             opt_state[n] = tuple(saved[i] for i in range(self._n_state))
+        if self._spec_layout is not None:
+            self._report_layout(params, opt_state)
         return params, opt_state, aux
 
 
@@ -1226,14 +1307,25 @@ class CompiledTrainStep:
     def load(cls, prefix, ctx=None, mesh=None):
         """Rebuild the step exported under ``prefix`` on ``ctx`` (default:
         the current context, gpu(0) unless a ``with mx.cpu():`` scope
-        says otherwise). It runs on one device: a mesh of more than one
-        rank raises (capturing collectives in the graph is ROADMAP Queue
-        A item 9b)."""
+        says otherwise). ``mesh``: run the step over the ranks of a
+        ``sharding.make_mesh`` mesh (its heuristic rules place the state;
+        ``step`` takes the global batch and keeps this rank's rows). On
+        the CPU the step runs eagerly over the mesh each call. On CUDA a
+        mesh of more than one rank raises: the collectives of a captured
+        step need NCCL with one GPU a rank, and over gloo (ranks sharing a
+        GPU) every collective syncs the host through pinned buffers,
+        which a CUDA graph cannot hold."""
         import os
 
-        if mesh is not None and mesh.size > 1:
-            _not_ported("CompiledTrainStep over a mesh of %d ranks"
-                        % mesh.size, "Queue A item 9b")
+        if mesh is not None and mesh.size > 1 and \
+                (ctx or current_context()).device_type == "gpu":
+            raise NotImplementedError(
+                "CompiledTrainStep over a mesh of %d ranks on CUDA: a "
+                "captured step's collectives need NCCL with one GPU a rank "
+                "(backend %r here; over gloo every collective syncs the "
+                "host through pinned buffers, which a CUDA graph cannot "
+                "hold); run TrainStep over the mesh instead"
+                % (mesh.size, mesh.backend))
 
         from ..symbol import load_json
         meta_path = prefix + ".train.meta.json"
@@ -1259,13 +1351,15 @@ class CompiledTrainStep:
                          optimizer_params=spec["optimizer_params"],
                          compute_dtype=spec["compute_dtype"],
                          remat=spec["remat"], clip_norm=spec["clip_norm"],
-                         ctx=ctx)
+                         mesh=mesh, ctx=ctx)
         path = prefix + ".state.npz"
         with np.load(path, allow_pickle=False) as blob:
             state = [_from_numpy(blob["s%05d" % i], path, "s%05d" % i)
                      for i in range(meta["n_state_leaves"])]
             count = int(blob["step_count"]) \
                 if "step_count" in blob.files else 0
+        if mesh is not None:
+            state = step._place_flat(meta, state)
         return cls(step, meta, state, step_count=count)
 
     @property
@@ -1361,8 +1455,7 @@ class CompiledTrainStep:
             seed = self._step_count
         seed = int(seed) & 0xFFFFFFFF
         if self.device.type != "cuda":
-            outs = self._run({n: t.to(self.device) for n, t in feed.items()},
-                             float(lr), seed)
+            outs = self._run(self._train.place_batch(feed), float(lr), seed)
         elif self._graph is None:
             outs = self._capture(feed, lr, seed)
         else:
@@ -1378,8 +1471,9 @@ class CompiledTrainStep:
                 .detach().cpu().numpy().copy() for o in outs]
 
     def get_params(self):
-        """The current parameters by name, as numpy (bf16 as float32)."""
-        params, _, _ = self._unflat()
+        """The current parameters by name, as numpy (bf16 as float32);
+        the global arrays under a mesh (a collective)."""
+        params, _, _ = self._train._global_state(self._unflat())
         return {n: (t.float() if t.dtype == torch.bfloat16 else t)
                 .detach().cpu().numpy() for n, t in params.items()}
 
@@ -1389,15 +1483,22 @@ class CompiledTrainStep:
         if name not in pn:
             raise KeyError("unknown param %r; params: %s"
                            % (name, sorted(pn)))
-        return tuple(self._state[pn.index(name)].shape)
+        return self._train._global_shape.get(
+            name, tuple(self._state[pn.index(name)].shape))
 
     def save_state(self, prefix):
         """``prefix.state.npz`` in the exported layout, with the step
-        count, so a reloaded step continues the default seeds."""
-        np.savez(prefix + ".state.npz",
-                 step_count=np.int64(self._step_count),
-                 **{"s%05d" % i: _to_numpy(t)
-                    for i, t in enumerate(self._state)})
+        count, so a reloaded step continues the default seeds (under a
+        mesh every rank calls it and rank 0 writes the global arrays)."""
+        flat = _flat_state(self._train._global_state(self._unflat()),
+                           self._meta["param_names"],
+                           self._meta["aux_names"])
+        if self._train._writer():
+            np.savez(prefix + ".state.npz",
+                     step_count=np.int64(self._step_count),
+                     **{"s%05d" % i: _to_numpy(t)
+                        for i, t in enumerate(flat)})
+        self._train._barrier()
         return prefix + ".state.npz"
 
 

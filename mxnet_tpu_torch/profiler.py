@@ -1,7 +1,7 @@
 """The pieces of ``mxnet_tpu/profiler.py`` that serving and the fit loop
 use: device-memory sampling, the blocking-host-sync counter and the
 per-step marker. The profiler proper (host timeline, ``torch.profiler``
-device traces, ``dump_profile``) comes with ROADMAP Queue A item 9b."""
+device traces, ``dump_profile``) comes with ROADMAP Queue A item 9b.5."""
 from __future__ import annotations
 
 import torch

@@ -500,9 +500,11 @@ def test_generator_validation_matches_jax():
 
 def test_defaults_and_routing():
     """ctx=cpu() runs on the CPU; the default context is the card (here,
-    without CUDA, it raises rather than fall back); mesh= raises naming
-    ROADMAP item 9b; serving_decoder returns the continuous-batching
-    decoder over this Generator (ported with item 8)."""
+    without CUDA, it raises rather than fall back); mesh= takes a
+    make_mesh mesh (another object raises TypeError) and a one-rank
+    data x model mesh decodes the tokens of no mesh; serving_decoder
+    returns the continuous-batching decoder over this Generator (ported
+    with item 8)."""
     p = _params()
     kw = dict(num_layers=L, num_heads=H, dim=DIM, batch_size=B)
     t = tgen.Generator(p, V, ML, ctx=tmx.cpu(), **kw)
@@ -514,8 +516,14 @@ def test_defaults_and_routing():
             tgen.Generator(p, V, ML, **kw)
     with tmx.cpu():
         assert tgen.Generator(p, V, ML, **kw).device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(TypeError, match="make_mesh"):
         tgen.Generator(p, V, ML, ctx=tmx.cpu(), mesh=object(), **kw)
+    from mxnet_tpu_torch.parallel import make_mesh
+    one = tgen.Generator(p, V, ML, ctx=tmx.cpu(),
+                         mesh=make_mesh({"data": 1, "model": 1}), **kw)
+    prompt = np.arange(B * 3).reshape(B, 3) % V
+    np.testing.assert_array_equal(one.generate(prompt, 4),
+                                  t.generate(prompt, 4))
     from mxnet_tpu_torch.serve import ContinuousDecoder
     with t.serving_decoder(queue_cap=3) as dec:
         assert isinstance(dec, ContinuousDecoder) and dec._gen is t

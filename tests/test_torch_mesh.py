@@ -43,6 +43,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # (vocab, seq, batch) of the LM cases; dims of the toy MLP data
 LM = dict(vocab=64, T=16, B=4, heads=2, dim=32)
+# the BatchNorm routes' NCHW batch under data=2
+BN_SHAPE = (6, 4, 5, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -389,6 +391,44 @@ def _rank_cases(world):
                 "w1_local": np.array(state[0][w1].shape),
                 "m1_local": np.array(state[1][w1][0].shape)}
 
+    def bn_routes(_):
+        """The kernel route's plain twin (MXNET_BN_PALLAS) and the one-pass
+        route of a training BatchNorm under data=2: each rank's rows of
+        the output and of dx, the summed dgamma and dbeta, the moving
+        stats."""
+        from mxnet_tpu_torch import config
+        from mxnet_tpu_torch.ops.nn import _batch_norm
+        mesh = make_mesh({"data": world})
+        x, cot = _f32(BN_SHAPE, 51, 1.5) + 0.3, _f32(BN_SHAPE, 52)
+        C = BN_SHAPE[1]
+        rows = BN_SHAPE[0] // world
+        mine = slice(rows * dist.rank(), rows * (dist.rank() + 1))
+        out = {}
+        for route, knob, val in (("kernels", "MXNET_BN_PALLAS", True),
+                                 ("onepass", "MXNET_BN_IMPL", "onepass")):
+            config.set_override(knob, val)
+            try:
+                tx = torch.tensor(x[mine], requires_grad=True)
+                tg = torch.tensor(np.abs(_f32((C,), 53)) + 0.5,
+                                  requires_grad=True)
+                tb = torch.tensor(_f32((C,), 54), requires_grad=True)
+                with _mesh_ctx.use_mesh(mesh):
+                    y, mm, mv = _batch_norm(
+                        tx, tg, tb, torch.tensor(_f32((C,), 55)),
+                        torch.tensor(np.abs(_f32((C,), 56)) + 0.5),
+                        is_train=True, fix_gamma=False)
+                    grads = torch.autograd.grad(
+                        y, (tx, tg, tb), torch.tensor(cot[mine]))
+            finally:
+                config.set_override(knob, None)
+            dg, db = grads[1].clone(), grads[2].clone()
+            _comm.all_reduce_([dg, db], mesh, "data")
+            out.update({route + "_y": _np(y), route + "_dx": _np(grads[0]),
+                        route + "_dgamma": _np(dg),
+                        route + "_dbeta": _np(db), route + "_mm": _np(mm),
+                        route + "_mv": _np(mv)})
+        return out
+
     def fit_dp(inputs_dir):
         """TrainStep.fit over data=2: the fused metric, the guardrail,
         clip_norm, a checkpoint each epoch (rank 0 writes) read back by
@@ -397,7 +437,7 @@ def _rank_cases(world):
 
     if world == 2:
         return {"rank_size": rank_size, "ring": ring, "gqa_op": gqa_op,
-                "fit_dp": fit_dp,
+                "fit_dp": fit_dp, "bn_routes": bn_routes,
                 "symbol_ring": symbol_ring,
                 "lm_sp": train("lm_sp", {"sp": 2}),
                 "lm_expert": train("lm_expert", {"expert": 2}),
@@ -698,31 +738,41 @@ def test_aux_state_threading_on_mesh(ranks):
         np.testing.assert_allclose(got["a:" + k], v, err_msg=k, **PARAMS)
 
 
-def test_bn_shifted_routes_refuse_a_data_axis(monkeypatch):
-    """The kernel and one-pass BatchNorm routes shift their sums per
-    rank, so they raise under a data axis (ROADMAP Queue A item 9b)."""
-    import mxnet_tpu_torch as mx
-    from mxnet_tpu_torch import config
-    from mxnet_tpu_torch.ops import _mesh_ctx
-    from mxnet_tpu_torch.ops.nn import _batch_norm
-
-    class TwoRanks:
-        axis_names = ("data",)
-        shape = {"data": 2}
-
-    x = torch.ones((4, 3, 2, 2))
-    with _mesh_ctx.use_mesh(TwoRanks()):
-        for knob, val in (("MXNET_BN_PALLAS", True),
-                          ("MXNET_BN_IMPL", "onepass")):
-            config.set_override(knob, val)
-            try:
-                with pytest.raises(NotImplementedError, match="item 9b"):
-                    _batch_norm(x, torch.ones(3), torch.zeros(3),
-                                torch.zeros(3), torch.ones(3),
-                                is_train=True)
-            finally:
-                config.set_override(knob, None)
-    del mx
+def test_bn_shifted_routes_refuse_a_data_axis(ranks):
+    """The kernel and one-pass BatchNorm routes shift their sums, which
+    ranks holding different rows would each take about their own first
+    sample; under data=2 both take the global batch's first sample (data
+    rank 0's) and all-reduce their shifted sums (ROADMAP Queue A item
+    9b.2), so each rank's rows of y and dx, the summed dgamma and dbeta
+    and the moving stats are the JAX BatchNorm's of the global batch."""
+    import jax
+    import jax.numpy as jnp
+    from mxnet_tpu.ops import registry as jreg
+    x, cot = _f32(BN_SHAPE, 51, 1.5) + 0.3, _f32(BN_SHAPE, 52)
+    C = BN_SHAPE[1]
+    gamma, beta = np.abs(_f32((C,), 53)) + 0.5, _f32((C,), 54)
+    mm, mv = _f32((C,), 55), np.abs(_f32((C,), 56)) + 0.5
+    jop = jreg.get_op("BatchNorm")
+    jattrs = {**jreg.canon_attrs(jop, {"fix_gamma": False}),
+              "is_train": True}
+    (jy, jmm, jmv), vjp = jax.vjp(lambda a, g, b: jop.fn(
+        a, g, b, jnp.asarray(mm), jnp.asarray(mv), **jattrs),
+        jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta))
+    jdx, jdg, jdb = vjp((jnp.asarray(cot), jnp.zeros(C), jnp.zeros(C)))
+    got = [ranks.get("bn_routes", 2, r) for r in range(2)]
+    for route in ("kernels", "onepass"):
+        for key, want in (("y", jy), ("dx", jdx)):
+            np.testing.assert_allclose(
+                np.concatenate([g[route + "_" + key] for g in got]),
+                np.asarray(want), rtol=1e-5, atol=1e-5,
+                err_msg=route + " " + key)
+        for g in got:
+            for key, want in (("dgamma", jdg), ("dbeta", jdb),
+                              ("mm", jmm), ("mv", jmv)):
+                np.testing.assert_allclose(g[route + "_" + key],
+                                           np.asarray(want), rtol=1e-5,
+                                           atol=1e-5,
+                                           err_msg=route + " " + key)
 
 
 # ---------------------------------------------------------------------------
@@ -1046,9 +1096,10 @@ def test_moe_data_expert_zero1_composition(ranks):
 def test_one_rank_mesh_needs_no_group_and_checks_sizes():
     """A mesh whose axes multiply to 1 runs without a process group and
     its step is the plain step bit for bit; sizes that do not multiply
-    to the world raise the actionable ValueError; the GSPMD axes,
-    SpecLayout and a compiled step over more ranks than one raise naming
-    item 9b."""
+    to the world raise the actionable ValueError; the GSPMD axes (model,
+    tp, fsdp), SpecLayout and dist.default_mesh() build one-rank meshes
+    and layouts, and a compiled step over more ranks than one on CUDA
+    raises naming NCCL."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.initializer import Xavier
     from mxnet_tpu_torch.parallel import (SpecLayout, dist, make_mesh,
@@ -1058,20 +1109,21 @@ def test_one_rank_mesh_needs_no_group_and_checks_sizes():
     with pytest.raises(ValueError, match="multiply to the 1 ranks"):
         make_mesh({"data": 2})
     for axis in ("model", "tp", "fsdp"):
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            make_mesh({axis: 1})
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        SpecLayout(mesh)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        dist.default_mesh()
+        m = make_mesh({axis: 1})
+        assert m.shape == {axis: 1} and m.size == 1
+    lay = SpecLayout(make_mesh({"data": 1, "fsdp": 1}), min_shard_size=0)
+    assert lay.batch_axes == ("data", "fsdp")
+    assert lay.spec_for("w", (4, 2)) == (("fsdp", None), "auto:fsdp@dim0")
+    assert dist.default_mesh().shape == {"data": 1, "fsdp": 1}
     assert dist.default_mesh({"expert": 1}).shape == {"expert": 1}
 
     class TwoRanks:
         size = 2
+        backend = "gloo"
 
     from mxnet_tpu_torch.parallel.trainer import CompiledTrainStep
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        CompiledTrainStep.load("unused", mesh=TwoRanks())
+    with pytest.raises(NotImplementedError, match="NCCL"):
+        CompiledTrainStep.load("unused", ctx=mx.gpu(0), mesh=TwoRanks())
     X, y = _toy()
     res = []
     for m in (None, mesh):

@@ -135,7 +135,7 @@ def test_module_multi_device_raises_naming_item_9():
                              context=[tmx.cpu(i) for i in range(4)])
         with pytest.raises(NotImplementedError, match="item 9"):
             mod.fit(train, num_epoch=1)
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(TypeError, match="SpecLayout"):
             tmx.mod.Module(_mlp_sym(tmx), context=tmx.cpu(),
                            layout=object()).bind(train.provide_data,
                                                  train.provide_label)

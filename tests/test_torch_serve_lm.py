@@ -237,11 +237,11 @@ def test_bf16_params_round_trip_through_npz(tmp_path):
                          ids=["moe", "seq_axis"])
 def test_unported_options_raise_not_implemented(kw):
     """The MoE FFN and ring attention are ported (ROADMAP Queue A item
-    9a): the options build the JAX package's graph, and the one option
-    of the serving path left, a Generator over a mesh, raises naming
-    item 9b."""
+    9a): the options build the JAX package's graph. The serving path's
+    last option, a Generator over a mesh, is ported too (item 9b.3): it
+    takes a make_mesh mesh and refuses any other object."""
     assert json.loads(_port_symbol(**kw).tojson()) == \
         json.loads(_jax_symbol(**kw).tojson())
     from mxnet_tpu_torch.generation import Generator
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 9b"):
+    with pytest.raises(TypeError, match="make_mesh"):
         Generator({}, V, T, ctx=tmx.cpu(), mesh=object())

@@ -193,14 +193,15 @@ def torch_equal(a, b):
     ({"optimizer_sharding": "zero1"}, "Queue A item 9"),
 ])
 def test_unported_options_raise(lm, kw, match):
-    """mesh= takes the port's mesh (``parallel.sharding.make_mesh``); any
-    other object, and layout= (GSPMD), raise naming item 9b. zero1
-    without a 'data' axis raises the JAX package's ValueError."""
+    """mesh= takes the port's mesh (``parallel.sharding.make_mesh``) and
+    layout= its ``SpecLayout`` (both ported with ``match``'s item 9b);
+    any other object raises TypeError naming what to pass. zero1 without
+    a 'data' axis raises the JAX package's ValueError."""
     if kw.get("optimizer_sharding") == "zero1":
         with pytest.raises(ValueError, match="replica axis"):
             tmake_train_step(lm[1], ctx=tmx.cpu(), **kw)
         return
-    with pytest.raises(NotImplementedError, match=match + "b"):
+    with pytest.raises(TypeError, match="make_mesh|SpecLayout"):
         tmake_train_step(lm[1], ctx=tmx.cpu(), **kw)
 
 
