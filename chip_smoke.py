@@ -212,7 +212,25 @@ Phases (any failure exits non-zero; no phase is caught):
    data=2 on the BatchNorm kernels (batch 16 a rank, f32) against one
    rank; Generator over model=2 (bench_decode's model, f32) against the
    one-rank generate;
-25. one JSON line of every ported kernel (a device time under its byte
+25. kvdist2: bench.py's ResNet-50 (float32, the BatchNorm kernels, batch
+   64 a worker) through Module.fit on two workers of this script sharing
+   the card over gloo (``--kv-rank=`` runs one): (a) kvstore='dist_sync',
+   a warm step and 3 timed (ms, staged bytes, pushes and pulls a step, peak
+   memory, BatchNorm launches), the workers' parameters after 2 steps equal
+   to each other and to one process's rank-ordered sum of the same
+   gradients; (b) kvstore='dist_async' against a parameter-server process
+   started as tools/launch.py starts one (``--kv-server``: DMLC_ROLE=server
+   through the package's import hook), 3 steps a worker, every push
+   applied once, the final pulls equal to the server's store, then one
+   worker alone against the same Module on a 'local' store;
+26. profiler: mx.profiler over torch.profiler: two steps of kvdist2's
+   Module in mode 'symbolic' (executor events only; a whole step of the
+   device trace names each BatchNorm kernel once a BatchNorm), two bf16
+   steps of the flagship LM in mode 'all' (each bf16 flash kernel once a
+   layer a step; the step markers), and the eager op call's host time
+   with the profiler stopped against the same call without the dispatch
+   site's check;
+27. one JSON line of every ported kernel (a device time under its byte
    bound fails the run: the timing lost work), then the result line.
 
 It imports nothing of JAX or of ``mxnet_tpu``. Without CUDA, or run
@@ -1719,6 +1737,24 @@ def eager_dispatch_us():
     return out
 
 
+def eager_site_ab():
+    """eager_dispatch_us's plain figure in turns through invoke_eager (the
+    profiler's dispatch site, stopped) and through its body without the
+    site's check (registry._invoke_eager, the code before the site
+    existed): {"site": [us, ...], "bare": [us, ...]}."""
+    from mxnet_tpu_torch.ops import registry
+    site = registry.invoke_eager
+    runs = {"site": [], "bare": []}
+    try:
+        for kind in ("site", "bare", "bare", "site") * 2:
+            registry.invoke_eager = site if kind == "site" else \
+                registry._invoke_eager
+            runs[kind].append(eager_dispatch_us()[0])
+    finally:
+        registry.invoke_eager = site
+    return runs
+
+
 def executor_phase():
     """The flagship LM bound in float32 through the Executor
     (simple_bind -> copy_params_from -> forward(is_train=True) ->
@@ -1840,6 +1876,9 @@ def executor_phase():
     del args
     torch.cuda.empty_cache()
     us_plain, us_rec = eager_dispatch_us()
+    EAGER_US["executor"] = (us_plain, us_rec)
+    # the profiler phase's comparison, measured beside this figure
+    EAGER_US["ab"] = eager_site_ab()
     say("eager: forward+backward %.2f ms (median of %d timed; all: %s), "
         "%d op calls a forward; loss %.4f; peak device memory %.2f GB; "
         "host time of one eager op call %.1f us (%.1f us recording)" % (
@@ -6820,6 +6859,785 @@ def gspmd2_phase(device="cuda", tiny=False):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# kvdist2: the distributed KVStores on ResNet-50's Module.fit
+# ---------------------------------------------------------------------------
+
+KV_BATCH = 64                     # a worker's rows: bench.py's 128, split
+KV_SYNC_STEPS = 4                 # (a): a warm step and 3 timed
+KV_SYNC_CHECK = 2                 # (a): the parameters held after 2 steps
+KV_ASYNC_STEPS = 3                # (b): steps a worker
+KV_ALONE_STEPS = 2                # (b): one worker alone, deterministic
+KV_TINY = dict(layers=18, image=32, batch=2, classes=10)
+# (a) against the one-process rank-ordered sum: the same gradients summed
+# in the same order and the same update, so bit-equal is expected; held
+# to TRAIN_TOL. (b)'s lone worker against kvstore 'local': the server's
+# update on the host against the store's on the card, float32
+KV_ALONE_TOL = TOL["float32"]
+EAGER_US = {}                     # the executor phase's eager_dispatch_us
+
+
+def _kv_sizes(tiny):
+    """(layers, image, a worker's batch, classes)."""
+    if tiny:
+        return (KV_TINY["layers"], KV_TINY["image"], KV_TINY["batch"],
+                KV_TINY["classes"])
+    return RESNET_LAYERS, RESNET_IMAGE, KV_BATCH, RESNET_CLASSES
+
+
+def _kv_optimizer(names, rescale):
+    """SGD momentum 0.9, wd 1e-4 on every parameter (TrainStep's rule, so
+    the server's updater, which sees hashed keys, applies the same wd),
+    lr RESNET_LR."""
+    from mxnet_tpu_torch import optimizer as opt
+    o = opt.create("sgd", learning_rate=RESNET_LR,
+                   param_idx2name=dict(enumerate(names)), momentum=0.9,
+                   wd=1e-4, rescale_grad=rescale)
+    o.set_wd_mult({n: 1.0 for n in names})
+    return o
+
+
+def _kv_module(mx, sym, ctx, out, B, S):
+    """A Module bound at a worker's batch (B x 3 x S x S) with the phase's
+    initial weights (out/init-0000.params)."""
+    _, args, auxs = mx.model.load_checkpoint(os.path.join(out, "init"), 0)
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind([("data", (B, 3, S, S))], [("softmax_label", (B,))])
+    mod.init_params(None, arg_params=args, aux_params=auxs)
+    return mod
+
+
+def _kv_rows(out, rank, B, steps):
+    """A worker's rows of the phase's first ``steps`` global batches."""
+    X = np.load(os.path.join(out, "X.npy"), mmap_mode="r")
+    Y = np.load(os.path.join(out, "Y.npy"))
+    rows = slice(rank * B, (rank + 1) * B)
+    return (np.ascontiguousarray(X[:steps, rows]).reshape(
+        (steps * B,) + X.shape[2:]), Y[:steps, rows].reshape(-1))
+
+
+def _kv_rank(rank, world, port, ps_port, out, device, tiny):
+    """One worker of kvdist2 (``chip_smoke.py --kv-rank=...``): (a)
+    Module.fit(kvstore='dist_sync') over a gloo group, then (b)
+    Module.fit(kvstore='dist_async') against the phase's server; results
+    to out/kv<r>.json and out/sync<r>.npz."""
+    import gc
+    import torch
+    torch.set_num_threads(4)
+    sys.path.insert(0, HERE)
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import config, io, telemetry
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.parallel import _comm, dist
+
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    ctx = mx.gpu(0) if cuda else mx.cpu()
+    dist.init("127.0.0.1:%d" % port, world, rank, backend="gloo",
+              timeout=600)
+    layers, S, B, classes = _kv_sizes(tiny)
+    sym = resnet.get_symbol(num_classes=classes, num_layers=layers,
+                            image_shape=(3, S, S))
+    counters = _bn_counters()
+    res = {"rank": rank}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def count(name):
+        return telemetry.counter(name).value
+
+    config.set_override("MXNET_BN_PALLAS", True)
+    torch.backends.cudnn.deterministic = True
+    # -- (a) dist_sync ---------------------------------------------------
+    X, Y = _kv_rows(out, rank, B, KV_SYNC_STEPS)
+    with _deterministic(), ctx:
+        mod = _kv_module(mx, sym, ctx, out, B, S)
+        names = list(mod._param_names)
+        mod.init_optimizer(kvstore="dist_sync",
+                           optimizer=_kv_optimizer(names, 1.0 / (B * world)))
+        kv = mod._kvstore
+        if kv.type != "dist_sync" or kv.num_workers != world or \
+                kv.rank != rank or not mod._update_on_kvstore:
+            raise RuntimeError("kvdist2 (a): store %s, %d workers, rank %d"
+                               % (kv.type, kv.num_workers, kv.rank))
+        exe = mod._exec_group.execs[0]
+        marks, snap = [], {}
+
+        def cb(param):
+            sync()
+            if param.nbatch == KV_SYNC_CHECK - 1:
+                snap.update({n: exe.arg_dict[n]._data.detach().cpu()
+                             .numpy().copy() for n in names})
+            marks.append(time.perf_counter())
+        sync()
+        _reset_counts(counters)
+        c0 = {k: count(k) for k in (_comm.STAGED_BYTES, "kvstore.pushes",
+                                    "kvstore.pulls", "kvstore.push_bytes")}
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        mod.fit(io.NDArrayIter(X, Y, batch_size=B), num_epoch=1,
+                kvstore="dist_sync", eval_metric="acc",
+                batch_end_callback=cb)
+        sync()
+        n = KV_SYNC_STEPS
+        gaps = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+        res["sync"] = {
+            "ms": statistics.median(gaps), "all_ms": gaps,
+            "staged": (count(_comm.STAGED_BYTES) -
+                       c0[_comm.STAGED_BYTES]) / n,
+            "pushes": (count("kvstore.pushes") - c0["kvstore.pushes"]) / n,
+            "pulls": (count("kvstore.pulls") - c0["kvstore.pulls"]) / n,
+            "push_bytes": (count("kvstore.push_bytes") -
+                           c0["kvstore.push_bytes"]) / n,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda
+            else 0.0,
+            "bn": {c.__name__: c.launches / n for c in counters},
+            "keys": len(names)}
+        np.savez(os.path.join(out, "sync%d.npz" % rank), **snap)
+        del mod, exe, kv, snap
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # -- (b) dist_async --------------------------------------------------
+    os.environ.update({"DMLC_PS_ROOT_URI": "127.0.0.1",
+                       "DMLC_PS_ROOT_PORT": str(ps_port),
+                       "DMLC_NUM_WORKER": str(world),
+                       "DMLC_WORKER_ID": str(rank)})
+    X, Y = _kv_rows(out, rank, B, KV_ASYNC_STEPS)
+    with ctx:
+        mod = _kv_module(mx, sym, ctx, out, B, S)
+        names = list(mod._param_names)
+        mod.init_optimizer(kvstore="dist_async",
+                           optimizer=_kv_optimizer(names, 1.0 / B))
+        kv = mod._kvstore
+        if kv._async_client is None or kv.num_workers != world or \
+                kv.rank != rank:
+            raise RuntimeError("kvdist2 (b): not a parameter-server client")
+        exe = mod._exec_group.execs[0]
+        marks = []
+
+        def cb_async(param):
+            sync()
+            marks.append(time.perf_counter())
+        sync()
+        _reset_counts(counters)
+        c0 = {k: count(k) for k in ("kvstore.push_bytes",
+                                    "kvstore.pull_bytes")}
+        t = time.perf_counter()
+        mod.fit(io.NDArrayIter(X, Y, batch_size=B), num_epoch=1,
+                kvstore="dist_async", eval_metric="acc",
+                batch_end_callback=cb_async)
+        marks.insert(0, t)
+        n = KV_ASYNC_STEPS
+        probs = exe.outputs[0]._data
+        nll = mean_nll(probs, torch.as_tensor(Y[-B:], device=probs.device))
+        gaps = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+        res["async"] = {
+            "ms": statistics.median(gaps), "all_ms": gaps, "nll": nll,
+            "push_bytes": (count("kvstore.push_bytes") -
+                           c0["kvstore.push_bytes"]) / n,
+            "pull_bytes": (count("kvstore.pull_bytes") -
+                           c0["kvstore.pull_bytes"]) / n,
+            "bn": {c.__name__: c.launches / n for c in counters},
+            "op_ms": {op: telemetry.histogram("ps.op_ms." + op).snapshot()
+                      for op in ("push", "pull")}}
+        # after the last barrier every worker pulls the server's store
+        kv.barrier()
+        same, digest = True, 0.0
+        for name in names:
+            raw = np.asarray(kv._async_client.pull(name))
+            kv.pull(name, out=exe.arg_dict[name])
+            got = exe.arg_dict[name]._data.detach().cpu().numpy()
+            same = same and np.array_equal(got, raw)
+            digest += float(np.abs(raw.astype(np.float64)).sum())
+        res["async"].update(pulled_equal=bool(same), digest=digest)
+        kv.close()
+    config.set_override("MXNET_BN_PALLAS", None)
+    with open(os.path.join(out, "kv%d.json" % rank), "w") as f:
+        json.dump(res, f)
+    dist.shutdown()
+
+
+def _kv_server(out, ps_port, n_workers, tag):
+    """A parameter-server process started as tools/launch.py starts one:
+    this script under DMLC_ROLE=server, whose import of the package
+    re-execs into ps_async.serve_forever (spans into out/<tag>_trace)."""
+    env = dict(os.environ, DMLC_ROLE="server", DMLC_PS_ROOT_URI="127.0.0.1",
+               DMLC_PS_ROOT_PORT=str(ps_port),
+               DMLC_NUM_WORKER=str(n_workers),
+               MXNET_KVSTORE_TYPE="dist_async",
+               MXNET_TRACE=os.path.join(out, tag + "_trace"),
+               OMP_NUM_THREADS="4")
+    log = open(os.path.join(out, tag + ".log"), "w")
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--kv-server"],
+        cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT), log
+
+
+def _kv_server_done(proc, log, what):
+    """Wait for a server to leave (it exits once every worker has); its
+    handler spans by name, replays apart."""
+    try:
+        rc = proc.wait(timeout=120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "still serving 120 s after its workers left"
+    log.close()
+    if rc != 0:
+        with open(log.name) as f:
+            sys.stderr.write("%s log (tail):\n%s\n" % (what, f.read()[-6000:]))
+        fail("kvdist2: %s exited %r" % (what, rc))
+    spans = {}
+    d = log.name[:-len(".log")] + "_trace"
+    for fn in sorted(os.listdir(d)) if os.path.isdir(d) else ():
+        with open(os.path.join(d, fn)) as f:
+            for line in f:
+                rec = json.loads(line)
+                if rec.get("kind") != "span":
+                    continue
+                key = rec["name"] + (" (replayed)" if (rec.get("attrs") or
+                                                       {}).get("replay")
+                                     else "")
+                spans[key] = spans.get(key, 0) + 1
+    return spans
+
+
+def _kv_reference(mx, sym, ctx, out, B, S, names, steps):
+    """The one-process rank-ordered sum: the same Module's gradients on
+    rank 0's rows and on rank 1's, added in rank order, then the same
+    update on a 'local' store; the parameters after ``steps``."""
+    import torch
+    from mxnet_tpu_torch.ndarray import NDArray
+    X, Y = (np.load(os.path.join(out, f)) for f in ("X.npy", "Y.npy"))
+    mod = _kv_module(mx, sym, ctx, out, B, S)
+    exe = mod._exec_group.execs[0]
+    kv = mx.kv.create("local")
+    kv.set_optimizer(_kv_optimizer(names, 1.0 / (2 * B)))
+    for n in names:
+        kv.init(n, exe.arg_dict[n])
+    from mxnet_tpu_torch import io
+    for s in range(steps):
+        grads = []
+        for r in range(2):
+            rows = slice(r * B, (r + 1) * B)
+            mod.forward_backward(io.DataBatch(
+                data=[mx.nd.array(X[s, rows])],
+                label=[mx.nd.array(Y[s, rows])]))
+            grads.append({n: exe.grad_dict[n]._data.clone() for n in names})
+        for n in names:
+            kv.push(n, NDArray(grads[0][n] + grads[1][n]))
+            kv.pull(n, out=exe.arg_dict[n])
+        del grads
+    got = {n: exe.arg_dict[n]._data.detach().cpu().numpy() for n in names}
+    del mod, exe, kv
+    if ctx.device_type == "gpu":
+        torch.cuda.empty_cache()
+    return got
+
+
+def _kv_alone(mx, sym, ctx, out, B, S, ps_port):
+    """(b)'s lone worker: ``KV_ALONE_STEPS`` steps of rank 0's rows through
+    dist_async against its own server, then the same Module on a 'local'
+    store (update on the store); both parameter sets."""
+    from mxnet_tpu_torch import io
+    X, Y = _kv_rows(out, 0, B, KV_ALONE_STEPS)
+
+    def run(kind):
+        mod = _kv_module(mx, sym, ctx, out, B, S)
+        names = list(mod._param_names)
+        kv = mx.kv.create(kind)
+        mod.init_optimizer(kvstore=kv,
+                           optimizer=_kv_optimizer(names, 1.0 / B))
+        mod.fit(io.NDArrayIter(X, Y, batch_size=B), num_epoch=1,
+                kvstore=kv, eval_metric="acc")
+        exe = mod._exec_group.execs[0]
+        got = {n: exe.arg_dict[n]._data.detach().cpu().numpy()
+               for n in names}
+        kv.close()
+        return got
+
+    env = {"DMLC_PS_ROOT_URI": "127.0.0.1", "DMLC_PS_ROOT_PORT": str(ps_port),
+           "DMLC_NUM_WORKER": "1", "DMLC_WORKER_ID": "0"}
+    keep = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        got_async = run("dist_async")
+    finally:
+        for k, v in keep.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return got_async, run("local")
+
+
+def _max_err(got, want):
+    """(max |got - want|, its parameter, within TRAIN_TOL, bit-equal)."""
+    worst, where, within, same = 0.0, None, True, True
+    for n, w in want.items():
+        g = got[n]
+        same = same and np.array_equal(g, w)
+        d = float(np.abs(g.astype(np.float64) - w).max()) if g.size else 0.0
+        if d > worst:
+            worst, where = d, n
+        within = within and np.allclose(g, w, **TRAIN_TOL)
+    return worst, where, within, same
+
+
+def kvdist2_phase(device="cuda", tiny=False):
+    """bench.py's ResNet-50 (full width, float32, MXNET_BN_PALLAS=1, SGD
+    momentum 0.9, wd 1e-4, lr RESNET_LR) through Module.fit on two worker
+    processes of this script sharing the card over gloo (``--kv-rank=``),
+    bench.py's batch 128 split 64 + 64, each worker's BatchNorm over its
+    own rows; the weights from one seeded init, the batches seeded.
+    (a) kvstore='dist_sync': a warm step and 3 timed (ms a step, staged
+    bytes, the store's pushes and pulls, peak memory, each BatchNorm
+    kernel's launches a step); after 2 steps both workers' parameters
+    equal each other and, within TRAIN_TOL (bit-equal expected), one
+    process's rank-ordered sum of the same two gradients under the same
+    update (deterministic algorithms, cudnn.deterministic). (b)
+    kvstore='dist_async' against a server process started as
+    tools/launch.py starts one (DMLC_ROLE=server through the package's
+    import hook; the host-side apply): 3 steps a worker, every push
+    applied once (the server's ps.handle.push spans = workers x steps x
+    keys), the final pulls equal to the server's store on both workers,
+    a finite loss; ms a step, push and pull bytes a step, the server's
+    spans; then one worker alone against a second server, 2 steps,
+    against the same Module on a 'local' store within KV_ALONE_TOL.
+    Returns both workers' kernel launches."""
+    import gc
+    import tempfile
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import resnet
+
+    cuda = device == "cuda"
+    ctx = mx.gpu(0) if cuda else mx.cpu()
+    out = tempfile.mkdtemp(prefix="kvdist2_")
+    layers, S, B, classes = _kv_sizes(tiny)
+    t0 = time.perf_counter()
+    sym = resnet.get_symbol(num_classes=classes, num_layers=layers,
+                            image_shape=(3, S, S))
+    with ctx:
+        mod = mx.mod.Module(sym, context=ctx)
+        mod.bind([("data", (B, 3, S, S))], [("softmax_label", (B,))])
+        mx.random.seed(0)
+        mod.init_params(Xavier(factor_type="in", magnitude=2.0))
+        args, auxs = mod.get_params()
+        mx.model.save_checkpoint(os.path.join(out, "init"), 0, sym, args,
+                                 auxs)
+        names = list(mod._param_names)
+        nparam = sum(int(np.prod(a.shape)) for a in args.values())
+        del mod, args, auxs
+    rng = np.random.RandomState(30)
+    steps = max(KV_SYNC_STEPS, KV_ASYNC_STEPS)
+    np.save(os.path.join(out, "X.npy"), rng.standard_normal(
+        (steps, 2 * B, 3, S, S)).astype(np.float32))
+    np.save(os.path.join(out, "Y.npy"), rng.randint(
+        0, classes, (steps, 2 * B)).astype(np.float32))
+    say("kvdist2: ResNet-%d %d params (%.1f M, %d keys), float32, "
+        "MXNET_BN_PALLAS=1, SGD momentum 0.9 wd 1e-4 lr %g, batch %d a "
+        "worker x 2 workers sharing the card over gloo; set up in %.1f s"
+        % (layers, nparam, nparam / 1e6, len(names), RESNET_LR, B,
+           time.perf_counter() - t0))
+
+    servers = []
+    try:
+        port, ps_port, ps_alone = _free_port(), _free_port(), _free_port()
+        server, slog = _kv_server(out, ps_port, 2, "server")
+        servers.append(server)
+        t = time.perf_counter()
+        rcs, logs = _launch_ranks(
+            "kv-rank", lambda r: "%d,2,%d,%d,%s,%s,%d" % (
+                r, port, ps_port, out, device, int(tiny)), 2,
+            MESH_RANK_TIMEOUT_S)
+        launch_s = time.perf_counter() - t
+        if rcs != [0, 0]:
+            for r, log in enumerate(logs):
+                sys.stderr.write("kvdist2 worker %d log (tail):\n%s\n"
+                                 % (r, log[-6000:]))
+            fail("kvdist2: the workers exited %r" % (rcs,))
+        spans = _kv_server_done(server, slog, "the dist_async server")
+        res = []
+        for r in range(2):
+            with open(os.path.join(out, "kv%d.json" % r)) as f:
+                res.append(json.load(f))
+        snaps = []
+        for r in range(2):
+            with np.load(os.path.join(out, "sync%d.npz" % r)) as f:
+                snaps.append({k: f[k] for k in f.files})
+
+        # -- (a)'s checks --------------------------------------------------
+        config.set_override("MXNET_BN_PALLAS", True)
+        with _deterministic(), ctx:
+            torch.backends.cudnn.deterministic = True
+            want = _kv_reference(mx, sym, ctx, out, B, S, names,
+                                 KV_SYNC_CHECK)
+        workers_same = all(np.array_equal(snaps[0][n], snaps[1][n])
+                           for n in names)
+        err, where, within, same = _max_err(snaps[0], want)
+        s0 = res[0]["sync"]
+        say("kvdist2 (a) dist_sync: %.1f ms a step (rank 0, median of 3 "
+            "timed after a warm step; all %s; rank 1 %.1f), %.1f MB staged "
+            "a step, %.0f pushes and %.0f pulls a step (%d keys), %.1f MB "
+            "pushed a step, peak %.2f GB (rank 1 %.2f); BatchNorm kernels a "
+            "worker step %s" % (
+                s0["ms"], " ".join("%.1f" % g for g in s0["all_ms"]),
+                res[1]["sync"]["ms"], s0["staged"] / 1e6, s0["pushes"],
+                s0["pulls"], s0["keys"], s0["push_bytes"] / 1e6,
+                s0["peak_gb"], res[1]["sync"]["peak_gb"],
+                json.dumps(s0["bn"], sort_keys=True)))
+        say("kvdist2 (a): after %d steps the two workers' %d parameters "
+            "%s; against the one-process rank-ordered sum: max abs err %.3g "
+            "(%s), %s" % (
+                KV_SYNC_CHECK, len(names),
+                "are equal" if workers_same else "DIFFER", err, where,
+                "bit-equal" if same else "within %r: %s" % (TRAIN_TOL,
+                                                            within)))
+        if not workers_same:
+            fail("kvdist2 (a): the workers' parameters differ after %d "
+                 "dist_sync steps" % KV_SYNC_CHECK)
+        if not within:
+            fail("kvdist2 (a): the workers' parameters differ from the "
+                 "one-process rank-ordered sum by %g in %s (beyond %r)"
+                 % (err, where, TRAIN_TOL))
+        del want, snaps
+        gc.collect()
+
+        # -- (b)'s checks --------------------------------------------------
+        a0, a1 = res[0]["async"], res[1]["async"]
+        applied = spans.get("ps.handle.push", 0)
+        want_pushes = 2 * KV_ASYNC_STEPS * len(names)
+        say("kvdist2 (b) dist_async: %.1f ms a step (rank 0, %d steps; all "
+            "%s; rank 1 %.1f), %.1f MB pushed and %.1f MB pulled a step a "
+            "worker, loss %.4f / %.4f; push p50 %s ms, pull p50 %s ms; the "
+            "server's spans %s; the launch took %.1f s" % (
+                a0["ms"], KV_ASYNC_STEPS, " ".join("%.1f" % g
+                                                   for g in a0["all_ms"]),
+                a1["ms"], a0["push_bytes"] / 1e6, a0["pull_bytes"] / 1e6,
+                a0["nll"], a1["nll"], a0["op_ms"]["push"].get("p50"),
+                a0["op_ms"]["pull"].get("p50"),
+                json.dumps(spans, sort_keys=True), launch_s))
+        if applied != want_pushes or spans.get("ps.handle.push (replayed)"):
+            fail("kvdist2 (b): the server applied %d pushes (%d replays "
+                 "served), not %d workers x %d steps x %d keys"
+                 % (applied, spans.get("ps.handle.push (replayed)", 0), 2,
+                    KV_ASYNC_STEPS, len(names)))
+        if not (a0["pulled_equal"] and a1["pulled_equal"]) or \
+                a0["digest"] != a1["digest"]:
+            fail("kvdist2 (b): after the final barrier the workers' pulls "
+                 "differ from the server's store or from each other (%r, "
+                 "%r, digests %r %r)" % (a0["pulled_equal"],
+                                         a1["pulled_equal"], a0["digest"],
+                                         a1["digest"]))
+        if not (np.isfinite(a0["nll"]) and np.isfinite(a1["nll"])):
+            fail("kvdist2 (b): the loss is not finite: %r %r"
+                 % (a0["nll"], a1["nll"]))
+        alone, alog = _kv_server(out, ps_alone, 1, "alone")
+        servers.append(alone)
+        with _deterministic(), ctx:
+            torch.backends.cudnn.deterministic = True
+            got_async, got_local = _kv_alone(mx, sym, ctx, out, B, S,
+                                             ps_alone)
+        alone_spans = _kv_server_done(alone, alog, "the lone worker's "
+                                      "server")
+        worst, where = 0.0, None
+        for n, w in got_local.items():
+            d = float(np.abs(got_async[n].astype(np.float64) - w).max())
+            if d > worst:
+                worst, where = d, n
+        ok = all(np.allclose(got_async[n], w, **KV_ALONE_TOL)
+                 for n, w in got_local.items())
+        say("kvdist2 (b): one worker alone against a server, %d steps "
+            "(deterministic): max abs err %.3g (%s) against the same Module "
+            "on a 'local' store (update on the store), %s %r; the server's "
+            "pushes %d" % (KV_ALONE_STEPS, worst, where,
+                           "within" if ok else "BEYOND", KV_ALONE_TOL,
+                           alone_spans.get("ps.handle.push", 0)))
+        if not ok:
+            fail("kvdist2 (b): the lone dist_async worker lands %g from "
+                 "kvstore 'local' in %s (beyond %r)"
+                 % (worst, where, KV_ALONE_TOL))
+    finally:
+        for proc in servers:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        config.set_override("MXNET_BN_PALLAS", None)
+        torch.backends.cudnn.deterministic = False
+        import shutil
+        shutil.rmtree(out, ignore_errors=True)
+    launches = {}
+    for rr in res:
+        for part in ("sync", "async"):
+            steps_ = KV_SYNC_STEPS if part == "sync" else KV_ASYNC_STEPS
+            for k, v in rr[part]["bn"].items():
+                launches[k] = launches.get(k, 0) + int(round(v * steps_))
+    if cuda:
+        n_bn = sum(n["op"] == "BatchNorm"
+                   for n in json.loads(sym.tojson())["nodes"])
+        for r, rr in enumerate(res):
+            for part in ("sync", "async"):
+                if any(v != n_bn for v in rr[part]["bn"].values()):
+                    fail("kvdist2 rank %d (%s): BatchNorm kernel launches a "
+                         "step %r, not %d" % (r, part, rr[part]["bn"], n_bn))
+    say("kvdist2: launches of both workers %s" % ", ".join(
+        "%s %d" % kv for kv in sorted(launches.items())))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# profiler: mx.profiler over torch.profiler on the card
+# ---------------------------------------------------------------------------
+
+PROFILE_BN = ("bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_dx")
+PROFILE_STEPS = 2                 # traced steps, each between two markers
+PROFILE_FLASH = ("flash_fwd_bf16", "flash_bwd_bf16")
+
+
+def _device_kernels(path, keys):
+    """The kernel records of a Chrome trace that profiler_set_state wrote,
+    split at the marker kernels (torch.cuda._sleep) the phase launches
+    around each traced step: ([{key: kernels of the step whose name holds
+    it}, ...], kernel records in all). bn_finalize, the stats kernels'
+    second launch, is left out. The profiler can lose records at the
+    start of a trace, so a step counts only between two markers."""
+    with open(path) as f:
+        evs = json.load(f)["traceEvents"]
+    kernels = sorted((e for e in evs if e.get("cat") == "kernel"),
+                     key=lambda e: e["ts"])
+    steps, cur = [], None
+    for e in kernels:
+        name = e.get("name", "")
+        if "spin_kernel" in name:
+            if cur is not None:
+                steps.append(cur)
+            cur = {k: 0 for k in keys}
+        elif cur is not None:
+            for k in keys:
+                cur[k] += k in name and "finalize" not in name
+    return steps, len(kernels)
+
+
+def profiler_phase(device="cuda", tiny=False):
+    """mx.profiler on the card, each case traced for PROFILE_STEPS steps
+    with a marker kernel around each (a step counts in the device trace
+    only between two markers: the profiler can lose records at a trace's
+    start): (a) kvdist2 (a)'s Module step (ResNet-50, float32, batch 64,
+    the BatchNorm kernels) under profiler_set_config(mode='symbolic',
+    xplane_dir=...): the host dump holds the Executor's forward and
+    backward events and no operator event, a whole step of the device
+    trace names the four BatchNorm kernels once a BatchNorm each, and
+    their counters count as much a step; (b) the flagship LM's bf16 step
+    (TrainStep, 4 layers, batch 8 x 2048) under mode='all': a whole step
+    names flash_fwd_bf16 and flash_bwd_bf16 once a layer each, as their
+    counters count, and the host dump holds the step markers; (c) the
+    eager host us an op call with the profiler stopped against the same
+    call without the dispatch site's check, in turns (eager_site_ab,
+    measured by the executor phase beside its eager_dispatch_us, or here
+    in a partial run). Returns the profiled steps' launches."""
+    import shutil
+    import tempfile
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import config, io, profiler
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import resnet, transformer
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.parallel import make_train_step
+
+    cuda = device == "cuda"
+    ctx = mx.gpu(0) if cuda else mx.cpu()
+    tmp = tempfile.mkdtemp(prefix="profiler_")
+    launches = {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def run(what, mode, fn):
+        """fn twice under the profiler, a marker kernel before, between
+        and after (the first takes what the trace loses at its start);
+        (host events, device trace)."""
+        xdir = os.path.join(tmp, what)
+        profiler.profiler_set_config(mode=mode, xplane_dir=xdir,
+                                     filename=os.path.join(tmp, what +
+                                                           ".json"))
+        profiler.profiler_set_state("run")
+        try:
+            for _ in range(PROFILE_STEPS):
+                if cuda:
+                    torch.cuda._sleep(1)
+                sync()
+                fn()
+                sync()
+            if cuda:
+                torch.cuda._sleep(1)
+            sync()
+        finally:
+            profiler.profiler_set_state("stop")
+        with open(profiler.dump_profile()) as f:
+            host = json.load(f)
+        if sorted(host) != ["displayTimeUnit", "telemetry", "traceEvents"]:
+            fail("profiler %s: the dump's keys %r" % (what, sorted(host)))
+        return host["traceEvents"], profiler._P.device_traces[-1]
+
+    try:
+        # -- (a) the Module step, symbolic ---------------------------------
+        layers, S, B, classes = _kv_sizes(tiny)
+        sym = resnet.get_symbol(num_classes=classes, num_layers=layers,
+                                image_shape=(3, S, S))
+        n_bn = sum(n["op"] == "BatchNorm"
+                   for n in json.loads(sym.tojson())["nodes"])
+        config.set_override("MXNET_BN_PALLAS", True)
+        rng = np.random.RandomState(31)
+        with ctx:
+            mod = mx.mod.Module(sym, context=ctx)
+            mod.bind([("data", (B, 3, S, S))], [("softmax_label", (B,))])
+            mx.random.seed(0)
+            mod.init_params(Xavier(factor_type="in", magnitude=2.0))
+            names = list(mod._param_names)
+            mod.init_optimizer(kvstore=None,
+                               optimizer=_kv_optimizer(names, 1.0 / B))
+            batch = io.DataBatch(
+                data=[mx.nd.array(rng.standard_normal(
+                    (B, 3, S, S)).astype(np.float32))],
+                label=[mx.nd.array(rng.randint(0, classes, B).astype(
+                    np.float32))])
+
+            def module_step():
+                with profiler.step_scope(0):
+                    mod.forward_backward(batch)
+                    mod.update()
+            module_step()                               # warm
+            sync()
+            _reset_counts(_bn_counters())
+            host, trace = run("module", "symbolic", module_step)
+        counts = {c.__name__: c.launches for c in _bn_counters()}
+        config.set_override("MXNET_BN_PALLAS", None)
+        names_ = [e["name"] for e in host]
+        cats = {e["cat"] for e in host}
+        dev, n_kernels = _device_kernels(trace, PROFILE_BN)
+        say("profiler (a) Module step (ResNet-%d, float32, batch %d), mode "
+            "symbolic, %d steps traced: host events %s; device trace %s: %d "
+            "kernel records, by whole step %s; the kernels' counters %s" % (
+                layers, B, PROFILE_STEPS, json.dumps(sorted(set(names_))),
+                os.path.basename(trace), n_kernels,
+                json.dumps(dev, sort_keys=True),
+                json.dumps(counts, sort_keys=True)))
+        for want in ("executor_forward_train", "executor_backward",
+                     "train_step#0"):
+            if want not in names_:
+                fail("profiler (a): the host dump has no %r event (%r)"
+                     % (want, names_))
+        if "operator" in cats:
+            fail("profiler (a): mode 'symbolic' recorded operator events")
+        if cuda:
+            whole = {k: n_bn for k in PROFILE_BN}
+            if whole not in dev or any(
+                    counts[k + "_cuda"] != PROFILE_STEPS * n_bn
+                    for k in PROFILE_BN):
+                fail("profiler (a): no traced step names each BatchNorm "
+                     "kernel %d times (%r), or the counters %r are not %d "
+                     "a step" % (n_bn, dev, counts, n_bn))
+        launches.update(counts)
+        del mod, batch
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # -- (b) the flagship LM's bf16 step, all ------------------------
+        if tiny:
+            V, T, L, H, D, Bt = 64, 16, 2, 2, 32, 2
+        else:
+            V, T, L, H, D, Bt = VOCAB, SEQ, LAYERS, HEADS, DIM, TRAIN_BATCH
+        lm = transformer.get_symbol(V, T, num_layers=L, num_heads=H, dim=D,
+                                    ffn_hidden=4 * D)
+        step = make_train_step(lm, optimizer="adam",
+                               optimizer_params={"rescale_grad": 1.0 / Bt},
+                               compute_dtype="bfloat16", ctx=ctx)
+        toks = rng.randint(0, V, (Bt, T)).astype(np.float32)
+        labels = np.roll(toks, -1, axis=1)
+        labels[:, -1] = -1
+        mx.random.seed(0)
+        state = [step.init_state(Xavier(), {"data": (Bt, T),
+                                            "softmax_label": (Bt, T)})]
+        placed = step.place_batch({"data": toks, "softmax_label": labels})
+        outs = []
+
+        def lm_step():
+            with profiler.step_scope(len(outs)):
+                state[0], o = step(state[0], placed, TRAIN_LR, len(outs))
+            outs.append(mean_nll(o[0], placed["softmax_label"]))
+        lm_step()                                       # warm
+        sync()
+        _reset_flash_counts()
+        host, trace = run("lm", "all", lm_step)
+        counts = {c.__name__: c.launches for c in _flash_counters()}
+        dev, n_kernels = _device_kernels(trace, PROFILE_FLASH)
+        names_ = [e["name"] for e in host]
+        say("profiler (b) flagship LM bf16 step (%d layers, batch %d x %d), "
+            "mode all, %d steps traced: %d host events (%s); device trace "
+            "%s: %d kernel records, by whole step %s; the kernels' counters "
+            "%s; loss %.4f" % (
+                L, Bt, T, PROFILE_STEPS, len(host),
+                json.dumps(sorted(set(names_))[:12]),
+                os.path.basename(trace), n_kernels,
+                json.dumps(dev, sort_keys=True),
+                json.dumps(counts, sort_keys=True), outs[-1]))
+        if "train_step#2" not in names_:
+            fail("profiler (b): the host dump has no step marker (%r)"
+                 % names_)
+        if not np.isfinite(outs[-1]):
+            fail("profiler (b): the loss is not finite: %r" % outs)
+        if cuda:
+            if {k: L for k in PROFILE_FLASH} not in dev or any(
+                    counts[c.__name__] != PROFILE_STEPS * L
+                    for c in _flash_counters()):
+                fail("profiler (b): no traced step names each bf16 flash "
+                     "kernel %d times (%r), or the counters %r are not %d "
+                     "a step" % (L, dev, counts, L))
+        launches.update(counts)
+        del step, state, placed
+        if cuda:
+            torch.cuda.empty_cache()
+    finally:
+        config.set_override("MXNET_BN_PALLAS", None)
+        profiler.profiler_set_config(mode="symbolic", xplane_dir=None)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- (c) the stopped profiler's cost at the eager dispatch site -------
+    if cuda:
+        ref = EAGER_US.get("executor")
+        runs = EAGER_US.get("ab") or eager_site_ab()
+        med = {k: statistics.median(v) for k, v in runs.items()}
+        spread = max(runs["bare"]) - min(runs["bare"])
+        say("profiler (c): eager host time of one op call with the profiler "
+            "stopped %.2f us (median of %d runs: %s), without the dispatch "
+            "site's check %.2f us (%s; spread %.2f us), in turns %s; the "
+            "executor phase's eager_dispatch_us %s" % (
+                med["site"], len(runs["site"]),
+                " ".join("%.2f" % u for u in runs["site"]), med["bare"],
+                " ".join("%.2f" % u for u in runs["bare"]), spread,
+                "right after the executor phase's figure" if "ab" in EAGER_US
+                else "in this phase",
+                "%.2f us (%.2f recording), %s the site's runs" % (
+                    ref[0], ref[1], "within" if min(runs["site"]) <= ref[0]
+                    <= max(runs["site"]) else "outside")
+                if ref else "not measured in this run"))
+        if med["site"] - med["bare"] > spread + 1.0:
+            fail("profiler (c): the stopped profiler's check adds %.2f us "
+                 "an eager op call, beyond the run-to-run spread %.2f us"
+                 % (med["site"] - med["bare"], spread))
+    return launches
+
+
 def main():
     try:
         import torch
@@ -6900,7 +7718,9 @@ def main():
                    [att.flash_fwd_cuda, nmsk.nms_keep_cuda]),
                "moe_lm": moe_lm_phase(),
                "mesh2": mesh2_phase(),
-               "gspmd2": gspmd2_phase()}
+               "gspmd2": gspmd2_phase(),
+               "kvdist2": kvdist2_phase(),
+               "profiler": profiler_phase()}
     for rec in records:
         # no kernel moves its bytes faster than the memory can: a time
         # under the byte bound means the timing lost work
@@ -6933,7 +7753,8 @@ PARTIAL = {"mt": mt_kernel_phase, "bn": bn_kernel_phase,
            "serve_fleet": serve_fleet_phase,
            "compiled_serve": lambda: compiled_serve_phase(_serve_counters()),
            "moe_lm": moe_lm_phase, "mesh2": mesh2_phase,
-           "gspmd2": gspmd2_phase}
+           "gspmd2": gspmd2_phase, "kvdist2": kvdist2_phase,
+           "profiler": profiler_phase}
 
 
 def _serve_counters():
@@ -6943,8 +7764,17 @@ def _serve_counters():
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 2 and sys.argv[1].startswith(("--mesh-rank=",
-                                                      "--gspmd-rank=")):
+    if sys.argv[1:] == ["--kv-server"]:
+        # kvdist2's parameter server: the package's import takes the
+        # server role from DMLC_ROLE=server and never returns here
+        sys.path.insert(0, HERE)
+        import mxnet_tpu_torch  # noqa: F401
+        fail("kvdist2: the server role returned into the script")
+    elif len(sys.argv) == 2 and sys.argv[1].startswith("--kv-rank="):
+        r, w, p, ps, d, device, tiny = sys.argv[1].split("=", 1)[1].split(",")
+        _kv_rank(int(r), int(w), int(p), int(ps), d, device, bool(int(tiny)))
+    elif len(sys.argv) == 2 and sys.argv[1].startswith(("--mesh-rank=",
+                                                        "--gspmd-rank=")):
         # one rank of the mesh2 or gspmd2 phase (started by the phase)
         r, w, p, d, device, tiny = sys.argv[1].split("=", 1)[1].split(",")
         rank_main = _mesh_rank if sys.argv[1].startswith("--mesh") \

@@ -91,5 +91,9 @@ from .model import FeedForward  # noqa: E402
 from . import module  # noqa: E402
 from . import module as mod  # noqa: E402
 from .module import Module  # noqa: E402
+from . import kvstore_server as _kvstore_server  # noqa: E402
+# server/scheduler-role processes take their role here (reference:
+# importing mxnet with DMLC_ROLE=server starts the server loop)
+_kvstore_server._init_kvstore_server_module()
 from . import parallel  # noqa: E402
 from . import recordio  # noqa: E402

@@ -325,6 +325,12 @@ define("MXNET_CTRL_POLL_MS", float, 500.0,
        "policy. 0 disables the background loop — deterministic tests "
        "drive controller.tick() explicitly (the poll_now() "
        "discipline)")
+define("MXNET_PROFILER_AUTOSTART", bool, False,
+       "start profiler collection at import")
+define("MXNET_PROFILER_MODE", bool, False,
+       "False = symbolic executor events only, True = every eager op")
+define("MXNET_PROFILER_XPLANE", str, "",
+       "directory for torch.profiler device traces (empty = disabled)")
 define("MXNET_PS_RETRY_MAX", float, 8,
        "RetryPolicy default retry count (parallel/resilience.py; the "
        "policy reads the environment directly and falls back to this "

@@ -1,6 +1,6 @@
 """Graph evaluation and the ``Executor`` — the PyTorch twin of
-``mxnet_tpu/executor.py`` without ``group2ctx`` placement, Custom-op host
-callbacks and XLA cost analysis.
+``mxnet_tpu/executor.py`` without Custom-op host callbacks and XLA cost
+analysis.
 
 The JAX package lowers a Symbol to one pure function that ``jax.jit``
 compiles. Here the same function (``_graph_eval_fn``) runs eagerly, op by
@@ -28,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import profiler as _profiler
 from ._threefry import as_key, fold_in
 from .base import MXNetError
 from .context import current_context
@@ -380,12 +381,16 @@ class Executor:
         gradient over the replica axes it is not split on, so the
         gradient arrays hold the global batch's gradient of the shard
         (the Module under a layout)."""
-        if group2ctx:
-            raise NotImplementedError(
-                "Executor(group2ctx=...) places graph groups on a device "
-                "mesh by GSPMD constraints, which is not ported yet "
-                "(ROADMAP Queue A item 9b.4)")
         self._symbol = symbol
+        self._group2ctx = dict(group2ctx or {})
+        # group2ctx: entries whose value is a partition spec (a string
+        # or a P tuple) check the outputs of the nodes of that
+        # ``ctx_group`` as ``__shard__`` does under a mesh; Context
+        # values (the reference's device placement) have no analogue in
+        # one program and change nothing, as in the JAX package
+        from .context import Context
+        self._group2spec = {g: v for g, v in self._group2ctx.items()
+                            if not isinstance(v, Context)}
         self._ctx = ctx if ctx is not None else current_context()
         self._device = self._ctx.torch_device()
         self._monitor_callback = None
@@ -434,7 +439,8 @@ class Executor:
         return _graph_eval_fn(self._symbol, capture=capture, mesh=self._mesh,
                               param_specs=self._param_specs,
                               batch_names=self._batch_names
-                              if self._mesh is not None else None)
+                              if self._mesh is not None else None,
+                              group2spec=self._group2spec)
 
     def _sum_over_replicas(self, grads):
         """Each parameter's gradient summed over the replica axes its
@@ -583,14 +589,16 @@ class Executor:
         rng = mx_random.next_key()
         self._graph = None
         eval_fn = self._eval()
-        if is_train and self._grad_names:
-            outs, new_aux, leaves = _record_forward(
-                eval_fn, arg_vals, aux_vals, rng, self._grad_names)
-            self._graph = (outs, leaves)
-        else:
-            with torch.no_grad():
-                outs, new_aux = eval_fn(arg_vals, aux_vals, rng,
-                                        bool(is_train))
+        with _profiler.scope("executor_forward%s" %
+                             ("_train" if is_train else ""), "executor"):
+            if is_train and self._grad_names:
+                outs, new_aux, leaves = _record_forward(
+                    eval_fn, arg_vals, aux_vals, rng, self._grad_names)
+                self._graph = (outs, leaves)
+            else:
+                with torch.no_grad():
+                    outs, new_aux = eval_fn(arg_vals, aux_vals, rng,
+                                            bool(is_train))
         if is_train:
             for n, a in zip(self._aux_names, self.aux_arrays):
                 a._set_data(new_aux[n].detach())
@@ -612,8 +620,9 @@ class Executor:
                 out_grads = [out_grads]
             out_grads = [None if g is None else _tensor_like(g, o)
                          for g, o in zip(out_grads, outs)]
-        grads = _backward(outs, leaves, out_grads, retain_graph=True)
-        self._sum_over_replicas(grads)
+        with _profiler.scope("executor_backward", "executor"):
+            grads = _backward(outs, leaves, out_grads, retain_graph=True)
+            self._sum_over_replicas(grads)
         for n, gbuf in zip(self._arg_names, self.grad_arrays):
             if gbuf is None or self._grad_req[n] == "null" or \
                     n not in grads:
@@ -640,7 +649,8 @@ class Executor:
                         grad_req=dict(self._grad_req),
                         aux_states=[fit(a, s) for a, s in
                                     zip(self.aux_arrays, aux_shapes)],
-                        mesh=self._mesh, param_specs=self._param_specs,
+                        group2ctx=self._group2ctx, mesh=self._mesh,
+                        param_specs=self._param_specs,
                         batch_names=self._batch_names)
 
     def debug_str(self):

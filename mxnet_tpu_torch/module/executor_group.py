@@ -3,21 +3,26 @@
 
 Reference: python/mxnet/module/executor_group.py (600 LoC): it slices
 each batch across contexts, binds an executor a device and reduces the
-grads through the KVStore. The JAX package binds one executor for the
-whole batch and partitions it over a device mesh when it is given
-several contexts or a layout. Here one ``Executor`` runs on this rank's
-device. With ``layout=`` (a ``parallel.sharding.SpecLayout``, or a mesh
-for its heuristic rules) every rank binds the same group: the executor
+grads through the KVStore. The JAX package does not slice the batch in
+Python: one executor computes the whole batch, partitioned over a device
+mesh when it is given several contexts or a layout, and the grads it
+exposes are the reduced grads. Here one ``Executor`` runs on this rank's
+device. Several contexts must be distinct and divide the batch; when
+they all name one torch device (``cpu(i)``: the CPU is one device here)
+the one executor computes the whole batch, which is what the JAX package
+computes over its devices. Contexts that name distinct CUDA devices in
+one process raise ``NotImplementedError`` (ROADMAP Queue A item 9b.6:
+it waits for a machine with several GPUs). With ``layout=`` (a
+``parallel.sharding.SpecLayout``, or a mesh for its heuristic rules)
+every rank binds the same group: the executor
 holds this rank's shard of each parameter (the layout's spec) and this
 rank's rows of the batch (its replica axes, data × fsdp, split the
 global batch, which must divide them); batches come in global and leave
 as this rank's rows, parameters go in and come out as global arrays, the
 outputs read global (gathered over the replica axes), and the gradients
 are the global batch's (``Executor`` sums them over the replica axes).
-Several contexts raise ``NotImplementedError`` (a Module over a device
-mesh of contexts is ROADMAP Queue A item 9b.4). The views keep the
-reference's shapes: a list over params of a list over devices, one
-device long.
+The views keep the reference's shapes: a list over params of a list over
+devices, one device long.
 """
 from __future__ import annotations
 
@@ -49,11 +54,7 @@ class DataParallelExecutorGroup:
                  param_names, for_training, inputs_need_grad,
                  shared_group=None, logger=logging, fixed_param_names=None,
                  grad_req="write", state_names=None, layout=None):
-        if len(contexts) > 1:
-            raise NotImplementedError(
-                "a Module over %d contexts partitions its batch over a "
-                "device mesh, which is not ported to the PyTorch package "
-                "yet (ROADMAP Queue A item 9b.4)" % len(contexts))
+        self._check_contexts(contexts)
         self._layout = shd.as_layout(layout)
         if layout is not None and not isinstance(
                 getattr(self._layout, "mesh", None), shd.Mesh):
@@ -110,6 +111,29 @@ class DataParallelExecutorGroup:
 
         self.bind_exec(data_shapes, label_shapes, shared_group)
 
+    @staticmethod
+    def _check_contexts(contexts):
+        """Several contexts must be distinct (as the JAX package's
+        ``_build_mesh`` requires) and name one torch device: one
+        executor then computes the whole batch."""
+        if len(contexts) <= 1:
+            return
+        seen = []
+        for c in contexts:
+            if c in seen:
+                raise MXNetError(
+                    "duplicate device %r in contexts %r — each "
+                    "data-parallel context must map to a distinct device"
+                    % (c, contexts))
+            seen.append(c)
+        devices = {c.torch_device() for c in contexts}
+        if len(devices) > 1:
+            raise NotImplementedError(
+                "a Module over contexts on %d distinct devices %r in one "
+                "process waits for a machine with several GPUs (ROADMAP "
+                "Queue A item 9b.6); run one process a GPU with a dist "
+                "kvstore instead" % (len(devices), contexts))
+
     # -- binding -----------------------------------------------------------
     def bind_exec(self, data_shapes, label_shapes, shared_group=None,
                   reshape=False):
@@ -138,6 +162,12 @@ class DataParallelExecutorGroup:
         arg_shapes, _, aux_shapes = self.symbol.infer_shape(**input_shapes)
         arg_types, _, aux_types = self.symbol.infer_type(**input_types)
         batch_names = set(input_shapes)
+        if len(self.contexts) > 1 and \
+                self.batch_size % len(self.contexts) != 0:
+            raise MXNetError(
+                "batch size %d must be divisible by the number of batch "
+                "shards %d (mesh data-parallel)"
+                % (self.batch_size, len(self.contexts)))
         if self._layout is not None:
             n = 1
             for a in self._layout.batch_axes:

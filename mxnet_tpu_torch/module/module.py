@@ -35,9 +35,11 @@ class Module(BaseModule):
                  context=None, work_load_list=None, fixed_param_names=None,
                  state_names=None, layout=None):
         """context: one Context (default: the current context, gpu(0)
-        unless a ``with mx.cpu():`` scope says otherwise); a list of
-        several raises NotImplementedError at bind (ROADMAP Queue A item
-        9b.4). layout: a ``parallel.sharding.SpecLayout`` (or a mesh, for
+        unless a ``with mx.cpu():`` scope says otherwise), or a list of
+        distinct contexts on one torch device, which must divide the
+        batch (one executor computes it whole; distinct CUDA devices in
+        one process raise NotImplementedError, ROADMAP Queue A item
+        9b.6). layout: a ``parallel.sharding.SpecLayout`` (or a mesh, for
         its heuristic rules) over the ranks of the process group."""
         super().__init__(logger=logger)
         self._layout = layout

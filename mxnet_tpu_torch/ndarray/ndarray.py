@@ -125,7 +125,7 @@ class NDArray:
 
     def wait_to_read(self):
         from ..profiler import count_host_sync
-        count_host_sync("wait_to_read")
+        count_host_sync("wait")
         if self._data.device.type == "cuda":
             torch.cuda.synchronize(self._data.device)
 

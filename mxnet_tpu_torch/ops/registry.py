@@ -36,6 +36,8 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from .. import profiler as _profiler
+
 __all__ = ["OpDef", "register", "get_op", "list_ops", "canon_attrs",
            "set_arg_select", "set_param_shapes", "invoke_eager",
            "OpNotPorted", "not_ported"]
@@ -189,6 +191,18 @@ def canon_attrs(opdef, attrs):
 # ---------------------------------------------------------------------------
 
 def invoke_eager(opdef, nd_inputs, attrs, out=None):
+    """Run one op eagerly (``_invoke_eager``); under the profiler's
+    ``mode='all'`` the call is timed into its host timeline under the
+    op's registry name, category ``"operator"`` (reference: the engine
+    profiler's kAllOperator mode). Stopped, this costs one attribute
+    read."""
+    if _profiler._P.timing_ops:
+        with _profiler.scope(opdef.name, "operator"):
+            return _invoke_eager(opdef, nd_inputs, attrs, out)
+    return _invoke_eager(opdef, nd_inputs, attrs, out)
+
+
+def _invoke_eager(opdef, nd_inputs, attrs, out=None):
     """Imperative invoke (analogue of ImperativeInvokeImpl,
     src/c_api/c_api_ndarray.cc:491; the JAX package's
     ``ops/registry.py:invoke_eager``): unwrap NDArrays, run the op's

@@ -7,10 +7,10 @@ the fit loop's fault injection (``resilience``), the placement layer
 package writes its collectives by hand (``_comm``): ``sp``
 (``ring_attention``), ``expert`` (``moe_ffn``) and ``pipe``
 (``pipeline_apply``, ``pipeline_from_symbol``), over ``torch.distributed``
-ranks joined by ``dist.init``.
-
-``ps_async``'s asynchronous parameter server is ROADMAP Queue A item
-9b.4; its names raise ``NotImplementedError`` on use.
+ranks joined by ``dist.init``; and ``ps_async``, the asynchronous
+parameter server of the ``dist_async`` kvstore (``AsyncPSServer``, a
+host process that applies each push on arrival; ``AsyncPSClient`` and
+the key-sharded ``ShardedPSClient``).
 """
 from .resilience import DeadWorkerError, FaultInjector, RetryPolicy  # noqa: F401
 from .trainer import make_train_step, TrainStep  # noqa: F401
@@ -20,13 +20,7 @@ from .ring import ring_attention  # noqa: F401
 from .pipeline import pipeline_apply, pipeline_from_symbol  # noqa: F401
 from .moe import moe_ffn  # noqa: F401
 from . import dist  # noqa: F401
+from . import ps_async  # noqa: F401
+from .ps_async import (AsyncPSClient, AsyncPSServer,  # noqa: F401
+                       ShardedPSClient)
 
-
-def _ps_async_not_ported(*args, **kwargs):
-    raise NotImplementedError(
-        "parallel.ps_async (AsyncPSServer, ShardedPSClient: the dist_async "
-        "parameter server) is not ported to the PyTorch package yet "
-        "(ROADMAP Queue A item 9b.4)")
-
-
-AsyncPSServer = ShardedPSClient = _ps_async_not_ported

@@ -82,7 +82,8 @@ from ..ops._mesh_ctx import REPLICA_AXES
 __all__ = ["Mesh", "ppermute", "all_to_all", "psum", "all_gather",
            "axis_index", "scatter_to_axis", "copy_to_axis",
            "gather_from_axis", "take_from_axis", "global_sum", "tie",
-           "all_reduce_", "param_gather", "STAGED_BYTES"]
+           "all_reduce_", "param_gather", "world_gather",
+           "world_broadcast", "STAGED_BYTES"]
 
 STAGED_BYTES = "parallel.comm.staged_bytes"
 
@@ -278,6 +279,29 @@ def _raw_all_gather(x, group, n, dim):
 
     out = _unwire(_through(group, run, xm), dtype)
     return out.movedim(0, dim)
+
+
+def world_gather(x):
+    """Every rank's ``x`` stacked on a new leading axis in rank order,
+    over the whole process group (the distributed KVStore's push: the
+    caller sums the stacked axis in that order, so the sum does not
+    depend on the backend's reduction order)."""
+    n = _dist().get_world_size()
+    return _raw_all_gather(x.reshape((1,) + tuple(x.shape)), None, n, 0)
+
+
+def world_broadcast(x, src=0):
+    """Rank ``src``'s ``x`` on every rank of the process group (a new
+    tensor; the distributed KVStore's init)."""
+    dist = _dist()
+    dtype = x.dtype
+
+    def run(t):
+        t = _wire(t).clone()
+        dist.broadcast(t, src=src)
+        return t
+
+    return _unwire(_through(None, run, x.contiguous()), dtype)
 
 
 def _raw_all_to_all(x, group, n):

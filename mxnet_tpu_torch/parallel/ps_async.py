@@ -1,0 +1,1131 @@
+"""Asynchronous parameter server — the ``dist_async`` kvstore transport;
+the PyTorch twin of ``mxnet_tpu/parallel/ps_async.py`` (which imports no
+jax; this is its copy, with the port's updater and a closed unpickler).
+
+Reference: src/kvstore/kvstore_dist_server.h:152-153,247-433 — in async
+mode the server applies each worker's gradient THE MOMENT IT ARRIVES
+(no aggregation barrier; workers see each other's updates only through
+their next pull) and the worker-supplied optimizer runs server-side via
+the controller command channel. That semantic is not a collective, so it
+keeps a host-side TCP server (ps-lite spoke ZeroMQ; the transport is not
+the semantic).
+
+The server is a host process by design, as the reference's was: the
+store is numpy arrays and ``_apply`` runs the port's updater
+(``optimizer.get_updater``) on CPU tensors made with an explicit
+``mx.cpu()`` context — the one step of a ``dist_async`` job that runs on
+the host. It is not a fallback: the workers compute on the card and the
+server never looks for a GPU.
+
+Wire format: 4-byte big-endian length + pickle of (op, key, payload),
+byte for byte the JAX package's, so a port client and a JAX server (or
+the reverse) exchange init, push, pull and barrier. The decode side is
+closed: :class:`_NoImportUnpickler` resolves builtins' plain types,
+numpy's array and scalar reconstructors, ``collections`` containers and
+classes of ``mxnet_tpu_torch``, and refuses every other module —
+``mxnet_tpu`` included, so a JAX optimizer pickle (``set_optimizer``
+from a JAX client) is refused with an error reply. Trusted-cluster
+assumption otherwise, exactly like ps-lite: anyone who can reach the
+port can drive training. The server binds MXNET_PS_BIND if set, else
+DMLC_PS_ROOT_URI, else 127.0.0.1 — exposing it beyond a private
+interface is an explicit operator decision, never the default.
+
+Multi-server (reference kvstore_dist.h:412-517): DMLC_NUM_SERVER=N
+shards keys across N servers (server i binds DMLC_PS_ROOT_PORT+i, or
+set MXNET_PS_SERVER_URIS="h1:p1,h2:p2,..."). Key routing uses a crc32
+hash — STABLE across processes, unlike Python's per-process-salted
+hash(), so every worker maps a key to the same server. Arrays larger
+than MXNET_KVSTORE_BIGARRAY_BOUND (default 1_000_000 elements) are
+striped in contiguous chunks across ALL servers, the reference's
+big-array split that balances PS bandwidth on the embedding-sized keys
+that would otherwise hotspot one server.
+
+Use through the normal surface:
+
+    # server process (DMLC_ROLE=server, MXNET_KVSTORE_TYPE=dist_async):
+    #   import mxnet_tpu_torch          (kvstore_server.py re-execs)
+    # worker:
+    kv = mx.kv.create("dist_async")
+    kv.set_optimizer(mx.optimizer.SGD(...))    # runs ON THE SERVER(S)
+    kv.init("w", w0)                            # rank 0 wins
+    kv.push("w", grad)                          # applied immediately
+    kv.pull("w", out=w)                         # possibly-stale weights
+"""
+from __future__ import annotations
+
+import logging
+import os
+import pickle
+import socket
+import struct
+import threading
+import time
+
+import numpy as np
+
+from .resilience import (DeadWorkerError, RetryPolicy, _env_float,
+                         active_injector)
+
+# telemetry (docs/observability.md): lightweight — pulls only config,
+# safe at this file's unusual import time (server role starts inside
+# the package import). Counters/histograms replace what used to be
+# bare log lines; journal events ride MXNET_TELEMETRY when set.
+from .. import telemetry as _telemetry
+# tracing (docs/observability.md §tracing): also config-only at import.
+# Client ops carry their TraceContext in the request meta dict under
+# "tc" — a plain extra key old servers never read, so the wire format
+# stays backward compatible — and the server's handler span adopts it,
+# joining both processes under one trace_id.
+from .. import trace as _trace
+
+# imported at MODULE level on purpose: handler threads must never take
+# the package import lock (the server role is entered from the package
+# import, kvstore_server.py); resolving the modules here, on the
+# importing thread itself, makes handler-time lookups lock-free.
+from .. import ndarray as _nd
+from .. import optimizer as _opt
+from ..context import cpu as _cpu
+
+__all__ = ["AsyncPSServer", "AsyncPSClient", "ShardedPSClient",
+           "DeadWorkerError", "create_client", "server_endpoints",
+           "shard_for_key", "serve_forever"]
+
+# ops the server must NOT apply twice when a reconnected client replays
+# its in-flight request (the server-side optimizer would double-apply a
+# retried push). pull/stats are idempotent and skip the dedup table.
+_MUTATING_OPS = frozenset(("init", "push", "set_optimizer", "barrier"))
+
+
+_BUILTINS = frozenset(("set", "frozenset", "complex", "bytearray", "slice",
+                       "range", "bytes", "str", "int", "float", "bool",
+                       "list", "tuple", "dict"))
+_NUMPY_MODULES = frozenset((
+    "numpy", "numpy.core.multiarray", "numpy._core.multiarray",
+    "numpy.core.numeric", "numpy._core.numeric"))
+_NUMPY_NAMES = frozenset(("ndarray", "dtype", "_reconstruct", "scalar",
+                          "_frombuffer"))
+_COLLECTIONS = frozenset(("OrderedDict", "deque", "defaultdict"))
+_PACKAGE = __name__.split(".")[0]
+
+
+class _NoImportUnpickler(pickle.Unpickler):
+    """Resolves only what the PS wire carries: builtins' plain types,
+    numpy's array and scalar reconstructors, ``collections`` containers
+    and classes of this package (optimizers, lr schedulers), and raises
+    ``pickle.UnpicklingError`` naming any other global — a JAX
+    optimizer pickle (``mxnet_tpu.optimizer.SGD``) among them. A
+    package class resolves through ``sys.modules`` first: a handler
+    thread must not take the import lock (kvstore_server.py)."""
+
+    def find_class(self, module, name):
+        if module == "builtins" and name in _BUILTINS or \
+                module in _NUMPY_MODULES and name in _NUMPY_NAMES or \
+                module == "collections" and name in _COLLECTIONS:
+            return super().find_class(module, name)
+        if module == _PACKAGE or module.startswith(_PACKAGE + "."):
+            import sys as _sys
+            mod = _sys.modules.get(module)
+            if mod is not None:
+                return getattr(mod, name)
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            "the parameter server wire does not resolve %s.%s (only "
+            "builtins, numpy and %s)" % (module, name, _PACKAGE))
+
+
+def _loads(data):
+    import io as _io
+    return _NoImportUnpickler(_io.BytesIO(data)).load()
+
+
+def _send_msg(sock, obj, fault_point=None):
+    """Frame + send. ``fault_point`` names this call site for the
+    deterministic FaultInjector (resilience.py, MXNET_FAULT_SPEC);
+    None exempts the call (handshakes, heartbeat replies) so injection
+    counts stay reproducible."""
+    payload = pickle.dumps(obj, protocol=4)
+    frame = struct.pack(">I", len(payload)) + payload
+    if fault_point is not None:
+        inj = active_injector()
+        if inj is not None:
+            inj.on_send(fault_point, sock, frame)
+    sock.sendall(frame)
+
+
+def _recv_msg(sock, fault_point=None):
+    if fault_point is not None:
+        inj = active_injector()
+        if inj is not None:
+            inj.on_recv(fault_point, sock)
+    hdr = b""
+    while len(hdr) < 4:
+        chunk = sock.recv(4 - len(hdr))
+        if not chunk:
+            return None
+        hdr += chunk
+    (n,) = struct.unpack(">I", hdr)
+    buf = bytearray()
+    while len(buf) < n:
+        chunk = sock.recv(min(1 << 20, n - len(buf)))
+        if not chunk:
+            return None
+        buf += chunk
+    return _loads(bytes(buf))
+
+
+class AsyncPSServer:
+    """One parameter-server process holding (its shard of) the
+    authoritative weights. Every push applies immediately (async mode's
+    defining property). Without an optimizer a push REPLACES the stored
+    value (reference server default: merge buffer copied over).
+
+    Locking: a PER-KEY lock table — concurrent pushes to different keys
+    apply in parallel (the numpy optimizer apply runs under only its
+    own key's lock), while same-key pushes serialize, matching the
+    reference's per-NDArray engine write dependency
+    (kvstore_dist_server.h:233-241). `_lock` guards only metadata (dict
+    membership, worker tracking), never an optimizer apply. Updater
+    state is keyed by index, so parallel applies on distinct keys touch
+    distinct state entries (dict ops are GIL-atomic)."""
+
+    def __init__(self, host="127.0.0.1", port=9000, num_workers=1):
+        self._store = {}
+        self._updater = None
+        self._lock = threading.Lock()          # metadata only
+        self._key_locks = {}                   # key -> Lock
+        self._num_workers = int(num_workers)
+        self._base_workers = int(num_workers)  # configured cohort size
+        self._barrier_gen = 0
+        self._barrier_waiters = {}             # client id -> worker id
+        self._barrier_abort = None             # DeadWorkerError reason
+        self._barrier_cv = threading.Condition()
+        self._done = threading.Event()
+        self._byes = 0
+        self._worker_ids = set()   # hello'd workers (stray conns don't count)
+        self._active = 0
+        # -- resilience state (docs/robustness.md) --------------------------
+        # dedup: one entry per client — the client serializes its ops
+        # (including retry backoff, see AsyncPSClient._op_lock), so a
+        # reconnected client can only ever replay its LAST request
+        self._dedup = {}           # client id -> (seq, cached reply)
+        # mutating ops currently EXECUTING — a replay of one of these
+        # must wait for the original instead of re-executing it
+        self._inflight = {}        # client id -> (seq, Event)
+        self._last_seen = {}       # worker id -> monotonic time of last ping
+        self._dead_workers = set()
+        self._departed = set()     # wids that said bye (clean exits)
+        self._elastic = os.environ.get("MXNET_PS_ELASTIC") == "1"
+        self._hb_timeout = _env_float("MXNET_PS_HEARTBEAT_TIMEOUT", 15.0)
+        # a momentary zero-connection dip during a client's reconnect
+        # must not be read as job end — linger before declaring it over
+        self._linger = _env_float("MXNET_PS_LINGER", 2.0)
+        self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._srv.bind((host, int(port)))
+        self._srv.listen(64)
+        self.port = self._srv.getsockname()[1]
+
+    def _key_lock(self, key):
+        with self._lock:
+            lk = self._key_locks.get(key)
+            if lk is None:
+                lk = self._key_locks[key] = threading.Lock()
+            return lk
+
+    # -- request handlers ---------------------------------------------------
+    def _handle(self, op, key, payload, meta=None):
+        if op == "init":
+            with self._key_lock(key):
+                # first writer wins (reference InitImpl: rank 0
+                # pushes). The dict INSERT additionally takes the meta
+                # lock: init is the only op that grows the store, and
+                # stats iterates it under that lock (pushes only swap
+                # values of existing keys, which iteration tolerates).
+                if key not in self._store:
+                    with self._lock:
+                        self._store[key] = np.array(payload, copy=True)
+            return True
+        if op == "push":
+            with self._key_lock(key):
+                if key not in self._store:
+                    raise KeyError("push before init of %r" % (key,))
+                if self._updater is not None:
+                    self._apply(key, payload)
+                else:
+                    self._store[key] = np.array(payload, copy=True)
+            return True
+        if op == "pull":
+            with self._key_lock(key):
+                if key not in self._store:
+                    raise KeyError("pull before init of %r" % (key,))
+                return np.array(self._store[key], copy=True)
+        if op == "set_optimizer":
+            # reference: controller command channel ships the optimizer
+            # to every server (kvstore_dist_server.h kController)
+            optimizer = _loads(payload)
+            with self._lock:
+                self._updater = _opt.get_updater(optimizer)
+            return True
+        if op == "barrier":
+            return self._barrier(meta)
+        if op == "stats":
+            # observability: which keys this shard holds (tests assert
+            # the sharded distribution; operators debug placement)
+            with self._lock:
+                return sorted(map(str, self._store.keys()))
+        if op == "hello":
+            # worker handshake: lifetime tracks DISTINCT worker ids, so
+            # stray connections (port scans, health checks) and worker
+            # restarts can neither trigger nor block shutdown. A worker
+            # that was declared dead and reconnects (launcher restart)
+            # rejoins — elastically re-growing the cohort it shrank.
+            wid = int(key)
+            with self._lock:
+                self._departed.discard(wid)   # restart after a bye
+            self._revive(wid, "hello")
+            with self._lock:
+                self._worker_ids.add(wid)
+            return True
+        if op == "ping":
+            # heartbeat: liveness tracking keyed by worker id. Only
+            # workers that ever pinged are subject to dead-peer
+            # detection (heartbeat-less legacy clients never lapse).
+            # Departed (bye'd) workers are no longer tracked — a
+            # straggler ping from a closing client must not resurrect
+            # a liveness entry the monitor would later declare dead.
+            wid = int(key)
+            self._revive(wid, "ping")
+            with self._lock:
+                if wid not in self._departed:
+                    self._last_seen[wid] = time.monotonic()
+            return True
+        if op == "bye":
+            with self._lock:
+                self._byes += 1
+                wid = meta.get("wid") if meta else None
+                if wid is not None:
+                    # clean departure: retire liveness tracking so the
+                    # monitor never reads the silence that follows a
+                    # polite exit as a heartbeat-lapse death
+                    self._departed.add(wid)
+                    self._last_seen.pop(wid, None)
+                cid = meta.get("cid") if meta else None
+                if cid is not None:
+                    # and the client's dedup/in-flight slots: a client
+                    # past its bye has no op left to replay, and a
+                    # long-lived server otherwise accrues one dead
+                    # entry per client ever connected
+                    self._dedup.pop(cid, None)
+                    self._inflight.pop(cid, None)
+                if self._byes >= self._num_workers:
+                    self._done.set()
+                    with self._barrier_cv:
+                        self._barrier_cv.notify_all()
+            return True
+        raise ValueError("unknown op %r" % (op,))
+
+    def _apply(self, key, grad):
+        """Run the server-side optimizer on one key — under that KEY's
+        lock only, so same-key pushes serialize while different keys
+        apply concurrently (the reference's per-NDArray engine write
+        dependency, kvstore_dist_server.h:233-241). The host-side
+        apply: the updater runs on CPU tensors made with an explicit
+        ``mx.cpu()`` context (the reference's CPU merge buffer)."""
+        g = _nd.array(np.asarray(grad), ctx=_cpu())
+        w = _nd.array(self._store[key], ctx=_cpu())
+        self._updater(_hash_key(key), g, w)
+        self._store[key] = np.asarray(w.asnumpy())
+
+    # -- cohort membership / barriers ---------------------------------------
+    def _barrier(self, meta):
+        """See :meth:`_barrier_impl`; this wrapper times how long the
+        caller's handler thread was parked in the barrier into the
+        ``ps.barrier_wait_ms`` histogram (aborted waits included — a
+        DeadWorkerError release is still a wait that ended)."""
+        with _telemetry.histogram("ps.barrier_wait_ms").timer(), \
+                _trace.span("ps.barrier.wait"):
+            return self._barrier_impl(meta)
+
+    def _barrier_impl(self, meta):
+        """Counted barrier over DISTINCT clients (reference
+        ps::Postoffice Barrier). Membership is a set keyed by client
+        id, not a raw counter, so a reconnected client REPLAYING its
+        in-flight barrier request is idempotent — the old counter
+        double-counted a replay and released the cohort early. Waiters
+        are released either by the full cohort arriving, or by the
+        heartbeat monitor declaring a member dead: DeadWorkerError to
+        every waiter (default), or a cohort shrink that may satisfy the
+        barrier immediately (MXNET_PS_ELASTIC=1)."""
+        cid = meta.get("cid") if meta else object()   # legacy: unique
+        wid = meta.get("wid") if meta else None
+        if wid is not None:
+            # a barrier from a dead-marked worker proves it alive —
+            # readmit BEFORE counting waiters, or the shrunken elastic
+            # cohort releases without it and barriers desynchronize
+            self._revive(wid, "barrier")
+        with self._barrier_cv:
+            if self._barrier_abort:
+                raise DeadWorkerError(self._barrier_abort)
+            gen = self._barrier_gen
+            self._barrier_waiters[cid] = wid
+            if len(self._barrier_waiters) >= self._num_workers:
+                self._barrier_waiters = {}
+                self._barrier_gen += 1
+                self._barrier_cv.notify_all()
+            else:
+                while self._barrier_gen == gen and \
+                        not self._done.is_set():
+                    if self._barrier_abort:
+                        # leaving on abort removes OUR entry: a later
+                        # abort-clear must not count this departed
+                        # waiter toward a future release
+                        self._barrier_waiters.pop(cid, None)
+                        raise DeadWorkerError(self._barrier_abort)
+                    self._barrier_cv.wait(timeout=0.5)
+        return True
+
+    def _recompute_cohort_locked(self):
+        """(elastic) cohort = configured size minus currently-dead
+        workers, floored at 1. DERIVED each time, never incrementally
+        adjusted: a death racing the floor followed by a revive would
+        otherwise inflate the count past the number of live workers,
+        and an inflated cohort deadlocks every barrier."""
+        self._num_workers = max(
+            1, self._base_workers - len(self._dead_workers))
+
+    def _revive(self, wid, via):
+        """Traffic from a dead-marked worker falsifies the verdict — a
+        GC pause or VM stall can outlast the heartbeat timeout without
+        killing anyone. Readmit it so its pings count again and, under
+        elastic, regrow the cohort shrunk on its behalf; otherwise the
+        'dead' worker keeps pushing forever-invisible while the
+        shrunken barrier releases without it. In non-elastic mode the
+        barrier abort clears once NO declared-dead worker remains: a
+        false alarm that fully resolves must not keep failing the
+        barriers of a provably healthy cohort (a genuinely broken
+        cohort stays broken — its dead member never revives)."""
+        with self._lock:
+            if wid not in self._dead_workers or \
+                    wid in self._departed:
+                # a straggler ping from a worker that already said BYE
+                # must not resurrect it — the cohort would forever
+                # expect a worker that exited (hello clears _departed
+                # first, so a real restart still rejoins)
+                return
+            self._dead_workers.discard(wid)
+            self._last_seen.pop(wid, None)
+            self._worker_ids.add(wid)
+            grown = None
+            if self._elastic:
+                self._recompute_cohort_locked()
+                grown = self._num_workers
+            all_alive = not self._dead_workers
+        logging.info(
+            "async PS: worker %s revived via %s%s", wid, via,
+            "; cohort grown to %d" % grown if grown is not None else "")
+        _telemetry.counter("ps.revives").inc()
+        _telemetry.journal_event("ps.revive", wid=wid, via=via,
+                                 cohort=grown)
+        if all_alive and not self._elastic:
+            with self._barrier_cv:
+                if self._barrier_abort:
+                    logging.info("async PS: full cohort alive again; "
+                                 "clearing barrier abort")
+                    # waiters that observed the abort removed their own
+                    # entries on the way out; entries still present
+                    # belong to threads that are STILL parked (they
+                    # woke after the clear, or never woke) and stay
+                    # legitimately counted
+                    self._barrier_abort = None
+                    self._barrier_cv.notify_all()
+
+    def _declare_dead(self, wid, reason):
+        """Heartbeat lapse: remove the worker from the cohort. Default
+        semantics fail every current and future barrier with
+        DeadWorkerError (surviving workers stop hanging and can
+        checkpoint/abort); MXNET_PS_ELASTIC=1 instead shrinks
+        _num_workers so the survivors keep training degraded."""
+        with self._lock:
+            if wid in self._dead_workers or self._done.is_set():
+                return
+            self._dead_workers.add(wid)
+            self._worker_ids.discard(wid)
+            self._last_seen.pop(wid, None)
+            if self._elastic:
+                self._recompute_cohort_locked()
+        logging.warning(
+            "async PS: worker %s declared dead (%s)%s", wid, reason,
+            "; cohort shrunk to %d" % self._num_workers
+            if self._elastic else "; failing barriers")
+        _telemetry.counter("ps.dead_workers").inc()
+        if "heartbeat" in reason:
+            _telemetry.counter("ps.heartbeat_lapses").inc()
+        _telemetry.journal_event("ps.dead_worker", wid=wid,
+                                 reason=reason, elastic=self._elastic)
+        with self._barrier_cv:
+            if self._elastic:
+                for cid in [c for c, w in self._barrier_waiters.items()
+                            if w == wid]:
+                    del self._barrier_waiters[cid]
+                if self._barrier_waiters and \
+                        len(self._barrier_waiters) >= self._num_workers:
+                    self._barrier_waiters = {}
+                    self._barrier_gen += 1
+            else:
+                self._barrier_abort = (
+                    "worker %s declared dead: %s" % (wid, reason))
+            self._barrier_cv.notify_all()
+
+    def _monitor_loop(self):
+        """Dead-peer detector: a worker whose last ping is older than
+        MXNET_PS_HEARTBEAT_TIMEOUT is declared dead. Today the barrier
+        loop would otherwise spin until job end — surviving workers
+        hung forever on a dead peer."""
+        poll = max(0.05, min(1.0, self._hb_timeout / 4.0))
+        while not self._done.wait(poll):
+            now = time.monotonic()
+            with self._lock:
+                lapsed = [wid for wid, t in self._last_seen.items()
+                          if now - t > self._hb_timeout]
+            for wid in lapsed:
+                self._declare_dead(
+                    wid, "heartbeat lapse > %.1fs" % self._hb_timeout)
+
+    def _maybe_finish(self):
+        """Linger-delayed end-of-job check (see _client_loop)."""
+        with self._lock:
+            if self._done.is_set() or self._active != 0 or \
+                    len(self._worker_ids) + len(self._dead_workers) < \
+                    self._num_workers:
+                return
+            self._done.set()
+        with self._barrier_cv:
+            self._barrier_cv.notify_all()
+
+    # -- socket plumbing ----------------------------------------------------
+    def _client_loop(self, conn):
+        try:
+            while not self._done.is_set():
+                msg = _recv_msg(conn, fault_point="srv_recv")
+                if msg is None:
+                    return
+                op, key, payload = msg[:3]
+                meta = msg[3] if len(msg) > 3 else None
+                # handler span: adopts the client op span's wire
+                # context ("tc" in meta) so both sides of the push
+                # share one trace_id; pings are liveness noise and
+                # never carry one. No-op when tracing is off here.
+                hsp = None
+                if op != "ping" and _trace.enabled():
+                    hsp = _trace.start_span(
+                        "ps.handle." + op,
+                        parent=_trace.TraceContext.from_wire(
+                            meta.get("tc")) if meta else None)
+                try:
+                    cached = self._begin_op(op, meta)
+                    if cached is not None:
+                        _trace.end_span(hsp, replay=True)
+                        hsp = None
+                        _send_msg(conn, cached, fault_point="srv_send")
+                        continue
+                    try:
+                        result = self._handle(op, key, payload, meta)
+                    except Exception:
+                        self._finish_op(op, meta, failed=True)
+                        raise
+                    self._finish_op(op, meta, result)
+                    _trace.end_span(hsp)
+                    hsp = None
+                    # ping replies are exempt from injection so the
+                    # srv_send count tracks only data traffic (srv_recv
+                    # can't be: the op is unknown until after the read
+                    # — docs/robustness.md flags that caveat)
+                    _send_msg(conn, ("ok", result),
+                              fault_point=None if op == "ping"
+                              else "srv_send")
+                except Exception as e:  # noqa: BLE001
+                    _trace.end_span(hsp, error=type(e).__name__)
+                    hsp = None
+                    _send_msg(conn, ("err", "%s: %s"
+                                     % (type(e).__name__, e)),
+                              fault_point="srv_send")
+        finally:
+            conn.close()
+            with self._lock:
+                self._active -= 1
+                # lifetime: once the full worker cohort has SAID HELLO
+                # and every connection has drained, the job is over —
+                # interpreter teardown does not reliably deliver the
+                # explicit byes (reference: ps-lite's scheduler-tracked
+                # FINALIZE; here disconnect IS the signal). The check is
+                # DELAYED by MXNET_PS_LINGER: a client reconnecting
+                # after a transport fault passes through a zero-
+                # connection instant that must not end the job.
+                if len(self._worker_ids) + len(self._dead_workers) >= \
+                        self._num_workers and self._active == 0:
+                    t = threading.Timer(self._linger, self._maybe_finish)
+                    t.daemon = True
+                    t.start()
+
+    def _begin_op(self, op, meta):
+        """Dedup + in-flight claim for a mutating op. Returns the
+        cached wire reply when this exact (cid, seq) already COMPLETED
+        (a reconnected client resent its in-flight request — the
+        server-side optimizer must not double-apply a retried push),
+        or None after claiming the op for execution.
+
+        A replay can also race the ORIGINAL: the client's per-attempt
+        timeout fires while the server is still applying the op (e.g.
+        queued on a contended key lock), and the replay arrives on a
+        new connection before the first execution finished. Executing
+        it again would double-apply, so the replay BLOCKS here until
+        the original completes, then serves its cached reply. If the
+        original failed without recording (application error), the
+        loop re-claims and re-executes — surfacing the same error."""
+        if op not in _MUTATING_OPS or not meta or \
+                meta.get("cid") is None:
+            return None
+        cid, seq = meta["cid"], meta["seq"]
+        while True:
+            with self._lock:
+                prev = self._dedup.get(cid)
+                if prev is not None and prev[0] == seq:
+                    return ("ok", prev[1])
+                inflight = self._inflight.get(cid)
+                if inflight is None or inflight[0] != seq:
+                    self._inflight[cid] = (seq, threading.Event())
+                    return None
+                event = inflight[1]
+            # timeout: safety net so a handler thread never parks
+            # forever on an event whose setter died with its connection
+            event.wait(timeout=0.5)
+
+    def _finish_op(self, op, meta, result=None, failed=False):
+        """Complete a claimed mutating op: cache the reply for replay
+        dedup (skipped when the op FAILED — a replay re-executes and
+        surfaces the same application error) and wake any replay
+        blocked in _begin_op. The dedup slot only moves forward: a
+        late finisher for an abandoned older seq must not evict a
+        newer op's entry."""
+        if op not in _MUTATING_OPS or not meta or \
+                meta.get("cid") is None:
+            return
+        cid, seq = meta["cid"], meta["seq"]
+        with self._lock:
+            if not failed:
+                prev = self._dedup.get(cid)
+                if prev is None or prev[0] <= seq:
+                    self._dedup[cid] = (seq, result)
+            inflight = self._inflight.get(cid)
+            if inflight is not None and inflight[0] == seq:
+                del self._inflight[cid]
+                inflight[1].set()
+
+    def serve_forever(self):
+        self._srv.settimeout(1.0)
+        monitor = threading.Thread(target=self._monitor_loop,
+                                   daemon=True)
+        monitor.start()
+        threads = []
+        while not self._done.is_set():
+            try:
+                conn, _addr = self._srv.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                break
+            with self._lock:
+                self._active += 1
+            t = threading.Thread(target=self._client_loop,
+                                 args=(conn,), daemon=True)
+            t.start()
+            threads.append(t)
+        self._srv.close()
+
+    def stop(self):
+        self._done.set()
+        with self._barrier_cv:
+            self._barrier_cv.notify_all()
+
+
+def _hash_key(key):
+    """Updater index for a string key: stable int (the reference used
+    integer keys on the wire; string keys arrive via the str-key shim)."""
+    if isinstance(key, int):
+        return key
+    return abs(hash(str(key))) % (1 << 30)
+
+
+def _stable_hash(key):
+    """Cross-process-stable key hash for server routing. Python's
+    hash() is salted per process (PYTHONHASHSEED), so it would route
+    the same key to DIFFERENT servers on different workers; crc32 is
+    deterministic everywhere."""
+    import zlib
+    return zlib.crc32(str(key).encode("utf-8"))
+
+
+def shard_for_key(key, num_servers):
+    """Which server owns `key` (reference kvstore_dist.h: key->server
+    assignment). Same on every worker by construction."""
+    return _stable_hash(key) % max(1, int(num_servers))
+
+
+def server_endpoints():
+    """(host, port) per server from the DMLC/MXNET env. Default layout:
+    N servers on DMLC_PS_ROOT_URI at consecutive ports starting from
+    DMLC_PS_ROOT_PORT; MXNET_PS_SERVER_URIS="h1:p1,h2:p2" overrides for
+    servers on distinct hosts (the reference's scheduler handed out
+    real endpoints; a static env serves the same purpose here)."""
+    uris = os.environ.get("MXNET_PS_SERVER_URIS", "").strip()
+    if uris:
+        out = []
+        for ep in uris.split(","):
+            h, _, p = ep.strip().rpartition(":")
+            out.append((h, int(p)))
+        return out
+    n = int(os.environ.get("DMLC_NUM_SERVER", "1"))
+    host = os.environ.get("DMLC_PS_ROOT_URI", "127.0.0.1")
+    port = int(os.environ.get("DMLC_PS_ROOT_PORT", "9000"))
+    return [(host, port + i) for i in range(n)]
+
+
+def _bigarray_bound():
+    return int(os.environ.get("MXNET_KVSTORE_BIGARRAY_BOUND",
+                              str(1_000_000)))
+
+
+class ShardedPSClient:
+    """Worker-side fan-out over N async PS shards. Routing:
+
+    * normal keys -> server shard_for_key(key, N) (whole array);
+    * arrays with more elements than MXNET_KVSTORE_BIGARRAY_BOUND are
+      striped: the FLAT array splits into N contiguous chunks, chunk i
+      stored on server i under subkey "<key>__strip<i>" (reference
+      kvstore_dist.h:438-517 big-array split). The optimizer then runs
+      per-stripe server-side — exactly the reference's behavior, where
+      each server applied the update to its slice;
+    * set_optimizer broadcasts to every server (the controller command
+      channel reached all servers);
+    * barrier is arbitrated by server 0 alone (one authority, so the
+      worker cohort can never split-brain across shards);
+    * hello/bye go everywhere (each server tracks the full cohort for
+      its own lifetime/shutdown accounting).
+
+    Striping is a PURE FUNCTION of (total size, N): chunk i gets
+    size//N elements plus one extra for i < size%N. Every worker
+    derives the identical plan from an array's shape alone — so a
+    worker that never pushed a key can still pull it by passing the
+    out-array's shape/dtype (kvstore.pull always has one)."""
+
+    def __init__(self, endpoints=None):
+        from concurrent.futures import ThreadPoolExecutor
+        eps = endpoints or server_endpoints()
+        self._clients = [AsyncPSClient(h, p) for h, p in eps]
+        self._n = len(self._clients)
+        self._striped = {}   # key -> (shape, dtype, [chunk_sizes])
+        # stripe RPCs fan out concurrently — issued sequentially over
+        # blocking sockets, striping would ADD latency instead of
+        # buying bandwidth parallelism (each AsyncPSClient carries its
+        # own lock, and a stripe op touches each client exactly once)
+        self._pool = ThreadPoolExecutor(max_workers=self._n)
+
+    # -- routing helpers ----------------------------------------------------
+    def _route(self, key):
+        return self._clients[shard_for_key(key, self._n)]
+
+    def _stripe_sizes(self, total):
+        base, rem = divmod(int(total), self._n)
+        return [base + (1 if i < rem else 0) for i in range(self._n)]
+
+    def _stripe_plan(self, key, shape, dtype):
+        total = int(np.prod(shape)) if shape else 1
+        plan = (tuple(shape), np.dtype(dtype),
+                self._stripe_sizes(total))
+        self._striped[key] = plan
+        return plan
+
+    def _should_stripe(self, size):
+        return self._n > 1 and int(size) > _bigarray_bound()
+
+    # -- the AsyncPSClient surface ------------------------------------------
+    def _scatter(self, op, key, arr):
+        _, _, sizes = self._striped[key]
+        flat = np.asarray(arr).reshape(-1)
+        offs = np.cumsum([0] + sizes)
+        futs = [self._pool.submit(
+            getattr(self._clients[i], op), "%s__strip%d" % (key, i),
+            flat[offs[i]:offs[i + 1]])
+            for i in range(len(sizes))]
+        for f in futs:
+            f.result()
+
+    def init(self, key, value):
+        value = np.asarray(value)
+        if self._should_stripe(value.size):
+            self._stripe_plan(key, value.shape, value.dtype)
+            self._scatter("init", key, value)
+            return
+        self._route(key).init(key, value)
+
+    def push(self, key, grad):
+        grad = np.asarray(grad)
+        if key in self._striped or self._should_stripe(grad.size):
+            if key not in self._striped:
+                self._stripe_plan(key, grad.shape, grad.dtype)
+            self._scatter("push", key, grad)
+            return
+        self._route(key).push(key, grad)
+
+    def pull(self, key, shape=None, dtype=None):
+        """shape/dtype: the out-array's metadata, so a worker that
+        never init/pushed this key still derives the stripe plan (the
+        plan is a pure function of size and N)."""
+        plan = self._striped.get(key)
+        if plan is None and shape is not None and \
+                self._should_stripe(np.prod(shape) if shape else 1):
+            plan = self._stripe_plan(key, shape,
+                                     dtype or np.float32)
+        if plan is not None:
+            shp, dt, sizes = plan
+            futs = [self._pool.submit(self._clients[i].pull,
+                                      "%s__strip%d" % (key, i))
+                    for i in range(len(sizes))]
+            return np.concatenate(
+                [np.asarray(f.result()).reshape(-1)
+                 for f in futs]).reshape(shp).astype(dt, copy=False)
+        return self._route(key).pull(key)
+
+    def set_optimizer(self, optimizer):
+        blob = pickle.dumps(optimizer, protocol=4)
+        for c in self._clients:
+            c._call("set_optimizer", None, blob)
+
+    def barrier(self):
+        self._clients[0].barrier()
+
+    def close(self):
+        self._pool.shutdown(wait=True)
+        for c in self._clients:
+            c.close()
+
+
+def create_client():
+    """The worker-side client for the configured topology: a plain
+    AsyncPSClient for one server, a ShardedPSClient over
+    server_endpoints() when DMLC_NUM_SERVER>1 (or MXNET_PS_SERVER_URIS
+    lists several)."""
+    eps = server_endpoints()
+    if len(eps) == 1:
+        return AsyncPSClient(*eps[0])
+    return ShardedPSClient(eps)
+
+
+# a single connect() attempt never blocks longer than this, independent
+# of the overall MXNET_PS_CONNECT_TIMEOUT budget
+_CONNECT_ATTEMPT_CAP = 600.0
+
+_client_counter = [0]
+_client_counter_lock = threading.Lock()
+
+
+def _next_client_id():
+    """Process-unique client identity for the server's dedup table.
+    Two clients in one process (tests, sharded fan-out) must never
+    share an id — a shared id would alias their sequence numbers and
+    dedup away a legitimate op."""
+    with _client_counter_lock:
+        _client_counter[0] += 1
+        return "%d.%d" % (os.getpid(), _client_counter[0])
+
+
+class AsyncPSClient:
+    """One worker's connection to the async server. Thread-safe per
+    client via a lock (a worker's pushes are ordered on its own
+    connection — reference per-worker FIFO).
+
+    Resilience (docs/robustness.md): every op carries a (client id,
+    sequence number); on a transient transport fault the client
+    reconnects under a RetryPolicy and REPLAYS the in-flight request
+    with the same sequence number, which the server deduplicates — a
+    retried push is applied exactly once. Non-barrier ops run under a
+    per-attempt socket timeout (MXNET_PS_OP_TIMEOUT) so a hung server
+    surfaces as a retry, not an infinite block; barriers wait
+    unboundedly by design (a worker may lag a slow epoch) and rely on
+    the server's dead-peer detection instead. A background heartbeat
+    thread pings the server on its OWN connection (a barrier holding
+    the op lock must not mute liveness), feeding that detection."""
+
+    def __init__(self, host=None, port=None):
+        self._host = host or os.environ.get("DMLC_PS_ROOT_URI",
+                                            "127.0.0.1")
+        self._port = int(port or os.environ.get("DMLC_PS_ROOT_PORT",
+                                                "9000"))
+        self._wid = int(os.environ.get("DMLC_WORKER_ID", "0"))
+        self._cid = _next_client_id()
+        self._seq = 0
+        self._lock = threading.Lock()      # socket + seq state
+        # ops are serial per client INCLUDING retry backoff (held for
+        # the whole seq-assign + attempt + sleep + replay span): the
+        # server's dedup keeps only the LATEST (seq, reply) per client,
+        # so another thread's op slipping in during a backoff sleep
+        # would evict this op's slot and its replay would re-apply.
+        self._op_lock = threading.Lock()
+        self._sock = None
+        self._connected_once = False
+        self._retry = RetryPolicy(seed=self._cid)
+        op_timeout = _env_float("MXNET_PS_OP_TIMEOUT", 60.0)
+        self._op_timeout = op_timeout if op_timeout > 0 else None
+        with self._lock:
+            self._ensure_connected_locked()
+        self._hb_stop = threading.Event()
+        self._hb_thread = None
+        hb = _env_float("MXNET_PS_HEARTBEAT_INTERVAL", 5.0)
+        if hb > 0:
+            self._hb_thread = threading.Thread(
+                target=self._heartbeat_loop, args=(hb,), daemon=True)
+            self._hb_thread.start()
+
+    # -- connection management ---------------------------------------------
+    def _open_connection(self):
+        """Connect with retry until the MXNET_PS_CONNECT_TIMEOUT budget
+        runs out (the server re-execs + imports the framework before it
+        binds; ps-lite's connect loop did the same). Each attempt's
+        timeout is derived from the REMAINING budget, so a single
+        attempt can never outlive the overall deadline."""
+        budget = _env_float("MXNET_PS_CONNECT_TIMEOUT", 60.0)
+        deadline = time.monotonic() + budget
+        while True:
+            remaining = deadline - time.monotonic()
+            try:
+                sock = socket.create_connection(
+                    (self._host, self._port),
+                    timeout=max(0.1, min(_CONNECT_ATTEMPT_CAP,
+                                         remaining)))
+                sock.settimeout(None)
+                return sock
+            except OSError:
+                if time.monotonic() + 0.5 >= deadline:
+                    raise
+                time.sleep(min(0.5, max(0.0,
+                                        deadline - time.monotonic())))
+
+    def _ensure_connected_locked(self):
+        """(Re)connect + hello. Caller holds self._lock. The hello is
+        exempt from fault injection and dedup: it is idempotent and
+        must not disturb the data-op sequence the server dedups on."""
+        if self._sock is not None:
+            return
+        was_reconnect = self._connected_once
+        sock = self._open_connection()
+        try:
+            # the hello exchange runs under the per-op timeout too: a
+            # server that accepts the TCP handshake but then hangs must
+            # surface as a retryable socket.timeout, not block forever
+            # holding self._lock (which would also wedge close())
+            sock.settimeout(self._op_timeout)
+            _send_msg(sock, ("hello", self._wid, None,
+                             {"cid": self._cid, "wid": self._wid}))
+            reply = _recv_msg(sock)
+        except BaseException:
+            sock.close()
+            raise
+        if reply is None or reply[0] != "ok":
+            sock.close()
+            raise ConnectionError("async PS rejected hello: %r"
+                                  % (reply,))
+        self._sock = sock
+        self._connected_once = True
+        if was_reconnect:
+            # counted only once the hello SUCCEEDED: a reconnect is a
+            # re-established session, not a connect attempt (a dead
+            # server's whole retry budget must not read as N recoveries)
+            _telemetry.counter("ps.reconnects").inc()
+            _telemetry.journal_event("ps.reconnect", wid=self._wid,
+                                     host=self._host, port=self._port)
+
+    def _drop_connection_locked(self):
+        if self._sock is not None:
+            try:
+                self._sock.close()
+            except OSError as e:
+                logging.debug("async PS: close after fault failed: %s",
+                              e)
+            self._sock = None
+
+    # -- the op path ---------------------------------------------------------
+    def _call(self, op, key=None, payload=None):
+        barrier = op == "barrier"
+        # per-op latency (includes queueing on the op lock, retries and
+        # backoff — the latency a caller actually experiences)
+        t_op = _telemetry.now_ms()
+        # op span: covers lock queueing + every attempt + backoff, the
+        # same window as ps.op_ms.<op>. Its context rides the request
+        # meta so the server-side handler span joins this trace.
+        tsp = _trace.start_span(
+            "ps.op." + op, wid=self._wid,
+            **({"key": str(key)} if key is not None else {}))
+
+        def on_retry(exc, n, delay):
+            _telemetry.counter("ps.retries").inc()
+            _telemetry.journal_event("ps.retry", op=op,
+                                     attempt=n,
+                                     delay_s=round(delay, 3),
+                                     error=type(exc).__name__)
+            _trace.instant("ps.retry", parent=tsp, op=op, attempt=n,
+                           delay_s=round(delay, 3),
+                           error=type(exc).__name__)
+            logging.warning(
+                "async PS %s(%r): transient %s: %s — retry %d/%d in "
+                "%.2fs", op, key, type(exc).__name__, exc, n,
+                self._retry.max_retries, delay)
+
+        with self._op_lock:
+            with self._lock:
+                self._seq += 1
+                meta = {"cid": self._cid, "wid": self._wid,
+                        "seq": self._seq}
+                if tsp is not None:
+                    meta["tc"] = tsp.context().to_wire()
+
+            def attempt():
+                with self._lock:
+                    self._ensure_connected_locked()
+                    try:
+                        self._sock.settimeout(
+                            None if barrier else self._op_timeout)
+                        _send_msg(self._sock, (op, key, payload, meta),
+                                  fault_point="send")
+                        reply = _recv_msg(self._sock,
+                                          fault_point="recv")
+                    except BaseException:
+                        self._drop_connection_locked()
+                        raise
+                    if reply is None:
+                        self._drop_connection_locked()
+                        raise ConnectionError(
+                            "async PS closed the connection")
+                    return reply
+
+            try:
+                status, result = self._retry.run(
+                    attempt, describe="%s(%r)" % (op, key),
+                    on_retry=on_retry)
+            finally:
+                _telemetry.histogram("ps.op_ms." + op).observe(
+                    _telemetry.now_ms() - t_op)
+                _trace.end_span(tsp)
+        if status != "ok":
+            if "DeadWorkerError" in str(result):
+                raise DeadWorkerError(result)
+            raise RuntimeError("async PS error: %s" % result)
+        return result
+
+    # -- heartbeat -----------------------------------------------------------
+    def _heartbeat_loop(self, interval):
+        """Ping on a dedicated connection every `interval` seconds so
+        the server's dead-peer monitor sees this worker as live even
+        while the main connection is parked in a barrier. Transport
+        errors just drop the ping socket and retry next tick (the
+        server may be restarting); the loop ends at close()."""
+        sock = None
+        while not self._hb_stop.wait(interval):
+            try:
+                if sock is None:
+                    sock = socket.create_connection(
+                        (self._host, self._port), timeout=5)
+                    sock.settimeout(10)
+                _send_msg(sock, ("ping", self._wid, None, None),
+                          fault_point="ping")
+                if _recv_msg(sock) is None:
+                    raise ConnectionError("ping EOF")
+            except (OSError, ConnectionError) as e:
+                logging.debug("async PS heartbeat: %s (will retry)", e)
+                if sock is not None:
+                    sock.close()
+                    sock = None
+        if sock is not None:
+            sock.close()
+
+    # -- surface -------------------------------------------------------------
+    def init(self, key, value):
+        self._call("init", key, np.asarray(value))
+
+    def push(self, key, grad):
+        self._call("push", key, np.asarray(grad))
+
+    def pull(self, key, shape=None, dtype=None):
+        # shape/dtype accepted for ShardedPSClient surface parity
+        return self._call("pull", key)
+
+    def set_optimizer(self, optimizer):
+        self._call("set_optimizer", None,
+                   pickle.dumps(optimizer, protocol=4))
+
+    def stats(self):
+        """Keys held by this server (shard observability)."""
+        return self._call("stats")
+
+    def barrier(self):
+        self._call("barrier")
+
+    def close(self):
+        self._hb_stop.set()
+        try:
+            with self._lock:
+                if self._sock is not None:
+                    # bye is fire-once: no retry/replay — a replayed
+                    # bye would double-count in the shutdown quorum.
+                    # It carries the wid so the server retires this
+                    # worker's liveness tracking (a clean departure
+                    # must not read as a heartbeat-lapse death).
+                    _send_msg(self._sock, ("bye", None, None,
+                                           {"cid": self._cid,
+                                            "wid": self._wid}))
+                    _recv_msg(self._sock)
+        except (OSError, ConnectionError) as e:
+            # the server may already be gone at teardown; disconnect
+            # itself is a bye signal, so departing silently is correct
+            logging.debug("async PS bye skipped: %s", e)
+        finally:
+            with self._lock:
+                self._drop_connection_locked()
+
+
+def serve_forever():
+    """Server-role entry: serve this process's shard until every worker
+    said bye (the re-exec'd interpreter of kvstore_server.py calls this
+    when
+    MXNET_KVSTORE_TYPE=dist_async). Which shard = DMLC_SERVER_ID
+    (default 0), picking that entry of server_endpoints(). Bind host:
+    MXNET_PS_BIND > DMLC_PS_ROOT_URI > 127.0.0.1 — never 0.0.0.0 by
+    default (the wire unpickles requests; exposing it beyond a trusted
+    interface must be an explicit operator decision)."""
+    sid = int(os.environ.get("DMLC_SERVER_ID", "0"))
+    eps = server_endpoints()
+    if not 0 <= sid < len(eps):
+        raise ValueError("DMLC_SERVER_ID=%d out of range for %d "
+                         "configured server(s)" % (sid, len(eps)))
+    bind = os.environ.get("MXNET_PS_BIND")
+    n_workers = int(os.environ.get("DMLC_NUM_WORKER", "1"))
+    if bind:
+        server = AsyncPSServer(host=bind, port=eps[sid][1],
+                               num_workers=n_workers)
+    else:
+        # default: bind the advertised endpoint host. When that
+        # address is not locally bindable (NAT/public IP on a cloud
+        # VM), fall back to all interfaces with a loud warning rather
+        # than dying — MXNET_PS_BIND pins it explicitly either way.
+        try:
+            server = AsyncPSServer(host=eps[sid][0], port=eps[sid][1],
+                                   num_workers=n_workers)
+        except OSError:
+            import logging
+            logging.warning(
+                "async PS: advertised host %s is not locally bindable"
+                " — binding all interfaces (0.0.0.0). The wire "
+                "unpickles requests; set MXNET_PS_BIND to a private "
+                "interface on untrusted networks.", eps[sid][0])
+            server = AsyncPSServer(host="", port=eps[sid][1],
+                                   num_workers=n_workers)
+    server.serve_forever()

@@ -7,14 +7,17 @@ jax; this is its copy).
   (transport faults retry; replies the server sent are fatal).
 * :class:`FaultInjector` parses the ``MXNET_FAULT_SPEC`` grammar and
   serves its rules: the wire points (``on_send`` / ``on_recv``, called
-  by the serving front end's framing, ``serve/_wire.py``), the
+  by the parameter server's framing, ``parallel/ps_async.py``: ``send``,
+  ``recv``, ``ping``, ``srv_send``, ``srv_recv``; and by the serving
+  front end's, ``serve/_wire.py``), the
   step-indexed rules (``nan@N`` poisons the N-th training step's
   gradients and ``sigterm@N`` raises a real SIGTERM at the N-th step
   boundary, ``guardrail.FitGuard.poll_faults``) and the chaos schedule's
   ``kill<I>@N`` (``on_chaos_tick``).
-* :class:`DeadWorkerError` — a cohort member was declared dead (the
-  distributed KVStore's barrier, ROADMAP Queue A item 9b.4, raises it;
-  ``RetryPolicy`` classifies it fatal).
+* :class:`DeadWorkerError` — a cohort member was declared dead: the
+  parameter server's heartbeat monitor releases every barrier waiter
+  with it (``ps_async.AsyncPSServer._declare_dead``), and
+  ``RetryPolicy`` classifies it fatal.
 """
 from __future__ import annotations
 
@@ -285,7 +288,7 @@ class FaultInjector:
             pass  # already dead — severing twice is the point, not a bug
         sock.close()
 
-    # -- hooks (called from serve/_wire.py _send_msg/_recv_msg) ---------
+    # -- hooks (called from ps_async's and serve/_wire.py's framing) ---
     def on_send(self, point, sock, frame):
         """Before a frame is written. May sleep, or sever the
         connection (optionally after leaking half the frame) and raise

@@ -35,8 +35,11 @@ def test_port_and_chip_smoke_import_without_jax():
     int8 one (an SSM layer, the int8 ops), the serving stack's
     (serve/*, the wire, the compiled predictor) a ContinuousDecoder, a
     PrefillEngine, a ServeServer/ServeClient pair, a ServeRouter, a
-    FleetController and a CompiledPredictor serving a request each, and no
-    jax or mxnet_tpu module loads."""
+    FleetController and a CompiledPredictor serving a request each, the
+    distributed slice's (parallel/ps_async, the dist kvstore, a Module over
+    two contexts, group2ctx, the profiler) a parameter server's host-side
+    apply, a Module epoch and a profiled run, and no jax or mxnet_tpu
+    module loads."""
     code = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now fails
@@ -188,6 +191,35 @@ with mxnet_tpu_torch.cpu():
     eng.close()
     assert CompiledPredictor.load(os.path.join(tmp, "e.b1")).forward(
         x[:1])[0].shape == (1, 2)
+# the distributed slice, used: a parameter server in a thread applying a
+# push on the host, a dist store outside a group, a Module over two
+# contexts, group2ctx, and the profiler with a device trace and its dump
+import threading
+from mxnet_tpu_torch import profiler
+from mxnet_tpu_torch.parallel import ps_async
+srv = ps_async.AsyncPSServer(port=0, num_workers=1)
+threading.Thread(target=srv.serve_forever, daemon=True).start()
+pc = ps_async.AsyncPSClient("127.0.0.1", srv.port)
+pc.set_optimizer(optimizer.SGD(learning_rate=0.5))
+pc.init("w", np.ones((2,), np.float32))
+pc.push("w", np.ones((2,), np.float32))
+assert pc.pull("w").tolist() == [0.5, 0.5]
+pc.close(); srv.stop()
+profiler.profiler_set_config(mode="all", filename=os.path.join(tmp, "p.json"),
+                             xplane_dir=os.path.join(tmp, "x"))
+profiler.profiler_set_state("run")
+with mxnet_tpu_torch.cpu():
+    dkv = kvstore.create("dist_sync")
+    dkv.init(0, nd.ones((2,)))
+    mod = mxnet_tpu_torch.mod.Module(net, context=[mxnet_tpu_torch.cpu(0),
+                                                   mxnet_tpu_torch.cpu(1)])
+    mod.fit(it, num_epoch=1, kvstore="device")
+    exe = net.simple_bind(mxnet_tpu_torch.cpu(), data=(4, 2),
+                          group2ctx={"dev1": mxnet_tpu_torch.cpu(1)})
+    exe.forward()
+profiler.profiler_set_state("stop")
+assert os.listdir(os.path.join(tmp, "x")) and os.path.exists(
+    profiler.dump_profile())
 bad = sorted(n for n, m in sys.modules.items() if m is not None and (
     n == "jax" or n.startswith("jax.") or n.startswith("jaxlib")
     or n == "mxnet_tpu" or n.startswith("mxnet_tpu.")))
@@ -199,6 +231,47 @@ print("N", len([n for n in sys.modules if n.startswith("mxnet_tpu_torch")]))
     assert "BAD []" in r.stdout, r.stdout
     n = int(r.stdout.split("N ")[1].split()[0])
     assert n >= 30, r.stdout
+
+
+def test_parameter_server_interpreter_imports_neither_jax_nor_mxnet_tpu(
+        tmp_path):
+    """The server role's re-exec'd interpreter (DMLC_ROLE=server,
+    MXNET_KVSTORE_TYPE=dist_async) serves a worker's init, optimizer,
+    push and pull, and exits when the worker leaves, with ``jax`` and
+    ``mxnet_tpu`` made unimportable on its path."""
+    import socket
+    import numpy as np
+    from mxnet_tpu_torch.parallel.ps_async import AsyncPSClient
+    poison = tmp_path / "poison"
+    for name in ("jax", "mxnet_tpu"):
+        (poison / name).mkdir(parents=True)
+        (poison / name / "__init__.py").write_text(
+            "raise ImportError('the parameter server imported %s')\n"
+            % name)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(poison), REPO]),
+               DMLC_ROLE="server", MXNET_KVSTORE_TYPE="dist_async",
+               DMLC_PS_ROOT_URI="127.0.0.1", DMLC_PS_ROOT_PORT=str(port),
+               DMLC_NUM_WORKER="1", MXNET_PS_LINGER="0.2")
+    server = subprocess.Popen(
+        [sys.executable, "-c", "import mxnet_tpu_torch\n"
+         "raise SystemExit('the server role returned')"],
+        env=env, cwd=str(tmp_path), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        c = AsyncPSClient("127.0.0.1", port)
+        c.set_optimizer(tmx.optimizer.SGD(learning_rate=0.5))
+        c.init("w", np.ones((3,), np.float32))
+        c.push("w", np.ones((3,), np.float32))
+        assert c.pull("w").tolist() == [0.5] * 3
+        c.close()
+        out, _ = server.communicate(timeout=60)
+        assert server.returncode == 0, out[-3000:]
+    finally:
+        if server.poll() is None:
+            server.kill()
 
 
 def test_predictor_without_cuda_and_without_cpu_ctx_raises():

@@ -7,8 +7,11 @@ Each JAX Module and its port twin start from the same numpy weights (one
 read the same batches (numpy's global shuffle, reseeded for each).
 Tolerances: parameters after N SGD updates within rtol 1e-5 / atol 1e-6,
 outputs and input gradients within rtol 1e-5 / atol 1e-6 (float32; only
-summation order differs). The port's own contracts: several contexts
-raise the item-9 ``NotImplementedError``; a checkpoint written by either
+summation order differs). A Module over four contexts on the CPU
+equals the JAX package's over four devices within rtol 1e-4 / atol 1e-5
+(tests/test_module.py's tolerance). The port's own contracts: contexts
+on distinct CUDA devices raise the item-9b.6 ``NotImplementedError``; a
+checkpoint written by either
 package's ``Module.save_checkpoint`` loads in the other; after three
 updates a Module on a small ResNet with BatchNorm equals a float32
 ``TrainStep``'s parameters and moving stats bit for bit; a training
@@ -127,14 +130,56 @@ def test_module_train_convergence_matches_jax():
     assert score[0][1] > 0.95, score
 
 
-def test_module_multi_device_raises_naming_item_9():
+def test_module_multi_device_matches_jax():
+    """A Module over four contexts (kvstore 'device') reaches the JAX
+    package's result over four devices (tests/test_module.py's
+    multi-device parity test) and the port's own one-context result:
+    one executor computes the whole batch in both packages."""
+    X, y = _toy_data(n=128)
+
+    def run(mx, io, ctxs, kvstore):
+        with mx.cpu():
+            mx.random.seed(42)
+            np.random.seed(42)
+            train = io.NDArrayIter(X, y, batch_size=32)
+            mod = mx.mod.Module(_mlp_sym(mx), context=ctxs)
+            mod.fit(train, num_epoch=3, optimizer="sgd",
+                    optimizer_params={"learning_rate": 0.5},
+                    kvstore=kvstore, eval_metric="acc",
+                    initializer=mx.init.Xavier())
+        return _np_params(mod)[0]
+
+    jax_multi = run(jmx, jio, [jmx.cpu(i) for i in range(4)], "device")
+    multi = run(tmx, tio, [tmx.cpu(i) for i in range(4)], "device")
+    single = run(tmx, tio, tmx.cpu(), "local")
+    for k in jax_multi:
+        np.testing.assert_allclose(multi[k], jax_multi[k], rtol=1e-4,
+                                   atol=1e-5, err_msg=k)
+        np.testing.assert_allclose(multi[k], single[k], rtol=1e-4,
+                                   atol=1e-5, err_msg=k)
+
+
+def test_module_multi_device_raises_naming_item_9(monkeypatch):
+    """Duplicate contexts and a batch the contexts do not divide raise
+    MXNetError (as the JAX package's mesh does); contexts on distinct
+    CUDA devices in one process raise NotImplementedError naming item
+    9b.6 (a machine with several GPUs)."""
     X, y = _toy_data(n=64)
     with tmx.cpu():
-        train = tio.NDArrayIter(X, y, batch_size=32)
+        train = tio.NDArrayIter(X, y, batch_size=30)
+        for ctxs, what in (([tmx.cpu(0), tmx.cpu(0)], "duplicate"),
+                           ([tmx.cpu(i) for i in range(4)], "divisible")):
+            mod = tmx.mod.Module(_mlp_sym(tmx), context=ctxs)
+            with pytest.raises(tmx.MXNetError, match=what):
+                mod.bind(train.provide_data, train.provide_label)
+        import torch
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
         mod = tmx.mod.Module(_mlp_sym(tmx),
-                             context=[tmx.cpu(i) for i in range(4)])
-        with pytest.raises(NotImplementedError, match="item 9"):
-            mod.fit(train, num_epoch=1)
+                             context=[tmx.gpu(0), tmx.gpu(1)])
+        with pytest.raises(NotImplementedError, match="item 9b.6"):
+            mod.bind(train.provide_data, train.provide_label)
+        monkeypatch.undo()
         with pytest.raises(TypeError, match="SpecLayout"):
             tmx.mod.Module(_mlp_sym(tmx), context=tmx.cpu(),
                            layout=object()).bind(train.provide_data,
