@@ -230,7 +230,23 @@ Phases (any failure exits non-zero; no phase is caught):
    layer a step; the step markers), and the eager op call's host time
    with the profiler stopped against the same call without the dispatch
    site's check;
-27. one JSON line of every ported kernel (a device time under its byte
+27. gluon: (a) model_zoo resnet18_v1 (10 classes, 3x32x32, batch 8, f32,
+   MXNET_BN_PALLAS=1) from one seed on the CPU and the card, hybridized:
+   one record -> SoftmaxCrossEntropyLoss -> backward -> Trainer('sgd',
+   momentum 0.9, wd 1e-4).step, the card's loss, gradients, updates and
+   running stats held to the CPU's by executor_reference_checks' cuDNN
+   rule, and the eager step on the card equal to the hybridized one; (b)
+   model_zoo resnet50_v1 at bench.py's image step (batch 128 x 3x224x224,
+   SGD momentum 0.9, wd 1e-4, lr 0.1, Xavier gaussian in 2), float32,
+   hybridized, on the BatchNorm kernels, batches from a DataLoader over a
+   seeded ArrayDataset: 2 warm steps (one profiled) and 5 timed, step ms,
+   img/s, peak memory, busy share, each BatchNorm kernel once a BatchNorm
+   (53) a step, then the same net eager; (c) upstream
+   example/gluon/word_language_model's RNNModel at its largest setting
+   (2-layer LSTM at 1500, dropout 0.65, tied, vocab 10000, batch 32 x bptt
+   35, clip_global_norm, SGD lr 1): step ms and tokens/s, after the same
+   model at width 64 card against CPU;
+28. one JSON line of every ported kernel (a device time under its byte
    bound fails the run: the timing lost work), then the result line.
 
 It imports nothing of JAX or of ``mxnet_tpu``. Without CUDA, or run
@@ -7638,6 +7654,461 @@ def profiler_phase(device="cuda", tiny=False):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Gluon path
+# ---------------------------------------------------------------------------
+
+# (a) the small net held card against CPU
+GLUON_SMALL = dict(model="resnet18_v1", classes=10, image=32, batch=8)
+# (b) bench.py's image step through Gluon, as upstream MXNet's
+# example/gluon/image_classification.py --model resnet50_v1 trains it
+GLUON_MODEL, GLUON_BATCH, GLUON_IMAGE, GLUON_CLASSES = ("resnet50_v1", 128,
+                                                        224, 1000)
+GLUON_LR = 0.1
+# resnet50_v1 as the model zoo builds it: 16 bottlenecks x 3, 4
+# downsamples and the stem
+GLUON_BATCHNORMS = 53
+GLUON_WARM, GLUON_TIMED, GLUON_EAGER = 2, 5, 3
+# (c) upstream example/gluon/word_language_model at its README's largest
+# setting (--emsize 1500 --nhid 1500 --dropout 0.65 --tied), PTB's vocabulary
+WLM = dict(vocab=10000, width=1500, layers=2, dropout=0.65, batch=32,
+           bptt=35, lr=1.0, clip=0.2)
+WLM_SMALL_WIDTH = 64
+GLUON_UPDATE_RTOL = 0.1    # (a): cuDNN's float32 rounding (Queue C 8)
+GLUON_STAT_RTOL = 1e-3
+GLUON_LOSS_RTOL = 1e-4
+
+
+def _gluon_blocks(block):
+    """``block`` and every block under it."""
+    yield block
+    for child in block._children:
+        yield from _gluon_blocks(child)
+
+
+def _gluon_step(mx, net, loss_fn, trainer, x, y):
+    """One Gluon training step: record, loss, backward, Trainer.step."""
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    trainer.step(x.shape[0])
+    return loss
+
+
+def _rel_norm(got, want):
+    """||got - want|| / ||want|| over the arrays of two dicts (float64)."""
+    num = sum(np.sum((got[n].astype(np.float64) - want[n]) ** 2)
+              for n in want)
+    den = sum(np.sum(want[n].astype(np.float64) ** 2) for n in want)
+    return float(np.sqrt(num / max(den, 1e-300)))
+
+
+def gluon_reference_check():
+    """(a) GLUON_SMALL's model from one seed on the CPU and on the card
+    (hybridized; and eager on the card), MXNET_BN_PALLAS=1: one forward to
+    finish the deferred init, then one step of record -> SoftmaxCE ->
+    backward -> Trainer('sgd', momentum 0.9, wd 1e-4).step. The card's
+    loss within GLUON_LOSS_RTOL of the CPU's, its gradients and
+    parameter updates within GLUON_UPDATE_RTOL and its running stats
+    within GLUON_STAT_RTOL (relative, in norm): executor_reference_checks'
+    rule for cuDNN's float32 convolutions. The eager step on the card
+    equal to the hybridized one (deterministic algorithms) within
+    compare_grads' float32 rounding."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import config, gluon
+    from mxnet_tpu_torch.ops import bn_kernels as bnk
+
+    c = GLUON_SMALL
+    B, S = c["batch"], c["image"]
+    rng = np.random.RandomState(30)
+    x = rng.standard_normal((B, 3, S, S)).astype(np.float32)
+    y = rng.randint(0, c["classes"], (B,)).astype(np.float32)
+
+    def run(ctx, hybrid):
+        mx.random.seed(3)
+        net = gluon.model_zoo.vision.get_model(c["model"],
+                                               classes=c["classes"])
+        net.initialize(mx.init.Xavier(rnd_type="gaussian",
+                                      factor_type="in", magnitude=2),
+                       ctx=ctx)
+        if hybrid:
+            net.hybridize()
+        with ctx:
+            X, Y = mx.nd.array(x), mx.nd.array(y)
+        net(X)      # predict mode: finishes the deferred init
+        params = net.collect_params()
+        # each net has its own prefix (resnetv10_, resnetv11_ ...): key
+        # the parameters by the rest of their names
+        k = len(net.prefix)
+        before = {n[k:]: p.data().asnumpy() for n, p in params.items()}
+        trainer = gluon.Trainer(params, "sgd", {
+            "learning_rate": GLUON_LR, "momentum": 0.9, "wd": 1e-4})
+        loss = _gluon_step(mx, net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                           trainer, X, Y)
+        grads = {n[k:]: p.grad().asnumpy() for n, p in params.items()
+                 if p.grad_req != "null"}
+        after = {n[k:]: p.data().asnumpy() for n, p in params.items()}
+        return {"loss": loss.asnumpy(), "grads": grads,
+                "updates": {n: after[n] - before[n] for n in grads},
+                "stats": {n: after[n] for n in after if n not in grads},
+                "after": after}
+
+    config.set_override("MXNET_BN_PALLAS", True)
+    before_launches = bnk.bn_stats_cuda.launches
+    host = run(mx.cpu(), True)
+    with _deterministic():
+        card = run(mx.gpu(0), True)
+        eager = run(mx.gpu(0), False)
+    config.set_override("MXNET_BN_PALLAS", None)
+    if bnk.bn_stats_cuda.launches == before_launches:
+        fail("gluon (a): the BatchNorm kernels did not run on the card")
+    for what, res in (("hybridized", card), ("eager", eager)):
+        arrays = [res["loss"]] + list(res["grads"].values()) + list(
+            res["after"].values())
+        if not all(np.isfinite(a).all() for a in arrays):
+            fail("gluon (a): non-finite values on the card (%s)" % what)
+    loss_err = float(np.abs(card["loss"] - host["loss"]).max()
+                     / np.abs(host["loss"]).max())
+    dist = {k: _rel_norm(card[k], host[k])
+            for k in ("grads", "updates", "stats")}
+    if not (loss_err <= GLUON_LOSS_RTOL and
+            dist["grads"] <= GLUON_UPDATE_RTOL and
+            dist["updates"] <= GLUON_UPDATE_RTOL and
+            dist["stats"] <= GLUON_STAT_RTOL):
+        fail("gluon (a): card vs CPU: loss %.3g (limit %g), gradients "
+             "%.3g and updates %.3g (limit %g), running stats %.3g (limit "
+             "%g), relative" % (loss_err, GLUON_LOSS_RTOL, dist["grads"],
+                                dist["updates"], GLUON_UPDATE_RTOL,
+                                dist["stats"], GLUON_STAT_RTOL))
+    def to_t(arrays):
+        return {n: torch.from_numpy(v) for n, v in arrays.items()}
+    if not np.allclose(eager["loss"], card["loss"], rtol=GRAD_RTOL,
+                       atol=0):
+        fail("gluon (a): eager loss %r, hybridized %r" % (
+            eager["loss"][:4], card["loss"][:4]))
+    n_eq, worst, _ = compare_grads("gluon (a) eager vs hybridized",
+                                   to_t(eager["grads"]),
+                                   to_t(card["grads"]))
+    n_eq_p, worst_p, _ = compare_grads("gluon (a) eager vs hybridized "
+                                       "parameters", to_t(eager["after"]),
+                                       to_t(card["after"]))
+    say("gluon (a): %s (classes %d) %dx3x%dx%d f32, MXNET_BN_PALLAS=1, one "
+        "SGD step (momentum 0.9, wd 1e-4): card (cuDNN) vs CPU: loss %.3g "
+        "(limit %g), %d gradients %.3g and updates %.3g (limit %g), %d "
+        "running stats %.3g (limit %g), relative in norm; eager vs "
+        "hybridized on the card: %d/%d gradients and %d/%d parameters "
+        "bit-equal, worst abs diff %.3g / %.3g" % (
+            c["model"], c["classes"], B, S, S, loss_err, GLUON_LOSS_RTOL,
+            len(host["grads"]), dist["grads"], dist["updates"],
+            GLUON_UPDATE_RTOL, len(host["stats"]), dist["stats"],
+            GLUON_STAT_RTOL, n_eq, len(card["grads"]), n_eq_p,
+            len(card["after"]), worst, worst_p))
+
+
+def gluon_train_run(counters):
+    """(b) model_zoo resnet50_v1 at bench.py's image step (batch 128 x
+    3x224x224, 1000 classes, SGD momentum 0.9 wd 1e-4 lr 0.1, Xavier
+    gaussian in 2), float32, hybridized, MXNET_BN_PALLAS=1, batches from a
+    DataLoader over a seeded ArrayDataset: GLUON_WARM steps (the second
+    profiled) and GLUON_TIMED timed; then GLUON_EAGER + 1 steps of the
+    same net eager. Fails unless each BatchNorm kernel launched once a
+    BatchNorm a step on both, the loss is finite and the parameters
+    moved. Returns the hybridized run's launch counts."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import config, gluon
+
+    B, S, K = GLUON_BATCH, GLUON_IMAGE, GLUON_CLASSES
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(31)
+    X = rng.standard_normal((2 * B, 3, S, S)).astype(np.float32)
+    Y = rng.randint(0, K, (2 * B,)).astype(np.float32)
+    loader = gluon.data.DataLoader(gluon.data.ArrayDataset(X, Y),
+                                   batch_size=B, last_batch="discard")
+    mx.random.seed(0)
+    net = gluon.model_zoo.vision.get_model(GLUON_MODEL, classes=K)
+    n_bn = sum(isinstance(b, gluon.nn.BatchNorm) for b in _gluon_blocks(net))
+    if n_bn != GLUON_BATCHNORMS:
+        fail("gluon (b): %s has %d BatchNorms, not %d"
+             % (GLUON_MODEL, n_bn, GLUON_BATCHNORMS))
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), ctx=mx.gpu(0))
+    net.hybridize()
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": GLUON_LR, "momentum": 0.9, "wd": 1e-4})
+    batches = iter(())
+
+    def next_batch():
+        nonlocal batches
+        batch = next(batches, None)
+        if batch is None:
+            batches = iter(loader)
+            batch = next(batches)
+        return batch
+
+    config.set_override("MXNET_BN_PALLAS", True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for cnt in counters:
+        cnt.launches = 0
+    losses, times, load_ms = [], [], []
+    first = None
+    for i in range(GLUON_WARM + GLUON_TIMED):
+        t = time.perf_counter()
+        x, y = next_batch()
+        torch.cuda.synchronize()
+        load_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        if i == 1:    # the second warm step, under the profiler
+            loss = profile("gluon %s step, hybridized (warm)" % GLUON_MODEL,
+                           lambda: _gluon_step(mx, net, loss_fn, trainer,
+                                               x, y), top=14)
+        else:
+            loss = _gluon_step(mx, net, loss_fn, trainer, x, y)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss.mean().asscalar()))
+        if i == 0:
+            params = net.collect_params()
+            nparam = sum(p.data().size for p in params.values()
+                         if p.grad_req != "null")
+            first = {n: p.data()._data.clone() for n, p in params.items()
+                     if p.grad_req != "null"}
+            say("gluon (b): %s, %d trainable parameters (%.1f M) in %d "
+                "arrays, %d in all, %d BatchNorms, batch %d x 3x%dx%d, "
+                "float32, hybridized, MXNET_BN_PALLAS=1, SGD momentum 0.9 "
+                "wd 1e-4 lr %g, on %s, set up and first step in %.1f s" % (
+                    GLUON_MODEL, nparam, nparam / 1e6, len(first),
+                    len(params.keys()), n_bn, B, S, S, GLUON_LR,
+                    torch.cuda.get_device_name(0),
+                    time.perf_counter() - t0))
+    launches = {cnt.__name__: cnt.launches for cnt in counters}
+    busy, kernel_ms = profile.busy, profile.busy_ms
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = GLUON_WARM + GLUON_TIMED
+    step_ms = statistics.median(times[GLUON_WARM:])
+    say("gluon (b): loss per step %s" % " ".join("%.4f" % v
+                                                 for v in losses))
+    # the profiled step's wall time carries the profiler's own cost: its
+    # kernel time over the timed steps' median is the steady busy share
+    say("gluon (b): hybridized step %.2f ms (median of %d timed steps; "
+        "all: %s), %.1f img/s, peak device memory %.2f GB, device busy "
+        "%.1f%% of the profiled step (its %.2f ms of kernels are %.1f%% of "
+        "the timed step); DataLoader batch %.1f ms (median)"
+        % (step_ms, GLUON_TIMED, " ".join("%.1f" % v for v in times),
+           B / step_ms * 1e3, peak_gb, 100 * busy, kernel_ms,
+           100 * kernel_ms / step_ms, statistics.median(load_ms)))
+    if not all(np.isfinite(losses)):
+        fail("gluon (b): non-finite loss %r" % losses)
+    moved = sum(not torch.equal(p.data()._data, first[n])
+                for n, p in net.collect_params().items() if n in first)
+    if moved != len(first):
+        fail("gluon (b): %d of %d parameters moved after step 1"
+             % (moved, len(first)))
+    for name, n in launches.items():
+        if n != n_bn * steps:
+            fail("gluon (b): %s launched %d times in %d steps, not %d a "
+                 "step (one a BatchNorm)" % (name, n, steps, n_bn))
+
+    # the same net eager: one warm step, then GLUON_EAGER timed
+    net.hybridize(False)
+    for cnt in counters:
+        cnt.launches = 0
+    eager = []
+    for i in range(GLUON_EAGER + 1):
+        x, y = next_batch()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = _gluon_step(mx, net, loss_fn, trainer, x, y)
+        torch.cuda.synchronize()
+        eager.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss.mean().asscalar()))
+    config.set_override("MXNET_BN_PALLAS", None)
+    eager_launches = {cnt.__name__: cnt.launches for cnt in counters}
+    if any(n != n_bn * (GLUON_EAGER + 1) for n in eager_launches.values()):
+        fail("gluon (b) eager: launches %r, not %d each" % (
+            eager_launches, n_bn * (GLUON_EAGER + 1)))
+    if not all(np.isfinite(losses)):
+        fail("gluon (b) eager: non-finite loss %r" % losses[-4:])
+    eager_ms = statistics.median(eager[1:])
+    say("gluon (b): eager step %.2f ms (median of %d after a warm one; "
+        "all: %s), %.1f img/s, %.3fx the hybridized step; launches a "
+        "step: %s (hybridized and eager)" % (
+            eager_ms, GLUON_EAGER, " ".join("%.1f" % v for v in eager),
+            B / eager_ms * 1e3, eager_ms / step_ms,
+            ", ".join("%s %d" % (n, v // steps)
+                      for n, v in sorted(launches.items()))))
+    del net, trainer, loader, X
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _word_lm(mx, width, tied=True):
+    """The RNNModel of upstream example/gluon/word_language_model: an
+    Embedding, WLM's LSTM layers at ``width`` with Dropout between them,
+    Dropout on both sides, and a Dense decoder tied to the embedding."""
+    from mxnet_tpu_torch import gluon
+    V, L, p = WLM["vocab"], WLM["layers"], WLM["dropout"]
+
+    class RNNModel(gluon.Block):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.drop = gluon.nn.Dropout(p)
+                self.encoder = gluon.nn.Embedding(
+                    V, width, weight_initializer=mx.init.Uniform(0.1))
+                self.rnn = gluon.rnn.LSTM(width, L, dropout=p,
+                                          input_size=width)
+                self.decoder = gluon.nn.Dense(
+                    V, in_units=width,
+                    params=self.encoder.params if tied else None)
+
+        def forward(self, inputs, hidden):
+            emb = self.drop(self.encoder(inputs))
+            output, hidden = self.rnn(emb, hidden)
+            output = self.drop(output)
+            return self.decoder(output.reshape((-1, width))), hidden
+
+    return RNNModel()
+
+
+def _wlm_step(mx, model, loss_fn, trainer, params, data, target, hidden):
+    """One step of the example's train(): detached hidden, record,
+    backward, clip_global_norm at clip x bptt x batch, Trainer.step."""
+    from mxnet_tpu_torch import gluon
+    hidden = [h.detach() for h in hidden]
+    with mx.autograd.record():
+        output, hidden = model(data, hidden)
+        loss = loss_fn(output, target)
+    loss.backward()
+    grads = [p.grad() for p in params.values() if p.grad_req != "null"]
+    gluon.utils.clip_global_norm(grads, WLM["clip"] * WLM["bptt"]
+                                 * WLM["batch"])
+    trainer.step(WLM["batch"])
+    return loss, hidden
+
+
+def wlm_phase():
+    """(c) the word LM: card against CPU at WLM_SMALL_WIDTH (one recorded
+    forward and backward from one seed: the loss, the outputs and the
+    gradients, Dropout's masks equal on both), then WLM's full width on
+    the card: GLUON_WARM steps (the second profiled) and GLUON_TIMED
+    timed over seeded tokens."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+
+    T, B, V = WLM["bptt"], WLM["batch"], WLM["vocab"]
+    rng = np.random.RandomState(32)
+    steps = GLUON_WARM + GLUON_TIMED
+    corpus = rng.randint(0, V, (steps * T + 1, B)).astype(np.float32)
+
+    def batch(i, ctx):
+        with ctx:
+            return (mx.nd.array(corpus[i * T:(i + 1) * T]),
+                    mx.nd.array(corpus[i * T + 1:(i + 1) * T + 1]
+                                .reshape(-1)))
+
+    small = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        mx.random.seed(4)
+        model = _word_lm(mx, WLM_SMALL_WIDTH)
+        model.collect_params().initialize(mx.init.Xavier(), ctx=ctx)
+        data, target = batch(0, ctx)
+        hidden = model.rnn.begin_state(func=mx.nd.zeros, batch_size=B,
+                                       ctx=ctx)
+        with mx.autograd.record():
+            output, _ = model(data, hidden)
+            loss = gluon.loss.SoftmaxCrossEntropyLoss()(output, target)
+        loss.backward()
+        k = len(model.prefix)
+        small.append((output.asnumpy(), loss.asnumpy(),
+                      {n[k:]: p.grad().asnumpy() for n, p in
+                       model.collect_params().items()}))
+    (o_c, l_c, g_c), (o_h, l_h, g_h) = small
+    out_err = float(np.abs(o_c - o_h).max())
+    grad_dist = _rel_norm(g_c, g_h)
+    if not (np.allclose(o_c, o_h, **TOL["float32"]) and
+            np.allclose(l_c, l_h, **TOL["float32"]) and grad_dist <= 1e-4):
+        fail("gluon (c): word LM at width %d card vs CPU: outputs %.3g, "
+             "gradients %.3g (relative, in norm)" % (
+                 WLM_SMALL_WIDTH, out_err, grad_dist))
+    say("gluon (c): word LM (%d-layer LSTM, width %d, vocab %d, dropout "
+        "%g, tied) recorded forward and backward, card vs CPU: outputs max "
+        "abs err %.3g (rtol %g, atol %g), %d gradients %.3g from the CPU's "
+        "(relative, in norm; limit 1e-4)" % (
+            WLM["layers"], WLM_SMALL_WIDTH, V, WLM["dropout"], out_err,
+            TOL["float32"]["rtol"], TOL["float32"]["atol"], len(g_h),
+            grad_dist))
+
+    t0 = time.perf_counter()
+    mx.random.seed(5)
+    ctx = mx.gpu(0)
+    model = _word_lm(mx, WLM["width"])
+    params = model.collect_params()
+    params.initialize(mx.init.Xavier(), ctx=ctx)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(params, "sgd", {"learning_rate": WLM["lr"],
+                                            "momentum": 0, "wd": 0})
+    hidden = model.rnn.begin_state(func=mx.nd.zeros, batch_size=B, ctx=ctx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(steps):
+        data, target = batch(i, ctx)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if i == 1:
+            loss, hidden = profile(
+                "gluon word LM step (warm)", lambda: _wlm_step(
+                    mx, model, loss_fn, trainer, params, data, target,
+                    hidden), top=10)
+            launches = sum(profile.counts.values())
+            busy, kernel_ms = profile.busy, profile.busy_ms
+        else:
+            loss, hidden = _wlm_step(mx, model, loss_fn, trainer, params,
+                                     data, target, hidden)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss.mean().asscalar()))
+    nparam = sum(p.data().size for p in params.values())
+    step_ms = statistics.median(times[GLUON_WARM:])
+    if not all(np.isfinite(losses)):
+        fail("gluon (c): non-finite loss %r" % losses)
+    say("gluon (c): word LM %d-layer LSTM width %d, vocab %d, tied "
+        "(%d parameter arrays, %.1f M), batch %d x bptt %d, dropout %g, "
+        "clip_global_norm %g, SGD lr %g: loss per step %s; step %.2f ms "
+        "(median of %d; all: %s), %.0f tokens/s, %d kernel launches in the "
+        "profiled step (device busy %.1f%%; its %.2f ms of kernels are "
+        "%.1f%% of the timed step), peak device memory %.2f GB, set up and "
+        "run in %.1f s" % (
+            WLM["layers"], WLM["width"], V, len(params.keys()),
+            nparam / 1e6, B, T, WLM["dropout"], WLM["clip"] * T * B,
+            WLM["lr"], " ".join("%.4f" % v for v in losses), step_ms,
+            GLUON_TIMED, " ".join("%.1f" % v for v in times),
+            B * T / step_ms * 1e3, launches, 100 * busy, kernel_ms,
+            100 * kernel_ms / step_ms,
+            torch.cuda.max_memory_allocated() / 1e9,
+            time.perf_counter() - t0))
+    del model, trainer, params
+    torch.cuda.empty_cache()
+
+
+def gluon_phase(counters):
+    """The Gluon path: (a) card against CPU, small; (b) model_zoo
+    resnet50_v1 trained through gluon.Trainer at full width on the
+    BatchNorm kernels; (c) the word LM at its published width. Returns
+    (b)'s launch counts."""
+    t0 = time.perf_counter()
+    gluon_reference_check()
+    launches = gluon_train_run(counters)
+    wlm_phase()
+    say("gluon: phase done in %.1f s" % (time.perf_counter() - t0))
+    return launches
+
+
 def main():
     try:
         import torch
@@ -7720,7 +8191,10 @@ def main():
                "mesh2": mesh2_phase(),
                "gspmd2": gspmd2_phase(),
                "kvdist2": kvdist2_phase(),
-               "profiler": profiler_phase()}
+               "profiler": profiler_phase(),
+               "gluon": gluon_phase([bnk.bn_stats_cuda, bnk.bn_apply_cuda,
+                                     bnk.bn_bwd_reduce_cuda,
+                                     bnk.bn_bwd_dx_cuda])}
     for rec in records:
         # no kernel moves its bytes faster than the memory can: a time
         # under the byte bound means the timing lost work
@@ -7754,7 +8228,8 @@ PARTIAL = {"mt": mt_kernel_phase, "bn": bn_kernel_phase,
            "compiled_serve": lambda: compiled_serve_phase(_serve_counters()),
            "moe_lm": moe_lm_phase, "mesh2": mesh2_phase,
            "gspmd2": gspmd2_phase, "kvdist2": kvdist2_phase,
-           "profiler": profiler_phase}
+           "profiler": profiler_phase,
+           "gluon": lambda: gluon_phase(_bn_counters())}
 
 
 def _serve_counters():

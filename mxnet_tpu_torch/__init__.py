@@ -97,3 +97,4 @@ from . import kvstore_server as _kvstore_server  # noqa: E402
 _kvstore_server._init_kvstore_server_module()
 from . import parallel  # noqa: E402
 from . import recordio  # noqa: E402
+from . import gluon  # noqa: E402

@@ -1,9 +1,13 @@
-"""Shared plumbing: the framework's error type and dtype resolution.
+"""Shared plumbing: the framework's error type, dtype resolution and the
+guard every CUDA-graph capture runs under.
 
 The PyTorch twin of ``mxnet_tpu/base.py``. Dtypes resolve to
 ``torch.dtype`` here, because numpy has no bfloat16.
 """
 from __future__ import annotations
+
+import contextlib
+import gc
 
 import numpy as np
 import torch
@@ -59,3 +63,21 @@ def _as_list(obj):
     if isinstance(obj, (list, tuple)):
         return list(obj)
     return [obj]
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """The cyclic garbage collector off for a block: a CUDA graph's
+    capture. A collection during a capture that frees an earlier graph
+    (one held in a reference cycle) destroys that graph's executable on
+    the capturing thread, which invalidates the capture
+    (cudaErrorStreamCaptureInvalidated). ``torch.cuda.graph`` collects
+    once before it starts capturing; this keeps it from collecting
+    inside."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()

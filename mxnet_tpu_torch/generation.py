@@ -47,7 +47,7 @@ import torch
 
 from . import _threefry
 from . import telemetry as _telemetry
-from .base import torch_dtype
+from .base import gc_paused, torch_dtype
 from .context import current_context
 from .executor import _graph_eval_fn
 from .models import transformer
@@ -781,8 +781,8 @@ class _CapturedLoop:
         # its decode thread while other threads (replicas, prefill) keep
         # using the card (torch.cuda.graph's default capture stream is
         # shared by every capture of the process)
-        with torch.cuda.graph(graph, stream=side,
-                              capture_error_mode="thread_local"):
+        with gc_paused(), torch.cuda.graph(
+                graph, stream=side, capture_error_mode="thread_local"):
             self._step()
         torch.cuda.synchronize(dev)
         self.capture_ms = _telemetry.now_ms() - t0

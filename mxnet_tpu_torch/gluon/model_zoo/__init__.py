@@ -1,0 +1,3 @@
+"""Model zoo (reference: python/mxnet/gluon/model_zoo/)."""
+from . import vision
+from .vision import get_model

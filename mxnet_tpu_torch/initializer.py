@@ -8,8 +8,8 @@ the same ``np.random.default_rng(seed)`` stream as the JAX package, so
 after ``mx.random.seed(s)`` both packages initialize bit-identical
 values. Descriptor-driven dispatch (by name suffix:
 weight/bias/gamma/beta/...) matches the reference's
-``Initializer.__call__`` protocol. ``FusedRNN`` waits for the RNN cells
-(ROADMAP Queue A item 10).
+``Initializer.__call__`` protocol. ``FusedRNN`` waits for the symbolic RNN
+toolkit (ROADMAP Queue A item 10.1: ``rnn/*`` and the ``RNN`` op).
 """
 from __future__ import annotations
 
@@ -382,4 +382,5 @@ class FusedRNN(Initializer):
         raise NotImplementedError(
             "FusedRNN initialization unpacks the fused RNN parameter blob "
             "through rnn_cell.FusedRNNCell, which the PyTorch package does "
-            "not port yet (ROADMAP Queue A item 10)")
+            "not port yet (ROADMAP Queue A item 10.1, the symbolic RNN "
+            "toolkit)")

@@ -1,13 +1,14 @@
 """Automatic naming of symbols.
 
 Reference: python/mxnet/name.py — NameManager assigns `hint0`, `hint1`, ...
-to anonymous symbols. Used as a `with` scope.
+to anonymous symbols; Prefix prepends a scope prefix (a Gluon Block's
+name scope). Used as a `with` scope.
 """
 from __future__ import annotations
 
 import threading
 
-__all__ = ["NameManager"]
+__all__ = ["NameManager", "Prefix"]
 
 _local = threading.local()
 
@@ -43,3 +44,15 @@ class NameManager:
 
     def __exit__(self, *args):
         _local.manager = self._old
+
+
+class Prefix(NameManager):
+    """NameManager that prepends a prefix to every name."""
+
+    def __init__(self, prefix):
+        super().__init__()
+        self._prefix = prefix
+
+    def get(self, name, hint):
+        name = super().get(name, hint)
+        return self._prefix + name

@@ -78,7 +78,7 @@ from .. import guardrail as _guardrail
 from .. import telemetry as _telemetry
 from .. import trace as _trace
 from .._threefry import PRNGKey, fold_in
-from ..base import torch_dtype
+from ..base import gc_paused, torch_dtype
 from ..context import context_of, cpu, current_context
 from ..executor import _graph_eval_fn, forward_backward
 from ..ndarray import array
@@ -1437,7 +1437,7 @@ class CompiledTrainStep:
         torch.cuda.synchronize(dev)
         graph = torch.cuda.CUDAGraph()
         t0 = _telemetry.now_ms()
-        with torch.cuda.graph(graph):
+        with gc_paused(), torch.cuda.graph(graph):
             static_outs = self._run(batch, lr_t, seed_t)
         torch.cuda.synchronize(dev)
         self.capture_ms = _telemetry.now_ms() - t0

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from . import telemetry as _telemetry
-from .base import torch_dtype
+from .base import gc_paused, torch_dtype
 from .context import current_context
 from .executor import _graph_eval_fn
 from .ndarray import NDArray, _wrap
@@ -288,7 +288,7 @@ class CompiledPredictor:
         torch.cuda.synchronize(dev)
         graph = torch.cuda.CUDAGraph()
         t0 = _telemetry.now_ms()
-        with torch.no_grad(), torch.cuda.graph(
+        with torch.no_grad(), gc_paused(), torch.cuda.graph(
                 graph, stream=side, capture_error_mode="thread_local"):
             outs = self._pred._fwd(*inputs)
         torch.cuda.synchronize(dev)

@@ -2,7 +2,8 @@
 from .symbol import Symbol, Variable, var, Group, load, load_json
 from .op import *          # noqa: F401,F403 — generated op namespace
 from . import op           # noqa: F401
-from .op import _arange as arange  # noqa: F401  (mx.sym.arange)
+# creation helpers mirroring mx.sym.zeros/ones/arange
+from .op import _zeros as zeros, _ones as ones, _arange as arange  # noqa: F401,E501
 
 # `import *` skips underscore-prefixed generated ops (_contrib_*, ...);
 # surface them all, as the reference namespace does

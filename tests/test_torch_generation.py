@@ -529,3 +529,31 @@ def test_defaults_and_routing():
         assert isinstance(dec, ContinuousDecoder) and dec._gen is t
         assert dec._cap == 3
     assert tmx.generation is tgen
+
+
+def test_captures_run_with_the_cyclic_collector_paused():
+    """Every CUDA-graph capture (the decode loops, CompiledPredictor,
+    CompiledTrainStep) runs under ``base.gc_paused``: a collection inside
+    a capture that frees an earlier graph invalidates the capture. The
+    guard turns the collector off for its block and restores the state
+    it found."""
+    import gc
+    import inspect
+    from mxnet_tpu_torch import predictor
+    from mxnet_tpu_torch.base import gc_paused
+    from mxnet_tpu_torch.parallel import trainer
+    for mod in (tgen, predictor, trainer):
+        src = inspect.getsource(mod)
+        assert src.count("torch.cuda.graph(") == src.count(
+            "gc_paused(), torch.cuda.graph(") == 1, mod.__name__
+    assert gc.isenabled()
+    with gc_paused():
+        assert not gc.isenabled()
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with gc_paused():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()

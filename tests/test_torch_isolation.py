@@ -38,8 +38,9 @@ def test_port_and_chip_smoke_import_without_jax():
     FleetController and a CompiledPredictor serving a request each, the
     distributed slice's (parallel/ps_async, the dist kvstore, a Module over
     two contexts, group2ctx, the profiler) a parameter server's host-side
-    apply, a Module epoch and a profiled run, and no jax or mxnet_tpu
-    module loads."""
+    apply, a Module epoch and a profiled run, the Gluon slice's
+    (``gluon`` and each of its submodules) a hybridized Dense + BatchNorm
+    net's Trainer step, and no jax or mxnet_tpu module loads."""
     code = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now fails
@@ -220,6 +221,28 @@ with mxnet_tpu_torch.cpu():
 profiler.profiler_set_state("stop")
 assert os.listdir(os.path.join(tmp, "x")) and os.path.exists(
     profiler.dump_profile())
+# the Gluon slice, used: every gluon submodule imported, and a hybridized
+# Dense + BatchNorm net's Trainer step on the CPU
+from mxnet_tpu_torch import gluon
+for sub in ("block", "parameter", "trainer", "loss", "utils", "nn",
+            "nn.basic_layers", "nn.conv_layers", "data", "data.dataset",
+            "data.sampler", "data.dataloader", "data.vision", "rnn",
+            "rnn.rnn_cell", "rnn.rnn_layer", "model_zoo",
+            "model_zoo.vision", "model_zoo.model_store"):
+    importlib.import_module("mxnet_tpu_torch.gluon." + sub)
+with mxnet_tpu_torch.cpu():
+    gnet = gluon.nn.HybridSequential()
+    gnet.add(gluon.nn.Dense(4), gluon.nn.BatchNorm(), gluon.nn.Dense(2))
+    gnet.initialize(ctx=mxnet_tpu_torch.cpu())
+    gnet.hybridize()
+    gtr = gluon.Trainer(gnet.collect_params(), "sgd", {"learning_rate": 0.1})
+    gx = nd.array(np.arange(12, dtype=np.float32).reshape(4, 3))
+    with autograd.record():
+        gl = gluon.loss.SoftmaxCrossEntropyLoss()(gnet(gx), nd.zeros((4,)))
+    gl.backward()
+    w0 = gnet[0].weight.data().asnumpy()
+    gtr.step(4)
+    assert (gnet[0].weight.data().asnumpy() != w0).any()
 bad = sorted(n for n, m in sys.modules.items() if m is not None and (
     n == "jax" or n.startswith("jax.") or n.startswith("jaxlib")
     or n == "mxnet_tpu" or n.startswith("mxnet_tpu.")))
