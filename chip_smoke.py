@@ -246,7 +246,24 @@ Phases (any failure exits non-zero; no phase is caught):
    (2-layer LSTM at 1500, dropout 0.65, tied, vocab 10000, batch 32 x bptt
    35, clip_global_norm, SGD lr 1): step ms and tokens/s, after the same
    model at width 64 card against CPU;
-28. one JSON line of every ported kernel (a device time under its byte
+28. rnn: the symbolic RNN toolkit, the fused RNN op and CTCLoss. (a)
+   upstream example/rnn/cudnn_lstm_bucketing.py's net (Embedding ->
+   FusedRNNCell lstm -> FullyConnected -> SoftmaxOutput) at 2 x 1500,
+   embed 1500, vocab 10000, dropout 0.65, batch 32, buckets 10..60,
+   trained through BucketingModule.fit over BucketSentenceIter (seeded
+   Zipf sentences filling every bucket): step ms, tokens/s, peak memory,
+   launches and busy share of each bucket, a falling loss, the
+   save_rnn_checkpoint -> load_rnn_checkpoint round trip bit for bit;
+   the op's cuDNN route against _rnn_reference at bucket 60 (outputs,
+   data and blob gradients), its time beside the plain loop's and
+   torch.nn.LSTM's over flattened weights (the weight copy); the net
+   unfused (SequentialRNNCell of LSTMCells) against the fused one at p
+   0, and the unfused step's time; (b) upstream
+   example/warpctc/lstm_ocr.py's LSTM + CTC (2 x 100, 80 frames of 30,
+   4-digit labels, 11 classes, batch 32): card against CPU, a few
+   Module.fit steps with a falling loss, the CTCLoss op's time beside
+   torch.nn.functional.ctc_loss's;
+29. one JSON line of every ported kernel (a device time under its byte
    bound fails the run: the timing lost work), then the result line.
 
 It imports nothing of JAX or of ``mxnet_tpu``. Without CUDA, or run
@@ -906,6 +923,7 @@ def eager_walk(sym, args, aux):
 # (first match wins)
 PROFILE_GROUPS = (
     ("flash kernels (this port)", ("flash_fwd", "flash_bwd")),
+    ("RNN (cuDNN)", ("RNN", "LSTM", "rnn_", "elemWise", "Persist")),
     ("NMS kernel (this port)", ("nms_cluster_kernel", "nms_kernel")),
     ("BatchNorm kernels (this port)", ("bn_stats", "bn_apply",
                                        "bn_bwd_reduce", "bn_bwd_dx",
@@ -956,19 +974,33 @@ def profile(what, fn, top=8):
 def profile_report(what, prof, wall_ms, top=8):
     """``profile``'s summary of a finished trace over ``wall_ms``."""
     from torch.autograd import DeviceType
-    by_name = {}
+    by_name, spans = {}, []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name:
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+            spans.append((e.time_range.start, e.time_range.end))
     busy_ms = sum(ms for ms, _ in by_name.values())
+    # the time some kernel ran: kernels on several streams (cuDNN's RNN)
+    # overlap, and their sum then exceeds the wall
+    covered, reach = 0.0, None
+    for start, end in sorted(spans):
+        if reach is None or start > reach:
+            covered += end - start
+            reach = end
+        elif end > reach:
+            covered += end - reach
+            reach = end
+    covered_ms = covered / 1e3
     profile.names = set(by_name)
     profile.counts = {name: n for name, (_, n) in by_name.items()}
-    profile.busy = busy_ms / wall_ms
+    profile.busy = covered_ms / wall_ms
     profile.busy_ms = busy_ms
     say("profile: %s: %.2f ms of kernels in %.2f ms wall (device busy "
-        "%.1f%%), %d kernel launches" % (
-            what, busy_ms, wall_ms, 100 * busy_ms / wall_ms,
+        "%.1f%%%s), %d kernel launches" % (
+            what, busy_ms, wall_ms, 100 * profile.busy,
+            "" if covered_ms > busy_ms - 1e-3 else
+            ": kernels overlap, %.2f ms covered" % covered_ms,
             sum(n for _, n in by_name.values())))
     groups = {}
     for name, (ms, n) in by_name.items():
@@ -8109,6 +8141,542 @@ def gluon_phase(counters):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# RNN phase: the symbolic RNN toolkit, the fused RNN op and CTCLoss
+# ---------------------------------------------------------------------------
+
+# (a) upstream example/rnn/cudnn_lstm_bucketing.py's net (Embedding ->
+# FusedRNNCell(lstm) -> FullyConnected -> SoftmaxOutput, SGD, Xavier
+# factor_type "in" magnitude 2.34, wd 1e-5, invalid label 0) at the widest
+# LSTM of the repo, the Gluon word LM's largest setting (2 x 1500, embed
+# 1500, PTB's 10,000 words, dropout 0.65, batch 32); lstm_bucketing.py's
+# buckets
+RNN_LM = dict(vocab=10000, width=1500, layers=2, dropout=0.65, batch=32,
+              lr=0.01, wd=1e-5)
+RNN_BUCKETS = (10, 20, 30, 40, 50, 60)
+RNN_BATCHES = 3            # batches a bucket an epoch
+RNN_EPOCHS = 4             # upstream's SGD lr 0.01 is noisy over the first two
+RNN_UNFUSED_STEPS = 4      # timed unfused steps at the largest bucket
+RNN_GRAD_RTOL = 1e-4       # gradients, relative in norm (float32, no TF32)
+# (b) upstream example/warpctc/lstm_ocr.py: 2 unrolled LSTMCell layers of
+# 100, 80 frames of 30 features, 4-digit labels, 10 digits + the blank
+# (first), batch 32
+OCR = dict(frames=80, feat=30, hidden=100, layers=2, label=4, digits=10,
+           batch=32, batches=4, epochs=3, lr=1e-3)
+
+
+def _lm_sentences(seed):
+    """RNN_BATCHES * batch sentences a bucket, lengths drawn in
+    (previous bucket, bucket], words from a Zipf law over 1..vocab-1 (0
+    is the padding label) — every bucket fills."""
+    rng = np.random.RandomState(seed)
+    V, n = RNN_LM["vocab"], RNN_BATCHES * RNN_LM["batch"]
+    p = 1.0 / np.arange(1, V)
+    p /= p.sum()
+    sents, lo = [], 0
+    for b in RNN_BUCKETS:
+        lengths = rng.randint(lo + 1, b + 1, n)
+        words = rng.choice(np.arange(1, V), size=int(lengths.sum()), p=p)
+        sents += [list(map(int, w)) for w in
+                  np.split(words, np.cumsum(lengths)[:-1])]
+        lo = b
+    return sents
+
+
+def _lm_sym_gen(mx, cell_of):
+    """cudnn_lstm_bucketing.py's sym_gen over the cell ``cell_of()``."""
+    V, W = RNN_LM["vocab"], RNN_LM["width"]
+
+    def sym_gen(seq_len):
+        data = mx.sym.Variable("data")
+        label = mx.sym.Variable("softmax_label")
+        embed = mx.sym.Embedding(data, input_dim=V, output_dim=W,
+                                 name="embed")
+        output, _ = cell_of().unroll(seq_len, inputs=embed,
+                                     merge_outputs=True, layout="NTC")
+        pred = mx.sym.Reshape(output, shape=(-1, W))
+        pred = mx.sym.FullyConnected(pred, num_hidden=V, name="pred")
+        label = mx.sym.Reshape(label, shape=(-1,))
+        return (mx.sym.SoftmaxOutput(pred, label, name="softmax"),
+                ("data",), ("softmax_label",))
+    return sym_gen
+
+
+def _fused_cell(mx, dropout):
+    return mx.rnn.FusedRNNCell(RNN_LM["width"], RNN_LM["layers"],
+                               mode="lstm", dropout=dropout,
+                               prefix="lstm_")
+
+
+def _batch_nll(mod, batch):
+    """The step's mean NLL over every label (SoftmaxOutput's loss)."""
+    import torch
+    probs = mod.get_outputs()[0]._data
+    lab = batch.label[0]._data.reshape(-1).long()
+    return float(-torch.log(probs.gather(1, lab[:, None]).clamp_min(
+        1e-30)).mean())
+
+
+def rnn_route_check(blob):
+    """The fused route (cuDNN over views of the blob) against
+    _rnn_reference on the card at the largest bucket, p = 0: outputs and
+    the gradients of the data and the blob; then the route's forward +
+    backward time beside the plain loop's and beside torch.nn.LSTM over
+    the same weights flattened into cuDNN's own buffer (the weight copy
+    the blob's layout costs)."""
+    import torch
+    from mxnet_tpu_torch.ops import rnn_op
+    T, B, W, L = max(RNN_BUCKETS), RNN_LM["batch"], RNN_LM["width"], \
+        RNN_LM["layers"]
+    dev = blob.device
+    g = torch.Generator(device="cpu").manual_seed(61)
+    x = torch.randn(T, B, W, generator=g).to(dev)
+    cot = torch.randn(T, B, W, generator=g).to(dev)
+    h0 = torch.zeros(L, 1, W, device=dev)
+    attrs = dict(state_size=W, num_layers=L, mode="lstm")
+    runs = {}
+    for name, fn in (("route", rnn_op._rnn_op),
+                     ("plain", rnn_op._rnn_reference)):
+        xs = x.clone().requires_grad_()
+        bs = blob.detach().clone().requires_grad_()
+        out = fn(xs, bs, h0, h0, **attrs)
+        out.backward(cot)
+        runs[name] = (out.detach(), xs.grad, bs.grad)
+    (o_r, dx_r, db_r), (o_p, dx_p, db_p) = runs["route"], runs["plain"]
+    out_err = float((o_r - o_p).abs().max())
+    rel = [float((a - b).norm() / b.norm()) for a, b in
+           ((dx_r, dx_p), (db_r, db_p))]
+    if not (torch.allclose(o_r, o_p, **TOL["float32"])
+            and max(rel) <= RNN_GRAD_RTOL):
+        fail("rnn (a): the cuDNN route against _rnn_reference at %d x %d x "
+             "%d: outputs max abs err %.3g (rtol %g, atol %g), data and "
+             "blob gradients %.3g, %.3g from the loop's (relative, in "
+             "norm; limit %g)" % (T, B, W, out_err, TOL["float32"]["rtol"],
+                                  TOL["float32"]["atol"], rel[0], rel[1],
+                                  RNN_GRAD_RTOL))
+
+    lstm = torch.nn.LSTM(W, W, L).to(dev)
+    views = rnn_op._unpack_params(blob.detach(), "lstm", W, W, L, False)
+    with torch.no_grad():
+        for layer in range(L):
+            for kind, key in (("w_i2h", "weight_ih"), ("w_h2h", "weight_hh"),
+                              ("b_i2h", "bias_ih"), ("b_h2h", "bias_hh")):
+                getattr(lstm, "%s_l%d" % (key, layer)).copy_(
+                    views[(layer, 0)][kind])
+    lstm.flatten_parameters()
+    hx = (torch.zeros(L, B, W, device=dev), torch.zeros(L, B, W, device=dev))
+    with torch.no_grad():
+        flat_err = float((lstm(x, hx)[0] - o_r).abs().max())
+    xs = x.clone().requires_grad_()
+    bs = blob.detach().clone().requires_grad_()
+
+    def route_step():
+        rnn_op._rnn_op(xs, bs, h0, h0, **attrs).backward(cot)
+
+    def flat_step():
+        lstm(xs, hx)[0].backward(cot)
+
+    def plain_step():
+        rnn_op._rnn_reference(xs, bs, h0, h0, **attrs).backward(cot)
+    t_route, t_flat = time_ms(route_step, reps=10), time_ms(flat_step,
+                                                           reps=10)
+    t_route2, t_plain = time_ms(route_step, reps=10), time_ms(plain_step,
+                                                             reps=3,
+                                                             warmup=1)
+    profile("RNN op forward + backward (%d x %d, T %d, batch %d, "
+            "cuDNN over the blob's views)" % (L, W, T, B), route_step, top=6)
+    say("rnn (a): the RNN op's cuDNN route against _rnn_reference on the "
+        "card (T %d, batch %d, 2 x %d, p 0, torch.backends.cudnn.allow_tf32"
+        "=%s): outputs max abs err %.3g (rtol %g, atol %g), data and blob "
+        "gradients %.3g and %.3g from the loop's (relative, in norm; limit "
+        "%g); torch.nn.LSTM over the same weights flattened in cuDNN's "
+        "buffer: outputs max abs err %.3g from the route's" % (
+            T, B, W, torch.backends.cudnn.allow_tf32, out_err,
+            TOL["float32"]["rtol"], TOL["float32"]["atol"], rel[0], rel[1],
+            RNN_GRAD_RTOL, flat_err))
+    say("rnn (a): forward + backward of the RNN op at T %d: the route "
+        "(weights as views of the blob, copied by cuDNN each call) %.3f / "
+        "%.3f ms, torch.nn.LSTM with flattened weights %.3f ms (the copy: "
+        "%.3f ms a call), the plain loop %.3f ms (events; %d launches in "
+        "the route's profiled call)" % (
+            T, t_route, t_route2, t_flat,
+            statistics.mean([t_route, t_route2]) - t_flat, t_plain,
+            sum(profile.counts.values())))
+    del lstm, runs, xs, bs
+    torch.cuda.empty_cache()
+
+
+def rnn_unfused_check(mx, mod, batch, fused_ms):
+    """The same net unfused (FusedRNNCell.unfuse() -> SequentialRNNCell of
+    LSTMCells, weights through unpack_weights / pack_weights) against
+    the fused net, both at p = 0, one forward + backward at the largest
+    bucket from the trained weights: outputs and every gradient (the
+    cells' packed back into the blob); then the unfused step's time, the
+    upstream --stack-rnn route."""
+    import torch
+    T, B = max(RNN_BUCKETS), RNN_LM["batch"]
+    args, aux = mod.get_params()
+    fused = _fused_cell(mx, 0.0)
+    stack = fused.unfuse()
+    with mx.cpu():
+        cell_args = stack.pack_weights(fused.unpack_weights(
+            {k: mx.nd.array(v.asnumpy()) for k, v in args.items()}))
+    shapes = dict(data_shapes=[("data", (B, T))],
+                  label_shapes=[("softmax_label", (B, T))])
+    outs = {}
+    mods = {}
+    for name, cell_of, params in (
+            ("fused", lambda: _fused_cell(mx, 0.0), args),
+            ("unfused", lambda: fused.unfuse(), cell_args)):
+        sym, dn, ln = _lm_sym_gen(mx, cell_of)(T)
+        m = mx.mod.Module(sym, dn, ln, context=mx.gpu(0))
+        m.bind(**shapes)
+        m.init_params(None, arg_params=params, aux_params=aux)
+        m.forward_backward(batch)
+        exe = m._exec_group.execs[0]
+        grads = {k: v.asnumpy() for k, v in exe.grad_dict.items()
+                 if v is not None}
+        outs[name] = (m.get_outputs()[0].asnumpy(), grads)
+        mods[name] = m
+    (o_f, g_f), (o_u, g_u) = outs["fused"], outs["unfused"]
+    with mx.cpu():
+        g_u = {k: (v.asnumpy() if hasattr(v, "asnumpy") else v)
+               for k, v in fused.pack_weights(stack.unpack_weights(
+                   {k: mx.nd.array(v) for k, v in g_u.items()})).items()}
+    out_err = float(np.abs(o_f - o_u).max())
+    grad_rel = _rel_norm(g_u, g_f)
+    if sorted(g_u) != sorted(g_f) or not (
+            np.allclose(o_u, o_f, **TOL["float32"])
+            and grad_rel <= RNN_GRAD_RTOL):
+        fail("rnn (a): unfused against fused at p 0: outputs max abs err "
+             "%.3g, gradients %s vs %s, %.3g (relative, in norm)" % (
+                 out_err, sorted(g_u), sorted(g_f), grad_rel))
+    m = mods["unfused"]
+    m.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": RNN_LM["lr"], "wd": RNN_LM["wd"]})
+    times = []
+    for _ in range(RNN_UNFUSED_STEPS + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m.forward_backward(batch)
+        m.update()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    unfused_ms = statistics.median(times[1:])
+    say("rnn (a): unfused (SequentialRNNCell of %d LSTMCells, %d steps "
+        "unrolled) against fused at p 0, bucket %d: outputs max abs err "
+        "%.3g (rtol %g, atol %g), %d gradients %.3g from the fused net's "
+        "(relative, in norm; limit %g); unfused step %.2f ms (median of "
+        "%d; all: %s) against the fused %.2f ms: %.2fx" % (
+            RNN_LM["layers"], T, T, out_err, TOL["float32"]["rtol"],
+            TOL["float32"]["atol"], len(g_f), grad_rel, RNN_GRAD_RTOL,
+            unfused_ms, RNN_UNFUSED_STEPS, " ".join("%.1f" % v
+                                                    for v in times),
+            fused_ms, unfused_ms / fused_ms))
+    del mods, m
+    torch.cuda.empty_cache()
+
+
+def rnn_lm_phase():
+    """(a) the bucketed word LM through BucketingModule.fit over
+    BucketSentenceIter on the card: step ms, tokens/s, peak memory of
+    each bucket, one profiled step a bucket (launches, busy share), a
+    falling loss, the save_rnn_checkpoint -> load_rnn_checkpoint round
+    trip bit for bit, then rnn_route_check and rnn_unfused_check. Returns
+    the launch counts of the port's kernels in the fit."""
+    import random
+    import shutil
+    import tempfile
+
+    import torch
+    import mxnet_tpu_torch as mx
+
+    V, W, B = RNN_LM["vocab"], RNN_LM["width"], RNN_LM["batch"]
+    t0 = time.perf_counter()
+    sents = _lm_sentences(19)
+    random.seed(19)
+    np.random.seed(19)
+    mx.random.seed(19)
+    with mx.gpu(0):
+        it = mx.rnn.BucketSentenceIter(sents, B, buckets=list(RNN_BUCKETS),
+                                       invalid_label=0)
+    sym_gen = _lm_sym_gen(mx, lambda: _fused_cell(mx, RNN_LM["dropout"]))
+    mod = mx.mod.BucketingModule(sym_gen,
+                                 default_bucket_key=it.default_bucket_key,
+                                 context=mx.gpu(0))
+    counters = mt_counters()
+    _reset_counts(counters)
+    marks, steps = [time.perf_counter()], []
+
+    def timed_cb(param):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        batch = param.locals["batch"]
+        peak = torch.cuda.max_memory_allocated()
+        steps.append(dict(bucket=batch.bucket_key, ms=(now - marks[-1]) * 1e3,
+                          epoch=param.epoch, nbatch=param.nbatch,
+                          peak=peak, nll=_batch_nll(mod, batch)))
+        torch.cuda.reset_peak_memory_stats()
+        marks.append(time.perf_counter())
+    torch.cuda.reset_peak_memory_stats()
+    mod.fit(it, num_epoch=RNN_EPOCHS, eval_metric=mx.metric.Perplexity(0),
+            initializer=mx.init.Xavier(factor_type="in", magnitude=2.34),
+            optimizer="sgd", optimizer_params={"learning_rate": RNN_LM["lr"],
+                                               "wd": RNN_LM["wd"]},
+            batch_end_callback=timed_cb)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    launches = {c.__name__: c.launches for c in counters}
+    args, aux = mod.get_params()
+    nparam = sum(v.size for v in args.values())
+    nll = [s["nll"] for s in steps]
+    per_epoch = [statistics.mean(s["nll"] for s in steps if s["epoch"] == e)
+                 for e in range(RNN_EPOCHS)]
+    if not all(np.isfinite(nll)) or not per_epoch[-1] < per_epoch[0]:
+        fail("rnn (a): the loss does not fall: epochs %r, steps %r"
+             % (per_epoch, nll))
+    say("rnn (a): upstream cudnn_lstm_bucketing's net, FusedRNNCell lstm "
+        "%d x %d, embed %d, vocab %d, dropout %g (%d parameter arrays, "
+        "%.1f M: embed %.1f M, LSTM %.1f M, head %.1f M), batch %d, buckets "
+        "%s, %d batches a bucket, %d epochs through BucketingModule.fit "
+        "(SGD lr %g wd %g, Xavier in 2.34, float32, allow_tf32=%s) in %.1f "
+        "s, %.2f GB allocated after it; the NLL a step (every label, the "
+        "padding included): %s" % (
+            RNN_LM["layers"], W, W, V, RNN_LM["dropout"], len(args),
+            nparam / 1e6, args["embed_weight"].size / 1e6,
+            args["lstm_parameters"].size / 1e6,
+            (args["pred_weight"].size + args["pred_bias"].size) / 1e6, B,
+            list(RNN_BUCKETS), RNN_BATCHES, RNN_EPOCHS, RNN_LM["lr"],
+            RNN_LM["wd"], torch.backends.cudnn.allow_tf32, fit_s, held_gb,
+            " ".join("%.3f" % v for v in nll)))
+    say("rnn (a): the mean NLL of each epoch: %s" % " ".join(
+        "%.3f" % v for v in per_epoch))
+
+    # per bucket: the steps after its first (bind, cuDNN plans), not first
+    # in an epoch, and not just before another bucket's first step (fit
+    # prepares the next batch, binding its bucket, inside the step before
+    # it); one profiled step each
+    first, seen = set(), set()
+    for i, s in enumerate(steps):
+        if s["bucket"] not in seen:
+            first.add(i)
+        seen.add(s["bucket"])
+    rows = {}
+    for i, s in enumerate(steps):
+        if not ({i, i + 1} & first) and s["nbatch"] > 0:
+            rows.setdefault(s["bucket"], []).append(s)
+    batches = {}
+    it.reset()
+    for b in it:
+        batches.setdefault(b.bucket_key, b)
+    for bucket in RNN_BUCKETS:
+        got = rows.get(bucket, [])
+        if not got:
+            fail("rnn (a): bucket %d has no timed step" % bucket)
+        ms = statistics.median(s["ms"] for s in got)
+        batch = batches[bucket]
+
+        def one_step(batch=batch):
+            mod.forward_backward(batch)
+            mod.update()
+        profile("rnn (a) step, bucket %d" % bucket, one_step,
+                top=8 if bucket == max(RNN_BUCKETS) else 2)
+        say("rnn (a): bucket %d: step %.2f ms (median of %d; all: %s), "
+            "%.0f tokens/s (padding included), peak device memory a step "
+            "%.2f GB, %d launches and device busy %.1f%% in a profiled "
+            "step" % (bucket, ms, len(got), " ".join(
+                "%.1f" % s["ms"] for s in got), B * bucket / ms * 1e3,
+                max(s["peak"] for s in got) / 1e9,
+                sum(profile.counts.values()), 100 * profile.busy))
+        rows[bucket] = ms
+    fused_ms = rows[max(RNN_BUCKETS)]
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rnn_")
+    try:
+        prefix = os.path.join(tmp, "lm")
+        cell = _fused_cell(mx, RNN_LM["dropout"])
+        t = time.perf_counter()
+        mx.rnn.save_rnn_checkpoint(cell, prefix, RNN_EPOCHS,
+                                   sym_gen(max(RNN_BUCKETS))[0], args, aux)
+        _, ck_args, ck_aux = mx.rnn.load_rnn_checkpoint(cell, prefix,
+                                                        RNN_EPOCHS)
+        ck_s = time.perf_counter() - t
+        size = os.path.getsize("%s-%04d.params" % (prefix, RNN_EPOCHS))
+        saved = sorted(mx.nd.load("%s-%04d.params" % (prefix, RNN_EPOCHS)))
+        same = sorted(ck_args) == sorted(args) and all(
+            torch.equal(ck_args[n]._data.cpu(), args[n]._data.cpu())
+            for n in args)
+        if not same or "arg:lstm_l1_h2h_o_weight" not in saved:
+            fail("rnn (a): the rnn checkpoint round trip is not bit-equal "
+                 "(saved %s)" % saved[:6])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("rnn (a): save_rnn_checkpoint -> load_rnn_checkpoint (%d arrays "
+        "saved, the blob as %d per-gate arrays; %.1f MB, %.1f s): the "
+        "fused blob and every parameter bit-equal" % (
+            len(saved), sum("lstm_l" in n for n in saved), size / 1e6, ck_s))
+
+    rnn_route_check(args["lstm_parameters"]._data)
+    rnn_unfused_check(mx, mod, batches[max(RNN_BUCKETS)], fused_ms)
+    del mod, args, aux, ck_args, ck_aux
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _ocr_batch(seed, n):
+    """lstm_ocr.py's task rendered as the JAX package's
+    examples/ctc_ocr.py renders it: each digit lights its own band of 3
+    features over 8 consecutive frames of noise; labels 1..10 (0 is the
+    blank)."""
+    rng = np.random.RandomState(seed)
+    F, D = OCR["frames"], OCR["digits"]
+    labels = rng.randint(1, D + 1, (n, OCR["label"])).astype(np.float32)
+    x = rng.randn(n, F, OCR["feat"]).astype(np.float32) * 0.3
+    step = F // OCR["label"]
+    for i, seq in enumerate(labels):
+        for j, d in enumerate(seq):
+            lo = 4 + j * step
+            x[i, lo:lo + 8, (int(d) - 1) * 3:int(d) * 3] += 2.0
+    return x, labels
+
+
+def _ocr_net(mx):
+    """lstm_ocr.py's net: OCR["layers"] unrolled LSTMCells, a per-frame
+    classifier over digits + blank, MakeLoss(CTCLoss) over (T, N, C)."""
+    F, Hd, C = OCR["frames"], OCR["hidden"], OCR["digits"] + 1
+    stack = mx.rnn.SequentialRNNCell()
+    for i in range(OCR["layers"]):
+        stack.add(mx.rnn.LSTMCell(Hd, prefix="l%d_" % i))
+    outs, _ = stack.unroll(F, mx.sym.Variable("data"), merge_outputs=True)
+    pred = mx.sym.FullyConnected(mx.sym.Reshape(outs, shape=(-1, Hd)),
+                                 num_hidden=C, name="pred")
+    act = mx.sym.transpose(mx.sym.Reshape(pred, shape=(-1, F, C)),
+                           axes=(1, 0, 2))
+    return mx.sym.MakeLoss(mx.sym.CTCLoss(act, mx.sym.Variable("label"),
+                                          name="ctc"))
+
+
+def rnn_ctc_phase():
+    """(b) LSTM + CTC at lstm_ocr.py's sizes: one forward + backward from
+    one seed on the CPU and the card (the loss and every gradient), then
+    OCR["epochs"] epochs of Module.fit on the card (Adam) with a falling
+    loss; and the CTCLoss op's forward + backward time beside
+    torch.nn.functional.ctc_loss's (a different function: inf on an
+    impossible alignment) at these shapes."""
+    import torch
+    import torch.nn.functional as F
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import ctc
+
+    B, T, C = OCR["batch"], OCR["frames"], OCR["digits"] + 1
+    x, labels = _ocr_batch(23, OCR["batch"] * OCR["batches"])
+    net = _ocr_net(mx)
+    shapes = dict(data_shapes=[("data", (B, T, OCR["feat"]))],
+                  label_shapes=[("label", (B, OCR["label"]))])
+    res = []
+    params = None
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        m = mx.mod.Module(net, ("data",), ("label",), context=ctx)
+        m.bind(**shapes)
+        if params is None:
+            mx.random.seed(23)
+            m.init_params(mx.init.Xavier())
+            params = m.get_params()
+        else:
+            m.init_params(None, arg_params=params[0], aux_params=params[1])
+        with ctx:
+            batch = mx.io.DataBatch([mx.nd.array(x[:B])],
+                                    [mx.nd.array(labels[:B])])
+        t = time.perf_counter()
+        m.forward_backward(batch)
+        loss = m.get_outputs()[0].asnumpy()
+        ms = (time.perf_counter() - t) * 1e3
+        exe = m._exec_group.execs[0]
+        res.append((loss, {k: v.asnumpy() for k, v in exe.grad_dict.items()
+                           if v is not None}, ms))
+    (l_c, g_c, ms_c), (l_g, g_g, ms_g) = res
+    loss_err = float(np.abs(l_g - l_c).max() / np.abs(l_c).max())
+    grad_rel = _rel_norm(g_g, g_c)
+    if not (np.all(np.isfinite(l_g)) and loss_err <= TOL["float32"]["rtol"]
+            and grad_rel <= RNN_GRAD_RTOL):
+        fail("rnn (b): LSTM + CTC card vs CPU: loss %.3g, gradients %.3g "
+             "(relative)" % (loss_err, grad_rel))
+    say("rnn (b): upstream lstm_ocr's net (%d LSTMCell layers of %d "
+        "unrolled over %d frames of %d features, %d classes with the blank "
+        "first, %d-digit labels, batch %d) one forward + backward, card vs "
+        "CPU: the loss %.3g apart (relative to its largest; limit %g), %d "
+        "gradients %.3g (relative, in norm; limit %g); the card's first "
+        "call %.1f ms, the CPU's %.1f ms" % (
+            OCR["layers"], OCR["hidden"], T, OCR["feat"], C, OCR["label"],
+            B, loss_err, TOL["float32"]["rtol"], len(g_g), grad_rel,
+            RNN_GRAD_RTOL, ms_g, ms_c))
+
+    mx.random.seed(23)
+    np.random.seed(23)
+    with mx.gpu(0):
+        it = mx.io.NDArrayIter({"data": x}, {"label": labels},
+                               batch_size=B, shuffle=True, label_name="label")
+    m = mx.mod.Module(net, ("data",), ("label",), context=mx.gpu(0))
+    losses, marks = [], [time.perf_counter()]
+
+    def cb(param):
+        losses.append(float(m.get_outputs()[0].asnumpy().mean()))
+        marks.append(time.perf_counter())
+    m.fit(it, num_epoch=OCR["epochs"], eval_metric=mx.metric.Loss(),
+          arg_params=params[0], aux_params=params[1], optimizer="adam",
+          optimizer_params={"learning_rate": OCR["lr"]},
+          batch_end_callback=cb)
+    n = OCR["batches"]
+    if not (all(np.isfinite(losses))
+            and np.mean(losses[-n:]) < np.mean(losses[:n])):
+        fail("rnn (b): the CTC loss does not fall: %r" % losses)
+    gaps = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+
+    dev = mx.gpu(0).torch_device()
+    g = torch.Generator(device="cpu").manual_seed(29)
+    act = torch.randn(T, B, C, generator=g).to(dev).requires_grad_()
+    lab = torch.tensor(labels[:B], device=dev)
+    lens = torch.full((B,), T, dtype=torch.long, device=dev)
+    llens = torch.full((B,), OCR["label"], dtype=torch.long, device=dev)
+
+    def op_step():
+        ctc._ctc_loss(act, lab).sum().backward()
+
+    def lib_step():
+        F.ctc_loss(act.log_softmax(-1), lab.long(), lens, llens, blank=0,
+                   reduction="sum").backward()
+    with torch.no_grad():
+        lib_loss = F.ctc_loss(act.log_softmax(-1), lab.long(), lens, llens,
+                              blank=0, reduction="none")
+        op_loss = ctc._ctc_loss(act, lab)
+    lib_gap = float((lib_loss - op_loss).abs().max() / op_loss.abs().max())
+    t_op, t_lib = time_ms(op_step, reps=10), time_ms(lib_step, reps=10)
+    profile("CTCLoss op forward + backward (T %d, batch %d, %d classes)"
+            % (T, B, C), op_step, top=3)
+    say("rnn (b): Module.fit, %d epochs of %d batches (Adam lr %g): the "
+        "loss a step %s, a step %.1f ms (median; all: %s); the CTCLoss op's "
+        "forward + backward %.3f ms (%d launches), "
+        "torch.nn.functional.ctc_loss's %.3f ms (a different function; "
+        "their losses %.3g apart here, relative)" % (
+            OCR["epochs"], n, OCR["lr"], " ".join("%.3f" % v for v in losses),
+            statistics.median(gaps[1:]), " ".join("%.1f" % v for v in gaps),
+            t_op, sum(profile.counts.values()), t_lib, lib_gap))
+    del m
+    torch.cuda.empty_cache()
+
+
+def rnn_phase():
+    """The symbolic RNN toolkit on the card: (a) the bucketed 2 x 1500 LSTM
+    LM, (b) LSTM + CTC. Returns (a)'s launch counts of the port's
+    kernels."""
+    t0 = time.perf_counter()
+    launches = rnn_lm_phase()
+    rnn_ctc_phase()
+    say("rnn: phase done in %.1f s" % (time.perf_counter() - t0))
+    return launches
+
+
 def main():
     try:
         import torch
@@ -8194,7 +8762,8 @@ def main():
                "profiler": profiler_phase(),
                "gluon": gluon_phase([bnk.bn_stats_cuda, bnk.bn_apply_cuda,
                                      bnk.bn_bwd_reduce_cuda,
-                                     bnk.bn_bwd_dx_cuda])}
+                                     bnk.bn_bwd_dx_cuda]),
+               "rnn": rnn_phase()}
     for rec in records:
         # no kernel moves its bytes faster than the memory can: a time
         # under the byte bound means the timing lost work
@@ -8229,7 +8798,8 @@ PARTIAL = {"mt": mt_kernel_phase, "bn": bn_kernel_phase,
            "moe_lm": moe_lm_phase, "mesh2": mesh2_phase,
            "gspmd2": gspmd2_phase, "kvdist2": kvdist2_phase,
            "profiler": profiler_phase,
-           "gluon": lambda: gluon_phase(_bn_counters())}
+           "gluon": lambda: gluon_phase(_bn_counters()),
+           "rnn": rnn_phase}
 
 
 def _serve_counters():

@@ -98,3 +98,4 @@ _kvstore_server._init_kvstore_server_module()
 from . import parallel  # noqa: E402
 from . import recordio  # noqa: E402
 from . import gluon  # noqa: E402
+from . import rnn  # noqa: E402

@@ -223,12 +223,32 @@ class TripletLoss(Loss):
 
 class CTCLoss(Loss):
     """Connectionist Temporal Classification loss (reference
-    loss.py:CTCLoss -> the contrib CTCLoss op). The op (``ctc.py``) is
-    not ported to this package yet: constructing the loss raises."""
+    loss.py:CTCLoss -> the contrib CTCLoss op, ``ops/ctc.py``)."""
 
     def __init__(self, layout="NTC", label_layout="NT", weight=None,
                  **kwargs):
-        raise NotImplementedError(
-            "gluon.loss.CTCLoss needs the CTCLoss operator "
-            "(mxnet_tpu/ops/ctc.py), which is not ported to the PyTorch "
-            "package yet: ROADMAP Queue A item 10.3")
+        assert layout in ["NTC", "TNC"], \
+            "Only 'NTC' and 'TNC' layouts for pred are supported, " \
+            "got: %s" % layout
+        assert label_layout in ["NT", "TN"], \
+            "Only 'NT' and 'TN' layouts for label are supported, " \
+            "got: %s" % label_layout
+        self._layout = layout
+        self._label_layout = label_layout
+        batch_axis = label_layout.find("N")
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = F.swapaxes(pred, 0, 1)
+        if self._batch_axis == 1:
+            label = F.swapaxes(label, 0, 1)
+        loss = F.CTCLoss(pred, label,
+                         use_data_lengths=pred_lengths is not None,
+                         use_label_lengths=label_lengths is not None,
+                         **({} if pred_lengths is None
+                            else {"data_lengths": pred_lengths}),
+                         **({} if label_lengths is None
+                            else {"label_lengths": label_lengths}))
+        return _apply_weighting(F, loss, self._weight, sample_weight)

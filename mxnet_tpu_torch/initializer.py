@@ -8,8 +8,9 @@ the same ``np.random.default_rng(seed)`` stream as the JAX package, so
 after ``mx.random.seed(s)`` both packages initialize bit-identical
 values. Descriptor-driven dispatch (by name suffix:
 weight/bias/gamma/beta/...) matches the reference's
-``Initializer.__call__`` protocol. ``FusedRNN`` waits for the symbolic RNN
-toolkit (ROADMAP Queue A item 10.1: ``rnn/*`` and the ``RNN`` op).
+``Initializer.__call__`` protocol. ``FusedRNN`` unpacks the fused RNN
+blob through ``rnn.FusedRNNCell``'s layout, fills each gate array, and
+packs it back.
 """
 from __future__ import annotations
 
@@ -379,8 +380,29 @@ class FusedRNN(Initializer):
         self._forget_bias = forget_bias
 
     def _init_weight(self, desc, arr):
-        raise NotImplementedError(
-            "FusedRNN initialization unpacks the fused RNN parameter blob "
-            "through rnn_cell.FusedRNNCell, which the PyTorch package does "
-            "not port yet (ROADMAP Queue A item 10.1, the symbolic RNN "
-            "toolkit)")
+        from .rnn import rnn_cell
+        cell = rnn_cell.FusedRNNCell(self._num_hidden, self._num_layers,
+                                     self._mode, self._bidirectional,
+                                     forget_bias=self._forget_bias,
+                                     prefix="")
+        init_fn = self._init or getattr(desc, "global_init", None)
+        if init_fn is None:
+            raise ValueError(
+                "FusedRNN(init=None) needs an InitDesc with global_init")
+        blob = np.array(arr.asnumpy() if hasattr(arr, "asnumpy") else arr,
+                        dtype=np.float32).reshape(-1)
+        entries, _ = cell._blob_slices(cell._infer_input_size(blob.size))
+        # the JAX package's order: each unpacked gate array in blob order
+        for name, sl, shape in entries:
+            piece = blob[sl].reshape(shape).copy()
+            if self._mode == "lstm" and name.endswith("_f_bias"):
+                # forget-gate bias lives in the i2h bias (same convention
+                # as LSTMCell + LSTMBias); h2h forget bias stays zero
+                piece[:] = self._forget_bias if "i2h" in name else 0.0
+            else:
+                # fresh attrs: inheriting the parent's __init__ attr would
+                # re-dispatch back into this initializer
+                init_fn(InitDesc(name, global_init=getattr(
+                    desc, "global_init", None)), piece)
+            blob[sl] = piece.reshape(-1)
+        arr[:] = blob.reshape(arr.shape)

@@ -19,4 +19,6 @@ from . import optimizer_ops  # noqa: F401
 from . import reduce_ops    # noqa: F401
 from . import detection_ops  # noqa: F401
 from . import random_ops    # noqa: F401
+from . import rnn_op        # noqa: F401
+from . import ctc           # noqa: F401
 from . import shape_hooks   # noqa: F401  (must come after all registrations)

@@ -284,8 +284,6 @@ _NOT_PORTED = {
         "_contrib_count_sketch", "_contrib_dequantize", "_contrib_fft",
         "_contrib_ifft", "_contrib_quantize", "dequantize", "fft", "ifft",
         "quantize")),
-    "ctc": ("Queue A item 10.3 (ctc.py)", (
-        "CTCLoss", "_contrib_CTCLoss", "_contrib_ctc_loss", "ctc_loss")),
     "custom": ("Queue A item 10 (custom.py)", ("Custom",)),
     "detection_ops": ("Queue A item 10 (SSD training, ROIPooling)", (
         "MultiBoxTarget", "ROIPooling", "_contrib_MultiBoxTarget",
@@ -307,7 +305,6 @@ _NOT_PORTED = {
         "_contrib_PSROIPooling", "_contrib_Proposal",
         "_contrib_multi_proposal", "_contrib_proposal",
         "_contrib_psroipooling")),
-    "rnn_op": ("Queue A item 10.1 (the symbolic RNN toolkit)", ("RNN",)),
     "warp_ops": ("Queue A item 10 (warp_ops.py)", (
         "BilinearSampler", "Correlation", "GridGenerator",
         "SpatialTransformer")),

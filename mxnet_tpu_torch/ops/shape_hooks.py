@@ -2,7 +2,7 @@
 exposes under given attrs, and backward shape inference for parameter
 (and aux) variables. The rules are those of
 ``mxnet_tpu/ops/shape_hooks.py``; the hooks of ops not ported yet
-(RNN, the deformable contrib ops) arrive with their ops.
+(the deformable contrib ops) arrive with their ops.
 """
 from __future__ import annotations
 
@@ -143,6 +143,39 @@ def _prelu_shapes(shapes, attrs):
 
 
 set_param_shapes("LeakyReLU", _prelu_shapes)
+
+
+# -- RNN (fused): parameters blob + state shapes from data ------------------
+# (reference: rnn-inl.h RNNProp::InferShape — param size is a function of
+# input size, state size, layers, directions)
+
+set_arg_select("RNN", lambda a: (
+    ("data", "parameters", "state", "state_cell")
+    if a.get("mode", "lstm") == "lstm"
+    else ("data", "parameters", "state")))
+
+
+def _rnn_shapes(shapes, attrs):
+    data = shapes[0]
+    if data is None:
+        return shapes
+    from .rnn_op import rnn_param_size
+    mode = attrs.get("mode", "lstm")
+    h = int(attrs.get("state_size", 0))
+    layers = int(attrs.get("num_layers", 1))
+    dirs = 2 if attrs.get("bidirectional") else 1
+    out = list(shapes)
+    if len(out) > 1 and out[1] is None:
+        out[1] = (rnn_param_size(mode, int(data[2]), h, layers,
+                                 attrs.get("bidirectional", False)),)
+    state_shape = (layers * dirs, int(data[1]), h)
+    for i in (2, 3):
+        if len(out) > i and out[i] is None:
+            out[i] = state_shape
+    return out
+
+
+set_param_shapes("RNN", _rnn_shapes)
 
 
 # -- Sequence ops: sequence_length only when enabled ------------------------

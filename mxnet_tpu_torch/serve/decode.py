@@ -1330,11 +1330,13 @@ class ContinuousDecoder:
         req = self._slots[slot]
         if (req.eos_id is not None and tok == req.eos_id) or \
                 len(req.emitted) >= req.max_new:
-            req._finish_ok()
+            # counted before the future settles: a caller woken by its
+            # result reads stats() that include it
             now = _telemetry.now_ms()
             self._h_req.observe(now - req.t_enq)
             self._finished += 1
             self._c_finished.inc()
+            req._finish_ok()
             _telemetry.journal_event(
                 "serve.decode.finish",
                 tokens=len(req.emitted),

@@ -57,6 +57,12 @@ def _num_outputs(opdef, attrs):
         return 2
     if opdef.name in ("BatchNorm", "LayerNorm"):
         return 3 if attrs.get("output_mean_var") else 1
+    if opdef.name == "RNN":
+        if not attrs.get("state_outputs"):
+            return 1
+        return 3 if attrs.get("mode", "lstm") == "lstm" else 2
+    if opdef.name == "CTCLoss":
+        return 1
     if opdef.num_visible is not None:
         return opdef.num_visible
     return 1
@@ -101,6 +107,12 @@ class Symbol:
         return "<Symbol group [%s]>" % ", ".join(
             e[0].name for e in self._entries)
 
+    def attr(self, key):
+        """A single-output symbol's user attribute ``key``, else None."""
+        if len(self._entries) == 1:
+            return self._entries[0][0].misc_attrs.get(key)
+        return None
+
     def attr_dict(self):
         """{node name: {attr: str value}} over the graph: user attrs
         (``__lr_mult__``, ``__wd_mult__``, ...) and op attrs."""
@@ -142,6 +154,9 @@ class Symbol:
         for e in self._entries:
             children.extend(e[0].inputs)
         return Symbol(children) if children else None
+
+    def __len__(self):
+        return len(self._entries)
 
     def __getitem__(self, index):
         if isinstance(index, str):

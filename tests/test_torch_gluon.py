@@ -449,8 +449,16 @@ def test_hybridized_loss_matches_jax(name, weighting):
 
 
 def test_ctc_loss_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Queue A item 10.3"):
-        tmx.gluon.loss.CTCLoss()
+    """CTCLoss is ported now (its op, ops/ctc.py): it builds and gives
+    the JAX package's loss; tests/test_torch_ctc.py holds it in full."""
+    pred = np.random.RandomState(4).randn(2, 6, 5).astype(np.float32)
+    label = np.array([[1, 3, 2], [4, 1, 0]], np.float32)
+    want = jmx.gluon.loss.CTCLoss()(jmx.nd.array(pred),
+                                    jmx.nd.array(label)).asnumpy()
+    with tmx.cpu():
+        got = tmx.gluon.loss.CTCLoss()(tmx.nd.array(pred),
+                                       tmx.nd.array(label)).asnumpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

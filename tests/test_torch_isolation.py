@@ -40,7 +40,10 @@ def test_port_and_chip_smoke_import_without_jax():
     two contexts, group2ctx, the profiler) a parameter server's host-side
     apply, a Module epoch and a profiled run, the Gluon slice's
     (``gluon`` and each of its submodules) a hybridized Dense + BatchNorm
-    net's Trainer step, and no jax or mxnet_tpu module loads."""
+    net's Trainer step, the RNN slice's (``rnn`` and its submodules,
+    ``ops/rnn_op``, ``ops/ctc``) a bucketed fused-LSTM epoch, an rnn
+    checkpoint round trip, the plain RNN loop and a gluon CTCLoss, and
+    no jax or mxnet_tpu module loads."""
     code = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now fails
@@ -243,6 +246,48 @@ with mxnet_tpu_torch.cpu():
     w0 = gnet[0].weight.data().asnumpy()
     gtr.step(4)
     assert (gnet[0].weight.data().asnumpy() != w0).any()
+# the RNN slice, used: a fused 2-layer LSTM LM (FusedRNN-initialized)
+# trained one epoch through BucketingModule over BucketSentenceIter, its
+# weights through save_rnn_checkpoint / load_rnn_checkpoint, the plain
+# RNN loop, and CTCLoss under gluon
+from mxnet_tpu_torch import rnn
+from mxnet_tpu_torch.ops import ctc, rnn_op
+def lm_gen(seq_len):
+    emb = mxnet_tpu_torch.sym.Embedding(mxnet_tpu_torch.sym.Variable("data"),
+                                        input_dim=8, output_dim=4, name="e")
+    cell = rnn.FusedRNNCell(4, num_layers=2, dropout=0.2, prefix="lstm_")
+    out, _ = cell.unroll(seq_len, emb, merge_outputs=True)
+    pred = mxnet_tpu_torch.sym.FullyConnected(mxnet_tpu_torch.sym.Reshape(
+        out, shape=(-1, 4)), num_hidden=8, name="pred")
+    lab = mxnet_tpu_torch.sym.Reshape(mxnet_tpu_torch.sym.Variable(
+        "softmax_label"), shape=(-1,))
+    return (mxnet_tpu_torch.sym.SoftmaxOutput(pred, lab, name="softmax"),
+            ("data",), ("softmax_label",))
+with mxnet_tpu_torch.cpu():
+    sit = rnn.BucketSentenceIter([[1, 2, 3], [4, 5], [6, 7, 1, 2]] * 4,
+                                 batch_size=2, buckets=[3, 5],
+                                 invalid_label=0)
+    bmod = mxnet_tpu_torch.mod.BucketingModule(lm_gen, 5,
+                                               context=mxnet_tpu_torch.cpu())
+    bmod.fit(sit, num_epoch=1, optimizer="sgd")
+    lcell = rnn.FusedRNNCell(4, num_layers=2, prefix="lstm_")
+    bargs = bmod.get_params()[0]
+    rnn.save_rnn_checkpoint(lcell, os.path.join(tmp, "r"), 1, lm_gen(5)[0],
+                            bargs, {})
+    assert "arg:lstm_l1_h2h_o_weight" in nd.load(os.path.join(
+        tmp, "r-0001.params"))
+    _, rargs, _ = rnn.load_rnn_checkpoint(lcell, os.path.join(tmp, "r"), 1)
+    assert (rargs["lstm_parameters"].asnumpy() ==
+            bargs["lstm_parameters"].asnumpy()).all()
+    import torch
+    ref = rnn_op._rnn_reference(torch.zeros(3, 2, 4),
+                                bargs["lstm_parameters"].handle,
+                                torch.zeros(2, 1, 4), torch.zeros(2, 1, 4),
+                                state_size=4, num_layers=2)
+    assert ref.shape == (3, 2, 4)
+    cl = gluon.loss.CTCLoss()(nd.array(np.zeros((2, 5, 4), np.float32)),
+                              nd.array([[1, 2], [3, 0]]))
+    assert cl.shape == (2,) and bool(np.isfinite(cl.asnumpy()).all())
 bad = sorted(n for n, m in sys.modules.items() if m is not None and (
     n == "jax" or n.startswith("jax.") or n.startswith("jaxlib")
     or n == "mxnet_tpu" or n.startswith("mxnet_tpu.")))

@@ -440,9 +440,9 @@ def test_nd_namespace_covers_the_registry():
             getattr(nd, name)
         with pytest.raises(NotImplementedError, match=name):
             getattr(tmx.sym, name)
-    assert not hasattr(nd, "RNN")
+    assert not hasattr(nd, "ROIPooling")
     with pytest.raises(treg.OpNotPorted, match="item 10"):
-        nd.RNN
+        nd.ROIPooling
     with pytest.raises(treg.OpNotPorted, match="item 10"):
         nd.contrib.fft
     with pytest.raises(AttributeError):

@@ -26,6 +26,7 @@ import mxnet_tpu as jmx
 from mxnet_tpu import initializer as jinit
 from mxnet_tpu.ops import registry as jreg
 import mxnet_tpu_torch as tmx  # (populates the port's registry)
+from mxnet_tpu_torch.ops.rnn_op import rnn_param_size
 from mxnet_tpu_torch import initializer as tinit
 from mxnet_tpu_torch.ops import loss as tloss
 from mxnet_tpu_torch.ops import registry as treg
@@ -756,6 +757,29 @@ CASES += [
      [_f32(10, 8, seed=4), _f32(8, 4, seed=5) * 0.5,
       _f32(4, 8, 16, seed=6) * 0.2, _f32(4, 16, 8, seed=7) * 0.2],
      {"capacity_factor": 2.0}),
+]
+
+# the symbolic RNN toolkit's ops: the fused RNN (two bidirectional lstm
+# layers with inter-layer dropout, states of batch 1; one gru layer) and
+# CTCLoss (blank first; blank last with both length inputs, by alias)
+CASES += [
+    ("r_rnn_lstm_dropout", "RNN",
+     [_f32(5, 3, 4), _f32(rnn_param_size("lstm", 4, 6, 2, True), seed=1)
+      * 0.3, _f32(4, 1, 6, seed=2), _f32(4, 1, 6, seed=3)],
+     {"state_size": 6, "num_layers": 2, "bidirectional": True,
+      "mode": "lstm", "p": 0.3, "state_outputs": True, "is_train": True,
+      "rng": 5}),
+    ("r_rnn_gru", "RNN",
+     [_f32(5, 3, 4), _f32(rnn_param_size("gru", 4, 6, 1, False), seed=1)
+      * 0.3, _f32(1, 3, 6, seed=2)],
+     {"state_size": 6, "mode": "gru"}),
+    ("r_ctc_loss", "CTCLoss",
+     [_f32(6, 2, 5), np.array([[1, 3, 3], [4, 2, 0]], np.float32)], {}),
+    ("r_ctc_loss_lengths_alias", "_contrib_ctc_loss",
+     [_f32(6, 2, 5), np.array([[0, 3, 3], [2, 1, -1]], np.float32),
+      np.array([6, 4], np.float32), np.array([3, 1], np.float32)],
+     {"use_data_lengths": True, "use_label_lengths": True,
+      "blank_label": "last"}),
 ]
 
 # the rejection samplers (jax random.py's gamma and poisson loops, and
