@@ -263,7 +263,22 @@ Phases (any failure exits non-zero; no phase is caught):
    4-digit labels, 11 classes, batch 32): card against CPU, a few
    Module.fit steps with a falling loss, the CTCLoss op's time beside
    torch.nn.functional.ctc_loss's;
-29. one JSON line of every ported kernel (a device time under its byte
+29. detect: (a) SSD300 (VGG16-reduced, 21 classes, 300 px, f32) trained at
+   full width through Module.fit over upstream's get_symbol_train graph
+   (MultiBoxTarget, SoftmaxOutput, the smooth_l1 MakeLoss, and
+   MultiBoxDetection on the NMS kernel under MakeLoss grad_scale 0): batch
+   32, SGD lr 0.002 momentum 0.9 wd 5e-4, seeded batches of 1..8 boxes an
+   image; step ms, img/s, peak memory, a profiled step, the target op
+   alone by events; a finite, falling loss, the targets' rules, one NMS
+   launch a training forward; before it the graph at widths / 16, batch
+   2, one Module step card against CPU; (b) examples/rcnn_train.py's
+   Faster R-CNN (its Custom AnchorTarget and ProposalTarget,
+   _contrib_Proposal, ROIPooling): one Module step card against CPU, a
+   few Module.fit steps on the card, the captures refused; Proposal and
+   ROIPooling timed at upstream example/rcnn's VGG16 shapes; (c) the
+   warp ops, linalg, fft/ifft, count_sketch and quantize/dequantize card
+   against CPU;
+30. one JSON line of every ported kernel (a device time under its byte
    bound fails the run: the timing lost work), then the result line.
 
 It imports nothing of JAX or of ``mxnet_tpu``. Without CUDA, or run
@@ -1159,18 +1174,28 @@ SSD_STEPS = tuple(x / 300.0 for x in (8, 16, 32, 64, 100, 300))
 SSD_ANCHORS = 8732      # 38^2*4 + 19^2*6 + 10^2*6 + 5^2*6 + 3^2*4 + 1*4
 SSD_NMS = dict(nms_threshold=0.45, nms_topk=400, force_suppress=False,
                variances=(0.1, 0.1, 0.2, 0.2))
+# upstream example/ssd/symbol/symbol_builder.py get_symbol_train
+SSD_TARGET = dict(overlap_threshold=0.5, ignore_label=-1,
+                  negative_mining_ratio=3, negative_mining_thresh=0.5,
+                  minimum_negative_samples=0, variances=(0.1, 0.1, 0.2, 0.2))
 
 
 def ssd300_symbol(S, num_classes=20, width_div=1, impl="auto",
-                  heads=False):
-    """SSD300 inference over the VGG16-reduced body, written once against
-    the MXNet symbol API both packages share: ``S`` is ``mxnet_tpu.sym``
-    or ``mxnet_tpu_torch.sym``. Output (B, 8732, 6) detections [class,
+                  heads=False, train=False):
+    """SSD300 over the VGG16-reduced body, written once against the MXNet
+    symbol API both packages share: ``S`` is ``mxnet_tpu.sym`` or
+    ``mxnet_tpu_torch.sym``. Output (B, 8732, 6) detections [class,
     score, x1, y1, x2, y2] from a (B, 3, 300, 300) ``data``; with
     ``heads``, instead the detection op's three inputs (cls_prob
-    (B, C, 8732), loc_preds (B, 8732*4), anchors (1, 8732, 4)).
-    ``width_div`` divides every convolution's width (small models for
-    the CPU tests); ``impl`` is MultiBoxDetection's NMS route."""
+    (B, C, 8732), loc_preds (B, 8732*4), anchors (1, 8732, 4)); with
+    ``train``, upstream symbol_builder.get_symbol_train's four outputs
+    over a (B, L, 6) ``label`` (SSD_TARGET's MultiBoxTarget; cls_prob,
+    the SoftmaxOutput over the targets; loc_loss, smooth_l1 of the masked
+    offsets under MakeLoss; cls_label, the targets under MakeLoss
+    grad_scale 0; det_out, MultiBoxDetection over cls_prob under MakeLoss
+    grad_scale 0). ``width_div`` divides every convolution's width (small
+    models for the CPU tests); ``impl`` is MultiBoxDetection's NMS
+    route."""
 
     def conv(x, name, nf, kernel=(3, 3), pad=(1, 1), stride=(1, 1),
              dilate=(1, 1)):
@@ -1241,6 +1266,25 @@ def ssd300_symbol(S, num_classes=20, width_div=1, impl="auto",
     anchor_boxes = S.reshape(S.Concat(*anchors, num_args=len(anchors),
                                       dim=1), shape=(0, -1, 4),
                              name="multibox_anchors")
+    if train:
+        label = S.Variable("label")
+        tgt = S.contrib.MultiBoxTarget(anchor_boxes, label, cls_preds,
+                                       name="multibox_target", **SSD_TARGET)
+        loc_target, loc_mask, cls_target = tgt[0], tgt[1], tgt[2]
+        cls_prob = S.SoftmaxOutput(cls_preds, cls_target, ignore_label=-1,
+                                   use_ignore=True, grad_scale=1.0,
+                                   multi_output=True, normalization="valid",
+                                   name="cls_prob")
+        loc_loss = S.MakeLoss(S.smooth_l1(loc_mask * (loc_preds - loc_target),
+                                          scalar=1.0, name="loc_loss_"),
+                              grad_scale=1.0, normalization="valid",
+                              name="loc_loss")
+        cls_label = S.MakeLoss(cls_target, grad_scale=0, name="cls_label")
+        det = S.contrib.MultiBoxDetection(cls_prob, loc_preds, anchor_boxes,
+                                          name="detection", impl=impl,
+                                          **SSD_NMS)
+        return S.Group([cls_prob, loc_loss, cls_label,
+                        S.MakeLoss(det, grad_scale=0, name="det_out")])
     cls_prob = S.SoftmaxActivation(cls_preds, mode="channel",
                                    name="cls_prob")
     if heads:
@@ -8677,6 +8721,920 @@ def rnn_phase():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# detect phase: SSD300 training, Faster R-CNN, the rest of the op catalog
+# ---------------------------------------------------------------------------
+
+# upstream example/ssd/train.py: batch 32, SGD lr 0.002, momentum 0.9, wd
+# 5e-4 (rescale 1: the losses normalize by the valid anchors); 21 classes
+# at 300 px, float32; labels (B, SSD_LABEL_ROWS, 6) padded with -1 rows
+SSD_TRAIN = dict(batch=32, lr=0.002, momentum=0.9, wd=5e-4)
+SSD_LABEL_ROWS = 12          # every image holds 1..8 boxes, so all pad
+SSD_TRAIN_STEPS = 8          # Module.fit steps: a warm-up and 7 timed
+SSD_SMALL_SEED = 0           # the small graph's weights (card vs CPU)
+SSD_SMALL_DATA_SEED = 1      # its batch: 8+ ulps at every target decision
+TARGET_MARGIN_ULPS = 8
+SSD_SMALL_TOL = dict(rtol=1e-4, atol=1e-5)   # outputs, card vs CPU
+SSD_UPDATE_RTOL = 1e-2       # a step's update, relative in norm (cuDNN)
+
+
+def ssd_train_batch(n, seed, rows=SSD_LABEL_ROWS, classes=SSD_CLASSES):
+    """n seeded images (standard normal, 3x300x300) and their labels
+    (n, rows, 6) [class, x1, y1, x2, y2, difficult] in [0, 1] image
+    coordinates: 1..8 boxes an image, each side 0.1..0.6, the rest -1."""
+    rs = np.random.RandomState(seed)
+    X = rs.standard_normal((n, 3, SSD_IMAGE, SSD_IMAGE)).astype(np.float32)
+    Y = -np.ones((n, rows, 6), np.float32)
+    for i in range(n):
+        for k in range(rs.randint(1, 9)):
+            w, h = rs.uniform(0.1, 0.6, 2)
+            x, y = rs.uniform(0, 1 - w), rs.uniform(0, 1 - h)
+            Y[i, k] = (rs.randint(0, classes), x, y, x + w, y + h, 0)
+    return X, Y
+
+
+def target_margin_ulps(prob_bg, cls_target):
+    """Per image, how far (in ulps of the larger) the hard-negative cut is
+    from a tie: the lowest background probability left out (ignored)
+    against the highest taken (negative); inf where every candidate was
+    taken. The targets agree across summation orders when this is large
+    in both."""
+    out = []
+    for p, t in zip(prob_bg, cls_target):
+        taken, left = p[t == 0], p[t == -1]
+        if not len(taken) or not len(left):
+            out.append(np.inf)
+            continue
+        hi = np.float32(taken.max())
+        out.append(float((np.float32(left.min()) - hi) / np.spacing(hi)))
+    return out
+
+
+def check_ssd_targets(what, anchors, labels, loc_target, loc_mask,
+                      cls_target):
+    """Fail unless MultiBoxTarget's outputs (numpy) follow SSD_TARGET's
+    rules: classes in {-1, 0, 1..20}; the mask set exactly at the
+    positives; min(3 P, A - P) negatives an image; every valid gt box the
+    decoded target of some positive anchor (each gt matched). Returns
+    the positives and negatives of each image."""
+    B, A = cls_target.shape
+    if not (np.isin(cls_target, np.arange(-1, SSD_CLASSES + 1)).all()):
+        fail("%s: cls_target outside {-1, 0, 1..%d}" % (what, SSD_CLASSES))
+    pos = cls_target > 0
+    mask = loc_mask.reshape(B, A, 4)
+    if not (np.array_equal(mask, np.repeat(pos[..., None], 4, -1)
+                           .astype(mask.dtype))):
+        fail("%s: loc_mask is not set exactly at the positives" % what)
+    stats = []
+    vx, vy, vw, vh = SSD_TARGET["variances"]
+    a = anchors.reshape(-1, 4).astype(np.float64)
+    aw, ah = a[:, 2] - a[:, 0], a[:, 3] - a[:, 1]
+    ax, ay = (a[:, 0] + a[:, 2]) / 2, (a[:, 1] + a[:, 3]) / 2
+    for b in range(B):
+        P = int(pos[b].sum())
+        neg = int((cls_target[b] == 0).sum())
+        if neg != min(3 * P, A - P):
+            fail("%s image %d: %d negatives for %d positives, want %d"
+                 % (what, b, neg, P, min(3 * P, A - P)))
+        t = loc_target.reshape(B, A, 4)[b][pos[b]].astype(np.float64)
+        cx = t[:, 0] * vx * aw[pos[b]] + ax[pos[b]]
+        cy = t[:, 1] * vy * ah[pos[b]] + ay[pos[b]]
+        w = np.exp(t[:, 2] * vw) * aw[pos[b]]
+        h = np.exp(t[:, 3] * vh) * ah[pos[b]]
+        dec = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], 1)
+        for k, row in enumerate(labels[b]):
+            if row[0] < 0:
+                break
+            hit = np.abs(dec - row[1:5]).max(axis=1) < 1e-4
+            if not hit.any() or not (cls_target[b][pos[b]][hit] ==
+                                     row[0] + 1).any():
+                fail("%s image %d: gt %d (%s) is no positive anchor's "
+                     "target" % (what, b, k, row[:5]))
+        stats.append((P, neg))
+    return stats
+
+
+def ssd_loss(outs):
+    """The training loss of SSD300's outputs (NDArrays), on their device
+    with one host read: the mean cross entropy of cls_prob at the valid
+    targets plus the summed loc_loss over the positives (upstream's
+    MultiBoxMetric, CrossEntropy + SmoothL1)."""
+    import torch
+    cls_prob, loc_loss, cls_label = (o._data for o in outs[:3])
+    valid = cls_label >= 0
+    t = cls_label.clamp_min(0).long()
+    p = torch.gather(cls_prob, 1, t[:, None])[:, 0]
+    ce = -(torch.log(p.clamp_min(1e-12)) * valid).sum() / valid.sum()
+    sl1 = loc_loss.sum() / (cls_label > 0).sum().clamp_min(1)
+    return float(ce + sl1)
+
+
+def ssd_module(mx, sym, ctx, params, X, Y):
+    """A Module over the SSD300 training graph on ``ctx``, bound to X, Y's
+    shapes, with ``params`` (numpy) and upstream's SGD."""
+    mod = mx.mod.Module(sym, data_names=("data",), label_names=("label",),
+                        context=ctx)
+    mod.bind(data_shapes=[("data", X.shape)],
+             label_shapes=[("label", Y.shape)])
+    with ctx:
+        mod.init_params(arg_params={k: mx.nd.array(v)
+                                    for k, v in params.items()},
+                        aux_params={})
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": SSD_TRAIN["lr"], "momentum": SSD_TRAIN["momentum"],
+        "wd": SSD_TRAIN["wd"]})
+    return mod
+
+
+def ssd_train_reference_check():
+    """A small SSD300 training graph (every width / SSD_SMALL_DIV, batch
+    2) from one set of weights on the card and on the CPU: one Module
+    step each. The targets (cls_label) equal exactly, on a batch whose
+    hard-negative cut is TARGET_MARGIN_ULPS or more from a tie on both
+    devices (the IoUs, from the same anchors and labels, are bit-equal);
+    the outputs agree within SSD_SMALL_TOL, and each parameter's update
+    within SSD_UPDATE_RTOL relative in norm (cuDNN's float32
+    convolutions round at about 1e-6, ROADMAP Queue C 8)."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import io
+
+    sym = ssd300_symbol(mx.sym, SSD_CLASSES, SSD_SMALL_DIV, train=True)
+    params = ssd_params(ssd300_symbol(mx.sym, SSD_CLASSES, SSD_SMALL_DIV,
+                                      heads=True), seed=SSD_SMALL_SEED)
+    X, Y = ssd_train_batch(2, SSD_SMALL_DATA_SEED)
+    res = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        mod = ssd_module(mx, sym, ctx, params, X, Y)
+        with ctx:
+            batch = io.DataBatch([mx.nd.array(X)], [mx.nd.array(Y)])
+        mod.forward(batch, is_train=True)
+        outs = [o.asnumpy() for o in mod.get_outputs()]
+        mod.backward()
+        mod.update()
+        after = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+        res.append((outs, after))
+    (card, card_p), (cpu, cpu_p) = res
+    margins = [min(target_margin_ulps(o[0][:, 0], o[2])) for o in (card, cpu)]
+    if min(margins) < TARGET_MARGIN_ULPS:
+        fail("detect: the small SSD300 batch's hard-negative cut is %s ulps "
+             "from a tie (card, CPU): pick another SSD_SMALL_DATA_SEED"
+             % margins)
+    if not np.array_equal(card[2], cpu[2]):
+        fail("detect: small SSD300 targets differ card vs CPU in %d anchors"
+             % int((card[2] != cpu[2]).sum()))
+    errs = [check_close("small SSD300 train output %d card vs CPU" % i,
+                        torch.from_numpy(c), torch.from_numpy(h),
+                        SSD_SMALL_TOL)
+            for i, (c, h) in enumerate(zip(card[:2], cpu[:2]))]
+    upd = max(_rel_norm({"u": card_p[k] - params[k]},
+                        {"u": cpu_p[k] - params[k]}) for k in params)
+    if not upd <= SSD_UPDATE_RTOL:
+        fail("detect: small SSD300 one step's update card vs CPU %.3g "
+             "relative in norm (limit %g)" % (upd, SSD_UPDATE_RTOL))
+    say("detect: small SSD300 train graph (widths / %d, batch 2, f32) one "
+        "Module step card vs CPU: cls_label equal (positives %s, negatives "
+        "%s; the hard-negative cut %s ulps from a tie on card, CPU), "
+        "cls_prob and loc_loss max abs err %s, largest parameter update "
+        "error %.3g relative in norm" % (
+            SSD_SMALL_DIV, (cpu[2] > 0).sum(1).tolist(),
+            (cpu[2] == 0).sum(1).tolist(),
+            ", ".join("%.0f" % m for m in margins),
+            " ".join("%.3g" % e for e in errs), upd))
+
+
+def ssd_train_phase():
+    """SSD300 (VGG16-reduced, 21 classes, 300 px, f32, TF32 off) trained
+    at full width through Module.fit: batch 32, upstream's SGD, seeded
+    batches with 1..8 boxes an image. Step ms, img/s, peak memory, a
+    profiled step's device time by kind, launches and busy share, the
+    target op alone; a finite, falling loss; the targets' rules; one NMS
+    launch a training forward. Returns the fit's launch counts."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import io
+    from mxnet_tpu_torch.ops import nms_kernels as nmsk
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    ssd_train_reference_check()
+    B, K = SSD_TRAIN["batch"], SSD_TRAIN_STEPS
+    t0 = time.perf_counter()
+    sym = ssd300_symbol(mx.sym, SSD_CLASSES, SSD_WIDTH_DIV, train=True)
+    heads_sym = ssd300_symbol(mx.sym, SSD_CLASSES, SSD_WIDTH_DIV, heads=True)
+    params = ssd_params(heads_sym, seed=0)
+    X, Y = ssd_train_batch(K * B, seed=5)
+    nparam = sum(p.size for p in params.values())
+    counters = [nmsk.nms_keep_cuda] + list(mt_counters())
+    mod = mx.mod.Module(sym, data_names=("data",), label_names=("label",),
+                        context=mx.gpu(0))
+    with mx.cpu():
+        args = {k: mx.nd.array(v) for k, v in params.items()}
+    losses, marks, peaks = [], [], []
+
+    class Loss(mx.metric.EvalMetric):
+        def __init__(self):
+            super().__init__("ssd_loss")
+
+        def update(self, labels, preds):
+            losses.append(ssd_loss(preds))
+
+    def timed_cb(param):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    say("detect: SSD300 train graph, %d classes + background, %d anchors, "
+        "%d params (%.1f M), batch %d x 3x%dx%d, labels (%d, %d, 6), f32 "
+        "(MXNET_MATMUL_PRECISION=%s), SGD lr %g momentum %g wd %g, set up "
+        "in %.1f s" % (SSD_CLASSES, SSD_ANCHORS, nparam, nparam / 1e6, B,
+                       SSD_IMAGE, SSD_IMAGE, B, SSD_LABEL_ROWS,
+                       mx.config.get("MXNET_MATMUL_PRECISION"),
+                       SSD_TRAIN["lr"], SSD_TRAIN["momentum"],
+                       SSD_TRAIN["wd"], time.perf_counter() - t0))
+    it = io.NDArrayIter(X, Y, batch_size=B, label_name="label")
+    torch.cuda.synchronize()
+    _reset_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    marks.append(time.perf_counter())
+    mod.fit(it, num_epoch=1, optimizer="sgd", optimizer_params={
+        "learning_rate": SSD_TRAIN["lr"], "momentum": SSD_TRAIN["momentum"],
+        "wd": SSD_TRAIN["wd"]}, eval_metric=Loss(), arg_params=args,
+        aux_params={}, batch_end_callback=timed_cb)
+    launches = {c.__name__: c.launches for c in counters}
+    gaps = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    step_ms = statistics.median(gaps[1:])
+    if launches["nms_keep_cuda"] != K:
+        fail("detect: nms_keep_cuda launched %d times in %d training "
+             "forwards" % (launches["nms_keep_cuda"], K))
+    if len(losses) != K or not np.isfinite(losses).all() or \
+            not min(losses[1:]) < losses[0]:
+        fail("detect: SSD300 losses %s: not finite, or none under the "
+             "first" % losses)
+    say("detect: SSD300 Module.fit, %d steps: step %.2f ms (median of steps "
+        "2..%d, boundary to boundary; all: %s), %.1f img/s, peak device "
+        "memory a step %s GB, loss %s, nms_keep_cuda %d launches (one a "
+        "training forward)" % (
+            K, step_ms, K, " ".join("%.1f" % g for g in gaps),
+            B / step_ms * 1e3, " ".join("%.2f" % (p / 1e9) for p in peaks),
+            " ".join("%.4f" % v for v in losses), launches["nms_keep_cuda"]))
+
+    with mx.gpu(0):
+        batch = io.DataBatch([mx.nd.array(X[:B])], [mx.nd.array(Y[:B])])
+
+    def one_step():
+        mod.forward_backward(batch)
+        mod.update()
+    profile("SSD300 training step (batch %d, f32)" % B, one_step, top=12)
+    step_launches = sum(profile.counts.values())
+    nms_n = kernel_counts(profile.counts, ("nms_cluster_kernel",))
+    say("detect: profiled step: %d launches, busy %.1f%%, NMS kernel x%d"
+        % (step_launches, 100 * profile.busy, nms_n["nms_cluster_kernel"]))
+
+    # the target op alone, at the step's shapes, and its rules
+    heads = mx.Predictor(heads_sym, {k: v._data for k, v in
+                                     mod.get_params()[0].items()},
+                         data_names=("data",), ctx=mx.gpu(0))
+    cls_prob, _loc, anchors = (h.handle for h in heads.forward(X[:B]))
+    logits = torch.log(cls_prob)
+    labels = torch.from_numpy(Y[:B]).cuda()
+    op = get_op("_contrib_MultiBoxTarget")
+    attrs = {**op.defaults, **SSD_TARGET}
+
+    def target():
+        return op.fn(anchors, labels, logits, **attrs)
+    outs = [o.cpu().numpy() for o in target()]
+    stats = check_ssd_targets("detect: SSD300 targets", anchors.cpu().numpy(),
+                              Y[:B], *outs)
+    tgt_ms = time_ms(target, reps=10, warmup=2)
+    tgt_dev = device_ms(target, "", reps=10)
+    say("detect: MultiBoxTarget at batch %d x %d anchors x %d label rows: "
+        "%.3f ms by events, %.3f ms of kernels (%d launches); every valid "
+        "gt matched, min(3P, A-P) negatives, mask at the positives "
+        "(positives a image %d..%d, negatives %d..%d)" % (
+            B, SSD_ANCHORS, SSD_LABEL_ROWS, tgt_ms, tgt_dev,
+            device_ms.launches, min(p for p, _ in stats),
+            max(p for p, _ in stats), min(n for _, n in stats),
+            max(n for _, n in stats)))
+    del mod, heads, cls_prob, logits, anchors, labels, batch, args
+    torch.cuda.empty_cache()
+    return launches
+
+
+# examples/rcnn_train.py's Faster R-CNN (its 64x64 images: the repo's one
+# Faster R-CNN): two stride-2 convolutions to a 16x16 map, anchors of
+# sides 8/16/32 px, 2 foreground classes, 8 proposals an image
+RCNN = dict(image=64, stride=4, scales=(2, 4, 8), ratios=(1.0,), classes=2,
+            post=8, batch=4, lr=0.02, steps=6)
+RCNN_TOL = dict(rtol=1e-4, atol=1e-5)
+# upstream example/rcnn's end-to-end VGG16 setting: 600x1000 at stride 16
+RCNN_VGG = dict(feat=(38, 63), stride=16, scales=(8, 16, 32),
+                ratios=(0.5, 1, 2), channels=512, threshold=0.7,
+                min_size=16, test=(6000, 300), train=(12000, 2000))
+ROI_COUNTS = (128, 300)
+PROPOSAL_TOL = dict(rtol=1e-6, atol=1e-4)    # boxes up to 1000 px
+# the gradient's sums over up to a few hundred rois a cell, added in no
+# fixed order on the card
+ROI_GRAD_TOL = dict(rtol=1e-5, atol=1e-4)
+
+
+def _rcnn_anchors(mx):
+    import importlib
+    rc = importlib.import_module(mx.__name__ + ".ops.rcnn_ops")
+    feat = RCNN["image"] // RCNN["stride"]
+    return rc._shifted_anchors(feat, feat, RCNN["stride"], RCNN["scales"],
+                               RCNN["ratios"])
+
+
+def _rcnn_iou(boxes, gt):
+    """boxes (N,4), gt (4,) -> (N,) IoU with +1 widths (proposal.cc)."""
+    ix1 = np.maximum(boxes[:, 0], gt[0])
+    iy1 = np.maximum(boxes[:, 1], gt[1])
+    ix2 = np.minimum(boxes[:, 2], gt[2])
+    iy2 = np.minimum(boxes[:, 3], gt[3])
+    inter = np.maximum(ix2 - ix1 + 1, 0) * np.maximum(iy2 - iy1 + 1, 0)
+    area = (boxes[:, 2] - boxes[:, 0] + 1) * (boxes[:, 3] - boxes[:, 1] + 1)
+    garea = (gt[2] - gt[0] + 1) * (gt[3] - gt[1] + 1)
+    return inter / np.maximum(area + garea - inter, 1e-9)
+
+
+def _rcnn_encode(anchors, gt):
+    aw = anchors[:, 2] - anchors[:, 0] + 1.0
+    ah = anchors[:, 3] - anchors[:, 1] + 1.0
+    ax = anchors[:, 0] + 0.5 * (aw - 1)
+    ay = anchors[:, 1] + 0.5 * (ah - 1)
+    gw = gt[2] - gt[0] + 1.0
+    gh = gt[3] - gt[1] + 1.0
+    gx = gt[0] + 0.5 * (gw - 1)
+    gy = gt[1] + 0.5 * (gh - 1)
+    return np.stack([(gx - ax) / aw, (gy - ay) / ah,
+                     np.log(gw / aw), np.log(gh / ah)], axis=1)
+
+
+def rcnn_register(mx):
+    """Register examples/rcnn_train.py's two target ops (AnchorTarget,
+    ProposalTarget) as Custom ops of ``mx`` (either package); registering
+    again makes fresh operators. Returns the list the ops append their
+    input's context to, a call."""
+    A = len(RCNN["scales"]) * len(RCNN["ratios"])
+    feat = RCNN["image"] // RCNN["stride"]
+    seen = []
+
+    class AnchorTargetOp(mx.operator.CustomOp):
+        def __init__(self):
+            super().__init__()
+            self._rng = np.random.RandomState(11)
+
+        def forward(self, is_train, req, in_data, out_data, aux):
+            seen.append(str(in_data[0].context))
+            gt = in_data[0].asnumpy()
+            B = gt.shape[0]
+            anchors = _rcnn_anchors(mx)
+            label = np.full((B, A * feat * feat), -1, np.float32)
+            tgt = np.zeros((B, A * 4, feat, feat), np.float32)
+            wgt = np.zeros((B, A * 4, feat, feat), np.float32)
+            hh, ww, aa = np.meshgrid(np.arange(feat), np.arange(feat),
+                                     np.arange(A), indexing="ij")
+            lab_idx = (aa * feat * feat + hh * feat + ww).reshape(-1)
+            for b in range(B):
+                iou = _rcnn_iou(anchors, gt[b, 1:])
+                pos = iou > 0.5
+                pos[np.argmax(iou)] = True
+                neg_idx = np.nonzero((iou < 0.3) & ~pos)[0]
+                keep_n = min(len(neg_idx), max(16, 8 * int(pos.sum())))
+                neg_keep = self._rng.choice(neg_idx, keep_n, replace=False)
+                label[b, lab_idx[pos]] = 1.0
+                label[b, lab_idx[neg_keep]] = 0.0
+                deltas = _rcnn_encode(anchors[pos], gt[b, 1:])
+                ph, pw, pa = (v.reshape(-1)[pos] for v in (hh, ww, aa))
+                for c in range(4):
+                    tgt[b, pa * 4 + c, ph, pw] = deltas[:, c]
+                    wgt[b, pa * 4 + c, ph, pw] = 1.0
+            self.assign(out_data[0], req[0], label)
+            self.assign(out_data[1], req[1], tgt)
+            self.assign(out_data[2], req[2], wgt)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            self.assign(in_grad[0], req[0], 0.0)
+
+    @mx.operator.register("rcnn_anchor_target")
+    class AnchorTargetProp(mx.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["gt_boxes"]
+
+        def list_outputs(self):
+            return ["label", "bbox_target", "bbox_weight"]
+
+        def infer_shape(self, in_shape):
+            B = in_shape[0][0]
+            return ([in_shape[0]],
+                    [(B, A * feat * feat), (B, A * 4, feat, feat),
+                     (B, A * 4, feat, feat)], [])
+
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            return AnchorTargetOp()
+
+    class ProposalTargetOp(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            seen.append(str(in_data[0].context))
+            rois = in_data[0].asnumpy()
+            gt = in_data[1].asnumpy()
+            R = rois.shape[0]
+            label = np.zeros((R,), np.float32)
+            tgt = np.zeros((R, 4), np.float32)
+            wgt = np.zeros((R, 4), np.float32)
+            for r in range(R):
+                b = int(rois[r, 0])
+                if _rcnn_iou(rois[r:r + 1, 1:], gt[b, 1:])[0] > 0.5:
+                    label[r] = gt[b, 0]
+                    tgt[r] = _rcnn_encode(rois[r:r + 1, 1:], gt[b, 1:])[0]
+                    wgt[r] = 1.0
+            self.assign(out_data[0], req[0], rois)
+            self.assign(out_data[1], req[1], label)
+            self.assign(out_data[2], req[2], tgt)
+            self.assign(out_data[3], req[3], wgt)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            self.assign(in_grad[0], req[0], 0.0)
+            self.assign(in_grad[1], req[1], 0.0)
+
+    @mx.operator.register("rcnn_proposal_target")
+    class ProposalTargetProp(mx.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["rois", "gt_boxes"]
+
+        def list_outputs(self):
+            return ["rois_out", "label", "bbox_target", "bbox_weight"]
+
+        def infer_shape(self, in_shape):
+            R = in_shape[0][0]
+            return (in_shape, [(R, 5), (R,), (R, 4), (R, 4)], [])
+
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            return ProposalTargetOp()
+
+    return seen
+
+
+def faster_rcnn_symbol(mx):
+    """examples/rcnn_train.py's graph, written against ``mx`` (either
+    package, after ``rcnn_register(mx)``): the RPN over two stride-2
+    convolutions, AnchorTarget's labels under SoftmaxOutput and its box
+    targets under smooth_l1, _contrib_Proposal, ProposalTarget,
+    ROIPooling over BlockGrad(body), the FC head's two losses."""
+    S = mx.sym
+    A = len(RCNN["scales"]) * len(RCNN["ratios"])
+    feat, post = RCNN["image"] // RCNN["stride"], RCNN["post"]
+    data, im_info, gt_boxes = (S.Variable(n) for n in
+                               ("data", "im_info", "gt_boxes"))
+    body = S.Activation(S.Convolution(
+        data, kernel=(3, 3), stride=(2, 2), pad=(1, 1), num_filter=16,
+        name="conv1"), act_type="relu")
+    body = S.Activation(S.Convolution(
+        body, kernel=(3, 3), stride=(2, 2), pad=(1, 1), num_filter=32,
+        name="conv2"), act_type="relu")
+    rpn = S.Activation(S.Convolution(
+        body, kernel=(3, 3), pad=(1, 1), num_filter=32, name="rpn_conv"),
+        act_type="relu")
+    rpn_cls = S.Convolution(rpn, kernel=(1, 1), num_filter=2 * A,
+                            name="rpn_cls")
+    rpn_bbox = S.Convolution(rpn, kernel=(1, 1), num_filter=4 * A,
+                             name="rpn_bbox")
+    tgt = S.Custom(gt_boxes=gt_boxes, name="anchor_target",
+                   op_type="rcnn_anchor_target")
+    rpn_cls_2 = S.Reshape(rpn_cls, shape=(0, 2, -1))
+    rpn_cls_prob = S.SoftmaxOutput(
+        rpn_cls_2, tgt[0], multi_output=True, use_ignore=True,
+        ignore_label=-1, normalization="valid", name="rpn_cls_prob")
+    rpn_bbox_loss = S.MakeLoss(
+        S.smooth_l1(tgt[2] * (rpn_bbox - tgt[1]), scalar=3.0),
+        grad_scale=1.0 / (A * feat * feat), name="rpn_bbox_loss")
+    score = S.Reshape(S.SoftmaxActivation(rpn_cls_2, mode="channel"),
+                      shape=(0, 2 * A, feat, feat))
+    rois = S.Custom(
+        rois=S._contrib_Proposal(
+            S.BlockGrad(score), S.BlockGrad(rpn_bbox), im_info,
+            rpn_pre_nms_top_n=64, rpn_post_nms_top_n=post, threshold=0.7,
+            rpn_min_size=4, scales=RCNN["scales"], ratios=RCNN["ratios"],
+            feature_stride=RCNN["stride"], name="proposal"),
+        gt_boxes=gt_boxes, name="proposal_target",
+        op_type="rcnn_proposal_target")
+    pooled = S.ROIPooling(S.BlockGrad(body), rois[0], pooled_size=(4, 4),
+                          spatial_scale=1.0 / RCNN["stride"],
+                          name="roi_pool")
+    fc = S.Activation(S.FullyConnected(S.Flatten(pooled), num_hidden=64,
+                                       name="fc6"), act_type="relu")
+    head_cls = S.FullyConnected(fc, num_hidden=RCNN["classes"] + 1,
+                                name="head_cls")
+    head_bbox = S.FullyConnected(fc, num_hidden=4, name="head_bbox")
+    head_cls_prob = S.SoftmaxOutput(head_cls, rois[1],
+                                    normalization="valid",
+                                    name="head_cls_prob")
+    head_bbox_loss = S.MakeLoss(
+        S.smooth_l1(rois[3] * (head_bbox - rois[2]), scalar=1.0),
+        grad_scale=1.0 / post, name="head_bbox_loss")
+    return S.Group([rpn_cls_prob, rpn_bbox_loss, head_cls_prob,
+                    head_bbox_loss, S.BlockGrad(rois[0]),
+                    S.BlockGrad(rois[1])])
+
+
+def rcnn_dataset(n, seed):
+    """examples/rcnn_train.py's make_dataset: one bright object a 64x64
+    image (class 1 a square of 14..21 px, class 2 a 26..33 x 10..13
+    rectangle); gt (n, 5) [class, x1, y1, x2, y2]."""
+    rng = np.random.RandomState(seed)
+    im = RCNN["image"]
+    X = rng.uniform(0, 0.15, (n, 3, im, im)).astype(np.float32)
+    gt = np.zeros((n, 5), np.float32)
+    for i in range(n):
+        cls = 1 + (i % 2)
+        if cls == 1:
+            w = h = rng.randint(14, 22)
+        else:
+            w = rng.randint(26, 34)
+            h = rng.randint(10, 14)
+        x1 = rng.randint(2, im - w - 2)
+        y1 = rng.randint(2, im - h - 2)
+        X[i, cls - 1, y1:y1 + h, x1:x1 + w] += 0.9
+        X[i, 2, y1:y1 + h, x1:x1 + w] += 0.4
+        gt[i] = (cls, x1, y1, x1 + w - 1, y1 + h - 1)
+    return X, gt
+
+
+def rcnn_params(mx, sym, seed):
+    """The Faster R-CNN's weights as numpy arrays: Xavier from
+    mx.random.seed(seed), zero biases."""
+    from mxnet_tpu_torch.initializer import InitDesc, Xavier
+    B, im = RCNN["batch"], RCNN["image"]
+    shapes, _, _ = sym.infer_shape(data=(B, 3, im, im), im_info=(B, 3),
+                                   gt_boxes=(B, 5))
+    init = Xavier()
+    mx.random.seed(seed)
+    params = {}
+    for name, shp in zip(sym.list_arguments(), shapes):
+        if name in ("data", "im_info", "gt_boxes"):
+            continue
+        arr = mx.nd.zeros(shp, ctx=mx.cpu())
+        init(InitDesc(name), arr)
+        params[name] = arr.asnumpy()
+    return params
+
+
+def rcnn_module(mx, sym, ctx, params):
+    B = RCNN["batch"]
+    mod = mx.mod.Module(sym, data_names=("data", "im_info"),
+                        label_names=("gt_boxes",), context=ctx)
+    im = RCNN["image"]
+    mod.bind(data_shapes=[("data", (B, 3, im, im)), ("im_info", (B, 3))],
+             label_shapes=[("gt_boxes", (B, 5))])
+    with ctx:
+        mod.init_params(arg_params={k: mx.nd.array(v)
+                                    for k, v in params.items()},
+                        aux_params={})
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": RCNN["lr"], "momentum": 0.9,
+        "rescale_grad": 1.0 / B})
+    return mod
+
+
+def rcnn_phase():
+    """(b) examples/rcnn_train.py's Faster R-CNN through Module: one step
+    card against CPU from one set of weights (outputs within RCNN_TOL,
+    updates within SSD_UPDATE_RTOL in norm), a few Module.fit steps on
+    the card with finite losses, the Custom ops run on the card and
+    refused by every capture; then _contrib_Proposal and ROIPooling
+    timed alone at upstream example/rcnn's VGG16 shapes."""
+    import shutil
+    import tempfile
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import io
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.parallel import make_train_step
+
+    B, im = RCNN["batch"], RCNN["image"]
+    rcnn_register(mx)
+    sym = faster_rcnn_symbol(mx)
+    params = rcnn_params(mx, sym, seed=0)
+    X, gt = rcnn_dataset(48, seed=0)
+    info = np.tile(np.array([im, im, 1.0], np.float32), (B, 1))
+    res = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        seen = rcnn_register(mx)         # fresh operators (their rng)
+        mod = rcnn_module(mx, sym, ctx, params)
+        with ctx:
+            batch = io.DataBatch([mx.nd.array(X[:B]), mx.nd.array(info)],
+                                 [mx.nd.array(gt[:B])])
+        mod.forward(batch, is_train=True)
+        outs = [o.asnumpy() for o in mod.get_outputs()]
+        mod.backward()
+        mod.update()
+        after = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+        res.append((outs, after, set(seen)))
+    (card, card_p, card_seen), (cpu, cpu_p, cpu_seen) = res
+    if card_seen != {str(mx.gpu(0))} or cpu_seen != {str(mx.cpu())}:
+        fail("detect: the Custom ops ran on %s (card run) and %s (CPU run)"
+             % (sorted(card_seen), sorted(cpu_seen)))
+    errs = [check_close("Faster R-CNN output %d card vs CPU" % i,
+                        torch.from_numpy(c), torch.from_numpy(h), RCNN_TOL)
+            for i, (c, h) in enumerate(zip(card, cpu))]
+    upd = max(_rel_norm({"u": card_p[k] - params[k]},
+                        {"u": cpu_p[k] - params[k]}) for k in params)
+    if not upd <= SSD_UPDATE_RTOL:
+        fail("detect: Faster R-CNN one step's update card vs CPU %.3g "
+             "relative in norm" % upd)
+    say("detect: Faster R-CNN (examples/rcnn_train.py, batch %d x 3x%dx%d) "
+        "one Module step card vs CPU: outputs (the proposals fifth) max "
+        "abs err %s (rtol %g, atol %g), largest update error %.3g relative "
+        "in norm;"
+        " the Custom ops ran on gpu(0) and cpu(0)" % (
+            B, im, im, " ".join("%.3g" % e for e in errs),
+            RCNN_TOL["rtol"], RCNN_TOL["atol"], upd))
+
+    # a few Module.fit steps on the card
+    seen = rcnn_register(mx)
+    losses = []
+
+    class Loss(mx.metric.EvalMetric):
+        def __init__(self):
+            super().__init__("rcnn_loss")
+
+        def update(self, labels, preds):
+            losses.append([float(p._data.float().sum()) for p in preds[:4]])
+    K = RCNN["steps"]
+    it = io.NDArrayIter({"data": X[:K * B], "im_info": np.tile(
+        info[:1], (K * B, 1))}, {"gt_boxes": gt[:K * B]}, batch_size=B)
+    mod = mx.mod.Module(sym, data_names=("data", "im_info"),
+                        label_names=("gt_boxes",), context=mx.gpu(0))
+    with mx.cpu():
+        args = {k: mx.nd.array(v) for k, v in params.items()}
+    t = time.perf_counter()
+    mod.fit(it, num_epoch=1, optimizer="sgd", optimizer_params={
+        "learning_rate": RCNN["lr"], "momentum": 0.9,
+        "rescale_grad": 1.0 / B}, eval_metric=Loss(), arg_params=args,
+        aux_params={})
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    if len(losses) != K or not np.isfinite(losses).all():
+        fail("detect: Faster R-CNN fit outputs %s" % losses)
+    if set(seen) != {str(mx.gpu(0))}:
+        fail("detect: the fit's Custom ops ran on %s" % sorted(set(seen)))
+    refused = []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rcnn_")
+    for what, call in (
+            ("TrainStep.export", lambda: make_train_step(
+                sym, optimizer="sgd").export(os.path.join(tmp, "s"), None,
+                                             None)),
+            ("Predictor.export_buckets", lambda: mx.Predictor(
+                sym, {k: v._data for k, v in mod.get_params()[0].items()},
+                data_names=("data", "im_info", "gt_boxes")).export_buckets(
+                    os.path.join(tmp, "p"), [(3, im, im), (3,), (5,)]))):
+        try:
+            call()
+        except MXNetError as e:
+            if "anchor_target" not in str(e) or \
+                    "proposal_target" not in str(e):
+                fail("detect: %s refused without naming the Custom nodes: "
+                     "%s" % (what, e))
+            refused.append(what)
+        else:
+            fail("detect: %s of a graph with Custom nodes did not raise"
+                 % what)
+    shutil.rmtree(tmp, ignore_errors=True)
+    say("detect: Faster R-CNN Module.fit %d steps on the card in %.2f s: "
+        "the four heads' outputs finite (their sums at the last step %s); "
+        "the Custom ops ran on "
+        "gpu(0); %s refused, naming the Custom nodes" % (
+            K, fit_s, " ".join("%.4g" % v for v in losses[-1]),
+            " and ".join(refused)))
+    del mod
+    proposal_timing()
+    roi_pooling_timing()
+
+
+def proposal_timing():
+    """_contrib_Proposal at upstream example/rcnn's VGG16 end-to-end
+    setting (batch 1, a 38x63 map, 9 anchors a cell: 21,546), test (pre
+    6000, post 300) and train (pre 12000, post 2000): ms by events, the
+    fixed-point walk's sweeps and ms alone, card equal to the CPU, and
+    the walk's keep mask equal to the sequential loop's flag for flag."""
+    import torch
+    from mxnet_tpu_torch.ops import rcnn_ops
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    cfg = RCNN_VGG
+    H, W = cfg["feat"]
+    A = len(cfg["scales"]) * len(cfg["ratios"])
+    rs = np.random.RandomState(3)
+    fg = rs.uniform(0, 1, (1, A, H, W)).astype(np.float32)
+    prob = np.concatenate([1 - fg, fg], 1)
+    deltas = (rs.standard_normal((1, 4 * A, H, W)) * 0.1).astype(np.float32)
+    info = np.array([[H * cfg["stride"], W * cfg["stride"], 1.0]],
+                    np.float32)
+    op = get_op("_contrib_Proposal")
+    for mode in ("test", "train"):
+        pre, post = cfg[mode]
+        attrs = {**op.defaults, "rpn_pre_nms_top_n": pre,
+                 "rpn_post_nms_top_n": post, "threshold": cfg["threshold"],
+                 "rpn_min_size": cfg["min_size"], "scales": cfg["scales"],
+                 "ratios": cfg["ratios"], "feature_stride": cfg["stride"],
+                 "output_score": True}
+        card_in = [torch.from_numpy(a).cuda() for a in (prob, deltas, info)]
+        rois, scores = op.fn(*card_in, **attrs)
+        c_rois, c_scores = op.fn(*[torch.from_numpy(a) for a in
+                                   (prob, deltas, info)], **attrs)
+        # exp rounds in its last bit on one device and not the other
+        err = check_close("Proposal (%s) rois card vs CPU" % mode,
+                          rois.cpu(), c_rois, PROPOSAL_TOL)
+        if not torch.equal(scores.cpu(), c_scores):
+            fail("detect: Proposal (%s) card vs CPU: the scores differ"
+                 % mode)
+        ms = time_ms(lambda: op.fn(*card_in, **attrs), reps=5, warmup=1)
+        # the walk alone, and against the sequential loop, on the card
+        boxes, score = rcnn_ops._candidates(
+            *card_in, pre, cfg["min_size"], cfg["scales"], cfg["ratios"],
+            cfg["stride"])
+        sup = rcnn_ops._suppression(boxes, cfg["threshold"])
+        valid = score > float("-inf")
+        keep, n_sw = rcnn_ops._sweep_keep(sup, valid)
+        dense = rcnn_ops._dense_keep(sup, valid)
+        if not torch.equal(keep, dense):
+            fail("detect: the fixed-point walk's keep mask differs from the "
+                 "sequential loop's (%s, %d rows)" % (mode, pre))
+        walk_ms = time_ms(lambda: rcnn_ops._sweep_keep(sup, valid), reps=5,
+                          warmup=1)
+        say("detect: Proposal %s (pre %d, post %d, %d anchors, %dx%d): "
+            "%.3f ms by events, %d fixed-point sweeps; scores equal to the "
+            "CPU's, rois within %.3g; the walk alone over %d candidates (%d "
+            "kept) %.3f ms by events, its keep mask equal to the sequential "
+            "loop's flag for flag" % (mode, pre, post, A * H * W, H, W, ms,
+                                      n_sw, err, pre, int(keep.sum()),
+                                      walk_ms))
+        del sup, keep, dense, card_in, rois
+    torch.cuda.empty_cache()
+
+
+def roi_pooling_timing():
+    """ROIPooling at the VGG16 map (1, 512, 38, 63), 7x7, spatial scale
+    1/16, with ROI_COUNTS rois in a 600x1000 image: forward and backward
+    ms by events; the forward equal to the CPU's, the gradient within
+    ROI_GRAD_TOL (the backward's scatter adds in no fixed order on the
+    card)."""
+    import torch
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    H, W = RCNN_VGG["feat"]
+    op = get_op("ROIPooling")
+    rs = np.random.RandomState(4)
+    data = np.maximum(rs.standard_normal(
+        (1, RCNN_VGG["channels"], H, W)), 0).astype(np.float32)
+    for R in ROI_COUNTS:
+        xy = rs.uniform(0, [1000, 600], (R, 2))
+        wh = rs.uniform(16, 400, (R, 2))
+        rois = np.concatenate([np.zeros((R, 1)), xy, np.minimum(
+            xy + wh, [999, 599])], 1).astype(np.float32)
+        dy = rs.standard_normal((R, RCNN_VGG["channels"], 7, 7)).astype(
+            np.float32)
+        outs = []
+        for dev in ("cuda", "cpu"):
+            x = torch.from_numpy(data).to(dev).requires_grad_()
+            y = op.fn(x, torch.from_numpy(rois).to(dev), pooled_size=(7, 7),
+                      spatial_scale=1.0 / RCNN_VGG["stride"])
+            g, = torch.autograd.grad(y, x, torch.from_numpy(dy).to(dev))
+            outs.append((y.detach().cpu(), g.cpu()))
+        if not torch.equal(outs[0][0], outs[1][0]):
+            fail("detect: ROIPooling forward card vs CPU differs (%d rois)"
+                 % R)
+        gerr = check_close("ROIPooling gradient card vs CPU (%d rois)" % R,
+                           outs[0][1], outs[1][1], ROI_GRAD_TOL)
+        x = torch.from_numpy(data).cuda().requires_grad_()
+        r = torch.from_numpy(rois).cuda()
+        g_out = torch.from_numpy(dy).cuda()
+        fwd = time_ms(lambda: op.fn(x.detach(), r, pooled_size=(7, 7),
+                                    spatial_scale=1.0 / 16), reps=10)
+
+        def fwd_bwd():
+            y = op.fn(x, r, pooled_size=(7, 7), spatial_scale=1.0 / 16)
+            torch.autograd.grad(y, x, g_out)
+        both = time_ms(fwd_bwd, reps=10)
+        say("detect: ROIPooling (1, %d, %d, %d), %d rois, 7x7, 1/16: forward "
+            "%.3f ms, forward + backward %.3f ms by events; forward equal to "
+            "the CPU's, gradient max abs err %.3g" % (
+                RCNN_VGG["channels"], H, W, R, fwd, both, gerr))
+    torch.cuda.empty_cache()
+
+
+def other_ops_cases():
+    """(c)'s ops at one small shape each: (op name, inputs, attrs)."""
+    rs = np.random.RandomState(6)
+
+    def f(*shape):
+        return rs.standard_normal(shape).astype(np.float32)
+    spd = f(5, 5)
+    spd = spd @ spd.T + 5 * np.eye(5, dtype=np.float32)
+    tri = np.tril(f(5, 5)) + 3 * np.eye(5, dtype=np.float32)
+    lo, hi = np.array([-1.5], np.float32), np.array([2.0], np.float32)
+    return [
+        ("GridGenerator", [f(2, 6) * 0.3], {"transform_type": "affine",
+                                            "target_shape": (6, 7)}),
+        ("GridGenerator", [f(2, 2, 6, 7)], {"transform_type": "warp"}),
+        ("BilinearSampler", [f(2, 3, 8, 9), f(2, 2, 6, 7) * 0.8], {}),
+        ("SpatialTransformer", [f(2, 3, 8, 9), np.tile(np.array(
+            [[0.9, 0.1, 0.05, -0.1, 0.8, 0.1]], np.float32), (2, 1))],
+         {"target_shape": (6, 7)}),
+        ("Correlation", [f(2, 4, 9, 10), f(2, 4, 9, 10)],
+         {"kernel_size": 3, "max_displacement": 2, "stride2": 2,
+          "pad_size": 3}),
+        ("_linalg_gemm", [f(2, 3, 4), f(2, 4, 5), f(2, 3, 5)],
+         {"alpha": 0.5, "beta": 2.0}),
+        ("_linalg_gemm2", [f(4, 3), f(4, 5)], {"transpose_a": True}),
+        ("_linalg_potrf", [spd], {}),
+        ("_linalg_potri", [tri], {}),
+        ("_linalg_trmm", [tri, f(5, 3)], {"transpose": True}),
+        ("_linalg_trsm", [tri, f(3, 5)], {"rightside": True,
+                                          "alpha": 0.5}),
+        ("_linalg_syrk", [f(3, 5)], {}),
+        ("_linalg_sumlogdiag", [tri], {}),
+        ("khatri_rao", [f(2, 3), f(4, 3)], {}),
+        ("_contrib_fft", [f(4, 16)], {}),
+        ("_contrib_ifft", [f(4, 32)], {}),
+        ("_contrib_count_sketch", [f(6, 40), rs.randint(
+            0, 12, (1, 40)).astype(np.float32), np.where(
+            f(1, 40) > 0, 1, -1).astype(np.float32)], {"out_dim": 12}),
+        ("_contrib_quantize", [f(6, 7), lo, hi], {}),
+        ("_contrib_dequantize", [rs.randint(0, 256, (6, 7)).astype(
+            np.uint8), lo, hi], {}),
+    ]
+
+
+OTHER_TOL = dict(rtol=1e-5, atol=1e-5)   # cuBLAS/cuSOLVER/cuFFT vs CPU
+
+
+def other_ops_phase():
+    """(c) the warp ops, linalg, fft/ifft, count_sketch and the quantize
+    pair on the card against the port's CPU at one small shape each,
+    within OTHER_TOL (integer outputs equal); gelqf by its invariants
+    (L.Q = A, Q.Q^T = I, |diag L| as the CPU's), since Q and L are unique
+    only up to row signs."""
+    import torch
+    from mxnet_tpu_torch.ops.registry import canon_attrs, get_op
+
+    worst = {}
+    for name, inputs, attrs in other_ops_cases():
+        op = get_op(name)
+        a = canon_attrs(op, attrs)
+        outs = []
+        for dev in ("cuda", "cpu"):
+            o = op.fn(*[torch.from_numpy(x).to(dev) for x in inputs], **a)
+            outs.append([t.cpu() for t in (o if isinstance(o, (tuple, list))
+                                           else [o])])
+        for c, h in zip(*outs):
+            if c.dtype.is_floating_point:
+                err = check_close("%s card vs CPU" % name, c, h, OTHER_TOL)
+            elif not torch.equal(c, h):
+                fail("detect: %s card vs CPU: integer outputs differ" % name)
+            else:
+                err = 0.0
+            worst[name] = max(worst.get(name, 0.0), err)
+    A = np.random.RandomState(7).standard_normal((3, 5)).astype(np.float32)
+    op = get_op("_linalg_gelqf")
+    q, l = (t.double().cpu() for t in op.fn(torch.from_numpy(A).cuda()))
+    _q, cl = op.fn(torch.from_numpy(A))
+    a64 = torch.from_numpy(A).double()
+    lq = float((l @ q - a64).abs().max())
+    orth = float((q @ q.T - torch.eye(3, dtype=torch.float64)).abs().max())
+    diag = float((l.diagonal().abs() - cl.double().diagonal().abs())
+                 .abs().max())
+    if max(lq, orth, diag) > 1e-5:
+        fail("detect: gelqf on the card: |LQ - A| %g, |QQ^T - I| %g, "
+             "||diag L| - CPU's| %g" % (lq, orth, diag))
+    say("detect: other ops card vs CPU (rtol %g, atol %g): %s; gelqf |LQ - "
+        "A| %.3g, |QQ^T - I| %.3g, |diag L| against the CPU's %.3g" % (
+            OTHER_TOL["rtol"], OTHER_TOL["atol"], ", ".join(
+                "%s %.3g" % kv for kv in worst.items()), lq, orth, diag))
+
+
+def detect_phase():
+    """Detection training and the rest of the op catalog on the card: (a)
+    SSD300 trained at full width through Module.fit, (b) Faster R-CNN
+    with its Custom target ops, Proposal and ROIPooling at VGG16's
+    shapes, (c) the other ops card against CPU. Returns (a)'s launch
+    counts of the port's kernels."""
+    t0 = time.perf_counter()
+    launches = ssd_train_phase()
+    rcnn_phase()
+    other_ops_phase()
+    say("detect: phase done in %.1f s" % (time.perf_counter() - t0))
+    return launches
+
+
+
 def main():
     try:
         import torch
@@ -8763,7 +9721,8 @@ def main():
                "gluon": gluon_phase([bnk.bn_stats_cuda, bnk.bn_apply_cuda,
                                      bnk.bn_bwd_reduce_cuda,
                                      bnk.bn_bwd_dx_cuda]),
-               "rnn": rnn_phase()}
+               "rnn": rnn_phase(),
+               "detect": detect_phase()}
     for rec in records:
         # no kernel moves its bytes faster than the memory can: a time
         # under the byte bound means the timing lost work
@@ -8799,7 +9758,7 @@ PARTIAL = {"mt": mt_kernel_phase, "bn": bn_kernel_phase,
            "gspmd2": gspmd2_phase, "kvdist2": kvdist2_phase,
            "profiler": profiler_phase,
            "gluon": lambda: gluon_phase(_bn_counters()),
-           "rnn": rnn_phase}
+           "rnn": rnn_phase, "detect": detect_phase}
 
 
 def _serve_counters():

@@ -99,3 +99,4 @@ from . import parallel  # noqa: E402
 from . import recordio  # noqa: E402
 from . import gluon  # noqa: E402
 from . import rnn  # noqa: E402
+from . import operator  # noqa: E402  (mx.operator: Custom ops)

@@ -21,4 +21,8 @@ from . import detection_ops  # noqa: F401
 from . import random_ops    # noqa: F401
 from . import rnn_op        # noqa: F401
 from . import ctc           # noqa: F401
+from . import rcnn_ops      # noqa: F401
+from . import warp_ops      # noqa: F401
+from . import linalg        # noqa: F401
+from . import custom        # noqa: F401
 from . import shape_hooks   # noqa: F401  (must come after all registrations)

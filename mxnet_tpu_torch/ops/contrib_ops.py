@@ -1,14 +1,20 @@
-"""The weight-only int8 ops of ``mxnet_tpu/ops/contrib_ops.py``
-(``_contrib_QuantizedFullyConnected`` and ``_contrib_QuantizedEmbedding``,
-the decode side of ``Generator(quantize="int8")``) and the MoE FFN
-(``_contrib_MoEFFN``, over ``parallel/moe.py``). The module's other ops
-(fft, count_sketch, the affine quantize pair) wait for ROADMAP Queue A
-item 10.
+"""The ops of ``mxnet_tpu/ops/contrib_ops.py``: fft/ifft, count_sketch,
+the affine quantize/dequantize pair (reference: src/operator/contrib/
+{fft,ifft,count_sketch,quantize,dequantize}-inl.h), the weight-only int8
+ops (``_contrib_QuantizedFullyConnected`` and
+``_contrib_QuantizedEmbedding``, the decode side of
+``Generator(quantize="int8")``) and the MoE FFN (``_contrib_MoEFFN``,
+over ``parallel/moe.py``).
 
-Both are plain PyTorch. The weights are dequantized to the compute dtype
-before the product (a materialized copy, where XLA fuses the convert
-into the product's operand reads), so a bf16 step reads more bytes than
-bf16 weights would; a fused int8 GEMM is later work.
+All plain PyTorch. fft's output interleaves [re, im] along the last
+axis, and ifft is not normalised (ifft(fft(x)) = d·x), as cuFFT's
+inverse in the reference. count_sketch adds with ``index_add``: on CUDA
+its float additions land in no fixed order, so two runs (and the card
+against the CPU) agree to the rounding of the sums, not bit for bit.
+The int8 weights are dequantized to the compute dtype before the product
+(a materialized copy, where XLA fuses the convert into the product's
+operand reads), so a bf16 step reads more bytes than bf16 weights would;
+a fused int8 GEMM is later work.
 """
 from __future__ import annotations
 
@@ -17,7 +23,80 @@ import torch
 from ..base import torch_dtype
 from .attention import _matmul_t_f32
 from .indexing import _gather_rows
+from .detection_ops import _weak
 from .registry import register
+
+
+@register("_contrib_fft", arg_names=("data",),
+          aliases=("fft",), defaults={"compute_size": 128})
+def _fft(data, **_):
+    """Real input (..., d) -> (..., 2d) interleaved [re, im] along the
+    last axis (reference fft-inl.h layout)."""
+    out = torch.fft.fft(data.to(torch.float32), dim=-1)
+    inter = torch.stack([out.real, out.imag], dim=-1)
+    return inter.reshape(data.shape[:-1] + (2 * data.shape[-1],)) \
+        .to(data.dtype)
+
+
+@register("_contrib_ifft", arg_names=("data",),
+          aliases=("ifft",), defaults={"compute_size": 128})
+def _ifft(data, **_):
+    """Interleaved (..., 2d) -> real (..., d). Like the reference (cuFFT
+    inverse), the result is NOT normalized: ifft(fft(x)) == d * x."""
+    d = data.shape[-1] // 2
+    pairs = data.reshape(data.shape[:-1] + (d, 2)).to(torch.float32)
+    comp = torch.complex(pairs[..., 0], pairs[..., 1])
+    real = torch.fft.ifft(comp, dim=-1).real
+    return (real * d).to(data.dtype)
+
+
+@register("_contrib_count_sketch", arg_names=("data", "h", "s"),
+          nondiff_inputs=(1, 2),
+          defaults={"out_dim": 0, "processing_batch_size": 32})
+def _count_sketch(data, h, s, out_dim=0, **_):
+    """Count-sketch projection (reference count_sketch-inl.h):
+    out[..., h[j]] += s[j] * in[..., j]; h (1, in_dim) hash buckets,
+    s (1, in_dim) signs."""
+    in_dim = data.shape[-1]
+    hh = h.detach().reshape(-1)[:in_dim].to(torch.int64)
+    ss = s.detach().reshape(-1)[:in_dim].to(data.dtype)
+    flat = data.reshape(-1, in_dim)
+    contrib = flat * ss[None, :]
+    out = flat.new_zeros((flat.shape[0], int(out_dim))).index_add(
+        1, hh, contrib)
+    return out.reshape(data.shape[:-1] + (int(out_dim),))
+
+
+@register("_contrib_quantize", arg_names=("data", "min_range", "max_range"),
+          differentiable=False, aliases=("quantize",),
+          defaults={"out_type": "uint8"})
+def _quantize(data, min_range, max_range, out_type="uint8", **_):
+    """Affine quantization to uint8/int8 (reference quantize-inl.h):
+    out = (in - min) * (limit_range / (max - min)) + 0.5; min/max pass
+    through as outputs 1/2."""
+    lo, hi = (0.0, 255.0) if out_type == "uint8" else (-127.0, 127.0)
+    dt = torch.uint8 if out_type == "uint8" else torch.int8
+    # a true division (torch takes scalar / tensor as a reciprocal product)
+    scale = _weak(max_range, hi - lo) / (max_range - min_range)
+    # floor(v + 0.5): round-half-up on both signs (int8 negatives would
+    # truncate toward zero under a bare cast)
+    q = torch.floor((data - min_range) * scale + lo + 0.5)
+    return (torch.clamp(q, lo, hi).to(dt),
+            min_range.reshape(()).to(torch.float32),
+            max_range.reshape(()).to(torch.float32))
+
+
+@register("_contrib_dequantize", arg_names=("data", "min_range",
+                                            "max_range"),
+          differentiable=False, aliases=("dequantize",),
+          defaults={"out_type": "float32"})
+def _dequantize(data, min_range, max_range, out_type="float32", **_):
+    """Inverse of quantize (reference dequantize-inl.h): for uint8,
+    out = in * ((max - min) / 255) + min."""
+    lo, hi = (0.0, 255.0) if data.dtype == torch.uint8 else (-127.0, 127.0)
+    scale = (max_range - min_range) / _weak(max_range, hi - lo)
+    return ((data.to(torch.float32) - lo) * scale + min_range) \
+        .to(torch_dtype(out_type))
 
 
 @register("_contrib_QuantizedFullyConnected",

@@ -280,34 +280,9 @@ def _input_context(nd_inputs):
 
 # JAX module -> (ROADMAP item, every name it registers, aliases included)
 _NOT_PORTED = {
-    "contrib_ops": ("Queue A item 10 (contrib_ops.py)", (
-        "_contrib_count_sketch", "_contrib_dequantize", "_contrib_fft",
-        "_contrib_ifft", "_contrib_quantize", "dequantize", "fft", "ifft",
-        "quantize")),
-    "custom": ("Queue A item 10 (custom.py)", ("Custom",)),
-    "detection_ops": ("Queue A item 10 (SSD training, ROIPooling)", (
-        "MultiBoxTarget", "ROIPooling", "_contrib_MultiBoxTarget",
-        "_contrib_ROIPooling", "_contrib_multibox_target")),
-    "indexing": ("Queue A item 10 (sparse storage)", (
+    "indexing": ("Queue A item 10.4 (sparse storage)", (
         "_sparse_retain", "_square_sum")),
-    "linalg": ("Queue A item 10 (linalg.py)", (
-        "_contrib_krprod", "_khatri_rao", "_linalg_gelqf", "_linalg_gemm",
-        "_linalg_gemm2", "_linalg_potrf", "_linalg_potri",
-        "_linalg_sumlogdiag", "_linalg_syrk", "_linalg_trmm",
-        "_linalg_trsm", "khatri_rao", "linalg_gelqf", "linalg_gemm",
-        "linalg_gemm2", "linalg_potrf", "linalg_potri", "linalg_sumlogdiag",
-        "linalg_syrk", "linalg_trmm", "linalg_trsm")),
-    "matrix": ("Queue A item 10 (sparse storage)", ("cast_storage",)),
-    "rcnn_ops": ("Queue A item 10 (rcnn_ops.py)", (
-        "DeformableConvolution", "DeformablePSROIPooling", "MultiProposal",
-        "PSROIPooling", "Proposal", "_contrib_DeformableConvolution",
-        "_contrib_DeformablePSROIPooling", "_contrib_MultiProposal",
-        "_contrib_PSROIPooling", "_contrib_Proposal",
-        "_contrib_multi_proposal", "_contrib_proposal",
-        "_contrib_psroipooling")),
-    "warp_ops": ("Queue A item 10 (warp_ops.py)", (
-        "BilinearSampler", "Correlation", "GridGenerator",
-        "SpatialTransformer")),
+    "matrix": ("Queue A item 10.4 (sparse storage)", ("cast_storage",)),
 }
 _NOT_PORTED_BY_NAME = {n: (mod, item) for mod, (item, names)
                        in _NOT_PORTED.items() for n in names}

@@ -1,8 +1,8 @@
 """Symbolic-composition hooks for the ported ops: which tensor args an op
 exposes under given attrs, and backward shape inference for parameter
 (and aux) variables. The rules are those of
-``mxnet_tpu/ops/shape_hooks.py``; the hooks of ops not ported yet
-(the deformable contrib ops) arrive with their ops.
+``mxnet_tpu/ops/shape_hooks.py`` (the Custom op's hook is in
+``ops/custom.py``).
 """
 from __future__ import annotations
 
@@ -143,6 +143,35 @@ def _prelu_shapes(shapes, attrs):
 
 
 set_param_shapes("LeakyReLU", _prelu_shapes)
+
+
+# -- DeformableConvolution: weight/bias from data like Convolution ----------
+
+set_arg_select("_contrib_DeformableConvolution", lambda a: (
+    ("data", "offset", "weight") if a.get("no_bias")
+    else ("data", "offset", "weight", "bias")))
+
+
+def _deform_conv_shapes(shapes, attrs):
+    data = shapes[0]
+    if data is None:
+        return shapes
+    kernel = tuple(int(k) for k in attrs.get("kernel", ()))
+    nf = int(attrs.get("num_filter", 0))
+    ng = int(attrs.get("num_group", 1))
+    out = list(shapes)
+    if len(out) > 2 and out[2] is None:
+        out[2] = (nf, data[1] // ng) + kernel
+    if len(out) > 3 and out[3] is None:
+        out[3] = (nf,)
+    return out
+
+
+set_param_shapes("_contrib_DeformableConvolution", _deform_conv_shapes)
+
+set_arg_select("_contrib_DeformablePSROIPooling", lambda a: (
+    ("data", "rois") if a.get("no_trans")
+    else ("data", "rois", "trans")))
 
 
 # -- RNN (fused): parameters blob + state shapes from data ------------------

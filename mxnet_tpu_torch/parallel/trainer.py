@@ -84,6 +84,7 @@ from ..executor import _graph_eval_fn, forward_backward
 from ..ndarray import array
 from ..ops import optimizer_kernels as _mt
 from ..ops._mesh_ctx import replica_of
+from ..ops.custom import refuse_capture
 from . import _comm
 from . import sharding as shd
 
@@ -674,6 +675,7 @@ class TrainStep:
         program, which runs only under JAX: here the step is rebuilt from
         the meta. Under a mesh every rank calls it and rank 0 writes the
         global arrays. Returns the meta's path."""
+        refuse_capture(self.symbol, "TrainStep.export")
         state = self._global_state(state)
         params, opt_state, aux = state
         pn = sorted(params)

@@ -29,6 +29,7 @@ from .context import current_context
 from .executor import _graph_eval_fn
 from .ndarray import NDArray, _wrap
 from .ndarray.ndarray import _from_numpy, _to_numpy_exact
+from .ops.custom import refuse_capture
 
 __all__ = ["Predictor", "CompiledPredictor", "load_checkpoint_predictor"]
 
@@ -127,6 +128,7 @@ class Predictor:
         symbol's JSON and the parameter file's name), and the parameters
         in ``prefix.params.npz`` (``arg:``/``aux:`` keys, bf16 as raw
         2-byte words). Returns the meta's path."""
+        refuse_capture(self._symbol, "Predictor.export")
         shapes = dict(data_shapes)
         missing = [n for n in self._data_names if n not in shapes]
         if missing:
@@ -180,6 +182,7 @@ class Predictor:
         (a hash of its StableHLO programs) for the same weights (ROADMAP
         Queue C). Returns the manifest path."""
         from . import config as _config
+        refuse_capture(self._symbol, "Predictor.export_buckets")
         if buckets is None:
             from .serve.engine import _parse_buckets
             buckets = _parse_buckets(_config.get("MXNET_SERVE_BUCKETS"))

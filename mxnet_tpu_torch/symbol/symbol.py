@@ -63,6 +63,11 @@ def _num_outputs(opdef, attrs):
         return 3 if attrs.get("mode", "lstm") == "lstm" else 2
     if opdef.name == "CTCLoss":
         return 1
+    if opdef.name == "_linalg_gelqf":
+        return 2
+    if opdef.name == "Custom":
+        from ..ops.custom import custom_num_outputs
+        return custom_num_outputs(attrs)
     if opdef.num_visible is not None:
         return opdef.num_visible
     return 1

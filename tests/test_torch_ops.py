@@ -782,6 +782,144 @@ CASES += [
       "blank_label": "last"}),
 ]
 
+# detection training and the rest of the op catalog: MultiBoxTarget,
+# ROIPooling (rounded relu features: tied maxima and all-zero bins), the
+# R-CNN family, the warp ops, linalg, fft/quantize and Custom (a scale
+# op registered in both packages)
+
+
+def _register_sweep_scale(mx):
+    class _ScaleOp(mx.operator.CustomOp):
+        def __init__(self, factor):
+            self.factor = factor
+
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0], in_data[0] * self.factor)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            self.assign(in_grad[0], req[0], out_grad[0] * self.factor)
+
+    @mx.operator.register("sweep_scale")
+    class _ScaleProp(mx.operator.CustomOpProp):
+        def __init__(self, factor="2.0"):
+            super().__init__(need_top_grad=True)
+            self.factor = float(factor)
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return _ScaleOp(self.factor)
+
+
+for _mx in (jmx, tmx):
+    _register_sweep_scale(_mx)
+
+
+def _corner_boxes(shape, seed, lo=0.05, hi=0.4):
+    rs = np.random.RandomState(seed)
+    xy = rs.uniform(0, 0.6, shape + (2,))
+    return np.concatenate([xy, xy + rs.uniform(lo, hi, shape + (2,))],
+                          -1).astype(np.float32)
+
+
+def _det_labels(counts, L, seed):
+    """(B, L, 6) [class, x1, y1, x2, y2, difficult] with counts[b] valid
+    rows, padded with -1."""
+    lab = -np.ones((len(counts), L, 6), np.float32)
+    rs = np.random.RandomState(seed)
+    for b, n in enumerate(counts):
+        lab[b, :n, 0] = rs.randint(0, 3, n)
+        lab[b, :n, 1:5] = _corner_boxes((n,), seed + 1 + b)
+        lab[b, :n, 5] = 0
+    return lab
+
+
+def _proposal_inputs(B, A, H, W, seed):
+    rs = np.random.RandomState(seed)
+    prob = rs.uniform(0, 1, (B, 2 * A, H, W)).astype(np.float32)
+    deltas = (rs.randn(B, 4 * A, H, W) * 0.2).astype(np.float32)
+    info = np.tile(np.array([[4 * H, 4 * W, 1.0]], np.float32), (B, 1))
+    return [prob, deltas, info]
+
+
+_SPD = (lambda m: (m @ m.T + 4 * np.eye(4)).astype(np.float32))(
+    _f32(4, 4, seed=7))
+_TRI = np.tril(_f32(4, 4, seed=8)) + 3 * np.eye(4, dtype=np.float32)
+_PROP_ATTRS = {"rpn_pre_nms_top_n": 30, "rpn_post_nms_top_n": 8,
+               "threshold": 0.6, "rpn_min_size": 2, "scales": (2, 4),
+               "ratios": (0.5, 1, 2), "feature_stride": 4}
+CASES += [
+    ("d_multibox_target", "_contrib_MultiBoxTarget",
+     [_corner_boxes((1, 30), 1), _det_labels((2, 0), 3, 2),
+      _f32(2, 3, 30, seed=3)],
+     {"negative_mining_ratio": 3.0, "minimum_negative_samples": 2}),
+    ("d_roi_pooling_ties", "ROIPooling",
+     [np.maximum(np.round(_f32(2, 2, 7, 9, seed=2) * 2), 0),
+      np.array([[0, 0, 0, 6, 6], [1, 2.3, 1.6, 8.2, 5.7], [0, 4, 3, 3, 2]],
+               np.float32)],
+     {"pooled_size": (2, 3), "spatial_scale": 0.5}),
+    ("d_proposal", "_contrib_Proposal", _proposal_inputs(1, 6, 3, 3, 1),
+     {**_PROP_ATTRS, "output_score": True}),
+    ("d_multi_proposal", "_contrib_MultiProposal",
+     _proposal_inputs(2, 6, 3, 3, 3), _PROP_ATTRS),
+    ("d_psroi_pooling", "_contrib_PSROIPooling",
+     [_f32(1, 2 * 4, 6, 6), np.array([[0, 1, 1, 20, 18]], np.float32)],
+     {"spatial_scale": 0.25, "output_dim": 2, "pooled_size": 2}),
+    ("d_deformable_psroi_pooling", "_contrib_DeformablePSROIPooling",
+     [_f32(1, 4, 6, 6), np.array([[0, 1, 1, 20, 18]], np.float32),
+      _f32(1, 2, 2, 2, seed=4)],
+     {"spatial_scale": 0.25, "output_dim": 1, "pooled_size": 2,
+      "sample_per_part": 2, "trans_std": 0.1}),
+    ("d_deformable_conv", "_contrib_DeformableConvolution",
+     [_f32(1, 2, 4, 4), _f32(1, 2 * 4, 3, 3, seed=1) * 0.7,
+      _f32(3, 2, 2, 2, seed=2), _f32(3, seed=3)],
+     {"kernel": (2, 2), "num_filter": 3}),
+    ("w_grid_affine", "GridGenerator", [_f32(2, 6) * 0.3],
+     {"transform_type": "affine", "target_shape": (4, 5)}),
+    ("w_grid_warp", "GridGenerator", [_f32(2, 2, 4, 5)],
+     {"transform_type": "warp"}),
+    ("w_bilinear_sampler", "BilinearSampler",
+     [_f32(2, 3, 6, 7), _f32(2, 2, 4, 5, seed=1) * 0.8], {}),
+    ("w_spatial_transformer", "SpatialTransformer",
+     [_f32(2, 3, 6, 7), np.array([[0.9, 0.1, 0.05, -0.1, 0.8, 0.1],
+                                  [0.7, -0.2, -0.1, 0.3, 1.1, 0.0]],
+                                 np.float32)],
+     {"target_shape": (5, 4)}),
+    ("w_correlation_abs_k3", "Correlation", [_f32(1, 2, 6, 6),
+                                             _f32(1, 2, 6, 6, seed=1)],
+     {"kernel_size": 3, "max_displacement": 1, "stride1": 2,
+      "pad_size": 2, "is_multiply": False}),
+    ("l_gemm", "_linalg_gemm", [_f32(2, 3, 4), _f32(2, 5, 4, seed=1),
+                                _f32(2, 3, 5, seed=2)],
+     {"transpose_b": True, "alpha": 0.5, "beta": 2.0}),
+    ("l_gemm2", "_linalg_gemm2", [_f32(4, 3), _f32(4, 5, seed=1)],
+     {"transpose_a": True, "alpha": 1.5}),
+    ("l_potrf", "_linalg_potrf", [_SPD], {}),
+    ("l_potri", "_linalg_potri", [_TRI], {}),
+    ("l_trmm_right", "_linalg_trmm", [_TRI, _f32(3, 4, seed=1)],
+     {"rightside": True, "alpha": 2.0}),
+    ("l_trsm", "_linalg_trsm", [_TRI, _f32(4, 3, seed=2)],
+     {"transpose": True, "alpha": 0.5}),
+    ("l_syrk", "_linalg_syrk", [_f32(3, 5)], {"transpose": True,
+                                               "alpha": 0.5}),
+    ("l_gelqf", "_linalg_gelqf", [_f32(3, 5)], {}),
+    ("l_sumlogdiag", "_linalg_sumlogdiag", [_TRI], {}),
+    ("l_khatri_rao", "khatri_rao", [_f32(2, 3), _f32(4, 3, seed=1),
+                                    _f32(2, 3, seed=2)], {}),
+    ("c_fft", "_contrib_fft", [_f32(3, 8)], {}),
+    ("c_ifft", "_contrib_ifft", [_f32(2, 3, 12)], {}),
+    ("c_count_sketch", "_contrib_count_sketch",
+     [_f32(3, 10), _ids((1, 10), 6, seed=1),
+      np.where(_f32(1, 10, seed=2) > 0, 1, -1).astype(np.float32)],
+     {"out_dim": 6}),
+    ("c_quantize_int8", "_contrib_quantize",
+     [_f32(4, 5), np.array([-1.5], np.float32), np.array([2.0], np.float32)],
+     {"out_type": "int8"}),
+    ("c_dequantize", "_contrib_dequantize",
+     [np.arange(20, dtype=np.uint8).reshape(4, 5) * 12,
+      np.array([-1.5], np.float32), np.array([2.0], np.float32)], {}),
+    ("x_custom", "Custom", [_f32(3, 4)],
+     {"op_type": "sweep_scale", "factor": "3.0"}),
+]
+
 # the rejection samplers (jax random.py's gamma and poisson loops, and
 # the negative binomials over them): the same algorithms on the same
 # per-element keys, but an accept test can flip on the last bit of a
