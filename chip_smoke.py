@@ -277,8 +277,27 @@ Phases (any failure exits non-zero; no phase is caught):
    few Module.fit steps on the card, the captures refused; Proposal and
    ROIPooling timed at upstream example/rcnn's VGG16 shapes; (c) the
    warp ops, linalg, fft/ifft, count_sketch and quantize/dequantize card
-   against CPU;
-30. one JSON line of every ported kernel (a device time under its byte
+   against CPU; ROIPooling's gradient bit-equal across two card runs;
+30. zoo: the rest of the symbolic catalog (lenet and mlp at
+   train_mnist.py's 1x28x28 batch 64; mobilenet, resnext-50 32x4d and
+   googlenet at 3x224x224, inception-v4 and inception-resnet-v2 at
+   3x299x299, batch 128, train_imagenet.py's SGD) through Module.fit,
+   float32, MXNET_BN_PALLAS=1: a warm-up and 3 timed steps each, step
+   ms, img/s, peak memory, launches, each BatchNorm kernel once a
+   BatchNorm a step, finite losses, the four BatchNorm kernels against
+   their plain versions at every BatchNorm input shape of the timed
+   batch, a batch-2 forward card against CPU from the initial weights
+   and (its logits) from the fitted ones, beside the CPU's float64;
+31. sparse: (a) linear classification over CSR at LIBSVM avazu-app's
+   shape (1,000,000 features, 15 a row, seeded), LibSVMIter batches of
+   8192 through row_sparse_pull, the csr dot, the transposed csr dot cast
+   to row-sparse and a lazy SGD push on a 'local' KVStore: step ms,
+   rows/s, launches, host syncs, the iterator's host ms, one step card
+   against CPU, the weights bit-equal across two runs, sparse.dot beside
+   torch.sparse.mm; (b) the row-sparse embedding recipe (take, take_grad,
+   lazy Adam) at MovieLens-20M's counts against the dense route, rows
+   outside the batches untouched bit for bit;
+32. one JSON line of every ported kernel (a device time under its byte
    bound fails the run: the timing lost work), then the result line.
 
 It imports nothing of JAX or of ``mxnet_tpu``. Without CUDA, or run
@@ -2089,70 +2108,82 @@ def check_sums(what, got, want, magnitude):
     return worst
 
 
-def bn_kernel_phase():
-    """The four BatchNorm kernels against their plain versions on the
-    same card inputs (x, dy and the per-channel coefficients random; the
-    shift c the first sample's channel mean and `mean` the batch's, as
-    bn_train_kernels gives them), then timed at BN_SHAPE."""
+def bn_check_case(label, N, C, HW, dt, shift, gen):
+    """The four BatchNorm kernels on one (N, C, HW) input against their
+    plain versions on the same card inputs (x, dy and the per-channel
+    coefficients random; the shift c the first sample's channel mean and
+    `mean` the batch's, as bn_train_kernels gives them): fails beyond
+    BN_SUM_RTOL / BN_ELT_TOL; returns ({kernel: max abs err}, the note on
+    the variance, the inputs)."""
     import torch
     from mxnet_tpu_torch.ops import bn_kernels as bnk
+
+    dtype = getattr(torch, dt)
+    x = (torch.randn((N, C, HW), generator=gen, device="cuda")
+         + shift).to(dtype)
+    dy = torch.randn((N, C, HW), generator=gen, device="cuda").to(dtype)
+    a, b, c2 = (torch.randn(C, generator=gen, device="cuda")
+                for _ in range(3))
+    c = x[0].float().mean(dim=1)
+    mean = x.float().mean(dim=(0, 2))
+    s = bnk.bn_stats_cuda(x, c)
+    y = bnk.bn_apply_cuda(x, a, b)
+    r = bnk.bn_bwd_reduce_cuda(dy, x, mean)
+    dx = bnk.bn_bwd_dx_cuda(dy, x, a, c2, b, mean)
+    torch.cuda.synchronize()
+    err = {}
+    xc = x.float() - c[None, :, None]
+    err["bn_stats"] = check_sums(
+        "bn_stats %s" % label, s, bnk._stats_reference(x, c),
+        (xc.abs().sum(dim=(0, 2)), (xc * xc).sum(dim=(0, 2))))
+    del xc
+    dyf, xm = dy.float(), x.float() - mean[None, :, None]
+    err["bn_bwd_reduce"] = check_sums(
+        "bn_bwd_reduce %s" % label, r,
+        bnk._bwd_reduce_reference(dy, x, mean),
+        (dyf.abs().sum(dim=(0, 2)), (dyf * xm).abs().sum(dim=(0, 2))))
+    del dyf, xm
+    err["bn_apply"] = check_close("bn_apply %s" % label, y,
+                                  bnk._apply_reference(x, a, b),
+                                  BN_ELT_TOL[dt])
+    err["bn_bwd_dx"] = check_close(
+        "bn_bwd_dx %s" % label, dx,
+        bnk._bwd_dx_reference(dy, x, a, c2, b, mean), BN_ELT_TOL[dt])
+    if dx.dtype != dtype or y.dtype != dtype:
+        fail("bn %s: y %s and dx %s, not %s" % (label, y.dtype,
+                                                dx.dtype, dtype))
+    var_note = ""
+    if shift:
+        m = N * HW
+        mean_s = s[0] / m
+        var = (s[1] / m - mean_s * mean_s).double()
+        var64 = x.double().var(dim=(0, 2), unbiased=False)
+        rel = float(((var - var64).abs() / var64).max().item())
+        if rel > BN_VAR_RTOL:
+            fail("bn_stats %s: variance from the shifted sums %g off "
+                 "the float64 variance (relative)" % (label, rel))
+        var_note = ", variance vs float64 %.3g (relative)" % rel
+    return err, var_note, (x, dy, a, b, c2, c, mean)
+
+
+def bn_kernel_phase():
+    """The four BatchNorm kernels against their plain versions at
+    BN_CASES (bn_check_case), then timed at BN_SHAPE."""
+    import torch
 
     gen = torch.Generator(device="cuda").manual_seed(20261018)
     records = []
     for label, N, C, HW, dt, shift in BN_CASES:
-        dtype = getattr(torch, dt)
-        x = (torch.randn((N, C, HW), generator=gen, device="cuda")
-             + shift).to(dtype)
-        dy = torch.randn((N, C, HW), generator=gen, device="cuda").to(dtype)
-        a, b, c2 = (torch.randn(C, generator=gen, device="cuda")
-                    for _ in range(3))
-        c = x[0].float().mean(dim=1)
-        mean = x.float().mean(dim=(0, 2))
-        s = bnk.bn_stats_cuda(x, c)
-        y = bnk.bn_apply_cuda(x, a, b)
-        r = bnk.bn_bwd_reduce_cuda(dy, x, mean)
-        dx = bnk.bn_bwd_dx_cuda(dy, x, a, c2, b, mean)
-        torch.cuda.synchronize()
-        err = {}
-        xc = x.float() - c[None, :, None]
-        err["bn_stats"] = check_sums(
-            "bn_stats %s" % label, s, bnk._stats_reference(x, c),
-            (xc.abs().sum(dim=(0, 2)), (xc * xc).sum(dim=(0, 2))))
-        del xc
-        dyf, xm = dy.float(), x.float() - mean[None, :, None]
-        err["bn_bwd_reduce"] = check_sums(
-            "bn_bwd_reduce %s" % label, r,
-            bnk._bwd_reduce_reference(dy, x, mean),
-            (dyf.abs().sum(dim=(0, 2)), (dyf * xm).abs().sum(dim=(0, 2))))
-        del dyf, xm
-        err["bn_apply"] = check_close("bn_apply %s" % label, y,
-                                      bnk._apply_reference(x, a, b),
-                                      BN_ELT_TOL[dt])
-        err["bn_bwd_dx"] = check_close(
-            "bn_bwd_dx %s" % label, dx,
-            bnk._bwd_dx_reference(dy, x, a, c2, b, mean), BN_ELT_TOL[dt])
-        if dx.dtype != dtype or y.dtype != dtype:
-            fail("bn %s: y %s and dx %s, not %s" % (label, y.dtype,
-                                                    dx.dtype, dtype))
-        var_note = ""
-        if shift:
-            m = N * HW
-            mean_s = s[0] / m
-            var = (s[1] / m - mean_s * mean_s).double()
-            var64 = x.double().var(dim=(0, 2), unbiased=False)
-            rel = float(((var - var64).abs() / var64).max().item())
-            if rel > BN_VAR_RTOL:
-                fail("bn_stats %s: variance from the shifted sums %g off "
-                     "the float64 variance (relative)" % (label, rel))
-            var_note = ", variance vs float64 %.3g (relative)" % rel
+        err, var_note, inputs = bn_check_case(label, N, C, HW, dt, shift,
+                                              gen)
         say("kernel bn %-17s N=%d C=%d HW=%d %s: max_abs_err stats %.3g "
             "apply %.3g bwd_reduce %.3g bwd_dx %.3g%s" % (
                 label, N, C, HW, dt, err["bn_stats"], err["bn_apply"],
                 err["bn_bwd_reduce"], err["bn_bwd_dx"], var_note))
         if (N, C, HW, dt) == (BN_SHAPE[0], BN_SHAPE[1],
                               BN_SHAPE[2] * BN_SHAPE[3], "bfloat16"):
-            records = bn_timing(x, dy, a, b, c2, c, mean, err)
-        del x, dy, y, dx, s, r
+            records = bn_timing(*inputs, err)
+        del inputs
     torch.cuda.empty_cache()
     return records
 
@@ -8962,6 +8993,9 @@ def ssd_train_phase():
         "wd": SSD_TRAIN["wd"]}, eval_metric=Loss(), arg_params=args,
         aux_params={}, batch_end_callback=timed_cb)
     launches = {c.__name__: c.launches for c in counters}
+    arg1, aux1 = mod.get_params()
+    fitted = ({k: v._data for k, v in arg1.items()},
+              {k: v._data for k, v in aux1.items()})
     gaps = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
     step_ms = statistics.median(gaps[1:])
     if launches["nms_keep_cuda"] != K:
@@ -9032,9 +9066,12 @@ RCNN_VGG = dict(feat=(38, 63), stride=16, scales=(8, 16, 32),
                 ratios=(0.5, 1, 2), channels=512, threshold=0.7,
                 min_size=16, test=(6000, 300), train=(12000, 2000))
 ROI_COUNTS = (128, 300)
+# forward + backward ms by events with the earlier backward, which added
+# by index_put_ accumulate (PERF.md §6; H100 80GB HBM3, 700 W)
+ROI_ACCUMULATING_MS = {128: 6.562, 300: 15.156}
 PROPOSAL_TOL = dict(rtol=1e-6, atol=1e-4)    # boxes up to 1000 px
-# the gradient's sums over up to a few hundred rois a cell, added in no
-# fixed order on the card
+# the gradient's sums over up to a few hundred rois a cell, card against
+# CPU (one order of adds on both; the shares' rounding may differ)
 ROI_GRAD_TOL = dict(rtol=1e-5, atol=1e-4)
 
 
@@ -9484,8 +9521,8 @@ def roi_pooling_timing():
     """ROIPooling at the VGG16 map (1, 512, 38, 63), 7x7, spatial scale
     1/16, with ROI_COUNTS rois in a 600x1000 image: forward and backward
     ms by events; the forward equal to the CPU's, the gradient within
-    ROI_GRAD_TOL (the backward's scatter adds in no fixed order on the
-    card)."""
+    ROI_GRAD_TOL of it and equal bit for bit across two card runs (the
+    backward adds by the fixed-order segment sum, ROADMAP Queue C 21)."""
     import torch
     from mxnet_tpu_torch.ops.registry import get_op
 
@@ -9502,17 +9539,21 @@ def roi_pooling_timing():
         dy = rs.standard_normal((R, RCNN_VGG["channels"], 7, 7)).astype(
             np.float32)
         outs = []
-        for dev in ("cuda", "cpu"):
+        for dev in ("cuda", "cuda", "cpu"):
             x = torch.from_numpy(data).to(dev).requires_grad_()
             y = op.fn(x, torch.from_numpy(rois).to(dev), pooled_size=(7, 7),
                       spatial_scale=1.0 / RCNN_VGG["stride"])
             g, = torch.autograd.grad(y, x, torch.from_numpy(dy).to(dev))
             outs.append((y.detach().cpu(), g.cpu()))
-        if not torch.equal(outs[0][0], outs[1][0]):
+        if not torch.equal(outs[0][0], outs[2][0]):
             fail("detect: ROIPooling forward card vs CPU differs (%d rois)"
                  % R)
+        if not torch.equal(outs[0][1], outs[1][1]):
+            fail("detect: ROIPooling gradient differs between two card runs "
+                 "(%d rois): max |a - b| %g" % (R, float(
+                     (outs[0][1] - outs[1][1]).abs().max())))
         gerr = check_close("ROIPooling gradient card vs CPU (%d rois)" % R,
-                           outs[0][1], outs[1][1], ROI_GRAD_TOL)
+                           outs[0][1], outs[2][1], ROI_GRAD_TOL)
         x = torch.from_numpy(data).cuda().requires_grad_()
         r = torch.from_numpy(rois).cuda()
         g_out = torch.from_numpy(dy).cuda()
@@ -9524,9 +9565,12 @@ def roi_pooling_timing():
             torch.autograd.grad(y, x, g_out)
         both = time_ms(fwd_bwd, reps=10)
         say("detect: ROIPooling (1, %d, %d, %d), %d rois, 7x7, 1/16: forward "
-            "%.3f ms, forward + backward %.3f ms by events; forward equal to "
-            "the CPU's, gradient max abs err %.3g" % (
-                RCNN_VGG["channels"], H, W, R, fwd, both, gerr))
+            "%.3f ms, forward + backward %.3f ms by events (the "
+            "accumulating index_put_ backward: %s ms); forward equal to "
+            "the CPU's, gradient max abs err %.3g, bit-equal across two "
+            "card runs" % (
+                RCNN_VGG["channels"], H, W, R, fwd, both,
+                ROI_ACCUMULATING_MS.get(R, "not measured"), gerr))
     torch.cuda.empty_cache()
 
 
@@ -9634,6 +9678,554 @@ def detect_phase():
     return launches
 
 
+# sparse (a): linear classification over CSR at LIBSVM's avazu-app shape
+# (1,000,000 features, 15 non-zeros a row: one hashed categorical value
+# in each of 15 fields, value 1), synthesised from a seed since the
+# dataset is not here; examples/linear_svm_sparse.py's hinge loop with
+# the weight in a 'local' KVStore
+AVAZU = dict(features=1_000_000, fields=15, batch=8192, batches=16, lr=0.1,
+             zipf=1.3)
+SPARSE_STEP_TOL = dict(rtol=1e-5, atol=1e-6)
+# sparse (b): the row-sparse embedding recipe at MovieLens-20M's counts
+MOVIELENS = dict(users=138_493, items=27_278, rank=64, batch=8192, steps=6,
+                 lr=0.01)
+
+
+def avazu_libsvm(path, seed=0):
+    """AVAZU's batches of seeded LibSVM rows at ``path``: each field's
+    value drawn Zipf-skewed within its slice of the columns (hashed
+    categorical features are skewed), label 1 where a hidden linear
+    model of the row is positive. Returns the row count."""
+    F, nf = AVAZU["features"], AVAZU["fields"]
+    n = AVAZU["batch"] * AVAZU["batches"]
+    width = F // nf
+    rng = np.random.RandomState(seed)
+    rank = np.minimum(rng.zipf(AVAZU["zipf"], (n, nf)), width) - 1
+    cols = rank + np.arange(nf) * width            # sorted within a row
+    hidden = rng.standard_normal(F).astype(np.float32)
+    labels = (hidden[cols].sum(1) > 0).astype(int)
+    with open(path, "w") as f:
+        f.writelines("%d %s\n" % (lab, " ".join("%d:1" % c for c in row))
+                     for lab, row in zip(labels, cols))
+    return n
+
+
+def avazu_step(mx, kv, X, y):
+    """One step of the sparse linear SVM: the batch's weight rows by
+    row_sparse_pull, the csr dot, the hinge subgradient through the
+    transposed csr dot cast to row-sparse, and its push (the store's SGD
+    updates only those rows). Returns the logits."""
+    w = mx.nd.sparse.zeros("row_sparse", (AVAZU["features"], 1),
+                           ctx=X.context)
+    kv.row_sparse_pull("w", out=w, row_ids=X.indices)
+    logits = mx.nd.dot(X, w.tostype("default"))
+    sign = y.reshape((-1, 1)) * 2 - 1
+    g = mx.nd.where(logits * sign < 1, -sign, mx.nd.zeros_like(sign))
+    kv.push("w", mx.nd.dot(X, g, transpose_a=True).tostype("row_sparse"))
+    return logits
+
+
+def avazu_store(mx, ctx, w0):
+    kv = mx.kv.create("local")
+    kv.set_optimizer(mx.optimizer.SGD(learning_rate=AVAZU["lr"],
+                                      rescale_grad=1.0 / AVAZU["batch"]))
+    kv.init("w", mx.nd.array(w0, ctx=ctx))
+    return kv
+
+
+def avazu_run(mx, it, w0):
+    """AVAZU's batches through avazu_step on the card from ``w0``: (final
+    weight tensor, events ms, wall ms, host ms a batch, host syncs)."""
+    import torch
+    from mxnet_tpu_torch import profiler
+    kv = avazu_store(mx, mx.gpu(0), w0)
+    it.reset()
+    ev, wall, host = [], [], []
+    syncs = profiler.host_sync_count()
+    while True:
+        t = time.perf_counter()
+        with mx.gpu(0):
+            batch = next(it, None)
+        if batch is None:
+            break
+        host.append((time.perf_counter() - t) * 1e3)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        a.record()
+        avazu_step(mx, kv, batch.data[0], batch.label[0])
+        b.record()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t) * 1e3)
+        ev.append(a.elapsed_time(b))
+    syncs = profiler.host_sync_count() - syncs
+    out = mx.nd.zeros((AVAZU["features"], 1))
+    kv.pull("w", out=out)
+    return out._data, ev, wall, host, syncs
+
+
+def sparse_dot_timing(mx, X, w_full, g):
+    """sparse.dot forward and transposed on one batch's CSR beside
+    torch.sparse.mm over the same CSR (cuSPARSE), with each one's byte
+    bound: the CSR, the rhs rows it reads and the output, once each."""
+    import torch
+    vals, cols, ptr = X._data, X._indices, X._indptr
+    B, F = X.shape
+    with warnings.catch_warnings():      # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        lib = torch.sparse_csr_tensor(ptr, cols, vals, (B, F))
+        lib_t = lib.to_sparse_coo().t().coalesce().to_sparse_csr()
+    wnd, gnd = mx.nd.NDArray(w_full), mx.nd.NDArray(g)
+    csr_bytes = (vals.numel() + cols.numel() + ptr.numel()) * 4
+    touched = int(torch.unique(cols).numel())
+    rows = []
+    for what, ours, theirs, nbytes in (
+            ("forward", lambda: mx.nd.dot(X, wnd),
+             lambda: torch.sparse.mm(lib, w_full),
+             csr_bytes + touched * 4 + B * 4),
+            ("transposed", lambda: mx.nd.dot(X, gnd, transpose_a=True),
+             lambda: torch.sparse.mm(lib_t, g), csr_bytes + B * 4 + F * 4)):
+        check_close("sparse (a): sparse.dot %s against torch.sparse.mm"
+                    % what, ours()._data, theirs(), SPARSE_STEP_TOL)
+        rows.append("%s %.4f ms (torch.sparse.mm %.4f ms; bound %.5f ms, "
+                    "%.2f MB)" % (what, time_ms(ours), time_ms(theirs),
+                                  nbytes / PEAK_BYTES_PER_S * 1e3,
+                                  nbytes / 1e6))
+    say("sparse (a): sparse.dot at batch %d x %d, %d non-zeros (%d columns "
+        "touched), by events: %s" % (B, F, vals.numel(), touched,
+                                     "; ".join(rows)))
+
+
+def sparse_linear_phase():
+    """(a) the sparse linear SVM over LibSVMIter batches at AVAZU's shape
+    on the card: step ms (events, wall), rows/s, peak memory, a profiled
+    step's launches, host syncs a step, the iterator's host ms a batch;
+    one step card against CPU within SPARSE_STEP_TOL; the weights after
+    every step bit-equal across two runs."""
+    import tempfile
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import io
+
+    B, F = AVAZU["batch"], AVAZU["features"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "avazu.libsvm")
+        n = avazu_libsvm(path)
+        t1 = time.perf_counter()
+        it = io.LibSVMIter(data_libsvm=path, data_shape=(F,), batch_size=B)
+    t2 = time.perf_counter()
+    w0 = (np.random.RandomState(1).standard_normal((F, 1)) * 0.01).astype(
+        np.float32)
+    say("sparse (a): LibSVM file of %d rows x %d features (%d a row) "
+        "written in %.1f s, parsed by LibSVMIter in %.1f s" % (
+            n, F, AVAZU["fields"], t1 - t0, t2 - t1))
+
+    # one step card against CPU, from the same weight and batch
+    with mx.gpu(0):
+        batch = next(it)
+    it.reset()
+    X, y = batch.data[0], batch.label[0]
+    got = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        kv = avazu_store(mx, ctx, w0)
+        logits = avazu_step(mx, kv, X.as_in_context(ctx),
+                            y.as_in_context(ctx))
+        out = mx.nd.zeros((F, 1), ctx=ctx)
+        kv.pull("w", out=out)
+        got.append((logits._data.cpu(), out._data.cpu()))
+    lerr = check_close("sparse (a): logits card vs CPU", got[0][0],
+                       got[1][0], SPARSE_STEP_TOL)
+    werr = check_close("sparse (a): weights after a step card vs CPU",
+                       got[0][1], got[1][1], SPARSE_STEP_TOL)
+    moved = int((got[0][1] != torch.from_numpy(w0)).sum())
+    if not 0 < moved < F // 2:
+        fail("sparse (a): %d of %d weight rows moved in one lazy step"
+             % (moved, F))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    w_a, ev, wall, host, syncs = avazu_run(mx, it, w0)
+    peak = torch.cuda.max_memory_allocated()
+    w_b = avazu_run(mx, it, w0)[0]
+    if not torch.equal(w_a, w_b):
+        fail("sparse (a): the weights after %d steps differ between two "
+             "card runs (max |a - b| %g)" % (len(ev), float(
+                 (w_a - w_b).abs().max())))
+    kv = avazu_store(mx, mx.gpu(0), w0)
+    profile("sparse (a) step (batch %d, %d features)" % (B, F),
+            lambda: avazu_step(mx, kv, X, y))
+    step_ev, step_wall = statistics.median(ev[1:]), statistics.median(
+        wall[1:])
+    say("sparse (a): %d steps of batch %d: %.3f ms a step by events, %.3f "
+        "ms wall (medians of steps 2..%d), %.0f rows/s, peak %.3f GB, %d "
+        "launches a profiled step, %.1f host syncs a step, LibSVMIter %.3f "
+        "ms of host a batch (median); one step card vs CPU: logits %.3g, "
+        "weights %.3g (%d rows moved); the weights after every step "
+        "bit-equal across two card runs" % (
+            len(ev), B, step_ev, step_wall, len(ev), B / step_wall * 1e3,
+            peak / 1e9, sum(profile.counts.values()), syncs / len(ev),
+            statistics.median(host), lerr, werr, moved))
+    g = torch.from_numpy(np.random.RandomState(3).choice(
+        [-1.0, 1.0], (B, 1)).astype(np.float32)).cuda()
+    sparse_dot_timing(mx, X, w_a, g)
+    return step_ev
+
+
+def movielens_batches(seed=0):
+    """MOVIELENS's seeded ratings: per step (user ids, item ids, ratings)
+    with ids Zipf-skewed as the dataset's popular items and users are."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(MOVIELENS["steps"]):
+        ids = [np.minimum(rng.zipf(1.2, MOVIELENS["batch"]),
+                          MOVIELENS[k]) - 1 for k in ("users", "items")]
+        out.append(ids + [rng.randint(1, 11, MOVIELENS["batch"]).astype(
+            np.float32) / 2])
+    return out
+
+
+def movielens_step(mx, tables, states, batch, lazy):
+    """take forward, the squared error's row gradients, take_grad, and
+    Adam: lazy on the row-sparse gradients, or dense over every row of
+    the densified gradients. Returns the row-sparse gradients."""
+    from mxnet_tpu_torch.ndarray import sparse
+    uid, iid, r = batch
+    u = mx.nd.take(tables[0], mx.nd.array(uid))
+    v = mx.nd.take(tables[1], mx.nd.array(iid))
+    err = ((u * v).sum(axis=1) - mx.nd.array(r)).reshape((-1, 1)) * 2
+    grads = [sparse.take_grad(uid, err * v, MOVIELENS["users"]),
+             sparse.take_grad(iid, err * u, MOVIELENS["items"])]
+    for w, (m, s2), g in zip(tables, states, grads):
+        mx.nd.adam_update(w, g if lazy else g.tostype("default"), m, s2,
+                          out=w, lr=MOVIELENS["lr"])
+    return grads
+
+
+def sparse_embedding_phase():
+    """(b) the row-sparse embedding recipe at MOVIELENS's counts on the
+    card: ms a step lazy against dense; the rows outside the batches and
+    their Adam state unchanged bit for bit; the gradient's bytes
+    O(nnz)."""
+    import torch
+    import mxnet_tpu_torch as mx
+
+    rs = np.random.RandomState(2)
+    init = [(rs.standard_normal((MOVIELENS[k], MOVIELENS["rank"])) * 0.1
+             ).astype(np.float32) for k in ("users", "items")]
+    batches = movielens_batches()
+    ms, grads = {}, None
+    with mx.gpu(0):
+        for lazy in (True, False):
+            tables = [mx.nd.array(t) for t in init]
+            states = [(mx.nd.zeros(t.shape), mx.nd.zeros(t.shape))
+                      for t in init]
+            times = []
+            for batch in batches:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                g = movielens_step(mx, tables, states, batch, lazy)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            ms[lazy] = statistics.median(times[1:])
+            if lazy:
+                grads = g
+                for k, (w, (m, s2)) in enumerate(zip(tables, states)):
+                    seen = np.unique(np.concatenate([b[k] for b in batches]))
+                    rest = np.setdiff1d(np.arange(len(init[k])), seen)
+                    w, m, s2 = (a.asnumpy() for a in (w, m, s2))
+                    if not (np.array_equal(w[rest], init[k][rest])
+                            and not m[rest].any() and not s2[rest].any()):
+                        fail("sparse (b): a row outside the batches, or its "
+                             "Adam state, moved in the lazy update")
+                    if np.array_equal(w[seen], init[k][seen]):
+                        fail("sparse (b): the lazy update moved no row")
+    gbytes = sum(g._data.numel() * g._data.element_size()
+                 + g._indices.numel() * 4 for g in grads)
+    dense_bytes = sum(t.nbytes for t in init)
+    nnz = sum(g.nnz for g in grads)
+    if gbytes != nnz * (MOVIELENS["rank"] + 1) * 4:
+        fail("sparse (b): the row-sparse gradients hold %d bytes for %d "
+             "rows" % (gbytes, nnz))
+    say("sparse (b): embedding recipe (%d users, %d items, rank %d, batch "
+        "%d ratings): %.3f ms a step lazy (take, take_grad, row-sparse "
+        "Adam) against %.3f ms dense (the (vocab, %d) gradients, Adam "
+        "over every row), medians of steps 2..%d by wall; the last step's "
+        "gradients %d rows, %.3f MB (dense %.1f MB); rows outside the "
+        "batches and their Adam state unchanged bit for bit" % (
+            MOVIELENS["users"], MOVIELENS["items"], MOVIELENS["rank"],
+            MOVIELENS["batch"], ms[True], ms[False], MOVIELENS["rank"],
+            MOVIELENS["steps"], nnz, gbytes / 1e6, dense_bytes / 1e6))
+
+
+def sparse_phase():
+    """Sparse storage on the card: (a) the sparse linear SVM at Avazu's
+    shape, (b) the row-sparse embedding recipe at MovieLens-20M's
+    counts."""
+    t0 = time.perf_counter()
+    sparse_linear_phase()
+    sparse_embedding_phase()
+    say("sparse: phase done in %.1f s" % (time.perf_counter() - t0))
+
+
+# zoo: the rest of the symbolic catalog through Module.fit at upstream's
+# train_mnist.py (batch 64, lr 0.05) and train_imagenet.py (batch 128, lr
+# 0.1) settings: (catalog name, image, batch, classes, lr). GoogLeNet has
+# no BatchNorm: at lr 0.1 its loss went from 11.2 to NaN within three
+# steps on the card (seeded data, Xavier gaussian in 2), so it takes 0.01
+ZOO_NETS = (("lenet", (1, 28, 28), 64, 10, 0.05),
+            ("mlp", (1, 28, 28), 64, 10, 0.05),
+            ("mobilenet", (3, 224, 224), 128, 1000, 0.1),
+            ("resnext", (3, 224, 224), 128, 1000, 0.1),
+            ("googlenet", (3, 224, 224), 128, 1000, 0.01),
+            ("inception-v4", (3, 299, 299), 128, 1000, 0.1),
+            ("inception-resnet-v2", (3, 299, 299), 128, 1000, 0.1))
+ZOO_STEPS = 4                  # one warm-up step, then 3 timed
+ZOO_SGD = {"momentum": 0.9, "wd": 1e-4}
+ZOO_SMALL_TOL = dict(rtol=1e-4, atol=1e-5)    # batch 2 forward, card vs CPU
+# the logits of that forward from the weights after the fit (the fit on
+# random labels can saturate the softmax), each divided by the largest
+# |logit| of the CPU's float64 forward, held as tightly: the card with
+# cuDNN and without it read within 1.6e-6 of the CPU there, and each as
+# far from float64 as the other (float32's own rounding, not cuDNN's)
+ZOO_FITTED_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def zoo_forward(mx, sym, shape, classes, arg, aux, dev, dtype=None):
+    """One inference forward at batch 2 of seeded data on ``dev`` (the
+    parameters cast to ``dtype`` if given): the first output on the
+    CPU."""
+    import torch
+    from mxnet_tpu_torch.executor import _graph_eval_fn
+    rs = np.random.RandomState(5)
+    feed = {"data": rs.standard_normal((2,) + shape).astype(np.float32),
+            "softmax_label": rs.randint(0, classes, 2).astype(np.float32)}
+    names = set(sym.list_arguments())
+
+    def put(t):
+        t = t.to(dev)
+        return t if dtype is None else t.to(dtype)
+    with torch.no_grad():
+        args = {k: put(v) for k, v in arg.items() if k in names}
+        args.update({k: put(torch.from_numpy(v)) for k, v in feed.items()
+                     if k in names})
+        return _graph_eval_fn(sym)(args, {k: put(v) for k, v in aux.items()},
+                                   mx.random.PRNGKey(0), False)[0][0].cpu()
+
+
+def zoo_logits(sym):
+    """The symbol of the network's logits: the input of its
+    SoftmaxOutput."""
+    import json as _json
+    nodes = _json.loads(sym.tojson())["nodes"]
+    head = [n for n in nodes if n["op"] == "SoftmaxOutput"][-1]
+    return sym.get_internals()[nodes[head["inputs"][0][0]]["name"]
+                               + "_output"]
+
+
+def zoo_forward_checks(mx, name, sym, shape, classes, init, fitted):
+    """The batch-2 inference forward card against CPU: its softmax from
+    the initial weights (ZOO_SMALL_TOL) and its logits from the weights
+    after the fit (ZOO_FITTED_TOL, relative to the largest). For the
+    fitted weights also each route's distance from the CPU's float64
+    logits, the card's with cuDNN and without it (torch's own CUDA
+    convolutions), which tells cuDNN's rounding (ROADMAP Queue C 8) from
+    float32's own. Returns the two max abs errors (the second relative
+    to the largest logit) and that note."""
+    import torch
+    card, cpu = (zoo_forward(mx, sym, shape, classes, *init, dev)
+                 for dev in ("cuda", "cpu"))
+    err0 = check_close("zoo: %s batch-2 forward card vs CPU, initial "
+                       "weights" % name, card, cpu, ZOO_SMALL_TOL)
+    logits = zoo_logits(sym)
+    card, cpu = (zoo_forward(mx, logits, shape, classes, *fitted, dev)
+                 for dev in ("cuda", "cpu"))
+    torch.backends.cudnn.enabled = False
+    try:
+        no_cudnn = zoo_forward(mx, logits, shape, classes, *fitted, "cuda")
+    finally:
+        torch.backends.cudnn.enabled = True
+    f64 = zoo_forward(mx, logits, shape, classes, *fitted, "cpu",
+                      torch.float64)
+    scale = float(f64.abs().max())
+    err1 = check_close("zoo: %s batch-2 logits card vs CPU, fitted weights, "
+                       "over the largest |logit| %g" % (name, scale),
+                       card / scale, cpu / scale, ZOO_FITTED_TOL)
+    note = ("fitted-weight logits against the CPU's float64, over the "
+            "largest |logit| %.4g: card %.3g, card without cuDNN %.3g, CPU "
+            "float32 %.3g" % tuple([scale] + [
+                float((t.double() - f64).abs().max()) / scale
+                for t in (card, no_cudnn, cpu)]))
+    return err0, err1, note
+
+
+def zoo_bn_shapes(sym, B, shape):
+    """The distinct (C, H*W) of the network's BatchNorm inputs at batch
+    B, from the symbol's inferred shapes (a BatchNorm's output has its
+    input's shape)."""
+    import json as _json
+    bns = [n["name"] for n in _json.loads(sym.tojson())["nodes"]
+           if n["op"] == "BatchNorm"]
+    internals = sym.get_internals()
+    _, out_shapes, _ = internals.infer_shape(data=(B,) + shape,
+                                             softmax_label=(B,))
+    by_name = dict(zip(internals.list_outputs(), out_shapes))
+    return sorted({(s[1], int(np.prod(s[2:])))
+                   for s in (by_name[b + "_output"] for b in bns)})
+
+
+def zoo_bn_check(name, sym, shape, B):
+    """The four BatchNorm kernels against their plain versions at each
+    distinct BatchNorm input of the network's timed batch, in float32
+    (bn_check_case): (shapes checked, {kernel: max abs err})."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(20261019)
+    worst = dict.fromkeys(BN_KERNEL_KEYS, 0.0)
+    shapes = zoo_bn_shapes(sym, B, shape)
+    for C, HW in shapes:
+        err, _, inputs = bn_check_case("zoo %s C=%d HW=%d" % (name, C, HW),
+                                       B, C, HW, "float32", 0.0, gen)
+        del inputs
+        for k, v in err.items():
+            worst[k] = max(worst[k], v)
+    torch.cuda.empty_cache()
+    return len(shapes), worst
+
+
+def zoo_fit(mx, name, shape, B, classes, lr, counters):
+    """The network through Module.fit over ZOO_STEPS seeded batches on the
+    card, then one profiled step: (symbol, step gaps ms, peak bytes,
+    losses, launch counts, the initial and the fitted (parameters, aux
+    states))."""
+    import torch
+    from mxnet_tpu_torch import io, models
+    sym = models.get_symbol(name, num_classes=classes)
+    rs = np.random.RandomState(6)
+    X = rs.standard_normal((ZOO_STEPS * B,) + shape).astype(np.float32)
+    Y = rs.randint(0, classes, ZOO_STEPS * B).astype(np.float32)
+    with mx.gpu(0):
+        it = io.NDArrayIter(X, Y, batch_size=B, label_name="softmax_label")
+    del X
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mx.random.seed(0)
+    mod.init_params(initializer=mx.init.Xavier(
+        rnd_type="gaussian", factor_type="in", magnitude=2))
+    arg0, aux0 = mod.get_params()
+    # the initial weights' tensors (a tensor is never written in place)
+    init = ({k: v._data for k, v in arg0.items()},
+            {k: v._data for k, v in aux0.items()})
+    losses, marks, peaks = [], [], []
+
+    class NLL(mx.metric.EvalMetric):
+        def __init__(self):
+            super().__init__("nll")
+
+        def update(self, labels, preds):
+            p = preds[0]._data.float()
+            lab = labels[0]._data.long()
+            losses.append(float(-torch.log(p[torch.arange(len(lab)), lab]
+                                           .clamp_min(1e-30)).mean()))
+
+    def timed_cb(param):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        peaks.append(torch.cuda.max_memory_allocated())
+
+    torch.cuda.synchronize()
+    _reset_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    marks.append(time.perf_counter())
+    mod.fit(it, num_epoch=1, optimizer="sgd",
+            optimizer_params=dict(ZOO_SGD, learning_rate=lr,
+                                  rescale_grad=1.0 / B),
+            arg_params=arg0, aux_params=aux0, force_init=True,
+            eval_metric=NLL(), batch_end_callback=timed_cb)
+    launches = {c.__name__: c.launches for c in counters}
+    arg1, aux1 = mod.get_params()
+    fitted = ({k: v._data for k, v in arg1.items()},
+              {k: v._data for k, v in aux1.items()})
+    gaps = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    with mx.gpu(0):
+        batch = io.DataBatch([mx.nd.array(np.random.RandomState(7)
+                                          .standard_normal((B,) + shape)
+                                          .astype(np.float32))],
+                             [mx.nd.array(Y[:B])])
+
+    def one_step():
+        mod.forward_backward(batch)
+        mod.update()
+    profile("zoo %s step (batch %d, f32)" % (name, B), one_step, top=6)
+    return sym, gaps, max(peaks), losses, launches, init, fitted
+
+
+def zoo_phase(counters):
+    """The seven networks through Module.fit on the card, float32 (TF32
+    off), MXNET_BN_PALLAS=1: step ms (median of the timed steps), img/s,
+    peak memory, a profiled step's launches, the BatchNorm kernels'
+    launches (each once a BatchNorm a step), finite losses, the four
+    BatchNorm kernels against their plain versions at every BatchNorm
+    input shape of the timed batch, and a batch-2 inference forward card
+    against CPU from the initial and from the fitted weights. Returns
+    the kernels' launch counts over the seven fits."""
+    import json as _json
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import config
+
+    t0 = time.perf_counter()
+    total = {c.__name__: 0 for c in counters}
+    config.set_override("MXNET_BN_PALLAS", True)
+    try:
+        for name, shape, B, classes, lr in ZOO_NETS:
+            t = time.perf_counter()
+            sym, gaps, peak, losses, launches, init, fitted = zoo_fit(
+                mx, name, shape, B, classes, lr, counters)
+            n_bn = sum(n["op"] == "BatchNorm"
+                       for n in _json.loads(sym.tojson())["nodes"])
+            for c in counters:
+                total[c.__name__] += launches[c.__name__]
+                if launches[c.__name__] != n_bn * ZOO_STEPS:
+                    fail("zoo: %s: %s launched %d times in %d steps of %d "
+                         "BatchNorms" % (name, c.__name__,
+                                         launches[c.__name__], ZOO_STEPS,
+                                         n_bn))
+            if len(losses) != ZOO_STEPS or not np.isfinite(losses).all():
+                fail("zoo: %s: losses %s" % (name, losses))
+            bn_note = ""
+            if n_bn:
+                n_shapes, worst = zoo_bn_check(name, sym, shape, B)
+                bn_note = ("; the BatchNorm kernels at its %d BatchNorm "
+                           "input shapes against their plain versions, max "
+                           "abs err %s" % (n_shapes, " ".join(
+                               "%s %.3g" % kv for kv in worst.items())))
+            err0, err1, note = zoo_forward_checks(mx, name, sym, shape,
+                                                  classes, init, fitted)
+            step = statistics.median(gaps[1:])
+            nparam = sum(v.numel() for v in init[0].values())
+            say("zoo: %s, %s x %d, %d classes, lr %g, %.1f M parameters, "
+                "%d BatchNorms: %.2f ms a step (median of steps 2..%d; all: "
+                "%s), %.1f img/s, peak %.2f GB, %d launches a profiled step "
+                "(busy %.1f%%), BatchNorm kernels %d launches each; NLL %s; "
+                "batch-2 forward card vs CPU max abs err %.3g (initial "
+                "weights' softmax), %.3g (fitted weights' logits over the "
+                "largest; %s)%s; %.1f s" % (
+                    name, "x".join(map(str, shape)), B, classes, lr,
+                    nparam / 1e6, n_bn, step, ZOO_STEPS,
+                    " ".join("%.1f" % g for g in gaps), B / step * 1e3,
+                    peak / 1e9, sum(profile.counts.values()),
+                    100 * profile.busy, launches[counters[0].__name__],
+                    " ".join("%.4f" % v for v in losses), err0, err1, note,
+                    bn_note, time.perf_counter() - t))
+            del init, fitted
+            torch.cuda.empty_cache()
+    finally:
+        config.set_override("MXNET_BN_PALLAS", None)
+    say("zoo: phase done in %.1f s" % (time.perf_counter() - t0))
+    return total
+
+
 
 def main():
     try:
@@ -9722,7 +10314,11 @@ def main():
                                      bnk.bn_bwd_reduce_cuda,
                                      bnk.bn_bwd_dx_cuda]),
                "rnn": rnn_phase(),
-               "detect": detect_phase()}
+               "detect": detect_phase(),
+               "zoo": zoo_phase([bnk.bn_stats_cuda, bnk.bn_apply_cuda,
+                                 bnk.bn_bwd_reduce_cuda,
+                                 bnk.bn_bwd_dx_cuda])}
+    sparse_phase()
     for rec in records:
         # no kernel moves its bytes faster than the memory can: a time
         # under the byte bound means the timing lost work
@@ -9758,7 +10354,9 @@ PARTIAL = {"mt": mt_kernel_phase, "bn": bn_kernel_phase,
            "gspmd2": gspmd2_phase, "kvdist2": kvdist2_phase,
            "profiler": profiler_phase,
            "gluon": lambda: gluon_phase(_bn_counters()),
-           "rnn": rnn_phase, "detect": detect_phase}
+           "rnn": rnn_phase, "detect": detect_phase,
+           "sparse": sparse_phase,
+           "zoo": lambda: zoo_phase(list(_bn_counters()))}
 
 
 def _serve_counters():

@@ -12,9 +12,10 @@ consumer's CUDA stream, so a placed batch is ordered with the steps that
 read it.
 
 MNISTIter and CSVIter read their files on the host into an NDArrayIter.
-Not ported yet: LibSVMIter, whose batches are CSR storage (ROADMAP Queue
-A item 10's sparse work), and ImageRecordIter / ImageDetRecordIter
-(item 10's ``image/*``); each raises ``NotImplementedError``.
+LibSVMIter parses its text once on the host and gives CSR batches
+(``ndarray.sparse.CSRNDArray``) on the current context. Not ported yet:
+ImageRecordIter / ImageDetRecordIter (ROADMAP Queue A item 10.5's
+``image/*``); each raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -547,9 +548,112 @@ def _not_ported_iter(name, what):
     return make
 
 
-LibSVMIter = _not_ported_iter(
-    "LibSVMIter", "its batches are CSR storage, the sparse work")
 ImageRecordIter = _not_ported_iter(
     "ImageRecordIter", "it decodes through image/*")
 ImageDetRecordIter = _not_ported_iter(
     "ImageDetRecordIter", "it decodes through image/*")
+
+
+class LibSVMIter(DataIter):
+    """Batches of LibSVM-format text (``label idx:val ...``) as CSR
+    arrays (reference src/io/iter_libsvm.cc:200): each batch is a
+    ``CSRNDArray`` of the parsed corpus's rows, never a dense (batch,
+    num_features) buffer unless the consumer casts. The last batch wraps
+    around to the first rows with ``round_batch`` (its ``pad`` counts
+    them), else it is dropped. ``label_libsvm`` names a LibSVM file of
+    labels, each row densified to ``label_shape``."""
+
+    def __init__(self, data_libsvm, data_shape, batch_size,
+                 label_libsvm=None, label_shape=(1,), round_batch=True,
+                 **_kwargs):
+        super().__init__(batch_size)
+        self._data_shape = (int(data_shape[0]) if not
+                            isinstance(data_shape, int) else
+                            int(data_shape),)
+        self._label_shape = ((int(label_shape),) if
+                             isinstance(label_shape, int)
+                             else tuple(int(d) for d in label_shape))
+        vals, cols, indptr, labels = self._parse(data_libsvm)
+        self._vals, self._cols, self._indptr = vals, cols, indptr
+        self._num = len(indptr) - 1
+        if label_libsvm is not None:
+            lv, lc, lptr, _ = self._parse(label_libsvm)
+            width = int(np.prod(self._label_shape))
+            dense = np.zeros((len(lptr) - 1, width), np.float32)
+            rows = np.repeat(np.arange(len(lptr) - 1), np.diff(lptr))
+            dense[rows, lc] = lv
+            if self._label_shape in ((), (1,)):
+                labels = dense.reshape(-1)   # as provide_label's (N,)
+            else:
+                labels = dense.reshape((-1,) + self._label_shape)
+        elif self._label_shape not in ((), (1,)):
+            raise ValueError("label_shape %r needs a label_libsvm file "
+                             "(the data file's leading token is a single "
+                             "scalar label)" % (self._label_shape,))
+        self._labels = labels
+        self._round_batch = round_batch
+        self.data_name, self.label_name = "data", "label"
+        self.reset()
+
+    @staticmethod
+    def _parse(path):
+        """(values f32, columns int64, indptr int64, labels f32) of a
+        LibSVM file; blank lines are skipped."""
+        labels, toks, indptr = [], [], [0]
+        with open(path) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                labels.append(parts[0])
+                toks.extend(parts[1:])
+                indptr.append(len(toks))
+        pairs = np.array(" ".join(toks).replace(":", " ").split(),
+                         np.float64).reshape(-1, 2)
+        return (pairs[:, 1].astype(np.float32), pairs[:, 0].astype(np.int64),
+                np.asarray(indptr, np.int64),
+                np.asarray(labels, np.float64).astype(np.float32))
+
+    @property
+    def provide_data(self):
+        return [DataDesc(self.data_name,
+                         (self.batch_size,) + self._data_shape)]
+
+    @property
+    def provide_label(self):
+        shape = (self.batch_size,)
+        if self._label_shape not in ((), (1,)):
+            shape += self._label_shape
+        return [DataDesc(self.label_name, shape)]
+
+    def reset(self):
+        self._cursor = 0
+
+    def _rows(self, ids):
+        """The CSR batch of the corpus rows ``ids`` (sliced on the host,
+        one copy to the current context)."""
+        from .ndarray import sparse
+        starts = self._indptr[ids]
+        counts = self._indptr[ids + 1] - starts
+        indptr = np.concatenate([[0], np.cumsum(counts)])
+        take = np.repeat(starts - indptr[:-1], counts) + np.arange(
+            indptr[-1])
+        return sparse.CSRNDArray(self._vals[take], self._cols[take], indptr,
+                                 (len(ids), self._data_shape[0]))
+
+    def next(self):
+        if self._cursor >= self._num:
+            raise StopIteration
+        end = self._cursor + self.batch_size
+        ids = np.arange(self._cursor, min(end, self._num))
+        pad = 0
+        if end > self._num:
+            if not self._round_batch:
+                raise StopIteration
+            pad = end - self._num
+            ids = np.concatenate([ids, np.arange(pad) % self._num])
+        self._cursor = end
+        return DataBatch(data=[self._rows(ids)],
+                         label=[array(self._labels[ids])], pad=pad,
+                         provide_data=self.provide_data,
+                         provide_label=self.provide_label)

@@ -28,8 +28,13 @@ the server, on the host, with no aggregation among workers; rank and
 worker count come from the DMLC_* environment; ``set_optimizer`` ships
 the optimizer to the server(s).
 
-Sparse values (``row_sparse_pull``) are ROADMAP Queue A item 10 and
-raise ``NotImplementedError``; a dist store refuses them by name.
+Row-sparse values stay sparse in an in-process store: a list pushed for
+a key reduces over the union of its rows (``sparse.add``, never
+densified), a plain ``pull`` of a sparse store densifies it once for
+every dense out array, and ``row_sparse_pull`` copies only the requested
+rows (a row-sparse out gets exactly those ids; a dense out the gathered
+rows). A dist store carries dense values only and refuses sparse ones,
+as in the JAX package.
 """
 from __future__ import annotations
 
@@ -115,16 +120,19 @@ class KVStore:
         from .parallel import _comm
         return NDArray(_comm.world_broadcast(arr_nd._data, src=0))
 
-    @staticmethod
-    def _reject_sparse_dist(val, what):
-        """A dist store carries dense values only: an array over a torch
-        sparse layout raises, as the JAX package's sparse arrays do."""
-        if not isinstance(val, NDArray) or \
+    def _reject_sparse_dist(self, val, what):
+        """A dist store carries dense values only: a sparse NDArray (or an
+        array over a torch sparse layout) raises, as in the JAX
+        package."""
+        if not isinstance(val, NDArray) or val.stype != "default" or \
                 val._data.layout != torch.strided:
             raise NotImplementedError(
-                "sparse %s through a dist kvstore is not supported: "
-                "sparse storage is ROADMAP Queue A item 10; use dense "
-                "arrays for the distributed path" % what)
+                "sparse %s through a %s kvstore is not supported: the dist "
+                "types (%s) carry dense values only, since variable-nnz "
+                "buffers have no fixed-shape collective; use a local "
+                "kvstore (its reduce keeps sparsity) or dense arrays"
+                % (what, self.type, ", ".join(
+                    t for t in _TYPES if t.startswith("dist"))))
 
     # -- identity ----------------------------------------------------------
     @property
@@ -185,7 +193,16 @@ class KVStore:
         for k, vlist in zip(keys, vals):
             if self._async_client is None and k not in self._store:
                 raise KeyError("key %r has not been initialized" % (k,))
-            merged = vlist[0] if len(vlist) == 1 else ndarray.add_n(*vlist)
+            if len(vlist) == 1:
+                merged = vlist[0]
+            elif isinstance(vlist[0], ndarray.RowSparseNDArray):
+                # the union of the pushed rows, never densified
+                # (reference CommCPU::ReduceRowSparse)
+                merged = vlist[0]
+                for v in vlist[1:]:
+                    merged = ndarray.sparse.add(merged, v)
+            else:
+                merged = ndarray.add_n(*vlist)
             pushed.inc(merged._data.numel() * merged._data.element_size())
             if self._async_client is not None:
                 # applied on the server at once: no aggregation among
@@ -222,16 +239,54 @@ class KVStore:
                 if k not in self._store:
                     raise KeyError("key %r has not been initialized"
                                    % (k,))
-                src = self._store[k]._data
+                stored = self._store[k]
+                if isinstance(stored, ndarray.sparse.BaseSparseNDArray):
+                    # a sparse store: a sparse out gets a copy, the dense
+                    # outs one densified value
+                    for o in olist:
+                        if isinstance(o, ndarray.sparse.BaseSparseNDArray):
+                            stored.copyto(o)
+                    olist = [o for o in olist if o.stype == "default"]
+                    if not olist:
+                        continue
+                    stored = stored.todense()
+                src = stored._data
             pulled.inc(src.numel() * src.element_size())
             for o in olist:
                 o._set_data(src.to(device=o._data.device,
                                    dtype=o._data.dtype, copy=True))
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
-        raise NotImplementedError(
-            "KVStore.row_sparse_pull pulls row-sparse storage, which is not "
-            "ported to the PyTorch package yet (ROADMAP Queue A item 10)")
+        """Pull only the rows in ``row_ids`` (reference
+        kvstore.py:row_sparse_pull): a row-sparse ``out`` receives the
+        values and indices of exactly those rows (sorted), the weight
+        itself never copied; a dense ``out`` gets the gathered rows in
+        ``row_ids`` order."""
+        assert out is not None and row_ids is not None
+        keys, _ = _key_list(key)
+        outs = _value_list(out, len(keys))
+        rids = row_ids if isinstance(row_ids, (list, tuple)) else [row_ids]
+        if len(rids) == 1 and len(outs) > 1:
+            rids = rids * len(outs)
+        sparse = ndarray.sparse
+        pulled = _telemetry.counter("kvstore.pull_bytes")
+        _telemetry.counter("kvstore.pulls").inc(len(keys))
+        for k, olist, rid in zip(keys, outs, rids):
+            if k not in self._store:
+                raise KeyError("key %r has not been initialized" % (k,))
+            src = self._store[k]
+            ids = sparse._as_tensor(rid, torch.int32,
+                                    src._data.device).reshape(-1)
+            if isinstance(src, sparse.RowSparseNDArray):
+                rows = sparse._gather_rows(src, ids)
+            else:
+                rows = src._data.detach().index_select(0, ids)
+            for o in olist:
+                if isinstance(o, sparse.RowSparseNDArray):
+                    sparse.RowSparseNDArray(rows, ids, src.shape).copyto(o)
+                else:
+                    o._set_data(rows.to(o._data.device))
+                pulled.inc(rows.numel() * rows.element_size())
 
     # -- updater/optimizer -------------------------------------------------
     def set_updater(self, updater):

@@ -1,6 +1,6 @@
-"""NDArray namespace (``mx.nd``): the array type, creation, save/load and
-the generated operator namespace (the JAX package's
-``ndarray/__init__.py``, without sparse storage)."""
+"""NDArray namespace (``mx.nd``): the array type, creation, save/load,
+the sparse storage types and the generated operator namespace (the JAX
+package's ``ndarray/__init__.py``)."""
 from .ndarray import (NDArray, array, arange, concatenate, empty, full,  # noqa: F401,E501
                       load, moveaxis, ones, ones_like, onehot_encode, save,
                       waitall, zeros, zeros_like, _wrap)
@@ -17,10 +17,9 @@ for _name in _reg.list_ops():
 del _name
 
 from . import contrib  # noqa: E402,F401 (mx.nd.contrib)
+from . import sparse  # noqa: E402
+from .sparse import CSRNDArray, RowSparseNDArray  # noqa: E402,F401
 
-
-def __getattr__(name):
-    err = _reg.not_ported(name)
-    if err is not None:
-        raise err
-    raise AttributeError("module %r has no attribute %r" % (__name__, name))
+# sparse inputs take the sparse routes of the generated entry points (the
+# analogue of the reference's FComputeEx dispatch)
+sparse._install_sparse_dispatch(globals(), op)

@@ -15,11 +15,4 @@ def _populate():
             setattr(mod, name[len("_contrib_"):], getattr(_op, name))
 
 
-def __getattr__(name):
-    err = _reg.not_ported("_contrib_" + name)
-    if err is not None:
-        raise err
-    raise AttributeError("module %r has no attribute %r" % (__name__, name))
-
-
 _populate()

@@ -1,5 +1,4 @@
-"""NDArray — the PyTorch twin of ``mxnet_tpu/ndarray/ndarray.py``
-(without sparse storage).
+"""NDArray — the PyTorch twin of ``mxnet_tpu/ndarray/ndarray.py``.
 
 An ``NDArray`` wraps one ``torch.Tensor`` (``.handle``) and reports its
 shape, dtype and context; ``asnumpy`` copies to the host, turning bf16
@@ -14,7 +13,10 @@ Operator methods (``x.sum()``, ``x + y``, ``x.exp()`` ...) go through the
 shared op registry (``ops.registry.invoke_eager``), so eager and symbolic
 code run the same functions and kernels and autograd sees every call.
 ``attach_grad``/``backward`` are ``autograd``'s. ``save``/``load`` read
-and write the JAX package's ``.npz`` format both ways.
+and write the JAX package's ``.npz`` format both ways, sparse entries
+included. The sparse storage types (``sparse.py``) subclass NDArray;
+``tostype`` converts between them, and a dense array is never copied into
+sparse storage.
 """
 from __future__ import annotations
 
@@ -136,6 +138,11 @@ class NDArray:
 
     def copyto(self, other):
         if isinstance(other, NDArray):
+            if other.stype != "default":
+                raise TypeError(
+                    "cannot copy a dense array into %s storage — cast "
+                    "with tostype(%r) instead"
+                    % (type(other).__name__, other.stype))
             other._set_data(self._data.detach().to(other._data.device,
                                                    copy=True))
             return other
@@ -159,11 +166,8 @@ class NDArray:
         return NDArray(self._data.detach())
 
     def tostype(self, stype):
-        if stype == "default":
-            return self
-        raise NotImplementedError(
-            "sparse storage (%r) is not ported yet (ROADMAP Queue A item "
-            "10)" % (stype,))
+        from .sparse import tostype as _tostype
+        return _tostype(self, stype)
 
     # -- autograd -----------------------------------------------------------
     def attach_grad(self, grad_req="write", stype=None):
@@ -517,8 +521,12 @@ def empty(shape, ctx=None, dtype=None):
     return zeros(shape, ctx=ctx, dtype=dtype)
 
 
-def zeros(shape, ctx=None, dtype=None, **kwargs):
-    """A zero-filled NDArray on ``ctx`` (default: the current context)."""
+def zeros(shape, ctx=None, dtype=None, stype=None, **kwargs):
+    """A zero-filled NDArray on ``ctx`` (default: the current context);
+    an empty sparse array for a sparse ``stype``."""
+    if stype not in (None, "default"):
+        from .sparse import zeros as sparse_zeros
+        return sparse_zeros(stype, shape, ctx=ctx, dtype=dtype)
     return NDArray(torch.zeros(_shape_of(shape), dtype=torch_dtype(dtype),
                                device=_device(ctx)))
 
@@ -593,17 +601,34 @@ def _to_numpy_exact(data):
 
 # ---------------------------------------------------------------------------
 # save / load — the JAX package's .npz container: a dict saves under its
-# keys, a list under "__mx_list__:<i>" keys (ndarray.py:624-705).
+# keys, a list under "__mx_list__:<i>" keys; a sparse array's components
+# under the reserved "__mx_sparse__.<i>." keys with a JSON manifest of
+# (key, stype, shape) (ndarray.py:624-705).
 # ---------------------------------------------------------------------------
 
 _SAVE_LIST_PREFIX = "__mx_list__:"
 _SPARSE_NS = "__mx_sparse__"
 
 
-def _payload_entry(payload, key, v):
+def _save_entry(payload, manifest, key, v):
+    """A dense array stores under its key; a sparse one stores its
+    components under the reserved namespace with a manifest entry, so no
+    user key collides with them."""
+    from .sparse import BaseSparseNDArray, CSRNDArray
     if key.startswith(_SPARSE_NS):
         raise ValueError("array names must not start with %r (reserved "
                          "for the sparse save format)" % _SPARSE_NS)
+    if isinstance(v, BaseSparseNDArray):
+        i = len(manifest)
+        manifest.append({"key": key, "stype": v.stype,
+                         "shape": list(v.shape)})
+        payload["%s.%d.data" % (_SPARSE_NS, i)] = _to_numpy_exact(v._data)
+        payload["%s.%d.indices" % (_SPARSE_NS, i)] = \
+            _to_numpy_exact(v._indices)
+        if isinstance(v, CSRNDArray):
+            payload["%s.%d.indptr" % (_SPARSE_NS, i)] = \
+                _to_numpy_exact(v._indptr)
+        return
     payload[key] = _to_numpy_exact(v._data) if isinstance(v, NDArray) \
         else np.asarray(v)
 
@@ -611,34 +636,45 @@ def _payload_entry(payload, key, v):
 def save(fname, data):
     if isinstance(data, NDArray):
         data = [data]
-    payload = {}
+    payload, manifest = {}, []
     if isinstance(data, dict):
         for k, v in data.items():
-            _payload_entry(payload, k, v)
+            _save_entry(payload, manifest, k, v)
     elif isinstance(data, (list, tuple)):
         for i, v in enumerate(data):
-            _payload_entry(payload, _SAVE_LIST_PREFIX + str(i), v)
+            _save_entry(payload, manifest, _SAVE_LIST_PREFIX + str(i), v)
     else:
         raise ValueError("data must be NDArray, list of NDArrays or dict")
+    if manifest:
+        payload[_SPARSE_NS + ".manifest"] = np.frombuffer(
+            json.dumps(manifest).encode(), np.uint8)
     with open(fname, "wb") as f:
         np.savez(f, **payload)
 
 
 def load(fname, ctx=None):
     """Arrays saved by ``save`` (either package) as a dict or a list, on
-    ``ctx`` (default: the current context). Sparse entries wait for the
-    sparse storage types."""
+    ``ctx`` (default: the current context), sparse entries as their
+    storage types."""
+    from .sparse import CSRNDArray, RowSparseNDArray
+    ctx = ctx or current_context()
     with np.load(fname, allow_pickle=False) as npz:
-        if _SPARSE_NS + ".manifest" in npz.files:
-            manifest = json.loads(bytes(npz[_SPARSE_NS + ".manifest"])
-                                  .decode())
-            raise NotImplementedError(
-                "%s holds sparse arrays %r; sparse storage is not ported "
-                "yet (ROADMAP Queue A item 10)"
-                % (fname, [m["key"] for m in manifest]))
-        entries = {k: NDArray(_from_numpy(npz[k]), ctx=ctx or
-                              current_context())
-                   for k in npz.files}
+        entries = {k: NDArray(_from_numpy(npz[k]), ctx=ctx)
+                   for k in npz.files if not k.startswith(_SPARSE_NS)}
+        mkey = _SPARSE_NS + ".manifest"
+        if mkey in npz.files:
+            manifest = json.loads(bytes(npz[mkey]).decode())
+            for i, meta in enumerate(manifest):
+                part = "%s.%d." % (_SPARSE_NS, i)
+                vals = _from_numpy(npz[part + "data"])
+                idx = npz[part + "indices"]
+                if meta["stype"] == "csr":
+                    entries[meta["key"]] = CSRNDArray(
+                        vals, idx, npz[part + "indptr"], meta["shape"],
+                        ctx=ctx)
+                else:
+                    entries[meta["key"]] = RowSparseNDArray(
+                        vals, idx, meta["shape"], ctx=ctx)
     if entries and all(k.startswith(_SAVE_LIST_PREFIX) for k in entries):
         order = sorted(entries,
                        key=lambda k: int(k[len(_SAVE_LIST_PREFIX):]))

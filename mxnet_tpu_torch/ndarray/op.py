@@ -4,9 +4,7 @@ python/mxnet/ndarray/op.py:52-174).
 
 Positional NDArrays (and numpy arrays or tensors) are the op's tensor
 inputs in order; positional scalars are attrs in the op's parameter
-order; keyword tensors land in their ``active_args`` slots. A name the
-JAX package registers and the port does not yet raises ``OpNotPorted``,
-naming the op and its ROADMAP item.
+order; keyword tensors land in their ``active_args`` slots.
 """
 from __future__ import annotations
 
@@ -93,13 +91,6 @@ def _populate(target_module_name):
         fn = _make_nd_function(_reg.get_op(name))
         fn.__name__ = name
         setattr(mod, name, fn)
-
-
-def __getattr__(name):
-    err = _reg.not_ported(name)
-    if err is not None:
-        raise err
-    raise AttributeError("module %r has no attribute %r" % (__name__, name))
 
 
 _populate(__name__)

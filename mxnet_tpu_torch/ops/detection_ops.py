@@ -20,7 +20,9 @@ image without a valid gt. ``ROIPooling`` is a custom autograd Function
 over each bin's gathered window, not the JAX formulation's (R, C, ph,
 pw, H, W) mask; its backward splits a bin's gradient evenly over every
 element equal to the bin's maximum, as the JAX max does (ReLU features
-tie at 0), and an empty bin gives 0.
+tie at 0), and an empty bin gives 0; the shares reach the map through
+``ops/_segment.py``'s fixed-order segment sum, so the card's gradient is
+the same bits run after run (ROADMAP Queue C 21).
 
 ``MultiBoxDetection`` keeps that op's rules: the best non-background
 class with ``background_id`` renumbered, ``valid = score >= threshold``,
@@ -46,6 +48,7 @@ import torch
 
 from .. import config as _config
 from .nms_kernels import _box_iou_corner, nms_keep
+from ._segment import segment_sum
 from .registry import register
 
 
@@ -460,20 +463,27 @@ class _ROIPool(torch.autograd.Function):
         # empty bins pass nothing (the forward's isfinite select)
         g = torch.where(torch.isfinite(raw), dy.permute(0, 2, 3, 1),
                         _weak(raw, 0.0))
-        dxt = torch.zeros_like(xt)
-        for sl, kh, kw in _ROIPool._chunks(bins, data.shape[1]):
+        B, H, W, C = xt.shape
+        P = B * H * W
+        dxt = torch.zeros((P, C), dtype=xt.dtype, device=xt.device)
+        at = torch.arange(P, device=xt.device)
+        for sl, kh, kw in _ROIPool._chunks(bins, C):
             if kh == 0 or kw == 0:
                 break
-            vals, valid, index = _ROIPool._windows(
+            vals, valid, (b, r, c) = _ROIPool._windows(
                 xt, bidx[sl], hs[sl], he[sl], ws[sl], we[sl], kh, kw)
             top = raw[sl][:, :, None, :, None, :]
             hit = (vals == top) & valid[..., None]
             count = hit.sum(dim=(2, 4), keepdim=True).to(g.dtype)
             share = g[sl][:, :, None, :, None, :] / torch.clamp_min(count, 1)
-            dxt.index_put_(tuple(i.expand(hit.shape[:-1]) for i in index),
-                           torch.where(hit, share, _weak(share, 0.0)),
-                           accumulate=True)
-        return dxt.permute(0, 3, 1, 2), None
+            # the shares summed by map position in a fixed order (Queue C
+            # 21): each position's running sum first, then the chunk's
+            # window elements in order, so chunking changes no bit
+            pos = ((b * H + r) * W + c).expand(hit.shape[:-1])
+            dxt = segment_sum(torch.cat([dxt, torch.where(
+                hit, share, _weak(share, 0.0)).reshape(-1, C)]),
+                torch.cat([at, pos.reshape(-1)]), P)
+        return dxt.reshape(B, H, W, C).permute(0, 3, 1, 2), None
 
 
 @register("ROIPooling", arg_names=("data", "rois"), nondiff_inputs=(1,),

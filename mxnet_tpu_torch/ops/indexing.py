@@ -5,7 +5,8 @@ would raise: a negative index counts from the end; out of range,
 ``take_along_axis`` (batch_take, pick) reads NaN (an int table, its
 least value), an ``x[idx]`` gather (gather_nd) clamps, and a scatter
 (scatter_nd) drops the update. ``_sparse_retain`` and ``_square_sum``
-wait for sparse storage (ROADMAP Queue A item 10).
+are their dense compute paths (a sparse input takes
+``ndarray/sparse.py``'s route through ``mx.nd``).
 """
 from __future__ import annotations
 
@@ -129,3 +130,29 @@ def _scatter_nd(data, indices, shape=(), **_):
     out = out.index_put((lin.reshape(-1),),
                         data.reshape((-1,) + shape[m:]))
     return out[:rows].reshape(shape)
+
+
+@register("_sparse_retain", arg_names=("data", "indices"), nondiff_inputs=(1,))
+def _sparse_retain(data, indices, **_):
+    """The rows of ``data`` named by ``indices`` kept, the others zero. An
+    id in [-rows, 0) counts from the end and one outside [-rows, rows) is
+    dropped, as jax's ``.at[ids].set`` does."""
+    n = data.shape[0]
+    ids = indices.reshape(-1).to(torch.int64)
+    ids = torch.where(ids < 0, ids + n, ids)
+    ids = torch.where((ids >= 0) & (ids < n), ids, torch.full_like(ids, n))
+    mask = torch.zeros(n + 1, dtype=torch.bool, device=data.device)
+    mask = mask.index_fill(0, ids, True)[:n]
+    return torch.where(mask.reshape((-1,) + (1,) * (data.dim() - 1)), data,
+                       torch.zeros((), dtype=data.dtype, device=data.device))
+
+
+@register("_square_sum", arg_names=("data",),
+          defaults={"axis": None, "keepdims": False})
+def _square_sum(x, axis=None, keepdims=False, **_):
+    if axis is None:
+        axis = tuple(range(x.dim()))
+    elif isinstance(axis, int):
+        axis = (axis,)
+    out = torch.sum(torch.square(x), dim=tuple(axis), keepdim=keepdims)
+    return out.reshape((1,)) if out.dim() == 0 else out

@@ -7,7 +7,8 @@ where, pad, dot and batch_dot (``torch.matmul``; the JAX package computes
 them outside any Pallas kernel too), and topk/sort/argsort, whose ties
 keep the lower index first as ``lax.top_k`` and jax's stable sorts do
 (``lax.top_k`` ranks -0.0 below +0.0, the sorts tie them).
-``cast_storage`` waits for sparse storage (ROADMAP Queue A item 10).
+``cast_storage`` is the identity on a dense array, as in the JAX package:
+a sparse input or target takes ``ndarray/sparse.py``'s route.
 """
 from __future__ import annotations
 
@@ -311,6 +312,14 @@ def _batch_dot(lhs, rhs, transpose_a=False, transpose_b=False, **_):
     if transpose_b:
         rhs = torch.swapaxes(rhs, -1, -2)
     return torch.matmul(lhs, rhs)
+
+
+@register("cast_storage", arg_names=("data",), defaults={"stype": "default"})
+def _cast_storage(x, stype="default", **_):
+    """The dense compute path: storage is metadata (``mx.nd.cast_storage``
+    routes a sparse input or target through ndarray/sparse.py), and a
+    graph is dense throughout."""
+    return x
 
 
 # -- ordering -----------------------------------------------------------------

@@ -39,8 +39,7 @@ import numpy as np
 from .. import profiler as _profiler
 
 __all__ = ["OpDef", "register", "get_op", "list_ops", "canon_attrs",
-           "set_arg_select", "set_param_shapes", "invoke_eager",
-           "OpNotPorted", "not_ported"]
+           "set_arg_select", "set_param_shapes", "invoke_eager"]
 
 _OP_REGISTRY: dict[str, "OpDef"] = {}
 _ALIASES: dict[str, str] = {}
@@ -224,8 +223,17 @@ def _invoke_eager(opdef, nd_inputs, attrs, out=None):
 
     arrays = []
     for i, x in enumerate(nd_inputs):
-        t = x._data if isinstance(x, NDArray) else array(
-            x, ctx=_input_context(nd_inputs))._data
+        if isinstance(x, NDArray):
+            if x.stype != "default":
+                # a dense op would read the (nnz, ...) values; only the
+                # sparse dispatch (ndarray/sparse.py) routes sparse storage
+                raise TypeError(
+                    "operator %r has no sparse implementation for a %s "
+                    "input — cast with tostype('default') first"
+                    % (opdef.name, x.stype))
+            t = x._data
+        else:
+            t = array(x, ctx=_input_context(nd_inputs))._data
         arrays.append(t.detach() if i in opdef.nondiff_inputs else t)
 
     attrs = canon_attrs(opdef, attrs)
@@ -272,34 +280,3 @@ def _input_context(nd_inputs):
         if isinstance(x, NDArray):
             return x.context
     return current_context()
-
-
-# ---------------------------------------------------------------------------
-# the JAX package's ops that the port does not register yet
-# ---------------------------------------------------------------------------
-
-# JAX module -> (ROADMAP item, every name it registers, aliases included)
-_NOT_PORTED = {
-    "indexing": ("Queue A item 10.4 (sparse storage)", (
-        "_sparse_retain", "_square_sum")),
-    "matrix": ("Queue A item 10.4 (sparse storage)", ("cast_storage",)),
-}
-_NOT_PORTED_BY_NAME = {n: (mod, item) for mod, (item, names)
-                       in _NOT_PORTED.items() for n in names}
-
-
-class OpNotPorted(NotImplementedError, AttributeError):
-    """An op the JAX package registers and the port does not yet. An
-    AttributeError too, so ``hasattr(mx.nd, name)`` stays False."""
-
-
-def not_ported(name):
-    """The OpNotPorted error for ``name`` if the JAX package registers it
-    and the port does not yet, else None."""
-    hit = _NOT_PORTED_BY_NAME.get(name)
-    if hit is None or name in _OP_REGISTRY or name in _ALIASES:
-        return None
-    mod, item = hit
-    return OpNotPorted(
-        "operator %r (mxnet_tpu/ops/%s.py) is not ported to the PyTorch "
-        "package yet: ROADMAP %s" % (name, mod, item))

@@ -13,10 +13,3 @@ for _n in _reg.list_ops():
 del _n
 
 from . import contrib  # noqa: E402,F401 (mx.sym.contrib)
-
-
-def __getattr__(name):
-    err = _reg.not_ported(name)
-    if err is not None:
-        raise err
-    raise AttributeError("module %r has no attribute %r" % (__name__, name))

@@ -1,6 +1,6 @@
 """Testing helpers — the PyTorch twin of ``mxnet_tpu/test_utils.py``
-(reference python/mxnet/test_utils.py), sparse storage aside:
-assert_almost_equal, numeric gradient checking, random arrays, the
+(reference python/mxnet/test_utils.py): assert_almost_equal, numeric
+gradient checking, random arrays (dense, row-sparse and csr), the
 symbolic forward/backward checks and the device consistency check.
 
 ``check_consistency`` is the reference's CPU-vs-GPU check: the function
@@ -41,11 +41,21 @@ def almost_equal(a, b, rtol=1e-5, atol=1e-20):
 
 
 def rand_ndarray(shape, stype="default", density=None, dtype=np.float32):
-    if stype != "default":
-        raise NotImplementedError(
-            "stype=%r: sparse storage is not ported to the PyTorch package "
-            "yet (ROADMAP Queue A item 10)" % (stype,))
-    return array(_rng.uniform(-1, 1, size=shape).astype(dtype))
+    """Uniform(-1, 1) draws of ``_rng``; a sparse ``stype`` keeps each
+    row with probability ``density`` (one more draw a row), as the JAX
+    package draws them."""
+    data = _rng.uniform(-1, 1, size=shape).astype(dtype)
+    if stype == "default":
+        return array(data)
+    if density is not None:
+        mask = _rng.uniform(0, 1, size=(shape[0],) + (1,) * (len(shape) - 1))
+        data = np.where(mask < density, data, 0).astype(dtype)
+    from .ndarray import sparse
+    if stype == "row_sparse":
+        return sparse.row_sparse_array(data)
+    if stype == "csr":
+        return sparse.csr_matrix(data)
+    raise ValueError(stype)
 
 
 def rand_shape_2d(dim0=10, dim1=10):

@@ -12,8 +12,9 @@ without a card (the CPU routes are held to the JAX package in
 * MultiBoxTarget at SSD300's 8732 anchors: the targets equal the CPU's
   exactly (the IoUs, the argmaxes and the stable sort are the same
   arithmetic on the same inputs), loc targets within 1e-6.
-* ROIPooling: forward equal, gradient within rtol 1e-5 / atol 1e-6 (the
-  card's scatter adds in no fixed order).
+* ROIPooling: forward equal, gradient within rtol 1e-5 / atol 1e-6, and
+  two card runs' gradients equal bit for bit (the shares are added by
+  the fixed-order segment sum, ROADMAP Queue C 21).
 * Proposal: scores equal to the CPU's, rois within rtol 1e-6 / atol 1e-4
   (exp rounds in the last bit on one device); the fixed-point walk's
   keep mask equal to the sequential loop's flag for flag.
@@ -98,6 +99,28 @@ def test_roi_pooling_card_equals_cpu(cuda_device):
         res.append((y.detach().cpu().numpy(), g.cpu().numpy()))
     np.testing.assert_array_equal(res[0][0], res[1][0])
     np.testing.assert_allclose(res[0][1], res[1][1], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rois_n", [40, 300])
+def test_roi_pooling_card_gradient_is_deterministic(cuda_device, rois_n):
+    """Overlapping rois add into the same map positions: two card runs
+    give the same gradient bits (Queue C 21)."""
+    rs = np.random.RandomState(2)
+    data = np.maximum(_f(rs, 1, 64, 38, 63), 0)
+    xy = rs.uniform(0, [1000, 600], (rois_n, 2))
+    rois = np.concatenate([np.zeros((rois_n, 1)), xy, np.minimum(
+        xy + rs.uniform(16, 400, (rois_n, 2)), [999, 599])], 1).astype(
+        np.float32)
+    dy = torch.from_numpy(_f(rs, rois_n, 64, 7, 7)).to(cuda_device)
+    grads = []
+    for _ in range(2):
+        x = torch.from_numpy(data).to(cuda_device).requires_grad_()
+        y = get_op("ROIPooling").fn(x, torch.from_numpy(rois).to(
+            cuda_device), pooled_size=(7, 7), spatial_scale=1.0 / 16)
+        grads.append(torch.autograd.grad(y, x, dy)[0])
+    assert torch.equal(grads[0], grads[1])
+    assert int((grads[0] != 0).sum()) > 0
 
 
 @pytest.mark.cuda

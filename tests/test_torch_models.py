@@ -12,6 +12,11 @@ outputs, read through each graph evaluator's capture hook, must be
 equal bit for bit in their zeros (the masks) and within rtol 1e-4 in
 their values, as the outputs and the gradients (float32; summation
 order differs).
+
+The rest of the symbolic catalog (LeNet, MLP, MobileNet, ResNeXt,
+GoogLeNet, Inception-v4, Inception-ResNet-v2) builds the JAX package's
+JSON and shapes here; ``tests/test_torch_zoo.py`` runs each network's
+forward and training step against the JAX package.
 """
 import json
 
@@ -47,6 +52,21 @@ BUILDERS = [
     ("inception_v3", "inception-v3", {}, (1, 3, 299, 299)),
     ("inception_v3_alias", "inception_v3", {"num_classes": 10},
      (1, 3, 299, 299)),
+    ("lenet", "lenet", {}, (64, 1, 28, 28)),
+    ("mlp", "mlp", {}, (64, 1, 28, 28)),
+    ("mobilenet", "mobilenet", {}, (1, 3, 224, 224)),
+    ("mobilenet_half", "mobilenet", {"multiplier": 0.5, "num_classes": 10},
+     (1, 3, 224, 224)),
+    ("resnext50", "resnext", {}, (1, 3, 224, 224)),
+    ("resnext101_64x4d", "resnext", {"num_layers": 101, "cardinality": 64,
+                                     "num_classes": 10}, (1, 3, 224, 224)),
+    ("googlenet", "googlenet", {}, (1, 3, 224, 224)),
+    ("inception_v4", "inception-v4", {}, (1, 3, 299, 299)),
+    ("inception_v4_alias", "inception_v4", {"num_classes": 10},
+     (1, 3, 299, 299)),
+    ("inception_resnet_v2", "inception-resnet-v2", {}, (1, 3, 299, 299)),
+    ("inception_resnet_v2_alias", "inception_resnet_v2",
+     {"num_classes": 10}, (1, 3, 299, 299)),
 ]
 
 
@@ -69,12 +89,6 @@ def test_builder_json_and_shapes_match_jax(name, kwargs, shape):
     assert tsym.infer_shape(**shapes) == tuple(
         [tuple(s) for s in part] for part in jsym.infer_shape(**shapes))
     assert tsym.list_auxiliary_states() == jsym.list_auxiliary_states()
-
-
-@pytest.mark.parametrize("name", ["lenet", "inception-v4", "googlenet"])
-def test_unported_catalog_entries_name_their_item(name):
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        tmodels.get_symbol(name)
 
 
 B, IMAGE, CLASSES = 2, 67, 10

@@ -425,30 +425,22 @@ def test_pickle_round_trip():
 
 
 def test_nd_namespace_covers_the_registry():
-    """Every registered name is an nd function (contrib under its short
-    name too); every name the JAX package registers and the port does
-    not raises OpNotPorted naming the op and its ROADMAP item, which
-    hasattr() reads as absent."""
+    """Every registered name is an nd function and a symbol (contrib
+    under its short name too), and the port registers every name the JAX
+    package registers; an unknown name is an AttributeError."""
     nd = tmx.nd
     for name in treg.list_ops():
         assert callable(getattr(nd, name)), name
+        assert callable(getattr(tmx.sym, name)), name
     assert nd.contrib.FlashAttention is nd._contrib_FlashAttention
-    missing = sorted(set(jreg.list_ops()) - set(treg.list_ops()))
-    assert missing
-    for name in missing:
-        with pytest.raises(treg.OpNotPorted, match="ROADMAP Queue A"):
-            getattr(nd, name)
-        with pytest.raises(NotImplementedError, match=name):
-            getattr(tmx.sym, name)
-    assert not hasattr(nd, "cast_storage")
-    with pytest.raises(treg.OpNotPorted, match="item 10"):
-        nd.cast_storage
-    with pytest.raises(treg.OpNotPorted, match="item 10"):
-        nd._sparse_retain
+    assert set(treg.list_ops()) == set(jreg.list_ops())
+    assert callable(nd.cast_storage) and callable(nd._sparse_retain)
     assert callable(nd.ROIPooling) and nd.contrib.fft is nd._contrib_fft
     with pytest.raises(AttributeError):
         nd.no_such_op
-    assert treg.not_ported("no_such_op") is None
+    with pytest.raises(AttributeError):
+        tmx.sym.no_such_op
+    assert not hasattr(treg, "OpNotPorted")
 
 
 def test_eager_and_symbol_share_the_registry():

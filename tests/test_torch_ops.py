@@ -846,6 +846,17 @@ _TRI = np.tril(_f32(4, 4, seed=8)) + 3 * np.eye(4, dtype=np.float32)
 _PROP_ATTRS = {"rpn_pre_nms_top_n": 30, "rpn_post_nms_top_n": 8,
                "threshold": 0.6, "rpn_min_size": 2, "scales": (2, 4),
                "ratios": (0.5, 1, 2), "feature_stride": 4}
+# the dense compute paths of the sparse ops (ndarray/sparse.py routes
+# sparse inputs; tests/test_torch_sparse.py holds those)
+CASES += [
+    ("s_cast_storage", "cast_storage", [_f32(3, 4)], {"stype": "default"}),
+    ("s_sparse_retain", "_sparse_retain",
+     [_f32(5, 3), np.array([0, 3, -1, 7], np.float32)], {}),
+    ("s_square_sum_all", "_square_sum", [_f32(3, 4)], {}),
+    ("s_square_sum_axis", "_square_sum", [_f32(3, 4, 2)],
+     {"axis": 1, "keepdims": True}),
+]
+
 CASES += [
     ("d_multibox_target", "_contrib_MultiBoxTarget",
      [_corner_boxes((1, 30), 1), _det_labels((2, 0), 3, 2),
@@ -1035,6 +1046,9 @@ def _relu_grid(shape, seed=0):
 # (case id, op name, inputs, attrs, env) — forward AND gradient of every
 # float input against jax.vjp with one random cotangent
 GRAD_CASES = [
+    ("square_sum", "_square_sum", [_f32(3, 4)], {"axis": 1}, {}),
+    ("sparse_retain", "_sparse_retain",
+     [_f32(5, 3), np.array([1, 3], np.float32)], {}, {}),
     ("conv2d", "Convolution", [_f32(2, 3, 9, 8), _f32(4, 3, 3, 3, seed=1),
                                _f32(4, seed=2)],
      {"kernel": (3, 3), "stride": (2, 1), "pad": (1, 0), "num_filter": 4},

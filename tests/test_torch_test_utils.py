@@ -86,5 +86,11 @@ def test_seeded_helpers_match_jax():
         a = ttu.rand_ndarray((2, 3)).asnumpy()
     np.testing.assert_array_equal(a, jtu.rand_ndarray((2, 3)).asnumpy())
     assert ttu.same(a, a.copy()) and not ttu.same(a, a + 1)
-    with pytest.raises(NotImplementedError, match="sparse"):
-        ttu.rand_ndarray((2, 3), stype="csr")
+    with tmx.cpu():
+        c = ttu.rand_ndarray((4, 3), stype="csr", density=0.5)
+        r = ttu.rand_ndarray((4, 3), stype="row_sparse")
+    jc = jtu.rand_ndarray((4, 3), stype="csr", density=0.5)
+    jr = jtu.rand_ndarray((4, 3), stype="row_sparse")
+    assert (c.stype, r.stype) == ("csr", "row_sparse")
+    np.testing.assert_array_equal(c.asnumpy(), jc.asnumpy())
+    np.testing.assert_array_equal(r.asnumpy(), jr.asnumpy())
