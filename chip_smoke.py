@@ -162,7 +162,7 @@ Phases (any failure exits non-zero; no phase is caught):
    loops; a width-1 ssm_chunk_scan equal to ssm_recurrent_step bit for
    bit on the card; a small f32 hybrid RoPE LM card against CPU;
 19. serve_decode: bench_decode's model through ContinuousDecoder (8
-   slots, max_len 384): 24 float32 requests (greedy, seeded, streamed; 4
+   slots, max_len 384): 12 float32 requests (greedy, seeded, streamed; 4
    speculative over truncated_draft(1); MXNET_PREFILL_CHUNK=64) each equal
    to generate of its prompt alone, stream frames equal to their rows,
    one captured step graph after the turnover; the bf16 rows that agree;
@@ -170,7 +170,7 @@ Phases (any failure exits non-zero; no phase is caught):
    clock, busy share, TTFT and inter-token p50/p99, slot fill, beside
    generate_on_device's rate;
 20. serve_fleet: a ServeRouter over two decode replicas and a prefill
-   replica on 127.0.0.1 (float32), 8 ServeClient threads, 32
+   replica on 127.0.0.1 (float32), 8 ServeClient threads, 24
    disaggregated requests (greedy, seeded, streamed, speculative), one
    decode replica recycled mid-run (its sessions evacuate and resume):
    one response a request, each equal to generate, no decode-side
@@ -215,12 +215,12 @@ Phases (any failure exits non-zero; no phase is caught):
 25. kvdist2: bench.py's ResNet-50 (float32, the BatchNorm kernels, batch
    64 a worker) through Module.fit on two workers of this script sharing
    the card over gloo (``--kv-rank=`` runs one): (a) kvstore='dist_sync',
-   a warm step and 3 timed (ms, staged bytes, pushes and pulls a step, peak
+   a warm step and 2 timed (ms, staged bytes, pushes and pulls a step, peak
    memory, BatchNorm launches), the workers' parameters after 2 steps equal
    to each other and to one process's rank-ordered sum of the same
    gradients; (b) kvstore='dist_async' against a parameter-server process
    started as tools/launch.py starts one (``--kv-server``: DMLC_ROLE=server
-   through the package's import hook), 3 steps a worker, every push
+   through the package's import hook), 2 steps a worker, every push
    applied once, the final pulls equal to the server's store, then one
    worker alone against the same Module on a 'local' store;
 26. profiler: mx.profiler over torch.profiler: two steps of kvdist2's
@@ -297,8 +297,27 @@ Phases (any failure exits non-zero; no phase is caught):
    torch.sparse.mm; (b) the row-sparse embedding recipe (take, take_grad,
    lazy Adam) at MovieLens-20M's counts against the dense route, rows
    outside the batches untouched bit for bit;
-32. one JSON line of every ported kernel (a device time under its byte
-   bound fails the run: the timing lost work), then the result line.
+32. image: the data plane (image/*, the mmap'd RecordIO reader, the
+   batched JPEG decoder, all host code) on seeded 500 x 375 JPEGs packed
+   at quality 95 into .rec/.idx files: (a) bench.py's ResNet-50 (float32,
+   MXNET_BN_PALLAS=1, the module phase's SGD and initialisation) through
+   Module.fit over mx.io.ImageRecordIter at upstream train_imagenet.py's
+   settings (batch 128, 3x224x224, shuffle, rand_crop, rand_mirror,
+   ImageNet mean/std, 4 threads; prefetched, batches on the card): a
+   warm-up and 4 timed steps, each BatchNorm kernel once a BatchNorm a
+   step, every batch through the native reader and decoder; the step
+   beside the same Module over those batches resident on the card, the
+   step's wait for the iterator, the iterator alone on the host (ms a
+   batch, images/s), one batch made for the CPU bit-equal to the one
+   made for the card; (b) detect (a)'s SSD300 step through Module.fit
+   over mx.io.ImageDetRecordIter at upstream example/ssd/train.py's
+   settings (batch 32, 300 px, mean 123/117/104, crop, mirror; 1-3 boxes
+   an image over VOC's 20 classes): a warm-up and 4 timed steps, the
+   iterator's ms a batch beside the step's, one NMS launch a training
+   forward; the seconds of each part;
+33. a line of the seconds each phase took, one JSON line of every
+   ported kernel (a device time under its byte bound fails the run: the
+   timing lost work), then the result line.
 
 It imports nothing of JAX or of ``mxnet_tpu``. Without CUDA, or run
 outside the repository, it fails before printing any result.
@@ -5163,7 +5182,7 @@ def generate_phase():
 # the serving stack: the continuous decoder, the fleet, compiled buckets
 # ---------------------------------------------------------------------------
 
-SD_REQUESTS = 24                  # serve_decode's checked requests
+SD_REQUESTS = 12                  # serve_decode's checked requests
 SD_SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
 SD_CHUNK = 64                     # MXNET_PREFILL_CHUNK for the checked run
 SD_SPEC = (0, 1, 3, 4)            # speculative requests (2 greedy, 2 seeded)
@@ -5171,7 +5190,7 @@ SD_TIMED = 64                     # the timed closed loop's requests
 SD_WINDOW_S = 60                  # the profiled window's longest wait
 SD_HANG_S = 600                   # the timed run's limit (it takes ~40 s)
 FLIP_RTOL = 1e-5                  # an accepted flip's top-two logit gap
-FLEET_REQUESTS, FLEET_CLIENTS = 32, 8
+FLEET_REQUESTS, FLEET_CLIENTS = 24, 8
 FLEET_EVACUATE_AFTER = 12         # completed requests before the recycle
 
 _DECODE_PARAMS = {}
@@ -5482,7 +5501,7 @@ def serve_fleet_phase():
     ServeServer(ContinuousDecoder) replicas (each with a truncated draft,
     lookahead 4) and one ServeServer(PrefillEngine), all in this process,
     each over its own Generator of the same weights. 8 ServeClient threads
-    send 32 requests through a ServeServer fronting the router: greedy,
+    send 24 requests through a ServeServer fronting the router: greedy,
     seeded, streamed and speculative, every one disaggregated (prefill
     replica -> KV blob -> decode replica). After 12 responses one decode
     replica is recycled (its sessions evacuate and resume on the other,
@@ -6489,7 +6508,7 @@ GSPMD_BATCH = 8                   # bench_scaling.py's per-device batch
 GSPMD_F32_BATCH = 2               # the float32 parity check, a rank
 GSPMD_F32_LR = 0.1                # SGD momentum 0.9 (Queue C 19: not Adam)
 GSPMD_RESNET_BATCH = 16           # a rank (bench.py's 128, cut)
-GSPMD_GEN_NEW = 32
+GSPMD_GEN_NEW = 8
 GSPMD_GEN_BATCH = 8
 GSPMD_LOGIT_TOL = 1e-4            # the near-tie rule of Queue C 9 and 15
 RESNET_FLOOR_X = 2.0              # (c): L2 distance against the reorder floor
@@ -6987,9 +7006,9 @@ def gspmd2_phase(device="cuda", tiny=False):
 # ---------------------------------------------------------------------------
 
 KV_BATCH = 64                     # a worker's rows: bench.py's 128, split
-KV_SYNC_STEPS = 4                 # (a): a warm step and 3 timed
+KV_SYNC_STEPS = 3                 # (a): a warm step and 2 timed
 KV_SYNC_CHECK = 2                 # (a): the parameters held after 2 steps
-KV_ASYNC_STEPS = 3                # (b): steps a worker
+KV_ASYNC_STEPS = 2                # (b): steps a worker
 KV_ALONE_STEPS = 2                # (b): one worker alone, deterministic
 KV_TINY = dict(layers=18, image=32, batch=2, classes=10)
 # (a) against the one-process rank-ordered sum: the same gradients summed
@@ -7318,7 +7337,7 @@ def kvdist2_phase(device="cuda", tiny=False):
     processes of this script sharing the card over gloo (``--kv-rank=``),
     bench.py's batch 128 split 64 + 64, each worker's BatchNorm over its
     own rows; the weights from one seeded init, the batches seeded.
-    (a) kvstore='dist_sync': a warm step and 3 timed (ms a step, staged
+    (a) kvstore='dist_sync': a warm step and 2 timed (ms a step, staged
     bytes, the store's pushes and pulls, peak memory, each BatchNorm
     kernel's launches a step); after 2 steps both workers' parameters
     equal each other and, within TRAIN_TOL (bit-equal expected), one
@@ -7326,7 +7345,7 @@ def kvdist2_phase(device="cuda", tiny=False):
     update (deterministic algorithms, cudnn.deterministic). (b)
     kvstore='dist_async' against a server process started as
     tools/launch.py starts one (DMLC_ROLE=server through the package's
-    import hook; the host-side apply): 3 steps a worker, every push
+    import hook; the host-side apply): 2 steps a worker, every push
     applied once (the server's ps.handle.push spans = workers x steps x
     keys), the final pulls equal to the server's store on both workers,
     a finite loss; ms a step, push and pull bytes a step, the server's
@@ -7407,12 +7426,13 @@ def kvdist2_phase(device="cuda", tiny=False):
                            for n in names)
         err, where, within, same = _max_err(snaps[0], want)
         s0 = res[0]["sync"]
-        say("kvdist2 (a) dist_sync: %.1f ms a step (rank 0, median of 3 "
+        say("kvdist2 (a) dist_sync: %.1f ms a step (rank 0, median of %d "
             "timed after a warm step; all %s; rank 1 %.1f), %.1f MB staged "
             "a step, %.0f pushes and %.0f pulls a step (%d keys), %.1f MB "
             "pushed a step, peak %.2f GB (rank 1 %.2f); BatchNorm kernels a "
             "worker step %s" % (
-                s0["ms"], " ".join("%.1f" % g for g in s0["all_ms"]),
+                s0["ms"], KV_SYNC_STEPS - 1,
+                " ".join("%.1f" % g for g in s0["all_ms"]),
                 res[1]["sync"]["ms"], s0["staged"] / 1e6, s0["pushes"],
                 s0["pulls"], s0["keys"], s0["push_bytes"] / 1e6,
                 s0["peak_gb"], res[1]["sync"]["peak_gb"],
@@ -10227,6 +10247,435 @@ def zoo_phase(counters):
 
 
 
+# ---------------------------------------------------------------------------
+# image phase: the data plane (image/*, the native reader and decoder)
+# feeding ResNet-50 and SSD300 training from packed .rec files
+# ---------------------------------------------------------------------------
+
+# upstream example/image-classification/train_imagenet.py with
+# common/data.py's ImageRecordIter settings, as far as the factory takes
+# them; the files packed as im2rec packs them (JPEG quality 95)
+IMAGE_SRC_HW = (375, 500)    # a seeded photo-sized JPEG, 500 x 375
+IMAGE_RN = dict(count=1024, data_shape=(3, 224, 224), batch=128,
+                mean=(123.68, 116.779, 103.939), std=(58.395, 57.12, 57.375),
+                threads=4)
+# upstream example/ssd/train.py (config/config.py's cfg.train) through
+# ImageDetRecordIter: mean_pixels 123 / 117 / 104, rand_mirror_prob 0.5,
+# the five crop samplers (crop probability 5/6; scales 0.3..1, so areas
+# 0.09..1; aspect ratios 0.5..2; 25 trials), rand_pad_prob 0.5 (taken and
+# ignored by the factory: it makes no pad augmenter)
+IMAGE_SSD = dict(count=256, data_shape=(3, 300, 300), batch=32,
+                 mean=(123, 117, 104), crop=5 / 6, pad=0.5,
+                 min_object_covered=0.1, aspect_ratio_range=(0.5, 2.0),
+                 area_range=(0.09, 1.0), max_attempts=25)
+IMAGE_STEPS = 5              # Module.fit steps: a warm-up and 4 timed
+IMAGE_ALONE_BATCHES = 3      # the iterator timed alone on the host
+IMAGE_SEED = 23
+
+
+def image_jpegs(mx, path, n, seed, labels):
+    """n seeded photo-like JPEGs (IMAGE_SRC_HW; smooth waves under a
+    little noise, so they compress as photos do) packed at quality 95
+    into path.rec / path.idx with labels[i]; the .rec file's bytes."""
+    from concurrent.futures import ThreadPoolExecutor
+    h, w = IMAGE_SRC_HW
+    x, y = np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32)
+
+    def one(i):
+        rs = np.random.RandomState(seed * 100003 + i)
+        f = rs.uniform(0.004, 0.05, (3, 2)).astype(np.float32)
+        ph = rs.uniform(0, 6.28, 3).astype(np.float32)
+        img = rs.randint(-6, 7, (h, w, 3)).astype(np.float32) + 128
+        for c in range(3):
+            # 90 sin(fx x + fy y + ph), separated into outer products
+            ax, ay = f[c, 0] * x, f[c, 1] * y + ph[c]
+            img[:, :, c] += 90 * np.outer(np.cos(ay), np.sin(ax))
+            img[:, :, c] += 90 * np.outer(np.sin(ay), np.cos(ax))
+        return mx.recordio.pack_img(
+            (0, labels[i], i, 0), np.clip(img, 0, 255).astype(np.uint8),
+            quality=95, img_fmt=".jpg")
+    with ThreadPoolExecutor(4) as pool:
+        recs = list(pool.map(one, range(n)))
+    w = mx.recordio.MXIndexedRecordIO(path + ".idx", path + ".rec", "w")
+    for i, rec in enumerate(recs):
+        w.write_idx(i, rec)
+    w.close()
+    return os.path.getsize(path + ".rec")
+
+
+def image_tap(mx, inner, steps):
+    """A DataIter over ``inner`` that ends after ``steps`` batches, times
+    each inner ``next()`` (the consumer's wait for a batch: ``waits``)
+    and keeps the batches it handed out (``kept``)."""
+    class Tap(mx.io.DataIter):
+        def __init__(self):
+            super().__init__(inner.batch_size)
+            self.provide_data = inner.provide_data
+            self.provide_label = inner.provide_label
+            self.waits, self.kept, self.left = [], [], steps
+
+        def reset(self):
+            self.left = steps
+
+        def next(self):
+            if self.left == 0:
+                raise StopIteration
+            self.left -= 1
+            t = time.perf_counter()
+            batch = inner.next()
+            self.waits.append((time.perf_counter() - t) * 1e3)
+            self.kept.append(batch)
+            return batch
+    return Tap()
+
+
+def image_fit(mx, mod, it, steps, **fit_kw):
+    """Module.fit over ``steps`` batches of ``it``: the boundary-to-boundary
+    ms of each step, the consumer's wait for each batch, the batches."""
+    import torch
+    tap = image_tap(mx, it, steps)
+    marks = []
+
+    def cb(param):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    mod.fit(tap, num_epoch=1, batch_end_callback=cb, **fit_kw)
+    gaps = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    if len(gaps) != steps:
+        fail("image: Module.fit ran %d steps, not %d" % (len(gaps), steps))
+    return gaps, tap.waits, tap.kept
+
+
+def image_resnet(mx, rec, counters):
+    """(a) bench.py's ResNet-50, float32, MXNET_BN_PALLAS=1, through
+    Module.fit over mx.io.ImageRecordIter (native reader and decoder,
+    prefetched, batches on the card) with the module phase's SGD and
+    initialisation: a warm-up and IMAGE_STEPS - 1 timed steps; then the
+    same Module over those batches resident on the card; the iterator
+    alone on the host; one batch made for the CPU against the same batch
+    made for the card, bit for bit."""
+    import random
+    import torch
+    from mxnet_tpu_torch import config, optimizer as opt
+    from mxnet_tpu_torch.image import native_decode
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.parallel import make_train_step
+
+    c, S, _ = IMAGE_RN["data_shape"]
+    B = IMAGE_RN["batch"]
+    kw = dict(path_imgrec=rec, data_shape=IMAGE_RN["data_shape"],
+              batch_size=B, shuffle=True, rand_crop=True, rand_mirror=True,
+              preprocess_threads=IMAGE_RN["threads"],
+              **{"mean_" + k: v for k, v in zip("rgb", IMAGE_RN["mean"])},
+              **{"std_" + k: v for k, v in zip("rgb", IMAGE_RN["std"])})
+    sym = resnet.get_symbol(num_classes=RESNET_CLASSES,
+                            num_layers=RESNET_LAYERS, image_shape=(c, S, S))
+    n_bn = sum(n["op"] == "BatchNorm"
+               for n in json.loads(sym.tojson())["nodes"])
+    optp = {"momentum": 0.9, "wd": 1e-4, "rescale_grad": 1.0 / B}
+    ref = make_train_step(sym, optimizer="sgd", optimizer_params=optp)
+    mx.random.seed(0)
+    init = ref.init_state(Xavier(factor_type="in", magnitude=2.0),
+                          {"data": (B, c, S, S), "softmax_label": (B,)})
+    with mx.cpu():
+        args = {k: mx.nd.array(v.cpu()) for k, v in init[0].items()}
+        auxs = {k: mx.nd.array(v.cpu()) for k, v in init[2].items()}
+    names = list(ref.param_names)
+    del init, ref
+    o = opt.create("sgd", learning_rate=RESNET_LR,
+                   param_idx2name=dict(enumerate(names)), **optp)
+    o.set_wd_mult({n: 1.0 for n in names})
+
+    config.set_override("MXNET_BN_PALLAS", True)
+    try:
+        random.seed(IMAGE_SEED)
+        np.random.seed(IMAGE_SEED)
+        it = mx.io.ImageRecordIter(**kw)
+        inner = it.iters[0]
+        mod = mx.mod.Module(sym, context=mx.gpu(0))
+        _reset_counts(counters)
+        t = time.perf_counter()
+        gaps, waits, kept = image_fit(mx, mod, it, IMAGE_STEPS, optimizer=o,
+                                      eval_metric="acc", kvstore="local",
+                                      arg_params=args, aux_params=auxs)
+        fit_s = time.perf_counter() - t
+        launches = {f.__name__: f.launches for f in counters}
+        for f in counters:
+            if launches[f.__name__] != n_bn * IMAGE_STEPS:
+                fail("image (a): %s launched %d times in %d steps of %d "
+                     "BatchNorms" % (f.__name__, launches[f.__name__],
+                                     IMAGE_STEPS, n_bn))
+        routes = dict(inner.batches_by_route)
+        if inner._native is None or routes["pil"] or \
+                routes["native"] < IMAGE_STEPS:
+            fail("image (a): the batches' routes %r (native plan %s): every "
+                 "batch must take the native decoder" % (
+                     routes, "on" if inner._native else "OFF: the native "
+                     "decoder did not build or load"))
+        if inner.imgrec._native is None:
+            fail("image (a): the native RecordIO reader is not in use")
+        on_card = all(b.data[0].context == mx.gpu(0) and
+                      b.label[0].context == mx.gpu(0) for b in kept)
+        if not on_card:
+            fail("image (a): ImageRecordIter's batches are not on the card")
+        # the same Module over the same batches resident on the card
+        rgaps, _, _ = image_fit(mx, mod, _replay(mx, kept), len(kept),
+                                eval_metric="acc", kvstore="local")
+    finally:
+        config.set_override("MXNET_BN_PALLAS", None)
+    del mod, kept, it
+    step, rstep = statistics.median(gaps[1:]), statistics.median(rgaps[1:])
+    wait = statistics.median(waits[1:])
+
+    def image_iter():
+        """The factory's ImageIter without its prefetcher (whose worker
+        would go on drawing from the random streams)."""
+        return mx.image.ImageIter(
+            B, IMAGE_RN["data_shape"], path_imgrec=rec, shuffle=True,
+            rand_crop=True, rand_mirror=True, mean=list(IMAGE_RN["mean"]),
+            std=list(IMAGE_RN["std"]), num_threads=IMAGE_RN["threads"])
+    # the iterator alone on the host (its decode pool, no copy to the card)
+    with mx.cpu():
+        alone = image_iter()
+        alone.next()
+        t = time.perf_counter()
+        for _ in range(IMAGE_ALONE_BATCHES):
+            alone.next()
+        host_ms = (time.perf_counter() - t) * 1e3 / IMAGE_ALONE_BATCHES
+        # where a batch's host time goes: the decode call alone (224 x 224
+        # crops), then with the rects, normalise and transpose
+        samples = [alone.next_sample() for _ in range(B)]
+        rects = np.tile(np.array([0, 0, S, S], np.float32), (B, 1))
+        t = time.perf_counter()
+        native_decode.decode_batch([raw for _, raw in samples], rects,
+                                   np.zeros(B, np.uint8), (S, S),
+                                   n_threads=IMAGE_RN["threads"])
+        decode_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        alone._native_batch(samples)
+        plan_ms = (time.perf_counter() - t) * 1e3
+    # one batch made for the CPU against the same batch made for the card
+    made = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        random.seed(IMAGE_SEED + 1)
+        np.random.seed(IMAGE_SEED + 1)
+        with ctx:
+            b = image_iter().next()
+        made.append((b.data[0], b.label[0]))
+    (cd, cl), (hd, hl) = made
+    same = cd.context == mx.gpu(0) and hd.context == mx.cpu() and \
+        torch.equal(cd._data.cpu(), hd._data) and \
+        torch.equal(cl._data.cpu(), hl._data)
+    if not same:
+        fail("image (a): the batch made for the CPU differs from the batch "
+             "made for the card")
+    say("image (a): ResNet-%d float32 on the BatchNorm kernels through "
+        "Module.fit over mx.io.ImageRecordIter (%d x %s, shuffle, rand_crop, "
+        "rand_mirror, mean %s, std %s, %d threads): step %.2f ms fed by the "
+        "iterator (median of steps 2..%d; all: %s) against %.2f ms over the "
+        "same batches resident on the card (all: %s); the step waits %.2f ms "
+        "a batch for the iterator (median; all: %s): %s; the iterator alone "
+        "%.1f ms of host a batch, %.0f decoded images/s (the decode call "
+        "%.1f ms, with the crops' draws, normalise and transpose %.1f ms, "
+        "the rest reading records and the batch's NDArray); each BatchNorm "
+        "kernel %d launches a step (%d BatchNorms); routes %s, the native "
+        "reader in use; a batch made for the CPU bit-equal to the one made "
+        "for the card; fit %.1f s" % (
+            RESNET_LAYERS, B, "x".join(map(str, IMAGE_RN["data_shape"])),
+            "/".join(map(str, IMAGE_RN["mean"])),
+            "/".join(map(str, IMAGE_RN["std"])), IMAGE_RN["threads"], step,
+            IMAGE_STEPS, " ".join("%.1f" % g for g in gaps), rstep,
+            " ".join("%.1f" % g for g in rgaps), wait,
+            " ".join("%.1f" % w for w in waits),
+            "waits" if wait > 0.05 * rstep else "does not wait",
+            host_ms, B / host_ms * 1e3, decode_ms, plan_ms,
+            launches[counters[0].__name__] //
+            IMAGE_STEPS, n_bn, json.dumps(routes, sort_keys=True), fit_s))
+    return launches
+
+
+def _replay(mx, batches):
+    """A DataIter over kept batches, in order (one epoch)."""
+    class Replay(mx.io.DataIter):
+        def __init__(self):
+            super().__init__(batches[0].data[0].shape[0])
+            self.provide_data = [mx.io.DataDesc("data", batches[0].data[0]
+                                                .shape)]
+            self.provide_label = [mx.io.DataDesc(
+                "softmax_label", batches[0].label[0].shape)]
+            self.i = 0
+
+        def reset(self):
+            self.i = 0
+
+        def next(self):
+            if self.i == len(batches):
+                raise StopIteration
+            self.i += 1
+            return batches[self.i - 1]
+    return Replay()
+
+
+def image_ssd(mx, rec, counters):
+    """(b) detect (a)'s SSD300 training step (upstream example/ssd/train.py,
+    batch 32, f32) through Module.fit over mx.io.ImageDetRecordIter at
+    IMAGE_SSD's settings: a warm-up and IMAGE_STEPS - 1 timed steps; the
+    iterator's ms a batch (the consumer's wait: the factory does not
+    prefetch), the step's ms, the NMS kernel once a training forward."""
+    import random
+    import torch
+    from mxnet_tpu_torch.ops import nms_kernels as nmsk
+
+    B = IMAGE_SSD["batch"]
+    sym = ssd300_symbol(mx.sym, SSD_CLASSES, SSD_WIDTH_DIV, train=True)
+    params = ssd_params(ssd300_symbol(mx.sym, SSD_CLASSES, SSD_WIDTH_DIV,
+                                      heads=True), seed=0)
+    with mx.cpu():
+        args = {k: mx.nd.array(v) for k, v in params.items()}
+    losses = []
+
+    class Loss(mx.metric.EvalMetric):
+        def __init__(self):
+            super().__init__("ssd_loss")
+
+        def update(self, labels, preds):
+            losses.append(ssd_loss(preds))
+
+    random.seed(IMAGE_SEED + 2)
+    np.random.seed(IMAGE_SEED + 2)
+    it = mx.io.ImageDetRecordIter(
+        path_imgrec=rec, data_shape=IMAGE_SSD["data_shape"], batch_size=B,
+        shuffle=True, mean=np.array(IMAGE_SSD["mean"]),
+        rand_crop=IMAGE_SSD["crop"], rand_pad=IMAGE_SSD["pad"],
+        rand_mirror=True, min_object_covered=IMAGE_SSD["min_object_covered"],
+        aspect_ratio_range=IMAGE_SSD["aspect_ratio_range"],
+        area_range=IMAGE_SSD["area_range"],
+        max_attempts=IMAGE_SSD["max_attempts"], preprocess_threads=4)
+    mod = mx.mod.Module(sym, data_names=("data",), label_names=("label",),
+                        context=mx.gpu(0))
+    _reset_counts(counters)
+    t = time.perf_counter()
+    gaps, waits, _ = image_fit(mx, mod, it, IMAGE_STEPS, optimizer="sgd",
+                               optimizer_params={
+                                   "learning_rate": SSD_TRAIN["lr"],
+                                   "momentum": SSD_TRAIN["momentum"],
+                                   "wd": SSD_TRAIN["wd"]},
+                               eval_metric=Loss(), arg_params=args,
+                               aux_params={})
+    fit_s = time.perf_counter() - t
+    launches = {f.__name__: f.launches for f in counters}
+    if launches[nmsk.nms_keep_cuda.__name__] != IMAGE_STEPS:
+        fail("image (b): nms_keep_cuda launched %d times in %d training "
+             "forwards" % (launches[nmsk.nms_keep_cuda.__name__],
+                           IMAGE_STEPS))
+    if len(losses) != IMAGE_STEPS or not np.isfinite(losses).all():
+        fail("image (b): SSD300 losses %s" % losses)
+    if it.batches_by_route != {"native": 0, "pil": IMAGE_STEPS}:
+        fail("image (b): the batches' routes %r: ImageDetIter decodes "
+             "through PIL" % (it.batches_by_route,))
+    label = mod._exec_group.execs[0].arg_dict["label"]
+    step, wait = statistics.median(gaps[1:]), statistics.median(waits[1:])
+    say("image (b): SSD300 (f32) through Module.fit over "
+        "mx.io.ImageDetRecordIter (%d x %s, labels %s, mean %s, crop %.3f, "
+        "mirror, pad %.1f taken and ignored by the factory; PIL on 4 "
+        "threads, not prefetched): step %.2f ms (median of steps 2..%d; "
+        "all: %s), the iterator %.2f ms a batch inside it (median; all: "
+        "%s); loss %s; nms_keep_cuda %d launches (one a training forward); "
+        "fit %.1f s" % (
+            B, "x".join(map(str, IMAGE_SSD["data_shape"])),
+            "x".join(map(str, label.shape)),
+            "/".join(map(str, IMAGE_SSD["mean"])), IMAGE_SSD["crop"],
+            IMAGE_SSD["pad"], step, IMAGE_STEPS,
+            " ".join("%.1f" % g for g in gaps), wait,
+            " ".join("%.1f" % w for w in waits),
+            " ".join("%.4f" % v for v in losses),
+            launches[nmsk.nms_keep_cuda.__name__], fit_s))
+    del mod, it, args
+    torch.cuda.empty_cache()
+    return launches
+
+
+def image_phase():
+    """The image data plane on the card: seeded 500 x 375 JPEGs packed into
+    .rec/.idx files in a temporary directory, then (a) ResNet-50 fed by
+    ImageRecordIter and (b) SSD300 fed by ImageDetRecordIter. Returns
+    the launches of the BatchNorm kernels (a) and the NMS kernel (b)."""
+    import shutil
+    import tempfile
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _native
+    from mxnet_tpu_torch.ops import nms_kernels as nmsk
+
+    t0 = time.perf_counter()
+    reader, dec = (_native.load(name) for name in ("recordio", "imgdecode"))
+    route = "NOT BUILT" if dec is None else "built with the system's " \
+        "libjpeg/libpng" if dec._name == str(_native._candidates(
+            "imgdecode")[0][0]) else "built against the libjpeg/libpng in " \
+        "Pillow's wheel, declared by _native/compat"
+    say("image: native reader %s; native decoder %s: %s; %.1f s" % (
+        os.path.basename(reader._name) if reader else "NOT BUILT",
+        os.path.basename(dec._name) if dec else "-", route,
+        time.perf_counter() - t0))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_image_")
+    try:
+        t = time.perf_counter()
+        n = IMAGE_RN["count"]
+        rn_bytes = image_jpegs(mx, os.path.join(tmp, "imagenet"), n,
+                               IMAGE_SEED, [float(i % 1000) for i in range(n)])
+        rs = np.random.RandomState(IMAGE_SEED)
+        labels = []
+        for _ in range(IMAGE_SSD["count"]):
+            lab = [2.0, 5.0]
+            for _ in range(rs.randint(1, 4)):
+                w, h = rs.uniform(0.1, 0.6, 2)
+                x, y = rs.uniform(0, 1 - w), rs.uniform(0, 1 - h)
+                lab += [float(rs.randint(0, SSD_CLASSES)), x, y, x + w,
+                        y + h]
+            labels.append(np.array(lab, np.float32))
+        ssd_bytes = image_jpegs(mx, os.path.join(tmp, "voc"),
+                                IMAGE_SSD["count"], IMAGE_SEED + 1, labels)
+        say("image: packed %d + %d seeded %dx%d JPEGs (quality 95) into .rec "
+            "and .idx: %.1f MB (%.1f KB an image) and %.1f MB, in %.1f s" % (
+                n, IMAGE_SSD["count"], IMAGE_SRC_HW[1], IMAGE_SRC_HW[0],
+                rn_bytes / 1e6, rn_bytes / n / 1e3, ssd_bytes / 1e6,
+                time.perf_counter() - t))
+        r = mx.recordio.MXIndexedRecordIO(os.path.join(tmp, "imagenet.idx"),
+                                          os.path.join(tmp, "imagenet.rec"),
+                                          "r")
+        raw = mx.recordio.unpack(r.read_idx(0))[1]
+        r.close()
+        decoded = []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            with ctx:
+                decoded.append(mx.image.imdecode(raw))
+        card, host = decoded
+        if not (card.dtype == host.dtype == np.uint8 and card.context ==
+                mx.gpu(0) and np.array_equal(card.asnumpy(),
+                                             host.asnumpy())):
+            fail("image: imdecode on the card gave %s %s, on the CPU %s %s "
+                 "(uint8 and equal expected)" % (card.dtype, card.context,
+                                                 host.dtype, host.context))
+        say("image: imdecode gives a uint8 %s NDArray on the card, equal to "
+            "the CPU's" % ("x".join(map(str, card.shape)),))
+        t = time.perf_counter()
+        launches = image_resnet(mx, os.path.join(tmp, "imagenet.rec"),
+                                _bn_counters())
+        torch.cuda.empty_cache()
+        say("image (a): %.1f s" % (time.perf_counter() - t))
+        t = time.perf_counter()
+        launches.update(image_ssd(mx, os.path.join(tmp, "voc.rec"),
+                                  [nmsk.nms_keep_cuda]))
+        say("image (b): %.1f s" % (time.perf_counter() - t))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("image: phase done in %.1f s" % (time.perf_counter() - t0))
+    return launches
+
+
 def main():
     try:
         import torch
@@ -10283,42 +10732,55 @@ def main():
             ",".join(only), time.perf_counter() - t_start))
         return
 
-    records = kernel_phase() + bwd_kernel_phase() + f32_kernel_phase(ptxas)
-    gqa_phase()
-    records += bn_kernel_phase() + nms_kernel_phase() + mt_kernel_phase()
-    prng_phase()
-    by_path = {"serve": path_phase([att.flash_fwd_cuda]),
-               "train": train_phase([att.flash_fwd_cuda,
-                                     att.flash_bwd_cuda]),
-               "fit": fit_phase(),
-               **executor_phase(),
-               **resnet_phase([bnk.bn_stats_cuda, bnk.bn_apply_cuda,
-                               bnk.bn_bwd_reduce_cuda, bnk.bn_bwd_dx_cuda]),
-               "ssd": ssd_phase([nmsk.nms_keep_cuda]),
-               "alexnet": alexnet_phase(),
-               "module": module_phase(),
-               "compiled_resnet": compiled_resnet_phase(),
-               "compiled_alexnet": compiled_alexnet_phase(),
-               "lm_options": lm_options_phase(),
-               "generate": generate_phase(),
-               "serve_decode": serve_decode_phase(),
-               "serve_fleet": serve_fleet_phase(),
-               "compiled_serve": compiled_serve_phase(
-                   [att.flash_fwd_cuda, nmsk.nms_keep_cuda]),
-               "moe_lm": moe_lm_phase(),
-               "mesh2": mesh2_phase(),
-               "gspmd2": gspmd2_phase(),
-               "kvdist2": kvdist2_phase(),
-               "profiler": profiler_phase(),
-               "gluon": gluon_phase([bnk.bn_stats_cuda, bnk.bn_apply_cuda,
-                                     bnk.bn_bwd_reduce_cuda,
-                                     bnk.bn_bwd_dx_cuda]),
-               "rnn": rnn_phase(),
-               "detect": detect_phase(),
-               "zoo": zoo_phase([bnk.bn_stats_cuda, bnk.bn_apply_cuda,
-                                 bnk.bn_bwd_reduce_cuda,
-                                 bnk.bn_bwd_dx_cuda])}
-    sparse_phase()
+    seconds, by_path = {}, {}
+
+    def run(name, fn, *args, path=True, merge=False):
+        """One phase, timed; a path's launch counts kept under ``name``
+        (or its dict of paths merged)."""
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        if merge:
+            by_path.update(out)
+        elif path:
+            by_path[name] = out
+        return out
+
+    bn = [bnk.bn_stats_cuda, bnk.bn_apply_cuda, bnk.bn_bwd_reduce_cuda,
+          bnk.bn_bwd_dx_cuda]
+    records = run("kernels", lambda: kernel_phase() + bwd_kernel_phase() +
+                  f32_kernel_phase(ptxas), path=False)
+    run("gqa", gqa_phase, path=False)
+    records += run("kernels2", lambda: bn_kernel_phase() +
+                   nms_kernel_phase() + mt_kernel_phase(), path=False)
+    run("prng", prng_phase, path=False)
+    run("serve", path_phase, [att.flash_fwd_cuda])
+    run("train", train_phase, [att.flash_fwd_cuda, att.flash_bwd_cuda])
+    run("fit", fit_phase)
+    run("executor", executor_phase, merge=True)
+    run("resnet", resnet_phase, bn, merge=True)
+    run("ssd", ssd_phase, [nmsk.nms_keep_cuda])
+    for name, fn in (("alexnet", alexnet_phase), ("module", module_phase),
+                     ("compiled_resnet", compiled_resnet_phase),
+                     ("compiled_alexnet", compiled_alexnet_phase),
+                     ("lm_options", lm_options_phase),
+                     ("generate", generate_phase),
+                     ("serve_decode", serve_decode_phase),
+                     ("serve_fleet", serve_fleet_phase)):
+        run(name, fn)
+    run("compiled_serve", compiled_serve_phase,
+        [att.flash_fwd_cuda, nmsk.nms_keep_cuda])
+    for name, fn in (("moe_lm", moe_lm_phase), ("mesh2", mesh2_phase),
+                     ("gspmd2", gspmd2_phase), ("kvdist2", kvdist2_phase),
+                     ("profiler", profiler_phase)):
+        run(name, fn)
+    run("gluon", gluon_phase, bn)
+    run("rnn", rnn_phase)
+    run("detect", detect_phase)
+    run("zoo", zoo_phase, bn)
+    run("sparse", sparse_phase, path=False)
+    run("image", image_phase)
+    say("phases (s): %s" % json.dumps(seconds))
     for rec in records:
         # no kernel moves its bytes faster than the memory can: a time
         # under the byte bound means the timing lost work
@@ -10356,7 +10818,8 @@ PARTIAL = {"mt": mt_kernel_phase, "bn": bn_kernel_phase,
            "gluon": lambda: gluon_phase(_bn_counters()),
            "rnn": rnn_phase, "detect": detect_phase,
            "sparse": sparse_phase,
-           "zoo": lambda: zoo_phase(list(_bn_counters()))}
+           "zoo": lambda: zoo_phase(list(_bn_counters())),
+           "image": image_phase}
 
 
 def _serve_counters():

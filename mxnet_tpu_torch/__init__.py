@@ -97,6 +97,8 @@ from . import kvstore_server as _kvstore_server  # noqa: E402
 _kvstore_server._init_kvstore_server_module()
 from . import parallel  # noqa: E402
 from . import recordio  # noqa: E402
+from . import image  # noqa: E402
+from . import image as img  # noqa: E402
 from . import gluon  # noqa: E402
 from . import rnn  # noqa: E402
 from . import operator  # noqa: E402  (mx.operator: Custom ops)

@@ -176,10 +176,11 @@ define("MXNET_MAX_ROLLBACKS", int, 2,
 define("MXNET_ROLLBACK_LR_FACTOR", float, 1.0,
        "learning-rate multiplier applied on every guardrail rollback "
        "(e.g. 0.5 halves the LR after each divergence rollback)")
-define("MXNET_NATIVE_RECORDIO", bool, False,
-       "the JAX package's mmap'd native RecordIO reader; not ported yet "
-       "(ROADMAP Queue A item 10): when set, recordio logs once that it "
-       "reads with the Python reader")
+define("MXNET_NATIVE_RECORDIO", bool, True,
+       "use the native C++ mmap RecordIO reader")
+define("MXNET_NATIVE_IMAGE", bool, True,
+       "use the native C++ batched image decode+crop+resize pipeline "
+       "when the augment list allows it")
 define("MXNET_BACKWARD_DO_MIRROR", bool, False,
        "rematerialise the forward during the backward in TrainStep "
        "(gradient mirroring): activation memory traded for recompute; "

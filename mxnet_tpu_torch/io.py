@@ -13,9 +13,10 @@ read it.
 
 MNISTIter and CSVIter read their files on the host into an NDArrayIter.
 LibSVMIter parses its text once on the host and gives CSR batches
-(``ndarray.sparse.CSRNDArray``) on the current context. Not ported yet:
-ImageRecordIter / ImageDetRecordIter (ROADMAP Queue A item 10.5's
-``image/*``); each raises ``NotImplementedError``.
+(``ndarray.sparse.CSRNDArray``) on the current context. ImageRecordIter
+and ImageDetRecordIter are the factories of ``image``: they read .rec
+files, decode and augment on the host and give batches on the context
+current where they were made.
 """
 from __future__ import annotations
 
@@ -538,20 +539,20 @@ class CSVIter(NDArrayIter):
                          else "discard")
 
 
-def _not_ported_iter(name, what):
-    def make(*args, **kwargs):
-        raise NotImplementedError(
-            "io.%s is not ported to the PyTorch package yet: %s (ROADMAP "
-            "Queue A item 10)" % (name, what))
-    make.__name__ = name
-    make.__doc__ = "Not ported yet (ROADMAP Queue A item 10): %s." % what
-    return make
+def ImageRecordIter(*args, **kwargs):
+    """The reference's C++ ImageRecordIter (src/io/iter_image_recordio_2.cc)
+    as ``image.ImageRecordIter``: a prefetched ImageIter."""
+    from .image import ImageRecordIter as _impl
+    return _impl(*args, **kwargs)
 
 
-ImageRecordIter = _not_ported_iter(
-    "ImageRecordIter", "it decodes through image/*")
-ImageDetRecordIter = _not_ported_iter(
-    "ImageDetRecordIter", "it decodes through image/*")
+def ImageDetRecordIter(*args, **kwargs):
+    """The reference's C++ ImageDetRecordIter as ``image.ImageDetIter``
+    (the prefetch and thread-count kwargs are dropped)."""
+    from .image.detection import ImageDetIter as _impl
+    kwargs.pop("prefetch_buffer", None)
+    kwargs.pop("preprocess_threads", None)
+    return _impl(*args, **kwargs)
 
 
 class LibSVMIter(DataIter):

@@ -15,14 +15,14 @@ rejoined with the magic on read), which keeps byte scans unambiguous.
 IRHeader (the image record header, struct 'IfQQ'): flag, label (f32),
 id, id2; flag > 0 means ``flag`` float32 labels follow the header.
 
-The Python reader and writer only: the JAX package's mmap'd native
-reader (``MXNET_NATIVE_RECORDIO``, ``mxnet_tpu/_native``) is not ported
-yet (ROADMAP Queue A item 10). With the knob set, the reader logs that
-once and reads in Python.
+Reading goes through the native mmap'd scanner (``_native``'s
+``NativeRecordFile``, one memcpy a record) when ``MXNET_NATIVE_RECORDIO``
+is set, its default; where the library cannot be built, or its scan
+refuses the file (torn or not RecordIO), the strict Python reader reads
+it and raises at the first bad record. Writing is Python only.
 """
 from __future__ import annotations
 
-import logging
 import os
 import struct
 from collections import namedtuple
@@ -36,7 +36,6 @@ __all__ = ["MXRecordIO", "MXIndexedRecordIO", "IRHeader", "pack", "unpack",
 
 _K_MAGIC = 0xced7230a
 _MAGIC_BYTES = struct.pack("<I", _K_MAGIC)
-_NATIVE_NOTED = []
 
 
 def _enc_lrec(cflag, length):
@@ -45,16 +44,6 @@ def _enc_lrec(cflag, length):
 
 def _dec_lrec(lrec):
     return lrec >> 29, lrec & ((1 << 29) - 1)
-
-
-def _note_native():
-    """Say once that the native reader the knob asks for is not here."""
-    if _config.get("MXNET_NATIVE_RECORDIO") and not _NATIVE_NOTED:
-        _NATIVE_NOTED.append(True)
-        logging.warning(
-            "MXNET_NATIVE_RECORDIO: the native mmap reader is not ported to "
-            "the PyTorch package yet (ROADMAP Queue A item 10); records "
-            "are read in Python")
 
 
 class MXRecordIO:
@@ -72,12 +61,21 @@ class MXRecordIO:
             self.fp = open(self.uri, "wb")
             self.writable = True
         elif self.flag == "r":
-            _note_native()
             self.fp = open(self.uri, "rb")
             self.writable = False
         else:
             raise ValueError("Invalid flag %s" % self.flag)
         self.is_open = True
+        # the native reader: a record index scanned once, reads slice an
+        # mmap; MXNET_NATIVE_RECORDIO=0 forces the Python reader
+        self._native = None
+        self._cursor = 0
+        if self.flag == "r" and _config.get("MXNET_NATIVE_RECORDIO"):
+            try:
+                from ._native import NativeRecordFile
+                self._native = NativeRecordFile(self.uri)
+            except Exception:  # noqa: BLE001 — no library, or refused
+                self._native = None
 
     def __del__(self):
         self.close()
@@ -89,6 +87,7 @@ class MXRecordIO:
         d = dict(self.__dict__)
         d["is_open"] = is_open
         d.pop("fp", None)
+        d.pop("_native", None)
         return d
 
     def __setstate__(self, d):
@@ -103,8 +102,16 @@ class MXRecordIO:
         if self.is_open and self.fp is not None:
             self.fp.close()
             self.is_open = False
+            if getattr(self, "_native", None) is not None:
+                self._native.close()
+                self._native = None
 
     def reset(self):
+        if not self.writable and getattr(self, "_native", None) is not None:
+            # the scanned index stays across epochs: a reset rewinds
+            self._cursor = 0
+            self.fp.seek(0)
+            return
         self.close()
         self.open()
 
@@ -137,6 +144,12 @@ class MXRecordIO:
     def read(self):
         """Read one (logical) record; None at EOF."""
         assert not self.writable
+        if self._native is not None:
+            if self._cursor >= len(self._native):
+                return None
+            rec = self._native.read(self._cursor)
+            self._cursor += 1
+            return rec
         out = None
         while True:
             head = self.fp.read(8)
@@ -159,6 +172,13 @@ class MXRecordIO:
                 return out + _MAGIC_BYTES + data
 
     def tell(self):
+        if getattr(self, "_native", None) is not None and \
+                not self.writable:
+            # the next record's header offset (the native reads move no
+            # file position)
+            if self._cursor < len(self._native):
+                return self._native.offset(self._cursor)
+            return self._native.size
         return self.fp.tell()
 
 
@@ -189,8 +209,9 @@ class MXIndexedRecordIO(MXRecordIO):
             self.fidx = open(self.idx_path, "w")
 
     def close(self):
-        if self.fidx is not None and not self.fidx.closed:
-            self.fidx.close()
+        fidx = getattr(self, "fidx", None)     # an unpickled reader has none
+        if fidx is not None and not fidx.closed:
+            fidx.close()
         super().close()
 
     def __getstate__(self):
@@ -200,7 +221,17 @@ class MXIndexedRecordIO(MXRecordIO):
 
     def seek(self, idx):
         assert not self.writable
-        self.fp.seek(self.idx[idx])
+        pos = self.idx[idx]
+        self.fp.seek(pos)
+        if self._native is not None:
+            ordinal = self._native.find_offset(pos)
+            if ordinal >= 0:
+                self._cursor = ordinal
+            else:
+                # the sidecar disagrees with the scan: read this file in
+                # Python from here on
+                self._native.close()
+                self._native = None
 
     def read_idx(self, idx):
         self.seek(idx)

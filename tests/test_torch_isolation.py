@@ -42,8 +42,11 @@ def test_port_and_chip_smoke_import_without_jax():
     (``gluon`` and each of its submodules) a hybridized Dense + BatchNorm
     net's Trainer step, the RNN slice's (``rnn`` and its submodules,
     ``ops/rnn_op``, ``ops/ctc``) a bucketed fused-LSTM epoch, an rnn
-    checkpoint round trip, the plain RNN loop and a gluon CTCLoss, and
-    no jax or mxnet_tpu module loads."""
+    checkpoint round trip, the plain RNN loop and a gluon CTCLoss, the
+    image slice's (``image`` and ``_native``) an ImageRecordIter and an
+    ImageDetRecordIter batch over packed JPEGs with none of the JAX
+    package's native libraries mapped, and no jax or mxnet_tpu module
+    loads."""
     code = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now fails
@@ -288,6 +291,30 @@ with mxnet_tpu_torch.cpu():
     cl = gluon.loss.CTCLoss()(nd.array(np.zeros((2, 5, 4), np.float32)),
                               nd.array([[1, 2], [3, 0]]))
     assert cl.shape == (2,) and bool(np.isfinite(cl.asnumpy()).all())
+# the image slice, used: seeded JPEGs packed, read through the native
+# reader and ImageRecordIter (the native decoder where it builds) and
+# ImageDetRecordIter; the libraries loaded are the port's own builds
+from mxnet_tpu_torch import _native, image
+iw = recordio.MXIndexedRecordIO(os.path.join(tmp, "i.idx"),
+                                os.path.join(tmp, "i.rec"), "w")
+for i in range(4):
+    iw.write_idx(i, recordio.pack_img((0, [2, 5, 1, .1, .1, .5, .5], i, 0),
+                                      np.full((40, 44, 3), 9 * i, np.uint8)))
+iw.close()
+with mxnet_tpu_torch.cpu():
+    ib = next(iter(io.ImageRecordIter(path_imgrec=os.path.join(tmp, "i.rec"),
+                                      data_shape=(3, 32, 32), batch_size=4,
+                                      rand_crop=True, label_width=7)))
+    assert ib.data[0].shape == (4, 3, 32, 32)
+    db = io.ImageDetRecordIter(path_imgrec=os.path.join(tmp, "i.rec"),
+                               data_shape=(3, 32, 32), batch_size=2).next()
+    assert db.label[0].shape == (2, 16, 5)
+with open("/proc/self/maps") as f:
+    libs = sorted({l.split()[-1] for l in f if "_native" in l or
+                   "build/native" in l})
+assert not [l for l in libs if "mxnet_tpu/_native" in l], libs
+assert image.native_decode.available() == (_native.load("imgdecode")
+                                           is not None)
 bad = sorted(n for n, m in sys.modules.items() if m is not None and (
     n == "jax" or n.startswith("jax.") or n.startswith("jaxlib")
     or n == "mxnet_tpu" or n.startswith("mxnet_tpu.")))

@@ -15,8 +15,8 @@ checkpoint written by either
 package's ``Module.save_checkpoint`` loads in the other; after three
 updates a Module on a small ResNet with BatchNorm equals a float32
 ``TrainStep``'s parameters and moving stats bit for bit; a training
-forward drops the previous step's graph; the digits fixture passes the
-JAX gate (train accuracy > 0.98, held out > 0.95).
+forward drops the previous step's graph. The digits fixture's cases are
+in ``tests/test_torch_module_digits.py``.
 """
 import gc
 import json
@@ -37,8 +37,6 @@ from mxnet_tpu_torch.parallel.resilience import (
     FaultInjector as TFaultInjector, install_fault_injector as tinstall)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
-FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
-                       "digits_8x8.npz")
 
 
 def _mlp_sym(mx, num_hidden=32, num_classes=2):
@@ -649,79 +647,3 @@ def test_monitor_reads_every_node_with_one_host_sync():
         assert name in names, (name, names)
     for _, _, value in rows:
         assert np.isfinite(float(value.split()[0]))
-
-
-def _digits():
-    with np.load(FIXTURE) as z:
-        X = z["images"].astype(np.float32) / 16.0
-        y = z["labels"].astype(np.float32)
-    test = np.arange(len(y)) % 5 == 0
-    return (X[~test][:, None], y[~test]), (X[test][:, None], y[test])
-
-
-def _lenet(mx):
-    net = mx.sym.Variable("data")
-    for i, nf in ((1, 16), (2, 32)):
-        net = mx.sym.Convolution(net, name="conv%d" % i, kernel=(3, 3),
-                                 num_filter=nf, pad=(1, 1))
-        net = mx.sym.Activation(net, act_type="relu")
-        net = mx.sym.Pooling(net, pool_type="max", kernel=(2, 2),
-                             stride=(2, 2))
-    net = mx.sym.Flatten(net)
-    net = mx.sym.FullyConnected(net, name="fc1", num_hidden=64)
-    net = mx.sym.Activation(net, act_type="relu")
-    net = mx.sym.FullyConnected(net, name="fc2", num_hidden=10)
-    return mx.sym.SoftmaxOutput(net, name="softmax")
-
-
-DIGITS_SEEDS = (0, 1, 2, 3, 4)
-
-
-def test_module_fit_real_digits_passes_the_jax_gate():
-    """tests/test_train_real_data.py's gate on the port: Module.fit of its
-    LeNet on the committed digits fixture, 12 epochs of SGD at its
-    settings, reaches > 0.98 train and > 0.95 held-out accuracy, here in
-    the median over DIGITS_SEEDS. One seed's score is the weights after
-    the last update at lr 0.1, momentum 0.9, which the two packages'
-    float rounding moves apart (about 10x an epoch from 1e-9 at the first
-    update): at seed 0 the JAX run scores 0.9932 / 0.9870 and the port's
-    0.9626 / 0.9583, at seeds 1-4 the port scores 0.9864-0.9973 /
-    0.9688-0.9792."""
-    (Xtr, ytr), (Xte, yte) = _digits()
-    train_acc, val_acc = [], []
-    with tmx.cpu():
-        for seed in DIGITS_SEEDS:
-            tmx.random.seed(seed)
-            np.random.seed(seed)
-            train = tio.NDArrayIter(Xtr, ytr, batch_size=64, shuffle=True)
-            val = tio.NDArrayIter(Xte, yte, batch_size=64)
-            mod = tmx.mod.Module(_lenet(tmx), context=tmx.cpu())
-            mod.fit(train, num_epoch=12, optimizer="sgd",
-                    initializer=tmx.init.Xavier(),
-                    optimizer_params={"learning_rate": 0.1,
-                                      "momentum": 0.9,
-                                      "rescale_grad": 1.0 / 64})
-            train_acc.append(mod.score(train, "acc")[0][1])
-            val_acc.append(mod.score(val, "acc")[0][1])
-    tr, va = float(np.median(train_acc)), float(np.median(val_acc))
-    assert tr > 0.98, "train accuracy gate failed: %s" % train_acc
-    assert va > 0.95, "held-out accuracy gate failed: %s" % val_acc
-
-
-def test_module_on_digits_tracks_jax_for_ten_updates():
-    """The digits LeNet's first ten updates: the port's weights within
-    TOL of the JAX Module's."""
-    (Xtr, ytr), _ = _digits()
-    mods = []
-    for mx, io, ctx in ((jmx, jio, jmx.cpu()), (tmx, tio, tmx.cpu())):
-        with ctx:
-            mx.random.seed(0)
-            mod = mx.mod.Module(_lenet(mx), context=ctx)
-            mod.fit(io.NDArrayIter(Xtr[:640], ytr[:640], batch_size=64),
-                    num_epoch=1, optimizer="sgd",
-                    initializer=mx.init.Xavier(),
-                    optimizer_params={"learning_rate": 0.1,
-                                      "momentum": 0.9,
-                                      "rescale_grad": 1.0 / 64})
-        mods.append(mod)
-    _assert_params_close(mods[1], mods[0], dict(rtol=1e-5, atol=1e-5))

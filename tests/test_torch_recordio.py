@@ -110,22 +110,29 @@ def test_pack_unpack_match_jax():
 
 
 def test_native_reader_knob_is_noted_once(tmp_path, caplog):
+    """MXNET_NATIVE_RECORDIO (default on, as in the JAX package) selects
+    the native mmap reader where it builds, off the Python reader; both
+    read the same records and nothing is logged about the knob."""
     path = str(tmp_path / "a.rec")
     w = trec.MXRecordIO(path, "w")
-    w.write(b"x")
+    for p in _payloads():
+        w.write(p)
     w.close()
-    trec._NATIVE_NOTED.clear()
-    tconfig.set_override("MXNET_NATIVE_RECORDIO", True)
+    from mxnet_tpu_torch import _native
+    assert tconfig.get("MXNET_NATIVE_RECORDIO") is True
+    built = _native.load("recordio") is not None
     try:
         with caplog.at_level(logging.WARNING):
-            for _ in range(3):
+            for knob in (True, False):
+                tconfig.set_override("MXNET_NATIVE_RECORDIO", knob)
                 r = trec.MXRecordIO(path, "r")
-                assert r.read() == b"x"
+                assert (r._native is not None) == (knob and built)
+                assert [r.read() for _ in _payloads()] == _payloads()
+                assert r.read() is None
                 r.close()
     finally:
         tconfig.clear_override("MXNET_NATIVE_RECORDIO")
-    notes = [m for m in caplog.messages if "MXNET_NATIVE_RECORDIO" in m]
-    assert len(notes) == 1 and "item 10" in notes[0]
+    assert not [m for m in caplog.messages if "MXNET_NATIVE_RECORDIO" in m]
 
 
 def _write_mnist(tmp_path, n=70, rows=5, cols=4, zipped=False):
@@ -194,9 +201,27 @@ def test_csv_iter_yields_the_jax_batches(tmp_path, round_batch):
 
 
 @pytest.mark.parametrize("name", ["ImageRecordIter", "ImageDetRecordIter"])
-def test_iterators_not_ported_raise_naming_item_10(name):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        getattr(tio, name)("x", (1,), 1)
+def test_iterators_not_ported_raise_naming_item_10(tmp_path, name):
+    """The two image factories are ported (``image``): each reads a
+    packed file into batches of the declared shapes on the context it was
+    made in (the image tests hold them to the JAX package)."""
+    idx, path = str(tmp_path / "a.idx"), str(tmp_path / "a.rec")
+    w = trec.MXIndexedRecordIO(idx, path, "w")
+    rng = np.random.RandomState(0)
+    for i in range(6):
+        img = rng.randint(0, 256, (40, 48, 3)).astype(np.uint8)
+        label = [2, 5, i % 3, 0.1, 0.2, 0.6, 0.7] \
+            if name == "ImageDetRecordIter" else float(i)
+        w.write_idx(i, trec.pack_img((0, label, i, 0), img))
+    w.close()
+    with tmx.cpu():
+        it = getattr(tio, name)(path_imgrec=path, data_shape=(3, 32, 32),
+                                batch_size=3)
+        batch = next(iter(it))
+    assert batch.data[0].shape == (3, 3, 32, 32)
+    assert batch.data[0].context == tmx.cpu()
+    assert batch.label[0].shape == ((3, 16, 5) if name == "ImageDetRecordIter"
+                                    else (3,))
 
 
 def test_kvstore_push_pull_matches_jax():
