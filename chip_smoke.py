@@ -34,7 +34,7 @@ Phases (any failure exits non-zero; no phase is caught):
 5. train path: the same LM trained as bench.py trains it (Adam, bf16
    compute, Xavier init, batch 8 of random tokens) through
    make_train_step -> init_state -> step: 2 warm steps (one profiled)
-   and 10 timed ones, a finite and falling loss, and 4 launches of
+   and 5 timed ones, a finite and falling loss, and 4 launches of
    flash_fwd_cuda and of flash_bwd_cuda and one of the multi-tensor
    update per step; plus a small f32 LM whose one-step parameters
    on the card must match the same step on the CPU;
@@ -85,7 +85,7 @@ Phases (any failure exits non-zero; no phase is caught):
 12. AlexNet path: bench.py's alexnet workload (batch 512, 3x224x224,
    1000 classes, bf16 compute, SGD momentum 0.9, wd 1e-4, rescale
    1/512, Xavier from mx.random.seed(0), PRNGKey(0) each step) through
-   make_train_step: 2 warm steps (one profiled) and 10 timed ones, a
+   make_train_step: 2 warm steps (one profiled) and 5 timed ones, a
    finite NLL whose lowest timed value is under 0.75x the first, fc6's
    Dropout output equal to its input times 2 where the CPU's mask for
    fold_in(PRNGKey(0), uid) keeps and 0 elsewhere; before it, AlexNet at batch 4, card against CPU (the
@@ -115,8 +115,7 @@ Phases (any failure exits non-zero; no phase is caught):
    Adam state bit-equal, the last epoch's perplexity equals the host
    recomputation over its unmasked batches within 1e-3, at most one
    blocking host sync a step plus one a metric.get(), step ms, tokens/s,
-   peak memory; save_state -> load_state at full width bit for bit in a
-   temporary directory; at 2 layers under
+   peak memory; at 2 layers under
    torch.use_deterministic_algorithms(True), a fit cut by sigterm@4 and
    resumed lands on the uninterrupted run's weights bit for bit;
 15. module path: bench.py's ResNet-50 in float32 on the BatchNorm
@@ -183,8 +182,8 @@ Phases (any failure exits non-zero; no phase is caught):
    requests served and checked;
 22. moe_lm: the MoE flagship of bench_scaling.py --full-size
    --expert-parallel at its 4-device row, one device's share (the flagship
-   LM with 8 experts, capacity factor 1.25; 1.28 G parameters; batch 8,
-   bf16, SGD momentum 0.9) trained 3 steps through make_train_step (the
+   LM with 8 experts, capacity factor 1.25, its depth cut to MOE_LAYERS =
+   2 of 4; batch 8, bf16, SGD momentum 0.9) trained 3 steps through make_train_step (the
    expert axis has one rank: dense_moe): ms a step, tokens/s, peak memory,
    a profile by kernel kind with the flash kernels' counts; then
    bench_decode's settings through Generator(num_experts=8) with the
@@ -198,8 +197,8 @@ Phases (any failure exits non-zero; no phase is caught):
    this process: the ring at the flagship attention
    shape (T 2048 split 1024 + 1024), causal and window 512, forward and
    backward, f32 against a one-rank flash call (bf16 reported); moe_ffn
-   at expert=2 against its per-rank rule; one step of the flagship LM at 2
-   layers in float32 over data=2 with and without zero1 (bit-equal), sp=2
+   at expert=2 against its per-rank rule; one step of the flagship LM at 1
+   layer in float32 over data=2 with and without zero1 (bit-equal), sp=2
    and expert=2, each against the one-rank step; pipeline_from_symbol at
    pipe=2 against the sequential stages; ms and staged bytes of each;
 24. gspmd2: two ranks of this script sharing the card over gloo
@@ -210,7 +209,7 @@ Phases (any failure exits non-zero; no phase is caught):
    its float32 parity step against one rank; the same LM over tp=2
    (column-parallel qkv/proj/fc1/fc2) against one rank; ResNet-50 under
    data=2 on the BatchNorm kernels (batch 16 a rank, f32) against one
-   rank; Generator over model=2 (bench_decode's model, f32) against the
+   rank; Generator over model=2 (bench_decode's model at 2 layers, f32) against the
    one-rank generate;
 25. kvdist2: bench.py's ResNet-50 (float32, the BatchNorm kernels, batch
    64 a worker) through Module.fit on two workers of this script sharing
@@ -282,7 +281,7 @@ Phases (any failure exits non-zero; no phase is caught):
    train_mnist.py's 1x28x28 batch 64; mobilenet, resnext-50 32x4d and
    googlenet at 3x224x224, inception-v4 and inception-resnet-v2 at
    3x299x299, batch 128, train_imagenet.py's SGD) through Module.fit,
-   float32, MXNET_BN_PALLAS=1: a warm-up and 3 timed steps each, step
+   float32, MXNET_BN_PALLAS=1: a warm-up and 2 timed steps each, step
    ms, img/s, peak memory, launches, each BatchNorm kernel once a
    BatchNorm a step, finite losses, the four BatchNorm kernels against
    their plain versions at every BatchNorm input shape of the timed
@@ -315,7 +314,25 @@ Phases (any failure exits non-zero; no phase is caught):
    an image over VOC's 20 classes): a warm-up and 4 timed steps, the
    iterator's ms a batch beside the step's, one NMS launch a training
    forward; the seconds of each part;
-33. a line of the seconds each phase took, one JSON line of every
+33. capi: the C ABI (mxnet_tpu_torch/_native/predict_shim.cc, built by g++
+   into build/native/ after a probe of this machine's Python) under the
+   unchanged hosts of examples/c_predict/ (predict.c, train.c), each a
+   child process embedding the interpreter: (a) compiled_serve's SSD300
+   exported at batch 8 and served by predict.c, its printed outputs equal
+   to the in-process CompiledPredictor's, each C call's ms (the shim's
+   MXNET_CAPI_TIMING) beside the in-process forward's; (b) bench.py's
+   ResNet-50 step (bf16, MXNET_BN_PALLAS=1) exported and trained 3 steps by
+   train.c, the softmax output and fc1_bias within CAPI_TRAIN_RTOL of 3
+   in-process CompiledTrainStep steps (two in-process loads beside it), a
+   step's ms through the ABI beside step()'s; (c) a bad prefix, an unknown
+   input, a wrong size and prefixes in the JAX package's layout each end
+   the host with rc 1 and the message. The children's kernel launches are
+   their own processes' and are not counted here;
+34. surface: mx.rtc sources (torch ops, and a @triton.jit kernel) on card
+   tensors against their plain results, mx.viz.print_summary's count for
+   ResNet-50, test_utils.check_speed against time_ms on ResNet-50's
+   forward, LogMetricsCallback's event file on a Module.fit read back;
+35. a line of the seconds each phase took, one JSON line of every
    ported kernel (a device time under its byte bound fails the run: the
    timing lost work), then the result line.
 
@@ -351,7 +368,7 @@ VOCAB, SEQ, LAYERS, HEADS, DIM = 32768, 2048, 4, 16, 2048
 BUCKETS = (1, 2, 4, 8)
 REQUEST_ROWS = (1, 2, 1, 2, 2, 1, 2, 1)   # 8 concurrent requests, 12 rows
 TRAIN_BATCH, TRAIN_LR = 8, 1e-4           # bench.py bench_transformer
-WARM_STEPS, TIMED_STEPS = 2, 10
+WARM_STEPS, TIMED_STEPS = 2, 5
 
 TOL = {"bfloat16": dict(atol=2e-2, rtol=2e-2),
        "float32": dict(atol=1e-5, rtol=1e-4)}
@@ -2379,7 +2396,7 @@ def resnet_train_reference_check():
 def resnet_train_run(kernels, counters):
     """bench.py's ResNet-50 step through make_train_step -> init_state ->
     step, with MXNET_BN_PALLAS on (``kernels``) or off: 2 warm steps (the
-    second profiled) and 10 timed ones on the same batch. Fails unless
+    second profiled) and TIMED_STEPS timed ones on the same batch. Fails unless
     the NLL at the labels is finite and falls, the moving stats stay
     finite, and each BatchNorm kernel ran once per BatchNorm per step
     (kernel route) or never (default route). Returns the launch counts."""
@@ -3159,7 +3176,7 @@ def alexnet_reference_check():
 def alexnet_phase():
     """bench.py's AlexNet workload through make_train_step -> init_state
     -> step, PRNGKey(0) every step as bench.py passes it: 2 warm steps
-    (the second profiled) and 10 timed ones. Fails unless the NLL is
+    (the second profiled) and TIMED_STEPS timed ones. Fails unless the NLL is
     finite, its lowest timed value under ALEX_NLL_FALL x the first, and
     fc6's Dropout output (read through the graph
     evaluator's capture hook, the Executor's monitor path, in one more
@@ -3789,15 +3806,14 @@ def fit_phase():
     the metric's count. A timed run (no callback work): at most one
     blocking host sync a step plus one a metric.get(), step ms (median,
     boundary to boundary), tokens/s, peak memory, and the launch counts.
-    Then save_state -> load_state at full width, bit for bit, in a
-    temporary directory; and, at depth RESUME_LAYERS under
+    Then, at depth RESUME_LAYERS under
     torch.use_deterministic_algorithms(True), a fit cut by
-    sigterm@RESUME_SIGTERM exits at its boundary checkpoint and the
-    resumed fit lands on the uninterrupted run's weights bit for bit.
+    sigterm@RESUME_SIGTERM exits at its boundary checkpoint (save_state)
+    and the resumed fit (load_state) lands on the uninterrupted run's
+    weights bit for bit: the checkpoint's round trip at that depth (the
+    full-width round trip, 4.08 GB written and read in 16 s, was cut to
+    pay for the capi phase).
     Returns the timed run's launch counts."""
-    import shutil
-    import tempfile
-
     import torch
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import io, lr_scheduler, metric, profiler
@@ -3954,36 +3970,6 @@ def fit_phase():
     say("fit: launches %s" % ", ".join("%s %d" % kv for kv in
                                        sorted(launches.items())))
 
-    # -- save_state -> load_state at full width ----------------------------
-    need = sum(v.numel() * v.element_size() for v in state[0].values())
-    need += sum(s.numel() * s.element_size() for v in state[1].values()
-                for s in v)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_ck_")
-    try:
-        free = shutil.disk_usage(tmp).free
-        if free < 1.2 * need:
-            fail("fit: %.2f GB free under %s, the full-width checkpoint "
-                 "needs %.2f GB" % (free / 1e9, tmp, need / 1e9))
-        t = time.perf_counter()
-        path = step.save_state(os.path.join(tmp, "lm"), state)
-        save_s = time.perf_counter() - t
-        t = time.perf_counter()
-        loaded = step.load_state(os.path.join(tmp, "lm"))
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t
-        size = os.path.getsize(path)
-        same = (set(loaded[0]) == set(state[0]) and all(
-            torch.equal(loaded[0][k], state[0][k]) for k in state[0]) and
-            all(torch.equal(a, b) for k in state[1]
-                for a, b in zip(loaded[1][k], state[1][k])))
-        if not same:
-            fail("fit: save_state -> load_state is not bit for bit")
-        say("fit: save_state %.2f GB in %.1f s, load_state in %.1f s, "
-            "params and Adam state bit-equal" % (size / 1e9, save_s,
-                                                 load_s))
-        del loaded
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
     del state, step
     torch.cuda.empty_cache()
     resume_check()
@@ -4869,7 +4855,7 @@ def lm_options_phase():
 
 GEN_MAX_LEN, GEN_PROMPT, GEN_NEW = 384, 128, 256   # bench.py bench_decode
 GEN_SHORT = GEN_NEW // 8          # bench.py's N_SHORT: the difference run
-GEN_ITERS = 3
+GEN_ITERS = 2
 GEN_SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.9, seed=1)
 GEN_VARIANT_NEW = 64              # beam and speculative, timed briefly
 GEN_BEAM = 4
@@ -5870,6 +5856,7 @@ def compiled_serve_phase(counters):
 
 MOE_EXPERTS, MOE_CF = 8, 1.25     # 2 experts a device x 4 devices
 MOE_STEPS, MOE_LR = 3, 0.1        # bench_scaling.py: SGD momentum 0.9, lr 0.1
+MOE_LAYERS = 2                    # the flagship's 4 layers cut to 2
 MOE_SMALL = dict(T=64, V=100, layers=2, heads=4, dim=64, experts=4)
 
 
@@ -5921,7 +5908,8 @@ def moe_reference_check():
 
 def moe_lm_phase():
     """The MoE flagship LM at full width on one rank: vocab 32768, seq
-    2048, 4 layers, 16 heads, dim 2048, ffn 8192, 8 experts at capacity
+    2048, MOE_LAYERS layers (the flagship's 4 cut to 2 to pay for the capi
+    phase), 16 heads, dim 2048, ffn 8192, 8 experts at capacity
     1.25 (dense_moe: the expert axis has one rank), batch 8, bf16 compute,
     SGD momentum 0.9, Xavier from mx.random.seed(0). MOE_STEPS TrainStep
     steps (the second profiled): ms a step, tokens/s, peak memory, the
@@ -5944,7 +5932,7 @@ def moe_lm_phase():
 
     B = TRAIN_BATCH
     t0 = time.perf_counter()
-    arch = dict(num_layers=LAYERS, num_heads=HEADS, dim=DIM,
+    arch = dict(num_layers=MOE_LAYERS, num_heads=HEADS, dim=DIM,
                 ffn_hidden=4 * DIM, num_experts=MOE_EXPERTS)
     sym = transformer.get_symbol(VOCAB, SEQ, moe_capacity_factor=MOE_CF,
                                  **arch)
@@ -5998,9 +5986,9 @@ def moe_lm_phase():
     if not all(np.isfinite(nlls)):
         fail("moe_lm: non-finite loss %r" % (nlls,))
     for name, n in launches.items():
-        if n != LAYERS * MOE_STEPS:
+        if n != MOE_LAYERS * MOE_STEPS:
             fail("moe_lm: %s launched %d times, not %d layers x %d steps"
-                 % (name, n, LAYERS, MOE_STEPS))
+                 % (name, n, MOE_LAYERS, MOE_STEPS))
     launches.update(check_mt_counts("moe_lm", MOE_STEPS, len(state[0])))
     params = {n: v for n, v in state[0].items()}
     del state, batch, step
@@ -6050,7 +6038,7 @@ def moe_lm_phase():
 MESH_RING = (8, 16, 2048, 128)
 MESH_WINDOW = 512
 MESH_MOE = dict(tokens=8192, dim=2048, hidden=8192, experts=4)
-MESH_TRAIN = dict(layers=2, batch=2, lr=0.1)
+MESH_TRAIN = dict(layers=1, batch=2, lr=0.1)  # 2 layers until the capi phase
 MESH_PIPE = dict(micro=4, mb=2)
 MESH_RANK_TIMEOUT_S = 900
 RING_F32_RTOL = 1e-5              # the merge reorders sums
@@ -6064,6 +6052,20 @@ def _rel_err(got, want):
     got, want = got.detach().float(), want.detach().float()
     return float((got - want).abs().max() / want.abs().max().clamp_min(
         1e-30))
+
+
+class Laps:
+    """Wall seconds of a run's consecutive sections: ``laps(name)`` ends
+    the current section; ``laps.seconds`` maps each to its seconds (where
+    a two-process phase's time goes, for the smoke's budget)."""
+
+    def __init__(self):
+        self.t, self.seconds = time.perf_counter(), {}
+
+    def __call__(self, name):
+        t = time.perf_counter()
+        self.seconds[name] = round(t - self.t, 1)
+        self.t = t
 
 
 def _mesh_rank(rank, world, port, out, device, tiny):
@@ -6091,6 +6093,7 @@ def _mesh_rank(rank, world, port, out, device, tiny):
               timeout=300)
     ctx = mx.gpu(0) if dev.type == "cuda" else mx.cpu()
     res = {}
+    laps = Laps()
 
     def sync():
         if dev.type == "cuda":
@@ -6158,6 +6161,8 @@ def _mesh_rank(rank, world, port, out, device, tiny):
                 res[tag]["d" + n] = _rel_err(g.reshape(B * H, T, D), w)
             del q, k, v, o, grads, q1, k1, v1, o1, want
 
+    laps("ring")
+
     # -- moe_ffn at expert=2 against its plain per-rank rule ---------------
     cfg = MESH_TINY["moe"] if tiny else MESH_MOE
     mesh = make_mesh({"expert": world})
@@ -6179,6 +6184,8 @@ def _mesh_rank(rank, world, port, out, device, tiny):
                       "ids_equal": bool(torch.equal(ids, ids_ref)),
                       "kept": int((o.abs().sum(-1) > 0).sum())}
     del x, w1, w2, o, want
+
+    laps("moe_ffn")
 
     # -- training steps at 2 layers against the one-rank step -------------
     V, S = (MESH_TINY["vocab"], MESH_TINY["seq"]) if tiny else (VOCAB, SEQ)
@@ -6245,21 +6252,24 @@ def _mesh_rank(rank, world, port, out, device, tiny):
     res["data2_zero1"]["bit_equal"] = all(
         torch.equal(after["data2"][n], after["data2_zero1"][n])
         for n in after["data2"])
-    if rank == 0:
-        # the one-rank step of the same global batch (no collective)
-        single = {}
-        for name, sym, _, _ in cases:
-            key = id(sym)
-            if key not in single:
-                single[key] = one_step(sym, None)[0]
-            want = single[key]
-            worst = max(float((after[name][n] - want[n]).abs().max())
-                        for n in want)
-            res[name]["max_abs_err"] = worst
-            res[name]["within"] = all(
-                bool(torch.allclose(after[name][n], want[n], **TRAIN_TOL))
-                for n in want)
+    # the one-rank step of the same global batch (no collective): rank 0
+    # the dense graph's (data2, data2_zero1), rank 1 the others', at once
+    single = {}
+    for name, sym, _, _ in cases:
+        if rank != (0 if sym is dense else 1):
+            continue
+        key = id(sym)
+        if key not in single:
+            single[key] = one_step(sym, None)[0]
+        want = single[key]
+        res[name]["max_abs_err"] = max(
+            float((after[name][n] - want[n]).abs().max()) for n in want)
+        res[name]["within"] = all(
+            bool(torch.allclose(after[name][n], want[n], **TRAIN_TOL))
+            for n in want)
     del after
+
+    laps("train")
 
     # -- pipeline_from_symbol at pipe=2 over get_stage_symbol --------------
     pd = MESH_TINY["pipe_dim"] if tiny else DIM
@@ -6290,6 +6300,8 @@ def _mesh_rank(rank, world, port, out, device, tiny):
     res["pipe2"] = {"ms": ms, "o": _rel_err(o, torch.stack(want)),
                     "kernel_calls": calls}
 
+    laps("pipe")
+    res["seconds"] = laps.seconds
     res["staged_bytes"] = telemetry.counter(_comm.STAGED_BYTES).value - \
         staged0
     fwd, bwd = att.flash_fwd_cuda, att.flash_bwd_cuda
@@ -6396,7 +6408,7 @@ def mesh2_phase(device="cuda", tiny=False):
     magnitude (bf16 reported); moe_ffn at expert=2 (E 4, dim 2048, hidden
     8192, 8192 tokens, f32) against its plain per-rank rule
     (moe_ffn_reference) with the same expert ids; one SGD-momentum step of
-    the flagship LM at 2 layers, float32, batch 2, over data=2 with and
+    the flagship LM at MESH_TRAIN's 1 layer, float32, batch 2, over data=2 with and
     without zero1 (bit-equal), sp=2 and expert=2 (capacity factor 4: no
     drops), each against the one-rank step of the same global batch within
     TRAIN_TOL; pipeline_from_symbol at pipe=2 over get_stage_symbol (dim
@@ -6462,6 +6474,9 @@ def mesh2_phase(device="cuda", tiny=False):
             say("mesh2 rank %d: launches by case (flash forward, flash "
                 "backward[, multi-tensor update]) %s, as the schedules "
                 "give" % (r, json.dumps(got, sort_keys=True)))
+    for name in ("sp2", "expert2"):       # checked on rank 1
+        for key in ("max_abs_err", "within"):
+            r0[name][key] = res[1][name][key]
     for name in ("data2", "data2_zero1", "sp2", "expert2"):
         if not r0[name]["within"]:
             fail("mesh2 %s: the step's parameters differ from the one-rank "
@@ -6487,8 +6502,9 @@ def mesh2_phase(device="cuda", tiny=False):
     say("mesh2 pipe2: %.1f ms, relative error against the sequential "
         "stages %.3g" % (r0["pipe2"]["ms"], r0["pipe2"]["o"]))
     say("mesh2: parallel.comm.staged_bytes %d (rank 0), %d (rank 1); the "
-        "launch took %.1f s" % (r0["staged_bytes"], res[1]["staged_bytes"],
-                                launch_s))
+        "launch took %.1f s (seconds by section: rank 0 %s, rank 1 %s)" % (
+            r0["staged_bytes"], res[1]["staged_bytes"], launch_s,
+            r0["seconds"], res[1]["seconds"]))
     launches = {k: r0["launches"][k] + res[1]["launches"][k]
                 for k in r0["launches"]}
     say("mesh2: launches of both ranks %s" % ", ".join(
@@ -6510,6 +6526,7 @@ GSPMD_F32_LR = 0.1                # SGD momentum 0.9 (Queue C 19: not Adam)
 GSPMD_RESNET_BATCH = 16           # a rank (bench.py's 128, cut)
 GSPMD_GEN_NEW = 8
 GSPMD_GEN_BATCH = 8
+GSPMD_GEN_LAYERS = 2              # (d): bench_decode's 4 layers cut to 2
 GSPMD_LOGIT_TOL = 1e-4            # the near-tie rule of Queue C 9 and 15
 RESNET_FLOOR_X = 2.0              # (c): L2 distance against the reorder floor
 GSPMD_TP_RULES = (("*_qkv_weight", "tp,None"), ("*_proj_weight", "tp,None"),
@@ -6605,6 +6622,7 @@ def _gspmd_rank(rank, world, port, out, device, tiny):
 
     res = {"n_rank": world}
     staged0 = staged()
+    laps = Laps()
 
     # -- (a) bench_scaling.py's GSPMD row at n = 2 -------------------------
     sym = transformer.get_symbol(V, S, num_layers=L, num_heads=H, dim=Dm)
@@ -6684,6 +6702,8 @@ def _gspmd_rank(rank, world, port, out, device, tiny):
     del got
     free()
 
+    laps("a")
+
     # -- (b) tensor parallelism: the same float32 LM over tp ---------------
     tp_mesh = make_mesh({"tp": world})
     step = make_train_step(sym, layout=SpecLayout(tp_mesh,
@@ -6707,6 +6727,8 @@ def _gspmd_rank(rank, world, port, out, device, tiny):
             res["tp"]["within"] = compare(got, one)
     del got, one, params
     free()
+
+    laps("b")
 
     # -- (c) ResNet-50 under data=2 on the BatchNorm kernels ---------------
     rl, img, rb, ncls = T["resnet"] if tiny else (
@@ -6793,9 +6815,11 @@ def _gspmd_rank(rank, world, port, out, device, tiny):
     config.set_override("MXNET_BN_PALLAS", None)
     free()
 
+    laps("c")
+
     # -- (d) Generator over a model axis ---------------------------------
     gl, ml, gb, gp = T["gen"] if tiny else (
-        LAYERS, GEN_MAX_LEN, GSPMD_GEN_BATCH, GEN_PROMPT)
+        GSPMD_GEN_LAYERS, GEN_MAX_LEN, GSPMD_GEN_BATCH, GEN_PROMPT)
     arch = dict(num_layers=gl, num_heads=H, dim=Dm, ffn_hidden=4 * Dm)
     gsym = transformer.get_symbol(V, ml, **arch)
     mx.random.seed(0)
@@ -6831,6 +6855,8 @@ def _gspmd_rank(rank, world, port, out, device, tiny):
     del gen, one, gparams
     free()
 
+    laps("d")
+    res["seconds"] = laps.seconds
     res["staged_bytes"] = staged() - staged0
     res["launches"] = path
     with open(os.path.join(out, "rank%d.json" % rank), "w") as f:
@@ -6920,18 +6946,21 @@ def gspmd2_phase(device="cuda", tiny=False):
                     rr["floor_over_tol"], rr["aux_within"])
                 if conv == "native" else " (reported: cuDNN's algorithms "
                 "differ by batch size)"))
-    say("gspmd2 (d) Generator model=2 (bench_decode's model, f32, batch %d):"
+    say("gspmd2 (d) Generator model=2 (bench_decode's model at %d layers, "
+        "f32, batch %d):"
         " %d new tokens in %.1f ms (%.2f ms a token, prefill included), "
         "%d of %d rows equal to the one-rank generate (logits at the first "
         "differing step within %.3g), %.1f MB staged; qkv weight a rank %r,"
         " a cache a rank %r" % (
+            GSPMD_GEN_LAYERS if not tiny else GSPMD_TINY["gen"][0],
             gen["rows"], GSPMD_GEN_NEW if not tiny else GSPMD_TINY["gen"][3],
             gen["ms"], gen["ms_token"], gen["rows_equal"], gen["rows"],
             gen["logit_err"], gen["staged"] / 1e6, gen["qkv_local"],
             gen["cache"]))
     say("gspmd2: parallel.comm.staged_bytes %d (rank 0), %d (rank 1); the "
-        "launch took %.1f s" % (r0["staged_bytes"], res[1]["staged_bytes"],
-                                launch_s))
+        "launch took %.1f s (seconds by section: rank 0 %s, rank 1 %s)" % (
+            r0["staged_bytes"], res[1]["staged_bytes"], launch_s,
+            r0["seconds"], res[1]["seconds"]))
     if not np.isfinite(row["nll"]):
         fail("gspmd2 (a): the loss is not finite: %r" % row["nll"])
     for what, got, whole in (("parameter", row["param_bytes"],
@@ -7009,7 +7038,7 @@ KV_BATCH = 64                     # a worker's rows: bench.py's 128, split
 KV_SYNC_STEPS = 3                 # (a): a warm step and 2 timed
 KV_SYNC_CHECK = 2                 # (a): the parameters held after 2 steps
 KV_ASYNC_STEPS = 2                # (b): steps a worker
-KV_ALONE_STEPS = 2                # (b): one worker alone, deterministic
+KV_ALONE_STEPS = 1                # (b): one worker alone, deterministic
 KV_TINY = dict(layers=18, image=32, batch=2, classes=10)
 # (a) against the one-process rank-ordered sum: the same gradients summed
 # in the same order and the same update, so bit-equal is expected; held
@@ -7083,6 +7112,7 @@ def _kv_rank(rank, world, port, ps_port, out, device, tiny):
                             image_shape=(3, S, S))
     counters = _bn_counters()
     res = {"rank": rank}
+    laps = Laps()
 
     def sync():
         if cuda:
@@ -7144,6 +7174,8 @@ def _kv_rank(rank, world, port, ps_port, out, device, tiny):
         if cuda:
             torch.cuda.empty_cache()
 
+    laps("a")
+
     # -- (b) dist_async --------------------------------------------------
     os.environ.update({"DMLC_PS_ROOT_URI": "127.0.0.1",
                        "DMLC_PS_ROOT_PORT": str(ps_port),
@@ -7199,6 +7231,8 @@ def _kv_rank(rank, world, port, ps_port, out, device, tiny):
         res["async"].update(pulled_equal=bool(same), digest=digest)
         kv.close()
     config.set_override("MXNET_BN_PALLAS", None)
+    laps("b")
+    res["seconds"] = laps.seconds
     with open(os.path.join(out, "kv%d.json" % rank), "w") as f:
         json.dump(res, f)
     dist.shutdown()
@@ -7418,10 +7452,12 @@ def kvdist2_phase(device="cuda", tiny=False):
 
         # -- (a)'s checks --------------------------------------------------
         config.set_override("MXNET_BN_PALLAS", True)
+        t = time.perf_counter()
         with _deterministic(), ctx:
             torch.backends.cudnn.deterministic = True
             want = _kv_reference(mx, sym, ctx, out, B, S, names,
                                  KV_SYNC_CHECK)
+        ref_s = time.perf_counter() - t
         workers_same = all(np.array_equal(snaps[0][n], snaps[1][n])
                            for n in names)
         err, where, within, same = _max_err(snaps[0], want)
@@ -7461,13 +7497,15 @@ def kvdist2_phase(device="cuda", tiny=False):
         say("kvdist2 (b) dist_async: %.1f ms a step (rank 0, %d steps; all "
             "%s; rank 1 %.1f), %.1f MB pushed and %.1f MB pulled a step a "
             "worker, loss %.4f / %.4f; push p50 %s ms, pull p50 %s ms; the "
-            "server's spans %s; the launch took %.1f s" % (
+            "server's spans %s; the launch took %.1f s (seconds by section: "
+            "worker 0 %s, worker 1 %s)" % (
                 a0["ms"], KV_ASYNC_STEPS, " ".join("%.1f" % g
                                                    for g in a0["all_ms"]),
                 a1["ms"], a0["push_bytes"] / 1e6, a0["pull_bytes"] / 1e6,
                 a0["nll"], a1["nll"], a0["op_ms"]["push"].get("p50"),
                 a0["op_ms"]["pull"].get("p50"),
-                json.dumps(spans, sort_keys=True), launch_s))
+                json.dumps(spans, sort_keys=True), launch_s,
+                res[0]["seconds"], res[1]["seconds"]))
         if applied != want_pushes or spans.get("ps.handle.push (replayed)"):
             fail("kvdist2 (b): the server applied %d pushes (%d replays "
                  "served), not %d workers x %d steps x %d keys"
@@ -7483,6 +7521,7 @@ def kvdist2_phase(device="cuda", tiny=False):
         if not (np.isfinite(a0["nll"]) and np.isfinite(a1["nll"])):
             fail("kvdist2 (b): the loss is not finite: %r %r"
                  % (a0["nll"], a1["nll"]))
+        t = time.perf_counter()
         alone, alog = _kv_server(out, ps_alone, 1, "alone")
         servers.append(alone)
         with _deterministic(), ctx:
@@ -7491,6 +7530,7 @@ def kvdist2_phase(device="cuda", tiny=False):
                                              ps_alone)
         alone_spans = _kv_server_done(alone, alog, "the lone worker's "
                                       "server")
+        alone_s = time.perf_counter() - t
         worst, where = 0.0, None
         for n, w in got_local.items():
             d = float(np.abs(got_async[n].astype(np.float64) - w).max())
@@ -7498,12 +7538,13 @@ def kvdist2_phase(device="cuda", tiny=False):
                 worst, where = d, n
         ok = all(np.allclose(got_async[n], w, **KV_ALONE_TOL)
                  for n, w in got_local.items())
-        say("kvdist2 (b): one worker alone against a server, %d steps "
+        say("kvdist2 (b): one worker alone against a server, steps: %d "
             "(deterministic): max abs err %.3g (%s) against the same Module "
             "on a 'local' store (update on the store), %s %r; the server's "
-            "pushes %d" % (KV_ALONE_STEPS, worst, where,
-                           "within" if ok else "BEYOND", KV_ALONE_TOL,
-                           alone_spans.get("ps.handle.push", 0)))
+            "pushes %d; %.1f s (the one-process reference of (a) %.1f s)" % (
+                KV_ALONE_STEPS, worst, where, "within" if ok else "BEYOND",
+                KV_ALONE_TOL, alone_spans.get("ps.handle.push", 0), alone_s,
+                ref_s))
         if not ok:
             fail("kvdist2 (b): the lone dist_async worker lands %g from "
                  "kvstore 'local' in %s (beyond %r)"
@@ -10001,7 +10042,7 @@ ZOO_NETS = (("lenet", (1, 28, 28), 64, 10, 0.05),
             ("googlenet", (3, 224, 224), 128, 1000, 0.01),
             ("inception-v4", (3, 299, 299), 128, 1000, 0.1),
             ("inception-resnet-v2", (3, 299, 299), 128, 1000, 0.1))
-ZOO_STEPS = 4                  # one warm-up step, then 3 timed
+ZOO_STEPS = 3                  # one warm-up step, then 2 timed
 ZOO_SGD = {"momentum": 0.9, "wd": 1e-4}
 ZOO_SMALL_TOL = dict(rtol=1e-4, atol=1e-5)    # batch 2 forward, card vs CPU
 # the logits of that forward from the weights after the fit (the fit on
@@ -10676,6 +10717,607 @@ def image_phase():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# capi: the C ABI (_native/predict_shim.cc) driven by the unchanged C hosts
+# of examples/c_predict/; surface: mx.rtc, mx.viz, test_utils' speed check
+# and the TensorBoard bridge on the card
+# ---------------------------------------------------------------------------
+
+CAPI_SSD_BATCH = 8              # compiled_serve's largest bucket
+CAPI_TRAIN_STEPS = 3
+# the C-hosted ResNet-50 steps against the in-process ones: the softmax
+# output and fc1_bias after 3 bf16 steps, each relative in norm. The C
+# host's interpreter runs without torch.use_deterministic_algorithms, as
+# the in-process loads do here; two in-process loads of one export are
+# printed beside it as the run-to-run floor
+CAPI_TRAIN_RTOL = 1e-2
+CAPI_HOST_TIMEOUT_S = 600
+SURFACE_SPEED_RTOL = 0.2        # check_speed against time_ms, one forward
+SURFACE_TRITON_TOL = dict(rtol=1e-6, atol=1e-6)   # a*x+y may fuse to an FMA
+
+
+def capi_hosts(so, tmp):
+    """examples/c_predict/predict.c and train.c, unchanged, built against
+    the shim (both gcc's at once): {name: executable}."""
+    src = os.path.join(HERE, "examples", "c_predict")
+    procs = {}
+    for name in ("predict", "train"):
+        out = os.path.join(tmp, name)
+        procs[name] = (out, subprocess.Popen(
+            ["gcc", os.path.join(src, name + ".c"), "-o", out, so,
+             "-Wl,-rpath,%s" % os.path.dirname(so)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for name, (out, p) in procs.items():
+        log = p.communicate(timeout=120)[0]
+        if p.returncode != 0:
+            fail("capi: building %s.c against the shim failed: %s"
+                 % (name, log))
+    return {name: out for name, (out, _) in procs.items()}
+
+
+def capi_run(argv_by_case, **env):
+    """C host processes run together on the card, MXNET_CAPI_TIMING on:
+    {case: (rc, stdout, stderr, {exported function: [ms, ...]})}. A host
+    past CAPI_HOST_TIMEOUT_S fails the run after every host is killed."""
+    from mxnet_tpu_torch import _native
+    procs = {case: subprocess.Popen(
+        argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=_native.host_env(device="gpu", MXNET_CAPI_TIMING="1", **env))
+        for case, argv in argv_by_case.items()}
+    results = {}
+    try:
+        for case, p in procs.items():
+            out, err = p.communicate(timeout=CAPI_HOST_TIMEOUT_S)
+            calls = {}
+            for line in err.splitlines():
+                if line.startswith("capi: ") and line.endswith(" ms"):
+                    fn, ms = line[len("capi: "):-len(" ms")].rsplit(" ", 1)
+                    calls.setdefault(fn, []).append(float(ms))
+            results[case] = (p.returncode, out, err, calls)
+    except subprocess.TimeoutExpired:
+        fail("capi: a C host ran past %d s" % CAPI_HOST_TIMEOUT_S)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return results
+
+
+def capi_printed(lines, at):
+    """(shape, the printed values, next line) of one ``<what> shape d0
+    d1 ...`` block of a C host's output."""
+    shape = tuple(int(v) for v in lines[at].split("shape")[1].split())
+    n = int(np.prod(shape))
+    return shape, lines[at + 1:at + 1 + n], at + 1 + n
+
+
+def capi_serve(mx, hosts, tmp):
+    """(a): SSD300 (compiled_serve's: 21 classes, float32, the NMS kernel)
+    exported at batch 8 and served by predict.c: its printed outputs
+    equal the in-process CompiledPredictor's forward to the printed
+    precision (%.8g), and the C calls' ms beside the in-process
+    forward's."""
+    import torch
+    from mxnet_tpu_torch.convert import params_from_jax
+    from mxnet_tpu_torch.predictor import CompiledPredictor
+
+    B, S = CAPI_SSD_BATCH, SSD_IMAGE
+    sym = ssd300_symbol(mx.sym, SSD_CLASSES, SSD_WIDTH_DIV)
+    prefix = os.path.join(tmp, "ssd300")
+    t = time.perf_counter()
+    mx.Predictor(sym, params_from_jax(ssd_params(sym, seed=0),
+                                      mx.gpu(0).torch_device()),
+                 data_names=("data",)).export(prefix, {"data": (B, 3, S, S)})
+    export_s = time.perf_counter() - t
+    x = np.random.RandomState(8).standard_normal((B, 3, S, S)).astype(
+        np.float32)
+    raw = os.path.join(tmp, "ssd300_input.f32")
+    x.tofile(raw)
+    t = time.perf_counter()
+    cp = CompiledPredictor.load(prefix)
+    load_s = time.perf_counter() - t
+    walls, want = [], None
+    for _ in range(6):
+        t = time.perf_counter()
+        got = cp.forward(x)[0].asnumpy()
+        walls.append((time.perf_counter() - t) * 1e3)
+        if want is not None and not np.array_equal(got, want):
+            fail("capi (a): two in-process forwards of one input differ")
+        want = got
+    del cp
+    torch.cuda.empty_cache()
+    kept = check_detections("capi (a) in-process", want)
+    t = time.perf_counter()
+    rc, out, err, calls = capi_run(
+        {"a": [hosts["predict"], prefix, raw, str(x.size)]})["a"]
+    child_s = time.perf_counter() - t
+    if rc != 0:
+        fail("capi (a): predict exited with %d: %s" % (rc, err[-3000:]))
+    lines = out.splitlines()
+    shape, printed, end = capi_printed(lines, 0)
+    if shape != want.shape or end != len(lines):
+        fail("capi (a): predict printed shape %s and %d lines; the "
+             "in-process output is %s" % (shape, len(lines), want.shape))
+    expect = ["%.8g" % v for v in want.ravel()]
+    if printed != expect:
+        fail("capi (a): %d of %d printed values differ from the in-process "
+             "forward's (first: %r against %r)" % (
+                 sum(a != b for a, b in zip(printed, expect)), len(expect),
+                 *next((a, b) for a, b in zip(printed, expect) if a != b)))
+    names = ("MXTpuPredCreate", "MXTpuPredSetInput", "MXTpuPredForward",
+             "MXTpuPredGetOutput")
+    ms = {n: calls[n][0] for n in names}
+    call_ms = sum(ms[n] for n in names[1:]) + calls[
+        "MXTpuPredGetOutputShape"][0]
+    say("capi (a): SSD300 at batch %d (export %.1f s) served by predict.c "
+        "through MXTpuPred*: %d values (%s) equal to the in-process "
+        "CompiledPredictor forward's to %%.8g, detections kept an image %s; "
+        "the C calls: Create (load, warm-up, capture) %.1f ms, SetInput "
+        "%.2f, Forward %.2f, GetOutputShape %.2f, GetOutput %.2f: %.2f ms "
+        "a request against the in-process forward + asnumpy %.2f ms first "
+        "after load (load %.1f s), %.2f median of the next 5; the host "
+        "process %.1f s" % (
+            B, export_s, want.size, "x".join(map(str, shape)), kept,
+            ms["MXTpuPredCreate"], ms["MXTpuPredSetInput"],
+            ms["MXTpuPredForward"], calls["MXTpuPredGetOutputShape"][0],
+            ms["MXTpuPredGetOutput"], call_ms, walls[0], load_s,
+            statistics.median(walls[1:]), child_s))
+
+
+def capi_train(mx, hosts, tmp):
+    """(b): bench.py's ResNet-50 step (compiled_resnet's: batch 128, SGD
+    momentum 0.9, wd 1e-4, bf16, MXNET_BN_PALLAS=1) exported and trained
+    3 steps by train.c: the softmax output and fc1_bias within
+    CAPI_TRAIN_RTOL of 3 in-process CompiledTrainStep steps on the same
+    batch and lr (two in-process loads give the floor), and the ms of a
+    step through the ABI beside step()'s."""
+    import torch
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.parallel import make_train_step
+    from mxnet_tpu_torch.parallel.trainer import CompiledTrainStep
+
+    B, S = RESNET_BATCH, RESNET_IMAGE
+    sym = resnet.get_symbol(num_classes=RESNET_CLASSES,
+                            num_layers=RESNET_LAYERS, image_shape=(3, S, S))
+    step = make_train_step(sym, optimizer="sgd",
+                           optimizer_params={"momentum": 0.9, "wd": 1e-4,
+                                             "rescale_grad": 1.0 / B},
+                           compute_dtype="bfloat16")
+    batch = {"data": np.random.RandomState(0).standard_normal(
+        (B, 3, S, S)).astype(np.float32),
+        "softmax_label": np.random.RandomState(1).randint(
+            0, RESNET_CLASSES, (B,)).astype(np.float32)}
+    mx.random.seed(0)
+    init = step.init_state(Xavier(factor_type="in", magnitude=2.0),
+                           {"data": (B, 3, S, S), "softmax_label": (B,)})
+    prefix = os.path.join(tmp, "resnet50")
+    t = time.perf_counter()
+    step.export(prefix, init, batch)
+    export_s = time.perf_counter() - t
+    del init, step
+    files = {}
+    for name, arr in batch.items():
+        files[name] = os.path.join(tmp, name + ".f32")
+        arr.tofile(files[name])
+    runs = []
+    config.set_override("MXNET_BN_PALLAS", True)
+    try:
+        for _ in range(2):
+            ct = CompiledTrainStep.load(prefix)
+            ms = []
+            for _ in range(CAPI_TRAIN_STEPS):
+                t = time.perf_counter()
+                outs = ct.step(batch, RESNET_LR)
+                ms.append((time.perf_counter() - t) * 1e3)
+            runs.append({"output": outs[0], "fc1_bias":
+                         ct.get_params()["fc1_bias"], "ms": ms})
+            del ct
+            torch.cuda.empty_cache()
+    finally:
+        config.set_override("MXNET_BN_PALLAS", None)
+    t = time.perf_counter()
+    rc, out, err, calls = capi_run({"b": [
+        hosts["train"], prefix, files["data"], str(batch["data"].size),
+        files["softmax_label"], str(batch["softmax_label"].size),
+        str(CAPI_TRAIN_STEPS), repr(RESNET_LR), "fc1_bias"]},
+        MXNET_BN_PALLAS="1")["b"]
+    child_s = time.perf_counter() - t
+    if rc != 0:
+        fail("capi (b): train exited with %d: %s" % (rc, err[-3000:]))
+    lines = out.splitlines()
+    oshape, oprinted, at = capi_printed(lines, 0)
+    if not lines[at].startswith("param fc1_bias shape"):
+        fail("capi (b): train printed %r where fc1_bias belongs" % lines[at])
+    pshape, pprinted, _ = capi_printed(lines, at)
+    c = {"output": np.array(oprinted, np.float64).reshape(oshape),
+         "fc1_bias": np.array(pprinted, np.float64).reshape(pshape)}
+    ref, again = runs
+    if oshape != ref["output"].shape or pshape != ref["fc1_bias"].shape:
+        fail("capi (b): shapes %s, %s against %s, %s" % (
+            oshape, pshape, ref["output"].shape, ref["fc1_bias"].shape))
+    dist = {k: _rel_norm({k: c[k]}, {k: ref[k].astype(np.float64)})
+            for k in c}
+    floor = {k: _rel_norm({k: again[k]}, {k: ref[k].astype(np.float64)})
+             for k in c}
+    if not all(np.isfinite(c[k]).all() for k in c) or \
+            max(dist.values()) > CAPI_TRAIN_RTOL:
+        fail("capi (b): the C host's output and fc1_bias lie %s from the "
+             "in-process steps' (tolerance %g; two in-process loads %s)"
+             % (dist, CAPI_TRAIN_RTOL, floor))
+    labels = torch.from_numpy(batch["softmax_label"])
+    nll = [mean_nll(torch.from_numpy(r["output"]), labels)
+           for r in (ref, again)] + [
+        mean_nll(torch.from_numpy(c["output"].astype(np.float32)), labels)]
+    steps = calls["MXTpuTrainStep"]
+    say("capi (b): ResNet-50 (batch %d, bf16, MXNET_BN_PALLAS=1; export "
+        "%.1f s) trained %d steps by train.c through MXTpuTrain*: the "
+        "softmax output and fc1_bias %.3g and %.3g from the in-process "
+        "CompiledTrainStep's, relative in norm (tolerance %g; two "
+        "in-process loads %.3g and %.3g); NLL after %d steps %.5f C, "
+        "%.5f / %.5f in-process; the C calls: Create %.1f ms, SetBatch "
+        "%s ms (data, label), Step %s ms (the first warms up and "
+        "captures), GetOutput %.2f, GetParamShape %.2f, GetParam %.2f "
+        "(all parameters to the host, once a step); in-process step() %s "
+        "ms; a replayed step through the ABI %.2f ms against %.2f "
+        "in-process; the host process %.1f s" % (
+            B, export_s, CAPI_TRAIN_STEPS, dist["output"], dist["fc1_bias"],
+            CAPI_TRAIN_RTOL, floor["output"], floor["fc1_bias"],
+            CAPI_TRAIN_STEPS, nll[2], nll[0], nll[1],
+            calls["MXTpuTrainCreate"][0],
+            " ".join("%.2f" % v for v in calls["MXTpuTrainSetBatch"]),
+            " ".join("%.2f" % v for v in steps),
+            calls["MXTpuTrainGetOutput"][0],
+            calls["MXTpuTrainGetParamShape"][0],
+            calls["MXTpuTrainGetParam"][0],
+            " ".join("%.2f" % v for v in ref["ms"]),
+            statistics.median(steps[1:]), statistics.median(ref["ms"][1:]),
+            child_s))
+
+
+def capi_errors(mx, hosts, tmp):
+    """(c): a bad prefix, an unknown input name, a wrong input size and a
+    prefix in the JAX package's layout (a forward and a training step:
+    its meta keys and a .stablehlo beside them; this machine has no JAX
+    to export one) each end the C host with rc 1 and
+    MXTpuGetLastError's message."""
+    def tiny(data):
+        net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+            mx.sym.Variable(data), num_hidden=4, name="fc"), name="softmax")
+        rs = np.random.RandomState(0)
+        prefix = os.path.join(tmp, "tiny_" + data)
+        mx.Predictor(net, {"fc_weight": rs.randn(4, 8).astype(np.float32),
+                           "fc_bias": np.zeros(4, np.float32)},
+                     data_names=(data,)).export(prefix, {data: (2, 8)})
+        return prefix
+
+    raw = os.path.join(tmp, "tiny_input.f32")
+    np.ones(16, np.float32).tofile(raw)
+    jax_fwd = os.path.join(tmp, "jax_forward")
+    with open(jax_fwd + ".meta.json", "w") as f:
+        json.dump({"data_names": ["data"], "output_names": ["softmax_output"],
+                   "data_shapes": {"data": [2, 8]}, "dtype": "float32"}, f)
+    open(jax_fwd + ".stablehlo", "wb").close()
+    jax_train = os.path.join(tmp, "jax_train")
+    with open(jax_train + ".train.meta.json", "w") as f:
+        json.dump({"param_names": ["fc_bias", "fc_weight"], "n_opt_slots": 1,
+                   "aux_names": [], "batch_names": ["data", "softmax_label"],
+                   "batch_shapes": {"data": [2, 8], "softmax_label": [2]},
+                   "batch_dtypes": {"data": "float32",
+                                    "softmax_label": "float32"},
+                   "n_state_leaves": 4, "n_outputs": 1,
+                   "output_names": ["softmax_output"]}, f)
+    open(jax_train + ".train.stablehlo", "wb").close()
+    cases = {
+        "bad prefix": ([hosts["predict"], os.path.join(tmp, "nope"), raw,
+                        "16"], "create", "No such file or directory"),
+        "unknown input": ([hosts["predict"], tiny("x"), raw, "16"],
+                          "set_input", "unknown input 'data'; model inputs: "
+                                       "['x']"),
+        "wrong size": ([hosts["predict"], tiny("data"), raw, "15"],
+                       "set_input", "input 'data': got 15 floats, shape "
+                                    "[2, 8] needs 16"),
+        "JAX forward": ([hosts["predict"], jax_fwd, raw, "16"], "create",
+                        "holds a forward exported by the JAX package"),
+        "JAX training step": ([hosts["train"], jax_train, raw, "16", raw,
+                               "2", "1", "0.1", "fc_weight"], "create",
+                              "holds a training step exported by the JAX "
+                              "package"),
+    }
+    t = time.perf_counter()
+    results = capi_run({k: v[0] for k, v in cases.items()})
+    for case, (_argv, where, message) in cases.items():
+        rc, out, err, _ = results[case]
+        last = (err.strip().splitlines() or [""])[-1]
+        if rc != 1 or out or not last.startswith(where + ": ") or \
+                message not in last:
+            fail("capi (c) %s: rc %d, stdout %r, last stderr line %r "
+                 "(rc 1 and %r after %r expected)" % (
+                     case, rc, out[:200], last, message, where))
+        say("capi (c) %s: rc 1, %r" % (case, last[:240]))
+    say("capi (c): the five hosts together %.1f s" % (
+        time.perf_counter() - t))
+
+
+def capi_phase():
+    """The C ABI on the card: the probe of this machine's Python (can it
+    be embedded: Python.h, a shared libpython); the port's shim built by
+    g++ into build/native/; examples/c_predict/predict.c and train.c
+    built unchanged against it and run as child processes that embed
+    the interpreter: (a) SSD300 served (capi_serve), (b) ResNet-50
+    trained (capi_train), (c) the error surface (capi_errors). Each child
+    exits 0 ((a), (b)) or 1 with the message ((c)). The children's kernel
+    launches (NMS in (a), the BatchNorm kernels and the multi-tensor
+    update in (b)) happen in their own processes, so this process's
+    wrappers do not count them: the phase adds nothing to the kernels
+    line. Where this machine's Python cannot be embedded, the phase
+    prints why and runs none of (a)-(c)."""
+    import shutil
+    import sysconfig
+    import tempfile
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _native
+
+    t0 = time.perf_counter()
+    v = sysconfig.get_config_var
+    inc = sysconfig.get_paths()["include"]
+    say("capi: probe: Python %s (%s), Py_ENABLE_SHARED %s, LDLIBRARY %s, "
+        "INSTSONAME %s, LIBDIR %s, %s/Python.h %s" % (
+            sys.version.split()[0], sys.executable, v("Py_ENABLE_SHARED"),
+            v("LDLIBRARY"), v("INSTSONAME"), v("LIBDIR"), inc,
+            "present" if os.path.exists(os.path.join(inc, "Python.h"))
+            else "MISSING"))
+    try:
+        link = _native.python_link()
+    except RuntimeError as e:
+        say("capi: this machine cannot embed its Python (%s): (a)-(c) not "
+            "run" % e)
+        return
+    t = time.perf_counter()
+    so = _native.build_predict_shim()
+    build_s = time.perf_counter() - t
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_capi_")
+    try:
+        t = time.perf_counter()
+        hosts = capi_hosts(so, tmp)
+        say("capi: the shim %s built by g++ in %.1f s (%s); predict.c and "
+            "train.c built against it in %.1f s" % (
+                os.path.basename(so), build_s, " ".join(link),
+                time.perf_counter() - t))
+        with mx.gpu(0):
+            for part in (capi_serve, capi_train, capi_errors):
+                t = time.perf_counter()
+                part(mx, hosts, tmp)
+                say("capi: %s %.1f s" % (part.__name__,
+                                          time.perf_counter() - t))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    say("capi: phase done in %.1f s" % (time.perf_counter() - t0))
+
+
+SURFACE_RTC = {
+    "saxpy": ("""
+def saxpy(x, y):
+    return 2.5 * x + y
+""", ["x", "y"], ["out"]),
+    "squares": ("""
+def squares(x):
+    return x * x, x + x
+""", ["x"], ["a", "b"]),
+    "saxpy_triton": ("""
+@triton.jit
+def _saxpy_kernel(x_ptr, y_ptr, out_ptr, a, n, BLOCK: tl.constexpr):
+    i = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+    m = i < n
+    x = tl.load(x_ptr + i, mask=m)
+    y = tl.load(y_ptr + i, mask=m)
+    tl.store(out_ptr + i, a * x + y, mask=m)
+
+
+def saxpy_triton(x, y):
+    out = torch.empty_like(x)
+    n = x.numel()
+    _saxpy_kernel[(triton.cdiv(n, 1024),)](x, y, out, 2.5, n, BLOCK=1024)
+    return out
+""", ["x", "y"], ["out"]),
+}
+
+
+def tb_scalars(path):
+    """(tag, step, value) of each scalar in a TensorBoard event file: its
+    TFRecord frames (length, masked CRC of the length, payload, masked
+    CRC of the payload; both CRCs checked) and the Event protos' wire
+    fields (step 2, summary 5 -> value 1 -> tag 1, simple_value 2)."""
+    import struct
+    from mxnet_tpu_torch.contrib.tensorboard import _masked_crc
+
+    def varint(buf, i):
+        n = shift = 0
+        while True:
+            b = buf[i]
+            i += 1
+            n |= (b & 0x7F) << shift
+            shift += 7
+            if not b & 0x80:
+                return n, i
+
+    def fields(buf):
+        i = 0
+        while i < len(buf):
+            key, i = varint(buf, i)
+            wire = key & 7
+            if wire == 0:
+                v, i = varint(buf, i)
+            elif wire in (1, 5):
+                width = 8 if wire == 1 else 4
+                v, i = buf[i:i + width], i + width
+            else:
+                n, i = varint(buf, i)
+                v, i = buf[i:i + n], i + n
+            yield key >> 3, v
+
+    with open(path, "rb") as f:
+        data = f.read()
+    out, i = [], 0
+    while i < len(data):
+        head = data[i:i + 8]
+        (n,) = struct.unpack("<Q", head)
+        payload = data[i + 12:i + 12 + n]
+        if struct.unpack("<I", data[i + 8:i + 12])[0] != _masked_crc(head) \
+                or struct.unpack("<I", data[i + 12 + n:i + 16 + n])[0] != \
+                _masked_crc(payload):
+            fail("tb_scalars: a bad CRC at byte %d of %s" % (i, path))
+        i += 16 + n
+        ev = dict(fields(payload))
+        for num, value in fields(ev.get(5, b"")):
+            v = dict(fields(value))
+            out.append((v[1].decode(), ev.get(2, 0),
+                        struct.unpack("<f", v[2])[0]))
+    return out
+
+
+def surface_phase():
+    """Item 10.6's surface on the card: (a) mx.rtc runs the JAX test's
+    saxpy and two-output sources on card tensors, equal to their plain
+    results, and a source that defines a @triton.jit kernel and launches
+    it, within SURFACE_TRITON_TOL; (b) mx.viz.print_summary of ResNet-50
+    gives its parameter count (the learned parameters and the moving
+    statistics of its inferred shapes); (c) test_utils.check_speed of
+    ResNet-50's inference forward (batch 128, float32) within
+    SURFACE_SPEED_RTOL of time_ms of the same forward; (d) contrib.
+    tensorboard's LogMetricsCallback on a short Module.fit on the card
+    writes values that read back equal to the
+    metric's (read by tb_scalars). Triton's cache goes under build/triton
+    in the checkout."""
+    import contextlib
+    import glob
+    import io as _io
+    import shutil
+    import tempfile
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import test_utils
+    from mxnet_tpu_torch.contrib.tensorboard import LogMetricsCallback
+    from mxnet_tpu_torch.models import resnet
+
+    t0 = time.perf_counter()
+    os.environ.setdefault("TRITON_CACHE_DIR",
+                          os.path.join(HERE, "build", "triton"))
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    x = torch.randn(1 << 22, device="cuda", generator=gen)
+    y = torch.randn(1 << 22, device="cuda", generator=gen)
+    plain = {"saxpy": [2.5 * x + y], "squares": [x * x, x + x],
+             "saxpy_triton": [2.5 * x + y]}
+    with mx.gpu(0):
+        for name, (src, ins, outs) in SURFACE_RTC.items():
+            t = time.perf_counter()
+            rtc = mx.rtc.Rtc(name, ins, outs, src)
+            arrs = [mx.nd.zeros(tuple(x.shape)) for _ in outs]
+            rtc.push([mx.nd.NDArray(x), mx.nd.NDArray(y)][:len(ins)], arrs)
+            first_s = time.perf_counter() - t
+            errs = []
+            for got, want in zip(arrs, plain[name]):
+                if got.handle.device != want.device:
+                    fail("surface (a) %s: an output on %s" % (
+                        name, got.handle.device))
+                if name == "saxpy_triton":
+                    errs.append(check_close("surface (a) %s" % name,
+                                            got.handle, want,
+                                            SURFACE_TRITON_TOL))
+                elif not torch.equal(got.handle, want):
+                    fail("surface (a) %s: differs from its plain result"
+                         % name)
+                else:
+                    errs.append(0.0)
+            ms = time_ms(lambda: rtc.push([mx.nd.NDArray(x),
+                                           mx.nd.NDArray(y)][:len(ins)],
+                                          arrs), reps=10)
+            say("surface (a): mx.rtc %s over %d floats on the card: max abs "
+                "err %s against the plain result (%s); first push %.2f s "
+                "(compile included), %.4f ms a push by events" % (
+                    name, x.numel(), " ".join("%.3g" % e for e in errs),
+                    "within %r" % (SURFACE_TRITON_TOL,)
+                    if name == "saxpy_triton" else "equal", first_s, ms))
+
+    S, B = RESNET_IMAGE, RESNET_BATCH
+    sym = resnet.get_symbol(num_classes=RESNET_CLASSES,
+                            num_layers=RESNET_LAYERS, image_shape=(3, S, S))
+    buf = _io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        total = mx.viz.print_summary(sym, shape={"data": (1, 3, S, S)})
+    args, _, aux = sym.infer_shape(data=(1, 3, S, S))
+    count = sum(int(np.prod(s)) for n, s in zip(sym.list_arguments(), args)
+                if n not in ("data", "softmax_label")) + \
+        sum(int(np.prod(s)) for s in aux)
+    if total != count:
+        fail("surface (b): print_summary counts %d parameters, the inferred "
+             "shapes %d" % (total, count))
+    say("surface (b): mx.viz.print_summary of ResNet-50: %d rows, total "
+        "params %d (learned and moving statistics)" % (
+            len(buf.getvalue().splitlines()), total))
+
+    with mx.gpu(0):
+        exe = sym.simple_bind(mx.gpu(0), grad_req="null",
+                              data=(B, 3, S, S), softmax_label=(B,))
+        rs = np.random.RandomState(3)
+        for name, arr in exe.arg_dict.items():
+            arr[:] = rs.standard_normal(arr.shape).astype(np.float32) * 0.01
+
+        def fwd():
+            return exe.forward(is_train=False)
+        speed_ms = test_utils.check_speed(f=fwd, N=10) * 1e3
+        ev_ms = time_ms(fwd, reps=10, warmup=2)
+    if abs(speed_ms - ev_ms) > SURFACE_SPEED_RTOL * ev_ms:
+        fail("surface (c): check_speed %.2f ms against time_ms %.2f ms"
+             % (speed_ms, ev_ms))
+    say("surface (c): test_utils.check_speed of ResNet-50's forward (batch "
+        "%d, float32): %.2f ms a run, time_ms %.2f ms (%.3fx)" % (
+            B, speed_ms, ev_ms, speed_ms / ev_ms))
+    del exe
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tb_")
+    try:
+        rs = np.random.RandomState(5)
+        X = rs.standard_normal((256, 32)).astype(np.float32)
+        Y = (X[:, :8].sum(axis=1) > 0).astype(np.float32)
+        net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(mx.sym.Activation(
+            mx.sym.FullyConnected(mx.sym.Variable("data"), num_hidden=64,
+                                  name="fc1"), act_type="relu"),
+            num_hidden=2, name="fc2"), name="softmax")
+        with mx.gpu(0):
+            it = mx.io.NDArrayIter(X, Y, batch_size=64)
+        seen = []
+
+        def record(param):
+            seen.append([(n, float(v)) for n, v in
+                         param.eval_metric.get_name_value()])
+        cb = LogMetricsCallback(tmp, prefix="train")
+        mod = mx.mod.Module(net, context=mx.gpu(0))
+        mod.fit(it, num_epoch=2, optimizer="sgd",
+                optimizer_params={"learning_rate": 0.5},
+                eval_metric=["acc", "ce"], batch_end_callback=[record, cb])
+        cb.close()
+        files = glob.glob(os.path.join(tmp, "events.out.tfevents.*"))
+        read = tb_scalars(files[0])
+        want = [("train/" + n, i + 1, float(np.float32(val)))
+                for i, pairs in enumerate(seen) for n, val in pairs]
+        if len(files) != 1 or read != want:
+            fail("surface (d): the event file reads back %r, the metric "
+                 "gave %r" % (read[:6], want[:6]))
+        say("surface (d): LogMetricsCallback on Module.fit on the card (%d "
+            "batches): %d scalars read back equal to the metric's (last: "
+            "%s)" % (
+                len(seen), len(read), read[-2:]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("surface: phase done in %.1f s" % (time.perf_counter() - t0))
+
+
 def main():
     try:
         import torch
@@ -10780,6 +11422,8 @@ def main():
     run("zoo", zoo_phase, bn)
     run("sparse", sparse_phase, path=False)
     run("image", image_phase)
+    run("capi", capi_phase, path=False)
+    run("surface", surface_phase, path=False)
     say("phases (s): %s" % json.dumps(seconds))
     for rec in records:
         # no kernel moves its bytes faster than the memory can: a time
@@ -10819,7 +11463,8 @@ PARTIAL = {"mt": mt_kernel_phase, "bn": bn_kernel_phase,
            "rnn": rnn_phase, "detect": detect_phase,
            "sparse": sparse_phase,
            "zoo": lambda: zoo_phase(list(_bn_counters())),
-           "image": image_phase}
+           "image": image_phase, "capi": capi_phase,
+           "surface": surface_phase}
 
 
 def _serve_counters():

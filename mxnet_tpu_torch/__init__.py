@@ -102,3 +102,7 @@ from . import image as img  # noqa: E402
 from . import gluon  # noqa: E402
 from . import rnn  # noqa: E402
 from . import operator  # noqa: E402  (mx.operator: Custom ops)
+from . import rtc  # noqa: E402
+from . import visualization  # noqa: E402
+from . import visualization as viz  # noqa: E402
+from . import contrib  # noqa: E402

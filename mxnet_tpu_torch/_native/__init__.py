@@ -16,9 +16,11 @@ no development files for a library named there (no header, no
 (``pillow.libs/libfoo-<hash>.so.<n>``) and takes the declarations from
 ``compat/`` (searched after the system's include directories).
 
-Every native path has a Python fallback: without a toolchain the
+Every data-plane path has a Python fallback: without a toolchain the
 readers and the decoder run in Python and PIL, slower and otherwise the
-same. Nothing is built at import.
+same. The C ABI (``predict_shim.cc``, built by
+:func:`build_predict_shim`) has none: a C host has no Python side to fall
+back to, so a failed build raises. Nothing is built at import.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CXX_FLAGS", "load", "NativeRecordFile"]
+__all__ = ["BUILD_DIR", "CXX_FLAGS", "load", "NativeRecordFile",
+           "build_predict_shim", "python_link", "host_env"]
 
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR.parent.parent / "build" / "native"
@@ -138,6 +141,91 @@ def load(name):
                 continue
         _LIBS[name] = lib
         return lib
+
+
+def python_link():
+    """The compile and link flags that embed this interpreter: its
+    ``Python.h`` directory and its shared ``libpython``, from
+    ``sysconfig``. A machine whose Python ships only the versioned file
+    (``libpython3.12.so.1.0``, no ``.so`` link) gets that file by its
+    path, as ``_wheel_libs`` links Pillow's copies. Raises RuntimeError
+    naming what is missing: a Python without ``Python.h`` or without a
+    shared ``libpython`` cannot be embedded."""
+    import sysconfig
+
+    inc = sysconfig.get_paths()["include"]
+    if not os.path.exists(os.path.join(inc, "Python.h")):
+        raise RuntimeError("the C ABI needs Python.h, which is not in %s "
+                           "(this Python has no development headers)"
+                           % inc)
+    v = sysconfig.get_config_var
+    libdir, arch = v("LIBDIR"), v("MULTIARCH")
+    dirs = [d for d in (libdir, libdir and arch and os.path.join(libdir, arch),
+                        v("LIBPL")) if d]
+    for d in dirs:
+        if os.path.exists(os.path.join(d, "libpython%s.so"
+                                       % v("LDVERSION"))):
+            return ["-I%s" % inc, "-L%s" % d, "-Wl,-rpath,%s" % d,
+                    "-lpython%s" % v("LDVERSION")]
+    for d in dirs:
+        path = os.path.join(d, v("INSTSONAME") or "")
+        if v("INSTSONAME") and os.path.exists(path):
+            return ["-I%s" % inc, path, "-Wl,-rpath,%s" % d]
+    raise RuntimeError(
+        "the C ABI needs a shared libpython (libpython%s.so or %s) and "
+        "none is in %s (Py_ENABLE_SHARED=%s): this Python cannot be "
+        "embedded" % (v("LDVERSION"), v("INSTSONAME"), dirs,
+                      v("Py_ENABLE_SHARED")))
+
+
+_SHIM = []
+
+
+def build_predict_shim():
+    """The path of the C ABI's library (``predict_shim.cc``), built with
+    g++ into ``build/native/`` at first use under ``load``'s hashed name;
+    its soname is that file name, so a host linked against it finds it
+    through an rpath to ``build/native/``. Raises RuntimeError with the
+    compiler's output when the build fails, and as :func:`python_link`
+    says when this Python cannot be embedded."""
+    with _LOCK:
+        if _SHIM:
+            return _SHIM[0]
+        flags = ["-O2", "-std=c++17", "-shared", "-fPIC"] + python_link()
+        path = _lib_path("predict_shim", flags)
+        if not path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = "%s.tmp.%d" % (path, os.getpid())
+            cmd = ["g++", *flags[:4], str(_DIR / "predict_shim.cc"), "-o", tmp,
+                   "-Wl,-soname,%s" % path.name, *flags[4:]]
+            r = subprocess.run(cmd, capture_output=True, text=True,
+                               timeout=300)
+            if r.returncode != 0:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+                raise RuntimeError("building the C ABI failed (%s):\n%s%s"
+                                   % (" ".join(cmd), r.stdout, r.stderr))
+            os.replace(tmp, path)
+        _SHIM.append(str(path))
+        return _SHIM[0]
+
+
+def host_env(device=None, **extra):
+    """The environment of a C host process that embeds this interpreter
+    through the C ABI: this process's environment, with ``PYTHONPATH``
+    made of this interpreter's ``sys.path`` (an embedded interpreter does
+    not find a venv's or a user site's packages by itself) and the
+    package's directory first, and ``MXNET_CAPI_DEVICE`` set to
+    ``device`` when one is given; ``extra`` adds variables."""
+    import sys
+
+    paths = [str(_DIR.parent.parent)] + [p for p in sys.path
+                                         if p and os.path.isdir(p)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        dict.fromkeys(paths)), **extra)
+    if device is not None:
+        env["MXNET_CAPI_DEVICE"] = device
+    return env
 
 
 _MAGIC_BYTES = b"\x0a\x23\xd7\xce"

@@ -8,12 +8,14 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import re
 
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "string_types", "numeric_types", "torch_dtype",
-           "np_dtype", "_as_list"]
+__all__ = ["MXNetError", "string_types", "numeric_types", "integer_types",
+           "DTYPE_MX_TO_NP", "DTYPE_NP_TO_MX", "mx_real_t", "mx_uint",
+           "torch_dtype", "np_dtype", "env_flag", "check_name", "_as_list"]
 
 
 class MXNetError(RuntimeError):
@@ -22,6 +24,27 @@ class MXNetError(RuntimeError):
 
 string_types = (str,)
 numeric_types = (float, int, np.generic)
+integer_types = (int, np.integer)
+
+mx_real_t = np.float32
+mx_uint = int
+
+# The reference's dtype codes (python/mxnet/ndarray/ndarray.py
+# _DTYPE_NP_TO_MX), as the JAX package keeps them for saved blobs, plus
+# its extension code for bf16 (keyed by name: numpy has no bfloat16).
+DTYPE_NP_TO_MX = {
+    None: -1,
+    np.dtype(np.float32): 0,
+    np.dtype(np.float64): 1,
+    np.dtype(np.float16): 2,
+    np.dtype(np.uint8): 3,
+    np.dtype(np.int32): 4,
+    np.dtype(np.int8): 5,
+    np.dtype(np.int64): 6,
+    np.dtype(np.bool_): 7,
+    "bfloat16": 12,
+}
+DTYPE_MX_TO_NP = {v: k for k, v in DTYPE_NP_TO_MX.items()}
 
 _NP_TO_TORCH = {
     np.dtype(np.float32): torch.float32,
@@ -57,6 +80,31 @@ def np_dtype(dtype):
     if dtype == torch.bfloat16:
         return torch.bfloat16
     return _TORCH_TO_NP[dtype]
+
+
+def env_flag(name, default="0"):
+    """Boolean config knob (reference dmlc::GetEnv bool parsing).
+    Declared knobs resolve through ``config`` (honouring set_override);
+    unknown names fall back to a raw environment read."""
+    import os
+
+    from . import config as _config
+    try:
+        return bool(_config.get(name))
+    except KeyError:
+        return os.environ.get(name, default).strip().lower() in \
+            ("1", "true", "yes", "on")
+
+
+_NAME_PAT = re.compile(r"^[A-Za-z0-9_.\-]+$")
+
+
+def check_name(name):
+    """``name`` if it is None or made of letters, digits, ``_``, ``.``
+    and ``-``; else ValueError."""
+    if name is not None and not _NAME_PAT.match(name):
+        raise ValueError("invalid name %r" % (name,))
+    return name
 
 
 def _as_list(obj):

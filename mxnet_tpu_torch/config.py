@@ -181,6 +181,12 @@ define("MXNET_NATIVE_RECORDIO", bool, True,
 define("MXNET_NATIVE_IMAGE", bool, True,
        "use the native C++ batched image decode+crop+resize pipeline "
        "when the augment list allows it")
+define("MXNET_CAPI_DEVICE", str, "gpu",
+       "the device a C host's predictor or training step runs on through "
+       "the C ABI (_native/predict_shim.cc): gpu (cuda:0) or cpu")
+define("MXNET_CAPI_TIMING", bool, False,
+       "the C ABI writes each exported call's wall time to stderr as "
+       "'capi: <function> <ms> ms' (read by the C side at its first call)")
 define("MXNET_BACKWARD_DO_MIRROR", bool, False,
        "rematerialise the forward during the backward in TrainStep "
        "(gradient mirroring): activation memory traded for recompute; "

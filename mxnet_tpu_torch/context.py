@@ -24,7 +24,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "tpu", "cpu_pinned", "current_context"]
+__all__ = ["Context", "cpu", "gpu", "tpu", "cpu_pinned", "current_context",
+           "num_gpus", "num_tpus"]
 
 
 class Context:
@@ -113,6 +114,14 @@ def gpu(device_id=0):
 def tpu(device_id=0):
     """Alias of ``gpu(device_id)``."""
     return Context("gpu", device_id)
+
+
+def num_gpus():
+    """The number of CUDA devices (0 without CUDA)."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+num_tpus = num_gpus
 
 
 def current_context():

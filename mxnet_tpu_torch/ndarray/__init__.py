@@ -2,8 +2,8 @@
 the sparse storage types and the generated operator namespace (the JAX
 package's ``ndarray/__init__.py``)."""
 from .ndarray import (NDArray, array, arange, concatenate, empty, full,  # noqa: F401,E501
-                      load, moveaxis, ones, ones_like, onehot_encode, save,
-                      waitall, zeros, zeros_like, _wrap)
+                      imresize, load, moveaxis, ones, ones_like,
+                      onehot_encode, save, waitall, zeros, zeros_like, _wrap)
 
 from . import op
 from .op import *  # noqa: F401,F403 — generated operator functions

@@ -33,7 +33,7 @@ from ..ops.matrix import _getitem, _normalize_index
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "zeros_like", "ones_like", "concatenate", "waitall", "load",
-           "save", "moveaxis", "onehot_encode"]
+           "save", "moveaxis", "onehot_encode", "imresize"]
 
 
 class NDArray:
@@ -572,6 +572,43 @@ def onehot_encode(indices, out):
     eye = torch.eye(depth, dtype=out._data.dtype, device=out._data.device)
     out._set_data(eye[indices._data.detach().to(torch.int32).long()])
     return out
+
+
+def _resize_weights(n_in, n_out, device):
+    """(n_in, n_out) float32 weights of a bilinear resize along one axis,
+    as ``jax.image.resize`` computes them (its ``compute_weight_mat`` with
+    the triangle kernel, antialiased: widened by the scale when
+    shrinking; columns normalized; an output sampled outside the input
+    gets none)."""
+    f32 = torch.float32
+    inv_scale = 1.0 / (n_out / n_in)
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(n_out, dtype=f32, device=device) + 0.5) * \
+        torch.tensor(inv_scale, dtype=f32) - 0.5
+    x = (sample[None, :] - torch.arange(n_in, dtype=f32,
+                                        device=device)[:, None]).abs() / \
+        torch.tensor(kernel_scale, dtype=f32)
+    w = torch.clamp(1 - x, min=0)
+    total = w.sum(dim=0, keepdim=True)
+    eps = float(np.finfo(np.float32).eps)
+    w = torch.where(total.abs() > 1000.0 * eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def imresize(src, w, h, *a, **kw):
+    """Resize an (H, W, ...) image to (h, w, ...) bilinearly, in float32,
+    with ``jax.image.resize``'s semantics (the JAX package's imresize:
+    antialiased when shrinking), cast back to the source's dtype."""
+    x = src._data.detach().to(torch.float32)
+    for axis, n_out in ((0, h), (1, w)):
+        if x.shape[axis] != n_out:
+            wm = _resize_weights(x.shape[axis], n_out, x.device)
+            x = torch.movedim(torch.tensordot(x, wm, dims=([axis], [0])),
+                              -1, axis)
+    return _wrap(x.to(src._data.dtype))
 
 
 def waitall():

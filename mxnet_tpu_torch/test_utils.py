@@ -1,7 +1,8 @@
 """Testing helpers — the PyTorch twin of ``mxnet_tpu/test_utils.py``
 (reference python/mxnet/test_utils.py): assert_almost_equal, numeric
 gradient checking, random arrays (dense, row-sparse and csr), the
-symbolic forward/backward checks and the device consistency check.
+symbolic forward/backward checks, the device consistency check, the
+speed check and a stderr silencer.
 
 ``check_consistency`` is the reference's CPU-vs-GPU check: the function
 run on its inputs as given (on the card, say), then again on CPU copies
@@ -9,10 +10,14 @@ of them (and in each of ``dtypes``), the outputs held to the first run.
 """
 from __future__ import annotations
 
+import contextlib
+import os
+import sys
+
 import numpy as np
 import torch
 
-from .ndarray.ndarray import NDArray, array
+from .ndarray.ndarray import NDArray, array, waitall, zeros_like
 
 _rng = np.random.RandomState(0)
 
@@ -221,3 +226,79 @@ def _as_arg_dict(sym, location, ctx):
 
 def same(a, b):
     return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def rand_sparse_ndarray(shape, stype, density=0.2, dtype=np.float32):
+    """(sparse_array, (values, indices[, indptr])) like the reference's
+    rand_sparse_ndarray; the draws of :func:`rand_ndarray`."""
+    arr = rand_ndarray(shape, stype, density=density, dtype=dtype)
+    if stype == "row_sparse":
+        return arr, (arr.data.asnumpy(), arr.indices.asnumpy())
+    return arr, (arr.data.asnumpy(), arr.indices.asnumpy(),
+                 arr.indptr.asnumpy())
+
+
+def _sync(out):
+    """Wait for ``out``: an NDArray (or the first of a list) is read to the
+    host, which waits for the device's work on it; anything else waits
+    for all of the device's work."""
+    if isinstance(out, (list, tuple)) and out:
+        out = out[0]
+    if isinstance(out, NDArray):
+        out.asnumpy()
+    else:
+        waitall()
+
+
+def check_speed(sym=None, f=None, location=None, N=20, ctx=None,
+                typ="forward", grad_req="write"):
+    """Wall-clock seconds per run of a bound symbol or a callable;
+    ``typ='whole'`` times forward + backward (reference
+    test_utils.py:check_speed). The clock is read after a warm-up run and
+    after the last run, each synchronized by reading its output to the
+    host."""
+    import time
+
+    if typ not in ("forward", "whole"):
+        raise ValueError("typ must be 'forward' or 'whole'")
+    if f is None:
+        if sym is None:
+            raise ValueError("check_speed needs sym or f")
+        ctx = ctx or default_context()
+        args = _as_arg_dict(sym, location or {}, ctx)
+        if typ == "whole":
+            grads = {k: zeros_like(v) for k, v in args.items()}
+            exe = sym.bind(ctx, args, args_grad=grads, grad_req=grad_req)
+
+            def f():
+                exe.forward(is_train=True)
+                exe.backward()
+                return exe.grad_dict[sym.list_arguments()[0]]
+        else:
+            exe = sym.bind(ctx, args)
+
+            def f():
+                return exe.forward()
+    _sync(f())
+    tic = time.time()
+    for _ in range(N):
+        out = f()
+    _sync(out)
+    return (time.time() - tic) / N
+
+
+@contextlib.contextmanager
+def discard_stderr():
+    """Send sys.stderr's file descriptor (2 unless redirected) to
+    /dev/null for the block (the reference's discard_stderr)."""
+    fd = sys.stderr.fileno()
+    sys.stderr.flush()
+    saved = os.dup(fd)
+    with open(os.devnull, "w") as devnull:
+        os.dup2(devnull.fileno(), fd)
+        try:
+            yield
+        finally:
+            sys.stderr.flush()
+            os.dup2(saved, fd)
+            os.close(saved)

@@ -328,6 +328,69 @@ print("N", len([n for n in sys.modules if n.startswith("mxnet_tpu_torch")]))
     assert n >= 30, r.stdout
 
 
+def test_c_abi_glue_imports_neither_jax_nor_mxnet_tpu():
+    """The Python glue that the C ABI's shim runs in its embedded
+    interpreter names only the port."""
+    import re
+    with open(os.path.join(REPO, "mxnet_tpu_torch", "_native",
+                           "predict_shim.cc")) as f:
+        src = f.read()
+    glue = src[src.index('kGlue = R"PY('):src.index(')PY";')]
+    assert "CompiledPredictor.load" in glue
+    assert "CompiledTrainStep.load" in glue
+    imports = re.findall(r"^\s*(?:from|import)\s+([\w.]+)", glue, re.M)
+    assert imports and all(m == "numpy" or m.startswith("mxnet_tpu_torch")
+                           for m in imports), imports
+    assert not re.search(r"\bjax\b|\bmxnet_tpu\b(?!_torch)", glue)
+
+
+def test_item_10_6_modules_run_without_jax():
+    """With jax made unimportable: mx.rtc runs a source, mx.viz prints a
+    summary, contrib.tensorboard writes an event file, test_utils'
+    check_speed, discard_stderr and rand_sparse_ndarray run, nd.imresize
+    resizes, and the base and context names resolve; no jax or
+    mxnet_tpu module loads."""
+    code = """
+import os, sys, tempfile
+sys.modules["jax"] = None
+import numpy as np
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import base, context, test_utils
+from mxnet_tpu_torch.contrib.tensorboard import SummaryWriter
+with mx.cpu():
+    out = mx.nd.zeros((3,))
+    mx.rtc.Rtc("f", ["x"], ["y"], "def f(x):\\n    return torch.exp(x)").push(
+        [mx.nd.zeros((3,))], [out])
+    assert out.asnumpy().tolist() == [1.0, 1.0, 1.0]
+    net = mx.sym.FullyConnected(mx.sym.Variable("data"), num_hidden=4,
+                                name="fc")
+    with test_utils.discard_stderr():
+        assert mx.viz.print_summary(net, shape={"data": (2, 3)}) == 16
+    assert mx.visualization is mx.viz
+    assert test_utils.check_speed(net, location={
+        "data": np.ones((2, 3), np.float32),
+        "fc_weight": np.ones((4, 3), np.float32),
+        "fc_bias": np.ones(4, np.float32)}, N=2) > 0
+    arr, parts = test_utils.rand_sparse_ndarray((4, 3), "csr")
+    assert arr.stype == "csr" and len(parts) == 3
+    img = mx.nd.imresize(mx.nd.ones((8, 6, 3)), 3, 4)
+    assert img.shape == (4, 3, 3)
+with tempfile.TemporaryDirectory() as d:
+    with SummaryWriter(d) as w:
+        w.add_scalar("loss", 0.5, 1)
+    assert os.path.getsize(w.path) > 0
+assert base.DTYPE_NP_TO_MX["bfloat16"] == 12 and base.check_name("a_b")
+assert context.num_gpus() == 0 and base.env_flag("MXNET_NOT_SET") is False
+bad = sorted(n for n, m in sys.modules.items() if m is not None and (
+    n == "jax" or n.startswith("jax.") or n.startswith("jaxlib")
+    or n == "mxnet_tpu" or n.startswith("mxnet_tpu.")))
+print("BAD", bad)
+"""
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert "BAD []" in r.stdout, r.stdout
+
+
 def test_parameter_server_interpreter_imports_neither_jax_nor_mxnet_tpu(
         tmp_path):
     """The server role's re-exec'd interpreter (DMLC_ROLE=server,

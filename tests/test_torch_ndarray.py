@@ -457,3 +457,99 @@ def test_eager_and_symbol_share_the_registry():
         out = y.eval(tmx.cpu(), x=nd.array(x_np))[0]
         np.testing.assert_array_equal(out.asnumpy(), eager.asnumpy())
         assert y.infer_shape(x=(3, 4))[1] == [(3,)]
+
+
+def test_base_names_match_jax(monkeypatch):
+    """base's dtype tables, type tuples, env_flag and check_name, as the
+    JAX package has them."""
+    from mxnet_tpu import base as jbase
+    from mxnet_tpu_torch import base as tbase
+    assert tbase.DTYPE_NP_TO_MX == jbase.DTYPE_NP_TO_MX
+    assert tbase.DTYPE_MX_TO_NP == jbase.DTYPE_MX_TO_NP
+    assert tbase.mx_real_t is jbase.mx_real_t is np.float32
+    assert tbase.mx_uint is jbase.mx_uint is int
+    assert tbase.integer_types == jbase.integer_types
+    assert isinstance(np.int64(3), tbase.integer_types)
+    assert not isinstance(3.0, tbase.integer_types)
+    for name in ("conv1_weight", "a.b-c_0", None):
+        assert tbase.check_name(name) == jbase.check_name(name)
+    for bad in ("has space", "semi;colon", "", "ü"):
+        for b in (tbase, jbase):
+            with pytest.raises(ValueError, match="invalid name"):
+                b.check_name(bad)
+    # a declared knob (override > environment > default) and an unknown
+    # name (a raw environment read) resolve alike in both packages
+    monkeypatch.setenv("MXNET_BACKWARD_DO_MIRROR", "yes")
+    monkeypatch.setenv("MXNET_SOME_UNDECLARED_FLAG", "On")
+    for name in ("MXNET_BACKWARD_DO_MIRROR", "MXNET_SOME_UNDECLARED_FLAG",
+                 "MXNET_NOT_SET_ANYWHERE"):
+        assert tbase.env_flag(name) == jbase.env_flag(name), name
+    assert tbase.env_flag("MXNET_BACKWARD_DO_MIRROR") is True
+    assert tbase.env_flag("MXNET_NOT_SET_ANYWHERE", default="1") is True
+    tmx.config.set_override("MXNET_BACKWARD_DO_MIRROR", False)
+    try:
+        assert tbase.env_flag("MXNET_BACKWARD_DO_MIRROR") is False
+    finally:
+        tmx.config.set_override("MXNET_BACKWARD_DO_MIRROR", None)
+
+
+def test_num_gpus_counts_cuda_devices():
+    assert tmx.context.num_gpus() == torch.cuda.device_count()
+    assert tmx.context.num_tpus is tmx.context.num_gpus
+    # the JAX package counts its accelerators: none on this CPU backend
+    assert jmx.context.num_gpus() == 0 == tmx.context.num_gpus()
+
+
+IMRESIZE_CASES = [((37, 50, 3), (20, 31)),      # shrink both axes
+                  ((10, 12, 3), (25, 30)),      # grow both axes
+                  ((8, 8, 3), (8, 5)),          # one axis only
+                  ((9, 6), (4, 11)),            # 2-d, shrink and grow
+                  ((5, 7, 2), (1, 1))]
+
+
+@pytest.mark.parametrize("shape, hw", IMRESIZE_CASES)
+def test_imresize_matches_jax(shape, hw):
+    """nd.imresize(src, w, h): bilinear with jax.image.resize's rules
+    (antialiased when shrinking, half-pixel centres), float32 inside,
+    the source's dtype out."""
+    h, w = hw
+    x = np.random.RandomState(3).uniform(0, 255, shape).astype(np.float32)
+    want = jmx.nd.imresize(jmx.nd.array(x), w, h).asnumpy()
+    with tmx.cpu():
+        got = tmx.nd.imresize(tmx.nd.array(x), w, h)
+    assert got.shape == want.shape == (h, w) + shape[2:]
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got.asnumpy(), want, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()))
+    xu = x.astype(np.uint8)
+    with tmx.cpu():
+        gu = tmx.nd.imresize(tmx.nd.array(xu, dtype=np.uint8), w, h)
+    wu = jmx.nd.imresize(jmx.nd.array(xu, dtype=np.uint8), w, h).asnumpy()
+    assert gu.dtype == wu.dtype == np.uint8
+    # truncation of values within float32 rounding of an integer may
+    # land one apart
+    assert np.abs(gu.asnumpy().astype(int) - wu).max() <= 1
+
+
+def test_imresize_at_a_photo_size_is_the_float64_contraction():
+    """At 300 x 500 -> 224 x 224 the port lies within 1e-6 of the range
+    from the float64 contraction of jax.image.resize's own weights; the
+    JAX package's jitted resize lies 1.1e-5 of the range from it there,
+    so the two packages are held to that contraction, not to each
+    other."""
+    import jax
+    import jax._src.image.scale as jscale
+    x = np.random.RandomState(0).uniform(0, 255, (300, 500, 3)).astype(
+        np.float32)
+    kernel = jscale._kernels[jscale.ResizeMethod.LINEAR]
+    wh = np.asarray(jscale.compute_weight_mat(300, 224, 224 / 300, 0.0,
+                                              kernel, True), np.float64)
+    ww = np.asarray(jscale.compute_weight_mat(500, 224, 224 / 500, 0.0,
+                                              kernel, True), np.float64)
+    exact = np.einsum("kwc,wl->klc",
+                      np.einsum("hwc,hk->kwc", x.astype(np.float64), wh), ww)
+    with tmx.cpu():
+        got = tmx.nd.imresize(tmx.nd.array(x), 224, 224).asnumpy()
+    want = np.asarray(jax.image.resize(x, (224, 224, 3), "bilinear"))
+    np.testing.assert_allclose(got, exact, rtol=0, atol=1e-6 * 255)
+    np.testing.assert_allclose(want, exact, rtol=0, atol=1.1e-5 * 255)

@@ -94,3 +94,68 @@ def test_seeded_helpers_match_jax():
     assert (c.stype, r.stype) == ("csr", "row_sparse")
     np.testing.assert_array_equal(c.asnumpy(), jc.asnumpy())
     np.testing.assert_array_equal(r.asnumpy(), jr.asnumpy())
+
+
+def _fc_location():
+    rng = np.random.RandomState(4)
+    return {"data": rng.randn(4, 6).astype(np.float32),
+            "fc_weight": rng.randn(3, 6).astype(np.float32),
+            "fc_bias": rng.randn(3).astype(np.float32)}
+
+
+def _fc(S):
+    return S.FullyConnected(S.Variable("data"), name="fc", num_hidden=3)
+
+
+@pytest.mark.parametrize("typ", ["forward", "whole"])
+def test_check_speed_times_a_bound_symbol_and_a_callable(typ):
+    """Both packages time the same symbol and callable: a positive time a
+    run, the output read back after the last run; a bad typ raises."""
+    loc = _fc_location()
+    jt = jtu.check_speed(_fc(jmx.sym), location=loc, N=3, typ=typ)
+    with tmx.cpu():
+        tt = ttu.check_speed(_fc(tmx.sym), location=loc, N=3, typ=typ)
+        calls = []
+
+        def f():
+            calls.append(1)
+            return [tmx.nd.array(loc["data"]) * 2]
+        ft = ttu.check_speed(f=f, N=4)
+        with pytest.raises(ValueError, match="typ"):
+            ttu.check_speed(_fc(tmx.sym), location=loc, typ="backward")
+    with pytest.raises(ValueError, match="typ"):
+        jtu.check_speed(_fc(jmx.sym), location=loc, typ="backward")
+    assert jt > 0 and tt > 0 and ft > 0
+    assert len(calls) == 5            # the warm-up run and N timed runs
+
+
+def test_discard_stderr_silences_the_stderr_descriptor(tmp_path,
+                                                       monkeypatch):
+    """Both packages send sys.stderr's file descriptor to /dev/null for
+    the block and give it back after: writes to the descriptor itself
+    and through sys.stderr are dropped inside, kept outside."""
+    import os
+    import sys
+    path = tmp_path / "stderr.txt"
+    with open(path, "w") as f:
+        monkeypatch.setattr(sys, "stderr", f)
+        for tu in (ttu, jtu):
+            with tu.discard_stderr():
+                os.write(f.fileno(), b"hidden by fd\n")
+                print("hidden by sys.stderr", file=sys.stderr, flush=True)
+            print("shown", file=sys.stderr, flush=True)
+    assert path.read_text() == "shown\nshown\n"
+
+
+@pytest.mark.parametrize("stype", ["csr", "row_sparse"])
+def test_rand_sparse_ndarray_draws_as_jax(stype):
+    ttu._rng.seed(11)
+    jtu._rng.seed(11)
+    with tmx.cpu():
+        t, tparts = ttu.rand_sparse_ndarray((6, 5), stype, density=0.4)
+    j, jparts = jtu.rand_sparse_ndarray((6, 5), stype, density=0.4)
+    assert t.stype == j.stype == stype
+    assert len(tparts) == len(jparts) == (3 if stype == "csr" else 2)
+    for a, b in zip(tparts, jparts):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    np.testing.assert_array_equal(t.asnumpy(), j.asnumpy())
